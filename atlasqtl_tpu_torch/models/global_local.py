@@ -1,0 +1,393 @@
+"""Global-local (horseshoe) CAVI in PyTorch — the product inference path
+(counterpart of atlasqtl_tpu/models/global_local.py, complete data only).
+
+One function per CAVI iteration with the reference's update order (the step
+numbers below mirror R/atlasqtl_global_local_core.R:125-338), a blocked
+sweep instead of the C++ Gauss-Seidel loop, and masked reductions so the
+padding never leaks into the math.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..types import Config, Data, Hyper, VBState
+from ..ops import elbo as elbo_ops
+from ..ops import updates as upd
+from ..ops.horseshoe import lam2_inv_annealed, lam2_inv_exact
+from ..ops.special import log_ndtr_both, q_approx
+from ..ops.sweep import SweepConsts, sweep_complete
+from ..ops.sweep_fused import sweep_complete_fused
+
+
+def _round_up(v, m):
+    return ((v + m - 1) // m) * m
+
+
+def check_config(cfg: Config):
+    """Reject the options whose paths the port does not have yet (each
+    names its ROADMAP.md item).  The TPU scheduling fields are ignored."""
+    unsupported = [
+        (cfg.sweep not in ("auto", "fused", "xla") or cfg.use_pallas,
+         f"Config.sweep={cfg.sweep!r} / use_pallas (the sweep_pallas kernel, "
+         "ROADMAP.md B3)"),
+        (cfg.sweep_stagger, "Config.sweep_stagger (the staggered kernel, "
+         "ROADMAP.md B4)"),
+        (cfg.mxu_bf16, "Config.mxu_bf16 (ROADMAP.md B5)"),
+        (cfg.sweep_probe != "none", "Config.sweep_probe (ROADMAP.md B5)"),
+        (cfg.device_loop == "on", "device_loop='on' (ROADMAP.md A7)"),
+        (cfg.q_axis is not None or cfg.p_axis is not None,
+         "mesh axes (ROADMAP.md A12)"),
+    ]
+    for bad, what in unsupported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
+    """Pad to n -> 8, p -> block, q -> q_pad_to and precompute the sufficient
+    statistics on `device` (R/atlasqtl_global_local_core.R:19-42)."""
+    n, p = x_np.shape
+    q = y_np.shape[1]
+    if np.isnan(y_np).any():
+        raise NotImplementedError("missing values in Y (ROADMAP.md A9) are "
+                                  "not ported yet")
+    block = min(cfg.block_size, _round_up(p, 8))
+    p_pad = _round_up(p, block)
+    q_pad = _round_up(q, q_pad_to)
+    # padded samples are all-zero rows: they add nothing to any statistic
+    # and the n of the update formulas stays the true n
+    n_pad = _round_up(n, 8)
+    dt = cfg.dtype
+    x = np.zeros((n_pad, p_pad), dtype=np.float64)
+    x[:n, :p] = x_np
+    y = np.zeros((n_pad, q_pad), dtype=np.float64)
+    y[:n, :q] = y_np
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=device)
+    xd, yd = t(x), t(y)
+    p_mask = np.zeros(p_pad); p_mask[:p] = 1.0
+    q_mask = np.zeros(q_pad); q_mask[:q] = 1.0
+    scalar = lambda v: torch.tensor(float(v), dtype=dt, device=device)
+    return Data(
+        x=xd, y=yd, cp_x_y=xd.T @ yd, y_norm_sq=torch.sum(yd * yd, dim=0),
+        mis_pat=None, x_norm_sq=None, n_eff=t(np.full(q_pad, float(n))),
+        n_mis=t(np.zeros(q_pad)), p_mask=t(p_mask), q_mask=t(q_mask),
+        n=scalar(n), p_true=scalar(p), q_true=scalar(q))
+
+
+def build_hyper(hs, q_pad: int, cfg: Config, device) -> Hyper:
+    """Pad the (q,)-shaped hyperparameters; padded entries are benign
+    (eta=kappa=1, n0=0) and masked out of every reduction."""
+    dt = cfg.dtype
+
+    def padv(v, fill):
+        out = np.full(q_pad, fill, dtype=np.float64)
+        out[:hs.q] = v
+        return torch.as_tensor(out, dtype=dt, device=device)
+
+    scalar = lambda v: torch.tensor(float(v), dtype=dt, device=device)
+    return Hyper(eta=padv(hs.eta, 1.0), kappa=padv(hs.kappa, 1.0),
+                 n0=padv(hs.n0, 0.0), nu=scalar(hs.nu), rho=scalar(hs.rho),
+                 t02=scalar(hs.t02), m0=scalar(hs.m0),
+                 a2_inv=scalar(hs.a2_inv))
+
+
+def build_state(init, data: Data, cfg: Config) -> VBState:
+    """Assemble the padded VBState from an InitSpec and compute the carried
+    F = X beta (R/atlasqtl_global_local_core.R:112-115)."""
+    dt = cfg.dtype
+    dev = data.x.device
+    p_pad = data.x.shape[1]
+    q_pad = data.y.shape[1]
+    p, q = init.p, init.q
+
+    def pad2(a, fill=0.0):
+        out = np.full((p_pad, q_pad), fill, dtype=np.float64)
+        out[:p, :q] = a
+        return out
+
+    def pad1(a, size, fill):
+        out = np.full(size, fill, dtype=np.float64)
+        out[:len(a)] = a
+        return out
+
+    gam = pad2(init.gam_vb)
+    mu = pad2(init.mu_beta_vb)
+    init_s2b = np.asarray(init.sig2_beta_vb)
+    if init_s2b.ndim == 2:  # per-(j, k) values from an exact-missing run
+        sig2_beta = pad2(init_s2b, fill=1.0).mean(axis=0)
+    else:
+        sig2_beta = pad1(init_s2b, q_pad, 1.0)
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    beta = t(gam * mu)
+    return VBState(
+        gam_colsum=t(gam.sum(0)),
+        mu2gam_colsum=t(np.einsum("pq,pq->q", mu * mu, gam)),
+        beta2_colsum=t(np.einsum("pq,pq->q", gam * mu, gam * mu)),
+        beta=beta, gam=t(gam), mu_beta=t(mu), sig2_beta=t(sig2_beta),
+        tau=t(pad1(init.tau_vb, q_pad, 1.0)), sig2_inv=t(1e-2),
+        theta=t(pad1(init.theta_vb, p_pad, 0.0)),
+        zeta=t(pad1(init.zeta_vb, q_pad, 0.0)),
+        sig02_inv=t(init.sig02_inv_vb), lam2_inv=t(np.ones(p_pad)),
+        sig2_theta=t(pad1(init.sig2_theta_vb, p_pad, 1.0)),
+        fitted=data.x @ beta,
+        l_vb=t(np.ones(p_pad)), rho_xi_inv=t(1.0), nu_s0_vb=t(1.0),
+        rho_s0_vb=t(1.0))
+
+
+def data_block(cfg: Config, data: Data) -> int:
+    """The predictor block build_data padded p with."""
+    p_true = int(round(float(data.p_true)))
+    return min(cfg.block_size, _round_up(p_true, 8))
+
+
+def divisor_block(block_size: int, p_pad: int) -> int:
+    """Largest multiple-of-8 block <= block_size dividing p_pad (the ELBO's
+    blocked pass only tiles the zero-masked padded p axis)."""
+    b = min(block_size, p_pad)
+    while p_pad % b:
+        b -= 8
+    return b
+
+
+def _select_sweep(cfg: Config, data: Data) -> str:
+    """The fused kernel for float32 on CUDA; otherwise the plain blocked
+    sweep ("xla" in the reference's naming).  sweep="fused" on the CPU runs
+    the kernel's plain version."""
+    impl = cfg.sweep
+    if impl == "auto":
+        if (cfg.block_size >= 8 and cfg.dtype == torch.float32
+                and data.x.device.type == "cuda"):
+            return "fused"
+        return "xla"
+    return impl
+
+
+# ------------------------------------------------------------ one iteration
+
+def _colsum_stats(data: Data, state: VBState):
+    """Masked column statistics shared by the tau/sigma updates; the gam and
+    beta sums come from the sweep that produced `state` (or build_state)."""
+    m2b_colsum = state.mu2gam_colsum + state.sig2_beta * state.gam_colsum
+    yf_colsum = torch.einsum("nq,nq->q", data.y, state.fitted)
+    ff_colsum = torch.einsum("nq,nq->q", state.fitted, state.fitted)
+    return (state.gam_colsum, m2b_colsum, state.beta2_colsum, yf_colsum,
+            ff_colsum)
+
+
+def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
+                   c_s, *, cfg: Config, annealed: bool,
+                   lite: bool = False) -> VBState:
+    """One CAVI iteration (the reference's _cavi_iteration_impl), update
+    order identical to R/atlasqtl_global_local_core.R:125-338.
+
+    lite=True (fused engine only): the sweep reads/writes the carried
+    beta = gam * mu_beta and emits no fresh gam/mu; the returned state's
+    gam/mu_beta are the stale inputs.  Every per-iteration update consumes
+    only beta and the fused column statistics, so the math is unchanged.
+    The driver runs full iterations wherever gam/mu must be fresh.
+    """
+    dt = cfg.dtype
+    dev = data.x.device
+    scalar = lambda v: torch.as_tensor(v, dtype=dt, device=dev)
+    c, c_s, shr = scalar(c), scalar(c_s), scalar(cfg.shr_fac_inv)
+
+    (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum,
+     ff_colsum) = _colsum_stats(data, state)
+
+    # 1-2: slab precision (:134-137)
+    sum_gam = torch.sum(gam_colsum * data.q_mask)
+    nu_vb = upd.nu_update(hyper.nu, sum_gam, c)
+    rho_vb = upd.rho_update(hyper.rho, m2b_colsum, state.tau, data.q_mask, c)
+    sig2_inv = nu_vb / rho_vb
+
+    # residual precision (:141-145)
+    eta_vb = upd.eta_update(data.n_eff, hyper.eta, gam_colsum, c)
+    kappa_vb = upd.kappa_update(data.n, data.y_norm_sq, yf_colsum, ff_colsum,
+                                hyper.kappa, m2b_colsum, beta2_colsum,
+                                sig2_inv, c)
+    tau = eta_vb / kappa_vb
+
+    # 3-4: slab variance + log-expectations (:147-150)
+    sig2_beta = upd.sig2_beta_update(data.n, sig2_inv, tau, c)
+    log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
+    log_sig2_inv = upd.log_gamma_mean(nu_vb, rho_vb)
+
+    # 5: the Gauss-Seidel sweep (:166-176 -> src/coreLoop.cpp)
+    consts = SweepConsts(sig2_beta=sig2_beta, tau=tau, log_tau=log_tau,
+                         log_sig2_inv=log_sig2_inv, theta=state.theta,
+                         zeta=state.zeta, c=c)
+    block = gram_blocks.shape[1]
+    if _select_sweep(cfg, data) == "fused":
+        (beta_new, gam_new, mu_new, fitted, z_row, z_col,
+         colstats) = sweep_complete_fused(
+            data.x, data.cp_x_y, gram_blocks, state.beta, state.fitted,
+            consts, block, p_mask=data.p_mask, q_mask=data.q_mask,
+            emit_gam_mu=not lite, annealed=annealed)
+        # the kernel masks beta/gam/mu at write time
+    else:
+        gam_new, mu_new, fitted, z_row, z_col = sweep_complete(
+            data.x, data.cp_x_y, gram_blocks, state.gam, state.mu_beta,
+            state.fitted, consts, block, p_mask=data.p_mask,
+            q_mask=data.q_mask)
+        msk = data.p_mask[:, None] * data.q_mask[None, :]
+        gam_new = gam_new * msk
+        mu_new = mu_new * msk
+        beta_new = gam_new * mu_new
+        colstats = (torch.sum(gam_new, dim=0),
+                    torch.einsum("pq,pq->q", mu_new * mu_new, gam_new),
+                    torch.einsum("pq,pq->q", beta_new, beta_new))
+
+    # 8: horseshoe local scales — "keep this order!" (:239-274)
+    l_vb = (c_s * state.sig02_inv * shr
+            * (state.theta ** 2 + state.sig2_theta) / 2.0 / cfg.df)
+    # padded predictor rows carry sig2_theta = 1, so their L is large enough
+    # to overflow the special functions; pin them to a benign value (they
+    # are masked out of every reduction, but NaN * 0 would still poison the
+    # sig02 sum)
+    l_vb = torch.where(data.p_mask > 0, l_vb, torch.ones_like(l_vb))
+    rho_xi_inv = c_s * (hyper.a2_inv + state.sig02_inv)
+    if annealed:
+        lam2_inv = lam2_inv_annealed(l_vb, c_s, cfg.df)
+    else:
+        lam2_inv, _ = lam2_inv_exact(l_vb, cfg.df)
+
+    # 9: global scale + propensities (:276-291)
+    xi_inv = 1.0 / rho_xi_inv
+    sig02_lam_shr = state.sig02_inv * lam2_inv * shr
+    sig2_theta = upd.sig2_c0_update(data.q_true, 1.0 / sig02_lam_shr, c)
+    zeta_sum = torch.sum(state.zeta * data.q_mask)
+    theta = upd.theta_update(z_row, hyper.m0, sig02_lam_shr, sig2_theta,
+                             zeta_sum, c) * data.p_mask
+
+    nu_s0_vb = upd.nu_update(scalar(0.5), data.p_true, c_s)
+    rho_s0_vb = c_s * (xi_inv + 0.5 * torch.sum(
+        lam2_inv * shr * (theta ** 2 + sig2_theta) * data.p_mask))
+    sig02_inv = nu_s0_vb / rho_s0_vb
+
+    sig2_zeta = upd.sig2_c0_update(data.p_true, hyper.t02, c)
+    theta_sum = torch.sum(theta)
+    zeta = upd.zeta_update(z_col, theta_sum, hyper.n0, sig2_zeta,
+                           1.0 / hyper.t02, c) * data.q_mask
+
+    if gam_new is None:  # lite fused iteration: gam/mu stay (stale) as-is
+        gam_new, mu_new = state.gam, state.mu_beta
+    return VBState(
+        gam=gam_new, mu_beta=mu_new, beta=beta_new,
+        sig2_beta=sig2_beta, tau=tau, sig2_inv=sig2_inv, theta=theta,
+        zeta=zeta, sig02_inv=sig02_inv, lam2_inv=lam2_inv,
+        sig2_theta=sig2_theta, fitted=fitted,
+        gam_colsum=colstats[0], mu2gam_colsum=colstats[1],
+        beta2_colsum=colstats[2], l_vb=l_vb, rho_xi_inv=rho_xi_inv,
+        nu_s0_vb=nu_s0_vb, rho_s0_vb=rho_s0_vb)
+
+
+# -------------------------------------------------------------------- ELBO
+
+def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
+                 cfg: Config) -> torch.Tensor:
+    """8-term ELBO at c = 1 with the reference's re-derived Gamma factors
+    (R/atlasqtl_global_local_core.R:440-495), accumulated in
+    cfg.elbo_dtype (float64).  The (p, q) state is cast block by block, so
+    peak memory stays O(block x q) above the state."""
+    dt = cfg.elbo_dtype
+    f = lambda a: a.to(dt)
+    shr = torch.tensor(cfg.shr_fac_inv, dtype=dt, device=data.x.device)
+
+    eta, kappa, n0 = f(hyper.eta), f(hyper.kappa), f(hyper.n0)
+    nu, rho, t02, a2_inv = f(hyper.nu), f(hyper.rho), f(hyper.t02), \
+        f(hyper.a2_inv)
+    tau = f(state.tau)
+    sig2_inv = f(state.sig2_inv)
+    zeta = f(state.zeta)
+    fitted = f(state.fitted)
+    y = f(data.y)
+    q_mask = f(data.q_mask)
+    n_eff = f(data.n_eff)
+    p_true, q_true, n_s = f(data.p_true), f(data.q_true), f(data.n)
+    y_norm_sq = f(data.y_norm_sq)
+    yf_colsum = torch.einsum("nq,nq->q", y, fitted)
+    ff_colsum = torch.einsum("nq,nq->q", fitted, fitted)
+
+    t02_inv = 1.0 / t02
+    sig2_zeta = 1.0 / (p_true + t02_inv)
+    vec_sum_log_det_zeta = -q_true * (torch.log(t02)
+                                      + torch.log(p_true + t02_inv))
+
+    p_pad, q_pad = state.gam.shape
+    block = divisor_block(cfg.block_size, p_pad)
+    s2 = f(state.sig2_beta)
+    log_s2 = torch.log(s2)
+    zq = lambda: torch.zeros(q_pad, dtype=dt, device=data.x.device)
+    gam_colsum, mu2g_colsum, beta2_colsum = zq(), zq(), zq()
+    bg_fixed = sum_gam = m2b_tau_sum = s2theta_sum = torch.zeros(
+        (), dtype=dt, device=data.x.device)
+    for b in range(p_pad // block):
+        sl = slice(b * block, (b + 1) * block)
+        gam_b = f(state.gam[sl])
+        mu_b = f(state.mu_beta[sl])
+        pm_b = f(data.p_mask[sl])
+        cell = pm_b[:, None] * q_mask[None, :]
+        gam_m = gam_b * cell
+        beta_b = gam_b * mu_b
+        m2_b = (mu_b * mu_b + s2[None, :]) * gam_b
+
+        gam_colsum = gam_colsum + torch.sum(gam_m, dim=0)
+        mu2g_colsum = mu2g_colsum + torch.sum(m2_b * cell, dim=0)
+        beta2_colsum = beta2_colsum + torch.sum(beta_b * beta_b * cell, dim=0)
+
+        # fixed part of E log p(beta,gamma) - E log q (R/elbo.R:10-34); the
+        # log_tau / log_sig2_inv / tau*sig2_inv pieces are folded in after
+        # the pass through the accumulated sums
+        log_p, log_1p = log_ndtr_both(f(state.theta[sl])[:, None]
+                                      + zeta[None, :])
+        bg_fixed = bg_fixed + torch.sum(
+            (gam_b * log_p + (1.0 - gam_b) * log_1p
+             - elbo_ops._xlogx(gam_b) - elbo_ops._xlogx(1.0 - gam_b)
+             + 0.5 * gam_b * (log_s2[None, :] + 1.0)) * cell)
+        sum_gam = sum_gam + torch.sum(gam_m)
+        m2b_tau_sum = m2b_tau_sum + torch.sum(m2_b * tau[None, :] * cell)
+        s2theta_sum = s2theta_sum + torch.sum(f(state.sig2_theta[sl]) * pm_b)
+    m2b_colsum = mu2g_colsum  # (mu^2 + s2) gam summed — already includes s2
+
+    eta_vb = upd.eta_update(n_eff, eta, gam_colsum)
+    kappa_vb = upd.kappa_update(n_s, y_norm_sq, yf_colsum, ff_colsum, kappa,
+                                m2b_colsum, beta2_colsum, sig2_inv)
+    nu_vb = upd.nu_update(nu, sum_gam)
+    rho_vb = upd.rho_update(rho, m2b_colsum, tau, q_mask)
+    log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
+    log_sig2_inv = upd.log_gamma_mean(nu_vb, rho_vb)
+    nu_s0_vb, rho_s0_vb = f(state.nu_s0_vb), f(state.rho_s0_vb)
+    rho_xi_inv = f(state.rho_xi_inv)
+    log_sig02_inv = upd.log_gamma_mean(nu_s0_vb, rho_s0_vb)
+    log_xi_inv = upd.log_gamma_mean(torch.ones_like(rho_xi_inv), rho_xi_inv)
+    xi_inv = 1.0 / rho_xi_inv
+
+    term_a = elbo_ops.e_y(n_eff, kappa, kappa_vb, log_tau, m2b_colsum,
+                          sig2_inv, tau, q_mask)
+    term_b = (bg_fixed
+              + 0.5 * log_sig2_inv * sum_gam
+              + 0.5 * torch.sum(gam_colsum * log_tau * q_mask)
+              - 0.5 * sig2_inv * m2b_tau_sum
+              - 0.5 * sig2_zeta * p_true * q_true
+              - 0.5 * q_true * s2theta_sum)
+
+    l_vb = f(state.l_vb)
+    term_c = elbo_ops.e_theta_hs(
+        f(state.lam2_inv), l_vb, log_sig02_inv + torch.log(shr),
+        f(state.theta), q_approx(l_vb), f(state.sig02_inv) * shr,
+        f(state.sig2_theta), f(data.p_mask), cfg.df)
+    term_d = elbo_ops.e_zeta(zeta, n0, sig2_zeta, t02_inv,
+                             vec_sum_log_det_zeta, q_true, q_mask)
+    term_e = elbo_ops.e_tau(eta, eta_vb, kappa, kappa_vb, log_tau, tau,
+                            q_mask)
+    term_f = elbo_ops.e_sig2_inv_hs(xi_inv, nu_s0_vb, log_xi_inv,
+                                    log_sig02_inv, rho_s0_vb,
+                                    f(state.sig02_inv))
+    half = torch.full_like(rho_xi_inv, 0.5)
+    term_g = elbo_ops.e_sig2_inv(half, torch.ones_like(half), log_xi_inv,
+                                 a2_inv, rho_xi_inv, xi_inv)
+    term_h = elbo_ops.e_sig2_inv(nu, nu_vb, log_sig2_inv, rho, rho_vb,
+                                 sig2_inv)
+    return (term_a + term_b + term_c + term_d + term_e + term_f + term_g
+            + term_h)

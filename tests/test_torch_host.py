@@ -1,0 +1,101 @@
+"""The PyTorch port's host-side modules and entry-point rules: data
+preparation, elicitation, initialization and the annealing ladder must equal
+the JAX package's exactly (the port keeps its own NumPy copies so it never
+imports JAX); the port imports no JAX; a missing GPU is an error, never a
+silent CPU run; options outside the ported slice raise NotImplementedError.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from atlasqtl_tpu.io.prepare import prepare_data as j_prepare
+from atlasqtl_tpu.inference import elicitation as j_elic
+from atlasqtl_tpu.ops.annealing import annealing_ladder as j_ladder
+
+import atlasqtl_tpu_torch as at
+from atlasqtl_tpu_torch.io.prepare import prepare_data as t_prepare
+from atlasqtl_tpu_torch.inference import elicitation as t_elic
+from atlasqtl_tpu_torch.ops.annealing import annealing_ladder as t_ladder
+
+from conftest import simulate_fixture
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("seed,missing_frac", [(123, 0.0), (5, 0.2)])
+def test_prepare_elicitation_init_exact(seed, missing_frac):
+    y, x, _ = simulate_fixture(seed=seed, missing_frac=missing_frac)
+    x = np.concatenate([x, np.ones((x.shape[0], 1)), x[:, :2]], axis=1)
+    dj = j_prepare(y, x, 0.1, 1000)
+    dt = t_prepare(y, x, 0.1, 1000)
+    for f in ("y", "x", "bool_rmvd_x"):
+        assert np.array_equal(getattr(dj, f), getattr(dt, f), equal_nan=True)
+    for f in ("initial_colnames_x", "rmvd_cst_x", "rmvd_coll_x", "names_x",
+              "names_y", "names_n"):
+        assert getattr(dj, f) == getattr(dt, f)
+    p = dt.x.shape[1]
+    hj = j_elic.auto_set_hyper(dj.y, p, (5, 25))
+    ht = t_elic.auto_set_hyper(dt.y, p, (5, 25))
+    ij = j_elic.auto_set_init(dj.y, p, (5, 25), 20.0, seed)
+    it = t_elic.auto_set_init(dt.y, p, (5, 25), 20.0, seed)
+    for a, b in ((hj, ht), (ij, it)):
+        for k, v in vars(a).items():
+            assert np.array_equal(np.asarray(v), np.asarray(getattr(b, k))), k
+
+
+@pytest.mark.parametrize("anneal", [(1, 2, 10), (2, 5.5, 30), (3, 1.5, 7)])
+def test_annealing_ladder_exact(anneal):
+    assert np.array_equal(j_ladder(anneal), t_ladder(anneal))
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, atlasqtl_tpu_torch, atlasqtl_tpu_torch.convert\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'atlasqtl_tpu')]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_default_device_requires_gpu(fixture_small):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    y, x, _ = fixture_small
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        at.atlasqtl(y, x, p0=(5, 25), verbose=0)
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(model="global"), "A10"), (dict(anneal_replicas=2), "A8"),
+    (dict(full_output=True), "A8"), (dict(checkpoint_path="."), "A8"),
+    (dict(trace_path="."), "A8"), (dict(device_loop="on"), "A7"),
+    (dict(mesh=object()), "A12"),
+])
+def test_unported_options_raise(fixture_small, kwargs, item):
+    y, x, _ = fixture_small
+    with pytest.raises(NotImplementedError, match=item):
+        at.atlasqtl(y, x, p0=(5, 25), verbose=0, device="cpu", **kwargs)
+
+
+def test_missing_values_raise():
+    y, x, _ = simulate_fixture(missing_frac=0.2, seed=5)
+    with pytest.raises(NotImplementedError, match="A9"):
+        at.atlasqtl(y, x, p0=(5, 25), verbose=0, device="cpu")
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("sweep", "pallas", "B3"), ("use_pallas", True, "B3"),
+    ("sweep_stagger", True, "B4"),
+    ("mxu_bf16", True, "B5"), ("sweep_probe", "nomxu", "B5"),
+])
+def test_unported_config_raises(field, value, item):
+    from atlasqtl_tpu_torch.models.global_local import check_config
+    check_config(at.Config(sweep_lookahead=True, sweep_interleave=True,
+                           sweep_qchunk=64, sweep_sub=16))
+    with pytest.raises(NotImplementedError, match=item):
+        check_config(at.Config(**{field: value}))
