@@ -1,9 +1,10 @@
 """Public API: `atlasqtl()` on PyTorch (counterpart of atlasqtl_tpu/api.py;
 re-design of the reference entry point R/atlasqtl.R:179-322).
 
-The same surface as the reference package.  This port runs the complete-data
-global-local fit on one device; every other option keeps its place in the
-signature and raises NotImplementedError naming its ROADMAP.md item.
+The same surface as the reference package.  This port runs the global-local
+fit on one device, on complete data or with NaN in Y (missing="exact" or
+"impute"); every other option keeps its place in the signature and raises
+NotImplementedError naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -52,7 +53,9 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
              device_loop: str = "auto", device=None) -> AtlasQTLResult:
     """Fit the global-local hotspot model (reference: atlasqtl,
     R/atlasqtl.R).  `dtype` is torch.float32 (default) or torch.float64;
-    `device` is None (the GPU) or any torch device, e.g. "cpu"."""
+    `device` is None (the GPU) or any torch device, e.g. "cpu".  NaN cells
+    of Y are missing: missing="exact" fits the observed cells only (masked
+    statistics), missing="impute" integrates them out under q(y_mis)."""
     dev = resolve_device(device)
     not_ported = [
         (mesh is not None, "mesh (ROADMAP.md A12)"),

@@ -32,7 +32,7 @@
 //  - column statistics and z_col accumulate in registers across blocks;
 //    z_row goes to a (n_slices, p) partial buffer reduced by the second
 //    kernel.  No atomics: results are the same from run to run.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -45,7 +45,6 @@ constexpr int NC = 32;     // n-chunk of the projection
 constexpr int EN = 128;    // n-chunk of the F advance
 constexpr int EK = 32;     // depth chunk of the F advance
 constexpr int ALD = EK + 1;  // padded row of the advance's x tile
-constexpr float K_BASE = 10.19f;
 
 __host__ __device__ constexpr int stage_floats(int B) {
   return (NC * B + NC * QS) > (EN * ALD) ? (NC * B + NC * QS) : (EN * ALD);
@@ -54,10 +53,6 @@ __host__ __device__ constexpr int stage_floats(int B) {
 size_t smem_bytes(int B, int R) {
   return sizeof(float) *
          (size_t)(B * B + 6 * B * QS + B * R + 3 * R * QS + stage_floats(B));
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
@@ -382,16 +377,6 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
     m2gcol[kc] = m2acc * qmc;
     b2col[kc] = b2acc * qmc;
   }
-}
-
-__global__ void zrow_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ z_row, int n_slices,
-                                   int p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
-  float s = 0.f;
-  for (int sl = 0; sl < n_slices; ++sl) s += part[(size_t)sl * p + j];
-  z_row[j] = s;
 }
 
 }  // namespace

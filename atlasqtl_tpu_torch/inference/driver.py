@@ -42,7 +42,10 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                      anneal=None, verbose: int = 1) -> FitResult:
     """Run annealed CAVI to convergence."""
     gl.check_config(cfg)
-    gram_blocks = block_gram(data.x, gl.data_block(cfg, data))
+    # the Gram blocks serve the complete-data formulas (impute mode too);
+    # the exact-missing sweeps take their Grams from x_norm_sq and the mask
+    gram_blocks = (block_gram(data.x, gl.data_block(cfg, data))
+                   if data.x_norm_sq is None else None)
 
     eps = float(np.finfo(np.float64).eps) ** 0.5
     # arithmetic-precision allowance of the monotonicity guard and the

@@ -1,5 +1,8 @@
 """Global-local (horseshoe) CAVI in PyTorch — the product inference path
-(counterpart of atlasqtl_tpu/models/global_local.py, complete data only).
+(counterpart of atlasqtl_tpu/models/global_local.py): complete data, and
+missing values in Y either imputed (q(y_mis) moments folded into the
+complete-data statistics) or handled exactly (masked statistics, per-(j, k)
+slab variance).
 
 One function per CAVI iteration with the reference's update order (the step
 numbers below mirror R/atlasqtl_global_local_core.R:125-338), a blocked
@@ -7,6 +10,8 @@ sweep instead of the C++ Gauss-Seidel loop, and masked reductions so the
 padding never leaks into the math.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -16,8 +21,12 @@ from ..ops import elbo as elbo_ops
 from ..ops import updates as upd
 from ..ops.horseshoe import lam2_inv_annealed, lam2_inv_exact
 from ..ops.special import log_ndtr_both, q_approx
-from ..ops.sweep import SweepConsts, sweep_complete
+from ..ops.sweep import (SweepConsts, mis_pair_gram, sweep_complete,
+                         sweep_missing, sweep_missing_blocked)
 from ..ops.sweep_fused import sweep_complete_fused
+from ..ops.sweep_missing_fused import sweep_missing_fused_driver
+
+log = logging.getLogger("atlasqtl_tpu_torch")
 
 
 def _round_up(v, m):
@@ -35,6 +44,7 @@ def check_config(cfg: Config):
          "ROADMAP.md B4)"),
         (cfg.mxu_bf16, "Config.mxu_bf16 (ROADMAP.md B5)"),
         (cfg.sweep_probe != "none", "Config.sweep_probe (ROADMAP.md B5)"),
+        (cfg.mis_pair_bf16, "Config.mis_pair_bf16 (ROADMAP.md B5)"),
         (cfg.device_loop == "on", "device_loop='on' (ROADMAP.md A7)"),
         (cfg.q_axis is not None or cfg.p_axis is not None,
          "mesh axes (ROADMAP.md A12)"),
@@ -46,12 +56,10 @@ def check_config(cfg: Config):
 
 def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
     """Pad to n -> 8, p -> block, q -> q_pad_to and precompute the sufficient
-    statistics on `device` (R/atlasqtl_global_local_core.R:19-42)."""
+    statistics on `device` (R/atlasqtl_global_local_core.R:19-42).  NaN in
+    Y marks a missing cell; cfg.missing chooses how the fit treats them."""
     n, p = x_np.shape
     q = y_np.shape[1]
-    if np.isnan(y_np).any():
-        raise NotImplementedError("missing values in Y (ROADMAP.md A9) are "
-                                  "not ported yet")
     block = min(cfg.block_size, _round_up(p, 8))
     p_pad = _round_up(p, block)
     q_pad = _round_up(q, q_pad_to)
@@ -63,16 +71,47 @@ def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
     x[:n, :p] = x_np
     y = np.zeros((n_pad, q_pad), dtype=np.float64)
     y[:n, :q] = y_np
+
+    n_mis = np.zeros(q_pad)
+    n_eff = np.full(q_pad, float(n))
+    mis_pat = None
+    if np.isnan(y).any():
+        mis_pat = (~np.isnan(y)).astype(np.float64)
+        mis_pat[:n, q:] = 1.0  # padded responses behave as fully observed
+        mis_pat[n:, :] = 0.0   # padded samples are never observed
+        y = np.nan_to_num(y, nan=0.0)
+        if cfg.missing == "impute":
+            # complete-data formulas with the q(y_mis) moments folded in;
+            # n_eff stays the full n
+            n_mis[:q] = n - mis_pat[:n, :q].sum(axis=0)
+        else:
+            n_eff = mis_pat.sum(axis=0)
+            n_eff[q:] = float(n)
+    exact = mis_pat is not None and cfg.missing == "exact"
+
     t = lambda a: torch.as_tensor(a, dtype=dt, device=device)
     xd, yd = t(x), t(y)
+    md = None if mis_pat is None else t(mis_pat)
+    x_norm_sq = (xd * xd).T @ md if exact else None
+    pair_gram = None
+    if (exact and cfg.mis_block > 1
+            and not _missing_uses_kernel(cfg, xd.device)):
+        # the B2 kernel builds its pair Grams per window on the fly; the
+        # plain blocked engine needs them precomputed, (B-1)/2 p q floats
+        if p_pad % cfg.mis_block == 0:
+            pair_gram = mis_pair_gram(xd, md, cfg.mis_block)
+        else:
+            log.warning("mis_block=%d does not divide the padded p=%d; "
+                        "falling back to the per-coordinate missing-data "
+                        "scan", cfg.mis_block, p_pad)
     p_mask = np.zeros(p_pad); p_mask[:p] = 1.0
     q_mask = np.zeros(q_pad); q_mask[:q] = 1.0
     scalar = lambda v: torch.tensor(float(v), dtype=dt, device=device)
     return Data(
         x=xd, y=yd, cp_x_y=xd.T @ yd, y_norm_sq=torch.sum(yd * yd, dim=0),
-        mis_pat=None, x_norm_sq=None, n_eff=t(np.full(q_pad, float(n))),
-        n_mis=t(np.zeros(q_pad)), p_mask=t(p_mask), q_mask=t(q_mask),
-        n=scalar(n), p_true=scalar(p), q_true=scalar(q))
+        mis_pat=md, x_norm_sq=x_norm_sq, n_eff=t(n_eff), n_mis=t(n_mis),
+        p_mask=t(p_mask), q_mask=t(q_mask), n=scalar(n), p_true=scalar(p),
+        q_true=scalar(q), mis_pair_gram=pair_gram)
 
 
 def build_hyper(hs, q_pad: int, cfg: Config, device) -> Hyper:
@@ -94,7 +133,8 @@ def build_hyper(hs, q_pad: int, cfg: Config, device) -> Hyper:
 
 def build_state(init, data: Data, cfg: Config) -> VBState:
     """Assemble the padded VBState from an InitSpec and compute the carried
-    F = X beta (R/atlasqtl_global_local_core.R:112-115)."""
+    F = X beta, masked on the exact-missing path
+    (R/atlasqtl_global_local_core.R:112-115)."""
     dt = cfg.dtype
     dev = data.x.device
     p_pad = data.x.shape[1]
@@ -111,26 +151,37 @@ def build_state(init, data: Data, cfg: Config) -> VBState:
         out[:len(a)] = a
         return out
 
+    exact = data.x_norm_sq is not None
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
     gam = pad2(init.gam_vb)
     mu = pad2(init.mu_beta_vb)
     init_s2b = np.asarray(init.sig2_beta_vb)
     if init_s2b.ndim == 2:  # per-(j, k) values from an exact-missing run
-        sig2_beta = pad2(init_s2b, fill=1.0).mean(axis=0)
+        sig2_beta = pad2(init_s2b, fill=1.0)
+        sig2_beta = t(sig2_beta) if exact else t(sig2_beta.mean(axis=0))
     else:
-        sig2_beta = pad1(init_s2b, q_pad, 1.0)
-    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+        sig2_beta = t(pad1(init_s2b, q_pad, 1.0))
+        if exact:  # the exact path carries a (p, q) slab variance
+            sig2_beta = sig2_beta[None, :].expand(p_pad, q_pad).contiguous()
     beta = t(gam * mu)
+    fitted = data.x @ beta
+    colstats = (None, None, None)
+    if exact:
+        fitted = fitted * data.mis_pat
+        beta = None
+    else:
+        colstats = (t(gam.sum(0)), t(np.einsum("pq,pq->q", mu * mu, gam)),
+                    t(np.einsum("pq,pq->q", gam * mu, gam * mu)))
     return VBState(
-        gam_colsum=t(gam.sum(0)),
-        mu2gam_colsum=t(np.einsum("pq,pq->q", mu * mu, gam)),
-        beta2_colsum=t(np.einsum("pq,pq->q", gam * mu, gam * mu)),
-        beta=beta, gam=t(gam), mu_beta=t(mu), sig2_beta=t(sig2_beta),
+        gam_colsum=colstats[0], mu2gam_colsum=colstats[1],
+        beta2_colsum=colstats[2],
+        beta=beta, gam=t(gam), mu_beta=t(mu), sig2_beta=sig2_beta,
         tau=t(pad1(init.tau_vb, q_pad, 1.0)), sig2_inv=t(1e-2),
         theta=t(pad1(init.theta_vb, p_pad, 0.0)),
         zeta=t(pad1(init.zeta_vb, q_pad, 0.0)),
         sig02_inv=t(init.sig02_inv_vb), lam2_inv=t(np.ones(p_pad)),
         sig2_theta=t(pad1(init.sig2_theta_vb, p_pad, 1.0)),
-        fitted=data.x @ beta,
+        fitted=fitted,
         l_vb=t(np.ones(p_pad)), rho_xi_inv=t(1.0), nu_s0_vb=t(1.0),
         rho_s0_vb=t(1.0))
 
@@ -163,16 +214,39 @@ def _select_sweep(cfg: Config, data: Data) -> str:
     return impl
 
 
+def _missing_uses_kernel(cfg: Config, device) -> bool:
+    """Whether the exact-missing sweep goes through B2: its kernel for
+    float32 on CUDA (which raises on a predictor block it cannot take, as
+    B1 does), or sweep="fused" anywhere (the kernel's plain version on the
+    CPU).  Otherwise (float64, the CPU, sweep="xla") the plain engines run:
+    blocked when pair Grams were precomputed, else one coordinate at a
+    time."""
+    if cfg.sweep == "fused":
+        return True
+    return (cfg.sweep == "auto" and cfg.dtype == torch.float32
+            and torch.device(device).type == "cuda")
+
+
 # ------------------------------------------------------------ one iteration
 
 def _colsum_stats(data: Data, state: VBState):
-    """Masked column statistics shared by the tau/sigma updates; the gam and
-    beta sums come from the sweep that produced `state` (or build_state)."""
-    m2b_colsum = state.mu2gam_colsum + state.sig2_beta * state.gam_colsum
+    """Masked column statistics shared by the tau/sigma updates.  Complete
+    data and impute mode: the gam and beta sums come from the sweep that
+    produced `state` (or build_state).  Exact missing data: recomputed from
+    the (p, q) state, and m2b = (mu^2 + s2) gam and beta = gam mu are
+    returned too for the x_norm_sq-weighted sums (None otherwise)."""
     yf_colsum = torch.einsum("nq,nq->q", data.y, state.fitted)
     ff_colsum = torch.einsum("nq,nq->q", state.fitted, state.fitted)
-    return (state.gam_colsum, m2b_colsum, state.beta2_colsum, yf_colsum,
-            ff_colsum)
+    if state.gam_colsum is not None:
+        m2b_colsum = state.mu2gam_colsum + state.sig2_beta * state.gam_colsum
+        return (state.gam_colsum, m2b_colsum, state.beta2_colsum, yf_colsum,
+                ff_colsum, None, None)
+    gam = state.gam  # masked by the sweep that produced it
+    beta = gam * state.mu_beta
+    m2b = (state.mu_beta * state.mu_beta + state.sig2_beta) * gam
+    return (torch.sum(gam, dim=0), torch.sum(m2b, dim=0),
+            torch.einsum("pq,pq->q", beta, beta), yf_colsum, ff_colsum, m2b,
+            beta)
 
 
 def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
@@ -185,15 +259,29 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     beta = gam * mu_beta and emits no fresh gam/mu; the returned state's
     gam/mu_beta are the stale inputs.  Every per-iteration update consumes
     only beta and the fused column statistics, so the math is unchanged.
-    The driver runs full iterations wherever gam/mu must be fresh.
+    The driver runs full iterations wherever gam/mu must be fresh.  lite has
+    no effect on the exact-missing path, whose gam/mu are always fresh;
+    that path takes no Gram blocks (gram_blocks may be None).
     """
     dt = cfg.dtype
     dev = data.x.device
     scalar = lambda v: torch.as_tensor(v, dtype=dt, device=dev)
     c, c_s, shr = scalar(c), scalar(c_s), scalar(cfg.shr_fac_inv)
 
-    (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum,
-     ff_colsum) = _colsum_stats(data, state)
+    (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum, ff_colsum, m2b,
+     beta) = _colsum_stats(data, state)
+
+    exact = data.x_norm_sq is not None
+    cp_x_y, y_norm_sq = data.cp_x_y, data.y_norm_sq
+    if data.mis_pat is not None and not exact:
+        # impute: q(y_mis) is N((X beta)_mis, 1/(c tau)); its moments fold
+        # into the complete-data sufficient statistics
+        v_mis = 1.0 / (c * state.tau)
+        y_eff = data.y + (1.0 - data.mis_pat) * state.fitted
+        cp_x_y = data.x.T @ y_eff
+        y_norm_sq = (torch.einsum("nq,nq->q", y_eff, y_eff)
+                     + data.n_mis * v_mis)
+        yf_colsum = torch.einsum("nq,nq->q", y_eff, state.fitted)
 
     # 1-2: slab precision (:134-137)
     sum_gam = torch.sum(gam_colsum * data.q_mask)
@@ -203,13 +291,18 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
 
     # residual precision (:141-145)
     eta_vb = upd.eta_update(data.n_eff, hyper.eta, gam_colsum, c)
-    kappa_vb = upd.kappa_update(data.n, data.y_norm_sq, yf_colsum, ff_colsum,
+    xns_m2b = xns_b2 = None
+    if exact:
+        xns_m2b = torch.einsum("pq,pq->q", data.x_norm_sq, m2b)
+        xns_b2 = torch.einsum("pq,pq->q", data.x_norm_sq, beta * beta)
+    kappa_vb = upd.kappa_update(data.n, y_norm_sq, yf_colsum, ff_colsum,
                                 hyper.kappa, m2b_colsum, beta2_colsum,
-                                sig2_inv, c)
+                                sig2_inv, c, x_norm_sq_m2b=xns_m2b,
+                                x_norm_sq_beta2=xns_b2)
     tau = eta_vb / kappa_vb
 
     # 3-4: slab variance + log-expectations (:147-150)
-    sig2_beta = upd.sig2_beta_update(data.n, sig2_inv, tau, c)
+    sig2_beta = upd.sig2_beta_update(data.n, sig2_inv, tau, data.x_norm_sq, c)
     log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
     log_sig2_inv = upd.log_gamma_mean(nu_vb, rho_vb)
 
@@ -217,20 +310,43 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     consts = SweepConsts(sig2_beta=sig2_beta, tau=tau, log_tau=log_tau,
                          log_sig2_inv=log_sig2_inv, theta=state.theta,
                          zeta=state.zeta, c=c)
-    block = gram_blocks.shape[1]
-    if _select_sweep(cfg, data) == "fused":
+    msk = data.p_mask[:, None] * data.q_mask[None, :]
+    if exact:
+        beta_new = colstats = None
+        if _missing_uses_kernel(cfg, dev):
+            gam_new, mu_new, fitted, z_row, z_col = sweep_missing_fused_driver(
+                data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+                state.mu_beta, state.fitted, consts, sig2_inv,
+                data_block(cfg, data),
+                data.p_mask, data.q_mask)
+            # the kernel masks gam/mu at write time
+        elif data.mis_pair_gram is not None:
+            gam_new, mu_new, fitted, z_row, z_col = sweep_missing_blocked(
+                data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat,
+                data.mis_pair_gram, state.gam, state.mu_beta, state.fitted,
+                consts, cfg.mis_block, data.p_mask, data.q_mask)
+            gam_new, mu_new = gam_new * msk, mu_new * msk
+        else:
+            gam_new, mu_new, fitted = sweep_missing(
+                data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+                state.mu_beta, state.fitted, consts)
+            gam_new, mu_new = gam_new * msk, mu_new * msk
+            # 7: probit latent moments (:237)
+            z_row, z_col = upd.z_moments(gam_new, state.theta, state.zeta,
+                                         data.p_mask, data.q_mask, c,
+                                         block_size=cfg.block_size)
+    elif _select_sweep(cfg, data) == "fused":
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = sweep_complete_fused(
-            data.x, data.cp_x_y, gram_blocks, state.beta, state.fitted,
-            consts, block, p_mask=data.p_mask, q_mask=data.q_mask,
-            emit_gam_mu=not lite, annealed=annealed)
+            data.x, cp_x_y, gram_blocks, state.beta, state.fitted,
+            consts, gram_blocks.shape[1], p_mask=data.p_mask,
+            q_mask=data.q_mask, emit_gam_mu=not lite, annealed=annealed)
         # the kernel masks beta/gam/mu at write time
     else:
         gam_new, mu_new, fitted, z_row, z_col = sweep_complete(
-            data.x, data.cp_x_y, gram_blocks, state.gam, state.mu_beta,
-            state.fitted, consts, block, p_mask=data.p_mask,
+            data.x, cp_x_y, gram_blocks, state.gam, state.mu_beta,
+            state.fitted, consts, gram_blocks.shape[1], p_mask=data.p_mask,
             q_mask=data.q_mask)
-        msk = data.p_mask[:, None] * data.q_mask[None, :]
         gam_new = gam_new * msk
         mu_new = mu_new * msk
         beta_new = gam_new * mu_new
@@ -277,9 +393,11 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
         sig2_beta=sig2_beta, tau=tau, sig2_inv=sig2_inv, theta=theta,
         zeta=zeta, sig02_inv=sig02_inv, lam2_inv=lam2_inv,
         sig2_theta=sig2_theta, fitted=fitted,
-        gam_colsum=colstats[0], mu2gam_colsum=colstats[1],
-        beta2_colsum=colstats[2], l_vb=l_vb, rho_xi_inv=rho_xi_inv,
-        nu_s0_vb=nu_s0_vb, rho_s0_vb=rho_s0_vb)
+        gam_colsum=None if colstats is None else colstats[0],
+        mu2gam_colsum=None if colstats is None else colstats[1],
+        beta2_colsum=None if colstats is None else colstats[2],
+        l_vb=l_vb, rho_xi_inv=rho_xi_inv, nu_s0_vb=nu_s0_vb,
+        rho_s0_vb=rho_s0_vb)
 
 
 # -------------------------------------------------------------------- ELBO
@@ -289,7 +407,10 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
     """8-term ELBO at c = 1 with the reference's re-derived Gamma factors
     (R/atlasqtl_global_local_core.R:440-495), accumulated in
     cfg.elbo_dtype (float64).  The (p, q) state is cast block by block, so
-    peak memory stays O(block x q) above the state."""
+    peak memory stays O(block x q) above the state.  Impute mode re-derives
+    the q(y_mis) moments (a coordinate update, so the ELBO stays monotone)
+    and adds their entropy; the exact-missing path takes the
+    x_norm_sq-weighted column sums and the per-(j, k) slab variance."""
     dt = cfg.elbo_dtype
     f = lambda a: a.to(dt)
     shr = torch.tensor(cfg.shr_fac_inv, dtype=dt, device=data.x.device)
@@ -305,8 +426,19 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
     q_mask = f(data.q_mask)
     n_eff = f(data.n_eff)
     p_true, q_true, n_s = f(data.p_true), f(data.q_true), f(data.n)
+    missing_exact = data.x_norm_sq is not None
     y_norm_sq = f(data.y_norm_sq)
-    yf_colsum = torch.einsum("nq,nq->q", y, fitted)
+    entropy_y_mis = torch.zeros((), dtype=dt, device=data.x.device)
+    if data.mis_pat is not None and not missing_exact:
+        n_mis = f(data.n_mis)
+        v_mis = 1.0 / tau
+        y_eff = y + (1.0 - f(data.mis_pat)) * fitted
+        y_norm_sq = torch.einsum("nq,nq->q", y_eff, y_eff) + n_mis * v_mis
+        yf_colsum = torch.einsum("nq,nq->q", y_eff, fitted)
+        entropy_y_mis = 0.5 * torch.sum(
+            n_mis * (torch.log(2.0 * np.pi * v_mis) + 1.0) * q_mask)
+    else:
+        yf_colsum = torch.einsum("nq,nq->q", y, fitted)
     ff_colsum = torch.einsum("nq,nq->q", fitted, fitted)
 
     t02_inv = 1.0 / t02
@@ -316,10 +448,10 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
 
     p_pad, q_pad = state.gam.shape
     block = divisor_block(cfg.block_size, p_pad)
-    s2 = f(state.sig2_beta)
-    log_s2 = torch.log(s2)
+    s2_1d = state.sig2_beta.dim() == 1
     zq = lambda: torch.zeros(q_pad, dtype=dt, device=data.x.device)
     gam_colsum, mu2g_colsum, beta2_colsum = zq(), zq(), zq()
+    xns_m2b, xns_b2 = zq(), zq()
     bg_fixed = sum_gam = m2b_tau_sum = s2theta_sum = torch.zeros(
         (), dtype=dt, device=data.x.device)
     for b in range(p_pad // block):
@@ -330,11 +462,17 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
         cell = pm_b[:, None] * q_mask[None, :]
         gam_m = gam_b * cell
         beta_b = gam_b * mu_b
-        m2_b = (mu_b * mu_b + s2[None, :]) * gam_b
+        s2_b = (f(state.sig2_beta)[None, :].expand(block, q_pad) if s2_1d
+                else f(state.sig2_beta[sl]))
+        m2_b = (mu_b * mu_b + s2_b) * gam_b
 
         gam_colsum = gam_colsum + torch.sum(gam_m, dim=0)
         mu2g_colsum = mu2g_colsum + torch.sum(m2_b * cell, dim=0)
         beta2_colsum = beta2_colsum + torch.sum(beta_b * beta_b * cell, dim=0)
+        if missing_exact:
+            xns_b = f(data.x_norm_sq[sl])
+            xns_m2b = xns_m2b + torch.sum(xns_b * m2_b * cell, dim=0)
+            xns_b2 = xns_b2 + torch.sum(xns_b * beta_b * beta_b * cell, dim=0)
 
         # fixed part of E log p(beta,gamma) - E log q (R/elbo.R:10-34); the
         # log_tau / log_sig2_inv / tau*sig2_inv pieces are folded in after
@@ -344,15 +482,17 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
         bg_fixed = bg_fixed + torch.sum(
             (gam_b * log_p + (1.0 - gam_b) * log_1p
              - elbo_ops._xlogx(gam_b) - elbo_ops._xlogx(1.0 - gam_b)
-             + 0.5 * gam_b * (log_s2[None, :] + 1.0)) * cell)
+             + 0.5 * gam_b * (torch.log(s2_b) + 1.0)) * cell)
         sum_gam = sum_gam + torch.sum(gam_m)
         m2b_tau_sum = m2b_tau_sum + torch.sum(m2_b * tau[None, :] * cell)
         s2theta_sum = s2theta_sum + torch.sum(f(state.sig2_theta[sl]) * pm_b)
     m2b_colsum = mu2g_colsum  # (mu^2 + s2) gam summed — already includes s2
 
     eta_vb = upd.eta_update(n_eff, eta, gam_colsum)
-    kappa_vb = upd.kappa_update(n_s, y_norm_sq, yf_colsum, ff_colsum, kappa,
-                                m2b_colsum, beta2_colsum, sig2_inv)
+    kappa_vb = upd.kappa_update(
+        n_s, y_norm_sq, yf_colsum, ff_colsum, kappa, m2b_colsum, beta2_colsum,
+        sig2_inv, x_norm_sq_m2b=xns_m2b if missing_exact else None,
+        x_norm_sq_beta2=xns_b2 if missing_exact else None)
     nu_vb = upd.nu_update(nu, sum_gam)
     rho_vb = upd.rho_update(rho, m2b_colsum, tau, q_mask)
     log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
@@ -390,4 +530,4 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
     term_h = elbo_ops.e_sig2_inv(nu, nu_vb, log_sig2_inv, rho, rho_vb,
                                  sig2_inv)
     return (term_a + term_b + term_c + term_d + term_e + term_f + term_g
-            + term_h)
+            + term_h + entropy_y_mis)

@@ -38,10 +38,13 @@ import torch
 from .interp import K_BASE, tail_interp_operands
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = (_PKG / "csrc" / "sweep_fused.cu",)
+_CSRC = _PKG / "csrc"
+# both kernel sources go into one shared library; each includes the header
+_SOURCES = (_CSRC / "sweep_fused.cu", _CSRC / "sweep_missing_fused.cu")
+_HEADERS = (_CSRC / "common.cuh",)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-               "-shared", "-Xcompiler", "-fPIC"]
+               "-Xcompiler", "-fPIC"]
 _lib = None
 
 
@@ -52,36 +55,54 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the CUDA sweep kernel is built from "
-                       "csrc/sweep_fused.cu at first use and needs the CUDA "
-                       "toolkit (set CUDA_HOME)")
+    raise RuntimeError("nvcc not found: the CUDA sweep kernels are built from "
+                       "csrc/*.cu at first use and need the CUDA toolkit (set "
+                       "CUDA_HOME)")
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/sweep_fused.cu for sm_90a into _build/ (once per source
-    hash) and return the shared library's path.  verbose prints ptxas's
-    register and shared-memory report."""
+    """Compile the kernel sources of csrc/ for sm_90a into one shared library
+    in _build/ (once per source hash) and return its path: one nvcc per
+    source, all started together, then one link.  verbose rebuilds and
+    prints ptxas's register and shared-memory report."""
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
-    out = _BUILD_DIR / f"libsweep_fused_{h.hexdigest()[:16]}.so"
+    out = _BUILD_DIR / f"libatlasqtl_sweeps_{h.hexdigest()[:16]}.so"
     if out.exists() and not verbose:
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o")
+            for src in _SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+         "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for src, obj in zip(_SOURCES, objs)]
+    errs = [proc.communicate()[1] for proc in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, _SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        for src, proc, err in zip(_SOURCES, procs, errs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{err}")
+        r = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
     if verbose:
-        print(r.stderr, flush=True)
+        print("".join(errs), flush=True)
     os.replace(tmp, out)
     return out
 
 
 def _load():
+    """The ctypes handle of the kernel library (both sweeps), built at first
+    use."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -90,7 +111,14 @@ def _load():
         lib.atlasqtl_sweep_fused.restype = i32
         lib.atlasqtl_sweep_slices.argtypes = [i32]
         lib.atlasqtl_sweep_slices.restype = i32
-        lib.atlasqtl_error_string.argtypes = [i32]
+        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 5
+                                                     + [ptr])
+        lib.atlasqtl_sweep_missing_fused.restype = i32
+        lib.atlasqtl_sweep_missing_slices.argtypes = [i32]
+        lib.atlasqtl_sweep_missing_slices.restype = i32
+        lib.atlasqtl_sweep_missing_window.argtypes = []
+        lib.atlasqtl_sweep_missing_window.restype = i32
+        lib.atlasqtl_error_string.argtypes = [ctypes.c_int]
         lib.atlasqtl_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib

@@ -1,0 +1,198 @@
+"""The fused exact-missing sweep: one whole Gauss-Seidel pass per call.
+
+Counterpart of atlasqtl_tpu/ops/sweep_missing_fused.py.  For CUDA tensors the
+sweep is the hand-written kernel in csrc/sweep_missing_fused.cu, which
+replaces the TPU kernel atlasqtl_tpu/ops/sweep_missing_fused.py:_mis_kernel.
+For CPU tensors it is `sweep_missing_fused_plain`, the same function in plain
+tensor ops, one coordinate at a time (the kernel is held against it on the
+card; the CPU tests hold it against the JAX kernel).
+
+The carried statistic is the masked fitted matrix Fm = mis_pat * (X beta).
+Coordinate (j, k) takes its own Gram diagonal from x_norm_sq[j, k] and
+derives its slab variance in the kernel: with den = x_norm_sq + sig2_inv,
+mu = (cp - r) / den (= c s2 tau (cp - r)) and
+logit = ad + (c^2 / 2) tau mu (cp - r), where ad = c d(u) - c cst_k
+- (c / 2) log(den) and cst_k, the rank-1 part of the logit constant, rides
+the interpolation's cst row (ops/interp.py).  So no (p, q) slab-variance
+array is read.
+
+What bounds the kernel on an H100: the function needs the projection and
+the masked advance of Fm for each (j, k), about 5 n p q FP32 operations per
+sweep; the bytes it must move take a ninth of that time at 3.35 TB/s.  The
+kernel's windows of W = 8 predictors add 28 masked pair Grams per window,
+which roughly doubles its operations.  csrc/sweep_missing_fused.cu says how
+it is laid out.
+"""
+from __future__ import annotations
+
+import torch
+
+from .interp import K_BASE, tail_interp_operands
+from .sweep_fused import _load
+
+
+def window() -> int:
+    """The kernel's chain window W (predictors per on-the-fly pair-Gram
+    window); builds the kernel library if needed."""
+    return _load().atlasqtl_sweep_missing_window()
+
+
+def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
+                              gam, mu, fitted, theta, p_mask, zeta, q_mask,
+                              tau, c, kz, sig2_inv, *, block_size: int):
+    """The kernel's function in plain tensor ops, block by block and one
+    coordinate at a time in flat sequential order.  Same arguments and
+    outputs as `sweep_missing_fused`."""
+    p = x.shape[1]
+    B = block_size
+    fm = fitted.clone()
+    gam_out = torch.empty_like(gam)
+    mu_out = torch.empty_like(mu)
+    z_row = torch.empty_like(theta)
+    z_col = torch.zeros_like(zeta)
+    for b in range(p // B):
+        sl = slice(b * B, (b + 1) * B)
+        l_blk = l_aug[sl]
+        u = theta[sl, None] + zeta[None, :]
+        u2 = u * u
+        s_z = torch.sqrt(u2 + kz)
+        den = x_norm_sq[sl] + sig2_inv
+        ad = (c * (0.5 * u * torch.sqrt(u2 + K_BASE)) + l_blk @ n_stack[0]
+              - 0.5 * c * torch.log(den))
+        imrd = s_z + l_blk @ n_stack[1]
+        imr0u = l_blk @ n_stack[2] - 0.5 * (s_z + u)
+        ct = 1.0 / den
+        gam_b = torch.empty_like(ad)
+        mu_b = torch.empty_like(ad)
+        for i in range(B):
+            j = b * B + i
+            x_j = x[:, j]
+            beta_old = gam[j] * mu[j]
+            r = x_j @ fm - beta_old * x_norm_sq[j]
+            d = cp_x_y[j] - r
+            mu_i = ct[i] * d
+            gam_i = torch.sigmoid(ad[i] + 0.5 * c * c * tau * (mu_i * d))
+            fm.addcmul_(mis_pat, torch.outer(x_j, gam_i * mu_i - beta_old))
+            gam_b[i], mu_b[i] = gam_i, mu_i
+        msk = p_mask[sl, None] * q_mask[None, :]
+        gam_out[sl] = gam_b * msk
+        mu_out[sl] = mu_b * msk
+        z = (gam_out[sl] * imrd + imr0u) * msk
+        z_row[sl] = torch.sum(z, dim=1)
+        z_col += torch.sum(z, dim=0)
+    return gam_out, mu_out, fm, z_row, z_col
+
+
+def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
+                              gam, mu, fitted, theta, p_mask, zeta, q_mask,
+                              tau, c, kz, sig2_inv, *, block_size):
+    n, p = x.shape
+    q = gam.shape[1]
+    r_aug = l_aug.shape[1]
+    operands = dict(x=x, cp_x_y=cp_x_y, x_norm_sq=x_norm_sq, mis_pat=mis_pat,
+                    l_aug=l_aug, n_stack=n_stack, gam=gam, mu=mu,
+                    fitted=fitted, theta=theta, p_mask=p_mask, zeta=zeta,
+                    q_mask=q_mask, tau=tau)
+    shapes = dict(x=(n, p), cp_x_y=(p, q), x_norm_sq=(p, q), mis_pat=(n, q),
+                  l_aug=(p, r_aug), n_stack=(3, r_aug, q), gam=(p, q),
+                  mu=(p, q), fitted=(n, q), theta=(p,), p_mask=(p,),
+                  zeta=(q,), q_mask=(q,), tau=(q,))
+    for name, t in operands.items():
+        if (t.device.type != "cuda" or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shapes[name]
+                or t.data_ptr() % 16):
+            raise ValueError(
+                f"sweep_missing_fused kernel: {name} must be a contiguous, "
+                f"16-byte aligned float32 CUDA tensor of shape "
+                f"{shapes[name]}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    if block_size % 8 or block_size > 128 or p % block_size or q % 4 \
+            or r_aug > 48:
+        raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
+                         f"n={n}, p={p}, q={q}, block={block_size}, "
+                         f"r+2={r_aug}")
+    lib = _load()
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
+                                    device=x.device).reshape(())
+    scal = torch.stack([f32(c), f32(kz), f32(sig2_inv)])
+    fitted = fitted.clone()
+    gam_out = torch.empty_like(gam)
+    mu_out = torch.empty_like(mu)
+    zrow_part = torch.empty((lib.atlasqtl_sweep_missing_slices(q), p),
+                            dtype=torch.float32, device=x.device)
+    z_row = torch.empty_like(theta)
+    z_col = torch.empty_like(zeta)
+    ptr = lambda t: t.data_ptr()
+    err = lib.atlasqtl_sweep_missing_fused(
+        ptr(x), ptr(cp_x_y), ptr(gam), ptr(mu), ptr(x_norm_sq), ptr(mis_pat),
+        ptr(l_aug), ptr(n_stack), ptr(fitted), ptr(theta), ptr(p_mask),
+        ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
+        ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
+        block_size, r_aug, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("sweep_missing_fused kernel launch failed: "
+                           + lib.atlasqtl_error_string(err).decode())
+    sweep_missing_fused.launches += 1
+    return gam_out, mu_out, fitted, z_row, z_col
+
+
+def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
+                        mu, fitted, theta, p_mask, zeta, q_mask, tau, c, kz,
+                        sig2_inv, *, block_size: int):
+    """One exact-missing Gauss-Seidel sweep with fused Z reductions.
+
+    x: (n, p); cp_x_y/x_norm_sq/gam/mu: (p, q); mis_pat/fitted: (n, q), the
+    observation pattern and the masked Fm; l_aug (p, r+2) / n_stack
+    (3, r+2, q) / kz: the interpolation operands (`missing_fused_operands`);
+    theta/p_mask (p,); zeta/q_mask/tau (q,); c, kz, sig2_inv 0-d.  Returns
+    (gam', mu', Fm', z_row (p,), z_col (q,)), gam' and mu' masked.  The
+    inputs are not modified.
+
+    CPU tensors run `sweep_missing_fused_plain`; CUDA tensors launch the
+    kernel (csrc/sweep_missing_fused.cu) or raise.
+    `sweep_missing_fused.launches` counts kernel launches.
+    """
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"sweep_missing_fused: unsupported device {x.device}")
+    fn = (_sweep_missing_fused_cuda if x.device.type == "cuda"
+          else sweep_missing_fused_plain)
+    return fn(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
+              theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv,
+              block_size=block_size)
+
+
+sweep_missing_fused.launches = 0
+
+
+def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
+                           consts, sig2_inv, p_mask, q_mask,
+                           interp_r: int = 40):
+    """The positional operands of `sweep_missing_fused` for one iteration.
+
+    The rank-1 part of the logit constant rides the interpolation's cst
+    row: with s2 = 1/(c (x_norm_sq + sig2_inv) tau),
+      -(E[log tau] + E[log sig2_inv] + log s2)/2
+        = -(E[log tau] - log tau + E[log sig2_inv] - log c)/2
+          + log(x_norm_sq + sig2_inv)/2,
+    and the per-(j, k) log term is applied in the kernel."""
+    c = torch.as_tensor(consts.c, dtype=gam.dtype, device=gam.device)
+    cst_q = -0.5 * (consts.log_tau - torch.log(consts.tau)
+                    + consts.log_sig2_inv - torch.log(c))
+    l_aug, n_stack, kz = tail_interp_operands(consts.theta, consts.zeta,
+                                              cst_q, c, p_mask, r=interp_r)
+    return (x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
+            consts.theta, p_mask, consts.zeta, q_mask, consts.tau, c, kz,
+            sig2_inv)
+
+
+def sweep_missing_fused_driver(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
+                               fitted, consts, sig2_inv, block_size, p_mask,
+                               q_mask, interp_r: int = 40):
+    """Driver-facing wrapper matching ops/sweep.py:sweep_missing_blocked.
+    sig2_inv is the scalar slab precision; consts.sig2_beta is not read
+    (the kernel derives the per-cell variance from x_norm_sq)."""
+    return sweep_missing_fused(
+        *missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
+                                fitted, consts, sig2_inv, p_mask, q_mask,
+                                interp_r),
+        block_size=block_size)

@@ -44,8 +44,12 @@ class VBState:
     sig2_inv/sig02_inv/rho_xi_inv/nu_s0_vb/rho_s0_vb 0-d; fitted (n, q) is the
     carried residual statistic F = X @ beta.
 
-    beta = gam * mu_beta is what the sweep reads and writes; gam/mu_beta are
-    refreshed only on "full" iterations and may be stale on "lite" ones.
+    beta = gam * mu_beta is what the complete-data sweep reads and writes;
+    gam/mu_beta are refreshed only on "full" iterations and may be stale on
+    "lite" ones.  On the exact-missing path sig2_beta is (p, q), fitted is
+    the masked Fm = mis_pat * (X @ beta), gam/mu_beta are always fresh, and
+    beta and the three column statistics are None (recomputed each
+    iteration).
     """
     gam: Any
     mu_beta: Any
@@ -70,14 +74,19 @@ class VBState:
 
 @dataclasses.dataclass(frozen=True)
 class Data:
-    """Preprocessed data + one-time sufficient statistics (complete data).
+    """Preprocessed data + one-time sufficient statistics.
 
-    x: (n, p) standardized predictors; y: (n, q) centered responses;
-    cp_x_y: (p, q) X^T Y; y_norm_sq: (q,); n_eff/n_mis: (q,); p_mask (p,) and
-    q_mask (q,) are 1.0 on real entries and 0.0 on padding; n, p_true,
-    q_true: 0-d tensors holding the true sizes.  mis_pat, x_norm_sq and
-    mis_pair_gram belong to the missing-data paths, which the port does not
-    have yet: they are always None here.
+    x: (n, p) standardized predictors; y: (n, q) centered responses (missing
+    cells set to 0); cp_x_y: (p, q) X^T Y; y_norm_sq: (q,); n_eff/n_mis:
+    (q,) observed and missing counts per response; p_mask (p,) and q_mask
+    (q,) are 1.0 on real entries and 0.0 on padding; n, p_true, q_true: 0-d
+    tensors holding the true sizes.
+
+    With missing values in Y, mis_pat (n, q) is 1.0 where a cell is observed
+    (padded responses observed, padded samples not).  The exact path adds
+    x_norm_sq (p, q) = (X * X)^T mis_pat and, for the blocked CPU engine,
+    mis_pair_gram (nb, B(B-1)/2, q); both are None in impute mode and for
+    complete data, and mis_pat is None for complete data.
     """
     x: Any
     y: Any

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (atlasqtl_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # all phases
-    python3 chip_smoke.py kernel     # just the kernel-vs-plain phase
+    python3 chip_smoke.py                 # all phases
+    python3 chip_smoke.py kernel mis_kernel   # just the kernel-vs-plain phases
 
-Builds the CUDA sweep kernel from the sources in this checkout, then:
+Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
+per source, started together), then:
   kernel  the kernel against its plain PyTorch version on the card, float32,
           one sweep each, identical inputs, all four mode pairs
           (converged/annealed x full/lite), at four shapes (ragged q;
@@ -17,7 +18,16 @@ Builds the CUDA sweep kernel from the sources in this checkout, then:
           the card in float32 agrees with the CPU float64 fit;
   eqtl    atlasqtl() at the eqtl_1host shape (n=1000, p=50000, q=10000),
           anneal=(1, 2, 5), maxit=10: ms per sweep and per iteration, host
-          init and ELBO seconds, peak device memory, launches.
+          init and ELBO seconds, peak device memory, launches;
+  mis_kernel  the exact-missing kernel (B2) against its plain version,
+          float32, c = 1 and c = 0.5, seeded MCAR missingness, at four
+          shapes (ragged q; n % 8 != 0 with block 80; the fit shape; the
+          eQTL n and q); times both at the two largest;
+  missing_fit  atlasqtl() at the sim_anneal shape with 15% of Y missing,
+          missing="exact" (B2 launches once per iteration) and "impute" (B1
+          does), each to convergence with hotspot AUC >= 0.95; a small fit
+          on the card in float32 agrees with the CPU float64 fit, both modes;
+  eqtl_missing  the eqtl phase with 15% of Y missing, once per mode.
 Each phase prints one JSON line; then a `kernels` line, and last the
 contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
@@ -35,6 +45,10 @@ HBM_RATE = 3.35e12    # H100 SXM HBM3, bytes/s
 KERNEL_SHAPES = ((120, 256, 200), (300, 75, 48), (300, 2000, 500),
                  (1000, 2048, 10000))
 MODES = ((True, True), (True, False), (False, True), (False, False))
+MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
+              (1000, 2048, 10000, 0.15))   # n, p, q, missing fraction
+PHASES = ("kernel", "fit", "eqtl", "mis_kernel", "missing_fit",
+          "eqtl_missing")
 DEVICE = "cuda"
 FIT_SHAPE = (300, 2000, 500, 20, 100)     # n, p, q, active SNPs, hit traits
 EQTL_SHAPE = (1000, 50000, 10000, 500, 2000)
@@ -73,13 +87,37 @@ def sweep_bound_ms(n, p, q, block, r_aug, emit_gam_mu):
         ("operations" if ops / FP32_PEAK >= nbytes / HBM_RATE else "bytes")
 
 
-def simulate(n, p, q, seed, p_act, q_hit):
+def mis_bound_ms(n, p, q, r_aug):
+    """Least time of one exact-missing sweep on an H100: the larger of the
+    FP32 operations the function needs (per (j, k) the projection x_j^T Fm,
+    2n, and the masked advance Fm += m (x_j delta), 3n; the three
+    interpolation products) over the FP32 peak and its bytes (x, cp, gam,
+    mu, x_norm_sq in; gam, mu out; Fm in and out; the mask; the
+    interpolation operands) over the HBM rate.  The kernel's windowed pair
+    Grams are extra work of its design, not of the function."""
+    ops = p * q * (5 * n + 6 * r_aug)
+    nbytes = 4 * (n * p + 7 * p * q + 3 * n * q + p * r_aug + 3 * r_aug * q)
+    return 1e3 * max(ops / FP32_PEAK, nbytes / HBM_RATE), \
+        ("operations" if ops / FP32_PEAK >= nbytes / HBM_RATE else "bytes")
+
+
+def mis_kernel_ops(n, p, q, r_aug, w):
+    """FP32 operations the B2 kernel does per sweep at window w: the masked
+    advance, the projections and the pair Grams of each window, the three
+    interpolation products."""
+    return p * q * (4 * n + (w - 1) * n + 2 * n / w + 6 * r_aug)
+
+
+def simulate(n, p, q, seed, p_act, q_hit, missing_frac=0.0):
     """Gaussian genotypes, a dense planted block of effects of the first
-    p_act SNPs on the first q_hit traits, unit noise."""
+    p_act SNPs on the first q_hit traits, unit noise; then a seeded MCAR
+    share missing_frac of the traits' cells set to NaN."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, p))
     y = rng.standard_normal((n, q))
     y[:, :q_hit] += x[:, :p_act] @ (0.3 * rng.normal(1.0, 0.5, (p_act, q_hit)))
+    if missing_frac > 0:
+        y[rng.random(y.shape) < missing_frac] = np.nan
     return x, y
 
 
@@ -107,7 +145,7 @@ def kernel_inputs(n, p, q, c, seed=0):
     tau = f32(rng.uniform(0.5, 2.0, data.y.shape[1]))
     cc = f32(c)
     consts = SweepConsts(
-        sig2_beta=upd.sig2_beta_update(data.n, f32(0.7), tau, cc), tau=tau,
+        sig2_beta=upd.sig2_beta_update(data.n, f32(0.7), tau, c=cc), tau=tau,
         log_tau=torch.log(tau), log_sig2_inv=f32(-0.3), theta=state.theta,
         zeta=state.zeta, c=cc)
     ops = fused_operands(data.x, data.cp_x_y, block_gram(data.x, block),
@@ -160,6 +198,88 @@ def phase_kernel():
             del ops, got, ref
             torch.cuda.empty_cache()
     emit({"phase": "kernel", "cases": cases, "max_abs_err": max_abs})
+    return max_abs, timing
+
+
+def mis_kernel_inputs(n, p, q, c, missing_frac, seed=0):
+    """Device operands of one exact-missing sweep at (n, p, q), built by the
+    port's own data/state builders from a seeded random problem."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.models import global_local as gl
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.ops import updates as upd
+    from atlasqtl_tpu_torch.ops.sweep import SweepConsts
+    from atlasqtl_tpu_torch.ops.sweep_missing_fused import \
+        missing_fused_operands
+
+    x, y = simulate(n, p, q, seed, min(10, p), max(2, q // 5), missing_frac)
+    x = (x - x.mean(0)) / x.std(0, ddof=1)
+    y = y - np.nanmean(y, axis=0)
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q))
+    data = gl.build_data(x, y, cfg, DEVICE)
+    block = gl.data_block(cfg, data)
+    state = gl.build_state(elic.auto_set_init(y, p, (4, 16), float(q), seed),
+                           data, cfg)
+    rng = np.random.default_rng(seed + 1)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    tau, sig2_inv, cc = f32(rng.uniform(0.5, 2.0, data.y.shape[1])), \
+        f32(0.7), f32(c)
+    consts = SweepConsts(
+        sig2_beta=upd.sig2_beta_update(data.n, sig2_inv, tau, data.x_norm_sq,
+                                       cc),
+        tau=tau, log_tau=torch.log(tau) - 0.1, log_sig2_inv=f32(-0.45),
+        theta=state.theta, zeta=state.zeta, c=cc)
+    ops = missing_fused_operands(
+        data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+        state.mu_beta, state.fitted, consts, sig2_inv, data.p_mask,
+        data.q_mask)
+    return ops, block
+
+
+def phase_mis_kernel():
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    names = ("gam", "mu", "fitted", "z_row", "z_col")
+    w = sm.window()
+    cases, max_abs, timing = [], 0.0, None
+    for n, p, q, frac in MIS_SHAPES:
+        for c in (1.0, 0.5):
+            ops, block = mis_kernel_inputs(n, p, q, c, frac)
+            kw = dict(block_size=block)
+            got = sm.sweep_missing_fused(*ops, **kw)
+            ref = sm.sweep_missing_fused_plain(*ops, **kw)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, r in zip(names, got, ref):
+                err = float((a - r).abs().max())
+                scale = float(r.abs().max())
+                errs[name] = err
+                max_abs = max(max_abs, err)
+                limit = 1e-4 if name == "gam" else 1e-4 * scale
+                if not (err <= limit):  # also catches NaN
+                    raise AssertionError(
+                        f"missing kernel vs plain at n={n} p={p} q={q} c={c}:"
+                        f" {name} max abs err {err:.3g} > {limit:.3g}")
+            case = dict(n=n, p=p, q=q, missing_frac=frac, block=block, c=c,
+                        max_abs_err=errs)
+            if p >= 2000 and c == 1.0:
+                case["ms"] = cuda_ms(lambda: sm.sweep_missing_fused(*ops,
+                                                                    **kw), 7)
+                case["plain_ms"] = cuda_ms(
+                    lambda: sm.sweep_missing_fused_plain(*ops, **kw), 3)
+                dims = (ops[0].shape[0], ops[0].shape[1], ops[6].shape[1],
+                        ops[4].shape[1])
+                case["bound_ms"], case["bound_by"] = mis_bound_ms(*dims)
+                case["window"] = w
+                case["kernel_ops"] = mis_kernel_ops(*dims, w)
+                timing = case  # the last timed case is the eQTL-cut shape
+            cases.append(case)
+            del ops, got, ref
+            torch.cuda.empty_cache()
+    emit({"phase": "mis_kernel", "window": w, "cases": cases,
+          "max_abs_err": max_abs})
     return max_abs, timing
 
 
@@ -217,22 +337,85 @@ def phase_fit():
     return launches
 
 
-def phase_eqtl():
-    """The eqtl_1host shape with per-stage timers wrapped around the port's
-    own functions (host init, ELBO, the sweep, the iteration)."""
+def phase_missing_fit():
+    """The exact and impute fits with 15% of Y missing; each is driven with
+    both kernels' counts set to 0 just before it and read just after."""
+    import torch
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    xs, ys = simulate(100, 75, 20, 123, 10, 20, missing_frac=0.2)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=123)
+    pip_diff = {}
+    for missing in ("exact", "impute"):
+        gpu = at.atlasqtl(ys, xs, dtype=torch.float32, device=DEVICE,
+                          missing=missing, **kw)
+        cpu = at.atlasqtl(ys, xs, dtype=torch.float64, device="cpu",
+                          missing=missing, **kw)
+        pip_diff[missing] = float(np.abs(gpu.gam_vb - cpu.gam_vb).max())
+        if not (gpu.converged and pip_diff[missing] <= 1e-2):
+            raise AssertionError(
+                f"small {missing} fit: GPU float32 vs CPU float64 PIPs differ"
+                f" by {pip_diff[missing]:.3g} (converged={gpu.converged})")
+
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    x, y = simulate(n, p, q, 0, p_act, q_hit, missing_frac=0.15)
+    launches = {}
+    for missing in ("exact", "impute"):
+        torch.cuda.synchronize()
+        sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
+        t0 = time.perf_counter()
+        res = at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 10),
+                          dtype=torch.float32, verbose=0, user_seed=0,
+                          device=DEVICE, missing=missing)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"sweep_fused": sf.sweep_fused.launches,
+                  "sweep_missing_fused": sm.sweep_missing_fused.launches}
+        own = "sweep_missing_fused" if missing == "exact" else "sweep_fused"
+        launches[missing] = counts[own]
+        auc = hotspot_auc(res.theta_vb, p_act)
+        out = dict(phase="missing_fit", missing=missing, n=n, p=p, q=q,
+                   missing_frac=0.15, anneal=[1, 2, 10],
+                   converged=bool(res.converged), it=res.it,
+                   launches=counts, seconds=secs, lb_opt=res.lb_opt,
+                   hotspot_auc_theta=auc,
+                   small_fit_pip_max_diff_vs_cpu_f64=pip_diff[missing],
+                   finite=bool(np.isfinite(res.gam_vb).all()
+                               and np.isfinite(res.theta_vb).all()))
+        emit(out)
+        if not res.converged:
+            raise AssertionError(f"missing_fit {missing}: did not converge")
+        if counts[own] != res.it or sum(counts.values()) != res.it:
+            raise AssertionError(f"missing_fit {missing}: launches {counts} "
+                                 f"for {res.it} iterations")
+        if auc < 0.95 or not out["finite"]:
+            raise AssertionError(f"missing_fit {missing}: hotspot AUC "
+                                 f"{auc:.3f}, finite={out['finite']}")
+        if res.gam_vb.shape != (p, q) or res.theta_vb.shape != (p,):
+            raise AssertionError("missing_fit: unexpected output shapes")
+    return launches
+
+
+def eqtl_run(phase, x, y, launch_mod, launch_fn, counter, bound, **fit_kw):
+    """One atlasqtl() at the eQTL shape with per-stage timers wrapped around
+    the port's own functions (host init, state building, ELBO, the kernel
+    launch `launch_mod.launch_fn`, the iteration); `counter` is the
+    launching wrapper, whose count is set to 0 just before the fit;
+    bound(args, kwargs) gives a launch's bound_ms from its operands."""
     import torch
     import atlasqtl_tpu_torch as at
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.models import global_local as gl
-    from atlasqtl_tpu_torch.ops import sweep_fused as sf
 
-    n, p, q, p_act, q_hit = EQTL_SHAPE
-    x, y = simulate(n, p, q, 1, p_act, q_hit)
+    n, p = x.shape
+    q = y.shape[1]
     acc = {"init_s": 0.0, "build_state_s": 0.0, "elbo_s": 0.0}
-    iter_ms, sweep_ev = [], []
+    iter_ms, sweep_ev, bounds = [], [], []
     orig = dict(init=elic.auto_set_init, state=gl.build_state,
                 elbo=gl.compute_elbo, it=gl.cavi_iteration,
-                sweep=sf._sweep_fused_cuda)
+                sweep=getattr(launch_mod, launch_fn))
 
     def timed(key, fn):
         def w(*a, **k):
@@ -259,31 +442,33 @@ def phase_eqtl():
         out = orig["sweep"](*a, **k)
         ev[1].record()
         sweep_ev.append(ev)
+        bounds.append(bound(a, k))
         return out
 
     elic.auto_set_init = timed("init_s", orig["init"])
     gl.build_state = timed("build_state_s", orig["state"])
     gl.compute_elbo = timed("elbo_s", orig["elbo"])
     gl.cavi_iteration = iteration
-    sf._sweep_fused_cuda = sweep  # the kernel launch, inside sweep_fused
+    setattr(launch_mod, launch_fn, sweep)  # the launch, inside the wrapper
     try:
         torch.cuda.reset_peak_memory_stats()
-        sf.sweep_fused.launches = 0
+        counter.launches = 0
         t0 = time.perf_counter()
         res = at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5), maxit=10,
                           dtype=torch.float32, verbose=0, user_seed=1,
-                          device=DEVICE)
+                          device=DEVICE, **fit_kw)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         elic.auto_set_init, gl.build_state = orig["init"], orig["state"]
         gl.compute_elbo, gl.cavi_iteration = orig["elbo"], orig["it"]
-        sf._sweep_fused_cuda = orig["sweep"]
+        setattr(launch_mod, launch_fn, orig["sweep"])
     sweep_ms = [a.elapsed_time(b) for a, b in sweep_ev]
-    launches = sf.sweep_fused.launches
-    out = dict(phase="eqtl", n=n, p=p, q=q, anneal=[1, 2, 5], maxit=10,
-               it=res.it, launches=launches,
+    launches = counter.launches
+    out = dict(phase=phase, **fit_kw, n=n, p=p, q=q, anneal=[1, 2, 5],
+               maxit=10, it=res.it, launches=launches,
                sweep_ms=sweep_ms, sweep_ms_median=statistics.median(sweep_ms),
+               sweep_bound_ms=bounds,
                iter_ms=iter_ms, iter_ms_median=statistics.median(iter_ms),
                host_init_s=acc["init_s"], build_state_s=acc["build_state_s"],
                elbo_s=acc["elbo_s"], elbo_evals=len(res.elbo_history),
@@ -292,8 +477,44 @@ def phase_eqtl():
                finite=bool(np.isfinite(res.gam_vb).all()))
     emit(out)
     if launches != res.it or not out["finite"]:
-        raise AssertionError(f"eqtl phase: {launches} launches for {res.it} "
-                             f"iterations, finite={out['finite']}")
+        raise AssertionError(f"{phase} phase: {launches} launches for "
+                             f"{res.it} iterations, finite={out['finite']}")
+
+
+def b1_launch_bound(a, k):
+    """bound_ms of one B1 launch from its operands (x, cp, gram_flat,
+    l_aug, n_stack, beta, ...)."""
+    return sweep_bound_ms(a[0].shape[0], a[0].shape[1], a[5].shape[1],
+                          k["block_size"], a[3].shape[1],
+                          k["emit_gam_mu"])[0]
+
+
+def b2_launch_bound(a, k):
+    """bound_ms of one B2 launch from its operands (x, cp, x_norm_sq,
+    mis_pat, l_aug, n_stack, gam, ...)."""
+    return mis_bound_ms(a[0].shape[0], a[0].shape[1], a[6].shape[1],
+                        a[4].shape[1])[0]
+
+
+def phase_eqtl():
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    n, p, q, p_act, q_hit = EQTL_SHAPE
+    x, y = simulate(n, p, q, 1, p_act, q_hit)
+    eqtl_run("eqtl", x, y, sf, "_sweep_fused_cuda", sf.sweep_fused,
+             b1_launch_bound)
+
+
+def phase_eqtl_missing():
+    """The eqtl phase's problem with 15% of Y missing (MCAR, seeded), once
+    with missing="exact" (B2) and once with "impute" (B1)."""
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+    n, p, q, p_act, q_hit = EQTL_SHAPE
+    x, y = simulate(n, p, q, 1, p_act, q_hit, missing_frac=0.15)
+    eqtl_run("eqtl_missing", x, y, sm, "_sweep_missing_fused_cuda",
+             sm.sweep_missing_fused, b2_launch_bound, missing="exact")
+    eqtl_run("eqtl_missing", x, y, sf, "_sweep_fused_cuda", sf.sweep_fused,
+             b1_launch_bound, missing="impute")
 
 
 def main():
@@ -301,7 +522,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    phases = sys.argv[1:] or ["kernel", "fit", "eqtl"]
+    phases = sys.argv[1:] or list(PHASES)
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {sorted(unknown)}")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
@@ -316,14 +541,22 @@ def main():
           "library": lib.name})
 
     max_abs, timing, launches = None, None, None
+    mis_max_abs, mis_timing, mis_launches = None, None, {}
     if "kernel" in phases:
         max_abs, timing = phase_kernel()
     if "fit" in phases:
         launches = phase_fit()
     if "eqtl" in phases:
         phase_eqtl()
+    if "mis_kernel" in phases:
+        mis_max_abs, mis_timing = phase_mis_kernel()
+    if "missing_fit" in phases:
+        mis_launches = phase_missing_fit()
+    if "eqtl_missing" in phases:
+        phase_eqtl_missing()
+    kernels = []
     if timing is not None:
-        emit({"kernels": [{
+        kernels.append({
             "name": "sweep_fused", "route": "cuda",
             "source": "atlasqtl_tpu_torch/csrc/sweep_fused.cu",
             "replaces": "atlasqtl_tpu/ops/sweep_fused.py:68",
@@ -332,7 +565,26 @@ def main():
             "mode": "converged, lite",
             "ms": timing["ms"], "kernel_ms": timing["ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": None}]})
+            "bound_by": timing["bound_by"], "library_ms": None,
+            "impute_fit_launches": mis_launches.get("impute")})
+    if mis_timing is not None:
+        kernels.append({
+            "name": "sweep_missing_fused", "route": "cuda",
+            "source": "atlasqtl_tpu_torch/csrc/sweep_missing_fused.cu",
+            "replaces": "atlasqtl_tpu/ops/sweep_missing_fused.py:51",
+            "launches": mis_launches.get("exact"),
+            "max_abs_err": mis_max_abs,
+            "shape": {k: mis_timing[k]
+                      for k in ("n", "p", "q", "block", "missing_frac")},
+            "window": mis_timing["window"],
+            "kernel_ops": mis_timing["kernel_ops"],
+            "ms": mis_timing["ms"], "plain_ms": mis_timing["plain_ms"],
+            "bound_ms": mis_timing["bound_ms"],
+            "bound_by": mis_timing["bound_by"], "library_ms": None})
+    if kernels:
+        emit({"kernels": kernels})
+    print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,8 @@
 preparation, elicitation, initialization and the annealing ladder must equal
 the JAX package's exactly (the port keeps its own NumPy copies so it never
 imports JAX); the port imports no JAX; a missing GPU is an error, never a
-silent CPU run; options outside the ported slice raise NotImplementedError.
+silent CPU run; NaN in Y fits in both missing-data modes; options outside
+the ported slice raise NotImplementedError.
 """
 import os
 import subprocess
@@ -82,16 +83,23 @@ def test_unported_options_raise(fixture_small, kwargs, item):
         at.atlasqtl(y, x, p0=(5, 25), verbose=0, device="cpu", **kwargs)
 
 
-def test_missing_values_raise():
+def test_missing_modes_run_and_unknown_mode_raises():
+    """NaN in Y fits on the CPU in both modes; any other mode is an error."""
     y, x, _ = simulate_fixture(missing_frac=0.2, seed=5)
-    with pytest.raises(NotImplementedError, match="A9"):
-        at.atlasqtl(y, x, p0=(5, 25), verbose=0, device="cpu")
+    kw = dict(p0=(5, 25), verbose=0, device="cpu", user_seed=1, maxit=20)
+    for missing in ("exact", "impute"):
+        res = at.atlasqtl(y, x, missing=missing, **kw)
+        assert res.gam_vb.shape == (75, 20)
+        assert np.isfinite(res.gam_vb).all() and np.isfinite(res.lb_opt)
+    with pytest.raises(ValueError, match="missing must be"):
+        at.atlasqtl(y, x, missing="bogus", **kw)
 
 
 @pytest.mark.parametrize("field,value,item", [
     ("sweep", "pallas", "B3"), ("use_pallas", True, "B3"),
     ("sweep_stagger", True, "B4"),
     ("mxu_bf16", True, "B5"), ("sweep_probe", "nomxu", "B5"),
+    ("mis_pair_bf16", True, "B5"),
 ])
 def test_unported_config_raises(field, value, item):
     from atlasqtl_tpu_torch.models.global_local import check_config

@@ -147,7 +147,7 @@ def test_closed_form_updates():
     for call in calls:
         close(call(tup, t64), call(jup, j64))
     close(tup.sig2_beta_update(t64(a["n"]), t64(a["s2i"]), t64(a["tau"]),
-                               t64(a["c"])),
+                               c=t64(a["c"])),
           jup.sig2_beta_update(a["n"], a["s2i"], j64(a["tau"]), None,
                                a["c"]))
 
