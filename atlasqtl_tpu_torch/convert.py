@@ -4,9 +4,11 @@ to the port without the port importing JAX:
 
     arrays = {f.name: np.asarray(getattr(s, f.name))
               for f in dataclasses.fields(s)}
+    state = state_from_numpy(arrays)          # on the GPU
     state = state_from_numpy(arrays, device="cpu")
 
-A field that is None (or missing) stays None.
+`device` None means the GPU, and a missing GPU is an error, as for
+api.atlasqtl.  A field that is None (or missing) stays None.
 """
 from __future__ import annotations
 
@@ -15,10 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from .api import resolve_device
 from .types import Data, Hyper, VBState
 
 
 def _from_numpy(cls, arrays, device, dtype):
+    device = resolve_device(device)
     out = {}
     for f in dataclasses.fields(cls):
         v = arrays.get(f.name)
@@ -30,16 +34,16 @@ def _from_numpy(cls, arrays, device, dtype):
     return cls(**out)
 
 
-def data_from_numpy(arrays, device="cpu", dtype=None) -> Data:
+def data_from_numpy(arrays, device=None, dtype=None) -> Data:
     """Data from {field: array}; dtype None keeps each array's dtype."""
     return _from_numpy(Data, arrays, device, dtype)
 
 
-def hyper_from_numpy(arrays, device="cpu", dtype=None) -> Hyper:
+def hyper_from_numpy(arrays, device=None, dtype=None) -> Hyper:
     """Hyper from {field: array}; dtype None keeps each array's dtype."""
     return _from_numpy(Hyper, arrays, device, dtype)
 
 
-def state_from_numpy(arrays, device="cpu", dtype=None) -> VBState:
+def state_from_numpy(arrays, device=None, dtype=None) -> VBState:
     """VBState from {field: array}; dtype None keeps each array's dtype."""
     return _from_numpy(VBState, arrays, device, dtype)

@@ -29,6 +29,9 @@
 //    per row), then warp 0 runs the window's chain with one lane per column
 //    and the window's residuals in registers, pushing each delta to the
 //    window's later rows;
+//  - the per-element formulas are common.cuh's, every rounding written
+//    out, and the sums are explicit fmaf chains, so the staggered kernel
+//    (sweep_staggered.cu) reproduces this kernel's results bit for bit;
 //  - column statistics and z_col accumulate in registers across blocks;
 //    z_row goes to a (n_slices, p) partial buffer reduced by the second
 //    kernel.  No atomics: results are the same from run to run.
@@ -172,7 +175,7 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
 #pragma unroll
           for (int a = 0; a < 4; ++a)
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) acc[a][jj] += a4[a] * f4[jj];
+            for (int jj = 0; jj < 4; ++jj) acc[a][jj] = fmaf(a4[a], f4[jj], acc[a][jj]);
         }
       }
     }
@@ -193,7 +196,7 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
         for (int a = 0; a < 4; ++a) {
           const float l = L_s[(ty * 4 + a) * R + rr];
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) dot[a][jj] += l * n4[jj];
+          for (int jj = 0; jj < 4; ++jj) dot[a][jj] = fmaf(l, n4[jj], dot[a][jj]);
         }
       }
 #pragma unroll
@@ -204,11 +207,9 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int kk = tx * 4 + jj;
-          R_s[i * QS + kk] = acc[a][jj] - BO_s[i * QS + kk] * d;
-          const float u = th + zeta4[jj];
-          const float sd = sqrtf(u * u + K_BASE);
-          const float h = 0.5f * u;
-          AD_s[i * QS + kk] = (c_one ? h * sd : c * (h * sd)) + dot[a][jj];
+          R_s[i * QS + kk] = fmaf(-BO_s[i * QS + kk], d, acc[a][jj]);
+          AD_s[i * QS + kk] =
+              __fadd_rn(logit_base(th + zeta4[jj], c, c_one), dot[a][jj]);
         }
       }
     }
@@ -219,8 +220,8 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
       if (lo > 0) {
         const int i = lo + warp;
         float corr = 0.f;
-        for (int m = 0; m < lo; ++m) corr += G_s[i * B + m] * D_s[m * QS + lane];
-        R_s[i * QS + lane] += corr;
+        for (int m = 0; m < lo; ++m) corr = fmaf(G_s[i * B + m], D_s[m * QS + lane], corr);
+        R_s[i * QS + lane] = __fadd_rn(R_s[i * QS + lane], corr);
         __syncthreads();
       }
       if (warp == 0) {
@@ -231,29 +232,27 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
         for (int i = 0; i < W; ++i) {
           const int row = lo + i;
           const int j = j0 + row;
-          const float bo = BO_s[row * QS + lane];
-          const float mu = ct * (CP_s[row * QS + lane] - rr[i]);
-          const float logit = AD_s[row * QS + lane] + mu * mu * cinv;
-          const float gam = 1.f / (1.f + expf(-logit));
-          const float bnew = gam * mu;
-          const float delta = bnew - bo;
-          D_s[row * QS + lane] = delta;
-          GAM_s[row * QS + lane] = gam;
+          const ChainStep st =
+              chain_step(ct, CP_s[row * QS + lane], rr[i], AD_s[row * QS + lane],
+                         cinv, BO_s[row * QS + lane]);
+          D_s[row * QS + lane] = st.delta;
+          GAM_s[row * QS + lane] = st.gam;
 #pragma unroll
-          for (int m = i + 1; m < W; ++m) rr[m] += G_s[(lo + m) * B + row] * delta;
+          for (int m = i + 1; m < W; ++m)
+            rr[m] = fmaf(G_s[(lo + m) * B + row], st.delta, rr[m]);
           const float pm = p_mask[j];
           if (cvalid) {
-            const float msk = pm * qmc;
+            const float msk = __fmul_rn(pm, qmc);
             const size_t off = (size_t)j * q + kc;
-            beta_out[off] = bnew * msk;
+            beta_out[off] = __fmul_rn(st.bnew, msk);
             if (gam_out != nullptr) {
-              gam_out[off] = gam * msk;
-              mu_out[off] = mu * msk;
+              gam_out[off] = __fmul_rn(st.gam, msk);
+              mu_out[off] = __fmul_rn(st.mu, msk);
             }
           }
-          gacc += pm * gam;
-          m2acc += pm * (bnew * mu);
-          b2acc += pm * (bnew * bnew);
+          gacc = fmaf(pm, st.gam, gacc);
+          m2acc = fmaf(pm, __fmul_rn(st.bnew, st.mu), m2acc);
+          b2acc = fmaf(pm, __fmul_rn(st.bnew, st.bnew), b2acc);
         }
       }
       __syncthreads();
@@ -277,8 +276,8 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
             const float l = L_s[(ty * 4 + a) * R + rr];
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
-              d1[a][jj] += l * n1[jj];
-              d2[a][jj] += l * n2[jj];
+              d1[a][jj] = fmaf(l, n1[jj], d1[a][jj]);
+              d2[a][jj] = fmaf(l, n2[jj], d2[a][jj]);
             }
           }
         }
@@ -292,21 +291,16 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
           pm = p_mask[j0 + i];
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            const float u = th + zeta4[jj];
-            const float u2 = u * u;
-            const float sd = sqrtf(u2 + K_BASE);
-            const float sz = c_one ? sd : sqrtf(u2 + kz);
-            const float imrd = sz + d1[a][jj];
-            const float imr0u = d2[a][jj] - 0.5f * sz - 0.5f * u;
-            const float zq = (GAM_s[i * QS + tx * 4 + jj] * imrd + imr0u) * qm4[jj];
-            zr += zq;
-            zc4[jj] += pm * zq;
+            const float zq = z_cell(th + zeta4[jj], GAM_s[i * QS + tx * 4 + jj],
+                                    d1[a][jj], d2[a][jj], qm4[jj], kz, c_one);
+            zr = __fadd_rn(zr, zq);
+            zc4[jj] = fmaf(pm, zq, zc4[jj]);
           }
         }
         zr += __shfl_xor_sync(0xffffffffu, zr, 1);
         zr += __shfl_xor_sync(0xffffffffu, zr, 2);
         zr += __shfl_xor_sync(0xffffffffu, zr, 4);
-        if (trow && tx == 0) zrow_part[(size_t)blockIdx.x * p + j0 + i] = pm * zr;
+        if (trow && tx == 0) zrow_part[(size_t)blockIdx.x * p + j0 + i] = __fmul_rn(pm, zr);
       }
     }
 
@@ -340,7 +334,7 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
           for (int a = 0; a < 4; ++a) {
             const float xv = AS[(ty * 4 + a) * ALD + kk];
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) acc[a][jj] += xv * d4[jj];
+            for (int jj = 0; jj < 4; ++jj) acc[a][jj] = fmaf(xv, d4[jj], acc[a][jj]);
           }
         }
       }
@@ -351,10 +345,10 @@ __global__ void __launch_bounds__(NT, 1) sweep_fused_kernel(
           if (nn < n) {
             float4* fp = reinterpret_cast<float4*>(fitted + (size_t)nn * q + k0 + tx * 4);
             float4 f = *fp;
-            f.x += acc[a][0];
-            f.y += acc[a][1];
-            f.z += acc[a][2];
-            f.w += acc[a][3];
+            f.x = __fadd_rn(f.x, acc[a][0]);
+            f.y = __fadd_rn(f.y, acc[a][1]);
+            f.z = __fadd_rn(f.z, acc[a][2]);
+            f.w = __fadd_rn(f.w, acc[a][3]);
             *fp = f;
           }
         }

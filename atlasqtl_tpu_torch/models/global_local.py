@@ -24,6 +24,8 @@ from ..ops.special import log_ndtr_both, q_approx
 from ..ops.sweep import (SweepConsts, mis_pair_gram, sweep_complete,
                          sweep_missing, sweep_missing_blocked)
 from ..ops.sweep_fused import sweep_complete_fused
+from ..ops.sweep_pallas import sweep_complete_pallas
+from ..ops.sweep_staggered import sweep_complete_staggered
 from ..ops.sweep_missing_fused import sweep_missing_fused_driver
 
 log = logging.getLogger("atlasqtl_tpu_torch")
@@ -36,12 +38,9 @@ def _round_up(v, m):
 def check_config(cfg: Config):
     """Reject the options whose paths the port does not have yet (each
     names its ROADMAP.md item).  The TPU scheduling fields are ignored."""
+    if cfg.sweep not in ("auto", "fused", "pallas", "xla"):
+        raise ValueError(f"unknown Config.sweep={cfg.sweep!r}")
     unsupported = [
-        (cfg.sweep not in ("auto", "fused", "xla") or cfg.use_pallas,
-         f"Config.sweep={cfg.sweep!r} / use_pallas (the sweep_pallas kernel, "
-         "ROADMAP.md B3)"),
-        (cfg.sweep_stagger, "Config.sweep_stagger (the staggered kernel, "
-         "ROADMAP.md B4)"),
         (cfg.mxu_bf16, "Config.mxu_bf16 (ROADMAP.md B5)"),
         (cfg.sweep_probe != "none", "Config.sweep_probe (ROADMAP.md B5)"),
         (cfg.mis_pair_bf16, "Config.mis_pair_bf16 (ROADMAP.md B5)"),
@@ -202,15 +201,21 @@ def divisor_block(block_size: int, p_pad: int) -> int:
 
 
 def _select_sweep(cfg: Config, data: Data) -> str:
-    """The fused kernel for float32 on CUDA; otherwise the plain blocked
-    sweep ("xla" in the reference's naming).  sweep="fused" on the CPU runs
-    the kernel's plain version."""
+    """The complete-data engine, chosen as atlasqtl_tpu's _select_sweep
+    chooses it: "fused" (B1, or B4 under cfg.sweep_stagger) for float32 on
+    CUDA; else "pallas" (the B3 inner kernel) when cfg.use_pallas; else the
+    plain blocked sweep ("xla").  An explicit cfg.sweep passes through:
+    sweep="fused" on the CPU runs the kernel's plain version, and
+    sweep="pallas" on the CPU runs B3's plain version.  JAX's third case,
+    float32 on an accelerator whose fused kernel finds no q tile, cannot
+    arise here: B1 takes every padded q."""
     impl = cfg.sweep
     if impl == "auto":
-        if (cfg.block_size >= 8 and cfg.dtype == torch.float32
-                and data.x.device.type == "cuda"):
+        if cfg.block_size < 8:
+            return "xla"  # batch="0" reference mode
+        if cfg.dtype == torch.float32 and data.x.device.type == "cuda":
             return "fused"
-        return "xla"
+        return "pallas" if cfg.use_pallas else "xla"
     return impl
 
 
@@ -335,15 +340,19 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
             z_row, z_col = upd.z_moments(gam_new, state.theta, state.zeta,
                                          data.p_mask, data.q_mask, c,
                                          block_size=cfg.block_size)
-    elif _select_sweep(cfg, data) == "fused":
+    elif (impl := _select_sweep(cfg, data)) == "fused":
+        # B4 takes every shape B1 takes, so sweep_stagger never gives way
+        fused = (sweep_complete_staggered if cfg.sweep_stagger
+                 else sweep_complete_fused)
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
-         colstats) = sweep_complete_fused(
+         colstats) = fused(
             data.x, cp_x_y, gram_blocks, state.beta, state.fitted,
             consts, gram_blocks.shape[1], p_mask=data.p_mask,
             q_mask=data.q_mask, emit_gam_mu=not lite, annealed=annealed)
         # the kernel masks beta/gam/mu at write time
     else:
-        gam_new, mu_new, fitted, z_row, z_col = sweep_complete(
+        blocked = sweep_complete_pallas if impl == "pallas" else sweep_complete
+        gam_new, mu_new, fitted, z_row, z_col = blocked(
             data.x, cp_x_y, gram_blocks, state.gam, state.mu_beta,
             state.fitted, consts, gram_blocks.shape[1], p_mask=data.p_mask,
             q_mask=data.q_mask)

@@ -39,8 +39,9 @@ from .interp import K_BASE, tail_interp_operands
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-# both kernel sources go into one shared library; each includes the header
-_SOURCES = (_CSRC / "sweep_fused.cu", _CSRC / "sweep_missing_fused.cu")
+# every kernel source goes into one shared library; each includes the header
+_SOURCES = (_CSRC / "sweep_fused.cu", _CSRC / "sweep_missing_fused.cu",
+            _CSRC / "sweep_inner_gs.cu", _CSRC / "sweep_staggered.cu")
 _HEADERS = (_CSRC / "common.cuh",)
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -101,14 +102,15 @@ def build(verbose: bool = False) -> Path:
 
 
 def _load():
-    """The ctypes handle of the kernel library (both sweeps), built at first
-    use."""
+    """The ctypes handle of the kernel library (every sweep kernel), built
+    at first use."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 6 + [ptr]
-        lib.atlasqtl_sweep_fused.restype = i32
+        for fn in (lib.atlasqtl_sweep_fused, lib.atlasqtl_sweep_staggered):
+            fn.argtypes = [ptr] * 23 + [i32] * 6 + [ptr]
+            fn.restype = i32
         lib.atlasqtl_sweep_slices.argtypes = [i32]
         lib.atlasqtl_sweep_slices.restype = i32
         lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 5
@@ -118,6 +120,8 @@ def _load():
         lib.atlasqtl_sweep_missing_slices.restype = i32
         lib.atlasqtl_sweep_missing_window.argtypes = []
         lib.atlasqtl_sweep_missing_window.restype = i32
+        lib.atlasqtl_inner_gs.argtypes = [i32] + [ptr] * 14 + [i32] * 2 + [ptr]
+        lib.atlasqtl_inner_gs.restype = i32
         lib.atlasqtl_error_string.argtypes = [ctypes.c_int]
         lib.atlasqtl_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -142,6 +146,54 @@ def _tiles(u, l_blk, n_stack, c, kz, c_one):
     return ad, imrd, imr0u
 
 
+def _chain(r, g, ad, cp_b, beta_b, ct, c_inv_2s2):
+    """The strictly sequential update of one block's B coordinates, row by
+    row, for the columns of r (advanced in place).  Returns (gam, mu,
+    delta)."""
+    gam_b = torch.empty_like(beta_b)
+    mu_b = torch.empty_like(beta_b)
+    delta = torch.empty_like(beta_b)
+    for i in range(beta_b.shape[0]):
+        mu_i = ct * (cp_b[i] - r[i])
+        gam_i = torch.sigmoid(ad[i] + mu_i * mu_i * c_inv_2s2)
+        delta[i] = gam_i * mu_i - beta_b[i]
+        r[i + 1:] += g[i + 1:, i, None] * delta[i][None, :]
+        gam_b[i], mu_b[i] = gam_i, mu_i
+    return gam_b, mu_b, delta
+
+
+def _new_outputs(beta, theta, emit_gam_mu):
+    zero_q = lambda: torch.zeros(beta.shape[1], dtype=beta.dtype,
+                                 device=beta.device)
+    return dict(beta=torch.empty_like(beta),
+                gam=torch.empty_like(beta) if emit_gam_mu else None,
+                mu=torch.empty_like(beta) if emit_gam_mu else None,
+                z_row=torch.empty_like(theta), z_col=zero_q(), gcol=zero_q(),
+                m2gcol=zero_q(), b2col=zero_q())
+
+
+def _emit_block(out, sl, gam_b, mu_b, z_b, pm, q_mask):
+    """Write block sl's masked beta (gam, mu) and add its column statistics
+    and Z sums; z_b = gam * imrd + imr0u."""
+    msk = pm[:, None] * q_mask[None, :]
+    t_bm = gam_b * mu_b
+    out["beta"][sl] = t_bm * msk
+    if out["gam"] is not None:
+        out["gam"][sl] = gam_b * msk
+        out["mu"][sl] = mu_b * msk
+    out["gcol"] += (pm @ gam_b) * q_mask
+    out["m2gcol"] += (pm @ (t_bm * mu_b)) * q_mask
+    out["b2col"] += (pm @ (t_bm * t_bm)) * q_mask
+    z_qm = z_b * q_mask[None, :]
+    out["z_row"][sl] = torch.sum(z_qm, dim=1) * pm
+    out["z_col"] += pm @ z_qm
+
+
+def _outputs(out, fitted):
+    return (out["beta"], out["gam"], out["mu"], fitted, out["z_row"],
+            out["z_col"], (out["gcol"], out["m2gcol"], out["b2col"]))
+
+
 def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                       theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
                       block_size: int, emit_gam_mu: bool = True,
@@ -149,56 +201,35 @@ def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     """The kernel's function in plain tensor ops, block by block and row by
     row in flat sequential order.  Same arguments and outputs as
     `sweep_fused`."""
-    p = x.shape[1]
-    q = beta.shape[1]
     B = block_size
     ct = c * sig2_beta * tau
     c_inv_2s2 = c * 0.5 / sig2_beta
     fitted = fitted.clone()
-    beta_out = torch.empty_like(beta)
-    gam_out = torch.empty_like(beta) if emit_gam_mu else None
-    mu_out = torch.empty_like(beta) if emit_gam_mu else None
-    z_row = torch.empty_like(theta)
-    zero_q = lambda: torch.zeros(q, dtype=beta.dtype, device=beta.device)
-    z_col, gcol, m2gcol, b2col = zero_q(), zero_q(), zero_q(), zero_q()
-    for b in range(p // B):
+    out = _new_outputs(beta, theta, emit_gam_mu)
+    for b in range(x.shape[1] // B):
         sl = slice(b * B, (b + 1) * B)
-        xb, g, beta_b, pm = x[:, sl], gram_flat[sl], beta[sl], p_mask[sl]
+        xb, g = x[:, sl], gram_flat[sl]
         ad, imrd, imr0u = _tiles(theta[sl, None] + zeta[None, :], l_aug[sl],
                                  n_stack, c, kz, c_one)
-        r = xb.T @ fitted - beta_b * torch.diagonal(g)[:, None]
-        gam_b = torch.empty_like(beta_b)
-        mu_b = torch.empty_like(beta_b)
-        delta = torch.empty_like(beta_b)
-        cp_b = cp_x_y[sl]
-        for i in range(B):
-            mu_i = ct * (cp_b[i] - r[i])
-            gam_i = torch.sigmoid(ad[i] + mu_i * mu_i * c_inv_2s2)
-            delta[i] = gam_i * mu_i - beta_b[i]
-            r[i + 1:] += g[i + 1:, i, None] * delta[i][None, :]
-            gam_b[i], mu_b[i] = gam_i, mu_i
+        r = xb.T @ fitted - beta[sl] * torch.diagonal(g)[:, None]
+        gam_b, mu_b, delta = _chain(r, g, ad, cp_x_y[sl], beta[sl], ct,
+                                    c_inv_2s2)
         fitted += xb @ delta
-        msk = pm[:, None] * q_mask[None, :]
-        t_bm = gam_b * mu_b
-        beta_out[sl] = t_bm * msk
-        if emit_gam_mu:
-            gam_out[sl] = gam_b * msk
-            mu_out[sl] = mu_b * msk
-        gcol += (pm @ gam_b) * q_mask
-        m2gcol += (pm @ (t_bm * mu_b)) * q_mask
-        b2col += (pm @ (t_bm * t_bm)) * q_mask
-        z_qm = (gam_b * imrd + imr0u) * q_mask[None, :]
-        z_row[sl] = torch.sum(z_qm, dim=1) * pm
-        z_col += pm @ z_qm
-    return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
-                                                             b2col)
+        _emit_block(out, sl, gam_b, mu_b, gam_b * imrd + imr0u, p_mask[sl],
+                    q_mask)
+    return _outputs(out, fitted)
 
 
-def _sweep_fused_cuda(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
-                      theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
-                      block_size, emit_gam_mu, c_one):
+def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
+                 theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
+                 block_size, emit_gam_mu, c_one):
+    """Check the operands of one fused-sweep launch and launch the C entry
+    point `entry` of the kernel library (atlasqtl_sweep_fused, B1, or
+    atlasqtl_sweep_staggered, B4: the same arguments and function); raises
+    on what the kernels cannot take and on a failed launch."""
     n, p = x.shape
     q = beta.shape[1]
+    what = entry.replace("atlasqtl_", "")
     operands = dict(x=x, cp_x_y=cp_x_y, gram_flat=gram_flat, l_aug=l_aug,
                     n_stack=n_stack, beta=beta, fitted=fitted, theta=theta,
                     p_mask=p_mask, zeta=zeta, q_mask=q_mask,
@@ -212,12 +243,12 @@ def _sweep_fused_cuda(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                 or not t.is_contiguous() or tuple(t.shape) != shapes[name]
                 or t.data_ptr() % 16):
             raise ValueError(
-                f"sweep_fused kernel: {name} must be a contiguous, 16-byte "
+                f"{what} kernel: {name} must be a contiguous, 16-byte "
                 f"aligned float32 CUDA tensor of shape {shapes[name]}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if (block_size % 8 or block_size > 128 or p % block_size or q % 4
             or l_aug.shape[1] > 48):
-        raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, p={p},"
+        raise ValueError(f"{what} kernel: unsupported shape n={n}, p={p},"
                          f" q={q}, block={block_size}, r+2={l_aug.shape[1]}")
     lib = _load()
     scal = torch.stack([torch.as_tensor(c, dtype=torch.float32,
@@ -233,7 +264,7 @@ def _sweep_fused_cuda(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     z_row = torch.empty_like(theta)
     z_col, gcol, m2gcol, b2col = (torch.empty_like(zeta) for _ in range(4))
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.atlasqtl_sweep_fused(
+    err = getattr(lib, entry)(
         ptr(x), ptr(cp_x_y), ptr(gram_flat), ptr(l_aug), ptr(n_stack),
         ptr(beta), ptr(fitted), ptr(theta), ptr(p_mask), ptr(zeta),
         ptr(q_mask), ptr(sig2_beta), ptr(tau), ptr(scal), ptr(beta_out),
@@ -242,11 +273,16 @@ def _sweep_fused_cuda(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         l_aug.shape[1], int(bool(c_one)),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("sweep_fused kernel launch failed: "
+        raise RuntimeError(f"{what} kernel launch failed: "
                            + lib.atlasqtl_error_string(err).decode())
-    sweep_fused.launches += 1
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)
+
+
+def _sweep_fused_cuda(*args, **kw):
+    out = fused_launch("atlasqtl_sweep_fused", *args, **kw)
+    sweep_fused.launches += 1
+    return out
 
 
 def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,

@@ -28,10 +28,27 @@ per source, started together), then:
           does), each to convergence with hotspot AUC >= 0.95; a small fit
           on the card in float32 agrees with the CPU float64 fit, both modes;
   eqtl_missing  the eqtl phase with 15% of Y missing, once per mode.
+  gs_kernel  the inner Gauss-Seidel kernel (B3) against its plain version,
+          float32 and float64, c = 1 and c = 0.5, one predictor block at
+          (B, q) = (128, 200) ragged, (80, 48), (128, 504), (128, 10000);
+          times both at the two largest;
+  stag_kernel  the staggered kernel (B4) against B1 on the card, bit for bit,
+          and against its plain version, all four mode pairs, at the kernel
+          phase's shapes and the deep-n (5000, 2048, 1024); times B4 and B1
+          side by side at the two largest;
+  sweeps_fit  fit_global_local at the sim_anneal shape to convergence through
+          Config(sweep="pallas") (B3 launches once per predictor block per
+          iteration) and Config(sweep_stagger=True) (B4 once per
+          iteration), beside the default route (B1); small fits on the card
+          through each route agree with the CPU float64 fit, and a float64
+          use_pallas fit on the card matches it to 1e-6;
+  eqtl_sweeps  the eQTL problem built once, then 10 iterations through B3
+          and through B4 from clones of its state.
 Each phase prints one JSON line; then a `kernels` line, and last the
 contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -48,7 +65,12 @@ MODES = ((True, True), (True, False), (False, True), (False, False))
 MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
               (1000, 2048, 10000, 0.15))   # n, p, q, missing fraction
 PHASES = ("kernel", "fit", "eqtl", "mis_kernel", "missing_fit",
-          "eqtl_missing")
+          "eqtl_missing", "gs_kernel", "stag_kernel", "sweeps_fit",
+          "eqtl_sweeps")
+GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000))   # B, q
+# the kernel phase's shapes and bench.py's pod_slice n and q with p cut
+STAG_SHAPES = KERNEL_SHAPES + ((5000, 2048, 1024),)
+FP64_PEAK = 67e12     # H100 SXM float64 on the tensor cores, FLOP/s
 DEVICE = "cuda"
 FIT_SHAPE = (300, 2000, 500, 20, 100)     # n, p, q, active SNPs, hit traits
 EQTL_SHAPE = (1000, 50000, 10000, 500, 2000)
@@ -72,6 +94,25 @@ def cuda_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel, reps):
+    """Mean device time per call of fn of the CUDA kernels whose name holds
+    `kernel`, from torch.profiler's CUDA activity; None if it records no
+    such kernel.  Unlike cuda_ms it leaves out the gaps in which the device
+    waits for the host to enqueue."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps if us else None
 
 
 def sweep_bound_ms(n, p, q, block, r_aug, emit_gam_mu):
@@ -106,6 +147,20 @@ def mis_kernel_ops(n, p, q, r_aug, w):
     advance, the projections and the pair Grams of each window, the three
     interpolation products."""
     return p * q * (4 * n + (w - 1) * n + 2 * n / w + 6 * r_aug)
+
+
+def gs_bound_ms(B, q, itemsize):
+    """Least time of one inner Gauss-Seidel launch (B3) on an H100: the
+    larger of its operations (the pushes below the diagonal, B^2 q / 2
+    FMAs, and ~15 elementwise operations per element) over the FP32 (or
+    FP64) peak and its bytes (six B x q tiles in: r0, cp, gam, mu, log_p,
+    log_1p; the Gram and three column vectors in; three B x q tiles out:
+    gam, mu, delta) over the HBM rate."""
+    ops = B * B * q + 15 * B * q
+    nbytes = itemsize * (9 * B * q + B * B + 3 * q)
+    peak = FP32_PEAK if itemsize == 4 else FP64_PEAK
+    return 1e3 * max(ops / peak, nbytes / HBM_RATE), \
+        ("operations" if ops / peak >= nbytes / HBM_RATE else "bytes")
 
 
 def simulate(n, p, q, seed, p_act, q_hit, missing_frac=0.0):
@@ -398,24 +453,24 @@ def phase_missing_fit():
     return launches
 
 
-def eqtl_run(phase, x, y, launch_mod, launch_fn, counter, bound, **fit_kw):
-    """One atlasqtl() at the eQTL shape with per-stage timers wrapped around
-    the port's own functions (host init, state building, ELBO, the kernel
-    launch `launch_mod.launch_fn`, the iteration); `counter` is the
-    launching wrapper, whose count is set to 0 just before the fit;
-    bound(args, kwargs) gives a launch's bound_ms from its operands."""
+def timed_run(run, launch, counter, bound, sweep=None):
+    """Run `run()` (a fit) with per-stage timers wrapped around the port's
+    own functions: host init, state building, ELBO, the iteration, and the
+    kernel launch `launch` = (module, name); `sweep` = (module, name) times
+    whole sweeps where a sweep is more than one launch (B3), else the
+    launch is the sweep.  `counter` is the launching wrapper, whose count
+    is set to 0 just before the run; bound(args, kwargs) gives a launch's
+    bound_ms from its operands.  Returns (result, stats)."""
     import torch
-    import atlasqtl_tpu_torch as at
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.models import global_local as gl
 
-    n, p = x.shape
-    q = y.shape[1]
     acc = {"init_s": 0.0, "build_state_s": 0.0, "elbo_s": 0.0}
-    iter_ms, sweep_ev, bounds = [], [], []
+    iter_ms, launch_ev, sweep_ev, bounds = [], [], [], []
+    sweep = sweep or launch
     orig = dict(init=elic.auto_set_init, state=gl.build_state,
                 elbo=gl.compute_elbo, it=gl.cavi_iteration,
-                sweep=getattr(launch_mod, launch_fn))
+                launch=getattr(*launch), sweep=getattr(*sweep))
 
     def timed(key, fn):
         def w(*a, **k):
@@ -435,50 +490,78 @@ def eqtl_run(phase, x, y, launch_mod, launch_fn, counter, bound, **fit_kw):
         iter_ms.append(1e3 * (time.perf_counter() - t))
         return out
 
-    def sweep(*a, **k):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = orig["sweep"](*a, **k)
-        ev[1].record()
-        sweep_ev.append(ev)
-        bounds.append(bound(a, k))
-        return out
+    def events(fn, evs, on_launch=None):
+        def w(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            evs.append(ev)
+            if on_launch:
+                on_launch(a, k)
+            return out
+        return w
 
     elic.auto_set_init = timed("init_s", orig["init"])
     gl.build_state = timed("build_state_s", orig["state"])
     gl.compute_elbo = timed("elbo_s", orig["elbo"])
     gl.cavi_iteration = iteration
-    setattr(launch_mod, launch_fn, sweep)  # the launch, inside the wrapper
+    setattr(*launch, events(orig["launch"], launch_ev,
+                            lambda a, k: bounds.append(bound(a, k))))
+    if sweep != launch:
+        setattr(*sweep, events(orig["sweep"], sweep_ev))
     try:
         torch.cuda.reset_peak_memory_stats()
         counter.launches = 0
         t0 = time.perf_counter()
-        res = at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5), maxit=10,
-                          dtype=torch.float32, verbose=0, user_seed=1,
-                          device=DEVICE, **fit_kw)
+        res = run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         elic.auto_set_init, gl.build_state = orig["init"], orig["state"]
         gl.compute_elbo, gl.cavi_iteration = orig["elbo"], orig["it"]
-        setattr(launch_mod, launch_fn, orig["sweep"])
-    sweep_ms = [a.elapsed_time(b) for a, b in sweep_ev]
-    launches = counter.launches
+        setattr(*launch, orig["launch"])
+        setattr(*sweep, orig["sweep"])
+    launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
+    sweep_ms = ([a.elapsed_time(b) for a, b in sweep_ev] if sweep_ev
+                else launch_ms)
+    stats = dict(it=res.it, launches=counter.launches, sweep_ms=sweep_ms,
+                 sweep_ms_median=statistics.median(sweep_ms),
+                 sweep_bound_ms=bounds,
+                 iter_ms=iter_ms, iter_ms_median=statistics.median(iter_ms),
+                 host_init_s=acc["init_s"], build_state_s=acc["build_state_s"],
+                 elbo_s=acc["elbo_s"], elbo_evals=len(res.elbo_history),
+                 total_s=total,
+                 max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                 / 1e9)
+    if sweep_ev:  # per-launch numbers beside the per-sweep ones
+        stats.update(launch_ms_median=statistics.median(launch_ms),
+                     launches_per_sweep=len(launch_ms) // len(sweep_ms),
+                     launch_bound_ms=statistics.median(bounds),
+                     sweep_bound_ms=None)
+    return res, stats
+
+
+def eqtl_run(phase, x, y, launch_mod, launch_fn, counter, bound, **fit_kw):
+    """One atlasqtl() at the eQTL shape under `timed_run`'s timers."""
+    import torch
+    import atlasqtl_tpu_torch as at
+
+    n, p = x.shape
+    q = y.shape[1]
+    res, stats = timed_run(
+        lambda: at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5), maxit=10,
+                            dtype=torch.float32, verbose=0, user_seed=1,
+                            device=DEVICE, **fit_kw),
+        (launch_mod, launch_fn), counter, bound)
     out = dict(phase=phase, **fit_kw, n=n, p=p, q=q, anneal=[1, 2, 5],
-               maxit=10, it=res.it, launches=launches,
-               sweep_ms=sweep_ms, sweep_ms_median=statistics.median(sweep_ms),
-               sweep_bound_ms=bounds,
-               iter_ms=iter_ms, iter_ms_median=statistics.median(iter_ms),
-               host_init_s=acc["init_s"], build_state_s=acc["build_state_s"],
-               elbo_s=acc["elbo_s"], elbo_evals=len(res.elbo_history),
-               total_s=total,
-               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-               finite=bool(np.isfinite(res.gam_vb).all()))
+               maxit=10, **stats, finite=bool(np.isfinite(res.gam_vb).all()))
     emit(out)
-    if launches != res.it or not out["finite"]:
-        raise AssertionError(f"{phase} phase: {launches} launches for "
-                             f"{res.it} iterations, finite={out['finite']}")
+    if out["launches"] != res.it or not out["finite"]:
+        raise AssertionError(f"{phase} phase: {out['launches']} launches "
+                             f"for {res.it} iterations, finite="
+                             f"{out['finite']}")
 
 
 def b1_launch_bound(a, k):
@@ -515,6 +598,312 @@ def phase_eqtl_missing():
              sm.sweep_missing_fused, b2_launch_bound, missing="exact")
     eqtl_run("eqtl_missing", x, y, sf, "_sweep_fused_cuda", sf.sweep_fused,
              b1_launch_bound, missing="impute")
+
+
+def gs_inputs(B, q, c, dtype, seed=0):
+    """Device operands of one inner Gauss-Seidel launch (B3) at (B, q): a
+    seeded random problem of p = B predictors built by the port's own
+    data/state builders, r0 = X^T F, the block Gram and the exact probit
+    tiles, as sweep_complete_pallas hands them to the kernel."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.models import global_local as gl
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.ops import updates as upd
+    from atlasqtl_tpu_torch.ops.special import log_ndtr_both
+    from atlasqtl_tpu_torch.ops.sweep import block_gram
+
+    n = 1000 if q >= 10000 else 300
+    x, y = simulate(n, B, q, seed, min(10, B), max(2, q // 5))
+    x = (x - x.mean(0)) / x.std(0, ddof=1)
+    y = y - y.mean(0)
+    cfg = Config(dtype=dtype, shr_fac_inv=float(q))
+    data = gl.build_data(x, y, cfg, DEVICE)
+    state = gl.build_state(elic.auto_set_init(y, B, (4, 16), float(q), seed),
+                           data, cfg)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
+    tau, cc = t(rng.uniform(0.5, 2.0, data.y.shape[1])), t(c)
+    s2 = upd.sig2_beta_update(data.n, t(0.7), tau, c=cc)
+    log_p, log_1p = log_ndtr_both(state.theta[:, None] + state.zeta[None, :])
+    return (data.x.T @ state.fitted, block_gram(data.x, B)[0], data.cp_x_y,
+            state.gam, state.mu_beta, log_p, log_1p, s2, tau, torch.log(tau),
+            cc, t(-0.3))
+
+
+def phase_gs_kernel():
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_pallas as sp
+
+    cases, max_abs, timing = [], 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        for B, q in GS_SHAPES:
+            for c in (1.0, 0.5):
+                ops = gs_inputs(B, q, c, dtype)
+                got = sp.inner_gs_pallas(*ops)
+                ref = sp.inner_gs_plain(*ops)
+                torch.cuda.synchronize()
+                errs = {}
+                for name, a, r in zip(("gam", "mu", "delta"), got, ref):
+                    err = float((a - r).abs().max())
+                    scale = float(r.abs().max())
+                    errs[name] = err
+                    max_abs = max(max_abs, err)
+                    tol = 1e-10 if dtype == torch.float64 else 1e-4
+                    limit = tol if name == "gam" else tol * scale
+                    if not (err <= limit):  # also catches NaN
+                        raise AssertionError(
+                            f"inner_gs kernel vs plain at B={B} q={q} c={c} "
+                            f"{dtype}: {name} max abs err {err:.3g} > "
+                            f"{limit:.3g}")
+                case = dict(B=B, q=q, c=c, dtype=str(dtype).split(".")[-1],
+                            max_abs_err=errs)
+                if q >= 504 and c == 1.0:
+                    case["ms"] = cuda_ms(lambda: sp.inner_gs_pallas(*ops), 20)
+                    case["device_ms"] = device_ms(
+                        lambda: sp.inner_gs_pallas(*ops), "inner_gs_kernel",
+                        20)
+                    case["plain_ms"] = cuda_ms(
+                        lambda: sp.inner_gs_plain(*ops), 3)
+                    case["bound_ms"], case["bound_by"] = gs_bound_ms(
+                        B, q, ops[0].element_size())
+                    timing[(case["dtype"], q)] = case
+                cases.append(case)
+                del ops, got, ref
+    emit({"phase": "gs_kernel", "cases": cases, "max_abs_err": max_abs})
+    return max_abs, timing[("float32", GS_SHAPES[-1][1])]
+
+
+def phase_stag_kernel():
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_staggered as ss
+
+    names = ("beta", "gam", "mu", "fitted", "z_row", "z_col", "gcol",
+             "m2gcol", "b2col")
+    flat = lambda o: list(o[:6]) + list(o[6])
+    cases, max_abs, timing = [], 0.0, None
+    for n, p, q in STAG_SHAPES:
+        for c_one, emit_gm in MODES:
+            ops, block = kernel_inputs(n, p, q, 1.0 if c_one else 0.5)
+            kw = dict(block_size=block, emit_gam_mu=emit_gm, c_one=c_one)
+            got = ss.sweep_fused_staggered(*ops, **kw)
+            b1 = sf.sweep_fused(*ops, **kw)
+            ref = ss.sweep_staggered_plain(*ops, **kw)
+            torch.cuda.synchronize()
+            errs, differ = {}, []
+            for name, a, u, r in zip(names, flat(got), flat(b1), flat(ref)):
+                if r is None:
+                    continue
+                if not torch.equal(a, u):
+                    differ.append(name)
+                err = float((a - r).abs().max())
+                scale = float(r.abs().max())
+                errs[name] = err
+                max_abs = max(max_abs, err)
+                limit = 1e-4 if name == "gam" else 1e-4 * scale
+                if not (err <= limit):  # also catches NaN
+                    raise AssertionError(
+                        f"staggered kernel vs plain at n={n} p={p} q={q} "
+                        f"c_one={c_one} emit={emit_gm}: {name} max abs err "
+                        f"{err:.3g} > {limit:.3g}")
+            if differ:
+                raise AssertionError(
+                    f"staggered kernel vs B1 at n={n} p={p} q={q} c_one="
+                    f"{c_one} emit={emit_gm}: not bitwise equal in {differ}")
+            case = dict(n=n, p=p, q=q, block=block, c_one=c_one,
+                        emit_gam_mu=emit_gm, bitwise_b1=True,
+                        max_abs_err=errs)
+            if p * q >= 2048 * 1024 and c_one:
+                # B1, B4, B4, B1 in turns on the same inputs
+                b1_ms = cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 5)
+                case["ms"] = cuda_ms(
+                    lambda: ss.sweep_fused_staggered(*ops, **kw), 5)
+                case["ms_2"] = cuda_ms(
+                    lambda: ss.sweep_fused_staggered(*ops, **kw), 5)
+                case["b1_ms"] = [b1_ms,
+                                 cuda_ms(lambda: sf.sweep_fused(*ops, **kw),
+                                         5)]
+                case["plain_ms"] = cuda_ms(
+                    lambda: ss.sweep_staggered_plain(*ops, **kw), 2)
+                case["bound_ms"], case["bound_by"] = sweep_bound_ms(
+                    ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], block,
+                    ops[3].shape[1], emit_gm)
+                if (n, p, q) == KERNEL_SHAPES[-1] and not emit_gm:
+                    timing = case  # the steady-state (converged, lite) sweep
+            cases.append(case)
+            del ops, got, b1, ref
+            torch.cuda.empty_cache()
+    emit({"phase": "stag_kernel", "cases": cases, "max_abs_err": max_abs})
+    return max_abs, timing
+
+
+def prepared_fit(y, x, cfg, device, anneal=(1, 2, 10), seed=123):
+    """fit_global_local through the library's lower-level entry, as
+    atlasqtl() prepares it (prepare_data, elicitation with p0 = (5, 25), the
+    model's builders); the caller's Config picks the route.  Returns the
+    FitResult and the unpadded (theta, gam) on the host."""
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.inference.driver import fit_global_local
+    from atlasqtl_tpu_torch.models import global_local as gl
+
+    dat = prepare_data(y, x, 0.1, cfg.maxit, seed, 0)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+    data = gl.build_data(dat.x, dat.y, cfg, device)
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                           data.y.shape[1], cfg, device)
+    state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
+                                              seed), data, cfg)
+    res = fit_global_local(data, hyper, state, cfg, anneal=anneal, verbose=0)
+    host = lambda t: t.double().cpu().numpy()
+    return res, host(res.state.theta[:p]), host(res.state.gam[:p, :q])
+
+
+def phase_sweeps_fit():
+    """The B3 and B4 routes through fit_global_local, each driven with every
+    sweep kernel's count set to 0 just before it and read just after."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_pallas as sp
+    from atlasqtl_tpu_torch.ops import sweep_staggered as ss
+
+    routes = (("fused", Config()), ("pallas", Config(sweep="pallas")),
+              ("stagger", Config(sweep_stagger=True)))
+    counters = {"sweep_fused": sf.sweep_fused,
+                "inner_gs_pallas": sp.inner_gs_pallas,
+                "sweep_fused_staggered": ss.sweep_fused_staggered}
+
+    # small fits: the card against the CPU float64 fit
+    xs, ys = simulate(100, 75, 20, 123, 10, 20)
+    ref, _, ref_gam = prepared_fit(ys, xs, Config(dtype=torch.float64), "cpu")
+    small = {}
+    for route, cfg in routes[1:]:
+        res, _, gam = prepared_fit(ys, xs, cfg, DEVICE)
+        small[route] = float(np.abs(gam - ref_gam).max())
+        if not (res.converged and small[route] <= 1e-2):
+            raise AssertionError(
+                f"small {route} fit: GPU float32 vs CPU float64 PIPs differ "
+                f"by {small[route]:.3g} (converged={res.converged})")
+    res, _, gam = prepared_fit(ys, xs, Config(dtype=torch.float64,
+                                              use_pallas=True), DEVICE)
+    small["pallas_f64"] = float(np.abs(gam - ref_gam).max())
+    if not (res.it == ref.it and small["pallas_f64"] <= 1e-6):
+        raise AssertionError(
+            f"small float64 use_pallas fit on the card: it {res.it} vs "
+            f"{ref.it} on the CPU, PIPs differ by {small['pallas_f64']:.3g}")
+
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    x, y = simulate(n, p, q, 0, p_act, q_hit)
+    own = {"fused": "sweep_fused", "pallas": "inner_gs_pallas",
+           "stagger": "sweep_fused_staggered"}
+    out = {}
+    for route, cfg in routes:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res, theta, gam = prepared_fit(y, x, cfg, DEVICE, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        per_it = (res.state.gam.shape[0] // 128 if route == "pallas" else 1)
+        auc = hotspot_auc(theta, p_act)
+        out[route] = dict(phase="sweeps_fit", route=route, n=n, p=p, q=q,
+                          anneal=[1, 2, 10], converged=bool(res.converged),
+                          it=res.it, launches=counts, seconds=secs,
+                          lb_opt=res.lb_opt, hotspot_auc_theta=auc,
+                          small_fit_pip_max_diff_vs_cpu_f64=small.get(route),
+                          finite=bool(np.isfinite(gam).all()
+                                      and np.isfinite(theta).all()))
+        if route == "pallas":
+            out[route]["small_f64_fit_pip_max_diff_vs_cpu_f64"] = \
+                small["pallas_f64"]
+        if route == "stagger":
+            out[route]["b1_it"] = out["fused"]["it"]
+            out[route]["b1_lb_opt"] = out["fused"]["lb_opt"]
+        emit(out[route])
+        if not res.converged:
+            raise AssertionError(f"sweeps_fit {route}: did not converge")
+        if (counts[own[route]] != res.it * per_it
+                or sum(counts.values()) != counts[own[route]]):
+            raise AssertionError(f"sweeps_fit {route}: launches {counts} for "
+                                 f"{res.it} iterations")
+        if auc < 0.95 or not out[route]["finite"]:
+            raise AssertionError(f"sweeps_fit {route}: hotspot AUC {auc:.3f}"
+                                 f", finite={out[route]['finite']}")
+        if gam.shape != (p, q) or theta.shape != (p,):
+            raise AssertionError("sweeps_fit: unexpected output shapes")
+    if (out["stagger"]["it"], out["stagger"]["lb_opt"]) != (
+            out["fused"]["it"], out["fused"]["lb_opt"]):
+        raise AssertionError("sweeps_fit: the staggered fit differs from B1's"
+                             " (B4 computes B1's function bit for bit)")
+    return {r: out[r]["launches"][own[r]] for r in ("pallas", "stagger")}
+
+
+def gs_launch_bound(a, k):
+    """bound_ms of one B3 launch from its operands (r0, ...)."""
+    return gs_bound_ms(*a[0].shape, a[0].element_size())[0]
+
+
+def phase_eqtl_sweeps():
+    """The eQTL problem (full width) built once -- simulation,
+    prepare_data, host init, build_state -- then 10 iterations through B3
+    and through B4, each from a clone of the built state."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.inference.driver import fit_global_local
+    from atlasqtl_tpu_torch.models import global_local as gl
+    from atlasqtl_tpu_torch.ops import sweep_pallas as sp
+    from atlasqtl_tpu_torch.ops import sweep_staggered as ss
+
+    n, p, q, p_act, q_hit = EQTL_SHAPE
+    x, y = simulate(n, p, q, 1, p_act, q_hit)
+    t0 = time.perf_counter()
+    dat = prepare_data(y, x, 0.1, 10, 1, 0)
+    t1 = time.perf_counter()
+    hyper_spec = elic.auto_set_hyper(dat.y, p, (5, 25))
+    init = elic.auto_set_init(dat.y, p, (5, 25), float(q), 1)
+    t2 = time.perf_counter()
+    cfg = Config(dtype=torch.float32, maxit=10, shr_fac_inv=float(q))
+    data = gl.build_data(dat.x, dat.y, cfg, DEVICE)
+    hyper = gl.build_hyper(hyper_spec, data.y.shape[1], cfg, DEVICE)
+    state = gl.build_state(init, data, cfg)
+    torch.cuda.synchronize()
+    built = dict(prepare_s=t1 - t0, host_init_s=t2 - t1,
+                 build_s=time.perf_counter() - t2)
+    del dat, init
+    routes = (
+        ("pallas", dataclasses.replace(cfg, sweep="pallas"),
+         (sp, "_inner_gs_cuda"), sp.inner_gs_pallas, gs_launch_bound,
+         (gl, "sweep_complete_pallas"), data.x.shape[1] // 128),
+        ("stagger", dataclasses.replace(cfg, sweep_stagger=True),
+         (ss, "_sweep_staggered_cuda"), ss.sweep_fused_staggered,
+         b1_launch_bound, None, 1))
+    for route, rcfg, launch, counter, bound, sweep, per_it in routes:
+        st = dataclasses.replace(state, **{
+            f.name: getattr(state, f.name).clone()
+            for f in dataclasses.fields(state)
+            if torch.is_tensor(getattr(state, f.name))})
+        res, stats = timed_run(
+            lambda: fit_global_local(data, hyper, st, rcfg, anneal=(1, 2, 5),
+                                     verbose=0),
+            launch, counter, bound, sweep)
+        stats.pop("host_init_s"), stats.pop("build_state_s")
+        finite = bool(torch.isfinite(res.state.gam).all())
+        emit(dict(phase="eqtl_sweeps", route=route, n=n, p=p, q=q,
+                  anneal=[1, 2, 5], maxit=10, built_once=built, **stats,
+                  finite=finite))
+        if stats["launches"] != res.it * per_it or not finite:
+            raise AssertionError(f"eqtl_sweeps {route}: {stats['launches']} "
+                                 f"launches for {res.it} iterations, "
+                                 f"finite={finite}")
+        del st, res
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -554,6 +943,16 @@ def main():
         mis_launches = phase_missing_fit()
     if "eqtl_missing" in phases:
         phase_eqtl_missing()
+    gs_max_abs, gs_timing, stag_max_abs, stag_timing = None, None, None, None
+    route_launches = {}
+    if "gs_kernel" in phases:
+        gs_max_abs, gs_timing = phase_gs_kernel()
+    if "stag_kernel" in phases:
+        stag_max_abs, stag_timing = phase_stag_kernel()
+    if "sweeps_fit" in phases:
+        route_launches = phase_sweeps_fit()
+    if "eqtl_sweeps" in phases:
+        phase_eqtl_sweeps()
     kernels = []
     if timing is not None:
         kernels.append({
@@ -581,6 +980,31 @@ def main():
             "ms": mis_timing["ms"], "plain_ms": mis_timing["plain_ms"],
             "bound_ms": mis_timing["bound_ms"],
             "bound_by": mis_timing["bound_by"], "library_ms": None})
+    if gs_timing is not None:
+        kernels.append({
+            "name": "inner_gs", "route": "cuda",
+            "source": "atlasqtl_tpu_torch/csrc/sweep_inner_gs.cu",
+            "replaces": "atlasqtl_tpu/ops/sweep_pallas.py:25",
+            "launches": route_launches.get("pallas"),
+            "max_abs_err": gs_max_abs,
+            "shape": {k: gs_timing[k] for k in ("B", "q", "dtype")},
+            "ms": gs_timing["ms"], "device_ms": gs_timing["device_ms"],
+            "plain_ms": gs_timing["plain_ms"],
+            "bound_ms": gs_timing["bound_ms"],
+            "bound_by": gs_timing["bound_by"], "library_ms": None})
+    if stag_timing is not None:
+        kernels.append({
+            "name": "sweep_staggered", "route": "cuda",
+            "source": "atlasqtl_tpu_torch/csrc/sweep_staggered.cu",
+            "replaces": "atlasqtl_tpu/ops/sweep_staggered.py:52",
+            "launches": route_launches.get("stagger"),
+            "max_abs_err": stag_max_abs,
+            "shape": {k: stag_timing[k] for k in ("n", "p", "q", "block")},
+            "mode": "converged, lite", "ms": stag_timing["ms"],
+            "b1_ms": stag_timing["b1_ms"],
+            "plain_ms": stag_timing["plain_ms"],
+            "bound_ms": stag_timing["bound_ms"],
+            "bound_by": stag_timing["bound_by"], "library_ms": None})
     if kernels:
         emit({"kernels": kernels})
     print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",

@@ -1,5 +1,7 @@
 """The CUDA sweep kernels on the card: B1 (csrc/sweep_fused.cu, the
-complete-data sweep) and B2 (csrc/sweep_missing_fused.cu, the exact-missing
+complete-data sweep), B2 (csrc/sweep_missing_fused.cu, the exact-missing
+sweep), B3 (csrc/sweep_inner_gs.cu, one block's inner update, float32 and
+float64) and B4 (csrc/sweep_staggered.cu, the staggered complete-data
 sweep).
 
 Every test here needs a CUDA device and is marked `cuda`; without one it
@@ -12,8 +14,12 @@ replaces the suite's autouse JAX-cache fixture with a no-op.
 
 Each kernel is held against its plain PyTorch version, fed the same
 operands on the CPU, at f32 tolerances: gam atol 1e-4; the other outputs max
-abs error <= 1e-4 * max |plain| (the sums run in another order).
+abs error <= 1e-4 * max |plain| (the sums run in another order); B3 in
+float64 to 1e-10.  B4 computes B1's function in B1's per-column order, so
+it is held against B1 on the card bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +31,9 @@ from atlasqtl_tpu_torch.inference import elicitation as elic
 from atlasqtl_tpu_torch.io.prepare import prepare_data
 from atlasqtl_tpu_torch.ops import sweep_fused as sf
 from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+from atlasqtl_tpu_torch.ops import sweep_pallas as sp
+from atlasqtl_tpu_torch.ops import sweep_staggered as ss
+from atlasqtl_tpu_torch.inference.driver import fit_global_local
 from atlasqtl_tpu_torch.ops import updates as upd
 from atlasqtl_tpu_torch.ops.sweep import SweepConsts, block_gram
 
@@ -244,3 +253,151 @@ def test_missing_fit_raises_on_a_block_the_kernel_cannot_take(cuda):
         at.atlasqtl(y, x, p0=(5, 25), dtype=torch.float32, block_size=256,
                     verbose=0, user_seed=11, maxit=5)
     assert sm.sweep_missing_fused.launches == 0
+
+
+GS_NAMES = ("gam", "mu", "delta")
+
+
+def _gs_operands(B, q, dtype, seed=1):
+    """One block's operands of the inner update (B3), from a seed."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(B, B))
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    return [t(rng.normal(size=(B, q))), t(g @ g.T / B),
+            t(rng.normal(size=(B, q))), t(rng.uniform(.1, .9, (B, q))),
+            t(rng.normal(size=(B, q))), t(np.log(rng.uniform(.1, .9, (B, q)))),
+            t(np.log(rng.uniform(.1, .9, (B, q)))),
+            t(rng.uniform(.01, .1, q)), t(rng.uniform(.5, 2, q)),
+            t(rng.normal(size=q)), 0.8, 0.3]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,q", [(128, 200), (80, 48)])
+def test_inner_gs_kernel_matches_plain(cuda, B, q, dtype):
+    """(128, 200): a ragged last slice (8 of 32 columns); (80, 48): block
+    80."""
+    ops = _gs_operands(B, q, dtype)
+    ref = sp.inner_gs_pallas(*ops)
+    launches = sp.inner_gs_pallas.launches
+    got = sp.inner_gs_pallas(*[o.to(cuda) if torch.is_tensor(o) else o
+                               for o in ops])
+    torch.cuda.synchronize()
+    assert sp.inner_gs_pallas.launches == launches + 1
+    for name, a, r in zip(GS_NAMES, got, ref):
+        assert a.device.type == "cuda" and a.dtype == dtype, name
+        err = float((a.cpu() - r).abs().max())
+        limit = (1e-10 if dtype == torch.float64
+                 else 1e-4 if name == "gam" else 1e-4 * float(r.abs().max()))
+        assert err <= limit, (name, err, limit)
+
+
+def test_inner_gs_kernel_repeats_and_rejects(cuda):
+    ops = [o.to(cuda) if torch.is_tensor(o) else o
+           for o in _gs_operands(128, 200, torch.float32)]
+    a, b = sp.inner_gs_pallas(*ops), sp.inner_gs_pallas(*ops)
+    for name, u, v in zip(GS_NAMES, a, b):
+        assert torch.equal(u, v), name
+    launches = sp.inner_gs_pallas.launches
+    bad = list(ops)
+    bad[2] = ops[2].double()  # cp_b
+    with pytest.raises(ValueError, match="cp_b must"):
+        sp.inner_gs_pallas(*bad)
+    bad = list(ops)
+    bad[0] = ops[0].t().contiguous().t()  # r0, column-major
+    with pytest.raises(ValueError, match="r0 must"):
+        sp.inner_gs_pallas(*bad)
+    big = [o.to(cuda) if torch.is_tensor(o) else o
+           for o in _gs_operands(136, 64, torch.float32)]
+    with pytest.raises(ValueError, match="unsupported block"):
+        sp.inner_gs_pallas(*big)
+    assert sp.inner_gs_pallas.launches == launches
+
+
+@pytest.mark.parametrize("c_one,emit", [(True, True), (True, False),
+                                        (False, True), (False, False)])
+@pytest.mark.parametrize("n,p,q", [(120, 256, 200), (100, 75, 48)])
+def test_staggered_kernel_is_bitwise_b1(cuda, n, p, q, c_one, emit):
+    """B4 against B1 on the card, bit for bit (same function, same
+    per-column order, same 32-column slices), and against its plain
+    version on the CPU."""
+    ops, block = _operands(n, p, q, 1.0 if c_one else 0.5)
+    kw = dict(block_size=block, emit_gam_mu=emit, c_one=c_one)
+    ref = ss.sweep_fused_staggered(*ops, **kw)
+    dev = [o.to(cuda) for o in ops]
+    launches = ss.sweep_fused_staggered.launches
+    got = ss.sweep_fused_staggered(*dev, **kw)
+    b1 = sf.sweep_fused(*dev, **kw)
+    torch.cuda.synchronize()
+    assert ss.sweep_fused_staggered.launches == launches + 1
+    differ = {}
+    for name, a, u, r in zip(NAMES, _flat(got), _flat(b1), _flat(ref)):
+        if r is None:
+            assert a is None and u is None, name
+            continue
+        err = float((a.cpu() - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
+        if not torch.equal(a, u):
+            differ[name] = float((a - u).abs().max())
+    assert not differ, differ
+
+
+def test_staggered_kernel_repeats_and_rejects(cuda):
+    ops, block = _operands(120, 256, 200, 0.5)
+    ops = [o.to(cuda) for o in ops]
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
+    a = _flat(ss.sweep_fused_staggered(*ops, **kw))
+    b = _flat(ss.sweep_fused_staggered(*ops, **kw))
+    for name, u, v in zip(NAMES, a, b):
+        assert torch.equal(u, v), name
+    launches = ss.sweep_fused_staggered.launches
+    bad = list(ops)
+    bad[6] = ops[6].double()  # fitted
+    with pytest.raises(ValueError, match="fitted must"):
+        ss.sweep_fused_staggered(*bad, **kw)
+    with pytest.raises(ValueError, match="gram_flat must"):
+        ss.sweep_fused_staggered(*ops, **dict(kw, block_size=block // 2 + 4))
+    assert ss.sweep_fused_staggered.launches == launches
+
+
+def _fit(cfg, device, seed=123):
+    """fit_global_local from the library's lower-level entry (how a caller
+    reaches the B3 and B4 routes): prepare_data, elicitation, the model's
+    builders."""
+    y, x, _ = simulate_fixture()
+    dat = prepare_data(y, x, 0.1, 1000, seed, 0)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+    data = gl.build_data(dat.x, dat.y, cfg, device)
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                           data.y.shape[1], cfg, device)
+    state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
+                                              seed), data, cfg)
+    res = fit_global_local(data, hyper, state, cfg, anneal=(1, 2, 10),
+                           verbose=0)
+    return res, res.state.gam[:p, :q].double().cpu().numpy()
+
+
+@pytest.mark.parametrize("route", ["pallas", "stagger", "pallas_f64"])
+def test_route_fit_on_the_card(cuda, route):
+    """Each route on the card launches its kernel (B3 once per predictor
+    block per iteration, B4 once per iteration, no B1) and agrees with the
+    float64 CPU fit: float32 PIPs within 1e-2; float64 through B3 in the
+    same iterations within 1e-6."""
+    cfg = {"pallas": Config(sweep="pallas"),
+           "stagger": Config(sweep_stagger=True),
+           "pallas_f64": Config(dtype=torch.float64, use_pallas=True)}[route]
+    sf.sweep_fused.launches = sp.inner_gs_pallas.launches = 0
+    ss.sweep_fused_staggered.launches = 0
+    res, gam = _fit(cfg, cuda)
+    assert res.converged and sf.sweep_fused.launches == 0
+    if route == "stagger":
+        assert ss.sweep_fused_staggered.launches == res.it
+    else:
+        assert sp.inner_gs_pallas.launches == res.it  # p = 75: one block
+    ref, ref_gam = _fit(Config(dtype=torch.float64), "cpu")
+    if route == "pallas_f64":
+        assert res.it == ref.it
+        assert np.abs(gam - ref_gam).max() <= 1e-6
+    else:
+        assert np.abs(gam - ref_gam).max() <= 1e-2

@@ -3,7 +3,8 @@ preparation, elicitation, initialization and the annealing ladder must equal
 the JAX package's exactly (the port keeps its own NumPy copies so it never
 imports JAX); the port imports no JAX; a missing GPU is an error, never a
 silent CPU run; NaN in Y fits in both missing-data modes; options outside
-the ported slice raise NotImplementedError.
+the ported slices raise NotImplementedError, and the sweep options of the
+B3/B4 kernels route as in the JAX package.
 """
 import os
 import subprocess
@@ -96,8 +97,6 @@ def test_missing_modes_run_and_unknown_mode_raises():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("sweep", "pallas", "B3"), ("use_pallas", True, "B3"),
-    ("sweep_stagger", True, "B4"),
     ("mxu_bf16", True, "B5"), ("sweep_probe", "nomxu", "B5"),
     ("mis_pair_bf16", True, "B5"),
 ])
@@ -107,3 +106,43 @@ def test_unported_config_raises(field, value, item):
                            sweep_qchunk=64, sweep_sub=16))
     with pytest.raises(NotImplementedError, match=item):
         check_config(at.Config(**{field: value}))
+
+
+class _FakeData:
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+
+@pytest.mark.parametrize("field,value", [
+    ("sweep", "pallas"), ("use_pallas", True), ("sweep_stagger", True),
+])
+def test_ported_sweep_configs_route_as_jax(field, value):
+    """The B3 and B4 configurations pass check_config and pick the engine
+    JAX's _select_sweep picks on the CPU, in both dtypes."""
+    import jax.numpy as jnp
+    from atlasqtl_tpu.types import Config as JConfig
+    from atlasqtl_tpu.models.global_local import _select_sweep as j_select
+    from atlasqtl_tpu_torch.models.global_local import (_select_sweep,
+                                                        check_config)
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.float64, torch.float64)):
+        cfg = at.Config(dtype=tdt, **{field: value})
+        check_config(cfg)
+        jd = _FakeData(np.zeros((100, 256), np.float32),
+                       np.zeros((100, 512), np.float32))
+        td = _FakeData(torch.zeros(100, 256), torch.zeros(100, 512))
+        assert _select_sweep(cfg, td) == j_select(
+            JConfig(dtype=jdt, **{field: value}), jd)
+
+
+def test_convert_defaults_to_the_gpu():
+    """convert.py's builders take device=None as the GPU, like atlasqtl()."""
+    from atlasqtl_tpu_torch import convert
+    arrays = {"eta": np.ones(3), "nu": np.float64(1.0)}
+    assert convert.hyper_from_numpy(arrays, device="cpu").eta.device.type \
+        == "cpu"
+    if torch.cuda.is_available():
+        assert convert.hyper_from_numpy(arrays).eta.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert.hyper_from_numpy(arrays)

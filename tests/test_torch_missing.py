@@ -223,12 +223,13 @@ def test_one_missing_iteration_and_elbo_f64(missing, annealed, mis_block):
              else jnp.zeros((1, 1, 1)))
     j1 = jgl.cavi_iteration(data, hyper, state, jgram, c, c, cfg=jcfg,
                             annealed=annealed)
-    tdata = convert.data_from_numpy(_arrays(data))
+    tdata = convert.data_from_numpy(_arrays(data), device="cpu")
     tcfg = at.Config(dtype=torch.float64, **cfg)
     tgram = (tsw.block_gram(tdata.x, 80) if missing == "impute" else None)
-    t1 = tgl.cavi_iteration(tdata, convert.hyper_from_numpy(_arrays(hyper)),
-                            convert.state_from_numpy(_arrays(state)), tgram,
-                            c, c, cfg=tcfg, annealed=annealed)
+    thyper = convert.hyper_from_numpy(_arrays(hyper), device="cpu")
+    tstate = convert.state_from_numpy(_arrays(state), device="cpu")
+    t1 = tgl.cavi_iteration(tdata, thyper, tstate, tgram, c, c, cfg=tcfg,
+                            annealed=annealed)
     for f in dataclasses.fields(t1):
         a, b = getattr(t1, f.name), getattr(j1, f.name)
         assert (a is None) == (b is None), f.name
@@ -236,8 +237,7 @@ def test_one_missing_iteration_and_elbo_f64(missing, annealed, mis_block):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-14,
                                        atol=1e-10, err_msg=f.name)
     lj = float(jgl.compute_elbo(data, hyper, j1, cfg=jcfg))
-    lt = float(tgl.compute_elbo(tdata, convert.hyper_from_numpy(
-        _arrays(hyper)), t1, cfg=tcfg))
+    lt = float(tgl.compute_elbo(tdata, thyper, t1, cfg=tcfg))
     np.testing.assert_allclose(lt, lj, rtol=1e-10)
 
 
@@ -278,9 +278,9 @@ def test_fused_engine_on_the_cpu_runs_the_plain_b2():
     version on the CPU (no precomputed pair Grams); in float64 it agrees
     with the blocked engine to the interpolated tiles' accuracy."""
     data, hyper, state, _, cfg = _jax_problem(jnp.float64)
-    tdata = convert.data_from_numpy(_arrays(data))
-    th = convert.hyper_from_numpy(_arrays(hyper))
-    ts = convert.state_from_numpy(_arrays(state))
+    tdata = convert.data_from_numpy(_arrays(data), device="cpu")
+    th = convert.hyper_from_numpy(_arrays(hyper), device="cpu")
+    ts = convert.state_from_numpy(_arrays(state), device="cpu")
     blocked = tgl.cavi_iteration(tdata, th, ts, None, 1.0, 1.0,
                                  cfg=at.Config(dtype=torch.float64, **cfg),
                                  annealed=False)

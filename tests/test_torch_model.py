@@ -48,9 +48,9 @@ def _jax_problem(dtype, block, q_pad_to, n=100, p=75, q=20, seed=123):
     state = jgl.build_state(jelic.auto_set_init(dat.y, p_eff, (4, 16),
                                                 float(q_eff), 7), data, jcfg)
     tdt = torch.float64 if dtype == jnp.float64 else torch.float32
-    port = (convert.data_from_numpy(_arrays(data)),
-            convert.hyper_from_numpy(_arrays(hyper)),
-            convert.state_from_numpy(_arrays(state)))
+    port = (convert.data_from_numpy(_arrays(data), device="cpu"),
+            convert.hyper_from_numpy(_arrays(hyper), device="cpu"),
+            convert.state_from_numpy(_arrays(state), device="cpu"))
     return (data, hyper, state, jcfg), port, cfg, tdt
 
 
