@@ -1,6 +1,7 @@
 // Device code shared by the sweep kernels (sweep_fused.cu,
-// sweep_missing_fused.cu, sweep_inner_gs.cu, sweep_staggered.cu).  Both sources are linked into one shared library;
-// everything here has internal linkage, so each carries its own copy.
+// sweep_missing_fused.cu, sweep_inner_gs.cu, sweep_staggered.cu).  All four
+// sources are linked into one shared library; everything here has internal
+// linkage, so each carries its own copy.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -10,6 +11,37 @@ constexpr float K_BASE = 10.19f;  // analytic sqrt base of the tail tiles
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+// Asynchronous 16-byte copy from device to shared memory (cp.async, L2
+// only); the copies of one thread complete in commit-group order.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+// the same copy of 16 bytes if `full`, else 16 zero bytes (src not read)
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst,
+                                                 const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+// an asynchronous 4-byte copy (through L1)
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The per-element formulas of the complete-data sweep, shared by B1

@@ -183,4 +183,29 @@ int atlasqtl_inner_gs(int is_f64, const void* r0, const void* g,
                                 B, st);
 }
 
+// CTAs of the inner-update kernel (float64 when is_f64) resident on one SM
+// at block B (the occupancy calculator), -1 on error.
+int atlasqtl_inner_gs_occupancy(int is_f64, int B) {
+  int nb = -1;
+  cudaError_t err;
+  if (is_f64) {
+    const int smem = (int)smem_bytes<double>(B);
+    err = cudaFuncSetAttribute(inner_gs_kernel<double>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nb, inner_gs_kernel<double>, NT, smem);
+  } else {
+    const int smem = (int)smem_bytes<float>(B);
+    err = cudaFuncSetAttribute(inner_gs_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nb, inner_gs_kernel<float>, NT, smem);
+  }
+  return err == cudaSuccess ? nb : -1;
+}
+
 }  // extern "C"

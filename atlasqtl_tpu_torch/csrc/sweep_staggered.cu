@@ -26,14 +26,12 @@
 // columns) is a fraction of the products' at n >= 1000, so it hides behind
 // them.
 //
-// Per column every operation is B1's, in B1's order: the projection and the
-// advance sum over n and over the block in the same order, the chain runs
-// the same windows with the same left-looking corrections, the Z tile and its
-// row and column sums group the same columns and rows; both kernels take
-// the per-element formulas from common.cuh with every rounding written out
-// and write every sum as an explicit fmaf chain, so no contraction the
-// compiler chooses differently in the two can tell them apart.  So beta, gam, mu, F,
-// z_col, z_row and the column statistics are bitwise equal to B1's.
+// Per column every operation is B1's: the same per-element formulas from
+// common.cuh with every rounding written out, the same windows of the
+// chain.  The sums run in the order B1 had before its redesign (a
+// projection pass and an advance pass per block); B1 now sums its products
+// in one fused pass per block, so the two kernels agree to f32 tolerance,
+// not bit for bit.
 //
 // Shared memory: the operands of blocks b and b-1 are live at once.  The
 // Gram enters as its packed lower triangle (all the sweep reads), double
@@ -480,8 +478,9 @@ __global__ void __launch_bounds__(NT, 1) sweep_staggered_kernel(
 extern "C" {
 
 // Launches one staggered sweep (the sweep kernel, then the z_row reduction)
-// on `stream`; arguments as atlasqtl_sweep_fused.  Returns the CUDA error
-// code of the launches (0 on success).
+// on `stream`; arguments as atlasqtl_sweep_fused, whose slice width `qs`
+// must be this kernel's only one, 32.  Returns the CUDA error code of the
+// launches (0 on success).
 int atlasqtl_sweep_staggered(const float* x, const float* cp,
                              const float* gram, const float* l_aug,
                              const float* n_stack, const float* beta_in,
@@ -493,8 +492,8 @@ int atlasqtl_sweep_staggered(const float* x, const float* cp,
                              float* zrow_part, float* z_row, float* z_col,
                              float* gcol, float* m2gcol, float* b2col, int n,
                              int p, int q, int B, int R, int c_one,
-                             void* stream) {
-  if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || R <= 0 || R > RMAX ||
+                             int qs, void* stream) {
+  if (qs != QS || B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || R <= 0 || R > RMAX ||
       q % 4 != 0 || n <= 0 || (gam_out == nullptr) != (mu_out == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(B, R);
@@ -513,6 +512,20 @@ int atlasqtl_sweep_staggered(const float* x, const float* cp,
   zrow_reduce_kernel<<<(p + 255) / 256, 256, 0, st>>>(zrow_part, z_row,
                                                        n_slices, p);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the staggered kernel resident on one SM at block B and
+// interpolation width R (the occupancy calculator), -1 on error.
+int atlasqtl_sweep_staggered_occupancy(int B, int R) {
+  const int smem = (int)smem_bytes(B, R);
+  int nb = -1;
+  if (cudaFuncSetAttribute(sweep_staggered_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nb, sweep_staggered_kernel, NT, smem) != cudaSuccess)
+    return -1;
+  return nb;
 }
 
 }  // extern "C"

@@ -9,10 +9,13 @@ held against it on the card; the CPU tests hold it against the JAX kernel).
 What bounds the kernel on an H100: the two products r0 = x_b^T F and
 F += x_b delta, 4 n p q FP32 operations per sweep (no TF32: the reference's
 products are full f32); moving the bytes it must move (x, cp, beta in and
-out, F) takes under a tenth of that time at 3.35 TB/s.  This first version is simple on
-purpose: one CTA per 32 response columns walking every predictor block, FMA
-loops over shared-memory tiles, a windowed chain on one warp
-(csrc/sweep_fused.cu says more).
+out, F) takes under a tenth of that time at 3.35 TB/s.  One CTA per slice
+of 32 or 40 response columns (`fused_launch_plan` picks the width that fills
+whole waves of SMs best) walks every predictor block with one pass over the
+samples per block (the advance by the previous block fused with this block's
+projection, staged by cp.async) and a windowed chain on one thread per
+column while the other warps prepare the next window (csrc/sweep_fused.cu
+says more).
 
 One deliberate difference from the TPU kernel: each coordinate's Gram
 diagonal is the true x_j^T x_j, where the TPU kernel uses n_pad - 1
@@ -47,6 +50,11 @@ _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
                "-Xcompiler", "-fPIC"]
 _lib = None
+SMEM_MAX = 232448   # shared memory one CTA may take on an H100 (bytes)
+# the most each of two CTAs may take to share an SM (228 KB, less 1 KB
+# reserved per CTA)
+SMEM_TWO_PER_SM = 233472 // 2 - 1024
+H100_SMS = 132      # SMs of an H100 SXM, for the launch plans' wave counts
 
 
 def _nvcc() -> str:
@@ -65,7 +73,8 @@ def build(verbose: bool = False) -> Path:
     """Compile the kernel sources of csrc/ for sm_90a into one shared library
     in _build/ (once per source hash) and return its path: one nvcc per
     source, all started together, then one link.  verbose rebuilds and
-    prints ptxas's register and shared-memory report."""
+    prints ptxas's register and shared-memory report (kept in
+    `build.ptxas_report`)."""
     h = hashlib.sha256()
     for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
@@ -96,9 +105,13 @@ def build(verbose: bool = False) -> Path:
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
     if verbose:
-        print("".join(errs), flush=True)
+        build.ptxas_report = "".join(errs)
+        print(build.ptxas_report, flush=True)
     os.replace(tmp, out)
     return out
+
+
+build.ptxas_report = ""
 
 
 def _load():
@@ -109,15 +122,27 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.atlasqtl_sweep_fused, lib.atlasqtl_sweep_staggered):
-            fn.argtypes = [ptr] * 23 + [i32] * 6 + [ptr]
+            fn.argtypes = [ptr] * 23 + [i32] * 7 + [ptr]
             fn.restype = i32
-        lib.atlasqtl_sweep_slices.argtypes = [i32]
-        lib.atlasqtl_sweep_slices.restype = i32
-        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 5
+        lib.atlasqtl_sweep_fused_clocks.argtypes = [ptr]
+        lib.atlasqtl_sweep_fused_clocks.restype = i32
+        lib.atlasqtl_sweep_fused_occupancy.argtypes = [i32] * 3
+        lib.atlasqtl_sweep_fused_occupancy.restype = i32
+        lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 3
+        lib.atlasqtl_sweep_fused_smem.restype = ctypes.c_longlong
+        lib.atlasqtl_sweep_staggered_occupancy.argtypes = [i32, i32]
+        lib.atlasqtl_sweep_staggered_occupancy.restype = i32
+        lib.atlasqtl_inner_gs_occupancy.argtypes = [i32, i32]
+        lib.atlasqtl_inner_gs_occupancy.restype = i32
+        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 7
                                                      + [ptr])
         lib.atlasqtl_sweep_missing_fused.restype = i32
-        lib.atlasqtl_sweep_missing_slices.argtypes = [i32]
-        lib.atlasqtl_sweep_missing_slices.restype = i32
+        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 4
+        lib.atlasqtl_sweep_missing_smem.restype = i32
+        lib.atlasqtl_sweep_missing_occupancy.argtypes = [i32] * 4 + [ptr]
+        lib.atlasqtl_sweep_missing_occupancy.restype = i32
+        lib.atlasqtl_sweep_missing_clocks.argtypes = [ptr]
+        lib.atlasqtl_sweep_missing_clocks.restype = i32
         lib.atlasqtl_sweep_missing_window.argtypes = []
         lib.atlasqtl_sweep_missing_window.restype = i32
         lib.atlasqtl_inner_gs.argtypes = [i32] + [ptr] * 14 + [i32] * 2 + [ptr]
@@ -126,6 +151,82 @@ def _load():
         lib.atlasqtl_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# the kernel's constants (csrc/sweep_fused.cu)
+FUSED_WIDTHS = (32, 40)   # the slice widths built (response columns)
+FUSED_NCH = 32            # sample rows per pass chunk
+FUSED_NSTAGE = 3          # F and x_b chunk stages
+FUSED_NXA = 2             # x_{b-1} chunk stages
+FUSED_NG = 4              # thread groups of the two products
+FUSED_W = 8               # chain window
+
+
+def _fused_smem_bytes(width: int, block: int, r_aug: int) -> int:
+    """csrc/sweep_fused.cu:smem_bytes for `width`-column slices: the packed
+    Gram triangle, the delta and projection tiles, the pass stages (F, x_b
+    and x_{b-1} chunks, x rows padded by 4), the advance partials, the
+    window tiles (corrections twice, cp and beta rows three times), the
+    nodes, the block's p_mask and theta, the slice's zeta and q_mask.  The
+    card holds it to the kernel's own (`kernel_smem_bytes`)."""
+    gp = (block * (block + 1) // 2 + 3) & ~3
+    stages = (FUSED_NSTAGE * FUSED_NCH * width
+              + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * (block + 4))
+    return 4 * (gp + 2 * block * width + stages
+                + FUSED_NG * FUSED_NCH * width
+                + 8 * FUSED_W * width + 3 * r_aug * width + 2 * 128
+                + 2 * width)
+
+
+def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
+                      sms: int = H100_SMS) -> dict:
+    """The launch of B1 at (n, q, block, r + 2) on a card of `sms` SMs: one
+    CTA per slice and one CTA per SM (a second needs at most 128 registers
+    per thread and 113 KB of shared memory, against ptxas's 201 and 167 for
+    the two widths and over 200 KB at block 128), no cluster.  Of the widths
+    built, the one whose slices fill whole waves best: the fewest columns
+    of SM time (waves x width), the narrower on a tie.  At q = 10000 on 132
+    SMs, 40 columns take 2 waves where 32 take 3.  Returns slice_width,
+    cluster, grid, waves, smem_bytes and ctas_per_sm; the C entry point
+    takes the width and sizes the rest itself.  Raises ValueError on a
+    shape the kernel does not take."""
+    if (n <= 0 or block <= 0 or block % FUSED_W or block > 128 or q <= 0
+            or q % 4 or not 0 < r_aug <= 48):
+        raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
+                         f"q={q}, block={block}, r+2={r_aug}")
+    waves = lambda w: -(-(-(-q // w)) // sms)
+    width = min(FUSED_WIDTHS, key=lambda w: (waves(w) * w, w))
+    return dict(slice_width=width, cluster=1, grid=-(-q // width),
+                waves=waves(width),
+                smem_bytes=_fused_smem_bytes(width, block, r_aug),
+                ctas_per_sm=1)
+
+
+def occupancy(width: int, block: int, r_aug: int) -> int:
+    """CTAs of B1 in `width`-column slices resident on one SM at (block,
+    r + 2), from the occupancy calculator on the card."""
+    return _load().atlasqtl_sweep_fused_occupancy(width, block, r_aug)
+
+
+def kernel_smem_bytes(width: int, block: int, r_aug: int) -> int:
+    """The kernel's own shared-memory bytes at (width, block, r + 2), -1
+    where it refuses them."""
+    return _load().atlasqtl_sweep_fused_smem(width, block, r_aug)
+
+
+PHASES = ("pass", "tiles", "chain", "z_tile", "total")
+
+
+def phase_clocks() -> dict:
+    """The SM clock cycles the latest B1 launch's first CTA spent in each
+    phase, summed over the blocks (its thread 0, which also runs the chain;
+    csrc/sweep_fused.cu:g_clocks)."""
+    out = (ctypes.c_longlong * len(PHASES))()
+    err = _load().atlasqtl_sweep_fused_clocks(out)
+    if err != 0:
+        raise RuntimeError("sweep_fused clocks: "
+                           + _load().atlasqtl_error_string(err).decode())
+    return dict(zip(PHASES, out))
 
 
 def _tiles(u, l_blk, n_stack, c, kz, c_one):
@@ -222,11 +323,12 @@ def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
 
 def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                  theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
-                 block_size, emit_gam_mu, c_one):
+                 block_size, emit_gam_mu, c_one, slice_width=None):
     """Check the operands of one fused-sweep launch and launch the C entry
     point `entry` of the kernel library (atlasqtl_sweep_fused, B1, or
-    atlasqtl_sweep_staggered, B4: the same arguments and function); raises
-    on what the kernels cannot take and on a failed launch."""
+    atlasqtl_sweep_staggered, B4: the same arguments and function) in
+    slices of `slice_width` columns (None: B1's launch plan picks them);
+    raises on what the kernels cannot take and on a failed launch."""
     n, p = x.shape
     q = beta.shape[1]
     what = entry.replace("atlasqtl_", "")
@@ -250,6 +352,10 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
             or l_aug.shape[1] > 48):
         raise ValueError(f"{what} kernel: unsupported shape n={n}, p={p},"
                          f" q={q}, block={block_size}, r+2={l_aug.shape[1]}")
+    if slice_width is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        slice_width = fused_launch_plan(n, q, block_size, l_aug.shape[1],
+                                        sms)["slice_width"]
     lib = _load()
     scal = torch.stack([torch.as_tensor(c, dtype=torch.float32,
                                         device=x.device).reshape(()),
@@ -259,7 +365,7 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     beta_out = torch.empty_like(beta)
     gam_out = torch.empty_like(beta) if emit_gam_mu else None
     mu_out = torch.empty_like(beta) if emit_gam_mu else None
-    zrow_part = torch.empty((lib.atlasqtl_sweep_slices(q), p),
+    zrow_part = torch.empty((-(-q // slice_width), p),
                             dtype=torch.float32, device=x.device)
     z_row = torch.empty_like(theta)
     z_col, gcol, m2gcol, b2col = (torch.empty_like(zeta) for _ in range(4))
@@ -270,10 +376,12 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         ptr(q_mask), ptr(sig2_beta), ptr(tau), ptr(scal), ptr(beta_out),
         ptr(gam_out), ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col),
         ptr(gcol), ptr(m2gcol), ptr(b2col), n, p, q, block_size,
-        l_aug.shape[1], int(bool(c_one)),
+        l_aug.shape[1], int(bool(c_one)), slice_width,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
+        raise RuntimeError(f"{what} kernel launch failed at n={n}, p={p}, "
+                           f"q={q}, block={block_size}, {slice_width}-column"
+                           f" slices: "
                            + lib.atlasqtl_error_string(err).decode())
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)

@@ -20,21 +20,119 @@ What bounds the kernel on an H100: the function needs the projection and
 the masked advance of Fm for each (j, k), about 5 n p q FP32 operations per
 sweep; the bytes it must move take a ninth of that time at 3.35 TB/s.  The
 kernel's windows of W = 8 predictors add 28 masked pair Grams per window,
-which roughly doubles its operations.  csrc/sweep_missing_fused.cu says how
-it is laid out.
+which roughly doubles its operations.  Each CTA keeps its rows of a
+32-column Fm slice in shared memory for the whole sweep, split over a
+thread-block cluster where one SM cannot hold them (`missing_launch_plan`);
+csrc/sweep_missing_fused.cu says how it is laid out.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .interp import K_BASE, tail_interp_operands
-from .sweep_fused import _load
+from .sweep_fused import H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, _load
+
+# the kernel's constants (csrc/sweep_missing_fused.cu)
+MIS_QS = 32                          # response columns per slice
+MIS_W = 8                            # chain window
+MIS_NRH = MIS_W + MIS_W * (MIS_W - 1) // 2   # sums of one window pass
+MIS_NSLOT = 2                        # warp-partial slots
+MIS_NWT = 4                          # chain operand tiles per window
+MIS_NWS = 3                          # window scalar sets
+MIS_MAX_CLUSTER = 8                  # largest cluster the kernel takes
+MIS_SPREAD = 4                       # largest cluster taken only to spread
+MIS_NCLK = 10                        # the kernel's phase clock slots
+MIS_CLKF = (2 * MIS_NCLK + 3) & ~3   # their floats, kept 16-byte whole
+
+
+def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int) -> int:
+    """csrc/sweep_missing_fused.cu:smem_bytes: two sets of window operand
+    tiles, two windows of gam, the deltas, two sum buffers, the partial
+    slots, the phase clocks, three sets of window scalars (p_mask, theta,
+    rows of L), the slice's interpolation nodes; on chip also nloc rows of
+    Fm (32 floats), of x (two slots of W) and of mask bits.  The card holds
+    it to the kernel's own (`kernel_smem_bytes`)."""
+    fixed = (2 * MIS_NWT * MIS_W * MIS_QS + 3 * MIS_W * MIS_QS
+             + 2 * MIS_NRH * MIS_QS + MIS_NSLOT * MIS_NRH * MIS_QS
+             + MIS_CLKF + MIS_NWS * (2 * MIS_W + MIS_W * r_aug)
+             + 3 * r_aug * MIS_QS)
+    return 4 * (fixed + (nloc * (MIS_QS + 2 * MIS_W + 1) if on_chip else 0))
+
+
+def missing_launch_plan(n: int, q: int, block: int, r_aug: int) -> dict:
+    """The launch of B2 at (n, q, block, r + 2).  The rows of each 32-column
+    slice are split over the smallest cluster (1..MIS_MAX_CLUSTER CTAs)
+    whose CTAs each hold their rows of Fm on chip in at most
+    SMEM_TWO_PER_SM bytes, so that two CTAs share an SM and one's chain
+    overlaps the other's pass; failing that, in at most SMEM_MAX bytes (one
+    per SM).  While the card would still hold one CTA per SM of a cluster
+    one larger, the cluster grows (up to MIS_SPREAD), so that few slices
+    spread over more SMs.  Where no cluster holds the rows, the
+    device-memory branch: Fm stays in device memory, one CTA per slice.
+    Returns slice_width, cluster, grid, smem_bytes, fm_on_chip,
+    rows_per_cta and ctas_per_sm (the CTAs that share an SM); the C entry
+    point takes the decisions (cluster, fm_on_chip) and derives the rest.
+    Raises ValueError on a shape the kernel does not take."""
+    if (n <= 0 or block <= 0 or block % MIS_W or block > 128 or q % 4
+            or q <= 0 or not 0 < r_aug <= 48):
+        raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
+                         f"n={n}, q={q}, block={block}, r+2={r_aug}")
+    slices = -(-q // MIS_QS)
+    smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug)
+    for limit, ctas in ((SMEM_TWO_PER_SM, 2), (SMEM_MAX, 1)):
+        fits = [cs for cs in range(1, MIS_MAX_CLUSTER + 1)
+                if smem(cs) <= limit]
+        if fits:
+            cs = fits[0]
+            while cs < MIS_SPREAD and slices * (cs + 1) <= H100_SMS:
+                cs += 1
+            return dict(slice_width=MIS_QS, cluster=cs, grid=slices * cs,
+                        smem_bytes=smem(cs), fm_on_chip=True,
+                        rows_per_cta=-(-n // cs), ctas_per_sm=ctas)
+    return dict(slice_width=MIS_QS, cluster=1, grid=slices,
+                smem_bytes=_mis_smem_bytes(False, 0, r_aug), fm_on_chip=False,
+                rows_per_cta=n, ctas_per_sm=2)
 
 
 def window() -> int:
     """The kernel's chain window W (predictors per on-the-fly pair-Gram
     window); builds the kernel library if needed."""
     return _load().atlasqtl_sweep_missing_window()
+
+
+def occupancy(plan: dict, n: int, r_aug: int) -> tuple:
+    """(CTAs of B2 resident on one SM, clusters resident on the card) under
+    `plan` at n samples and r + 2, from the occupancy calculator on the
+    card."""
+    clusters = ctypes.c_int(-1)
+    ctas = _load().atlasqtl_sweep_missing_occupancy(
+        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug,
+        ctypes.byref(clusters))
+    return ctas, clusters.value
+
+
+def kernel_smem_bytes(plan: dict, n: int, r_aug: int) -> int:
+    """The kernel's own shared-memory bytes under `plan` at n samples and
+    r + 2, -1 where it refuses the plan."""
+    return _load().atlasqtl_sweep_missing_smem(
+        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug)
+
+
+PHASES = ("prologue", "pass", "reduce", "cluster_sync", "gather", "chain",
+          "x_wait", "barrier", "tail", "total")
+
+
+def phase_clocks() -> dict:
+    """The SM clock cycles the latest B2 launch's first CTA spent in each
+    phase (its thread 0, which also runs the chain; csrc:g_clocks)."""
+    out = (ctypes.c_longlong * MIS_NCLK)()
+    err = _load().atlasqtl_sweep_missing_clocks(out)
+    if err != 0:
+        raise RuntimeError("sweep_missing_fused clocks: "
+                           + _load().atlasqtl_error_string(err).decode())
+    return dict(zip(PHASES, out))
 
 
 def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
@@ -111,6 +209,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, p={p}, q={q}, block={block_size}, "
                          f"r+2={r_aug}")
+    plan = missing_launch_plan(n, q, block_size, r_aug)
     lib = _load()
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
                                     device=x.device).reshape(())
@@ -118,7 +217,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
     fitted = fitted.clone()
     gam_out = torch.empty_like(gam)
     mu_out = torch.empty_like(mu)
-    zrow_part = torch.empty((lib.atlasqtl_sweep_missing_slices(q), p),
+    zrow_part = torch.empty((plan["grid"] // plan["cluster"], p),
                             dtype=torch.float32, device=x.device)
     z_row = torch.empty_like(theta)
     z_col = torch.empty_like(zeta)
@@ -128,10 +227,13 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(l_aug), ptr(n_stack), ptr(fitted), ptr(theta), ptr(p_mask),
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
-        block_size, r_aug, torch.cuda.current_stream(x.device).cuda_stream)
+        block_size, r_aug, plan["cluster"], int(plan["fm_on_chip"]),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("sweep_missing_fused kernel launch failed: "
-                           + lib.atlasqtl_error_string(err).decode())
+        raise RuntimeError(
+            f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "
+            f"q={q}, block={block_size}, plan {plan}: "
+            + lib.atlasqtl_error_string(err).decode())
     sweep_missing_fused.launches += 1
     return gam_out, mu_out, fitted, z_row, z_col
 

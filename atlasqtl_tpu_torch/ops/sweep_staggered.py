@@ -5,10 +5,11 @@ Counterpart of atlasqtl_tpu/ops/sweep_staggered.py.  For CUDA tensors the
 sweep is the hand-written kernel in csrc/sweep_staggered.cu, which replaces
 the TPU kernel atlasqtl_tpu/ops/sweep_staggered.py:_stag_kernel: one warp
 runs the sequential chain of one half while the other warps run the other
-half's products, and each column's operations are B1's, in B1's order, so
-the outputs are bitwise equal to `sweep_fused`'s (csrc/sweep_staggered.cu
-says more).  For CPU tensors it is `sweep_staggered_plain`, the staggered
-schedule in plain tensor ops, bitwise equal to `sweep_fused_plain`.
+half's products, and each column's per-element formulas are B1's, so the
+outputs agree with `sweep_fused`'s to f32 tolerance; the two kernels sum
+their products in different orders (csrc/sweep_staggered.cu says more).
+For CPU tensors it is `sweep_staggered_plain`, the staggered schedule in
+plain tensor ops, bitwise equal to `sweep_fused_plain`.
 
 Like B1, and unlike the TPU kernel (atlasqtl_tpu/ops/sweep_staggered.py:330),
 each coordinate's Gram diagonal is the true x_j^T x_j, not n_pad - 1.
@@ -19,6 +20,8 @@ import torch
 
 from .sweep_fused import (_chain, _emit_block, _new_outputs, _outputs,
                           _tiles, fused_launch, fused_operands)
+
+STAG_QS = 32   # the kernel's only slice width (csrc/sweep_staggered.cu)
 
 
 def sweep_staggered_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
@@ -100,7 +103,8 @@ def sweep_staggered_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
 
 
 def _sweep_staggered_cuda(*args, **kw):
-    out = fused_launch("atlasqtl_sweep_staggered", *args, **kw)
+    out = fused_launch("atlasqtl_sweep_staggered", *args,
+                       slice_width=STAG_QS, **kw)
     sweep_fused_staggered.launches += 1
     return out
 

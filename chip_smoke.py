@@ -5,12 +5,16 @@
     python3 chip_smoke.py kernel mis_kernel   # just the kernel-vs-plain phases
 
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
-per source, started together), then:
+per source, started together) and prints ptxas's registers and spills
+(B1 and B2 may not spill), then:
   kernel  the kernel against its plain PyTorch version on the card, float32,
           one sweep each, identical inputs, all four mode pairs
           (converged/annealed x full/lite), at four shapes (ragged q;
           n % 8 != 0 with block 80; the fit phase's shape; the eQTL n and q);
-          times both;
+          times both; at the eQTL n and q checks the launch plan against
+          the kernel (shared memory, CTAs resident per SM) and runs and
+          times each slice width built (32 and 40 columns) against the
+          plain version;
   fit     atlasqtl() at the sim_anneal shape of BASELINE.json (n=300,
           p=2000, q=500, anneal=(1, 2, 10)) to convergence: the kernel
           launches once per iteration and the hotspot AUC of theta_vb
@@ -20,9 +24,12 @@ per source, started together), then:
           anneal=(1, 2, 5), maxit=10: ms per sweep and per iteration, host
           init and ELBO seconds, peak device memory, launches;
   mis_kernel  the exact-missing kernel (B2) against its plain version,
-          float32, c = 1 and c = 0.5, seeded MCAR missingness, at four
+          float32, c = 1 and c = 0.5, seeded MCAR missingness, at ten
           shapes (ragged q; n % 8 != 0 with block 80; the fit shape; the
-          eQTL n and q); times both at the two largest;
+          eQTL n and q; shapes whose launch plans take each cluster size
+          and the device-memory branch, MIS_SHAPES); checks the CTAs
+          resident per SM against the plan's; times both at the fit and
+          eQTL-cut shapes, with the kernel's phase clocks;
   missing_fit  atlasqtl() at the sim_anneal shape with 15% of Y missing,
           missing="exact" (B2 launches once per iteration) and "impute" (B1
           does), each to convergence with hotspot AUC >= 0.95; a small fit
@@ -32,24 +39,31 @@ per source, started together), then:
           float32 and float64, c = 1 and c = 0.5, one predictor block at
           (B, q) = (128, 200) ragged, (80, 48), (128, 504), (128, 10000);
           times both at the two largest;
-  stag_kernel  the staggered kernel (B4) against B1 on the card, bit for bit,
-          and against its plain version, all four mode pairs, at the kernel
-          phase's shapes and the deep-n (5000, 2048, 1024); times B4 and B1
-          side by side at the two largest;
+  stag_kernel  the staggered kernel (B4) against B1 on the card and against
+          its plain version (gam 1e-4, the rest 1e-4 of max), all four mode
+          pairs, at the kernel phase's shapes and the deep-n
+          (5000, 2048, 1024); times B4 and B1 side by side at the two
+          largest;
   sweeps_fit  fit_global_local at the sim_anneal shape to convergence through
           Config(sweep="pallas") (B3 launches once per predictor block per
           iteration) and Config(sweep_stagger=True) (B4 once per
-          iteration), beside the default route (B1); small fits on the card
-          through each route agree with the CPU float64 fit, and a float64
-          use_pallas fit on the card matches it to 1e-6;
+          iteration), beside the default route (B1); B4's fit reaches B1's
+          converged state (iterations within 2%, lb_opt within 1e-5
+          relative, PIPs within 1e-2); small fits on the card through each
+          route agree with the CPU float64 fit, and a float64 use_pallas fit
+          on the card matches it to 1e-6;
   eqtl_sweeps  the eQTL problem built once, then 10 iterations through B3
-          and through B4 from clones of its state.
+          and through B4 from clones of its state;
+  scaling  B1 and B2 timed at (n, 2048, 10000), n = 250 .. 2000, and each
+          time split into a + b n: the part that does not grow with n (the
+          chain, tiles, waits) and the cost per sample.
 Each phase prints one JSON line; then a `kernels` line, and last the
 contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
 """
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -62,11 +76,22 @@ HBM_RATE = 3.35e12    # H100 SXM HBM3, bytes/s
 KERNEL_SHAPES = ((120, 256, 200), (300, 75, 48), (300, 2000, 500),
                  (1000, 2048, 10000))
 MODES = ((True, True), (True, False), (False, True), (False, False))
+# n, p, q, missing fraction.  B2's plan (missing_launch_plan) takes a
+# cluster of 4 at the first three (few slices spread over more SMs), 3 at
+# the eQTL cut, 1 at (200, 256, 4800) and 2 at (500, 256, 4000), all with
+# two CTAs per SM; with one CTA per SM 5 at (4000, 256, 1024), 6 at
+# bench.py's pod_slice n and q (5000, 256, 1024) and 8 at (7000, 256, 256);
+# and at (8000, 256, 256) it keeps Fm in device memory
 MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
-              (1000, 2048, 10000, 0.15))   # n, p, q, missing fraction
+              (1000, 2048, 10000, 0.15), (200, 256, 4800, 0.15),
+              (500, 256, 4000, 0.15), (4000, 256, 1024, 0.15),
+              (5000, 256, 1024, 0.15), (7000, 256, 256, 0.15),
+              (8000, 256, 256, 0.15))
 PHASES = ("kernel", "fit", "eqtl", "mis_kernel", "missing_fit",
           "eqtl_missing", "gs_kernel", "stag_kernel", "sweeps_fit",
-          "eqtl_sweeps")
+          "eqtl_sweeps", "scaling")
+SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
+SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000))   # B, q
 # the kernel phase's shapes and bench.py's pod_slice n and q with p cut
 STAG_SHAPES = KERNEL_SHAPES + ((5000, 2048, 1024),)
@@ -78,6 +103,42 @@ EQTL_SHAPE = (1000, 50000, 10000, 500, 2000)
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+KERNEL_NAMES = ("sweep_fused_kernel", "sweep_missing_kernel",
+                "inner_gs_kernel", "sweep_staggered_kernel")
+
+
+def ptxas_summary(report):
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    `-Xptxas -v` report; a template instance is named with its mangled
+    arguments (e.g. sweep_missing_kernel<true> as
+    sweep_missing_kernelILb1E)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            for k in KERNEL_NAMES:
+                if k in m.group(1):
+                    tail = m.group(1).split(k, 1)[1]
+                    name = k + (tail.split("EEv", 1)[0] + "E"
+                                if tail.startswith("I") else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def pct(bound_ms, ms):
+    """A kernel's time as a share of its bound, in percent."""
+    return 100.0 * bound_ms / ms
 
 
 def cuda_ms(fn, reps):
@@ -209,12 +270,59 @@ def kernel_inputs(n, p, q, c, seed=0):
     return ops, block
 
 
+B1_NAMES = ("beta", "gam", "mu", "fitted", "z_row", "z_col", "gcol",
+            "m2gcol", "b2col")
+
+
+def b1_plan_check(ops, block, ref, kw):
+    """B1's launch plan at these operands, held to the kernel: its shared
+    memory equals the kernel's own, the card holds the CTAs per SM it
+    counts on; then every slice width built, launched directly (not
+    counted), against the plain outputs `ref` and timed (CUDA events,
+    median of 7), with the phase clocks of the plan's width."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    n, q, r_aug = ops[0].shape[0], ops[5].shape[1], ops[3].shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = sf.fused_launch_plan(n, q, block, r_aug, sms)
+    width = plan["slice_width"]
+    out = dict(plan=plan, ctas_per_sm=sf.occupancy(width, block, r_aug),
+               by_width={})
+    if out["ctas_per_sm"] != plan["ctas_per_sm"] or \
+            sf.kernel_smem_bytes(width, block, r_aug) != plan["smem_bytes"]:
+        raise AssertionError(f"B1 plan {plan} vs the kernel: "
+                             f"{out['ctas_per_sm']} CTAs per SM, "
+                             f"{sf.kernel_smem_bytes(width, block, r_aug)} "
+                             f"bytes of shared memory")
+    for w in sf.FUSED_WIDTHS:
+        fn = lambda: sf.fused_launch("atlasqtl_sweep_fused", *ops, **kw,
+                                     slice_width=w)
+        got = fn()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, r in zip(B1_NAMES, list(got[:6]) + list(got[6]),
+                              list(ref[:6]) + list(ref[6])):
+            if r is None:
+                continue
+            errs[name] = float((a - r).abs().max())
+            limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+            if not (errs[name] <= limit):
+                raise AssertionError(f"B1 in {w}-column slices vs plain: "
+                                     f"{name} {errs[name]:.3g} > {limit:.3g}")
+        out["by_width"][w] = dict(
+            ms=cuda_ms(fn, 7), grid=-(-q // w),
+            waves=-(-(-(-q // w)) // sms), max_abs_err=errs,
+            ctas_per_sm=sf.occupancy(w, block, r_aug))
+        if w == width:
+            out["clocks"] = sf.phase_clocks()
+    return out
+
+
 def phase_kernel():
     import torch
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
 
-    names = ("beta", "gam", "mu", "fitted", "z_row", "z_col", "gcol",
-             "m2gcol", "b2col")
+    names = B1_NAMES
     cases, max_abs, timing = [], 0.0, None
     for n, p, q in KERNEL_SHAPES:
         for c_one, emit_gm in MODES:
@@ -247,8 +355,11 @@ def phase_kernel():
                 case["bound_ms"], case["bound_by"] = sweep_bound_ms(
                     ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], block,
                     ops[3].shape[1], emit_gm)
-            if (n, p, q) == KERNEL_SHAPES[-1] and c_one and not emit_gm:
-                timing = case  # the steady-state (converged, lite) sweep
+            if (n, p, q) in KERNEL_SHAPES[-2:] and c_one and not emit_gm:
+                # the steady-state (converged, lite) sweep, at the fit
+                # shape (32-column slices) and the eQTL cut (40)
+                case.update(b1_plan_check(ops, block, ref, kw))
+                timing = case
             cases.append(case)
             del ops, got, ref
             torch.cuda.empty_cache()
@@ -317,8 +428,19 @@ def phase_mis_kernel():
                     raise AssertionError(
                         f"missing kernel vs plain at n={n} p={p} q={q} c={c}:"
                         f" {name} max abs err {err:.3g} > {limit:.3g}")
+            n_, r_aug = ops[0].shape[0], ops[4].shape[1]
+            plan = sm.missing_launch_plan(n_, ops[6].shape[1], block, r_aug)
+            ctas, clusters = sm.occupancy(plan, n_, r_aug)
+            smem = sm.kernel_smem_bytes(plan, n_, r_aug)
             case = dict(n=n, p=p, q=q, missing_frac=frac, block=block, c=c,
-                        max_abs_err=errs)
+                        plan=plan, ctas_per_sm=ctas,
+                        resident_clusters=clusters, max_abs_err=errs)
+            if ctas < plan["ctas_per_sm"] or smem != plan["smem_bytes"]:
+                raise AssertionError(f"B2 at n={n} p={p} q={q}: {ctas} CTAs "
+                                     f"per SM and {smem} bytes of shared "
+                                     f"memory, the plan counts on "
+                                     f"{plan['ctas_per_sm']} and "
+                                     f"{plan['smem_bytes']}")
             if p >= 2000 and c == 1.0:
                 case["ms"] = cuda_ms(lambda: sm.sweep_missing_fused(*ops,
                                                                     **kw), 7)
@@ -329,6 +451,7 @@ def phase_mis_kernel():
                 case["bound_ms"], case["bound_by"] = mis_bound_ms(*dims)
                 case["window"] = w
                 case["kernel_ops"] = mis_kernel_ops(*dims, w)
+                case["clocks"] = sm.phase_clocks()
                 timing = case  # the last timed case is the eQTL-cut shape
             cases.append(case)
             del ops, got, ref
@@ -336,6 +459,40 @@ def phase_mis_kernel():
     emit({"phase": "mis_kernel", "window": w, "cases": cases,
           "max_abs_err": max_abs})
     return max_abs, timing
+
+
+def phase_scaling():
+    """Split B1's and B2's time into the part that grows with n and the part
+    that does not: each timed (CUDA events, median of 5) at
+    (n, SCALE_PQ) for n in SCALE_NS, then T = a + b n fitted by least
+    squares.  a is the chain, tiles and waits; b the cost per sample, beside
+    the FP32 floor per sample of the function's n-products (4 p q operations
+    for B1, 5 p q for B2)."""
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    p, q = SCALE_PQ
+    out = {}
+    for name, per_sample_ops in (("sweep_fused", 4),
+                                 ("sweep_missing_fused", 5)):
+        ms = []
+        for n in SCALE_NS:
+            if name == "sweep_fused":
+                ops, block = kernel_inputs(n, p, q, 1.0)
+                kw = dict(block_size=block, emit_gam_mu=False, c_one=True)
+                fn = lambda: sf.sweep_fused(*ops, **kw)
+            else:
+                ops, block = mis_kernel_inputs(n, p, q, 1.0, 0.15)
+                fn = lambda: sm.sweep_missing_fused(*ops, block_size=block)
+            ms.append(cuda_ms(fn, 5))
+            del ops, fn
+        b, a = np.polyfit(np.asarray(SCALE_NS, float), np.asarray(ms), 1)
+        out[name] = dict(n=list(SCALE_NS), ms=ms, a_ms=float(a),
+                         b_ms_per_sample=float(b),
+                         floor_ms_per_sample=1e3 * per_sample_ops * p * q
+                         / FP32_PEAK)
+    emit({"phase": "scaling", "p": p, "q": q, **out})
+    return out
 
 
 def hotspot_auc(score, p_act):
@@ -633,6 +790,7 @@ def gs_inputs(B, q, c, dtype, seed=0):
 
 def phase_gs_kernel():
     import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
     from atlasqtl_tpu_torch.ops import sweep_pallas as sp
 
     cases, max_abs, timing = [], 0.0, {}
@@ -667,6 +825,9 @@ def phase_gs_kernel():
                         lambda: sp.inner_gs_plain(*ops), 3)
                     case["bound_ms"], case["bound_by"] = gs_bound_ms(
                         B, q, ops[0].element_size())
+                    case["ctas_per_sm"] = \
+                        sf._load().atlasqtl_inner_gs_occupancy(
+                            int(dtype == torch.float64), B)
                     timing[(case["dtype"], q)] = case
                 cases.append(case)
                 del ops, got, ref
@@ -691,29 +852,24 @@ def phase_stag_kernel():
             b1 = sf.sweep_fused(*ops, **kw)
             ref = ss.sweep_staggered_plain(*ops, **kw)
             torch.cuda.synchronize()
-            errs, differ = {}, []
+            errs, errs_b1 = {}, {}
             for name, a, u, r in zip(names, flat(got), flat(b1), flat(ref)):
                 if r is None:
                     continue
-                if not torch.equal(a, u):
-                    differ.append(name)
-                err = float((a - r).abs().max())
-                scale = float(r.abs().max())
-                errs[name] = err
-                max_abs = max(max_abs, err)
-                limit = 1e-4 if name == "gam" else 1e-4 * scale
-                if not (err <= limit):  # also catches NaN
-                    raise AssertionError(
-                        f"staggered kernel vs plain at n={n} p={p} q={q} "
-                        f"c_one={c_one} emit={emit_gm}: {name} max abs err "
-                        f"{err:.3g} > {limit:.3g}")
-            if differ:
-                raise AssertionError(
-                    f"staggered kernel vs B1 at n={n} p={p} q={q} c_one="
-                    f"{c_one} emit={emit_gm}: not bitwise equal in {differ}")
+                for other, o, out in (("plain", r, errs), ("B1", u, errs_b1)):
+                    err = float((a - o).abs().max())
+                    limit = 1e-4 if name == "gam" else 1e-4 * float(
+                        o.abs().max())
+                    out[name] = err
+                    if not (err <= limit):  # also catches NaN
+                        raise AssertionError(
+                            f"staggered kernel vs {other} at n={n} p={p} "
+                            f"q={q} c_one={c_one} emit={emit_gm}: {name} max"
+                            f" abs err {err:.3g} > {limit:.3g}")
+                max_abs = max(max_abs, errs[name])
             case = dict(n=n, p=p, q=q, block=block, c_one=c_one,
-                        emit_gam_mu=emit_gm, bitwise_b1=True,
-                        max_abs_err=errs)
+                        emit_gam_mu=emit_gm, max_abs_err=errs,
+                        max_abs_err_vs_b1=errs_b1)
             if p * q >= 2048 * 1024 and c_one:
                 # B1, B4, B4, B1 in turns on the same inputs
                 b1_ms = cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 5)
@@ -731,6 +887,9 @@ def phase_stag_kernel():
                     ops[3].shape[1], emit_gm)
                 if (n, p, q) == KERNEL_SHAPES[-1] and not emit_gm:
                     timing = case  # the steady-state (converged, lite) sweep
+                    case["ctas_per_sm"] = \
+                        sf._load().atlasqtl_sweep_staggered_occupancy(
+                            block, ops[3].shape[1])
             cases.append(case)
             del ops, got, b1, ref
             torch.cuda.empty_cache()
@@ -799,13 +958,14 @@ def phase_sweeps_fit():
     x, y = simulate(n, p, q, 0, p_act, q_hit)
     own = {"fused": "sweep_fused", "pallas": "inner_gs_pallas",
            "stagger": "sweep_fused_staggered"}
-    out = {}
+    out, gams = {}, {}
     for route, cfg in routes:
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
         res, theta, gam = prepared_fit(y, x, cfg, DEVICE, seed=0)
+        gams[route] = gam
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
@@ -824,6 +984,8 @@ def phase_sweeps_fit():
         if route == "stagger":
             out[route]["b1_it"] = out["fused"]["it"]
             out[route]["b1_lb_opt"] = out["fused"]["lb_opt"]
+            out[route]["pip_max_diff_vs_b1"] = float(
+                np.abs(gam - gams["fused"]).max())
         emit(out[route])
         if not res.converged:
             raise AssertionError(f"sweeps_fit {route}: did not converge")
@@ -836,10 +998,16 @@ def phase_sweeps_fit():
                                  f", finite={out[route]['finite']}")
         if gam.shape != (p, q) or theta.shape != (p,):
             raise AssertionError("sweeps_fit: unexpected output shapes")
-    if (out["stagger"]["it"], out["stagger"]["lb_opt"]) != (
-            out["fused"]["it"], out["fused"]["lb_opt"]):
-        raise AssertionError("sweeps_fit: the staggered fit differs from B1's"
-                             " (B4 computes B1's function bit for bit)")
+    # B4 computes B1's function, its sums in another order: the same
+    # converged state, not the same bits
+    st, b1 = out["stagger"], out["fused"]
+    if not (abs(st["it"] - b1["it"]) <= 0.02 * b1["it"]
+            and abs(st["lb_opt"] - b1["lb_opt"]) <= 1e-5 * abs(b1["lb_opt"])
+            and st["pip_max_diff_vs_b1"] <= 1e-2):
+        raise AssertionError(
+            f"sweeps_fit: the staggered fit (it {st['it']}, lb_opt "
+            f"{st['lb_opt']}) differs from B1's (it {b1['it']}, lb_opt "
+            f"{b1['lb_opt']}), PIPs by {st['pip_max_diff_vs_b1']:.3g}")
     return {r: out[r]["launches"][own[r]] for r in ("pallas", "stagger")}
 
 
@@ -926,8 +1094,14 @@ def main():
     print(smi[0], flush=True)
     t0 = time.perf_counter()
     lib = sf.build(verbose=True)
+    regs = ptxas_summary(sf.build.ptxas_report)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name})
+          "library": lib.name, "ptxas": regs})
+    spills = {k: v for k, v in regs.items()
+              if k.startswith(("sweep_fused_kernel", "sweep_missing_kernel"))
+              and (v.get("spill_stores") or v.get("spill_loads"))}
+    if spills:
+        raise AssertionError(f"B1/B2 spill registers: {spills}")
 
     max_abs, timing, launches = None, None, None
     mis_max_abs, mis_timing, mis_launches = None, None, {}
@@ -953,6 +1127,8 @@ def main():
         route_launches = phase_sweeps_fit()
     if "eqtl_sweeps" in phases:
         phase_eqtl_sweeps()
+    if "scaling" in phases:
+        phase_scaling()
     kernels = []
     if timing is not None:
         kernels.append({
@@ -965,6 +1141,10 @@ def main():
             "ms": timing["ms"], "kernel_ms": timing["ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"], "library_ms": None,
+            "pct_of_bound": pct(timing["bound_ms"], timing["ms"]),
+            "ctas_per_sm": timing["ctas_per_sm"], "plan": timing["plan"],
+            "ms_by_width": {w: d["ms"]
+                            for w, d in timing["by_width"].items()},
             "impute_fit_launches": mis_launches.get("impute")})
     if mis_timing is not None:
         kernels.append({
@@ -979,7 +1159,10 @@ def main():
             "kernel_ops": mis_timing["kernel_ops"],
             "ms": mis_timing["ms"], "plain_ms": mis_timing["plain_ms"],
             "bound_ms": mis_timing["bound_ms"],
-            "bound_by": mis_timing["bound_by"], "library_ms": None})
+            "bound_by": mis_timing["bound_by"], "library_ms": None,
+            "pct_of_bound": pct(mis_timing["bound_ms"], mis_timing["ms"]),
+            "ctas_per_sm": mis_timing["ctas_per_sm"],
+            "plan": mis_timing["plan"]})
     if gs_timing is not None:
         kernels.append({
             "name": "inner_gs", "route": "cuda",
@@ -991,7 +1174,9 @@ def main():
             "ms": gs_timing["ms"], "device_ms": gs_timing["device_ms"],
             "plain_ms": gs_timing["plain_ms"],
             "bound_ms": gs_timing["bound_ms"],
-            "bound_by": gs_timing["bound_by"], "library_ms": None})
+            "bound_by": gs_timing["bound_by"], "library_ms": None,
+            "pct_of_bound": pct(gs_timing["bound_ms"], gs_timing["ms"]),
+            "ctas_per_sm": gs_timing["ctas_per_sm"]})
     if stag_timing is not None:
         kernels.append({
             "name": "sweep_staggered", "route": "cuda",
@@ -1004,7 +1189,9 @@ def main():
             "b1_ms": stag_timing["b1_ms"],
             "plain_ms": stag_timing["plain_ms"],
             "bound_ms": stag_timing["bound_ms"],
-            "bound_by": stag_timing["bound_by"], "library_ms": None})
+            "bound_by": stag_timing["bound_by"], "library_ms": None,
+            "pct_of_bound": pct(stag_timing["bound_ms"], stag_timing["ms"]),
+            "ctas_per_sm": stag_timing["ctas_per_sm"]})
     if kernels:
         emit({"kernels": kernels})
     print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",

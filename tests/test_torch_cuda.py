@@ -15,8 +15,11 @@ replaces the suite's autouse JAX-cache fixture with a no-op.
 Each kernel is held against its plain PyTorch version, fed the same
 operands on the CPU, at f32 tolerances: gam atol 1e-4; the other outputs max
 abs error <= 1e-4 * max |plain| (the sums run in another order); B3 in
-float64 to 1e-10.  B4 computes B1's function in B1's per-column order, so
-it is held against B1 on the card bit for bit.
+float64 to 1e-10.  B4 computes B1's function, but B1 sums its products in
+another order than B4 (one fused pass per block), so B4 is held against B1
+on the card at the same tolerances.  B1 and B2 are also run at shapes that
+reach each branch of their launch plans (ops/sweep_fused.py:
+fused_launch_plan, ops/sweep_missing_fused.py:missing_launch_plan).
 """
 import dataclasses
 
@@ -93,11 +96,20 @@ def _flat(out):
 
 @pytest.mark.parametrize("c_one,emit", [(True, True), (True, False),
                                         (False, True), (False, False)])
-@pytest.mark.parametrize("n,p,q", [(120, 256, 200), (100, 75, 48)])
-def test_kernel_matches_plain(cuda, n, p, q, c_one, emit):
+@pytest.mark.parametrize("n,p,q,width", [(120, 256, 200, 32),
+                                         (100, 75, 48, 32),
+                                         (1001, 256, 104, 32),
+                                         (100, 128, 4804, 40)])
+def test_kernel_matches_plain(cuda, n, p, q, width, c_one, emit):
     """(120, 256, 200): ragged q (the last of 7 column slices holds 8 of 32);
-    (100, 75, 48): n % 8 != 0 (the true Gram diagonal matters) and block 80."""
+    (100, 75, 48): n % 8 != 0 (the true Gram diagonal matters) and block 80;
+    (1001, 256, 104): many sample chunks, the last one ragged;
+    (100, 128, 4804): the plan takes 40-column slices (one wave on 132 SMs
+    where 32 columns take two), the last one ragged."""
     ops, block = _operands(n, p, q, 1.0 if c_one else 0.5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sf.fused_launch_plan(n, q, block, ops[3].shape[1],
+                                sms)["slice_width"] == width
     kw = dict(block_size=block, emit_gam_mu=emit, c_one=c_one)
     ref = sf.sweep_fused(*ops, **kw)
     launches = sf.sweep_fused.launches
@@ -114,9 +126,11 @@ def test_kernel_matches_plain(cuda, n, p, q, c_one, emit):
         assert err <= limit, (name, err, limit)
 
 
-def test_kernel_is_deterministic(cuda):
-    """No float atomics: two launches on the same inputs agree bit for bit."""
-    ops, block = _operands(120, 256, 200, 0.5)
+@pytest.mark.parametrize("q", [200, 4804])
+def test_kernel_is_deterministic(cuda, q):
+    """No float atomics: two launches on the same inputs agree bit for bit,
+    in 32-column (q = 200) and 40-column (q = 4804) slices."""
+    ops, block = _operands(120, 256, q, 0.5)
     ops = [o.to(cuda) for o in ops]
     kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
     a = _flat(sf.sweep_fused(*ops, **kw))
@@ -141,6 +155,27 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="gram_flat must"):
         sf.sweep_fused(*ops, **dict(kw, block_size=block // 2 + 4))
     assert sf.sweep_fused.launches == launches
+
+
+def test_launch_plans_match_the_kernels(cuda):
+    """The plans' shared-memory arithmetic (plain Python, checked on the
+    CPU by tests/test_torch_launch_plan.py) equals the kernels' own, and
+    B1 holds the one CTA per SM its plan counts on, at the smallest block
+    too (its registers, not its shared memory, allow no second)."""
+    for width in sf.FUSED_WIDTHS:
+        for block in (8, 80, 128):
+            for r_aug in (1, 42, 48):
+                assert (sf.kernel_smem_bytes(width, block, r_aug)
+                        == sf._fused_smem_bytes(width, block, r_aug))
+                plan = sf.fused_launch_plan(1000, 10000, block, r_aug)
+                assert sf.occupancy(width, block, r_aug) \
+                    == plan["ctas_per_sm"] == 1
+    for n in (1, 80, 1000, 4000, 7000, 8000, 50000):
+        for r_aug in (1, 42, 48):
+            plan = sm.missing_launch_plan(n, 10000, 128, r_aug)
+            assert sm.kernel_smem_bytes(plan, n, r_aug) == plan["smem_bytes"]
+            ctas, clusters = sm.occupancy(plan, n, r_aug)
+            assert ctas >= plan["ctas_per_sm"] and clusters >= 1
 
 
 def test_fit_on_the_card(cuda):
@@ -200,6 +235,28 @@ def test_missing_kernel_matches_plain(cuda, n, p, q, c):
     assert sm.sweep_missing_fused.launches == launches + 1
     for name, a, r in zip(MIS_NAMES, got, ref):
         assert a.device.type == "cuda" and a.shape == r.shape, name
+        err = float((a.cpu() - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.parametrize("n,p,q,cluster,on_chip", [
+    (200, 128, 4800, 1, True), (500, 128, 4000, 2, True),
+    (800, 128, 4800, 3, True), (4000, 128, 1024, 5, True),
+    (8000, 128, 256, 1, False)])
+def test_missing_kernel_plans_match_plain(cuda, n, p, q, cluster, on_chip):
+    """B2 at shapes whose launch plans take clusters of 1, 2 and 3 CTAs with
+    two CTAs per SM, 5 with one per SM, and the device-memory branch."""
+    ops, block = _mis_operands(n, p, q, 0.5, frac=0.15)
+    plan = sm.missing_launch_plan(ops[0].shape[0], ops[6].shape[1], block,
+                                  ops[4].shape[1])
+    assert (plan["cluster"], plan["fm_on_chip"]) == (cluster, on_chip)
+    ctas, _ = sm.occupancy(plan, ops[0].shape[0], ops[4].shape[1])
+    assert ctas >= plan["ctas_per_sm"]
+    ref = sm.sweep_missing_fused(*ops, block_size=block)
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], block_size=block)
+    torch.cuda.synchronize()
+    for name, a, r in zip(MIS_NAMES, got, ref):
         err = float((a.cpu() - r).abs().max())
         limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
         assert err <= limit, (name, err, limit)
@@ -316,10 +373,10 @@ def test_inner_gs_kernel_repeats_and_rejects(cuda):
 @pytest.mark.parametrize("c_one,emit", [(True, True), (True, False),
                                         (False, True), (False, False)])
 @pytest.mark.parametrize("n,p,q", [(120, 256, 200), (100, 75, 48)])
-def test_staggered_kernel_is_bitwise_b1(cuda, n, p, q, c_one, emit):
-    """B4 against B1 on the card, bit for bit (same function, same
-    per-column order, same 32-column slices), and against its plain
-    version on the CPU."""
+def test_staggered_kernel_matches_b1(cuda, n, p, q, c_one, emit):
+    """B4 against B1 on the card and against its plain version on the CPU,
+    both at the f32 tolerances (B1 sums its products in one fused pass per
+    block, B4 in two, so they no longer agree bit for bit)."""
     ops, block = _operands(n, p, q, 1.0 if c_one else 0.5)
     kw = dict(block_size=block, emit_gam_mu=emit, c_one=c_one)
     ref = ss.sweep_fused_staggered(*ops, **kw)
@@ -329,17 +386,14 @@ def test_staggered_kernel_is_bitwise_b1(cuda, n, p, q, c_one, emit):
     b1 = sf.sweep_fused(*dev, **kw)
     torch.cuda.synchronize()
     assert ss.sweep_fused_staggered.launches == launches + 1
-    differ = {}
     for name, a, u, r in zip(NAMES, _flat(got), _flat(b1), _flat(ref)):
         if r is None:
             assert a is None and u is None, name
             continue
-        err = float((a.cpu() - r).abs().max())
-        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
-        assert err <= limit, (name, err, limit)
-        if not torch.equal(a, u):
-            differ[name] = float((a - u).abs().max())
-    assert not differ, differ
+        for other, o in (("plain", r), ("B1", u.cpu())):
+            err = float((a.cpu() - o).abs().max())
+            limit = 1e-4 if name == "gam" else 1e-4 * float(o.abs().max())
+            assert err <= limit, (name, other, err, limit)
 
 
 def test_staggered_kernel_repeats_and_rejects(cuda):
