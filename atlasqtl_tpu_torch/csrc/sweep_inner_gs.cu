@@ -25,7 +25,15 @@
 //  - one CTA of 256 threads owns 32 response columns (one lane per column);
 //    the columns are independent, so CTAs never communicate;
 //  - the block Gram's lower triangle (all the update reads) sits packed in
-//    shared memory: 33 KB at B = 128 in float32, 66 KB in float64;
+//    shared memory for its first GS_ROWS = 128 rows: 33 KB in float32, 66
+//    KB in float64.  A block over 128 rows is taken in the same launch, by
+//    an instance of its own: the rows beyond GS_ROWS are read from device
+//    memory (through L1), each row by the warp that corrects it and by the
+//    chain of its window, so the corrections -G[i, <lo] delta of every
+//    earlier row stay in the kernel and only the B x 32 deltas bound the
+//    block (1544 rows in float32, 640 in float64).  Choosing the row's
+//    memory at run time in the instance for blocks up to 128 would turn its
+//    shared loads into generic ones and double its registers;
 //  - the pushes are left-looking over windows of W = 8 rows: before a
 //    window, each of the 8 warps takes one of its rows and adds the
 //    corrections of every earlier row of the block (sum_m G[i, m] delta_m),
@@ -40,7 +48,8 @@ namespace {
 constexpr int QS = 32;     // response columns per CTA
 constexpr int NT = 256;    // threads per CTA
 constexpr int W = 8;       // chain window (rows); one warp per row
-constexpr int BMAX = 128;  // largest predictor block
+constexpr int GS_ROWS = 128;  // Gram rows kept packed in shared memory
+constexpr int SMEM_MAX = 232448;  // shared memory one CTA may take
 
 __device__ __forceinline__ float exp_t(float v) { return expf(v); }
 __device__ __forceinline__ double exp_t(double v) { return exp(v); }
@@ -51,10 +60,14 @@ __host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
 template <typename T>
 size_t smem_bytes(int B) {
-  return sizeof(T) * ((size_t)tri(B) + (size_t)B * QS + (size_t)W * QS);
+  return sizeof(T) * ((size_t)tri(B < GS_ROWS ? B : GS_ROWS) +
+                      (size_t)B * QS + (size_t)W * QS);
 }
 
-template <typename T>
+// BIG: the block has rows beyond GS_ROWS, read from device memory (an
+// instance of its own, so that a block of at most GS_ROWS reads only shared
+// memory, in the registers it had before)
+template <typename T, bool BIG>
 __global__ void __launch_bounds__(NT) inner_gs_kernel(
     const T* __restrict__ r0,       // (B, q)
     const T* __restrict__ g,        // (B, B)
@@ -72,8 +85,17 @@ __global__ void __launch_bounds__(NT) inner_gs_kernel(
     T* __restrict__ delta_out,      // (B, q)
     int q, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int BS = B < GS_ROWS ? B : GS_ROWS;  // the rows kept in G_s
   T* G_s = reinterpret_cast<T*>(smem_raw);  // lower triangle, row i at tri(i)
-  T* D_s = G_s + tri(B);                    // B x QS deltas
+  T* D_s = G_s + tri(BS);                   // B x QS deltas
+  // row i of the lower triangle: packed in shared memory, or beyond BS the
+  // Gram's own row in device memory
+  auto grow = [&](int i) -> const T* {
+    if constexpr (BIG)
+      return i < BS ? G_s + tri(i) : g + (size_t)i * B;
+    else
+      return G_s + tri(i);
+  };
   T* R_s = D_s + B * QS;                    // W x QS window residuals
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -81,7 +103,7 @@ __global__ void __launch_bounds__(NT) inner_gs_kernel(
   const bool valid = k < q;
   const T c = scal[0], lsi = scal[1];
 
-  for (int e = tid; e < B * B; e += NT) {
+  for (int e = tid; e < BS * B; e += NT) {
     const int i = e / B, m = e % B;
     if (m <= i) G_s[tri(i) + m] = g[e];
   }
@@ -97,7 +119,7 @@ __global__ void __launch_bounds__(NT) inner_gs_kernel(
   for (int lo = 0; lo < B; lo += W) {
     {  // this window's residuals: r0 plus every earlier row's push
       const int i = lo + warp;
-      const T* gi = G_s + tri(i);
+      const T* gi = grow(i);
       T corr = T(0);
       for (int m = 0; m < lo; ++m) corr += gi[m] * D_s[m * QS + lane];
       R_s[warp * QS + lane] = (valid ? r0[(size_t)i * q + k] : T(0)) + corr;
@@ -117,14 +139,14 @@ __global__ void __launch_bounds__(NT) inner_gs_kernel(
 #pragma unroll
       for (int i = 0; i < W; ++i) {
         const int row = lo + i;
-        const T ri = rr[i] - bo[i] * G_s[tri(row) + row];
+        const T ri = rr[i] - bo[i] * grow(row)[row];
         const T mu = ct * (cpv[i] - ri);
         const T logit = c * (l1p[i] - lp[i] - mu * mu / (T(2) * s2) + cst);
         const T gam = T(1) / (T(1) + exp_t(logit));
         const T delta = gam * mu - bo[i];
         D_s[row * QS + lane] = delta;
 #pragma unroll
-        for (int m = i + 1; m < W; ++m) rr[m] += G_s[tri(lo + m) + row] * delta;
+        for (int m = i + 1; m < W; ++m) rr[m] += grow(lo + m)[row] * delta;
         if (valid) {
           const size_t off = (size_t)row * q + k;
           gam_out[off] = gam;
@@ -137,18 +159,19 @@ __global__ void __launch_bounds__(NT) inner_gs_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool BIG>
 int launch(const void* r0, const void* g, const void* cp, const void* gam,
            const void* mu, const void* log_p, const void* log_1p,
            const void* s2, const void* tau, const void* log_tau,
            const void* scal, void* gam_out, void* mu_out, void* delta_out,
            int q, int B, cudaStream_t st) {
   const size_t smem = smem_bytes<T>(B);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      inner_gs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      inner_gs_kernel<T, BIG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  inner_gs_kernel<T><<<(q + QS - 1) / QS, NT, smem, st>>>(
+  inner_gs_kernel<T, BIG><<<(q + QS - 1) / QS, NT, smem, st>>>(
       static_cast<const T*>(r0), static_cast<const T*>(g),
       static_cast<const T*>(cp), static_cast<const T*>(gam),
       static_cast<const T*>(mu), static_cast<const T*>(log_p),
@@ -157,6 +180,20 @@ int launch(const void* r0, const void* g, const void* cp, const void* gam,
       static_cast<const T*>(scal), static_cast<T*>(gam_out),
       static_cast<T*>(mu_out), static_cast<T*>(delta_out), q, B);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool BIG>
+int occupancy(int B) {
+  const size_t smem = smem_bytes<T>(B);
+  int nb = -1;
+  if (smem > SMEM_MAX ||
+      cudaFuncSetAttribute(inner_gs_kernel<T, BIG>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nb, inner_gs_kernel<T, BIG>, NT, smem) != cudaSuccess)
+    return -1;
+  return nb;
 }
 
 }  // namespace
@@ -172,40 +209,33 @@ int atlasqtl_inner_gs(int is_f64, const void* r0, const void* g,
                       const void* tau, const void* log_tau, const void* scal,
                       void* gam_out, void* mu_out, void* delta_out, int q,
                       int B, void* stream) {
-  if (B <= 0 || B % W != 0 || B > BMAX || q <= 0)
+  if (B <= 0 || B % W != 0 || q <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(r0, g, cp, gam, mu, log_p, log_1p, s2, tau,
-                                 log_tau, scal, gam_out, mu_out, delta_out, q,
-                                 B, st)
-                : launch<float>(r0, g, cp, gam, mu, log_p, log_1p, s2, tau,
-                                log_tau, scal, gam_out, mu_out, delta_out, q,
-                                B, st);
+  auto go = [&](auto f) {
+    return f(r0, g, cp, gam, mu, log_p, log_1p, s2, tau, log_tau, scal,
+             gam_out, mu_out, delta_out, q, B, st);
+  };
+  if (is_f64)
+    return B > GS_ROWS ? go(launch<double, true>) : go(launch<double, false>);
+  return B > GS_ROWS ? go(launch<float, true>) : go(launch<float, false>);
+}
+
+// The shared-memory bytes of a launch at block B (float64 when is_f64), -1
+// for a block the kernel does not take.
+int atlasqtl_inner_gs_smem(int is_f64, int B) {
+  if (B <= 0 || B % W != 0) return -1;
+  const size_t smem = is_f64 ? smem_bytes<double>(B) : smem_bytes<float>(B);
+  return smem > SMEM_MAX ? -1 : (int)smem;
 }
 
 // CTAs of the inner-update kernel (float64 when is_f64) resident on one SM
 // at block B (the occupancy calculator), -1 on error.
 int atlasqtl_inner_gs_occupancy(int is_f64, int B) {
-  int nb = -1;
-  cudaError_t err;
-  if (is_f64) {
-    const int smem = (int)smem_bytes<double>(B);
-    err = cudaFuncSetAttribute(inner_gs_kernel<double>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &nb, inner_gs_kernel<double>, NT, smem);
-  } else {
-    const int smem = (int)smem_bytes<float>(B);
-    err = cudaFuncSetAttribute(inner_gs_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &nb, inner_gs_kernel<float>, NT, smem);
-  }
-  return err == cudaSuccess ? nb : -1;
+  if (is_f64)
+    return B > GS_ROWS ? occupancy<double, true>(B)
+                       : occupancy<double, false>(B);
+  return B > GS_ROWS ? occupancy<float, true>(B) : occupancy<float, false>(B);
 }
 
 }  // extern "C"

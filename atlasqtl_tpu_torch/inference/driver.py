@@ -38,6 +38,25 @@ class ElboDecreaseError(RuntimeError):
     becomes non-finite (R/atlasqtl_global_local_core.R:359-360)."""
 
 
+def _log_hotspot_scales(data: Data, state: VBState, cfg: Config,
+                        eps: float):
+    """verbose=2's per-evaluation hotspot-scale diagnostics, the global
+    scale and the quantiles of the local scales (reference:
+    R/atlasqtl_global_local_core.R:297-305), from one host copy of
+    nu_s0, rho_s0, p and lam2_inv."""
+    host = torch.cat([state.nu_s0_vb.reshape(1), state.rho_s0_vb.reshape(1),
+                      data.p_true.reshape(1).to(state.lam2_inv.dtype),
+                      state.lam2_inv]).double().cpu().numpy()
+    nu_s0, rho_s0, p_t = host[0], host[1], int(host[2])
+    glob = math.sqrt(rho_s0 / max(nu_s0 - 1.0, eps) / cfg.shr_fac_inv)
+    lam = np.sqrt(1.0 / host[3:3 + p_t])
+    qs = np.percentile(lam, [0, 25, 50, 75, 100])
+    log.info("Variational hotspot propensity global scale: %.3g", glob)
+    log.info("Approximate variational hotspot propensity local scale: "
+             "min=%.3g 1stQ=%.3g med=%.3g mean=%.3g 3rdQ=%.3g max=%.3g",
+             qs[0], qs[1], qs[2], float(lam.mean()), qs[3], qs[4])
+
+
 def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                      anneal=None, verbose: int = 1) -> FitResult:
     """Run annealed CAVI to convergence."""
@@ -111,6 +130,9 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                     f"(previous {lb_old:.10g})")
             if verbose and (it == it_init or it % max(5, batch_conv) == 0):
                 log.info("Iteration %d: ELBO = %.6f", it, lb_new)
+            if verbose == 2 and (it == it_init
+                                 or it % max(5, batch_conv) == 0):
+                _log_hotspot_scales(data, state, cfg, eps)
 
             if (cfg.debug and lb_old != -math.inf
                     and lb_new + eps + eps_rel * abs(lb_old) < lb_old):

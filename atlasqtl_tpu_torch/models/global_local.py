@@ -223,13 +223,26 @@ def _missing_uses_kernel(cfg: Config, device) -> bool:
     """Whether the exact-missing sweep goes through B2: its kernel for
     float32 on CUDA (which raises on a predictor block it cannot take, as
     B1 does), or sweep="fused" anywhere (the kernel's plain version on the
-    CPU).  Otherwise (float64, the CPU, sweep="xla") the plain engines run:
-    blocked when pair Grams were precomputed, else one coordinate at a
-    time."""
+    CPU), at any block of 8 or more.  Otherwise (float64, the CPU,
+    sweep="xla", or a block under 8 as batch="0" sets, which the reference
+    never sends to its fused kernel: atlasqtl_tpu/models/global_local.py:
+    390-404) the plain engines run: blocked when pair Grams were
+    precomputed, else one coordinate at a time."""
+    if cfg.block_size < 8:
+        return False
     if cfg.sweep == "fused":
         return True
     return (cfg.sweep == "auto" and cfg.dtype == torch.float32
             and torch.device(device).type == "cuda")
+
+
+def _select_missing_sweep(cfg: Config, data: Data) -> str:
+    """The exact-missing engine: "fused" (B2), "blocked" (pair Grams
+    precomputed) or "scan" (one coordinate at a time), chosen from the
+    configuration as atlasqtl_tpu's _select_missing_sweep chooses it."""
+    if _missing_uses_kernel(cfg, data.x.device):
+        return "fused"
+    return "blocked" if data.mis_pair_gram is not None else "scan"
 
 
 # ------------------------------------------------------------ one iteration
@@ -318,14 +331,15 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     msk = data.p_mask[:, None] * data.q_mask[None, :]
     if exact:
         beta_new = colstats = None
-        if _missing_uses_kernel(cfg, dev):
+        engine = _select_missing_sweep(cfg, data)
+        if engine == "fused":
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_fused_driver(
                 data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
                 state.mu_beta, state.fitted, consts, sig2_inv,
                 data_block(cfg, data),
                 data.p_mask, data.q_mask)
             # the kernel masks gam/mu at write time
-        elif data.mis_pair_gram is not None:
+        elif engine == "blocked":
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_blocked(
                 data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat,
                 data.mis_pair_gram, state.gam, state.mu_beta, state.fitted,

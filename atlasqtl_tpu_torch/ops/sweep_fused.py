@@ -130,8 +130,12 @@ def _load():
         lib.atlasqtl_sweep_fused_occupancy.restype = i32
         lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 3
         lib.atlasqtl_sweep_fused_smem.restype = ctypes.c_longlong
-        lib.atlasqtl_sweep_staggered_occupancy.argtypes = [i32, i32]
+        lib.atlasqtl_sweep_staggered_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_sweep_staggered_occupancy.restype = i32
+        lib.atlasqtl_sweep_staggered_smem.argtypes = [i32] * 3
+        lib.atlasqtl_sweep_staggered_smem.restype = ctypes.c_longlong
+        lib.atlasqtl_sweep_staggered_clocks.argtypes = [ptr]
+        lib.atlasqtl_sweep_staggered_clocks.restype = i32
         lib.atlasqtl_inner_gs_occupancy.argtypes = [i32, i32]
         lib.atlasqtl_inner_gs_occupancy.restype = i32
         lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 7
@@ -145,6 +149,8 @@ def _load():
         lib.atlasqtl_sweep_missing_clocks.restype = i32
         lib.atlasqtl_sweep_missing_window.argtypes = []
         lib.atlasqtl_sweep_missing_window.restype = i32
+        lib.atlasqtl_inner_gs_smem.argtypes = [i32, i32]
+        lib.atlasqtl_inner_gs_smem.restype = i32
         lib.atlasqtl_inner_gs.argtypes = [i32] + [ptr] * 14 + [i32] * 2 + [ptr]
         lib.atlasqtl_inner_gs.restype = i32
         lib.atlasqtl_error_string.argtypes = [ctypes.c_int]
@@ -154,6 +160,7 @@ def _load():
 
 
 # the kernel's constants (csrc/sweep_fused.cu)
+FUSED_BMAX = 128          # the largest block a launch walks in one piece
 FUSED_WIDTHS = (32, 40)   # the slice widths built (response columns)
 FUSED_NCH = 32            # sample rows per pass chunk
 FUSED_NSTAGE = 3          # F and x_b chunk stages
@@ -178,6 +185,34 @@ def _fused_smem_bytes(width: int, block: int, r_aug: int) -> int:
                 + 2 * width)
 
 
+def sub_block(block: int) -> int:
+    """The piece a sweep kernel walks a predictor block in: the block itself
+    up to FUSED_BMAX rows, else the largest multiple of 8 up to FUSED_BMAX
+    that divides it (block 256: two pieces of 128; block 200: five of 40).
+    The Gauss-Seidel order is unchanged: a coordinate of a later piece sees
+    the earlier pieces' updates through F (x_j^T (F + X_1 delta_1) =
+    x_j^T F + G_j1 delta_1), so the sweep equals the whole-block sweep up to
+    rounding.  Raises ValueError for a block that is not a positive
+    multiple of 8."""
+    if block <= 0 or block % 8:
+        raise ValueError(f"unsupported block {block} (a positive multiple "
+                         "of 8)")
+    return max(s for s in range(8, min(block, FUSED_BMAX) + 1, 8)
+               if block % s == 0)
+
+
+def sub_block_gram(gram_flat, block: int, sub: int):
+    """The (p, sub) stacked diagonal Gram pieces of the (p, block) stacked
+    diagonal Gram blocks: row j keeps the columns of its own piece."""
+    if sub == block:
+        return gram_flat
+    p = gram_flat.shape[0]
+    k = block // sub
+    g = gram_flat.reshape(p // sub, sub, k, sub)
+    piece = torch.arange(p // sub, device=gram_flat.device)
+    return g[piece, :, piece % k, :].reshape(p, sub).contiguous()
+
+
 def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
                       sms: int = H100_SMS) -> dict:
     """The launch of B1 at (n, q, block, r + 2) on a card of `sms` SMs: one
@@ -186,20 +221,31 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     the two widths and over 200 KB at block 128), no cluster.  Of the widths
     built, the one whose slices fill whole waves best: the fewest columns
     of SM time (waves x width), the narrower on a tie.  At q = 10000 on 132
-    SMs, 40 columns take 2 waves where 32 take 3.  Returns slice_width,
-    cluster, grid, waves, smem_bytes and ctas_per_sm; the C entry point
-    takes the width and sizes the rest itself.  Raises ValueError on a
-    shape the kernel does not take."""
-    if (n <= 0 or block <= 0 or block % FUSED_W or block > 128 or q <= 0
-            or q % 4 or not 0 < r_aug <= 48):
+    SMs, 40 columns take 2 waves where 32 take 3.  A block over FUSED_BMAX
+    is walked in pieces of `sub_block` rows.  Returns slice_width,
+    sub_block, cluster, grid, waves, smem_bytes, ctas_per_sm and
+    zrow_parts (z_row partial rows per slice); the C entry point takes the
+    width and the piece and sizes the rest itself.
+    Raises ValueError on a shape the kernel does not take."""
+    if (n <= 0 or block <= 0 or block % FUSED_W or q <= 0 or q % 4
+            or not 0 < r_aug <= 48):
         raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
                          f"q={q}, block={block}, r+2={r_aug}")
+    sub = sub_block(block)
+    width, waves = _widest_fill(q, FUSED_WIDTHS, sms)
+    return dict(slice_width=width, sub_block=sub, cluster=1,
+                grid=-(-q // width), waves=waves,
+                smem_bytes=_fused_smem_bytes(width, sub, r_aug),
+                ctas_per_sm=1, zrow_parts=1)
+
+
+def _widest_fill(q: int, widths, sms: int):
+    """(width, waves) of the slice width among `widths` whose slices fill
+    whole waves of `sms` SMs best: the fewest columns of SM time (waves x
+    width), the narrower on a tie."""
     waves = lambda w: -(-(-(-q // w)) // sms)
-    width = min(FUSED_WIDTHS, key=lambda w: (waves(w) * w, w))
-    return dict(slice_width=width, cluster=1, grid=-(-q // width),
-                waves=waves(width),
-                smem_bytes=_fused_smem_bytes(width, block, r_aug),
-                ctas_per_sm=1)
+    width = min(widths, key=lambda w: (waves(w) * w, w))
+    return width, waves(width)
 
 
 def occupancy(width: int, block: int, r_aug: int) -> int:
@@ -323,12 +369,15 @@ def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
 
 def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                  theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
-                 block_size, emit_gam_mu, c_one, slice_width=None):
+                 block_size, emit_gam_mu, c_one, slice_width=None,
+                 plan=None):
     """Check the operands of one fused-sweep launch and launch the C entry
     point `entry` of the kernel library (atlasqtl_sweep_fused, B1, or
-    atlasqtl_sweep_staggered, B4: the same arguments and function) in
-    slices of `slice_width` columns (None: B1's launch plan picks them);
-    raises on what the kernels cannot take and on a failed launch."""
+    atlasqtl_sweep_staggered, B4: the same arguments and function) under
+    `plan(n, q, block, r + 2, sms)` (None: B1's `fused_launch_plan`), whose
+    slice width `slice_width` overrides; a block over FUSED_BMAX goes in as
+    its `sub_block` pieces with their Gram pieces.  Raises on what the
+    kernels cannot take and on a failed launch."""
     n, p = x.shape
     q = beta.shape[1]
     what = entry.replace("atlasqtl_", "")
@@ -348,14 +397,16 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                 f"{what} kernel: {name} must be a contiguous, 16-byte "
                 f"aligned float32 CUDA tensor of shape {shapes[name]}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if (block_size % 8 or block_size > 128 or p % block_size or q % 4
+    if (block_size <= 0 or block_size % 8 or p % block_size or q % 4
             or l_aug.shape[1] > 48):
         raise ValueError(f"{what} kernel: unsupported shape n={n}, p={p},"
                          f" q={q}, block={block_size}, r+2={l_aug.shape[1]}")
-    if slice_width is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        slice_width = fused_launch_plan(n, q, block_size, l_aug.shape[1],
-                                        sms)["slice_width"]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    launch = (plan or fused_launch_plan)(n, q, block_size, l_aug.shape[1],
+                                         sms)
+    slice_width = slice_width or launch["slice_width"]
+    sub = launch["sub_block"]
+    gram_flat = sub_block_gram(gram_flat, block_size, sub)
     lib = _load()
     scal = torch.stack([torch.as_tensor(c, dtype=torch.float32,
                                         device=x.device).reshape(()),
@@ -365,7 +416,7 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     beta_out = torch.empty_like(beta)
     gam_out = torch.empty_like(beta) if emit_gam_mu else None
     mu_out = torch.empty_like(beta) if emit_gam_mu else None
-    zrow_part = torch.empty((-(-q // slice_width), p),
+    zrow_part = torch.empty((launch["zrow_parts"] * -(-q // slice_width), p),
                             dtype=torch.float32, device=x.device)
     z_row = torch.empty_like(theta)
     z_col, gcol, m2gcol, b2col = (torch.empty_like(zeta) for _ in range(4))
@@ -375,13 +426,13 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         ptr(beta), ptr(fitted), ptr(theta), ptr(p_mask), ptr(zeta),
         ptr(q_mask), ptr(sig2_beta), ptr(tau), ptr(scal), ptr(beta_out),
         ptr(gam_out), ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col),
-        ptr(gcol), ptr(m2gcol), ptr(b2col), n, p, q, block_size,
+        ptr(gcol), ptr(m2gcol), ptr(b2col), n, p, q, sub,
         l_aug.shape[1], int(bool(c_one)), slice_width,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed at n={n}, p={p}, "
-                           f"q={q}, block={block_size}, {slice_width}-column"
-                           f" slices: "
+                           f"q={q}, block={block_size} (pieces of {sub}), "
+                           f"{slice_width}-column slices: "
                            + lib.atlasqtl_error_string(err).decode())
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)

@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from .interp import K_BASE, tail_interp_operands
-from .sweep_fused import H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, _load
+from .sweep_fused import H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, _load, sub_block
 
 # the kernel's constants (csrc/sweep_missing_fused.cu)
 MIS_QS = 32                          # response columns per slice
@@ -71,14 +71,18 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int) -> dict:
     one larger, the cluster grows (up to MIS_SPREAD), so that few slices
     spread over more SMs.  Where no cluster holds the rows, the
     device-memory branch: Fm stays in device memory, one CTA per slice.
-    Returns slice_width, cluster, grid, smem_bytes, fm_on_chip,
-    rows_per_cta and ctas_per_sm (the CTAs that share an SM); the C entry
-    point takes the decisions (cluster, fm_on_chip) and derives the rest.
-    Raises ValueError on a shape the kernel does not take."""
-    if (n <= 0 or block <= 0 or block % MIS_W or block > 128 or q % 4
-            or q <= 0 or not 0 < r_aug <= 48):
+    A block over 128 is walked in pieces of `sub_block` rows
+    (ops/sweep_fused.py:sub_block); the kernel builds its pair Grams per
+    window, so no piece needs anything precomputed.  Returns slice_width,
+    sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta and
+    ctas_per_sm (the CTAs that share an SM); the C entry point takes the
+    decisions (piece, cluster, fm_on_chip) and derives the rest.  Raises
+    ValueError on a shape the kernel does not take."""
+    if (n <= 0 or block <= 0 or block % MIS_W or q % 4 or q <= 0
+            or not 0 < r_aug <= 48):
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, q={q}, block={block}, r+2={r_aug}")
+    sub = sub_block(block)
     slices = -(-q // MIS_QS)
     smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug)
     for limit, ctas in ((SMEM_TWO_PER_SM, 2), (SMEM_MAX, 1)):
@@ -88,10 +92,11 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int) -> dict:
             cs = fits[0]
             while cs < MIS_SPREAD and slices * (cs + 1) <= H100_SMS:
                 cs += 1
-            return dict(slice_width=MIS_QS, cluster=cs, grid=slices * cs,
+            return dict(slice_width=MIS_QS, sub_block=sub, cluster=cs,
+                        grid=slices * cs,
                         smem_bytes=smem(cs), fm_on_chip=True,
                         rows_per_cta=-(-n // cs), ctas_per_sm=ctas)
-    return dict(slice_width=MIS_QS, cluster=1, grid=slices,
+    return dict(slice_width=MIS_QS, sub_block=sub, cluster=1, grid=slices,
                 smem_bytes=_mis_smem_bytes(False, 0, r_aug), fm_on_chip=False,
                 rows_per_cta=n, ctas_per_sm=2)
 
@@ -204,7 +209,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                 f"16-byte aligned float32 CUDA tensor of shape "
                 f"{shapes[name]}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
-    if block_size % 8 or block_size > 128 or p % block_size or q % 4 \
+    if block_size <= 0 or block_size % 8 or p % block_size or q % 4 \
             or r_aug > 48:
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, p={p}, q={q}, block={block_size}, "
@@ -227,7 +232,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(l_aug), ptr(n_stack), ptr(fitted), ptr(theta), ptr(p_mask),
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
-        block_size, r_aug, plan["cluster"], int(plan["fm_on_chip"]),
+        plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -17,6 +17,10 @@ import torch
 from .sweep import SweepConsts, _inner_gs, sweep_complete
 from .sweep_fused import _load
 
+# the largest block the kernel takes (csrc/sweep_inner_gs.cu:smem_bytes:
+# the Gram's first 128 rows packed, B x 32 deltas, 8 x 32 residuals, at
+# most 232,448 bytes)
+GS_BMAX = {torch.float32: 1544, torch.float64: 640}
 _BLOCK_OPERANDS = ("r0", "cp_b", "gam_b", "mu_b", "log_p", "log_1p")
 _COLUMN_OPERANDS = ("sig2_beta", "tau", "log_tau")
 
@@ -53,10 +57,12 @@ def _inner_gs_cuda(r0, g_b, cp_b, gam_b, mu_b, log_p, log_1p, sig2_beta, tau,
                 f"inner_gs kernel: {name} must be a contiguous {dt} tensor of "
                 f"shape {shapes[name]} on {r0.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    if B % 8 or B > 128:
-        raise ValueError(f"inner_gs kernel: unsupported block {B} (a "
-                         "multiple of 8 up to 128)")
     lib = _load()
+    if B <= 0 or B % 8 or lib.atlasqtl_inner_gs_smem(
+            int(dt == torch.float64), B) < 0:
+        raise ValueError(f"inner_gs kernel: unsupported block {B} (a "
+                         f"multiple of 8 whose deltas fit in shared memory:"
+                         f" {GS_BMAX[dt]} in {dt})")
     gam_out, mu_out, delta = (torch.empty_like(r0) for _ in range(3))
     err = lib.atlasqtl_inner_gs(
         int(dt == torch.float64), r0.data_ptr(), g_b.data_ptr(),

@@ -118,7 +118,7 @@ class Config:
     dtype: Any = torch.float32
     elbo_dtype: Any = torch.float64
     use_pallas: bool = False
-    sweep: str = "auto"   # "auto" | "fused" | "xla"
+    sweep: str = "auto"   # "auto" | "fused" | "pallas" | "xla"
     tol: float = 0.1
     maxit: int = dataclasses.field(default=1000, compare=False)
     df: int = 1

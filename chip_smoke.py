@@ -2,15 +2,16 @@
 """Drive the PyTorch/CUDA port (atlasqtl_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases
-    python3 chip_smoke.py kernel mis_kernel   # just the kernel-vs-plain phases
+    python3 chip_smoke.py kernel mis_kernel   # just these phases
 
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
 per source, started together) and prints ptxas's registers and spills
-(B1 and B2 may not spill), then:
+(no kernel may spill), then:
   kernel  the kernel against its plain PyTorch version on the card, float32,
           one sweep each, identical inputs, all four mode pairs
           (converged/annealed x full/lite), at four shapes (ragged q;
-          n % 8 != 0 with block 80; the fit phase's shape; the eQTL n and q);
+          n % 8 != 0 with block 80; the fit phase's shape; the eQTL n and
+          q), and at block 256 (pieces of 128) at the fit shape;
           times both; at the eQTL n and q checks the launch plan against
           the kernel (shared memory, CTAs resident per SM) and runs and
           times each slice width built (32 and 40 columns) against the
@@ -22,36 +23,48 @@ per source, started together) and prints ptxas's registers and spills
           the card in float32 agrees with the CPU float64 fit;
   eqtl    atlasqtl() at the eqtl_1host shape (n=1000, p=50000, q=10000),
           anneal=(1, 2, 5), maxit=10: ms per sweep and per iteration, host
-          init and ELBO seconds, peak device memory, launches;
+          init and ELBO seconds, peak device memory, launches (the eQTL
+          phases share each problem's host-drawn initial state, passed as
+          list_init);
   mis_kernel  the exact-missing kernel (B2) against its plain version,
           float32, c = 1 and c = 0.5, seeded MCAR missingness, at ten
           shapes (ragged q; n % 8 != 0 with block 80; the fit shape; the
           eQTL n and q; shapes whose launch plans take each cluster size
-          and the device-memory branch, MIS_SHAPES); checks the CTAs
+          and the device-memory branch, MIS_SHAPES) and at block 256 at
+          the fit shape; checks the CTAs
           resident per SM against the plan's; times both at the fit and
           eQTL-cut shapes, with the kernel's phase clocks;
   missing_fit  atlasqtl() at the sim_anneal shape with 15% of Y missing,
           missing="exact" (B2 launches once per iteration) and "impute" (B1
           does), each to convergence with hotspot AUC >= 0.95; a small fit
           on the card in float32 agrees with the CPU float64 fit, both modes;
-  eqtl_missing  the eqtl phase with 15% of Y missing, once per mode.
+  eqtl_missing  the eqtl phase with 15% of Y missing, once per mode;
+  block_fits  atlasqtl(..., block_size=256) at the sim_anneal shape on
+          complete data (B1, walking each block in pieces of 128) and with
+          15% of Y missing (exact: B2; impute: B1), each to convergence
+          with hotspot AUC >= 0.95 and one launch per iteration; a batch="0"
+          fit with NaN in Y there (the plain engines, no kernel), cut to 2
+          iterations; small fits of each against the CPU float64 fit;
   gs_kernel  the inner Gauss-Seidel kernel (B3) against its plain version,
           float32 and float64, c = 1 and c = 0.5, one predictor block at
-          (B, q) = (128, 200) ragged, (80, 48), (128, 504), (128, 10000);
-          times both at the two largest;
+          (B, q) = (128, 200) ragged, (80, 48), (128, 504), (128, 10000),
+          (256, 504) (a block over 128 in one launch); times both at the
+          block-128 shapes of q >= 504;
   stag_kernel  the staggered kernel (B4) against B1 on the card and against
           its plain version (gam 1e-4, the rest 1e-4 of max), all four mode
-          pairs, at the kernel phase's shapes and the deep-n
-          (5000, 2048, 1024); times B4 and B1 side by side at the two
-          largest;
+          pairs, at the kernel phase's shapes, the deep-n (5000, 2048,
+          1024), the 40-column (300, 512, 4804) and block 256 at the fit
+          shape; times B1, B4, B4, B1 in turns at the four largest (the
+          fit phase's shape too), with B4's launch plan (width, waves) and
+          phase clocks;
   sweeps_fit  fit_global_local at the sim_anneal shape to convergence through
           Config(sweep="pallas") (B3 launches once per predictor block per
           iteration) and Config(sweep_stagger=True) (B4 once per
           iteration), beside the default route (B1); B4's fit reaches B1's
           converged state (iterations within 2%, lb_opt within 1e-5
           relative, PIPs within 1e-2); small fits on the card through each
-          route agree with the CPU float64 fit, and a float64 use_pallas fit
-          on the card matches it to 1e-6;
+          route, at block 128 and 256, agree with the CPU float64 fit, and
+          float64 use_pallas fits on the card match it to 1e-6;
   eqtl_sweeps  the eQTL problem built once, then 10 iterations through B3
           and through B4 from clones of its state;
   scaling  B1 and B2 timed at (n, 2048, 10000), n = 250 .. 2000, and each
@@ -88,13 +101,18 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
               (5000, 256, 1024, 0.15), (7000, 256, 256, 0.15),
               (8000, 256, 256, 0.15))
 PHASES = ("kernel", "fit", "eqtl", "mis_kernel", "missing_fit",
-          "eqtl_missing", "gs_kernel", "stag_kernel", "sweeps_fit",
-          "eqtl_sweeps", "scaling")
+          "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
+          "sweeps_fit", "eqtl_sweeps", "scaling")
 SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
-GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000))   # B, q
-# the kernel phase's shapes and bench.py's pod_slice n and q with p cut
-STAG_SHAPES = KERNEL_SHAPES + ((5000, 2048, 1024),)
+GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
+             (256, 504))   # B, q; block 256 in one launch
+# the kernel phase's shapes, bench.py's pod_slice n and q with p cut, and a
+# shape whose launch plan takes 40-column slices in one wave
+STAG_SHAPES = KERNEL_SHAPES + ((5000, 2048, 1024), (300, 512, 4804))
+# n, p, q of the block-256 cases (walked in pieces of 128) of the kernel
+# phases, at the fit phase's shape
+BLOCK256_SHAPE = (300, 2048, 500)
 FP64_PEAK = 67e12     # H100 SXM float64 on the tensor cores, FLOP/s
 DEVICE = "cuda"
 FIT_SHAPE = (300, 2000, 500, 20, 100)     # n, p, q, active SNPs, hit traits
@@ -134,6 +152,22 @@ def ptxas_summary(report):
         if m and name:
             out.setdefault(name, {})["registers"] = int(m.group(1))
     return out
+
+
+def held(label, got, ref, names, tol=1e-4):
+    """Max abs error of each output of `got` against `ref` by name; raises
+    past the tolerance: gam `tol`, the others tol * max |ref| (also on
+    NaN).  The phases hold float32 kernels at 1e-4, float64 at 1e-10."""
+    errs = {}
+    for name, a, r in zip(names, got, ref):
+        if r is None:
+            continue
+        errs[name] = float((a - r).abs().max())
+        limit = tol if name == "gam" else tol * float(r.abs().max())
+        if not (errs[name] <= limit):
+            raise AssertionError(f"{label}: {name} max abs err "
+                                 f"{errs[name]:.3g} > {limit:.3g}")
+    return errs
 
 
 def pct(bound_ms, ms):
@@ -237,9 +271,10 @@ def simulate(n, p, q, seed, p_act, q_hit, missing_frac=0.0):
     return x, y
 
 
-def kernel_inputs(n, p, q, c, seed=0):
-    """Device operands of one sweep at (n, p, q), built by the port's own
-    data/state builders from a seeded random problem."""
+def kernel_inputs(n, p, q, c, seed=0, block=128):
+    """Device operands of one sweep at (n, p, q) and predictor block
+    `block`, built by the port's own data/state builders from a seeded
+    random problem."""
     import torch
     from atlasqtl_tpu_torch.types import Config
     from atlasqtl_tpu_torch.models import global_local as gl
@@ -251,7 +286,7 @@ def kernel_inputs(n, p, q, c, seed=0):
     x, y = simulate(n, p, q, seed, min(10, p), max(2, q // 5))
     x = (x - x.mean(0)) / x.std(0, ddof=1)
     y = y - y.mean(0)
-    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q))
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q), block_size=block)
     data = gl.build_data(x, y, cfg, DEVICE)
     block = gl.data_block(cfg, data)
     state = gl.build_state(elic.auto_set_init(y, p, (4, 16), float(q), seed),
@@ -299,16 +334,9 @@ def b1_plan_check(ops, block, ref, kw):
                                      slice_width=w)
         got = fn()
         torch.cuda.synchronize()
-        errs = {}
-        for name, a, r in zip(B1_NAMES, list(got[:6]) + list(got[6]),
-                              list(ref[:6]) + list(ref[6])):
-            if r is None:
-                continue
-            errs[name] = float((a - r).abs().max())
-            limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
-            if not (errs[name] <= limit):
-                raise AssertionError(f"B1 in {w}-column slices vs plain: "
-                                     f"{name} {errs[name]:.3g} > {limit:.3g}")
+        errs = held(f"B1 in {w}-column slices vs plain",
+                    list(got[:6]) + list(got[6]), list(ref[:6]) + list(ref[6]),
+                    B1_NAMES)
         out["by_width"][w] = dict(
             ms=cuda_ms(fn, 7), grid=-(-q // w),
             waves=-(-(-(-q // w)) // sms), max_abs_err=errs,
@@ -332,20 +360,10 @@ def phase_kernel():
             ref = sf.sweep_fused_plain(*ops, **kw)
             torch.cuda.synchronize()
             flat = lambda o: list(o[:6]) + list(o[6])
-            errs = {}
-            for name, a, r in zip(names, flat(got), flat(ref)):
-                if r is None:
-                    continue
-                err = float((a - r).abs().max())
-                scale = float(r.abs().max())
-                errs[name] = err
-                max_abs = max(max_abs, err)
-                limit = 1e-4 if name == "gam" else 1e-4 * scale
-                if not (err <= limit):  # also catches NaN
-                    raise AssertionError(
-                        f"kernel vs plain at n={n} p={p} q={q} c_one={c_one}"
-                        f" emit={emit_gm}: {name} max abs err {err:.3g} > "
-                        f"{limit:.3g}")
+            errs = held(f"kernel vs plain at n={n} p={p} q={q} "
+                        f"c_one={c_one} emit={emit_gm}", flat(got), flat(ref),
+                        names)
+            max_abs = max(max_abs, *errs.values())
             case = dict(n=n, p=p, q=q, block=block, c_one=c_one,
                         emit_gam_mu=emit_gm, max_abs_err=errs)
             if (n, p, q) == KERNEL_SHAPES[-1] or c_one:
@@ -363,13 +381,31 @@ def phase_kernel():
             cases.append(case)
             del ops, got, ref
             torch.cuda.empty_cache()
+    n, p, q = BLOCK256_SHAPE
+    for c_one in (True, False):  # block 256: two pieces of 128
+        ops, block = kernel_inputs(n, p, q, 1.0 if c_one else 0.5, block=256)
+        kw = dict(block_size=block, emit_gam_mu=True, c_one=c_one)
+        got = sf.sweep_fused(*ops, **kw)
+        ref = sf.sweep_fused_plain(*ops, **kw)
+        torch.cuda.synchronize()
+        flat = lambda o: list(o[:6]) + list(o[6])
+        errs = held(f"kernel vs plain at n={n} p={p} q={q} block={block} "
+                    f"c_one={c_one}", flat(got), flat(ref), names)
+        max_abs = max(max_abs, *errs.values())
+        case = dict(n=n, p=p, q=q, block=block, sub_block=sf.sub_block(block),
+                    c_one=c_one, emit_gam_mu=True, max_abs_err=errs)
+        if c_one:
+            case["ms"] = cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 5)
+        cases.append(case)
+        del ops, got, ref
     emit({"phase": "kernel", "cases": cases, "max_abs_err": max_abs})
     return max_abs, timing
 
 
-def mis_kernel_inputs(n, p, q, c, missing_frac, seed=0):
-    """Device operands of one exact-missing sweep at (n, p, q), built by the
-    port's own data/state builders from a seeded random problem."""
+def mis_kernel_inputs(n, p, q, c, missing_frac, seed=0, block=128):
+    """Device operands of one exact-missing sweep at (n, p, q) and block
+    `block`, built by the port's own data/state builders from a seeded
+    random problem."""
     import torch
     from atlasqtl_tpu_torch.types import Config
     from atlasqtl_tpu_torch.models import global_local as gl
@@ -382,7 +418,7 @@ def mis_kernel_inputs(n, p, q, c, missing_frac, seed=0):
     x, y = simulate(n, p, q, seed, min(10, p), max(2, q // 5), missing_frac)
     x = (x - x.mean(0)) / x.std(0, ddof=1)
     y = y - np.nanmean(y, axis=0)
-    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q))
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q), block_size=block)
     data = gl.build_data(x, y, cfg, DEVICE)
     block = gl.data_block(cfg, data)
     state = gl.build_state(elic.auto_set_init(y, p, (4, 16), float(q), seed),
@@ -417,17 +453,9 @@ def phase_mis_kernel():
             got = sm.sweep_missing_fused(*ops, **kw)
             ref = sm.sweep_missing_fused_plain(*ops, **kw)
             torch.cuda.synchronize()
-            errs = {}
-            for name, a, r in zip(names, got, ref):
-                err = float((a - r).abs().max())
-                scale = float(r.abs().max())
-                errs[name] = err
-                max_abs = max(max_abs, err)
-                limit = 1e-4 if name == "gam" else 1e-4 * scale
-                if not (err <= limit):  # also catches NaN
-                    raise AssertionError(
-                        f"missing kernel vs plain at n={n} p={p} q={q} c={c}:"
-                        f" {name} max abs err {err:.3g} > {limit:.3g}")
+            errs = held(f"missing kernel vs plain at n={n} p={p} q={q} c={c}",
+                        got, ref, names)
+            max_abs = max(max_abs, *errs.values())
             n_, r_aug = ops[0].shape[0], ops[4].shape[1]
             plan = sm.missing_launch_plan(n_, ops[6].shape[1], block, r_aug)
             ctas, clusters = sm.occupancy(plan, n_, r_aug)
@@ -456,6 +484,21 @@ def phase_mis_kernel():
             cases.append(case)
             del ops, got, ref
             torch.cuda.empty_cache()
+    n, p, q = BLOCK256_SHAPE
+    for c in (1.0, 0.5):  # block 256: two pieces of 128
+        ops, block = mis_kernel_inputs(n, p, q, c, 0.15, block=256)
+        got = sm.sweep_missing_fused(*ops, block_size=block)
+        ref = sm.sweep_missing_fused_plain(*ops, block_size=block)
+        torch.cuda.synchronize()
+        errs = held(f"missing kernel vs plain at n={n} p={p} q={q} "
+                    f"block={block} c={c}", got, ref, names)
+        max_abs = max(max_abs, *errs.values())
+        cases.append(dict(n=n, p=p, q=q, missing_frac=0.15, block=block,
+                          sub_block=sm.missing_launch_plan(
+                              n, ops[6].shape[1], block,
+                              ops[4].shape[1])["sub_block"],
+                          c=c, max_abs_err=errs))
+        del ops, got, ref
     emit({"phase": "mis_kernel", "window": w, "cases": cases,
           "max_abs_err": max_abs})
     return max_abs, timing
@@ -610,6 +653,83 @@ def phase_missing_fit():
     return launches
 
 
+def phase_block_fits():
+    """atlasqtl(..., block_size=256) (each block walked in pieces of 128:
+    B1 on complete data and in impute mode, B2 in exact mode, 15% of Y
+    missing) and a batch="0" fit with NaN in Y (block 1: the plain
+    engines, no kernel, as the reference routes it).  Small fits on the card
+    are held against the CPU float64 fit (PIPs within 1e-2); the fits at the
+    sim_anneal shape are each driven with every kernel's count set to 0
+    just before it and read just after, the batch="0" one cut to 2
+    iterations."""
+    import torch
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    counters = {"sweep_fused": sf.sweep_fused,
+                "sweep_missing_fused": sm.sweep_missing_fused}
+    fits = (("complete", {}), ("exact", {"missing": "exact"}),
+            ("impute", {"missing": "impute"}))
+    small = {}
+    for name, kw in fits + (("batch0", {"batch": "0"}),):
+        frac = 0.0 if name == "complete" else 0.2
+        xs, ys = simulate(100, 75 if name == "batch0" else 300, 20, 123, 10,
+                          20, missing_frac=frac)
+        args = dict(p0=(5, 25), verbose=0, user_seed=123, **kw,
+                    **({} if name == "batch0" else {"block_size": 256}))
+        gpu = at.atlasqtl(ys, xs, dtype=torch.float32, device=DEVICE, **args)
+        cpu = at.atlasqtl(ys, xs, dtype=torch.float64, device="cpu", **args)
+        small[name] = float(np.abs(gpu.gam_vb - cpu.gam_vb).max())
+        if not (gpu.converged and small[name] <= 1e-2):
+            raise AssertionError(
+                f"small {name} fit: GPU float32 vs CPU float64 PIPs differ "
+                f"by {small[name]:.3g} (converged={gpu.converged})")
+
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    launches = {}
+    for name, kw in fits + (("batch0", {"batch": "0"}),):
+        x, y = simulate(n, p, q, 0, p_act, q_hit,
+                        missing_frac=0.0 if name == "complete" else 0.15)
+        run = (dict(anneal=None, maxit=2) if name == "batch0"
+               else dict(anneal=(1, 2, 10), block_size=256))
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = at.atlasqtl(y, x, p0=(5, 25), dtype=torch.float32, verbose=0,
+                          user_seed=0, device=DEVICE, **run, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in counters.items()}
+        auc = hotspot_auc(res.theta_vb, p_act)
+        out = dict(phase="block_fits", fit=name, n=n, p=p, q=q,
+                   block=1 if name == "batch0" else 256,
+                   missing_frac=0.0 if name == "complete" else 0.15,
+                   converged=bool(res.converged), it=res.it, launches=counts,
+                   seconds=secs, lb_opt=res.lb_opt, hotspot_auc_theta=auc,
+                   small_fit_pip_max_diff_vs_cpu_f64=small[name],
+                   finite=bool(np.isfinite(res.gam_vb).all()
+                               and np.isfinite(res.theta_vb).all()))
+        emit(out)
+        if res.gam_vb.shape != (p, q) or not out["finite"]:
+            raise AssertionError(f"block_fits {name}: shapes or finiteness")
+        if name == "batch0":
+            if sum(counts.values()) or res.it != 2:
+                raise AssertionError(f"block_fits batch0: launches {counts} "
+                                     f"in {res.it} iterations")
+            continue
+        own = "sweep_missing_fused" if name == "exact" else "sweep_fused"
+        launches[name] = counts[own]
+        if not res.converged or auc < 0.95:
+            raise AssertionError(f"block_fits {name}: converged="
+                                 f"{res.converged}, hotspot AUC {auc:.3f}")
+        if counts[own] != res.it or sum(counts.values()) != res.it:
+            raise AssertionError(f"block_fits {name}: launches {counts} for "
+                                 f"{res.it} iterations")
+    return launches
+
+
 def timed_run(run, launch, counter, bound, sweep=None):
     """Run `run()` (a fit) with per-stage timers wrapped around the port's
     own functions: host init, state building, ELBO, the iteration, and the
@@ -700,18 +820,43 @@ def timed_run(run, launch, counter, bound, sweep=None):
     return res, stats
 
 
-def eqtl_run(phase, x, y, launch_mod, launch_fn, counter, bound, **fit_kw):
-    """One atlasqtl() at the eQTL shape under `timed_run`'s timers."""
+_EQTL = {}
+
+
+def eqtl_problem(missing_frac=0.0):
+    """The eQTL shape's seeded (x, y) with a share missing_frac of Y
+    missing, and the initial state atlasqtl(user_seed=1) would draw for it
+    on the host, made once per missing fraction and shared by the phases
+    that fit it (the host init takes ~30-40 s at this shape): (x, y, init,
+    host seconds of the init)."""
+    if missing_frac not in _EQTL:
+        from atlasqtl_tpu_torch.io.prepare import prepare_data
+        from atlasqtl_tpu_torch.inference import elicitation as elic
+        n, p, q, p_act, q_hit = EQTL_SHAPE
+        x, y = simulate(n, p, q, 1, p_act, q_hit, missing_frac=missing_frac)
+        dat = prepare_data(y, x, 0.1, 10, 1, 0)
+        t0 = time.perf_counter()
+        init = elic.auto_set_init(dat.y, dat.x.shape[1], (5, 25), float(q), 1)
+        _EQTL[missing_frac] = (x, y, init, time.perf_counter() - t0)
+    return _EQTL[missing_frac]
+
+
+def eqtl_run(phase, missing_frac, launch_mod, launch_fn, counter, bound,
+             **fit_kw):
+    """One atlasqtl() at the eQTL shape under `timed_run`'s timers, from
+    eqtl_problem's shared initial state (list_init)."""
     import torch
     import atlasqtl_tpu_torch as at
 
+    x, y, init, init_s = eqtl_problem(missing_frac)
     n, p = x.shape
     q = y.shape[1]
     res, stats = timed_run(
         lambda: at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5), maxit=10,
                             dtype=torch.float32, verbose=0, user_seed=1,
-                            device=DEVICE, **fit_kw),
+                            device=DEVICE, list_init=init, **fit_kw),
         (launch_mod, launch_fn), counter, bound)
+    stats["host_init_s"] = init_s  # drawn once, by eqtl_problem
     out = dict(phase=phase, **fit_kw, n=n, p=p, q=q, anneal=[1, 2, 5],
                maxit=10, **stats, finite=bool(np.isfinite(res.gam_vb).all()))
     emit(out)
@@ -738,9 +883,7 @@ def b2_launch_bound(a, k):
 
 def phase_eqtl():
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
-    n, p, q, p_act, q_hit = EQTL_SHAPE
-    x, y = simulate(n, p, q, 1, p_act, q_hit)
-    eqtl_run("eqtl", x, y, sf, "_sweep_fused_cuda", sf.sweep_fused,
+    eqtl_run("eqtl", 0.0, sf, "_sweep_fused_cuda", sf.sweep_fused,
              b1_launch_bound)
 
 
@@ -749,12 +892,11 @@ def phase_eqtl_missing():
     with missing="exact" (B2) and once with "impute" (B1)."""
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
     from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
-    n, p, q, p_act, q_hit = EQTL_SHAPE
-    x, y = simulate(n, p, q, 1, p_act, q_hit, missing_frac=0.15)
-    eqtl_run("eqtl_missing", x, y, sm, "_sweep_missing_fused_cuda",
+    eqtl_run("eqtl_missing", 0.15, sm, "_sweep_missing_fused_cuda",
              sm.sweep_missing_fused, b2_launch_bound, missing="exact")
-    eqtl_run("eqtl_missing", x, y, sf, "_sweep_fused_cuda", sf.sweep_fused,
+    eqtl_run("eqtl_missing", 0.15, sf, "_sweep_fused_cuda", sf.sweep_fused,
              b1_launch_bound, missing="impute")
+    del _EQTL[0.15]  # no later phase fits it
 
 
 def gs_inputs(B, q, c, dtype, seed=0):
@@ -801,22 +943,13 @@ def phase_gs_kernel():
                 got = sp.inner_gs_pallas(*ops)
                 ref = sp.inner_gs_plain(*ops)
                 torch.cuda.synchronize()
-                errs = {}
-                for name, a, r in zip(("gam", "mu", "delta"), got, ref):
-                    err = float((a - r).abs().max())
-                    scale = float(r.abs().max())
-                    errs[name] = err
-                    max_abs = max(max_abs, err)
-                    tol = 1e-10 if dtype == torch.float64 else 1e-4
-                    limit = tol if name == "gam" else tol * scale
-                    if not (err <= limit):  # also catches NaN
-                        raise AssertionError(
-                            f"inner_gs kernel vs plain at B={B} q={q} c={c} "
-                            f"{dtype}: {name} max abs err {err:.3g} > "
-                            f"{limit:.3g}")
+                errs = held(f"inner_gs kernel vs plain at B={B} q={q} c={c} "
+                            f"{dtype}", got, ref, ("gam", "mu", "delta"),
+                            tol=1e-10 if dtype == torch.float64 else 1e-4)
+                max_abs = max(max_abs, *errs.values())
                 case = dict(B=B, q=q, c=c, dtype=str(dtype).split(".")[-1],
                             max_abs_err=errs)
-                if q >= 504 and c == 1.0:
+                if q >= 504 and c == 1.0 and B == 128:
                     case["ms"] = cuda_ms(lambda: sp.inner_gs_pallas(*ops), 20)
                     case["device_ms"] = device_ms(
                         lambda: sp.inner_gs_pallas(*ops), "inner_gs_kernel",
@@ -832,64 +965,75 @@ def phase_gs_kernel():
                 cases.append(case)
                 del ops, got, ref
     emit({"phase": "gs_kernel", "cases": cases, "max_abs_err": max_abs})
-    return max_abs, timing[("float32", GS_SHAPES[-1][1])]
+    return max_abs, timing[("float32", 10000)]
 
 
 def phase_stag_kernel():
+    """B4 against B1 on the card and against its plain version, all four
+    mode pairs, at STAG_SHAPES and at block 256; B1, B4, B4, B1 timed in
+    turns at the largest shapes, with B4's launch plan and phase clocks."""
     import torch
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
     from atlasqtl_tpu_torch.ops import sweep_staggered as ss
 
-    names = ("beta", "gam", "mu", "fitted", "z_row", "z_col", "gcol",
-             "m2gcol", "b2col")
+    names = B1_NAMES
     flat = lambda o: list(o[:6]) + list(o[6])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases, max_abs, timing = [], 0.0, None
-    for n, p, q in STAG_SHAPES:
+    shapes = [(n, p, q, 128) for n, p, q in STAG_SHAPES] + [
+        (*BLOCK256_SHAPE, 256)]
+    for n, p, q, blk in shapes:
         for c_one, emit_gm in MODES:
-            ops, block = kernel_inputs(n, p, q, 1.0 if c_one else 0.5)
+            ops, block = kernel_inputs(n, p, q, 1.0 if c_one else 0.5,
+                                       block=blk)
             kw = dict(block_size=block, emit_gam_mu=emit_gm, c_one=c_one)
             got = ss.sweep_fused_staggered(*ops, **kw)
             b1 = sf.sweep_fused(*ops, **kw)
             ref = ss.sweep_staggered_plain(*ops, **kw)
             torch.cuda.synchronize()
-            errs, errs_b1 = {}, {}
-            for name, a, u, r in zip(names, flat(got), flat(b1), flat(ref)):
-                if r is None:
-                    continue
-                for other, o, out in (("plain", r, errs), ("B1", u, errs_b1)):
-                    err = float((a - o).abs().max())
-                    limit = 1e-4 if name == "gam" else 1e-4 * float(
-                        o.abs().max())
-                    out[name] = err
-                    if not (err <= limit):  # also catches NaN
-                        raise AssertionError(
-                            f"staggered kernel vs {other} at n={n} p={p} "
-                            f"q={q} c_one={c_one} emit={emit_gm}: {name} max"
-                            f" abs err {err:.3g} > {limit:.3g}")
-                max_abs = max(max_abs, errs[name])
+            label = (f"staggered kernel vs %s at n={n} p={p} q={q} "
+                     f"block={block} c_one={c_one} emit={emit_gm}")
+            errs = held(label % "plain", flat(got), flat(ref), names)
+            errs_b1 = held(label % "B1", flat(got), flat(b1), names)
+            max_abs = max(max_abs, *errs.values())
+            r_aug = ops[3].shape[1]
+            plan = ss.staggered_launch_plan(ops[0].shape[0], ops[5].shape[1],
+                                            block, r_aug, sms)
             case = dict(n=n, p=p, q=q, block=block, c_one=c_one,
                         emit_gam_mu=emit_gm, max_abs_err=errs,
-                        max_abs_err_vs_b1=errs_b1)
-            if p * q >= 2048 * 1024 and c_one:
+                        max_abs_err_vs_b1=errs_b1,
+                        plan={k: plan[k] for k in ("slice_width", "sub_block",
+                                                   "grid", "waves")})
+            if p * q >= 2000 * 500 and c_one and blk == 128:
                 # B1, B4, B4, B1 in turns on the same inputs
                 b1_ms = cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 5)
                 case["ms"] = cuda_ms(
                     lambda: ss.sweep_fused_staggered(*ops, **kw), 5)
                 case["ms_2"] = cuda_ms(
                     lambda: ss.sweep_fused_staggered(*ops, **kw), 5)
+                case["clocks"] = ss.phase_clocks()
                 case["b1_ms"] = [b1_ms,
                                  cuda_ms(lambda: sf.sweep_fused(*ops, **kw),
                                          5)]
+                case["ratio_to_b1"] = (case["ms"] + case["ms_2"]) / sum(
+                    case["b1_ms"])
                 case["plain_ms"] = cuda_ms(
                     lambda: ss.sweep_staggered_plain(*ops, **kw), 2)
                 case["bound_ms"], case["bound_by"] = sweep_bound_ms(
                     ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], block,
-                    ops[3].shape[1], emit_gm)
+                    r_aug, emit_gm)
+                case["ctas_per_sm"] = ss.occupancy(plan["slice_width"],
+                                                   block, r_aug)
+                if case["ctas_per_sm"] != plan["ctas_per_sm"] or \
+                        ss.kernel_smem_bytes(plan["slice_width"], block,
+                                             r_aug) != plan["smem_bytes"]:
+                    raise AssertionError(
+                        f"B4 plan {plan} vs the kernel: "
+                        f"{case['ctas_per_sm']} CTAs per SM, "
+                        f"{ss.kernel_smem_bytes(plan['slice_width'], block, r_aug)}"
+                        f" bytes of shared memory")
                 if (n, p, q) == KERNEL_SHAPES[-1] and not emit_gm:
                     timing = case  # the steady-state (converged, lite) sweep
-                    case["ctas_per_sm"] = \
-                        sf._load().atlasqtl_sweep_staggered_occupancy(
-                            block, ops[3].shape[1])
             cases.append(case)
             del ops, got, b1, ref
             torch.cuda.empty_cache()
@@ -939,7 +1083,7 @@ def phase_sweeps_fit():
     xs, ys = simulate(100, 75, 20, 123, 10, 20)
     ref, _, ref_gam = prepared_fit(ys, xs, Config(dtype=torch.float64), "cpu")
     small = {}
-    for route, cfg in routes[1:]:
+    for route, cfg in routes[1:3]:
         res, _, gam = prepared_fit(ys, xs, cfg, DEVICE)
         small[route] = float(np.abs(gam - ref_gam).max())
         if not (res.converged and small[route] <= 1e-2):
@@ -953,6 +1097,24 @@ def phase_sweeps_fit():
         raise AssertionError(
             f"small float64 use_pallas fit on the card: it {res.it} vs "
             f"{ref.it} on the CPU, PIPs differ by {small['pallas_f64']:.3g}")
+    # block 256 (two blocks at p = 300): B3 takes it in one launch per block,
+    # B4 in pieces of 128
+    xs, ys = simulate(100, 300, 20, 123, 10, 20)
+    f64 = Config(dtype=torch.float64, block_size=256)
+    ref, _, ref_gam = prepared_fit(ys, xs, f64, "cpu")
+    for route, cfg, tol in (
+            ("pallas", Config(sweep="pallas", block_size=256), 1e-2),
+            ("stagger", Config(sweep_stagger=True, block_size=256), 1e-2),
+            ("pallas_f64", dataclasses.replace(f64, use_pallas=True), 1e-6)):
+        res, _, gam = prepared_fit(ys, xs, cfg, DEVICE)
+        key = f"{route}_block256"
+        small[key] = float(np.abs(gam - ref_gam).max())
+        if not (res.converged and small[key] <= tol
+                and (tol > 1e-6 or res.it == ref.it)):
+            raise AssertionError(
+                f"small {route} fit at block 256: the card vs the CPU float64"
+                f" fit, PIPs differ by {small[key]:.3g} (it {res.it} vs "
+                f"{ref.it}, converged={res.converged})")
 
     n, p, q, p_act, q_hit = FIT_SHAPE
     x, y = simulate(n, p, q, 0, p_act, q_hit)
@@ -1030,21 +1192,21 @@ def phase_eqtl_sweeps():
     from atlasqtl_tpu_torch.ops import sweep_staggered as ss
 
     n, p, q, p_act, q_hit = EQTL_SHAPE
-    x, y = simulate(n, p, q, 1, p_act, q_hit)
+    x, y, init, init_s = eqtl_problem(0.0)
     t0 = time.perf_counter()
     dat = prepare_data(y, x, 0.1, 10, 1, 0)
     t1 = time.perf_counter()
     hyper_spec = elic.auto_set_hyper(dat.y, p, (5, 25))
-    init = elic.auto_set_init(dat.y, p, (5, 25), float(q), 1)
     t2 = time.perf_counter()
     cfg = Config(dtype=torch.float32, maxit=10, shr_fac_inv=float(q))
     data = gl.build_data(dat.x, dat.y, cfg, DEVICE)
     hyper = gl.build_hyper(hyper_spec, data.y.shape[1], cfg, DEVICE)
     state = gl.build_state(init, data, cfg)
     torch.cuda.synchronize()
-    built = dict(prepare_s=t1 - t0, host_init_s=t2 - t1,
+    built = dict(prepare_s=t1 - t0, host_init_s=init_s,
                  build_s=time.perf_counter() - t2)
-    del dat, init
+    del dat
+    _EQTL.clear()  # the last phase that fits the eQTL problem
     routes = (
         ("pallas", dataclasses.replace(cfg, sweep="pallas"),
          (sp, "_inner_gs_cuda"), sp.inner_gs_pallas, gs_launch_bound,
@@ -1098,10 +1260,9 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": lib.name, "ptxas": regs})
     spills = {k: v for k, v in regs.items()
-              if k.startswith(("sweep_fused_kernel", "sweep_missing_kernel"))
-              and (v.get("spill_stores") or v.get("spill_loads"))}
+              if v.get("spill_stores") or v.get("spill_loads")}
     if spills:
-        raise AssertionError(f"B1/B2 spill registers: {spills}")
+        raise AssertionError(f"kernels spill registers: {spills}")
 
     max_abs, timing, launches = None, None, None
     mis_max_abs, mis_timing, mis_launches = None, None, {}
@@ -1117,6 +1278,8 @@ def main():
         mis_launches = phase_missing_fit()
     if "eqtl_missing" in phases:
         phase_eqtl_missing()
+    if "block_fits" in phases:
+        phase_block_fits()
     gs_max_abs, gs_timing, stag_max_abs, stag_timing = None, None, None, None
     route_launches = {}
     if "gs_kernel" in phases:
@@ -1186,12 +1349,14 @@ def main():
             "max_abs_err": stag_max_abs,
             "shape": {k: stag_timing[k] for k in ("n", "p", "q", "block")},
             "mode": "converged, lite", "ms": stag_timing["ms"],
-            "b1_ms": stag_timing["b1_ms"],
+            "ms_2": stag_timing["ms_2"], "b1_ms": stag_timing["b1_ms"],
+            "ratio_to_b1": stag_timing["ratio_to_b1"],
             "plain_ms": stag_timing["plain_ms"],
             "bound_ms": stag_timing["bound_ms"],
             "bound_by": stag_timing["bound_by"], "library_ms": None,
             "pct_of_bound": pct(stag_timing["bound_ms"], stag_timing["ms"]),
-            "ctas_per_sm": stag_timing["ctas_per_sm"]})
+            "ctas_per_sm": stag_timing["ctas_per_sm"],
+            "plan": stag_timing["plan"], "clocks": stag_timing["clocks"]})
     if kernels:
         emit({"kernels": kernels})
     print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",

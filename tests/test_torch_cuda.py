@@ -65,13 +65,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(n, p, q, c, seed=3):
+def _operands(n, p, q, c, seed=3, block=128):
     """The positional operands of one f32 sweep, built on the CPU by the
     port's own data and state builders."""
     y, x, _ = simulate_fixture(n=n, p=p, p_act=8, q=q, seed=seed)
     dat = prepare_data(y, x, 0.1, 1000)
     p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
-    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q_eff))
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q_eff),
+                 block_size=block)
     data = gl.build_data(dat.x, dat.y, cfg, "cpu")
     block = gl.data_block(cfg, data)
     state = gl.build_state(elic.auto_set_init(dat.y, p_eff, (4, 16),
@@ -96,17 +97,21 @@ def _flat(out):
 
 @pytest.mark.parametrize("c_one,emit", [(True, True), (True, False),
                                         (False, True), (False, False)])
-@pytest.mark.parametrize("n,p,q,width", [(120, 256, 200, 32),
-                                         (100, 75, 48, 32),
-                                         (1001, 256, 104, 32),
-                                         (100, 128, 4804, 40)])
-def test_kernel_matches_plain(cuda, n, p, q, width, c_one, emit):
+@pytest.mark.parametrize("n,p,q,width,blk", [(120, 256, 200, 32, 128),
+                                             (100, 75, 48, 32, 80),
+                                             (1001, 256, 104, 32, 128),
+                                             (100, 128, 4804, 40, 128),
+                                             (120, 512, 200, 32, 256),
+                                             (100, 400, 104, 32, 200)])
+def test_kernel_matches_plain(cuda, n, p, q, width, blk, c_one, emit):
     """(120, 256, 200): ragged q (the last of 7 column slices holds 8 of 32);
     (100, 75, 48): n % 8 != 0 (the true Gram diagonal matters) and block 80;
     (1001, 256, 104): many sample chunks, the last one ragged;
     (100, 128, 4804): the plan takes 40-column slices (one wave on 132 SMs
-    where 32 columns take two), the last one ragged."""
-    ops, block = _operands(n, p, q, 1.0 if c_one else 0.5)
+    where 32 columns take two), the last one ragged; blocks 256 and 200,
+    walked in pieces of 128 and 40 (ops/sweep_fused.py:sub_block)."""
+    ops, block = _operands(n, p, q, 1.0 if c_one else 0.5, block=blk)
+    assert block == blk
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert sf.fused_launch_plan(n, q, block, ops[3].shape[1],
                                 sms)["slice_width"] == width
@@ -170,6 +175,12 @@ def test_launch_plans_match_the_kernels(cuda):
                 plan = sf.fused_launch_plan(1000, 10000, block, r_aug)
                 assert sf.occupancy(width, block, r_aug) \
                     == plan["ctas_per_sm"] == 1
+    for width in ss.STAG_WIDTHS:
+        for block in (8, 80, 128):
+            for r_aug in (1, 42, 48):
+                assert (ss.kernel_smem_bytes(width, block, r_aug)
+                        == ss._stag_smem_bytes(width, block, r_aug))
+                assert ss.occupancy(width, block, r_aug) == 1
     for n in (1, 80, 1000, 4000, 7000, 8000, 50000):
         for r_aug in (1, 42, 48):
             plan = sm.missing_launch_plan(n, 10000, 128, r_aug)
@@ -193,14 +204,15 @@ def test_fit_on_the_card(cuda):
 MIS_NAMES = ("gam", "mu", "fitted", "z_row", "z_col")
 
 
-def _mis_operands(n, p, q, c, seed=3, frac=0.2):
+def _mis_operands(n, p, q, c, seed=3, frac=0.2, block=128):
     """The positional operands of one f32 exact-missing sweep (B2), built on
     the CPU by the port's own builders."""
     y, x, _ = simulate_fixture(n=n, p=p, p_act=8, q=q, seed=seed,
                                missing_frac=frac)
     dat = prepare_data(y, x, 0.1, 1000)
     p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
-    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q_eff), sweep="fused")
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q_eff), sweep="fused",
+                 block_size=block)
     data = gl.build_data(dat.x, dat.y, cfg, "cpu")
     assert data.x_norm_sq is not None and data.mis_pair_gram is None
     block = gl.data_block(cfg, data)
@@ -223,11 +235,14 @@ def _mis_operands(n, p, q, c, seed=3, frac=0.2):
 
 
 @pytest.mark.parametrize("c", [1.0, 0.5])
-@pytest.mark.parametrize("n,p,q", [(80, 250, 40), (100, 75, 48)])
-def test_missing_kernel_matches_plain(cuda, n, p, q, c):
+@pytest.mark.parametrize("n,p,q,blk", [(80, 250, 40, 128), (100, 75, 48, 80),
+                                       (100, 512, 40, 256)])
+def test_missing_kernel_matches_plain(cuda, n, p, q, blk, c):
     """(80, 250, 40): ragged q (the second column slice holds 8 of 32), two
-    blocks of 128; (100, 75, 48): n % 8 != 0 and block 80."""
-    ops, block = _mis_operands(n, p, q, c)
+    blocks of 128; (100, 75, 48): n % 8 != 0 and block 80; (100, 512, 40):
+    two blocks of 256, each walked in pieces of 128."""
+    ops, block = _mis_operands(n, p, q, c, block=blk)
+    assert block == blk
     ref = sm.sweep_missing_fused(*ops, block_size=block)
     launches = sm.sweep_missing_fused.launches
     got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], block_size=block)
@@ -302,14 +317,50 @@ def test_missing_fit_on_the_card(cuda):
 
 
 def test_missing_fit_raises_on_a_block_the_kernel_cannot_take(cuda):
-    """A float32 exact-missing fit on the card goes through B2 or raises:
-    block 256 is beyond the kernel, and no plain engine runs instead."""
+    """A float32 exact-missing fit on the card at block 256, which B2 once
+    refused: it now walks the block in pieces of 128, launches B2 once per
+    iteration and no plain engine, and its PIPs agree with the float64 CPU
+    fit at the same block within 1e-2."""
     y, x, _ = simulate_fixture(p=300, missing_frac=0.2, seed=5)
-    sm.sweep_missing_fused.launches = 0
-    with pytest.raises(ValueError, match="unsupported shape"):
-        at.atlasqtl(y, x, p0=(5, 25), dtype=torch.float32, block_size=256,
-                    verbose=0, user_seed=11, maxit=5)
-    assert sm.sweep_missing_fused.launches == 0
+    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600,
+              block_size=256)
+    sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
+    res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
+    assert res.converged and sm.sweep_missing_fused.launches == res.it
+    assert sf.sweep_fused.launches == 0
+    ref = at.atlasqtl(y, x, dtype=torch.float64, device="cpu", **kw)
+    assert np.abs(res.gam_vb - ref.gam_vb).max() <= 1e-2
+
+
+@pytest.mark.parametrize("missing", [None, "exact", "impute"])
+def test_block_256_fit_on_the_card(cuda, missing):
+    """atlasqtl(..., block_size=256) on complete data and with 20% of Y
+    missing in each mode: B1 (complete, impute) or B2 (exact) once per
+    iteration; PIPs within 1e-2 of the float64 CPU fit."""
+    y, x, _ = simulate_fixture(p=300, missing_frac=0.2 if missing else 0.0,
+                               seed=5)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600,
+              block_size=256, **({"missing": missing} if missing else {}))
+    sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
+    res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
+    own = sm.sweep_missing_fused if missing == "exact" else sf.sweep_fused
+    assert res.converged and own.launches == res.it
+    ref = at.atlasqtl(y, x, dtype=torch.float64, device="cpu", **kw)
+    assert np.abs(res.gam_vb - ref.gam_vb).max() <= 1e-2
+
+
+def test_batch0_missing_fit_on_the_card(cuda):
+    """batch="0" with NaN in Y runs the plain per-coordinate engines on the
+    card (no kernel, as in the reference) and agrees with the float64 CPU
+    fit within 1e-2."""
+    y, x, _ = simulate_fixture(n=60, p=30, q=10, missing_frac=0.2, seed=5)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600, batch="0")
+    sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
+    res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
+    assert res.converged
+    assert sf.sweep_fused.launches == sm.sweep_missing_fused.launches == 0
+    ref = at.atlasqtl(y, x, dtype=torch.float64, device="cpu", **kw)
+    assert np.abs(res.gam_vb - ref.gam_vb).max() <= 1e-2
 
 
 GS_NAMES = ("gam", "mu", "delta")
@@ -329,10 +380,11 @@ def _gs_operands(B, q, dtype, seed=1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,q", [(128, 200), (80, 48)])
+@pytest.mark.parametrize("B,q", [(128, 200), (80, 48), (256, 72)])
 def test_inner_gs_kernel_matches_plain(cuda, B, q, dtype):
     """(128, 200): a ragged last slice (8 of 32 columns); (80, 48): block
-    80."""
+    80; (256, 72): a block over 128 in one launch (rows beyond 128 read
+    from device memory)."""
     ops = _gs_operands(B, q, dtype)
     ref = sp.inner_gs_pallas(*ops)
     launches = sp.inner_gs_pallas.launches
@@ -363,8 +415,10 @@ def test_inner_gs_kernel_repeats_and_rejects(cuda):
     bad[0] = ops[0].t().contiguous().t()  # r0, column-major
     with pytest.raises(ValueError, match="r0 must"):
         sp.inner_gs_pallas(*bad)
+    # a block whose deltas outgrow shared memory (1544 rows in float32)
     big = [o.to(cuda) if torch.is_tensor(o) else o
-           for o in _gs_operands(136, 64, torch.float32)]
+           for o in _gs_operands(sp.GS_BMAX[torch.float32] + 8, 64,
+                                 torch.float32)]
     with pytest.raises(ValueError, match="unsupported block"):
         sp.inner_gs_pallas(*big)
     assert sp.inner_gs_pallas.launches == launches
@@ -372,12 +426,22 @@ def test_inner_gs_kernel_repeats_and_rejects(cuda):
 
 @pytest.mark.parametrize("c_one,emit", [(True, True), (True, False),
                                         (False, True), (False, False)])
-@pytest.mark.parametrize("n,p,q", [(120, 256, 200), (100, 75, 48)])
-def test_staggered_kernel_matches_b1(cuda, n, p, q, c_one, emit):
+@pytest.mark.parametrize("n,p,q,blk,width", [(120, 256, 200, 128, 32),
+                                             (100, 75, 48, 80, 32),
+                                             (1001, 256, 104, 128, 32),
+                                             (100, 128, 4804, 128, 40),
+                                             (120, 512, 200, 256, 32),
+                                             (100, 400, 104, 200, 32)])
+def test_staggered_kernel_matches_b1(cuda, n, p, q, blk, width, c_one, emit):
     """B4 against B1 on the card and against its plain version on the CPU,
-    both at the f32 tolerances (B1 sums its products in one fused pass per
-    block, B4 in two, so they no longer agree bit for bit)."""
-    ops, block = _operands(n, p, q, 1.0 if c_one else 0.5)
+    both at the f32 tolerances (B4 sums each half's products in its own
+    order, so the two agree to rounding, not bit for bit): ragged q, block
+    80 with n % 8 != 0, many sample chunks, 40-column slices, blocks 256
+    and 200 in pieces."""
+    ops, block = _operands(n, p, q, 1.0 if c_one else 0.5, block=blk)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ss.staggered_launch_plan(n, q, block, ops[3].shape[1],
+                                    sms)["slice_width"] == width
     kw = dict(block_size=block, emit_gam_mu=emit, c_one=c_one)
     ref = ss.sweep_fused_staggered(*ops, **kw)
     dev = [o.to(cuda) for o in ops]
@@ -396,8 +460,11 @@ def test_staggered_kernel_matches_b1(cuda, n, p, q, c_one, emit):
             assert err <= limit, (name, other, err, limit)
 
 
-def test_staggered_kernel_repeats_and_rejects(cuda):
-    ops, block = _operands(120, 256, 200, 0.5)
+@pytest.mark.parametrize("q", [200, 4804])
+def test_staggered_kernel_repeats_and_rejects(cuda, q):
+    """Bitwise repeatable in 32-column (q = 200) and 40-column (q = 4804)
+    slices; rejects a wrong dtype and a wrong Gram shape."""
+    ops, block = _operands(120, 256, q, 0.5)
     ops = [o.to(cuda) for o in ops]
     kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
     a = _flat(ss.sweep_fused_staggered(*ops, **kw))
@@ -414,11 +481,11 @@ def test_staggered_kernel_repeats_and_rejects(cuda):
     assert ss.sweep_fused_staggered.launches == launches
 
 
-def _fit(cfg, device, seed=123):
+def _fit(cfg, device, seed=123, p=75):
     """fit_global_local from the library's lower-level entry (how a caller
     reaches the B3 and B4 routes): prepare_data, elicitation, the model's
     builders."""
-    y, x, _ = simulate_fixture()
+    y, x, _ = simulate_fixture(p=p)
     dat = prepare_data(y, x, 0.1, 1000, seed, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
@@ -432,24 +499,30 @@ def _fit(cfg, device, seed=123):
     return res, res.state.gam[:p, :q].double().cpu().numpy()
 
 
+@pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("route", ["pallas", "stagger", "pallas_f64"])
-def test_route_fit_on_the_card(cuda, route):
+def test_route_fit_on_the_card(cuda, route, block):
     """Each route on the card launches its kernel (B3 once per predictor
     block per iteration, B4 once per iteration, no B1) and agrees with the
     float64 CPU fit: float32 PIPs within 1e-2; float64 through B3 in the
-    same iterations within 1e-6."""
-    cfg = {"pallas": Config(sweep="pallas"),
-           "stagger": Config(sweep_stagger=True),
-           "pallas_f64": Config(dtype=torch.float64, use_pallas=True)}[route]
+    same iterations within 1e-6.  Block 128 at p = 75 (one block of 80) and
+    block 256 at p = 300 (two blocks of 256)."""
+    cfg = {"pallas": Config(sweep="pallas", block_size=block),
+           "stagger": Config(sweep_stagger=True, block_size=block),
+           "pallas_f64": Config(dtype=torch.float64, use_pallas=True,
+                                block_size=block)}[route]
+    p = 75 if block == 128 else 300
     sf.sweep_fused.launches = sp.inner_gs_pallas.launches = 0
     ss.sweep_fused_staggered.launches = 0
-    res, gam = _fit(cfg, cuda)
+    res, gam = _fit(cfg, cuda, p=p)
     assert res.converged and sf.sweep_fused.launches == 0
     if route == "stagger":
         assert ss.sweep_fused_staggered.launches == res.it
     else:
-        assert sp.inner_gs_pallas.launches == res.it  # p = 75: one block
-    ref, ref_gam = _fit(Config(dtype=torch.float64), "cpu")
+        blocks = -(-res.state.gam.shape[0] // block)  # p = 75: one of 80
+        assert sp.inner_gs_pallas.launches == res.it * blocks
+    ref, ref_gam = _fit(Config(dtype=torch.float64, block_size=block), "cpu",
+                        p=p)
     if route == "pallas_f64":
         assert res.it == ref.it
         assert np.abs(gam - ref_gam).max() <= 1e-6

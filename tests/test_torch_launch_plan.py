@@ -1,9 +1,10 @@
-"""The launch plans of the two sweep kernels B1 (ops/sweep_fused.py:
-fused_launch_plan) and B2 (ops/sweep_missing_fused.py:missing_launch_plan),
-plain Python that the CPU can check: for every shape the wrappers take, the
-plan's shared memory fits one CTA (and two where it counts on two per SM),
-its cluster divides the grid, its slices cover the q columns and its CTAs
-the n rows; B1's slice width fills whole waves best.  The card holds the
+"""The launch plans of the sweep kernels B1 (ops/sweep_fused.py:
+fused_launch_plan), B2 (ops/sweep_missing_fused.py:missing_launch_plan) and
+B4 (ops/sweep_staggered.py:staggered_launch_plan), plain Python that the
+CPU can check: for every shape the wrappers take, the plan's shared memory
+fits one CTA (and two where it counts on two per SM), its cluster divides
+the grid, its slices cover the q columns and its CTAs the n rows; B1's and
+B4's slice widths fill whole waves best.  The card holds the
 plans' shared-memory arithmetic to the kernels' own
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 import pytest
@@ -11,6 +12,7 @@ import pytest
 import chip_smoke
 from atlasqtl_tpu_torch.ops import sweep_fused as sf
 from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+from atlasqtl_tpu_torch.ops import sweep_staggered as ss
 
 SMEM_MAX = 232448          # shared memory one CTA may take on an H100
 MAX_CLUSTER = 16           # the largest cluster an H100 allows at all
@@ -90,14 +92,16 @@ def test_missing_plan_branches():
 
 
 @pytest.mark.parametrize("plan_fn", [sm.missing_launch_plan,
-                                     sf.fused_launch_plan])
+                                     sf.fused_launch_plan,
+                                     ss.staggered_launch_plan])
 def test_every_shape_the_wrappers_take_is_planned(plan_fn):
-    """The wrappers take any n, q % 4 == 0, block % 8 == 0 up to 128 and
-    r + 2 up to 48 (ops/sweep_missing_fused.py, ops/sweep_fused.py:
-    fused_launch); each such shape gets a plan that fits."""
+    """The wrappers take any n, q % 4 == 0, block % 8 == 0 and r + 2 up to
+    48 (ops/sweep_missing_fused.py, ops/sweep_fused.py:fused_launch); each
+    such shape gets a plan that fits, blocks over 128 in pieces of at most
+    128 rows."""
     for n in (1, 7, 80, 299, 1000, 3999, 4000, 7777, 7800, 50000):
         for q in (4, 36, 500, 10000, 10004):
-            for block in (8, 80, 120, 128):
+            for block in (8, 80, 120, 128, 200, 256):
                 for r_aug in (1, 42, 48):
                     plan = plan_fn(n, q, block, r_aug)
                     _check_common(plan, n, q)
@@ -106,9 +110,48 @@ def test_every_shape_the_wrappers_take_is_planned(plan_fn):
 @pytest.mark.parametrize("plan_fn", [sm.missing_launch_plan,
                                      sf.fused_launch_plan])
 @pytest.mark.parametrize("n,q,block,r_aug", [
-    (100, 6, 128, 42), (100, 8, 136, 42), (100, 8, 12, 42), (100, 8, 128, 49),
+    (100, 6, 128, 42), (100, 8, 260, 42), (100, 8, 12, 42), (100, 8, 128, 49),
     (0, 8, 128, 42)])
 def test_plans_reject_what_the_kernels_cannot_take(plan_fn, n, q, block,
                                                    r_aug):
     with pytest.raises(ValueError, match="unsupported shape"):
         plan_fn(n, q, block, r_aug)
+
+
+@pytest.mark.parametrize("n,q,block", SHAPES)
+def test_staggered_plan_fits_and_covers(n, q, block):
+    plan = ss.staggered_launch_plan(n, q, block, R_AUG)
+    _check_common(plan, n, q)
+    assert plan["cluster"] == 1 and plan["ctas_per_sm"] == 1
+    assert plan["zrow_parts"] == 2
+    assert plan["waves"] == -(-plan["grid"] // sf.H100_SMS)
+    for w in ss.STAG_WIDTHS:
+        assert ss._stag_smem_bytes(w, min(block, 128), 48) <= SMEM_MAX
+        waves = -(-(-(-q // w)) // sf.H100_SMS)
+        assert waves * w >= plan["waves"] * plan["slice_width"]
+
+
+@pytest.mark.parametrize("n,q,width,waves", [
+    (1000, 10000, 40, 2), (1000, 2048, 32, 1), (300, 500, 32, 1),
+    (100, 4804, 40, 1), (5000, 1024, 32, 1), (1000, 20000, 32, 5)])
+def test_staggered_plan_fills_the_waves(n, q, width, waves):
+    """B4 takes B1's widths by B1's rule: at q = 10000, 40 columns in 2
+    waves of 132 SMs, not 32 in 3."""
+    plan = ss.staggered_launch_plan(n, q, 128, R_AUG)
+    assert (plan["slice_width"], plan["waves"]) == (width, waves)
+
+
+@pytest.mark.parametrize("width,block,r_aug,expected", [
+    (40, 128, 42, 221440), (40, 128, 48, 224320), (32, 128, 42, 201472),
+    (32, 8, 1, 45328), (40, 80, 42, 153760)])
+def test_staggered_smem_arithmetic(width, block, r_aug, expected):
+    """The kernel's layout (csrc/sweep_staggered.cu:smem_bytes), counted
+    by hand at the eQTL cut's 40 columns: the packed Gram 8256 floats,
+    three 128 x 20 tiles per half 15360, the window tiles 2560, the nodes
+    3 x 42 x 40 = 5040, p_mask 128, zeta and q_mask 80, the z_col partials
+    32 x 40 = 1280, and the stage area 22656 (F 3 x 32 x 20, four x chunks
+    of 32 x 132, six advance partials of 32 x 20), which after a pass holds
+    four warps' partials of 32 x 4 x 10 and two 128 x 42 blocks of L
+    (15872): 55360 floats."""
+    got = ss._stag_smem_bytes(width, block, r_aug)
+    assert got == expected and got <= SMEM_MAX
