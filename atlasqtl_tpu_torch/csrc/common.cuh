@@ -88,13 +88,15 @@ __device__ __forceinline__ float z_cell(float u, float gam, float d1,
 
 // z_row[j] = sum over column slices of part[slice, j], in slice order: the
 // per-slice partial row sums of Z reduced without float atomics, so a run
-// repeats bit for bit.
-__global__ void zrow_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ z_row, int n_slices,
+// repeats bit for bit.  B1, B2 and B4 launch the float instance, the B3
+// route float and double.
+template <typename T>
+__global__ void zrow_reduce_kernel(const T* __restrict__ part,
+                                   T* __restrict__ z_row, int n_slices,
                                    int p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p) return;
-  float s = 0.f;
+  T s = T(0);
   for (int sl = 0; sl < n_slices; ++sl) s += part[(size_t)sl * p + j];
   z_row[j] = s;
 }

@@ -86,13 +86,12 @@ def _z_block_sums(gam_b, theta_b, zeta, pm_b, q_mask, c):
 
 
 def sweep_complete(x, cp_x_y, gram_blocks, gam, mu_beta, fitted, consts,
-                   block_size, p_mask, q_mask, inner=_inner_gs):
+                   block_size, p_mask, q_mask):
     """Full sweep over all p predictors, complete data.
 
     x: (n, p); cp_x_y: (p, q); gram_blocks: (nb, B, B); gam/mu_beta: (p, q);
     fitted: (n, q) = X @ (gam*mu).  Returns (gam', mu_beta', fitted', z_row,
-    z_col) with the Z-moment reductions fused into the block loop.  `inner`
-    is the in-block update, `_inner_gs` or ops/sweep_pallas.py's kernel.
+    z_col) with the Z-moment reductions fused into the block loop.
     """
     p = x.shape[1]
     B = block_size
@@ -103,8 +102,9 @@ def sweep_complete(x, cp_x_y, gram_blocks, gam, mu_beta, fitted, consts,
         xb, thb, pmb = x[:, sl], consts.theta[sl], p_mask[sl]
         log_p, log_1p = log_ndtr_both(thb[:, None] + consts.zeta[None, :])
         r0 = xb.T @ fitted
-        gamb, mub, delta = inner(r0, gram_blocks[b], cp_x_y[sl], gam[sl],
-                                 mu_beta[sl], log_p, log_1p, consts)
+        gamb, mub, delta = _inner_gs(r0, gram_blocks[b], cp_x_y[sl],
+                                     gam[sl], mu_beta[sl], log_p, log_1p,
+                                     consts)
         fitted = fitted + xb @ delta
         masked_gam = gamb * pmb[:, None] * q_mask[None, :]
         zr, zc = _z_block_sums(masked_gam, thb, consts.zeta, pmb, q_mask,

@@ -136,7 +136,7 @@ def _load():
         lib.atlasqtl_sweep_staggered_smem.restype = ctypes.c_longlong
         lib.atlasqtl_sweep_staggered_clocks.argtypes = [ptr]
         lib.atlasqtl_sweep_staggered_clocks.restype = i32
-        lib.atlasqtl_inner_gs_occupancy.argtypes = [i32, i32]
+        lib.atlasqtl_inner_gs_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_inner_gs_occupancy.restype = i32
         lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 7
                                                      + [ptr])
@@ -151,8 +151,13 @@ def _load():
         lib.atlasqtl_sweep_missing_window.restype = i32
         lib.atlasqtl_inner_gs_smem.argtypes = [i32, i32]
         lib.atlasqtl_inner_gs_smem.restype = i32
-        lib.atlasqtl_inner_gs.argtypes = [i32] + [ptr] * 14 + [i32] * 2 + [ptr]
+        lib.atlasqtl_inner_gs.argtypes = [i32] * 2 + [ptr] * 20 + [i32] * 3 \
+            + [ptr]
         lib.atlasqtl_inner_gs.restype = i32
+        lib.atlasqtl_inner_gs_clocks.argtypes = [ptr]
+        lib.atlasqtl_inner_gs_clocks.restype = i32
+        lib.atlasqtl_zrow_reduce.argtypes = [i32, ptr, ptr, i32, i32, ptr]
+        lib.atlasqtl_zrow_reduce.restype = i32
         lib.atlasqtl_error_string.argtypes = [ctypes.c_int]
         lib.atlasqtl_error_string.restype = ctypes.c_char_p
         _lib = lib

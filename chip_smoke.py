@@ -45,11 +45,13 @@ per source, started together) and prints ptxas's registers and spills
           with hotspot AUC >= 0.95 and one launch per iteration; a batch="0"
           fit with NaN in Y there (the plain engines, no kernel), cut to 2
           iterations; small fits of each against the CPU float64 fit;
-  gs_kernel  the inner Gauss-Seidel kernel (B3) against its plain version,
-          float32 and float64, c = 1 and c = 0.5, one predictor block at
-          (B, q) = (128, 200) ragged, (80, 48), (128, 504), (128, 10000),
-          (256, 504) (a block over 128 in one launch); times both at the
-          block-128 shapes of q >= 504;
+  gs_kernel  B3's block kernel (probit tiles, the Gauss-Seidel update and
+          the Z sums of one predictor block) against its plain version, and
+          its tiles-read instance (inner_gs_pallas) against its own,
+          float32 and float64, c = 1 and c = 0.5, at (B, q) = (128, 200)
+          ragged, (80, 48), (128, 504), (128, 10000), (256, 504) (a block
+          over 128 in one launch); times the block kernel alone at the
+          block-128 shapes of q >= 504 beside its bound and CTAs per SM;
   stag_kernel  the staggered kernel (B4) against B1 on the card and against
           its plain version (gam 1e-4, the rest 1e-4 of max), all four mode
           pairs, at the kernel phase's shapes, the deep-n (5000, 2048,
@@ -58,15 +60,21 @@ per source, started together) and prints ptxas's registers and spills
           fit phase's shape too), with B4's launch plan (width, waves) and
           phase clocks;
   sweeps_fit  fit_global_local at the sim_anneal shape to convergence through
-          Config(sweep="pallas") (B3 launches once per predictor block per
-          iteration) and Config(sweep_stagger=True) (B4 once per
-          iteration), beside the default route (B1); B4's fit reaches B1's
+          Config(sweep="pallas") (B3's block kernel launches once per
+          predictor block per iteration, iterations within 2% of B1's) and
+          Config(sweep_stagger=True) (B4 once per iteration), beside the
+          default route (B1); B4's fit reaches B1's
           converged state (iterations within 2%, lb_opt within 1e-5
           relative, PIPs within 1e-2); small fits on the card through each
           route, at block 128 and 256, agree with the CPU float64 fit, and
           float64 use_pallas fits on the card match it to 1e-6;
   eqtl_sweeps  the eQTL problem built once, then 10 iterations through B3
-          and through B4 from clones of its state;
+          and through B4 from clones of its state; the B3 route's last
+          sweep again under torch.profiler: its CUDA launches (3 per
+          predictor block -- r0 product, block kernel, advance -- not
+          counting the reductions of cuBLAS's split-K r0 products, and at
+          most 10 more) and the device ms of the r0 products, block
+          kernels, advances and z_row reduction;
   scaling  B1 and B2 timed at (n, 2048, 10000), n = 250 .. 2000, and each
           time split into a + b n: the part that does not grow with n (the
           chain, tiles, waits) and the cost per sample.
@@ -107,6 +115,7 @@ SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
              (256, 504))   # B, q; block 256 in one launch
+GS_BLOCK_NAMES = ("gam", "mu", "delta", "z_row", "z_col")
 # the kernel phase's shapes, bench.py's pod_slice n and q with p cut, and a
 # shape whose launch plan takes 40-column slices in one wave
 STAG_SHAPES = KERNEL_SHAPES + ((5000, 2048, 1024), (300, 512, 4804))
@@ -192,22 +201,26 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, kernel, reps):
-    """Mean device time per call of fn of the CUDA kernels whose name holds
-    `kernel`, from torch.profiler's CUDA activity; None if it records no
-    such kernel.  Unlike cuda_ms it leaves out the gaps in which the device
-    waits for the host to enqueue."""
+    """Mean device time per launch of fn's CUDA kernels whose name holds
+    `kernel`, from torch.profiler's CUDA activity over `reps` calls after a
+    step that warms the tracer up (it may miss its first launches); None if
+    it records no such kernel.  Unlike cuda_ms it leaves out the gaps in
+    which the device waits for the host to enqueue."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in hits)
     us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / reps if us else None
+             or getattr(e, "self_cuda_time_total", 0) for e in hits)
+    return us / 1e3 / count if count else None
 
 
 def sweep_bound_ms(n, p, q, block, r_aug, emit_gam_mu):
@@ -244,15 +257,18 @@ def mis_kernel_ops(n, p, q, r_aug, w):
     return p * q * (4 * n + (w - 1) * n + 2 * n / w + 6 * r_aug)
 
 
-def gs_bound_ms(B, q, itemsize):
-    """Least time of one inner Gauss-Seidel launch (B3) on an H100: the
-    larger of its operations (the pushes below the diagonal, B^2 q / 2
-    FMAs, and ~15 elementwise operations per element) over the FP32 (or
-    FP64) peak and its bytes (six B x q tiles in: r0, cp, gam, mu, log_p,
-    log_1p; the Gram and three column vectors in; three B x q tiles out:
-    gam, mu, delta) over the HBM rate."""
-    ops = B * B * q + 15 * B * q
-    nbytes = itemsize * (9 * B * q + B * B + 3 * q)
+def gs_bound_ms(B, q, itemsize, c_one=True):
+    """Least time of one launch of B3's block kernel on an H100: the larger
+    of its operations over the FP32 (or FP64) peak and its bytes over the
+    HBM rate.  Operations: the pushes below the diagonal, B^2 q / 2 FMAs,
+    and per cell the probit tiles (log_ndtr_both, ~35), the two Mills
+    ratios (~12), the chain (~15) and the Z cell (~8): 70, or 105 when
+    c != 1 takes a second log_ndtr_both at sqrt(c) u.  Bytes: four B x q
+    tiles in (r0, cp, gam, mu), three out (gam, mu, delta), the Gram, theta
+    and p_mask, the q-vectors zeta, q_mask, s2, tau, log tau, z_col in and
+    out, and z_row out."""
+    ops = B * B * q + (70 if c_one else 105) * B * q
+    nbytes = itemsize * (7 * B * q + B * B + 3 * B + 7 * q)
     peak = FP32_PEAK if itemsize == 4 else FP64_PEAK
     return 1e3 * max(ops / peak, nbytes / HBM_RATE), \
         ("operations" if ops / peak >= nbytes / HBM_RATE else "bytes")
@@ -900,16 +916,16 @@ def phase_eqtl_missing():
 
 
 def gs_inputs(B, q, c, dtype, seed=0):
-    """Device operands of one inner Gauss-Seidel launch (B3) at (B, q): a
-    seeded random problem of p = B predictors built by the port's own
-    data/state builders, r0 = X^T F, the block Gram and the exact probit
-    tiles, as sweep_complete_pallas hands them to the kernel."""
+    """Device operands of one launch of B3's block kernel at (B, q), with
+    block_gs's arguments: a seeded random problem of p = B predictors made
+    by the port's own build_data and build_state, r0 = X^T F, the block
+    Gram, the state's gam, mu, theta and zeta, the masks, as
+    sweep_complete_pallas hands them to the kernel."""
     import torch
     from atlasqtl_tpu_torch.types import Config
     from atlasqtl_tpu_torch.models import global_local as gl
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.ops import updates as upd
-    from atlasqtl_tpu_torch.ops.special import log_ndtr_both
     from atlasqtl_tpu_torch.ops.sweep import block_gram
 
     n = 1000 if q >= 10000 else 300
@@ -924,48 +940,83 @@ def gs_inputs(B, q, c, dtype, seed=0):
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
     tau, cc = t(rng.uniform(0.5, 2.0, data.y.shape[1])), t(c)
     s2 = upd.sig2_beta_update(data.n, t(0.7), tau, c=cc)
-    log_p, log_1p = log_ndtr_both(state.theta[:, None] + state.zeta[None, :])
     return (data.x.T @ state.fitted, block_gram(data.x, B)[0], data.cp_x_y,
-            state.gam, state.mu_beta, log_p, log_1p, s2, tau, torch.log(tau),
-            cc, t(-0.3))
+            state.gam, state.mu_beta, state.theta, state.zeta, data.p_mask,
+            data.q_mask, s2, tau, torch.log(tau), cc, t(-0.3))
+
+
+def tiles_operands(ops):
+    """inner_gs_pallas's operands from block_gs's: the exact probit tiles
+    at theta + zeta in place of theta, zeta and the masks."""
+    from atlasqtl_tpu_torch.ops.special import log_ndtr_both
+    r0, g, cp, gam, mu, theta, zeta, pm, qm, s2, tau, log_tau, c, lsi = ops
+    log_p, log_1p = log_ndtr_both(theta[:, None] + zeta[None, :])
+    return (r0, g, cp, gam, mu, log_p, log_1p, s2, tau, log_tau, c, lsi)
 
 
 def phase_gs_kernel():
+    """B3's block kernel against block_gs_plain, and its tiles-read
+    instance (inner_gs_pallas) against inner_gs_plain, at every GS_SHAPES
+    case, float32 and float64, c = 1 and 0.5; the block kernel timed alone
+    (one launch on prepared buffers) at the block-128 shapes of q >= 504."""
     import torch
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
     from atlasqtl_tpu_torch.ops import sweep_pallas as sp
 
     cases, max_abs, timing = [], 0.0, {}
     for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        tol = 1e-10 if f64 else 1e-4
         for B, q in GS_SHAPES:
             for c in (1.0, 0.5):
                 ops = gs_inputs(B, q, c, dtype)
-                got = sp.inner_gs_pallas(*ops)
-                ref = sp.inner_gs_plain(*ops)
+                label = f"at B={B} q={q} c={c} {dtype}"
+                errs = held(f"block kernel vs plain {label}",
+                            sp.block_gs(*ops), sp.block_gs_plain(*ops),
+                            GS_BLOCK_NAMES, tol=tol)
+                tiles = tiles_operands(ops)
+                tiles_errs = held(f"inner_gs kernel vs plain {label}",
+                                  sp.inner_gs_pallas(*tiles),
+                                  sp.inner_gs_plain(*tiles),
+                                  GS_BLOCK_NAMES[:3], tol=tol)
                 torch.cuda.synchronize()
-                errs = held(f"inner_gs kernel vs plain at B={B} q={q} c={c} "
-                            f"{dtype}", got, ref, ("gam", "mu", "delta"),
-                            tol=1e-10 if dtype == torch.float64 else 1e-4)
-                max_abs = max(max_abs, *errs.values())
+                max_abs = max(max_abs, *errs.values(), *tiles_errs.values())
                 case = dict(B=B, q=q, c=c, dtype=str(dtype).split(".")[-1],
-                            max_abs_err=errs)
-                if q >= 504 and c == 1.0 and B == 128:
-                    case["ms"] = cuda_ms(lambda: sp.inner_gs_pallas(*ops), 20)
-                    case["device_ms"] = device_ms(
-                        lambda: sp.inner_gs_pallas(*ops), "inner_gs_kernel",
-                        20)
+                            max_abs_err=errs, tiles_max_abs_err=tiles_errs)
+                if q >= 504 and B == 128:
+                    scal = sp._scalars(ops[12], ops[13], ops[0])
+                    gam = torch.empty_like(ops[3])
+                    mu = torch.empty_like(ops[4])
+                    delta = torch.empty_like(ops[0])
+                    z_col = torch.zeros_like(ops[6])
+                    part = ops[0].new_empty(-(-q // sp.GS_QS), B)
+                    launch = lambda: sp._block_gs_cuda(
+                        *ops[:12], scal, 0, gam, mu, delta, z_col, part)
+                    case["ms"] = cuda_ms(launch, 20)
+                    case["device_ms"] = device_ms(launch, "inner_gs_kernel",
+                                                  20)
                     case["plain_ms"] = cuda_ms(
-                        lambda: sp.inner_gs_plain(*ops), 3)
+                        lambda: sp.block_gs_plain(*ops), 3)
+                    case["tiles_device_ms"] = device_ms(
+                        lambda: sp.inner_gs_pallas(*tiles),
+                        "inner_gs_kernel", 20)
                     case["bound_ms"], case["bound_by"] = gs_bound_ms(
-                        B, q, ops[0].element_size())
+                        B, q, ops[0].element_size(), c_one=c == 1.0)
+                    case["pct_of_bound"] = pct(case["bound_ms"], case["ms"])
+                    case["pct_of_bound_device"] = (
+                        pct(case["bound_ms"], case["device_ms"])
+                        if case["device_ms"] else None)
                     case["ctas_per_sm"] = \
-                        sf._load().atlasqtl_inner_gs_occupancy(
-                            int(dtype == torch.float64), B)
-                    timing[(case["dtype"], q)] = case
+                        sf._load().atlasqtl_inner_gs_occupancy(int(f64), 0, B)
+                    launch()
+                    torch.cuda.synchronize()
+                    case["clocks"] = sp.phase_clocks()
+                    timing[(case["dtype"], q, c)] = case
+                    del gam, mu, delta, z_col, part
                 cases.append(case)
-                del ops, got, ref
+                del ops, tiles
     emit({"phase": "gs_kernel", "cases": cases, "max_abs_err": max_abs})
-    return max_abs, timing[("float32", 10000)]
+    return max_abs, timing[("float32", 10000, 1.0)]
 
 
 def phase_stag_kernel():
@@ -1075,7 +1126,7 @@ def phase_sweeps_fit():
 
     routes = (("fused", Config()), ("pallas", Config(sweep="pallas")),
               ("stagger", Config(sweep_stagger=True)))
-    counters = {"sweep_fused": sf.sweep_fused,
+    counters = {"sweep_fused": sf.sweep_fused, "block_gs": sp.block_gs,
                 "inner_gs_pallas": sp.inner_gs_pallas,
                 "sweep_fused_staggered": ss.sweep_fused_staggered}
 
@@ -1118,7 +1169,7 @@ def phase_sweeps_fit():
 
     n, p, q, p_act, q_hit = FIT_SHAPE
     x, y = simulate(n, p, q, 0, p_act, q_hit)
-    own = {"fused": "sweep_fused", "pallas": "inner_gs_pallas",
+    own = {"fused": "sweep_fused", "pallas": "block_gs",
            "stagger": "sweep_fused_staggered"}
     out, gams = {}, {}
     for route, cfg in routes:
@@ -1143,6 +1194,8 @@ def phase_sweeps_fit():
         if route == "pallas":
             out[route]["small_f64_fit_pip_max_diff_vs_cpu_f64"] = \
                 small["pallas_f64"]
+            out[route]["b1_it"] = out["fused"]["it"]
+            out[route]["b1_seconds"] = out["fused"]["seconds"]
         if route == "stagger":
             out[route]["b1_it"] = out["fused"]["it"]
             out[route]["b1_lb_opt"] = out["fused"]["lb_opt"]
@@ -1160,9 +1213,14 @@ def phase_sweeps_fit():
                                  f", finite={out[route]['finite']}")
         if gam.shape != (p, q) or theta.shape != (p,):
             raise AssertionError("sweeps_fit: unexpected output shapes")
-    # B4 computes B1's function, its sums in another order: the same
-    # converged state, not the same bits
-    st, b1 = out["stagger"], out["fused"]
+    # B3's route and B4 compute B1's function, their sums in another
+    # order: the same converged state, not the same bits
+    b1 = out["fused"]
+    if abs(out["pallas"]["it"] - b1["it"]) > 0.02 * b1["it"]:
+        raise AssertionError(f"sweeps_fit: the B3 route took "
+                             f"{out['pallas']['it']} iterations, B1 "
+                             f"{b1['it']}")
+    st = out["stagger"]
     if not (abs(st["it"] - b1["it"]) <= 0.02 * b1["it"]
             and abs(st["lb_opt"] - b1["lb_opt"]) <= 1e-5 * abs(b1["lb_opt"])
             and st["pip_max_diff_vs_b1"] <= 1e-2):
@@ -1174,8 +1232,60 @@ def phase_sweeps_fit():
 
 
 def gs_launch_bound(a, k):
-    """bound_ms of one B3 launch from its operands (r0, ...)."""
+    """bound_ms of one launch of B3's block kernel from its operands (r0,
+    ...), at the c = 1 operation count: bytes bound it at either count."""
     return gs_bound_ms(*a[0].shape, a[0].element_size())[0]
+
+
+def route_profile(fn, args, nb):
+    """One B3-route sweep fn(*args) of nb blocks under torch.profiler: its
+    CUDA launches (every kernel, memset and copy on the device), by name;
+    the launches beyond 3 per block (the r0 product, the block kernel, the
+    advance), not counting the reduction kernels of cuBLAS's split-K r0
+    products; the device ms of the r0 products (aten::mm), the block
+    kernels, the advances (aten::addmm_) and the z_row reduction."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # one sweep to warm the tracer up (it may miss its first launches),
+    # then the one it records
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            fn(*args)
+            torch.cuda.synchronize()
+            prof.step()
+    dev = lambda e: (getattr(e, "device_time_total", None)
+                     or getattr(e, "cuda_time_total", 0)) / 1e3
+    kernels, by_op = {}, {}
+    for e in prof.key_averages():
+        if e.key.startswith("ProfilerStep"):
+            continue  # the step's own annotation, not a launch
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = dict(count=e.count, ms=dev(e))
+        elif e.key in ("aten::mm", "aten::addmm_") and dev(e):
+            by_op[e.key] = dev(e)
+    launches = sum(k["count"] for k in kernels.values())
+    named = lambda part: sum(k["ms"] for name, k in kernels.items()
+                             if part in name)
+    # cuBLAS may split the r0 product's sum over the samples in two kernels
+    # (split-K), the second a reduction: one host call, two launches
+    split_k = sum(k["count"] for name, k in kernels.items()
+                  if "splitKreduce" in name)
+    blk = sum(k["count"] for name, k in kernels.items()
+              if "inner_gs_kernel" in name)
+    # the tracer loses a few records at the start of a window (1-3 of each
+    # kernel in these runs): per block, count what it saw per block kernel
+    return dict(launches_per_sweep=launches, blocks=nb,
+                block_kernel_launches=blk, split_k_reduce_launches=split_k,
+                launches_per_block=(launches - split_k) / blk,
+                launches_beyond_3_per_block=launches - split_k - 3 * blk,
+                r0_product_ms=by_op.get("aten::mm"),
+                block_kernel_ms=named("inner_gs_kernel"),
+                advance_ms=by_op.get("aten::addmm_"),
+                zrow_reduce_ms=named("zrow_reduce"),
+                device_ms=sum(k["ms"] for k in kernels.values()),
+                kernels=kernels)
 
 
 def phase_eqtl_sweeps():
@@ -1209,31 +1319,58 @@ def phase_eqtl_sweeps():
     _EQTL.clear()  # the last phase that fits the eQTL problem
     routes = (
         ("pallas", dataclasses.replace(cfg, sweep="pallas"),
-         (sp, "_inner_gs_cuda"), sp.inner_gs_pallas, gs_launch_bound,
+         (sp, "_block_gs_cuda"), sp.block_gs, gs_launch_bound,
          (gl, "sweep_complete_pallas"), data.x.shape[1] // 128),
         ("stagger", dataclasses.replace(cfg, sweep_stagger=True),
          (ss, "_sweep_staggered_cuda"), ss.sweep_fused_staggered,
          b1_launch_bound, None, 1))
+    profile = None
     for route, rcfg, launch, counter, bound, sweep, per_it in routes:
         st = dataclasses.replace(state, **{
             f.name: getattr(state, f.name).clone()
             for f in dataclasses.fields(state)
             if torch.is_tensor(getattr(state, f.name))})
-        res, stats = timed_run(
-            lambda: fit_global_local(data, hyper, st, rcfg, anneal=(1, 2, 5),
-                                     verbose=0),
-            launch, counter, bound, sweep)
+        last = {}
+        if sweep:  # keep the last sweep's arguments to profile it again
+            orig_sweep = getattr(*sweep)
+
+            def keep(*a, **k):
+                last.update(args=a, kwargs=k)
+                return orig_sweep(*a, **k)
+            setattr(*sweep, keep)
+        try:
+            res, stats = timed_run(
+                lambda: fit_global_local(data, hyper, st, rcfg,
+                                         anneal=(1, 2, 5), verbose=0),
+                launch, counter, bound, sweep)
+        finally:
+            if sweep:
+                setattr(*sweep, orig_sweep)
         stats.pop("host_init_s"), stats.pop("build_state_s")
+        if last:
+            stats["profile"] = route_profile(
+                lambda *a: orig_sweep(*a, **last["kwargs"]), last["args"],
+                per_it)
+            last.clear()
         finite = bool(torch.isfinite(res.state.gam).all())
         emit(dict(phase="eqtl_sweeps", route=route, n=n, p=p, q=q,
                   anneal=[1, 2, 5], maxit=10, built_once=built, **stats,
                   finite=finite))
+        prof = stats.get("profile")
+        if prof and not (per_it - 5 <= prof["block_kernel_launches"] <= per_it
+                         and prof["launches_beyond_3_per_block"] <= 10):
+            raise AssertionError(f"eqtl_sweeps {route}: "
+                                 f"{stats['profile']['launches_per_sweep']} "
+                                 f"launches for {per_it} blocks")
         if stats["launches"] != res.it * per_it or not finite:
             raise AssertionError(f"eqtl_sweeps {route}: {stats['launches']} "
                                  f"launches for {res.it} iterations, "
                                  f"finite={finite}")
+        if route == "pallas":
+            profile = stats["profile"]
         del st, res
         torch.cuda.empty_cache()
+    return profile
 
 
 def main():
@@ -1288,8 +1425,9 @@ def main():
         stag_max_abs, stag_timing = phase_stag_kernel()
     if "sweeps_fit" in phases:
         route_launches = phase_sweeps_fit()
+    route_profile_ = None
     if "eqtl_sweeps" in phases:
-        phase_eqtl_sweeps()
+        route_profile_ = phase_eqtl_sweeps()
     if "scaling" in phases:
         phase_scaling()
     kernels = []
@@ -1328,18 +1466,23 @@ def main():
             "plan": mis_timing["plan"]})
     if gs_timing is not None:
         kernels.append({
-            "name": "inner_gs", "route": "cuda",
+            "name": "block_gs", "route": "cuda",
             "source": "atlasqtl_tpu_torch/csrc/sweep_inner_gs.cu",
             "replaces": "atlasqtl_tpu/ops/sweep_pallas.py:25",
             "launches": route_launches.get("pallas"),
             "max_abs_err": gs_max_abs,
-            "shape": {k: gs_timing[k] for k in ("B", "q", "dtype")},
+            "shape": {k: gs_timing[k] for k in ("B", "q", "dtype", "c")},
             "ms": gs_timing["ms"], "device_ms": gs_timing["device_ms"],
             "plain_ms": gs_timing["plain_ms"],
             "bound_ms": gs_timing["bound_ms"],
             "bound_by": gs_timing["bound_by"], "library_ms": None,
-            "pct_of_bound": pct(gs_timing["bound_ms"], gs_timing["ms"]),
-            "ctas_per_sm": gs_timing["ctas_per_sm"]})
+            "pct_of_bound": gs_timing["pct_of_bound"],
+            "ctas_per_sm": gs_timing["ctas_per_sm"],
+            "tiles_instance_device_ms": gs_timing["tiles_device_ms"],
+            "clocks": gs_timing["clocks"],
+            "eqtl_route_products_ms_per_sweep": None if not route_profile_
+            else {k: route_profile_[k] for k in ("r0_product_ms",
+                                                  "advance_ms")}})
     if stag_timing is not None:
         kernels.append({
             "name": "sweep_staggered", "route": "cuda",

@@ -1,8 +1,8 @@
 """The CUDA sweep kernels on the card: B1 (csrc/sweep_fused.cu, the
 complete-data sweep), B2 (csrc/sweep_missing_fused.cu, the exact-missing
-sweep), B3 (csrc/sweep_inner_gs.cu, one block's inner update, float32 and
-float64) and B4 (csrc/sweep_staggered.cu, the staggered complete-data
-sweep).
+sweep), B3 (csrc/sweep_inner_gs.cu: the route's block kernel and its
+tiles-read instance, float32 and float64) and B4 (csrc/sweep_staggered.cu,
+the staggered complete-data sweep).
 
 Every test here needs a CUDA device and is marked `cuda`; without one it
 skips.  On a machine with an H100 run
@@ -415,13 +415,123 @@ def test_inner_gs_kernel_repeats_and_rejects(cuda):
     bad[0] = ops[0].t().contiguous().t()  # r0, column-major
     with pytest.raises(ValueError, match="r0 must"):
         sp.inner_gs_pallas(*bad)
-    # a block whose deltas outgrow shared memory (1544 rows in float32)
+    # a block whose deltas outgrow shared memory (over GS_BMAX rows)
     big = [o.to(cuda) if torch.is_tensor(o) else o
            for o in _gs_operands(sp.GS_BMAX[torch.float32] + 8, 64,
                                  torch.float32)]
     with pytest.raises(ValueError, match="unsupported block"):
         sp.inner_gs_pallas(*big)
     assert sp.inner_gs_pallas.launches == launches
+
+
+BLOCK_NAMES = ("gam", "mu", "delta", "z_row", "z_col")
+
+
+def _block_operands(B, q, dtype, c, seed=2):
+    """One block's operands of the block kernel (B3's route), from a seed:
+    the last 5 rows and 3 columns masked out."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(B, B))
+    pm, qm = np.ones(B), np.ones(q)
+    pm[-5:], qm[-3:] = 0.0, 0.0
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    return [t(rng.normal(size=(B, q))), t(g @ g.T / B),
+            t(rng.normal(size=(B, q))), t(rng.uniform(.1, .9, (B, q))),
+            t(rng.normal(size=(B, q))), t(rng.normal(-1.5, .7, B)),
+            t(rng.normal(0, .5, q)), t(pm), t(qm), t(rng.uniform(.01, .1, q)),
+            t(rng.uniform(.5, 2, q)), t(rng.normal(size=q)), c, 0.3]
+
+
+def _held(got, ref, dtype):
+    """Each output against the plain version's: float64 1e-10, float32 gam
+    1e-4 and the rest 1e-4 of max |plain|."""
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for name, a, r in zip(BLOCK_NAMES, got, ref):
+        assert a.device.type == "cuda" and a.dtype == dtype, name
+        err = float((a.cpu() - r).abs().max())
+        limit = tol if name == "gam" else tol * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c", [1.0, 0.5])
+@pytest.mark.parametrize("B,q", [(80, 72), (128, 72), (256, 72),
+                                 (128, 10000)])
+def test_block_gs_kernel_matches_plain(cuda, B, q, c, dtype):
+    """The block kernel against block_gs_plain: blocks 80, 128 and 256 (rows
+    beyond 128 from device memory) at a ragged q, and the eQTL block
+    (128, 10000)."""
+    ops = _block_operands(B, q, dtype, c)
+    ref = sp.block_gs(*ops)
+    launches = sp.block_gs.launches
+    got = sp.block_gs(*[o.to(cuda) if torch.is_tensor(o) else o
+                        for o in ops])
+    torch.cuda.synchronize()
+    assert sp.block_gs.launches == launches + 1
+    _held(got, ref, dtype)
+
+
+def test_block_gs_kernel_repeats_and_rejects(cuda):
+    ops = [o.to(cuda) if torch.is_tensor(o) else o
+           for o in _block_operands(128, 200, torch.float32, 0.5)]
+    a, b = sp.block_gs(*ops), sp.block_gs(*ops)
+    for name, u, v in zip(BLOCK_NAMES, a, b):
+        assert torch.equal(u, v), name
+    launches = sp.block_gs.launches
+    bad = list(ops)
+    bad[2] = ops[2].double()  # cp
+    with pytest.raises(ValueError, match="cp must"):
+        sp.block_gs(*bad)
+    bad = list(ops)
+    bad[0] = ops[0].t().contiguous().t()  # r0, column-major
+    with pytest.raises(ValueError, match="r0 must"):
+        sp.block_gs(*bad)
+    big = [o.to(cuda) if torch.is_tensor(o) else o
+           for o in _block_operands(sp.GS_BMAX[torch.float32] + 8, 64,
+                                    torch.float32, 0.5)]
+    with pytest.raises(ValueError, match="unsupported block"):
+        sp.block_gs(*big)
+    assert sp.block_gs.launches == launches
+    # GS_BMAX is the kernel's own largest block in each type
+    lib = sf._load()
+    for f64, dt in ((0, torch.float32), (1, torch.float64)):
+        assert lib.atlasqtl_inner_gs_smem(f64, sp.GS_BMAX[dt]) > 0
+        assert lib.atlasqtl_inner_gs_smem(f64, sp.GS_BMAX[dt] + 8) < 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_route_sweep_matches_cpu(cuda, dtype):
+    """One sweep of the B3 route on the card (3 blocks of 128, q = 200)
+    against the CPU route, which runs the plain block: gam 1e-4, the rest
+    1e-4 of max in float32; 1e-10 in float64."""
+    n, p, q, block = 120, 384, 200, 128
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    x, cp = t(rng.normal(size=(n, p))), t(rng.normal(size=(p, q)))
+    gam, mu = t(rng.uniform(.1, .9, (p, q))), t(rng.normal(0, .3, (p, q)))
+    tau = t(rng.uniform(.5, 2, q))
+    # s2 ~ 1/n, as the model's sig2_beta: the sweep contracts
+    consts = SweepConsts(sig2_beta=t(rng.uniform(.2, .8, q) / n), tau=tau,
+                         log_tau=torch.log(tau), log_sig2_inv=t(-0.3),
+                         theta=t(rng.normal(-1.5, .7, p)),
+                         zeta=t(rng.normal(0, .5, q)), c=t(0.5))
+    pm, qm = torch.ones(p, dtype=dtype), torch.ones(q, dtype=dtype)
+    pm[-3:], qm[-5:] = 0.0, 0.0
+    args = (x, cp, block_gram(x, block), gam, mu, x @ (gam * mu), consts,
+            block, pm, qm)
+    ref = sp.sweep_complete_pallas(*args)
+    dev = [o.to(cuda) if torch.is_tensor(o) else o for o in args]
+    dev[6] = SweepConsts(*[v.to(cuda) for v in consts])
+    launches = sp.block_gs.launches
+    got = sp.sweep_complete_pallas(*dev)
+    torch.cuda.synchronize()
+    assert sp.block_gs.launches == launches + p // block
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for name, a, r in zip(("gam", "mu", "fitted", "z_row", "z_col"), got,
+                          ref):
+        err = float((a.cpu() - r).abs().max())
+        limit = tol if name == "gam" else tol * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
 
 
 @pytest.mark.parametrize("c_one,emit", [(True, True), (True, False),
@@ -502,8 +612,9 @@ def _fit(cfg, device, seed=123, p=75):
 @pytest.mark.parametrize("block", [128, 256])
 @pytest.mark.parametrize("route", ["pallas", "stagger", "pallas_f64"])
 def test_route_fit_on_the_card(cuda, route, block):
-    """Each route on the card launches its kernel (B3 once per predictor
-    block per iteration, B4 once per iteration, no B1) and agrees with the
+    """Each route on the card launches its kernel (B3's block kernel once
+    per predictor block per iteration, B4 once per iteration, no B1) and
+    agrees with the
     float64 CPU fit: float32 PIPs within 1e-2; float64 through B3 in the
     same iterations within 1e-6.  Block 128 at p = 75 (one block of 80) and
     block 256 at p = 300 (two blocks of 256)."""
@@ -513,14 +624,15 @@ def test_route_fit_on_the_card(cuda, route, block):
                                 block_size=block)}[route]
     p = 75 if block == 128 else 300
     sf.sweep_fused.launches = sp.inner_gs_pallas.launches = 0
-    ss.sweep_fused_staggered.launches = 0
+    ss.sweep_fused_staggered.launches = sp.block_gs.launches = 0
     res, gam = _fit(cfg, cuda, p=p)
     assert res.converged and sf.sweep_fused.launches == 0
     if route == "stagger":
         assert ss.sweep_fused_staggered.launches == res.it
     else:
         blocks = -(-res.state.gam.shape[0] // block)  # p = 75: one of 80
-        assert sp.inner_gs_pallas.launches == res.it * blocks
+        assert sp.block_gs.launches == res.it * blocks
+        assert sp.inner_gs_pallas.launches == 0
     ref, ref_gam = _fit(Config(dtype=torch.float64, block_size=block), "cpu",
                         p=p)
     if route == "pallas_f64":
