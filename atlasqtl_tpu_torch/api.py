@@ -2,9 +2,17 @@
 re-design of the reference entry point R/atlasqtl.R:179-322).
 
 The same surface as the reference package.  This port runs the global-local
-fit on one device, on complete data or with NaN in Y (missing="exact" or
-"impute"); every other option keeps its place in the signature and raises
-NotImplementedError naming its ROADMAP.md item.
+and the global-only fits on one device, on complete data or with NaN in Y
+(missing="exact" or "impute"), with the host loop or the device loop
+(device_loop); every other option keeps its place in the signature and
+raises NotImplementedError naming its ROADMAP.md item.
+
+On a CUDA device with no list_init (and not save_init, one replica,
+model="global_local"), the initial state is drawn on the device
+(models/global_local.py:auto_init_device) as the reference draws it on an
+accelerator; elsewhere it is drawn on the host (elicitation.auto_set_init).
+To compare a card fit with a CPU fit, give both the same host InitSpec
+through list_init.
 """
 from __future__ import annotations
 
@@ -55,11 +63,14 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
     R/atlasqtl.R).  `dtype` is torch.float32 (default) or torch.float64;
     `device` is None (the GPU) or any torch device, e.g. "cpu".  NaN cells
     of Y are missing: missing="exact" fits the observed cells only (masked
-    statistics), missing="impute" integrates them out under q(y_mis)."""
+    statistics), missing="impute" integrates them out under q(y_mis).
+    model="global" fits the global-scale-only variant.  device_loop "auto"
+    (the default) runs the fit loop on the device for a CUDA device and at
+    most 2^25 padded cells, "on" and "off" force it (verbose=2 keeps the
+    host loop)."""
     dev = resolve_device(device)
     not_ported = [
         (mesh is not None, "mesh (ROADMAP.md A12)"),
-        (model != "global_local", f"model={model!r} (ROADMAP.md A10)"),
         (anneal_replicas != 1, "anneal_replicas > 1 (ROADMAP.md A8)"),
         (checkpoint_path is not None, "checkpoint_path (ROADMAP.md A8)"),
         (trace_path is not None, "trace_path (ROADMAP.md A8)"),
@@ -130,12 +141,26 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
 
     data = gl.build_data(dat.x, dat.y, cfg, dev)
     hyper = gl.build_hyper(hyper_spec, data.y.shape[1], cfg, dev)
-    if init_spec is None:
-        init_spec = elic.auto_set_init(dat.y, p, p0, shr_fac_inv, user_seed)
-    state = gl.build_state(init_spec, data, cfg)
+    # the reference's rule (atlasqtl_tpu/api.py:151-163): draw on the
+    # device when nothing needs the host InitSpec
+    use_dev_init = (list_init is None and not save_init and mesh is None
+                    and model == "global_local" and anneal_replicas == 1
+                    and dev.type == "cuda")
+    if use_dev_init:
+        # an unseeded fit draws a fresh init each run, as the host path does
+        dev_seed = (int(np.random.SeedSequence().generate_state(1)[0])
+                    if user_seed is None else int(user_seed))
+        state = gl.auto_init_device(dev_seed, data,
+                                    tuple(np.asarray(p0, float)),
+                                    shr_fac_inv, cfg)
+    else:
+        if init_spec is None:
+            init_spec = elic.auto_set_init(dat.y, p, p0, shr_fac_inv,
+                                           user_seed)
+        state = gl.build_state(init_spec, data, cfg)
 
     res = fit_global_local(data, hyper, state, cfg, anneal=anneal,
-                           verbose=verbose)
+                           verbose=verbose, model=model)
     st = res.state
     host = lambda t: t.detach().to(torch.float64).cpu().numpy()
     gam_vb = host(st.gam)[:p, :q]

@@ -3,8 +3,11 @@ control and the monotonicity guard (counterpart of the host loop of
 atlasqtl_tpu/inference/driver.py; re-design of the iteration-control half
 of R/atlasqtl_global_local_core.R:69-97, 125-132, 318-399).
 
-One call of models/global_local.py:cavi_iteration per iteration; control
-flow, logging and the guard run on the host.
+Two loops with one semantics: the host loop here (one call of the model's
+cavi_iteration per iteration; control flow, logging and the guard on the
+host) and the device loop of inference/device_loop.py, chosen by its
+`eligible` as the reference chooses (atlasqtl_tpu/inference/driver.py:
+150-259).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from ..types import Config, Data, Hyper, VBState
 from ..models import global_local as gl
 from ..ops.annealing import annealing_ladder
+from ..ops.special import as_scalar
 from ..ops.sweep import block_gram
 
 log = logging.getLogger("atlasqtl_tpu_torch")
@@ -58,18 +62,37 @@ def _log_hotspot_scales(data: Data, state: VBState, cfg: Config,
 
 
 def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
-                     anneal=None, verbose: int = 1) -> FitResult:
-    """Run annealed CAVI to convergence."""
+                     anneal=None, verbose: int = 1,
+                     model: str = "global_local") -> FitResult:
+    """Run annealed CAVI to convergence.
+
+    model: "global_local" (horseshoe, the product path) or "global" (the
+    global-scale-only variant, R/atlasqtl_global_core.R).  The loop is the
+    host loop below or, where device_loop.eligible says so (cfg.device_loop
+    "on", or "auto" on a CUDA device at <= 2^25 cells), the device loop of
+    inference/device_loop.py, with the same semantics."""
+    if model == "global_local":
+        mod = gl
+    elif model == "global":
+        from ..models import global_only as mod
+    else:
+        raise ValueError(f"unknown model {model!r}")
     gl.check_config(cfg)
+    dev = data.x.device
+    # the predictor block, read from the device once per fit
+    block = gl.data_block(cfg, data)
     # the Gram blocks serve the complete-data formulas (impute mode too);
     # the exact-missing sweeps take their Grams from x_norm_sq and the mask
-    gram_blocks = (block_gram(data.x, gl.data_block(cfg, data))
+    gram_blocks = (block_gram(data.x, block)
                    if data.x_norm_sq is None else None)
 
     eps = float(np.finfo(np.float64).eps) ** 0.5
     # arithmetic-precision allowance of the monotonicity guard and the
     # convergence noise floor, from the ELBO's dtype (float64)
     eps_rel = 64.0 * float(torch.finfo(cfg.elbo_dtype).eps)
+
+    from . import device_loop as dl
+    use_dev = dl.eligible(cfg, verbose, data)
 
     if cfg.thinned_elbo_eval:
         times_sched = np.array([1.0, 5.0, 10.0, 50.0])
@@ -84,29 +107,62 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
     lb_new = -math.inf
     converged = False
     elbo_history = []
+    # the temperatures reach every step as device tensors: the ladder is
+    # copied to the device once, c = 1 is a cached device constant
+    one = as_scalar(1.0, cfg.dtype, dev)
+    ladder = annealing_ladder(anneal) if anneal is not None else None
+    loop = (dl.DeviceLoop(mod, data, hyper, state, gram_blocks, cfg, block,
+                          ladder=ladder) if use_dev else None)
 
     # ---------------------------------------------------- annealing phase
     if anneal is not None:
-        ladder = annealing_ladder(anneal)
         it_init = int(anneal[2])
         if verbose:
             log.info("** Annealing with %s spacing **",
                      {1: "geometric", 2: "harmonic", 3: "linear"}[int(anneal[0])])
-        for c in ladder[:-1]:  # the final rung c = 1 exits annealing mode
-            it += 1
-            c_s = c if cfg.anneal_scale else 1.0
-            # annealing rungs never feed an ELBO evaluation: run lite (the
-            # first converged-phase iteration is always full)
-            state = gl.cavi_iteration(data, hyper, state, gram_blocks, c, c_s,
-                                      cfg=cfg, annealed=True, lite=True)
-            if verbose and (it == 1 or it % 5 == 0):
-                log.info("Iteration %d (temperature %.4g)", it, 1.0 / c)
+        if use_dev:
+            loop.anneal(len(ladder) - 1)
+            it = len(ladder) - 1
+            if verbose:
+                log.info("Annealing ladder: %d rungs in the device loop", it)
+        else:
+            cs = torch.as_tensor(np.asarray(ladder[:-1], np.float64),
+                                 dtype=cfg.dtype, device=dev)
+            for k, c in enumerate(ladder[:-1]):  # c = 1 exits annealing
+                it += 1
+                c_s = cs[k] if cfg.anneal_scale else one
+                # annealing rungs never feed an ELBO evaluation: run lite
+                # (the first converged-phase iteration is always full)
+                state = mod.cavi_iteration(data, hyper, state, gram_blocks,
+                                           cs[k], c_s, cfg=cfg,
+                                           annealed=True, lite=True,
+                                           block=block)
+                if verbose and (it == 1 or it % 5 == 0):
+                    log.info("Iteration %d (temperature %.4g)", it, 1.0 / c)
         if verbose:
             log.info("** Exiting annealing mode. **")
     else:
         it_init = 1
 
     # ------------------------------------------------- converged CAVI phase
+    if use_dev:
+        (state, it, lb_new, converged, diff_lb, nev, elbo_history,
+         mono) = loop.converged(it, it_init, cfg.maxit)
+        if nev > loop.buf:
+            log.warning(
+                "ELBO trace truncated: %d evaluations exceed the "
+                "device-loop buffer (%d); convergence/guard logic ran on "
+                "device and is unaffected, but elbo_history drops the "
+                "overflow (last slot holds the final evaluation).",
+                nev, loop.buf)
+        if verbose:
+            for it_e, lb_e in elbo_history:
+                log.info("Iteration %d: ELBO = %.6f", it_e, lb_e)
+        _raise_from_trace(elbo_history, it, lb_new, nev, mono, cfg, eps,
+                          eps_rel)
+        return _finish(state, converged, it, lb_new, diff_lb, elbo_history,
+                       verbose)
+
     diff_lb_final = math.inf
     while not converged and it < cfg.maxit:
         lb_old = lb_new
@@ -116,11 +172,12 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
         will_eval = (it <= it_init + 1 or it % batch_conv == 0
                      or it % batch_conv == 1)
         need_full = will_eval or it >= cfg.maxit
-        state = gl.cavi_iteration(data, hyper, state, gram_blocks, 1.0, 1.0,
-                                  cfg=cfg, annealed=False, lite=not need_full)
+        state = mod.cavi_iteration(data, hyper, state, gram_blocks, one, one,
+                                   cfg=cfg, annealed=False,
+                                   lite=not need_full, block=block)
 
         if will_eval:
-            lb_new = float(gl.compute_elbo(data, hyper, state, cfg=cfg))
+            lb_new = float(mod.compute_elbo(data, hyper, state, cfg=cfg))
             elbo_history.append((it, lb_new))
             if not math.isfinite(lb_new):
                 # NaN compares False against everything: it would pass both
@@ -149,6 +206,11 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                 ind_batch_conv = sum_exceed
                 batch_conv = int(batch_sched[ind_batch_conv - 1])
 
+    return _finish(state, converged, it, lb_new, diff_lb_final, elbo_history,
+                   verbose)
+
+
+def _finish(state, converged, it, lb_new, diff_lb, elbo_history, verbose):
     if verbose:
         if converged:
             log.info("Convergence obtained after %d iterations. ELBO = %.6f",
@@ -157,4 +219,35 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
             log.warning("Maximal number of iterations reached before "
                         "convergence. Exit.")
     return FitResult(state=state, converged=converged, it=it, lb_opt=lb_new,
-                     diff_lb=diff_lb_final, elbo_history=elbo_history)
+                     diff_lb=diff_lb, elbo_history=elbo_history)
+
+
+def _raise_from_trace(history, it, lb_new, nev, mono, cfg, eps, eps_rel):
+    """The device loop's guard, raised after the loop from the recorded
+    trace as atlasqtl_tpu/inference/driver.py raises it: a non-finite ELBO
+    always (no evaluation at all leaves the -inf sentinel, which is not a
+    failure), a decrease in debug mode, each with its first offending
+    evaluation."""
+    its = [i for i, _ in history]
+    lbs = [lb for _, lb in history]
+    if nev > 0 and not math.isfinite(lb_new):
+        it_bad, lb_bad = it, lb_new
+        for k, lb in enumerate(lbs):
+            if not math.isfinite(lb):
+                it_bad, lb_bad = its[k], lb
+                break
+        raise ElboDecreaseError(
+            f"ELBO became non-finite at iteration {it_bad}: {lb_bad}")
+    if cfg.debug and mono:
+        for k, lb in enumerate(lbs):
+            if not math.isfinite(lb):
+                raise ElboDecreaseError(
+                    f"ELBO became non-finite at iteration {its[k]}: {lb}")
+        lo, hi, it_bad = math.nan, math.nan, it
+        for k in range(1, len(lbs)):
+            if lbs[k] + eps + eps_rel * abs(lbs[k - 1]) < lbs[k - 1]:
+                lo, hi, it_bad = lbs[k - 1], lbs[k], its[k]
+                break
+        raise ElboDecreaseError(
+            f"ELBO not increasing monotonically at iteration {it_bad}: "
+            f"{lo:.10g} -> {hi:.10g}")

@@ -20,7 +20,7 @@ from ..types import Config, Data, Hyper, VBState
 from ..ops import elbo as elbo_ops
 from ..ops import updates as upd
 from ..ops.horseshoe import lam2_inv_annealed, lam2_inv_exact
-from ..ops.special import log_ndtr_both, q_approx
+from ..ops.special import as_scalar, log_ndtr_both, q_approx
 from ..ops.sweep import (SweepConsts, mis_pair_gram, sweep_complete,
                          sweep_missing, sweep_missing_blocked)
 from ..ops.sweep_fused import sweep_complete_fused
@@ -44,7 +44,6 @@ def check_config(cfg: Config):
         (cfg.mxu_bf16, "Config.mxu_bf16 (ROADMAP.md B5)"),
         (cfg.sweep_probe != "none", "Config.sweep_probe (ROADMAP.md B5)"),
         (cfg.mis_pair_bf16, "Config.mis_pair_bf16 (ROADMAP.md B5)"),
-        (cfg.device_loop == "on", "device_loop='on' (ROADMAP.md A7)"),
         (cfg.q_axis is not None or cfg.p_axis is not None,
          "mesh axes (ROADMAP.md A12)"),
     ]
@@ -185,8 +184,122 @@ def build_state(init, data: Data, cfg: Config) -> VBState:
         rho_s0_vb=t(1.0))
 
 
+def _host_rule_tau(data: Data) -> float:
+    """The initial residual precision by the host rule
+    (inference/elicitation.py:auto_set_init, as the R reference): 1 over
+    the median of the per-response sample variances (ddof 1) over the true
+    rows and observed cells, 1e3 where that is not finite.  The variances
+    are taken on the device in float64; only the (q,) vector comes to the
+    host for NumPy's nanmedian.  (The JAX package's device init takes the
+    variance over the padded rows with missing cells zeroed instead:
+    ROADMAP.md C4.)"""
+    n = int(round(float(data.n)))
+    q = int(round(float(data.q_true)))
+    y = data.y[:n, :q].to(torch.float64)
+    if data.mis_pat is None:
+        obs = torch.ones_like(y)
+    else:
+        obs = data.mis_pat[:n, :q].to(torch.float64)
+    cnt = obs.sum(dim=0)
+    mean = (y * obs).sum(dim=0) / cnt
+    ss = (obs * (y - mean[None, :]) ** 2).sum(dim=0)
+    var = torch.where(cnt > 1.0, ss / (cnt - 1.0),
+                      torch.full_like(ss, float("nan")))
+    with np.errstate(divide="ignore"):
+        med_var = float(np.nanmedian(var.cpu().numpy()))
+        tau = 1.0 / med_var
+    return tau if np.isfinite(tau) else 1e3
+
+
+def _gamma_large(shape_param, size, dt, dev, gen):
+    """Gamma(a, 1) ~= N(a, sqrt(a)) for a large shape a, floored at a / 10
+    (atlasqtl_tpu/models/global_local.py:_gamma_large)."""
+    z = torch.randn(size, dtype=dt, device=dev, generator=gen)
+    g = shape_param + torch.sqrt(shape_param) * z
+    return torch.maximum(g, 0.1 * shape_param)
+
+
+def auto_init_device(seed, data: Data, p0, shr_fac_inv: float, cfg: Config,
+                     generator=None) -> VBState:
+    """Random initial state drawn on the data's device (counterpart of
+    atlasqtl_tpu/models/global_local.py:220-318 auto_init_device): the
+    sampling distributions of inference/elicitation.py:auto_set_init
+    (R/set_hyper_init.R:356-418), drawn in cfg.dtype from a
+    torch.Generator on that device seeded with `seed` (`generator`, if
+    given, is used as it is), so no (p, q) array is made on the host.
+    Returns the fields, shapes and dtypes build_state returns for the same
+    data and cfg (complete data, impute and exact missing).  tau takes the
+    host rule (`_host_rule_tau`, ROADMAP.md C4).
+
+    Draws: gam = Phi(n0 + (s02 + t02) Z); mu = Z; sig2_beta = 1 / (g2
+    sig2_inv tau), g2 ~ Gamma(2, 1) a sum of two exponentials; sig02_inv
+    and the Gamma of sig2_theta by their normal approximation for a large
+    shape; theta ~ N(0, 1 / (sig02_inv shr)); zeta ~ N(n0, t02)."""
+    from ..inference.elicitation import get_n0_t02
+
+    dt = cfg.dtype
+    dev = data.x.device
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+    p_true = int(round(float(data.p_true)))
+    q_true = int(round(float(data.q_true)))
+    n0_vec, t02 = get_n0_t02(1, p_true, p0)
+    n0 = float(n0_vec[0])
+    s02 = 1e-4
+    sig2_inv0 = 1e-2
+    tau0 = _host_rule_tau(data)
+
+    p_pad, q_pad = data.x.shape[1], data.y.shape[1]
+    pm, qm = data.p_mask, data.q_mask
+    cell = pm[:, None] * qm[None, :]
+    randn = lambda *size: torch.randn(size, dtype=dt, device=dev,
+                                      generator=gen)
+    gam = randn(p_pad, q_pad).mul_(s02 + t02).add_(n0)
+    gam = torch.special.ndtr(gam, out=gam).mul_(cell)
+    mu = randn(p_pad, q_pad).mul_(cell)
+    del cell
+    tau = torch.full((q_pad,), tau0, dtype=dt, device=dev)
+    tiny = torch.finfo(dt).tiny
+    u = torch.rand((2, q_pad), dtype=dt, device=dev,
+                   generator=gen).clamp_(min=tiny)
+    g2 = -torch.log(u[0]) - torch.log(u[1])
+    # R: 1 / rgamma(shape = 2, rate = 1 / (sig2_inv tau))
+    sig2_beta = 1.0 / (g2 * (sig2_inv0 * tau))
+    shape0 = torch.full((), float(max(p_true, q_true)), dtype=dt, device=dev)
+    sig02_inv = _gamma_large(shape0, (), dt, dev, gen)
+    theta = randn(p_pad) / torch.sqrt(sig02_inv * shr_fac_inv) * pm
+    sig2_theta = 1.0 / (q_true + _gamma_large(sig02_inv * shr_fac_inv,
+                                              (p_pad,), dt, dev, gen))
+    zeta = (n0 + float(np.sqrt(t02)) * randn(q_pad)) * qm
+
+    exact = data.x_norm_sq is not None
+    beta = gam * mu
+    fitted = data.x @ beta
+    colstats = (None, None, None)
+    if exact:
+        fitted = fitted * data.mis_pat
+        beta = None
+        sig2_beta = sig2_beta[None, :].expand(p_pad, q_pad).contiguous()
+    else:
+        colstats = (torch.sum(gam, dim=0), torch.sum(beta * mu, dim=0),
+                    torch.sum(beta * beta, dim=0))
+    one = lambda *size: torch.ones(size, dtype=dt, device=dev)
+    return VBState(
+        gam_colsum=colstats[0], mu2gam_colsum=colstats[1],
+        beta2_colsum=colstats[2], beta=beta, gam=gam, mu_beta=mu,
+        sig2_beta=sig2_beta, tau=tau,
+        sig2_inv=torch.full((), sig2_inv0, dtype=dt, device=dev),
+        theta=theta, zeta=zeta, sig02_inv=sig02_inv, lam2_inv=one(p_pad),
+        sig2_theta=sig2_theta, fitted=fitted, l_vb=one(p_pad),
+        rho_xi_inv=one(), nu_s0_vb=one(), rho_s0_vb=one())
+
+
 def data_block(cfg: Config, data: Data) -> int:
-    """The predictor block build_data padded p with."""
+    """The predictor block build_data padded p with (reads the true p from
+    the device once: a fit computes it before its first iteration and
+    passes it on)."""
     p_true = int(round(float(data.p_true)))
     return min(cfg.block_size, _round_up(p_true, 8))
 
@@ -247,29 +360,37 @@ def _select_missing_sweep(cfg: Config, data: Data) -> str:
 
 # ------------------------------------------------------------ one iteration
 
-def _colsum_stats(data: Data, state: VBState):
+def _colsum_stats(data: Data, state: VBState, use_cached: bool = True):
     """Masked column statistics shared by the tau/sigma updates.  Complete
     data and impute mode: the gam and beta sums come from the sweep that
-    produced `state` (or build_state).  Exact missing data: recomputed from
-    the (p, q) state, and m2b = (mu^2 + s2) gam and beta = gam mu are
-    returned too for the x_norm_sq-weighted sums (None otherwise)."""
+    produced `state` (or build_state).  Exact missing data, or
+    use_cached=False (an ELBO that re-accumulates in its own dtype):
+    recomputed from the (p, q) state, and m2b = (mu^2 + s2) gam and beta =
+    gam mu are returned too for the x_norm_sq-weighted sums (m2b is None
+    for a (q,) slab variance; both None from the cached sums)."""
     yf_colsum = torch.einsum("nq,nq->q", data.y, state.fitted)
     ff_colsum = torch.einsum("nq,nq->q", state.fitted, state.fitted)
-    if state.gam_colsum is not None:
+    if use_cached and state.gam_colsum is not None:
         m2b_colsum = state.mu2gam_colsum + state.sig2_beta * state.gam_colsum
         return (state.gam_colsum, m2b_colsum, state.beta2_colsum, yf_colsum,
                 ff_colsum, None, None)
     gam = state.gam  # masked by the sweep that produced it
     beta = gam * state.mu_beta
-    m2b = (state.mu_beta * state.mu_beta + state.sig2_beta) * gam
-    return (torch.sum(gam, dim=0), torch.sum(m2b, dim=0),
-            torch.einsum("pq,pq->q", beta, beta), yf_colsum, ff_colsum, m2b,
-            beta)
+    gam_colsum = torch.sum(gam, dim=0)
+    if state.sig2_beta.dim() == 1:
+        m2b = None
+        m2b_colsum = (torch.einsum("pq,pq->q", state.mu_beta * state.mu_beta,
+                                   gam) + state.sig2_beta * gam_colsum)
+    else:
+        m2b = (state.mu_beta * state.mu_beta + state.sig2_beta) * gam
+        m2b_colsum = torch.sum(m2b, dim=0)
+    return (gam_colsum, m2b_colsum, torch.einsum("pq,pq->q", beta, beta),
+            yf_colsum, ff_colsum, m2b, beta)
 
 
 def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
-                   c_s, *, cfg: Config, annealed: bool,
-                   lite: bool = False) -> VBState:
+                   c_s, *, cfg: Config, annealed: bool, lite: bool = False,
+                   block: int | None = None) -> VBState:
     """One CAVI iteration (the reference's _cavi_iteration_impl), update
     order identical to R/atlasqtl_global_local_core.R:125-338.
 
@@ -280,10 +401,15 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     The driver runs full iterations wherever gam/mu must be fresh.  lite has
     no effect on the exact-missing path, whose gam/mu are always fresh;
     that path takes no Gram blocks (gram_blocks may be None).
+
+    c and c_s are best given as 0-d tensors on the device (the fit loops
+    write them there); numbers become cached device constants.  `block` is
+    the predictor block of `data` (`data_block`), which the exact-missing
+    kernel path needs; None reads it from the device.
     """
     dt = cfg.dtype
     dev = data.x.device
-    scalar = lambda v: torch.as_tensor(v, dtype=dt, device=dev)
+    scalar = lambda v: as_scalar(v, dt, dev)
     c, c_s, shr = scalar(c), scalar(c_s), scalar(cfg.shr_fac_inv)
 
     (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum, ff_colsum, m2b,
@@ -336,7 +462,7 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_fused_driver(
                 data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
                 state.mu_beta, state.fitted, consts, sig2_inv,
-                data_block(cfg, data),
+                data_block(cfg, data) if block is None else block,
                 data.p_mask, data.q_mask)
             # the kernel masks gam/mu at write time
         elif engine == "blocked":
@@ -399,7 +525,7 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     theta = upd.theta_update(z_row, hyper.m0, sig02_lam_shr, sig2_theta,
                              zeta_sum, c) * data.p_mask
 
-    nu_s0_vb = upd.nu_update(scalar(0.5), data.p_true, c_s)
+    nu_s0_vb = upd.nu_update(0.5, data.p_true, c_s)
     rho_s0_vb = c_s * (xi_inv + 0.5 * torch.sum(
         lam2_inv * shr * (theta ** 2 + sig2_theta) * data.p_mask))
     sig02_inv = nu_s0_vb / rho_s0_vb
@@ -436,7 +562,7 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
     x_norm_sq-weighted column sums and the per-(j, k) slab variance."""
     dt = cfg.elbo_dtype
     f = lambda a: a.to(dt)
-    shr = torch.tensor(cfg.shr_fac_inv, dtype=dt, device=data.x.device)
+    shr = as_scalar(cfg.shr_fac_inv, dt, data.x.device)
 
     eta, kappa, n0 = f(hyper.eta), f(hyper.kappa), f(hyper.n0)
     nu, rho, t02, a2_inv = f(hyper.nu), f(hyper.rho), f(hyper.t02), \

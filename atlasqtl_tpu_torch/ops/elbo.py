@@ -1,7 +1,8 @@
-"""ELBO terms of the global-local model in PyTorch (counterpart of
-atlasqtl_tpu/ops/elbo.py; re-design of R/elbo.R and elbo_global_local_,
-R/atlasqtl_global_local_core.R:440-495).  The blocked assembly lives in
-models/global_local.py:compute_elbo.
+"""ELBO terms of the global-local and global-only models in PyTorch
+(counterpart of atlasqtl_tpu/ops/elbo.py; re-design of R/elbo.R and
+elbo_global_local_, R/atlasqtl_global_local_core.R:440-495).  The blocked
+assemblies live in models/global_local.py and models/global_only.py
+(compute_elbo).
 """
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import math
 
 import torch
 
-from .special import gammaln
+from .special import gammaln, log_ndtr_both
 from .horseshoe import log_integral_hs
 
 _EPS_GAM = float(torch.finfo(torch.float64).eps) ** 0.75  # R/elbo.R:15
@@ -18,6 +19,26 @@ _EPS_GAM = float(torch.finfo(torch.float64).eps) ** 0.75  # R/elbo.R:15
 def _xlogx(g):
     return g * torch.log(torch.where(g > 0, g + _EPS_GAM,
                                      torch.full_like(g, _EPS_GAM)))
+
+
+def e_beta_gamma_blocked(gam_b, mu_b, theta_b, zeta, log_tau, tau, sig2_beta,
+                         log_sig2_inv, sig2_inv, sig2_zeta, sig2_theta_b,
+                         mask_b, q_mask):
+    """One predictor block's part of E log p(beta, gamma | .) -
+    E log q(beta, gamma) (reference: R/elbo.R:10-34), in the inputs' dtype.
+    gam_b/mu_b/sig2_beta: (B, q); theta_b/sig2_theta_b/mask_b: (B,)."""
+    log_p, log_1p = log_ndtr_both(theta_b[:, None] + zeta[None, :])
+    m2_b = (mu_b * mu_b + sig2_beta) * gam_b
+    arg = (log_sig2_inv * gam_b / 2.0
+           + gam_b * log_tau[None, :] / 2.0
+           - m2_b * tau[None, :] * sig2_inv / 2.0
+           + gam_b * log_p
+           + (1.0 - gam_b) * log_1p
+           - sig2_zeta / 2.0
+           - _xlogx(gam_b) - _xlogx(1.0 - gam_b)
+           - sig2_theta_b[:, None] / 2.0
+           + 0.5 * gam_b * (torch.log(sig2_beta) + 1.0))
+    return torch.sum(arg * mask_b[:, None] * q_mask[None, :])
 
 
 def e_theta_hs(lam2_inv, l_vb, log_sig02_inv_shr, theta, q_app, sig02_inv_shr,
@@ -83,3 +104,12 @@ def e_zeta(zeta, n0, sig2_zeta, t02_inv, vec_sum_log_det_zeta, q_true, q_mask):
     ss = torch.sum((zeta - n0) ** 2 * q_mask)
     return (vec_sum_log_det_zeta - t02_inv * ss
             - q_true * t02_inv * sig2_zeta + q_true) / 2.0
+
+
+def e_theta_global(theta, sig02_inv_shr, sig2_theta, vec_sum_log_det_theta,
+                   p_mask, p_true):
+    """The global-only model's theta term (reference: R/elbo.R:75-82;
+    m0 = 0); vec_sum_log_det_theta is the summed log-determinant term."""
+    ss = torch.sum(theta * theta * p_mask)
+    tr = sig02_inv_shr * torch.sum(sig2_theta * p_mask)
+    return (vec_sum_log_det_theta - sig02_inv_shr * ss - tr + p_true) / 2.0

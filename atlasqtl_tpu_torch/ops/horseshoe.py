@@ -16,7 +16,8 @@ import math
 import numpy as np
 import torch
 
-from .special import gammaln, hyperg_1f1, q_approx, upper_gamma_ratio
+from .special import (as_scalar, gammaln, hyperg_1f1, q_approx,
+                      upper_gamma_ratio)
 
 
 def lam2_inv_exact(l_vb, df: int = 1):
@@ -47,7 +48,7 @@ def lam2_inv_annealed(l_vb, c_s, df: int = 1):
     overflows."""
     if df == 1:
         return upper_gamma_ratio(c_s, l_vb) - 1.0
-    c = torch.as_tensor(c_s, dtype=l_vb.dtype, device=l_vb.device)
+    c = as_scalar(c_s, l_vb.dtype, l_vb.device)
     a1 = c * (df - 1) / 2.0
     a2 = c * (df + 1) / 2.0
     l_vb = torch.clamp(l_vb, min=1e-300)

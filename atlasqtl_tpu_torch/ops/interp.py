@@ -17,22 +17,32 @@ remainders are interpolated (r = 40 keeps the truncation error near 2e-6).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from .special import _MSC12, _erfcx_nr, _horner
+from .special import _MSC12, _erfcx_nr, _horner, as_scalar
 
 K_BASE = 10.19
 _INV_SQRT_2PI = 0.3989422804014327
 
 
-def cheb_nodes(lo, hi, r: int):
-    """First-kind Chebyshev nodes on [lo, hi] and their barycentric weights."""
+@functools.lru_cache(maxsize=None)
+def _cheb_unit(r: int, dtype, device):
+    """The r first-kind Chebyshev nodes on [-1, 1] and their barycentric
+    weights, built once per (r, dtype, device)."""
     k = np.arange(r)
     x01 = torch.as_tensor(np.cos(np.pi * (2 * k + 1) / (2 * r)),
-                          dtype=lo.dtype, device=lo.device)
+                          dtype=dtype, device=device)
     w = torch.as_tensor(((-1.0) ** k) * np.sin(np.pi * (2 * k + 1) / (2 * r)),
-                        dtype=lo.dtype, device=lo.device)
+                        dtype=dtype, device=device)
+    return x01, w
+
+
+def cheb_nodes(lo, hi, r: int):
+    """First-kind Chebyshev nodes on [lo, hi] and their barycentric weights."""
+    x01, w = _cheb_unit(r, lo.dtype, lo.device)
     return lo + (hi - lo) * (x01 + 1.0) / 2.0, w
 
 
@@ -79,7 +89,7 @@ def tail_interp_operands(theta, zeta, cst, c, p_mask, r: int = 40):
     """
     dt = theta.dtype
     q = zeta.shape[0]
-    c = torch.as_tensor(c, dtype=dt, device=theta.device)
+    c = as_scalar(c, dt, theta.device)
     sqrt_c = torch.sqrt(c)
     th_real = torch.where(p_mask > 0, theta, torch.zeros_like(theta))
     lo = torch.min(th_real)

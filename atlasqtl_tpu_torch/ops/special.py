@@ -7,6 +7,8 @@ torch.special / torch.lgamma.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _LOG_SQRT_2PI = 0.9189385332046727417803297364056176  # log(sqrt(2*pi))
@@ -137,8 +139,24 @@ def q_approx(x):
     return torch.where(x <= 1.0, lo, hi)
 
 
+@functools.lru_cache(maxsize=1024)
+def _constant(v: float, dtype, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def as_scalar(v, dtype, device) -> torch.Tensor:
+    """v as a 0-d tensor of `dtype` on `device`.  A tensor stays where it is
+    computed (cast if needed); a number becomes a constant built once per
+    (value, dtype, device) and cached, so that no step of a fit copies a
+    value from the host (which a captured CUDA graph cannot do).  The
+    cached constants are shared: never write to one."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=dtype, device=device)
+    return _constant(float(v), dtype, torch.device(device))
+
+
 def _as_like(v, x):
-    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    return as_scalar(v, x.dtype, x.device)
 
 
 def upper_gamma(a, x):

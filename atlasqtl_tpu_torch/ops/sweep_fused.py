@@ -39,6 +39,7 @@ from pathlib import Path
 import torch
 
 from .interp import K_BASE, tail_interp_operands
+from .special import as_scalar
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -413,10 +414,8 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     sub = launch["sub_block"]
     gram_flat = sub_block_gram(gram_flat, block_size, sub)
     lib = _load()
-    scal = torch.stack([torch.as_tensor(c, dtype=torch.float32,
-                                        device=x.device).reshape(()),
-                        torch.as_tensor(kz, dtype=torch.float32,
-                                        device=x.device).reshape(())])
+    scal = torch.stack([as_scalar(c, torch.float32, x.device).reshape(()),
+                        as_scalar(kz, torch.float32, x.device).reshape(())])
     fitted = fitted.clone()
     beta_out = torch.empty_like(beta)
     gam_out = torch.empty_like(beta) if emit_gam_mu else None

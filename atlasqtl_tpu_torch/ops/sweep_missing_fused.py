@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from .interp import K_BASE, tail_interp_operands
+from .special import as_scalar
 from .sweep_fused import H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, _load, sub_block
 
 # the kernel's constants (csrc/sweep_missing_fused.cu)
@@ -216,8 +217,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                          f"r+2={r_aug}")
     plan = missing_launch_plan(n, q, block_size, r_aug)
     lib = _load()
-    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32,
-                                    device=x.device).reshape(())
+    f32 = lambda v: as_scalar(v, torch.float32, x.device).reshape(())
     scal = torch.stack([f32(c), f32(kz), f32(sig2_inv)])
     fitted = fitted.clone()
     gam_out = torch.empty_like(gam)
@@ -282,7 +282,7 @@ def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
         = -(E[log tau] - log tau + E[log sig2_inv] - log c)/2
           + log(x_norm_sq + sig2_inv)/2,
     and the per-(j, k) log term is applied in the kernel."""
-    c = torch.as_tensor(consts.c, dtype=gam.dtype, device=gam.device)
+    c = as_scalar(consts.c, gam.dtype, gam.device)
     cst_q = -0.5 * (consts.log_tau - torch.log(consts.tau)
                     + consts.log_sig2_inv - torch.log(c))
     l_aug, n_stack, kz = tail_interp_operands(consts.theta, consts.zeta,

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .special import log_ndtr_both
+from .special import as_scalar, log_ndtr_both
 from .sweep import SweepConsts, _inner_gs, _z_block_sums
 from .sweep_fused import _load
 
@@ -62,9 +62,8 @@ def _on_card(device):
 def _scalars(c, log_sig2_inv, like):
     """The kernel's (4,) scalar operand (c, log sig2_inv, sqrt c, 0) on
     like's device, built once per sweep."""
-    c = torch.as_tensor(c, dtype=like.dtype, device=like.device).reshape(())
-    lsi = torch.as_tensor(log_sig2_inv, dtype=like.dtype,
-                          device=like.device).reshape(())
+    c = as_scalar(c, like.dtype, like.device).reshape(())
+    lsi = as_scalar(log_sig2_inv, like.dtype, like.device).reshape(())
     return torch.stack([c, lsi, torch.sqrt(c), torch.zeros_like(c)])
 
 
@@ -152,7 +151,7 @@ def block_gs_plain(r0, g_b, cp_b, gam_b, mu_b, theta_b, zeta, pm_b, q_mask,
     zeta, _inner_gs, the Z sums of the masked new gam.  Returns (gam, mu,
     delta) (B, q), the block's z_row (B,) and its z_col contribution
     (q,)."""
-    as_t = lambda v: torch.as_tensor(v, dtype=r0.dtype, device=r0.device)
+    as_t = lambda v: as_scalar(v, r0.dtype, r0.device)
     c = as_t(c)
     log_p, log_1p = log_ndtr_both(theta_b[:, None] + zeta[None, :])
     consts = SweepConsts(sig2_beta=sig2_beta, tau=tau, log_tau=log_tau,
@@ -232,7 +231,7 @@ def inner_gs_plain(r0, g_b, cp_b, gam_b, mu_b, log_p, log_1p, sig2_beta,
                    tau, log_tau, c, log_sig2_inv):
     """The tiles-read instance's function in plain tensor ops:
     ops/sweep.py:_inner_gs with the arguments of `inner_gs_pallas`."""
-    as_t = lambda v: torch.as_tensor(v, dtype=r0.dtype, device=r0.device)
+    as_t = lambda v: as_scalar(v, r0.dtype, r0.device)
     consts = SweepConsts(sig2_beta=sig2_beta, tau=tau, log_tau=log_tau,
                          log_sig2_inv=as_t(log_sig2_inv), theta=None,
                          zeta=None, c=as_t(c))

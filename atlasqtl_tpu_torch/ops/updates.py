@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .special import digamma, inv_mills_ratio, log_ndtr_both
+from .special import as_scalar, digamma, inv_mills_ratio, log_ndtr_both
 
 
 def sig2_beta_update(n, sig2_inv, tau, x_norm_sq=None, c=1.0):
@@ -84,7 +84,7 @@ def z_moments(gam, theta, zeta, p_mask, q_mask, c=1.0, block_size=None):
     column sums (q,)).  Under annealing (c != 1) the probit argument is
     sqrt(c) (theta + zeta) and the inverse-Mills terms are scaled by
     1/sqrt(c)."""
-    sqrt_c = torch.sqrt(torch.as_tensor(c, dtype=gam.dtype, device=gam.device))
+    sqrt_c = torch.sqrt(as_scalar(c, gam.dtype, gam.device))
     p, q = gam.shape
     if block_size is None or p % block_size != 0 or p <= block_size:
         return _z_block(gam, theta, zeta, p_mask, q_mask, sqrt_c)

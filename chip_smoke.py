@@ -20,12 +20,18 @@ per source, started together) and prints ptxas's registers and spills
           p=2000, q=500, anneal=(1, 2, 10)) to convergence: the kernel
           launches once per iteration and the hotspot AUC of theta_vb
           against the simulation's active SNPs is >= 0.95; a small fit on
-          the card in float32 agrees with the CPU float64 fit;
+          the card in float32 agrees with the CPU float64 fit (every
+          card-against-CPU comparison gives both sides the same host-drawn
+          initial state through list_init: on the card atlasqtl() draws
+          its own on the device);
   eqtl    atlasqtl() at the eqtl_1host shape (n=1000, p=50000, q=10000),
           anneal=(1, 2, 5), maxit=10: ms per sweep and per iteration, host
-          init and ELBO seconds, peak device memory, launches (the eQTL
-          phases share each problem's host-drawn initial state, passed as
-          list_init);
+          init and ELBO seconds, seconds from prepare_data to the first
+          iteration, peak device memory, launches (the eQTL phases share
+          each problem's host-drawn initial state, passed as list_init);
+  dev_init  the eqtl fit with no list_init: the initial state drawn on the
+          card; its seconds and the host path's, the drawn moments against
+          their theory, peak memory no more than the host-init fit's;
   mis_kernel  the exact-missing kernel (B2) against its plain version,
           float32, c = 1 and c = 0.5, seeded MCAR missingness, at ten
           shapes (ragged q; n % 8 != 0 with block 80; the fit shape; the
@@ -68,6 +74,12 @@ per source, started together) and prints ptxas's registers and spills
           relative, PIPs within 1e-2); small fits on the card through each
           route, at block 128 and 256, agree with the CPU float64 fit, and
           float64 use_pallas fits on the card match it to 1e-6;
+  device_loop  every route (B1, B2, impute, B3 f32 and f64, B4, block
+          256, model="global") at the sim_anneal shape under
+          device_loop="off" and "on" (CUDA graphs): equal iterations, the
+          ELBO histories within 1e-6, launches per iteration under both
+          loops, graph replays, seconds, and 0 device-to-host copies per
+          lite step (torch.profiler); B1's fit profiled under both loops;
   eqtl_sweeps  the eQTL problem built once, then 10 iterations through B3
           and through B4 from clones of its state; the B3 route's last
           sweep again under torch.profiler: its CUDA launches (3 per
@@ -108,9 +120,9 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
               (500, 256, 4000, 0.15), (4000, 256, 1024, 0.15),
               (5000, 256, 1024, 0.15), (7000, 256, 256, 0.15),
               (8000, 256, 256, 0.15))
-PHASES = ("kernel", "fit", "eqtl", "mis_kernel", "missing_fit",
+PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
           "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
-          "sweeps_fit", "eqtl_sweeps", "scaling")
+          "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling")
 SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
@@ -561,14 +573,28 @@ def hotspot_auc(score, p_act):
     return float((r[:p_act].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
 
 
+def host_init(y, x, seed, p0=(5, 25)):
+    """The InitSpec atlasqtl(user_seed=seed) draws on the host for (y, x):
+    a card fit and a CPU fit compared with each other both take it through
+    list_init (on the card atlasqtl() would draw its own state on the
+    device)."""
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    dat = prepare_data(y, x, 0.1, 1000, seed, 0)
+    return elic.auto_set_init(dat.y, dat.x.shape[1], p0,
+                              float(dat.y.shape[1]), seed)
+
+
 def phase_fit():
     import torch
     import atlasqtl_tpu_torch as at
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
 
-    # the small reference fit first: float32 on the card vs float64 on CPU
+    # the small reference fit first: float32 on the card vs float64 on CPU,
+    # both from the same host-drawn initial state
     xs, ys = simulate(100, 75, 20, 123, 10, 20)
-    kw = dict(p0=(5, 25), verbose=0, user_seed=123)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=123,
+              list_init=host_init(ys, xs, 123))
     small_gpu = at.atlasqtl(ys, xs, dtype=torch.float32, device=DEVICE, **kw)
     small_cpu = at.atlasqtl(ys, xs, dtype=torch.float64, device="cpu", **kw)
     pip_diff = float(np.abs(small_gpu.gam_vb - small_cpu.gam_vb).max())
@@ -617,7 +643,8 @@ def phase_missing_fit():
     from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
 
     xs, ys = simulate(100, 75, 20, 123, 10, 20, missing_frac=0.2)
-    kw = dict(p0=(5, 25), verbose=0, user_seed=123)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=123,
+              list_init=host_init(ys, xs, 123))
     pip_diff = {}
     for missing in ("exact", "impute"):
         gpu = at.atlasqtl(ys, xs, dtype=torch.float32, device=DEVICE,
@@ -693,6 +720,7 @@ def phase_block_fits():
         xs, ys = simulate(100, 75 if name == "batch0" else 300, 20, 123, 10,
                           20, missing_frac=frac)
         args = dict(p0=(5, 25), verbose=0, user_seed=123, **kw,
+                    list_init=host_init(ys, xs, 123),
                     **({} if name == "batch0" else {"block_size": 256}))
         gpu = at.atlasqtl(ys, xs, dtype=torch.float32, device=DEVICE, **args)
         cpu = at.atlasqtl(ys, xs, dtype=torch.float64, device="cpu", **args)
@@ -755,15 +783,23 @@ def timed_run(run, launch, counter, bound, sweep=None):
     is set to 0 just before the run; bound(args, kwargs) gives a launch's
     bound_ms from its operands.  Returns (result, stats)."""
     import torch
+    from atlasqtl_tpu_torch import api
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.models import global_local as gl
 
     acc = {"init_s": 0.0, "build_state_s": 0.0, "elbo_s": 0.0}
     iter_ms, launch_ev, sweep_ev, bounds = [], [], [], []
+    marks = {}   # the end of prepare_data, the start of the first iteration
     sweep = sweep or launch
     orig = dict(init=elic.auto_set_init, state=gl.build_state,
                 elbo=gl.compute_elbo, it=gl.cavi_iteration,
+                prep=api.prepare_data,
                 launch=getattr(*launch), sweep=getattr(*sweep))
+
+    def prepared(*a, **k):
+        out = orig["prep"](*a, **k)
+        marks["prepared"] = time.perf_counter()
+        return out
 
     def timed(key, fn):
         def w(*a, **k):
@@ -778,6 +814,7 @@ def timed_run(run, launch, counter, bound, sweep=None):
     def iteration(*a, **k):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        marks.setdefault("first_iteration", t)
         out = orig["it"](*a, **k)
         torch.cuda.synchronize()
         iter_ms.append(1e3 * (time.perf_counter() - t))
@@ -800,6 +837,7 @@ def timed_run(run, launch, counter, bound, sweep=None):
     gl.build_state = timed("build_state_s", orig["state"])
     gl.compute_elbo = timed("elbo_s", orig["elbo"])
     gl.cavi_iteration = iteration
+    api.prepare_data = prepared
     setattr(*launch, events(orig["launch"], launch_ev,
                             lambda a, k: bounds.append(bound(a, k))))
     if sweep != launch:
@@ -814,6 +852,7 @@ def timed_run(run, launch, counter, bound, sweep=None):
     finally:
         elic.auto_set_init, gl.build_state = orig["init"], orig["state"]
         gl.compute_elbo, gl.cavi_iteration = orig["elbo"], orig["it"]
+        api.prepare_data = orig["prep"]
         setattr(*launch, orig["launch"])
         setattr(*sweep, orig["sweep"])
     launch_ms = [a.elapsed_time(b) for a, b in launch_ev]
@@ -825,6 +864,8 @@ def timed_run(run, launch, counter, bound, sweep=None):
                  iter_ms=iter_ms, iter_ms_median=statistics.median(iter_ms),
                  host_init_s=acc["init_s"], build_state_s=acc["build_state_s"],
                  elbo_s=acc["elbo_s"], elbo_evals=len(res.elbo_history),
+                 prepare_to_first_iteration_s=marks["first_iteration"]
+                 - marks["prepared"] if "prepared" in marks else None,
                  total_s=total,
                  max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                  / 1e9)
@@ -837,6 +878,7 @@ def timed_run(run, launch, counter, bound, sweep=None):
 
 
 _EQTL = {}
+_EQTL_STATS = {}   # eqtl_run's stats by (phase, missing), for dev_init
 
 
 def eqtl_problem(missing_frac=0.0):
@@ -873,6 +915,11 @@ def eqtl_run(phase, missing_frac, launch_mod, launch_fn, counter, bound,
                             device=DEVICE, list_init=init, **fit_kw),
         (launch_mod, launch_fn), counter, bound)
     stats["host_init_s"] = init_s  # drawn once, by eqtl_problem
+    # the host path from prepare_data to the first iteration: the draw
+    # (eqtl_problem's) and then build_data/build_state
+    stats["host_path_prepare_to_first_iteration_s"] = \
+        stats["prepare_to_first_iteration_s"] + init_s
+    _EQTL_STATS[(phase, fit_kw.get("missing"))] = stats
     out = dict(phase=phase, **fit_kw, n=n, p=p, q=q, anneal=[1, 2, 5],
                maxit=10, **stats, finite=bool(np.isfinite(res.gam_vb).all()))
     emit(out)
@@ -1373,6 +1420,369 @@ def phase_eqtl_sweeps():
     return profile
 
 
+def phase_dev_init():
+    """atlasqtl(user_seed=1, maxit=10, anneal=(1, 2, 5)) at the eQTL shape
+    with no list_init: the initial state is drawn on the card
+    (models/global_local.py:auto_init_device).  Prints the draw's seconds,
+    the seconds from the end of prepare_data to the first iteration beside
+    the host path's (the eqtl phase's, when it ran: eqtl_problem's host
+    draw plus its state building), the drawn state's moments against their
+    theoretical values, and the fit's peak device memory, which may not
+    exceed the host-init fit's."""
+    import torch
+    from scipy.special import digamma, ndtr
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch import api
+    from atlasqtl_tpu_torch.inference.elicitation import get_n0_t02
+    from atlasqtl_tpu_torch.models import global_local as gl
+
+    x, y, _, host_init_s = eqtl_problem(0.0)
+    n, p = x.shape
+    q = y.shape[1]
+    orig = dict(draw=gl.auto_init_device, it=gl.cavi_iteration,
+                prep=api.prepare_data)
+    marks, moments = {}, {}
+
+    def prepared(*a, **k):
+        out = orig["prep"](*a, **k)
+        marks["prepared"] = time.perf_counter()
+        return out
+
+    def draw(seed, data, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st = orig["draw"](seed, data, *a, **k)
+        torch.cuda.synchronize()
+        marks["draw_s"] = time.perf_counter() - t
+        pt, qt = int(data.p_true), int(data.q_true)
+        ls2b = torch.log(st.sig2_beta[:qt].double())
+        z = st.zeta[:qt].double()
+        moments.update(
+            gam_mean=float(st.gam[:pt, :qt].double().mean()),
+            log_sig2_beta_mean=float(ls2b.mean()),
+            log_sig2_beta_var=float(ls2b.var()),
+            zeta_mean=float(z.mean()), zeta_var=float(z.var()),
+            tau=float(st.tau[0]), sig02_inv=float(st.sig02_inv))
+        return st
+
+    def iteration(*a, **k):
+        if "first_iteration" not in marks:
+            torch.cuda.synchronize()
+            marks["first_iteration"] = time.perf_counter()
+        return orig["it"](*a, **k)
+
+    gl.auto_init_device, gl.cavi_iteration = draw, iteration
+    api.prepare_data = prepared
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5), maxit=10,
+                          dtype=torch.float32, verbose=0, user_seed=1,
+                          device=DEVICE)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        gl.auto_init_device, gl.cavi_iteration = orig["draw"], orig["it"]
+        api.prepare_data = orig["prep"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n0_vec, t02 = get_n0_t02(1, p, (5, 25))
+    n0 = float(n0_vec[0])
+    theory = dict(
+        gam_mean=float(ndtr(n0 / np.sqrt(1.0 + (1e-4 + t02) ** 2))),
+        log_sig2_beta_mean=float(-digamma(2.0)
+                                 - np.log(1e-2 * moments["tau"])),
+        log_sig2_beta_var=0.6449340668482264,   # trigamma(2)
+        zeta_mean=n0, zeta_var=float(t02))
+    host = _EQTL_STATS.get(("eqtl", None))
+    out = dict(phase="dev_init", n=n, p=p, q=q, anneal=[1, 2, 5], maxit=10,
+               it=res.it, device_init_s=marks["draw_s"],
+               prepare_to_first_iteration_s=marks["first_iteration"]
+               - marks["prepared"],
+               host_init_s=host_init_s,
+               host_path_prepare_to_first_iteration_s=None if host is None
+               else host["host_path_prepare_to_first_iteration_s"],
+               total_s=total, max_memory_allocated_gb=peak,
+               host_init_fit_max_memory_allocated_gb=None if host is None
+               else host["max_memory_allocated_gb"],
+               moments=moments, theory=theory,
+               finite=bool(np.isfinite(res.gam_vb).all()
+                           and np.isfinite(res.theta_vb).all()))
+    emit(out)
+    if not out["finite"] or res.gam_vb.shape != (p, q):
+        raise AssertionError("dev_init: non-finite or misshapen outputs")
+    se = lambda v: 4.0 * np.sqrt(v / q)
+    checks = dict(
+        gam_mean=abs(moments["gam_mean"] / theory["gam_mean"] - 1) < 0.02,
+        log_sig2_beta_mean=abs(moments["log_sig2_beta_mean"]
+                               - theory["log_sig2_beta_mean"])
+        < se(theory["log_sig2_beta_var"]),
+        log_sig2_beta_var=abs(moments["log_sig2_beta_var"]
+                              - theory["log_sig2_beta_var"]) < 0.06,
+        zeta_mean=abs(moments["zeta_mean"] - n0) < se(t02),
+        zeta_var=abs(moments["zeta_var"] / t02 - 1) < 0.06)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"dev_init: moments off their theory: {bad}")
+    limit = 22.5 if host is None else host["max_memory_allocated_gb"]
+    if peak > limit:
+        raise AssertionError(f"dev_init: peak {peak:.2f} GB over the host-"
+                             f"init fit's {limit:.2f} GB")
+
+
+def _count_lite_d2h(prof):
+    """Device-to-host copies made inside the device loop's lite steps of a
+    torch.profiler run (the steps are record_function ranges named
+    "device_loop:<kind>"): the CPU calls inside a lite range that launched a
+    "Memcpy DtoH" or read a scalar (aten::_local_scalar_dense).  Returns
+    (copies, lite steps)."""
+    evs = [e for e in prof.events() if e.device_type.name == "CPU"]
+    lite = [e for e in evs if e.name.startswith("device_loop:")
+            and "lite" in e.name]
+    copies = 0
+    for e in evs:
+        if e.name.startswith("device_loop:"):
+            continue
+        d2h = (e.name == "aten::_local_scalar_dense"
+               or any("DtoH" in k.name for k in e.kernels))
+        if d2h and any(r.thread == e.thread
+                       and r.time_range.start <= e.time_range.start
+                       and e.time_range.end <= r.time_range.end
+                       for r in lite):
+            copies += 1
+    return copies, len(lite)
+
+
+# the hand-written kernels' names (csrc/*.cu); B3's cuBLAS products count
+# as other kernels
+SWEEP_KERNELS = ("sweep_fused_kernel", "sweep_missing_kernel",
+                 "sweep_staggered_kernel", "inner_gs_kernel",
+                 "zrow_reduce_kernel")
+
+
+def fit_profile(run, loop, window=None):
+    """One fit under torch.profiler (CPU and CUDA activity), split as the
+    host loop's ranges (the model's cavi_iteration and compute_elbo) or the
+    device loop's steps (record_function ranges per step kind): wall
+    seconds; host seconds in each range kind; host seconds blocked in
+    synchronising calls; device seconds in the sweep kernels and in every
+    other kernel (glue and ELBO) and the device's idle share; kernel
+    launches and graph launches; and the device-to-host copies inside lite
+    steps (`_count_lite_d2h`).  window = (skip, steps) records only the
+    device loop's steps skip+2 .. skip+steps+1 (torch.profiler's schedule:
+    skip, one warm-up step, then the active ones), where every kind of
+    step is a graph replay; the wall seconds are then the whole fit's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    from atlasqtl_tpu_torch.models import global_local as gl
+
+    orig = dict(it=gl.cavi_iteration, elbo=gl.compute_elbo,
+                step=dl._Step.__call__)
+
+    def ranged(name, fn):
+        def w(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return w
+
+    def step(self):
+        with record_function(f"device_loop:{self.name}"):
+            out = orig["step"](self)
+        if window:
+            prof.step()
+        return out
+
+    gl.cavi_iteration = ranged("model:iteration", orig["it"])
+    gl.compute_elbo = ranged("model:elbo", orig["elbo"])
+    dl._Step.__call__ = step
+    try:
+        torch.cuda.synchronize()
+        sched = None if window is None else torch.profiler.schedule(
+            wait=window[0], warmup=1, active=window[1], repeat=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            t0 = time.perf_counter()
+            res = run(loop)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        gl.cavi_iteration, gl.compute_elbo = orig["it"], orig["elbo"]
+        dl._Step.__call__ = orig["step"]
+    evs = prof.events()
+    cpu = [e for e in evs if e.device_type.name == "CPU"]
+    dev = [e for e in evs if e.device_type.name == "CUDA"]
+    ranges = {}
+    for e in cpu:
+        if e.name.startswith(("model:", "device_loop:")):
+            r = ranges.setdefault(e.name, [0, 0.0])
+            r[0] += 1
+            r[1] += (e.time_range.end - e.time_range.start) / 1e6
+    sync_s = sum((e.time_range.end - e.time_range.start) / 1e6 for e in cpu
+                 if e.name in ("cudaStreamSynchronize",
+                               "cudaDeviceSynchronize", "cudaMemcpy",
+                               "cudaEventSynchronize"))
+    # the device events are kernels, copies, fills and the ranges' own
+    # GPU-side annotations (named as the ranges), which are not work
+    kern = [e for e in dev if not e.name.startswith(
+        ("Memcpy", "Memset", "model:", "device_loop:"))]
+    span = lambda e: (e.time_range.end - e.time_range.start) / 1e6
+    sweep_s = sum(span(e) for e in kern
+                  if any(k in e.name for k in SWEEP_KERNELS))
+    busy = sum(span(e) for e in kern)
+    d2h, lite = _count_lite_d2h(prof) if loop == "on" else (None, None)
+    return res, dict(
+        loop=loop, wall_s=wall,
+        ranges={k: {"count": v[0], "host_s": v[1]}
+                for k, v in sorted(ranges.items())},
+        host_sync_s=sync_s, device_sweep_s=sweep_s,
+        device_other_s=busy - sweep_s,
+        device_idle_share=None if window else 1.0 - busy / wall,
+        device_kernels=len(kern),
+        kernel_launch_calls=sum(1 for e in cpu
+                                if e.name in ("cudaLaunchKernel",
+                                              "cudaLaunchKernelExC",
+                                              "cuLaunchKernel",
+                                              "cuLaunchKernelEx")),
+        graph_launch_calls=sum(1 for e in cpu if e.name == "cudaGraphLaunch"),
+        d2h_device_copies=sum(1 for e in dev if "DtoH" in e.name),
+        lite_steps_profiled=lite, d2h_copies_in_lite_steps=d2h,
+        d2h_copies_per_lite_step=None if not lite else d2h / lite)
+
+
+def phase_device_loop():
+    """At the sim_anneal shape, every route under device_loop="off" and
+    "on": B1 (complete data), B2 (exact missing), impute (B1), the B3 route
+    in float32 and float64, B4, block 256 (B1 in pieces of 128) and
+    model="global" (the plain engines, ~50k launches per iteration: cut to
+    40 iterations, float64).  Each fit is driven with every kernel's count
+    set to 0 just before it and read just after; the "on" fit runs again
+    under torch.profiler, recording steps 16-35 (global: 16-19), where
+    every kind of step is a graph replay, for its device-to-host copies per
+    lite step, which must be 0; B1's fit cut to 60 iterations is profiled
+    whole under both loops for PERF.md's breakdown.  Fails unless both loops take the same
+    iterations, evaluate the ELBO at the same ones and agree on it to 1e-6
+    relative; prints seconds per fit, CUDA-graph replays and launches."""
+    import torch
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+    from atlasqtl_tpu_torch.ops import sweep_pallas as sp
+    from atlasqtl_tpu_torch.ops import sweep_staggered as ss
+
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    x, y = simulate(n, p, q, 0, p_act, q_hit)
+    xm, ym = simulate(n, p, q, 0, p_act, q_hit, missing_frac=0.15)
+    counters = {"sweep_fused": sf.sweep_fused,
+                "sweep_missing_fused": sm.sweep_missing_fused,
+                "block_gs": sp.block_gs,
+                "sweep_fused_staggered": ss.sweep_fused_staggered}
+    api_kw = dict(p0=(5, 25), anneal=(1, 2, 10), dtype=torch.float32,
+                  verbose=0, user_seed=0, device=DEVICE)
+
+    def api_fit(yy, xx, **kw):
+        def run(loop, **cut):
+            return at.atlasqtl(yy, xx, device_loop=loop,
+                               **{**api_kw, **kw, **cut})
+        return run
+
+    def route_fit(cfg):
+        def run(loop, **cut):
+            return prepared_fit(y, x, dataclasses.replace(
+                cfg, device_loop=loop, **cut), DEVICE, seed=0)[0]
+        return run
+
+    routes = (
+        ("b1", api_fit(y, x), "sweep_fused", 1),
+        ("b2", api_fit(ym, xm, missing="exact"), "sweep_missing_fused", 1),
+        ("impute", api_fit(ym, xm, missing="impute"), "sweep_fused", 1),
+        ("b3_f32", route_fit(Config(sweep="pallas")), "block_gs", 16),
+        ("b3_f64", route_fit(Config(dtype=torch.float64, use_pallas=True)),
+         "block_gs", 16),
+        ("b4", route_fit(Config(sweep_stagger=True)),
+         "sweep_fused_staggered", 1),
+        ("block256", api_fit(y, x, block_size=256), "sweep_fused", 1),
+        # the plain engines: ~50k launches per iteration, so cut to 40
+        # iterations; float64, as the reference's own tests fit this model
+        ("global", api_fit(y, x, model="global", dtype=torch.float64,
+                           maxit=40), None, 0),
+    )
+    profiles = {}
+    for route, run, own, per_it in routes:
+        t_route = time.perf_counter()
+        fits = {}
+        for loop in ("off", "on"):
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            dl.replays = 0
+            t0 = time.perf_counter()
+            res = run(loop)
+            torch.cuda.synchronize()
+            fits[loop] = dict(res=res, seconds=time.perf_counter() - t0,
+                              launches={k: fn.launches
+                                        for k, fn in counters.items()},
+                              replays=dl.replays)
+        if route == "b1":  # PERF.md's breakdown: 60 iterations, both loops
+            profiles = {loop: fit_profile(
+                lambda lp: run(lp, maxit=60), loop)[1]
+                for loop in ("off", "on")}
+        # the copies per lite step, over steps 16-35 (global: 16-19), every
+        # kind of step a graph replay by then
+        _, prof = fit_profile(run, "on",
+                              window=(14, 4 if route == "global" else 20))
+        off, on = fits["off"]["res"], fits["on"]["res"]
+        h_off = np.array([lb for _, lb in off.elbo_history])
+        h_on = np.array([lb for _, lb in on.elbo_history])
+        same_evals = ([i for i, _ in off.elbo_history]
+                      == [i for i, _ in on.elbo_history])
+        rel = (float(np.max(np.abs(h_on - h_off) / np.abs(h_off)))
+               if same_evals and len(h_off) else None)
+        out = dict(phase="device_loop", route=route, n=n, p=p, q=q,
+                   it_off=off.it, it_on=on.it, converged_off=off.converged,
+                   converged_on=on.converged, elbo_evals=len(h_on),
+                   same_elbo_iterations=same_evals,
+                   elbo_max_rel_diff=rel,
+                   seconds_off=fits["off"]["seconds"],
+                   seconds_on=fits["on"]["seconds"],
+                   graph_replays_on=fits["on"]["replays"],
+                   graph_replays_off=fits["off"]["replays"],
+                   launches_off=fits["off"]["launches"],
+                   launches_on=fits["on"]["launches"],
+                   d2h_copies_per_lite_step=prof[
+                       "d2h_copies_per_lite_step"],
+                   lite_steps_profiled=prof["lite_steps_profiled"],
+                   d2h_device_copies_on=prof["d2h_device_copies"],
+                   phase_seconds=time.perf_counter() - t_route)
+        emit(out)
+        if not ((off.converged and on.converged or route == "global")
+                and off.it == on.it and same_evals and rel is not None
+                and rel <= 1e-6):
+            raise AssertionError(f"device_loop {route}: the loops differ "
+                                 f"(it {off.it} / {on.it}, same evaluations "
+                                 f"{same_evals}, ELBO rel diff {rel})")
+        if prof["d2h_copies_in_lite_steps"] or not prof["lite_steps_profiled"]:
+            raise AssertionError(f"device_loop {route}: "
+                                 f"{prof['d2h_copies_in_lite_steps']} "
+                                 f"device-to-host copies in "
+                                 f"{prof['lite_steps_profiled']} lite steps")
+        if fits["on"]["replays"] == 0 or fits["off"]["replays"]:
+            raise AssertionError(f"device_loop {route}: graph replays "
+                                 f"{fits['on']['replays']} (on), "
+                                 f"{fits['off']['replays']} (off)")
+        for loop in ("off", "on"):
+            counts = fits[loop]["launches"]
+            want = fits[loop]["res"].it * per_it
+            if (own and counts[own] != want) or sum(counts.values()) != want:
+                raise AssertionError(f"device_loop {route} ({loop}): "
+                                     f"launches {counts} for "
+                                     f"{fits[loop]['res'].it} iterations")
+    emit(dict(phase="device_loop_profile", route="b1", **profiles))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1409,6 +1819,8 @@ def main():
         launches = phase_fit()
     if "eqtl" in phases:
         phase_eqtl()
+    if "dev_init" in phases:
+        phase_dev_init()
     if "mis_kernel" in phases:
         mis_max_abs, mis_timing = phase_mis_kernel()
     if "missing_fit" in phases:
@@ -1425,6 +1837,8 @@ def main():
         stag_max_abs, stag_timing = phase_stag_kernel()
     if "sweeps_fit" in phases:
         route_launches = phase_sweeps_fit()
+    if "device_loop" in phases:
+        phase_device_loop()
     route_profile_ = None
     if "eqtl_sweeps" in phases:
         route_profile_ = phase_eqtl_sweeps()

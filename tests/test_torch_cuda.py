@@ -22,6 +22,9 @@ reach each branch of their launch plans (ops/sweep_fused.py:
 fused_launch_plan, ops/sweep_missing_fused.py:missing_launch_plan).
 """
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -189,11 +192,21 @@ def test_launch_plans_match_the_kernels(cuda):
             assert ctas >= plan["ctas_per_sm"] and clusters >= 1
 
 
+def _host_init(y, x, seed):
+    """The InitSpec atlasqtl(user_seed=seed) draws on the host: a card fit
+    compared with a CPU fit takes it through list_init on both sides (on
+    the card atlasqtl() would draw its own state on the device)."""
+    dat = prepare_data(y, x, 0.1, 1000)
+    return elic.auto_set_init(dat.y, dat.x.shape[1], (5, 25),
+                              float(dat.y.shape[1]), seed)
+
+
 def test_fit_on_the_card(cuda):
     """device=None runs on the card, launches the kernel once per
     iteration, and its f32 PIPs agree with the float64 CPU fit."""
     y, x, _ = simulate_fixture()
-    kw = dict(p0=(5, 25), verbose=0, user_seed=123)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=123,
+              list_init=_host_init(y, x, 123))
     sf.sweep_fused.launches = 0
     res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
     assert res.converged and sf.sweep_fused.launches == res.it
@@ -307,7 +320,8 @@ def test_missing_fit_on_the_card(cuda):
     """device=None with NaN in Y: the exact fit launches B2 once per
     iteration and no B1; its f32 PIPs agree with the float64 CPU fit."""
     y, x, _ = simulate_fixture(missing_frac=0.2, seed=5)
-    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600,
+              list_init=_host_init(y, x, 11))
     sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
     res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
     assert res.converged and sm.sweep_missing_fused.launches == res.it
@@ -323,7 +337,7 @@ def test_missing_fit_raises_on_a_block_the_kernel_cannot_take(cuda):
     fit at the same block within 1e-2."""
     y, x, _ = simulate_fixture(p=300, missing_frac=0.2, seed=5)
     kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600,
-              block_size=256)
+              block_size=256, list_init=_host_init(y, x, 11))
     sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
     res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
     assert res.converged and sm.sweep_missing_fused.launches == res.it
@@ -340,7 +354,8 @@ def test_block_256_fit_on_the_card(cuda, missing):
     y, x, _ = simulate_fixture(p=300, missing_frac=0.2 if missing else 0.0,
                                seed=5)
     kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600,
-              block_size=256, **({"missing": missing} if missing else {}))
+              block_size=256, list_init=_host_init(y, x, 11),
+              **({"missing": missing} if missing else {}))
     sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
     res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
     own = sm.sweep_missing_fused if missing == "exact" else sf.sweep_fused
@@ -354,7 +369,8 @@ def test_batch0_missing_fit_on_the_card(cuda):
     card (no kernel, as in the reference) and agrees with the float64 CPU
     fit within 1e-2."""
     y, x, _ = simulate_fixture(n=60, p=30, q=10, missing_frac=0.2, seed=5)
-    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600, batch="0")
+    kw = dict(p0=(5, 25), verbose=0, user_seed=11, maxit=600, batch="0",
+              list_init=_host_init(y, x, 11))
     sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
     res = at.atlasqtl(y, x, dtype=torch.float32, **kw)
     assert res.converged
@@ -640,3 +656,163 @@ def test_route_fit_on_the_card(cuda, route, block):
         assert np.abs(gam - ref_gam).max() <= 1e-6
     else:
         assert np.abs(gam - ref_gam).max() <= 1e-2
+
+
+# ------------------------------------------- the device loop and device init
+
+LOOP_ROUTES = ("b1", "b2", "impute", "b3_f32", "b3_f64", "b4", "block256",
+               "global", "batch0")
+
+
+def _loop_fit(route, loop, device):
+    """One small fit of `route` under device_loop=`loop`; returns the result
+    and the route's launch counter and launches per iteration."""
+    miss = route in ("b2", "impute", "batch0")
+    # the global model on test_e2e.py's fixture: on the seed-5 one the
+    # reference's own global fit stops at its monotonicity guard
+    seed = 123 if route == "global" else 5
+    y, x, _ = simulate_fixture(p=300 if route == "block256" else 75,
+                               missing_frac=0.2 if miss else 0.0, seed=seed)
+    kw = dict(p0=(5, 25), verbose=0, user_seed=seed, maxit=600,
+              device=device, device_loop=loop)
+    if route.startswith(("b3", "b4")):
+        cfg = {"b3_f32": Config(sweep="pallas"),
+               "b3_f64": Config(dtype=torch.float64, use_pallas=True),
+               "b4": Config(sweep_stagger=True)}[route]
+        dat = prepare_data(y, x, 0.1, 1000)
+        p, q = dat.x.shape[1], dat.y.shape[1]
+        cfg = dataclasses.replace(cfg, shr_fac_inv=float(q),
+                                  device_loop=loop)
+        data = gl.build_data(dat.x, dat.y, cfg, device)
+        hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                               data.y.shape[1], cfg, device)
+        state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25),
+                                                  float(q), 11), data, cfg)
+        res = fit_global_local(data, hyper, state, cfg, anneal=(1, 2, 10),
+                               verbose=0)
+        # B3's block kernel once per block: p = 75 is one block of 80
+        own = sp.block_gs if route.startswith("b3") else \
+            ss.sweep_fused_staggered
+        return res, own, 1
+    extra = {"b2": dict(missing="exact"), "impute": dict(missing="impute"),
+             "block256": dict(block_size=256), "global": dict(model="global"),
+             "batch0": dict(batch="0")}.get(route, {})
+    # the global model in float64, as the reference's own tests fit it
+    dtype = torch.float64 if route == "global" else torch.float32
+    res = at.atlasqtl(y, x, dtype=dtype, **kw, **extra)
+    own = {"b2": sm.sweep_missing_fused, "global": None,
+           "batch0": None}.get(route, sf.sweep_fused)
+    return res, own, 1
+
+
+def _reset_counts():
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    for fn in dl.launch_counters():
+        fn.launches = 0
+    dl.replays = 0
+
+
+@pytest.mark.parametrize("route", LOOP_ROUTES)
+def test_graph_loop_matches_host_loop(cuda, route):
+    """Every route under the CUDA-graph loop takes the host loop's
+    iterations, evaluates the ELBO at the same ones and agrees on it to
+    1e-6 relative; the route's kernel count equals its launches per
+    iteration times the iterations under both loops (replays counted), and
+    only the graph loop replays graphs."""
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    fits = {}
+    for loop in ("off", "on"):
+        _reset_counts()
+        res, own, per_it = _loop_fit(route, loop, cuda)
+        fits[loop] = res
+        launches = sum(fn.launches for fn in dl.launch_counters())
+        assert launches == (0 if own is None else res.it * per_it)
+        if own is not None:
+            assert own.launches == res.it * per_it
+        assert (dl.replays > 0) == (loop == "on")
+    off, on = fits["off"], fits["on"]
+    assert off.converged and on.converged and off.it == on.it
+    assert [i for i, _ in off.elbo_history] == [i for i, _ in
+                                               on.elbo_history]
+    np.testing.assert_allclose([lb for _, lb in on.elbo_history],
+                               [lb for _, lb in off.elbo_history], rtol=1e-6)
+
+
+def test_launch_counters_count_replays(cuda):
+    """Under the graph loop B1's count is the fit's iterations: the eager
+    first step of each kind counts its launch, a capture counts none, each
+    replay counts the launches it captured; every step after the first of
+    its kind (at most 4 kinds) is a replay."""
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    _reset_counts()
+    res, _, _ = _loop_fit("b1", "on", cuda)
+    assert sf.sweep_fused.launches == res.it
+    assert res.it - 4 <= dl.replays < res.it
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_init_moments_on_the_card(cuda, dtype):
+    """auto_init_device with the card's generator at (120, 256, 2048): the
+    moments of tests/test_torch_dev_init.py, tau by the host rule."""
+    from scipy.special import digamma
+    n, p, q = 120, 256, 2048
+    rng = np.random.default_rng(7)
+    x = rng.binomial(2, 0.3, size=(n, p)).astype(np.float64)
+    x = x[:, x.std(0) > 0][:, :p]
+    p = x.shape[1]
+    y = rng.normal(size=(n, q))
+    cfg = Config(dtype=dtype, shr_fac_inv=float(q))
+    data = gl.build_data(x, y, cfg, cuda)
+    st = gl.auto_init_device(0, data, (5.0, 25.0), float(q), cfg)
+    assert st.gam.device.type == "cuda" and st.gam.dtype == dtype
+    host = elic.auto_set_init(y, p, (5.0, 25.0), float(q), user_seed=1)
+    n0, t02 = elic.get_n0_t02(1, p, (5.0, 25.0))
+    g = st.gam[:p, :q].double().cpu().numpy()
+    assert abs(g.mean() - host.gam_vb.mean()) < 2e-3
+    ls = np.log(st.sig2_beta[:q].double().cpu().numpy())
+    tau = float(host.tau_vb[0])
+    assert abs(ls.mean() + float(digamma(2.0)) + np.log(1e-2 * tau)) < 0.1
+    assert abs(ls.var() - 0.6449) < 0.1
+    np.testing.assert_allclose(st.tau[:q].double().cpu().numpy(),
+                               host.tau_vb,
+                               rtol=1e-12 if dtype == torch.float64 else 1e-6)
+    z = st.zeta[:q].double().cpu().numpy()
+    assert abs(z.mean() - float(n0[0])) < 4 * np.sqrt(t02 / q)
+    assert abs(z.var(ddof=1) / t02 - 1.0) < 0.15
+    beta = st.gam * st.mu_beta
+    np.testing.assert_allclose(st.fitted.double().cpu().numpy(),
+                               (data.x @ beta).double().cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_capture_failure_raises(cuda):
+    """A step that cannot be captured (here an ELBO that reads a value back
+    to the host) makes the graph loop raise; the fit never carries on in
+    the host loop.  Run in a process of its own: a failed capture leaves
+    the process's CUDA state to PyTorch, which does not restore it."""
+    code = """
+import numpy as np, torch
+import atlasqtl_tpu_torch as at
+from atlasqtl_tpu_torch.models import global_local as gl
+orig = gl.compute_elbo
+def reads_back(*a, **k):
+    lb = orig(*a, **k)
+    float(lb)
+    return lb
+gl.compute_elbo = reads_back
+rng = np.random.default_rng(1)
+x = rng.binomial(2, 0.2, size=(100, 75)).astype(float)
+y = x[:, :10] @ rng.normal(1.0, 0.5, (10, 20)) + rng.normal(size=(100, 20))
+try:
+    at.atlasqtl(y, x, p0=(5, 25), verbose=0, user_seed=1, device_loop="on")
+except RuntimeError as err:
+    print("raised:", str(err).splitlines()[0])
+else:
+    print("no error")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "raised: device loop: capturing the converged full + ELBO " \
+        "step" in r.stdout, r.stdout + r.stderr[-2000:]

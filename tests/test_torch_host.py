@@ -73,10 +73,9 @@ def test_default_device_requires_gpu(fixture_small):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(model="global"), "A10"), (dict(anneal_replicas=2), "A8"),
+    (dict(anneal_replicas=2), "A8"),
     (dict(full_output=True), "A8"), (dict(checkpoint_path="."), "A8"),
-    (dict(trace_path="."), "A8"), (dict(device_loop="on"), "A7"),
-    (dict(mesh=object()), "A12"),
+    (dict(trace_path="."), "A8"), (dict(mesh=object()), "A12"),
 ])
 def test_unported_options_raise(fixture_small, kwargs, item):
     y, x, _ = fixture_small
