@@ -4,8 +4,9 @@ re-design of the reference entry point R/atlasqtl.R:179-322).
 The same surface as the reference package.  This port runs the global-local
 and the global-only fits on one device, on complete data or with NaN in Y
 (missing="exact" or "impute"), with the host loop or the device loop
-(device_loop); every other option keeps its place in the signature and
-raises NotImplementedError naming its ROADMAP.md item.
+(device_loop), with annealing replicas, checkpoints, hotspot traces and
+the full output; `mesh` keeps its place in the signature and raises
+NotImplementedError naming its ROADMAP.md item (A12).
 
 On a CUDA device with no list_init (and not save_init, one replica,
 model="global_local"), the initial state is drawn on the device
@@ -27,6 +28,7 @@ from .types import Config
 from .io.prepare import prepare_data, add_collinear_back
 from .inference import elicitation as elic
 from .inference.driver import fit_global_local
+from .inference.full_output import assemble_full_output
 from .inference.summarise import AtlasQTLResult
 from .models import global_local as gl
 from .ops.annealing import check_annealing
@@ -69,16 +71,8 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
     most 2^25 padded cells, "on" and "off" force it (verbose=2 keeps the
     host loop)."""
     dev = resolve_device(device)
-    not_ported = [
-        (mesh is not None, "mesh (ROADMAP.md A12)"),
-        (anneal_replicas != 1, "anneal_replicas > 1 (ROADMAP.md A8)"),
-        (checkpoint_path is not None, "checkpoint_path (ROADMAP.md A8)"),
-        (trace_path is not None, "trace_path (ROADMAP.md A8)"),
-        (full_output, "full_output=True (ROADMAP.md A8)"),
-    ]
-    for bad, what in not_ported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("mesh (ROADMAP.md A12) is not ported yet")
     if verbose not in (0, 1, 2):
         raise ValueError("verbose must be 0, 1 or 2")
     if batch not in ("y", "0"):
@@ -159,8 +153,35 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
                                            user_seed)
         state = gl.build_state(init_spec, data, cfg)
 
+    checkpointer = tracer = None
+    if checkpoint_path is not None:
+        from .io.checkpoint import Checkpointer
+        checkpointer = Checkpointer(checkpoint_path, dat.names_x, dat.names_y,
+                                    p, q)
+    if trace_path is not None:
+        from .io.trace import HotspotTrace
+        tracer = HotspotTrace(trace_path, shr_fac_inv, p)
+    if model == "global" and trace_path is not None:
+        log.warning("Provided argument trace_path not used with the "
+                    "global-scale-only model.")
+        tracer = None
+    replica_states = None
+    if anneal_replicas > 1:
+        if anneal is None:
+            raise ValueError("anneal_replicas requires an annealing schedule")
+        seeds = [user_seed + 1 + r if user_seed is not None else r + 1
+                 for r in range(anneal_replicas - 1)]
+        replica_states = [state] + [gl.build_state(
+            elic.auto_set_init(dat.y, p, p0, shr_fac_inv, s_), data, cfg)
+            for s_ in seeds]
     res = fit_global_local(data, hyper, state, cfg, anneal=anneal,
-                           verbose=verbose, model=model)
+                           verbose=verbose, checkpointer=checkpointer,
+                           tracer=tracer, model=model,
+                           replica_states=replica_states)
+    if checkpointer is not None and res.converged:
+        # the reference cleans up unconditionally (R/utils.R:614-627); the
+        # last snapshots stay after a fit that did not converge, to resume
+        checkpointer.clean_up()
     st = res.state
     host = lambda t: t.detach().to(torch.float64).cpu().numpy()
     gam_vb = host(st.gam)[:p, :q]
@@ -187,4 +208,7 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
         x_beta_vb=host(st.fitted)[:n, :q],
         sig02_inv_vb=float(st.sig02_inv),
         list_hyper=hyper_spec if save_hyper else None,
-        list_init=init_spec if save_init else None)
+        list_init=init_spec if save_init else None,
+        full_state=st if full_output else None,
+        full_output=(assemble_full_output(data, hyper, st, cfg, model=model)
+                     if full_output else None))

@@ -88,14 +88,17 @@ __device__ __forceinline__ float z_cell(float u, float gam, float d1,
 
 // z_row[j] = sum over column slices of part[slice, j], in slice order: the
 // per-slice partial row sums of Z reduced without float atomics, so a run
-// repeats bit for bit.  B1, B2 and B4 launch the float instance, the B3
-// route float and double.
+// repeats bit for bit.  blockIdx.y is the replica of a batched sweep
+// (B1, B2): its partials and its z_row follow the previous replicas'.  B1,
+// B2 and B4 launch the float instance, the B3 route float and double.
 template <typename T>
 __global__ void zrow_reduce_kernel(const T* __restrict__ part,
                                    T* __restrict__ z_row, int n_slices,
                                    int p) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p) return;
+  part += (size_t)blockIdx.y * n_slices * p;
+  z_row += (size_t)blockIdx.y * p;
   T s = T(0);
   for (int sl = 0; sl < n_slices; ++sl) s += part[(size_t)sl * p + j];
   z_row[j] = s;

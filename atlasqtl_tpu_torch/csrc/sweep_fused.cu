@@ -59,7 +59,14 @@
 //  - column statistics accumulate in the chain threads' registers, z_col in
 //    each thread's and then over row groups in order; z_row goes to a
 //    (n_slices, p) partial buffer reduced by the second kernel.  No
-//    atomics: results are the same from run to run.
+//    atomics: results are the same from run to run;
+//  - annealing replicas (several states swept at one temperature) are a
+//    second grid axis: blockIdx.y picks the replica, whose state operands
+//    and outputs are its slices of stacked arrays (x, the Gram blocks and
+//    the masks are shared).  The per-CTA code is unchanged, so each
+//    replica's outputs are those of its own launch in slices of the same
+//    width bit for bit; m replicas put m times the CTAs on the card in one
+//    launch.
 #include "common.cuh"
 
 namespace {
@@ -164,8 +171,33 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     float* __restrict__ gcol,           // (q,)
     float* __restrict__ m2gcol,         // (q,)
     float* __restrict__ b2col,          // (q,)
-    int n, int p, int q, int B, int R, int c_one) {
+    int n, int p, int q, int B, int R, int c_one, int cp_batched) {
   using S = Slice<QS>;
+  // blockIdx.y is the replica: every operand of the state (and X^T Y where
+  // cp_batched) and every output is one replica's slice of a stacked array
+  {
+    const size_t r = blockIdx.y, pq = (size_t)p * q;
+    if (cp_batched) cp += r * pq;
+    beta_in += r * pq;
+    fitted += r * (size_t)n * q;
+    l_aug += r * (size_t)p * R;
+    n_stack += r * 3 * (size_t)R * q;
+    theta += r * p;
+    zeta += r * q;
+    s2v += r * q;
+    tauv += r * q;
+    scal += r * 2;
+    beta_out += r * pq;
+    if (gam_out != nullptr) {
+      gam_out += r * pq;
+      mu_out += r * pq;
+    }
+    zrow_part += r * gridDim.x * (size_t)p;
+    z_col += r * q;
+    gcol += r * q;
+    m2gcol += r * q;
+    b2col += r * q;
+  }
   constexpr int NT = S::NT, NW = S::NW, TC = S::TC, WQ = S::WQ;
   constexpr int H0 = S::NCW * 32;  // the first thread of the helper warps
   extern __shared__ __align__(16) float smem[];
@@ -199,7 +231,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   const int nb = p / B, nwin = B / W;
   // the probe thread adds its cycles straight into g_clocks, so that no
   // other thread holds registers for them
-  const bool probe = blockIdx.x == 0 && tid == 0;
+  const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
   long long clk = 0;
   if (probe) {
     clk = clock64();
@@ -608,7 +640,8 @@ int launch(const float* x, const float* cp, const float* gram,
            const float* tauv, const float* scal, float* beta_out,
            float* gam_out, float* mu_out, float* zrow_part, float* z_row,
            float* z_col, float* gcol, float* m2gcol, float* b2col, int n,
-           int p, int q, int B, int R, int c_one, cudaStream_t st) {
+           int p, int q, int B, int R, int c_one, int m, int cp_batched,
+           cudaStream_t st) {
   const size_t smem = checked_smem<QS>(B, R);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err =
@@ -617,14 +650,14 @@ int launch(const float* x, const float* cp, const float* gram,
                            (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_slices = (q + QS - 1) / QS;
-  sweep_fused_kernel<QS><<<n_slices, Slice<QS>::NT, smem, st>>>(
+  sweep_fused_kernel<QS><<<dim3(n_slices, m), Slice<QS>::NT, smem, st>>>(
       x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, zeta,
       q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part, z_col,
-      gcol, m2gcol, b2col, n, p, q, B, R, c_one);
+      gcol, m2gcol, b2col, n, p, q, B, R, c_one, cp_batched);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  zrow_reduce_kernel<<<(p + 255) / 256, 256, 0, st>>>(zrow_part, z_row,
-                                                       n_slices, p);
+  zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
+      zrow_part, z_row, n_slices, p);
   return (int)cudaGetLastError();
 }
 
@@ -646,12 +679,14 @@ int occupancy(int B, int R) {
 
 extern "C" {
 
-// Launches one sweep (the sweep kernel, then the z_row reduction) on
-// `stream` in slices of `qs` columns, 32 or 40: the width that
-// ops/sweep_fused.py:fused_launch_plan picks; the kernel sizes the rest of
-// its launch.  zrow_part holds ceil(q / qs) rows of p.  Returns the CUDA
-// error code of the launches (0 on success); cudaErrorInvalidValue for a
-// shape or width it does not take.
+// Launches the sweeps of m replicas (the sweep kernel on a grid of slices x
+// m, then the z_row reduction) on `stream` in slices of `qs` columns, 32 or
+// 40: the width that ops/sweep_fused.py:fused_launch_plan picks; the kernel
+// sizes the rest of its launch.  The operands of the state and the outputs
+// are m stacked arrays (X^T Y too where cp_batched; x, the Gram blocks and
+// the masks are shared); zrow_part holds m x ceil(q / qs) rows of p.
+// Returns the CUDA error code of the launches (0 on success);
+// cudaErrorInvalidValue for a shape or width it does not take.
 int atlasqtl_sweep_fused(const float* x, const float* cp, const float* gram,
                          const float* l_aug, const float* n_stack,
                          const float* beta_in, float* fitted,
@@ -662,21 +697,23 @@ int atlasqtl_sweep_fused(const float* x, const float* cp, const float* gram,
                          float* mu_out, float* zrow_part, float* z_row,
                          float* z_col, float* gcol, float* m2gcol,
                          float* b2col, int n, int p, int q, int B, int R,
-                         int c_one, int qs, void* stream) {
+                         int c_one, int qs, int m, int cp_batched,
+                         void* stream) {
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || R <= 0 || R > RMAX ||
-      q % 4 != 0 || n <= 0 || (gam_out == nullptr) != (mu_out == nullptr))
+      q % 4 != 0 || n <= 0 || (gam_out == nullptr) != (mu_out == nullptr) ||
+      m < 1 || m > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (qs == 32)
     return launch<32>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta,
                       p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,
                       gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,
-                      b2col, n, p, q, B, R, c_one, st);
+                      b2col, n, p, q, B, R, c_one, m, cp_batched, st);
   if (qs == 40)
     return launch<40>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta,
                       p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,
                       gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,
-                      b2col, n, p, q, B, R, c_one, st);
+                      b2col, n, p, q, B, R, c_one, m, cp_batched, st);
   return (int)cudaErrorInvalidValue;
 }
 

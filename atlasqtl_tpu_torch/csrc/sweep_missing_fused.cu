@@ -69,7 +69,12 @@
 //    split over the cluster's ranks), each warp all of its rows at once so
 //    that every node value feeds independent sums; z_row
 //    goes to a (n_slices, p) partial buffer reduced by zrow_reduce_kernel,
-//    z_col is summed over warps, then ranks, in order.
+//    z_col is summed over warps, then ranks, in order;
+//  - annealing replicas are a second grid axis: blockIdx.y picks the
+//    replica (the cluster stays along x), whose state operands and outputs
+//    are its slices of stacked arrays (x, X^T Y, x_norm_sq and the masks
+//    are shared).  The per-CTA code is unchanged, so each replica's outputs
+//    are those of its own launch with the same cluster bit for bit.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -386,6 +391,24 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  // blockIdx.y is the replica: every operand of the state and every output
+  // is one replica's slice of a stacked array
+  {
+    const size_t r = blockIdx.y, pq = (size_t)p * q;
+    gam_in += r * pq;
+    mu_in += r * pq;
+    l_aug += r * (size_t)p * R;
+    n_stack += r * 3 * (size_t)R * q;
+    fm += r * (size_t)n * q;
+    theta += r * p;
+    zeta += r * q;
+    tauv += r * q;
+    scal += r * 3;
+    gam_out += r * pq;
+    mu_out += r * pq;
+    zrow_part += r * (gridDim.x / cs) * (size_t)p;
+    z_col += r * q;
+  }
   const int slice = blockIdx.x / cs;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k0 = slice * QS;
@@ -403,7 +426,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   const int nwin = p / W;
   const int WSF = ws_floats(R);
 
-  const bool probe = blockIdx.x == 0 && tid == 0;
+  const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
   if (probe)
     for (int e = 0; e < NCLK; ++e) CLK_s[e] = 0;
   const long long clk0 = clock64();
@@ -629,10 +652,10 @@ cudaError_t set_smem(size_t smem) {
                               (int)smem);
 }
 
-cudaLaunchConfig_t launch_config(int grid, int smem, int cluster,
+cudaLaunchConfig_t launch_config(int grid, int m, int smem, int cluster,
                                  cudaLaunchAttribute* attr, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
+  cfg.gridDim = dim3(grid, m);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -660,12 +683,14 @@ int plan_smem(int n, int cluster, int fm_on_chip, int R) {
 
 extern "C" {
 
-// Launches one exact-missing sweep (the sweep kernel, then the z_row
-// reduction) on `stream` with the decisions of
-// ops/sweep_missing_fused.py:missing_launch_plan: the cluster size and
-// whether Fm is on chip; the kernel derives its rows per CTA, grid and
-// shared memory from them.  Returns the CUDA error code of the launches (0
-// on success); cudaErrorInvalidValue for a shape or plan it does not take.
+// Launches the exact-missing sweeps of m replicas (the sweep kernel on a
+// grid of (slices x cluster) x m, then the z_row reduction) on `stream`
+// with the decisions of ops/sweep_missing_fused.py:missing_launch_plan: the
+// cluster size and whether Fm is on chip; the kernel derives its rows per
+// CTA, grid and shared memory from them.  The operands of the state and the
+// outputs are m stacked arrays; x, X^T Y, x_norm_sq, the mask and the
+// p/q masks are shared.  Returns the CUDA error code of the launches (0 on
+// success); cudaErrorInvalidValue for a shape or plan it does not take.
 int atlasqtl_sweep_missing_fused(
     const float* x, const float* cp, const float* gam_in, const float* mu_in,
     const float* xns, const float* mask, const float* l_aug,
@@ -673,19 +698,20 @@ int atlasqtl_sweep_missing_fused(
     const float* zeta, const float* q_mask, const float* tauv,
     const float* scal, float* gam_out, float* mu_out, float* zrow_part,
     float* z_row, float* z_col, int n, int p, int q, int B, int R,
-    int cluster, int fm_on_chip, void* stream) {
+    int cluster, int fm_on_chip, int m, void* stream) {
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
   const int smem = plan_smem(n, cluster, fm_on_chip, R);
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
-      smem < 0)
+      smem < 0 || m < 1 || m > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = fm_on_chip ? set_smem<true>(smem) : set_smem<false>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(grid, smem, cluster, attr, st);
+  const cudaLaunchConfig_t cfg =
+      launch_config(grid, m, smem, cluster, attr, st);
   err = fm_on_chip
             ? cudaLaunchKernelEx(&cfg, sweep_missing_kernel<true>, x, cp,
                                  gam_in, mu_in, xns, mask, l_aug, n_stack, fm,
@@ -700,8 +726,8 @@ int atlasqtl_sweep_missing_fused(
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  zrow_reduce_kernel<<<(p + 255) / 256, 256, 0, st>>>(zrow_part, z_row,
-                                                       n_slices, p);
+  zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
+      zrow_part, z_row, n_slices, p);
   return (int)cudaGetLastError();
 }
 
@@ -739,7 +765,7 @@ int atlasqtl_sweep_missing_occupancy(int n, int cluster, int fm_on_chip,
   if (err != cudaSuccess) return -1;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      launch_config(cluster * 64, smem, cluster, attr, nullptr);
+      launch_config(cluster * 64, 1, smem, cluster, attr, nullptr);
   err = fm_on_chip ? cudaOccupancyMaxActiveClusters(
                          clusters, sweep_missing_kernel<true>, &cfg)
                    : cudaOccupancyMaxActiveClusters(

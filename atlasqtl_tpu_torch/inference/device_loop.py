@@ -32,6 +32,7 @@ A failed capture raises; the fit never carries on in the host loop.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 
 import numpy as np
@@ -48,14 +49,15 @@ ELBO_BUF = 2048
 replays = 0
 
 
-def eligible(cfg, verbose, data) -> bool:
+def eligible(cfg, verbose, data, checkpointer=None, tracer=None) -> bool:
     """The reference's policy (atlasqtl_tpu/inference/device_loop.py:
-    eligible): off with verbose=2, whose per-evaluation diagnostics need the
-    host; cfg.device_loop "on"/"off" override; "auto" is on for a CUDA
+    eligible): off with a host hook (a checkpointer or a tracer, which run
+    between iterations) or verbose=2, whose per-evaluation diagnostics need
+    the host; cfg.device_loop "on"/"off" override; "auto" is on for a CUDA
     device and at most 2^25 cells."""
     if cfg.device_loop == "off":
         return False
-    if verbose == 2:
+    if checkpointer is not None or tracer is not None or verbose == 2:
         return False
     if cfg.device_loop == "on":
         return True
@@ -117,6 +119,11 @@ class _Step:
         before = [fn.launches for fn in counters]
         stream = torch.cuda.current_stream(self.loop.device)
         graph = torch.cuda.CUDAGraph()
+        # an earlier fit's loop and its graphs are cyclic garbage (a step
+        # refers to its loop): the collector must not destroy a graph while
+        # a stream captures, which invalidates the capture
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.loop.pool):
                 self.commit(self.body())
@@ -130,6 +137,8 @@ class _Step:
                 f"device loop: capturing the {self.name} step as a CUDA "
                 f"graph failed ({type(exc).__name__}: {exc})") from None
         finally:
+            if gc_on:
+                gc.enable()
             # the capture recorded the launches; only replays run them
             self.launches = [fn.launches - b
                              for fn, b in zip(counters, before)]
@@ -275,6 +284,7 @@ class DeviceLoop:
         step's kind without reading the device.  Returns (state, it, lb,
         converged, diff_lb, n_eval, elbo history [(it, lb)], mono)."""
         it, bc, conv, nev = it0, 1, False, 0
+        self.it.fill_(it0)  # a loop built after the ladder starts there too
         while not conv and it < maxit:
             it += 1
             will_eval = it <= it_init + 1 or it % bc == 0 or it % bc == 1

@@ -1,5 +1,6 @@
 """CAVI driver: annealing schedule, adaptive ELBO thinning, convergence
-control and the monotonicity guard (counterpart of the host loop of
+control and the monotonicity guard, with annealing replicas and the
+checkpoint and trace hooks (counterpart of the host loop of
 atlasqtl_tpu/inference/driver.py; re-design of the iteration-control half
 of R/atlasqtl_global_local_core.R:69-97, 125-132, 318-399).
 
@@ -61,16 +62,69 @@ def _log_hotspot_scales(data: Data, state: VBState, cfg: Config,
              qs[0], qs[1], qs[2], float(lam.mean()), qs[3], qs[4])
 
 
+def _anneal_replicas_batched(mod, data: Data, hyper: Hyper, replica_states,
+                             gram_blocks, ladder, cfg: Config, verbose,
+                             block=None):
+    """Annealing replicas (counterpart of
+    atlasqtl_tpu/inference/driver.py:_anneal_replicas_batched): the m
+    initial states are annealed side by side, every rung of the ladder one
+    batched iteration of all of them (`cavi_iteration_replicas`: on the B1
+    and B2 routes one kernel launch sweeps all m; a model without it steps
+    the replicas in turn), the last rung full because the selection reads
+    its gam/mu.  The replica with the largest float64 ELBO after the ladder
+    is returned with the rung count.  The rungs run eagerly under host
+    control, as the JAX package's do."""
+    m = len(replica_states)
+    dev = data.x.device
+    block = gl.data_block(cfg, data) if block is None else block
+    one = as_scalar(1.0, cfg.dtype, dev)
+    cs = torch.as_tensor(np.asarray(ladder[:-1], np.float64), dtype=cfg.dtype,
+                         device=dev)
+    rung = getattr(mod, "cavi_iteration_replicas", None)
+    if rung is None:
+        rung = lambda dat, hyp, sts, gram, c, c_s, **kw: [
+            mod.cavi_iteration(dat, hyp, st, gram, c, c_s, **kw)
+            for st in sts]
+    states = list(replica_states)
+    n_rungs = len(ladder) - 1
+    for k, c in enumerate(ladder[:-1]):  # c = 1 exits annealing
+        c_s = cs[k] if cfg.anneal_scale else one
+        states = rung(data, hyper, states, gram_blocks, cs[k], c_s, cfg=cfg,
+                      annealed=True, lite=k + 1 < n_rungs, block=block)
+        if verbose and (k == 0 or (k + 1) % 5 == 0):
+            log.info("Iteration %d (temperature %.4g, %d replicas)", k + 1,
+                     1.0 / c, m)
+    elbos = torch.stack([
+        mod.compute_elbo(data, hyper, st, cfg=cfg).to(cfg.elbo_dtype)
+        for st in states]).double().cpu().numpy()
+    best = int(np.argmax(elbos))
+    if verbose:
+        for r, lb in enumerate(elbos):
+            log.info("Annealing replica %d: ELBO = %.6f", r, lb)
+    return states[best], n_rungs
+
+
 def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                      anneal=None, verbose: int = 1,
-                     model: str = "global_local") -> FitResult:
+                     checkpointer=None, tracer=None,
+                     model: str = "global_local",
+                     replica_states=None) -> FitResult:
     """Run annealed CAVI to convergence.
 
+    checkpointer: optional callable(it, state, converged, lb_new, lb_old),
+           called after each converged-phase iteration (io/checkpoint.py)
+    tracer: optional callable(it, state), called at iteration 1 and every
+           25th, annealing rungs included (io/trace.py)
     model: "global_local" (horseshoe, the product path) or "global" (the
-    global-scale-only variant, R/atlasqtl_global_core.R).  The loop is the
-    host loop below or, where device_loop.eligible says so (cfg.device_loop
-    "on", or "auto" on a CUDA device at <= 2^25 cells), the device loop of
-    inference/device_loop.py, with the same semantics."""
+           global-scale-only variant, R/atlasqtl_global_core.R)
+    replica_states: optional list of initial states, each annealed (side by
+           side, `_anneal_replicas_batched`); the replica with the best
+           ELBO after the ladder goes on to convergence.
+
+    The loop is the host loop below or, where device_loop.eligible says so
+    (no host hook; cfg.device_loop "on", or "auto" on a CUDA device at
+    <= 2^25 cells), the device loop of inference/device_loop.py, with the
+    same semantics."""
     if model == "global_local":
         mod = gl
     elif model == "global":
@@ -92,7 +146,7 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
     eps_rel = 64.0 * float(torch.finfo(cfg.elbo_dtype).eps)
 
     from . import device_loop as dl
-    use_dev = dl.eligible(cfg, verbose, data)
+    use_dev = dl.eligible(cfg, verbose, data, checkpointer, tracer)
 
     if cfg.thinned_elbo_eval:
         times_sched = np.array([1.0, 5.0, 10.0, 50.0])
@@ -111,8 +165,11 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
     # copied to the device once, c = 1 is a cached device constant
     one = as_scalar(1.0, cfg.dtype, dev)
     ladder = annealing_ladder(anneal) if anneal is not None else None
+    # with replicas the loop starts from the selected replica, after the
+    # ladder
     loop = (dl.DeviceLoop(mod, data, hyper, state, gram_blocks, cfg, block,
-                          ladder=ladder) if use_dev else None)
+                          ladder=ladder)
+            if use_dev and replica_states is None else None)
 
     # ---------------------------------------------------- annealing phase
     if anneal is not None:
@@ -120,7 +177,11 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
         if verbose:
             log.info("** Annealing with %s spacing **",
                      {1: "geometric", 2: "harmonic", 3: "linear"}[int(anneal[0])])
-        if use_dev:
+        if replica_states is not None:
+            state, it = _anneal_replicas_batched(
+                mod, data, hyper, replica_states, gram_blocks, ladder, cfg,
+                verbose, block)
+        elif use_dev:
             loop.anneal(len(ladder) - 1)
             it = len(ladder) - 1
             if verbose:
@@ -139,6 +200,8 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                                            block=block)
                 if verbose and (it == 1 or it % 5 == 0):
                     log.info("Iteration %d (temperature %.4g)", it, 1.0 / c)
+                if tracer is not None and (it == 1 or it % 25 == 0):
+                    tracer(it, state)
         if verbose:
             log.info("** Exiting annealing mode. **")
     else:
@@ -146,6 +209,9 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
 
     # ------------------------------------------------- converged CAVI phase
     if use_dev:
+        if loop is None:
+            loop = dl.DeviceLoop(mod, data, hyper, state, gram_blocks, cfg,
+                                 block)
         (state, it, lb_new, converged, diff_lb, nev, elbo_history,
          mono) = loop.converged(it, it_init, cfg.maxit)
         if nev > loop.buf:
@@ -164,17 +230,22 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
                        verbose)
 
     diff_lb_final = math.inf
+    ckpt_rate = getattr(checkpointer, "rate", 1) if checkpointer else 0
     while not converged and it < cfg.maxit:
         lb_old = lb_new
         it += 1
         # gam/mu must be fresh only where this iteration's result feeds an
-        # ELBO evaluation or the final output; the others run "lite"
+        # ELBO evaluation, a checkpoint or the final output; the others run
+        # "lite"
         will_eval = (it <= it_init + 1 or it % batch_conv == 0
                      or it % batch_conv == 1)
-        need_full = will_eval or it >= cfg.maxit
+        need_full = (will_eval or it >= cfg.maxit
+                     or (ckpt_rate and it % ckpt_rate == 0))
         state = mod.cavi_iteration(data, hyper, state, gram_blocks, one, one,
                                    cfg=cfg, annealed=False,
                                    lite=not need_full, block=block)
+        if tracer is not None and (it == 1 or it % 25 == 0):
+            tracer(it, state)
 
         if will_eval:
             lb_new = float(mod.compute_elbo(data, hyper, state, cfg=cfg))
@@ -205,6 +276,9 @@ def fit_global_local(data: Data, hyper: Hyper, state: VBState, cfg: Config,
             elif ind_batch_conv > sum_exceed:
                 ind_batch_conv = sum_exceed
                 batch_conv = int(batch_sched[ind_batch_conv - 1])
+
+        if checkpointer is not None:
+            checkpointer(it, state, converged, lb_new, lb_old)
 
     return _finish(state, converged, it, lb_new, diff_lb_final, elbo_history,
                    verbose)

@@ -12,6 +12,7 @@ padding never leaks into the math.
 from __future__ import annotations
 
 import logging
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -23,10 +24,13 @@ from ..ops.horseshoe import lam2_inv_annealed, lam2_inv_exact
 from ..ops.special import as_scalar, log_ndtr_both, q_approx
 from ..ops.sweep import (SweepConsts, mis_pair_gram, sweep_complete,
                          sweep_missing, sweep_missing_blocked)
-from ..ops.sweep_fused import sweep_complete_fused
+from ..ops.sweep_fused import (FUSED, fused_operands, sweep_complete_fused,
+                               sweep_fused)
 from ..ops.sweep_pallas import sweep_complete_pallas
 from ..ops.sweep_staggered import sweep_complete_staggered
-from ..ops.sweep_missing_fused import sweep_missing_fused_driver
+from ..ops.sweep_missing_fused import (MISSING, missing_fused_operands,
+                                       sweep_missing_fused,
+                                       sweep_missing_fused_driver)
 
 log = logging.getLogger("atlasqtl_tpu_torch")
 
@@ -358,6 +362,20 @@ def _select_missing_sweep(cfg: Config, data: Data) -> str:
     return "blocked" if data.mis_pair_gram is not None else "scan"
 
 
+def _engine(cfg: Config, data: Data) -> str:
+    """The sweep engine of an iteration on this configuration: "b2",
+    "blocked" or "scan" on the exact-missing path; "b1", "b4", "pallas"
+    (the B3 route) or "xla" (the plain blocked sweep) on complete data and
+    impute.  Only "b1" and "b2" take a replica axis."""
+    if data.x_norm_sq is not None:
+        engine = _select_missing_sweep(cfg, data)
+        return "b2" if engine == "fused" else engine
+    impl = _select_sweep(cfg, data)
+    if impl == "fused":
+        return "b4" if cfg.sweep_stagger else "b1"
+    return impl
+
+
 # ------------------------------------------------------------ one iteration
 
 def _colsum_stats(data: Data, state: VBState, use_cached: bool = True):
@@ -392,7 +410,10 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
                    c_s, *, cfg: Config, annealed: bool, lite: bool = False,
                    block: int | None = None) -> VBState:
     """One CAVI iteration (the reference's _cavi_iteration_impl), update
-    order identical to R/atlasqtl_global_local_core.R:125-338.
+    order identical to R/atlasqtl_global_local_core.R:125-338: the
+    pre-sweep updates, the sweep, the post-sweep updates
+    (`cavi_iteration_replicas` composes the same pieces around one batched
+    sweep of several states).
 
     lite=True (fused engine only): the sweep reads/writes the carried
     beta = gam * mu_beta and emits no fresh gam/mu; the returned state's
@@ -407,11 +428,58 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     the predictor block of `data` (`data_block`), which the exact-missing
     kernel path needs; None reads it from the device.
     """
-    dt = cfg.dtype
-    dev = data.x.device
-    scalar = lambda v: as_scalar(v, dt, dev)
-    c, c_s, shr = scalar(c), scalar(c_s), scalar(cfg.shr_fac_inv)
+    c, c_s = _scalars(c, c_s, cfg, data)
+    pre = _pre_sweep(data, hyper, state, c, cfg)
+    out = _sweep(data, state, pre, gram_blocks, cfg, annealed, lite, block)
+    return _post_sweep(data, hyper, state, pre, out, c, c_s, cfg, annealed)
 
+
+def cavi_iteration_replicas(data: Data, hyper: Hyper, states, gram_blocks,
+                            c, c_s, *, cfg: Config, annealed: bool,
+                            lite: bool = False,
+                            block: int | None = None) -> list:
+    """One CAVI iteration of each state in `states` (annealing replicas of
+    one fit), at one temperature.  The pre- and post-sweep updates run on
+    each state as in `cavi_iteration`; on the B1 route (complete data and
+    impute) and the B2 route (exact missing) the sweep of all the states
+    is one batched kernel launch (on the CPU, the kernels' plain versions
+    replica by replica).  Elsewhere (the B3 and B4 routes, the plain
+    engines) the states' sweeps run one after another.  Each returned
+    state is the state `cavi_iteration` returns for it."""
+    c, c_s = _scalars(c, c_s, cfg, data)
+    pres = [_pre_sweep(data, hyper, st, c, cfg) for st in states]
+    engine = _engine(cfg, data)
+    if engine == "b1":
+        outs = _sweep_fused_replicas(data, states, pres, gram_blocks, lite,
+                                     annealed)
+    elif engine == "b2":
+        outs = _sweep_missing_replicas(
+            data, states, pres, data_block(cfg, data) if block is None
+            else block)
+    else:
+        outs = [_sweep(data, st, pre, gram_blocks, cfg, annealed, lite,
+                       block) for st, pre in zip(states, pres)]
+    return [_post_sweep(data, hyper, st, pre, out, c, c_s, cfg, annealed)
+            for st, pre, out in zip(states, pres, outs)]
+
+
+def _scalars(c, c_s, cfg: Config, data: Data):
+    dev = data.x.device
+    return as_scalar(c, cfg.dtype, dev), as_scalar(c_s, cfg.dtype, dev)
+
+
+class _Pre(NamedTuple):
+    """What the pre-sweep updates hand the sweep and the post-sweep
+    updates."""
+    consts: SweepConsts
+    sig2_inv: torch.Tensor
+    cp_x_y: torch.Tensor   # X^T Y, or X^T Y_eff in impute mode
+
+
+def _pre_sweep(data: Data, hyper: Hyper, state: VBState, c,
+               cfg: Config) -> _Pre:
+    """Steps 1-4: slab and residual precisions, slab variance and the
+    log-expectations the sweep reads."""
     (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum, ff_colsum, m2b,
      beta) = _colsum_stats(data, state)
 
@@ -449,16 +517,23 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     sig2_beta = upd.sig2_beta_update(data.n, sig2_inv, tau, data.x_norm_sq, c)
     log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
     log_sig2_inv = upd.log_gamma_mean(nu_vb, rho_vb)
-
-    # 5: the Gauss-Seidel sweep (:166-176 -> src/coreLoop.cpp)
     consts = SweepConsts(sig2_beta=sig2_beta, tau=tau, log_tau=log_tau,
                          log_sig2_inv=log_sig2_inv, theta=state.theta,
                          zeta=state.zeta, c=c)
+    return _Pre(consts, sig2_inv, cp_x_y)
+
+
+def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
+           annealed: bool, lite: bool, block):
+    """Step 5, the Gauss-Seidel sweep (:166-176 -> src/coreLoop.cpp), by
+    the engine the configuration selects.  Returns (gam, mu, beta, fitted,
+    z_row, z_col, column statistics); gam/mu None after a lite fused
+    sweep, beta and the statistics None on the exact-missing path."""
+    consts, sig2_inv, cp_x_y = pre
     msk = data.p_mask[:, None] * data.q_mask[None, :]
-    if exact:
-        beta_new = colstats = None
-        engine = _select_missing_sweep(cfg, data)
-        if engine == "fused":
+    engine = _engine(cfg, data)
+    if data.x_norm_sq is not None:
+        if engine == "b2":
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_fused_driver(
                 data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
                 state.mu_beta, state.fitted, consts, sig2_inv,
@@ -478,11 +553,12 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
             gam_new, mu_new = gam_new * msk, mu_new * msk
             # 7: probit latent moments (:237)
             z_row, z_col = upd.z_moments(gam_new, state.theta, state.zeta,
-                                         data.p_mask, data.q_mask, c,
+                                         data.p_mask, data.q_mask, consts.c,
                                          block_size=cfg.block_size)
-    elif (impl := _select_sweep(cfg, data)) == "fused":
+        return gam_new, mu_new, None, fitted, z_row, z_col, None
+    if engine in ("b1", "b4"):
         # B4 takes every shape B1 takes, so sweep_stagger never gives way
-        fused = (sweep_complete_staggered if cfg.sweep_stagger
+        fused = (sweep_complete_staggered if engine == "b4"
                  else sweep_complete_fused)
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = fused(
@@ -490,19 +566,57 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
             consts, gram_blocks.shape[1], p_mask=data.p_mask,
             q_mask=data.q_mask, emit_gam_mu=not lite, annealed=annealed)
         # the kernel masks beta/gam/mu at write time
-    else:
-        blocked = sweep_complete_pallas if impl == "pallas" else sweep_complete
-        gam_new, mu_new, fitted, z_row, z_col = blocked(
-            data.x, cp_x_y, gram_blocks, state.gam, state.mu_beta,
-            state.fitted, consts, gram_blocks.shape[1], p_mask=data.p_mask,
-            q_mask=data.q_mask)
-        gam_new = gam_new * msk
-        mu_new = mu_new * msk
-        beta_new = gam_new * mu_new
-        colstats = (torch.sum(gam_new, dim=0),
-                    torch.einsum("pq,pq->q", mu_new * mu_new, gam_new),
-                    torch.einsum("pq,pq->q", beta_new, beta_new))
+        return gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats
+    blocked = sweep_complete_pallas if engine == "pallas" else sweep_complete
+    gam_new, mu_new, fitted, z_row, z_col = blocked(
+        data.x, cp_x_y, gram_blocks, state.gam, state.mu_beta,
+        state.fitted, consts, gram_blocks.shape[1], p_mask=data.p_mask,
+        q_mask=data.q_mask)
+    gam_new = gam_new * msk
+    mu_new = mu_new * msk
+    beta_new = gam_new * mu_new
+    colstats = (torch.sum(gam_new, dim=0),
+                torch.einsum("pq,pq->q", mu_new * mu_new, gam_new),
+                torch.einsum("pq,pq->q", beta_new, beta_new))
+    return gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats
 
+
+def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, lite,
+                          annealed):
+    """One B1 sweep of every state (sweep_fused with a replica axis)."""
+    block = gram_blocks.shape[1]
+    parts = [fused_operands(data.x, pre.cp_x_y, gram_blocks, st.beta,
+                            st.fitted, pre.consts, block, data.p_mask,
+                            data.q_mask)
+             for st, pre in zip(states, pres)]
+    # X^T Y is each replica's own in impute mode (Y_eff holds its fitted)
+    also = ("cp_x_y",) if data.mis_pat is not None else ()
+    beta, gam, mu, fitted, z_row, z_col, stats = sweep_fused(
+        *FUSED.stack(parts, also), block_size=block,
+        emit_gam_mu=not lite, c_one=not annealed)
+    return [(None if gam is None else gam[r], None if mu is None else mu[r],
+             beta[r], fitted[r], z_row[r], z_col[r],
+             tuple(s[r] for s in stats)) for r in range(len(states))]
+
+
+def _sweep_missing_replicas(data: Data, states, pres, block):
+    """One B2 sweep of every state (sweep_missing_fused with a replica
+    axis)."""
+    parts = [missing_fused_operands(
+        data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, st.gam,
+        st.mu_beta, st.fitted, pre.consts, pre.sig2_inv, data.p_mask,
+        data.q_mask) for st, pre in zip(states, pres)]
+    gam, mu, fitted, z_row, z_col = sweep_missing_fused(
+        *MISSING.stack(parts), block_size=block)
+    return [(gam[r], mu[r], None, fitted[r], z_row[r], z_col[r], None)
+            for r in range(len(states))]
+
+
+def _post_sweep(data: Data, hyper: Hyper, state: VBState, pre: _Pre, out,
+                c, c_s, cfg: Config, annealed: bool) -> VBState:
+    """Steps 8-9: local and global scales, propensities, the new state."""
+    gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats = out
+    shr = as_scalar(cfg.shr_fac_inv, cfg.dtype, data.x.device)
     # 8: horseshoe local scales — "keep this order!" (:239-274)
     l_vb = (c_s * state.sig02_inv * shr
             * (state.theta ** 2 + state.sig2_theta) / 2.0 / cfg.df)
@@ -539,7 +653,8 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
         gam_new, mu_new = state.gam, state.mu_beta
     return VBState(
         gam=gam_new, mu_beta=mu_new, beta=beta_new,
-        sig2_beta=sig2_beta, tau=tau, sig2_inv=sig2_inv, theta=theta,
+        sig2_beta=pre.consts.sig2_beta, tau=pre.consts.tau,
+        sig2_inv=pre.sig2_inv, theta=theta,
         zeta=zeta, sig02_inv=sig02_inv, lam2_inv=lam2_inv,
         sig2_theta=sig2_theta, fitted=fitted,
         gam_colsum=None if colstats is None else colstats[0],

@@ -122,8 +122,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 9 + [ptr]
+        lib.atlasqtl_sweep_staggered.argtypes = [ptr] * 23 + [i32] * 7 + [ptr]
         for fn in (lib.atlasqtl_sweep_fused, lib.atlasqtl_sweep_staggered):
-            fn.argtypes = [ptr] * 23 + [i32] * 7 + [ptr]
             fn.restype = i32
         lib.atlasqtl_sweep_fused_clocks.argtypes = [ptr]
         lib.atlasqtl_sweep_fused_clocks.restype = i32
@@ -139,7 +140,7 @@ def _load():
         lib.atlasqtl_sweep_staggered_clocks.restype = i32
         lib.atlasqtl_inner_gs_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_inner_gs_occupancy.restype = i32
-        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 7
+        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 8
                                                      + [ptr])
         lib.atlasqtl_sweep_missing_fused.restype = i32
         lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 4
@@ -220,36 +221,38 @@ def sub_block_gram(gram_flat, block: int, sub: int):
 
 
 def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
-                      sms: int = H100_SMS) -> dict:
-    """The launch of B1 at (n, q, block, r + 2) on a card of `sms` SMs: one
-    CTA per slice and one CTA per SM (a second needs at most 128 registers
-    per thread and 113 KB of shared memory, against ptxas's 201 and 167 for
-    the two widths and over 200 KB at block 128), no cluster.  Of the widths
-    built, the one whose slices fill whole waves best: the fewest columns
-    of SM time (waves x width), the narrower on a tie.  At q = 10000 on 132
-    SMs, 40 columns take 2 waves where 32 take 3.  A block over FUSED_BMAX
-    is walked in pieces of `sub_block` rows.  Returns slice_width,
-    sub_block, cluster, grid, waves, smem_bytes, ctas_per_sm and
-    zrow_parts (z_row partial rows per slice); the C entry point takes the
-    width and the piece and sizes the rest itself.
-    Raises ValueError on a shape the kernel does not take."""
+                      sms: int = H100_SMS, m: int = 1) -> dict:
+    """The launch of B1 at (n, q, block, r + 2) for m replicas on a card of
+    `sms` SMs: one CTA per slice and replica and one CTA per SM (a second
+    needs at most 128 registers per thread and 113 KB of shared memory,
+    against ptxas's 211 and 167 for the two widths and over 200 KB at
+    block 128), no cluster.  Of the widths built, the one whose m x slices
+    CTAs fill whole waves best: the fewest columns of SM time (waves x
+    width), the narrower on a tie.  At q = 10000 on 132 SMs, 40 columns
+    take 2 waves where 32 take 3.  A block over FUSED_BMAX is walked in
+    pieces of `sub_block` rows.  Returns slice_width, sub_block, cluster,
+    grid (the slices of one replica; the launch is grid x m CTAs), waves
+    (of all m replicas), smem_bytes, ctas_per_sm and zrow_parts (z_row
+    partial rows per slice); the C entry point takes the width and the
+    piece and sizes the rest itself.  Raises ValueError on a shape the
+    kernel does not take."""
     if (n <= 0 or block <= 0 or block % FUSED_W or q <= 0 or q % 4
-            or not 0 < r_aug <= 48):
+            or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
-                         f"q={q}, block={block}, r+2={r_aug}")
+                         f"q={q}, block={block}, r+2={r_aug}, m={m}")
     sub = sub_block(block)
-    width, waves = _widest_fill(q, FUSED_WIDTHS, sms)
+    width, waves = _widest_fill(q, FUSED_WIDTHS, sms, m)
     return dict(slice_width=width, sub_block=sub, cluster=1,
                 grid=-(-q // width), waves=waves,
                 smem_bytes=_fused_smem_bytes(width, sub, r_aug),
                 ctas_per_sm=1, zrow_parts=1)
 
 
-def _widest_fill(q: int, widths, sms: int):
-    """(width, waves) of the slice width among `widths` whose slices fill
-    whole waves of `sms` SMs best: the fewest columns of SM time (waves x
-    width), the narrower on a tie."""
-    waves = lambda w: -(-(-(-q // w)) // sms)
+def _widest_fill(q: int, widths, sms: int, m: int = 1):
+    """(width, waves) of the slice width among `widths` whose slices of m
+    replicas fill whole waves of `sms` SMs best: the fewest columns of SM
+    time (waves x width), the narrower on a tie."""
+    waves = lambda w: -(-(m * -(-q // w)) // sms)
     width = min(widths, key=lambda w: (waves(w) * w, w))
     return width, waves(width)
 
@@ -347,13 +350,94 @@ def _outputs(out, fitted):
             out["z_col"], (out["gcol"], out["m2gcol"], out["b2col"]))
 
 
+class Operands:
+    """A sweep kernel's operands in call order, each with its dims without
+    a replica axis, and which of them a batched launch of several replicas
+    takes how: `shared` ones once for all replicas, `either` ones once or
+    one per replica, every other (the state) one per replica."""
+
+    def __init__(self, ndims: dict, shared, either=()):
+        self.names = tuple(ndims)
+        self.ndims = tuple(ndims.values())
+        self.shared = frozenset(shared)
+        self.either = frozenset(either)
+        self.state = frozenset(self.names) - self.shared - self.either
+
+    def replica_axis(self, args):
+        """The replica count m of the operands `args` (1 without a replica
+        axis) and, per operand, whether it carries the axis (one dim more
+        than its own).  Raises ValueError on operands of mixed replica
+        counts, and on a replica axis on a shared operand or missing from
+        an operand of the state."""
+        batched = [a is not None and a.dim() == nd + 1
+                   for a, nd in zip(args, self.ndims)]
+        ms = {a.shape[0] for a, b in zip(args, batched) if b}
+        if len(ms) > 1:
+            raise ValueError(
+                f"operands of different replica counts {sorted(ms)}")
+        on = {k for k, b in zip(self.names, batched) if b}
+        if on and (not self.state <= on or on & self.shared):
+            raise ValueError(
+                "a replica axis goes on every operand of the state ("
+                + ", ".join(k for k in self.names if k in self.state)
+                + "), never on " + ", ".join(
+                    k for k in self.names if k in self.shared))
+        return (ms.pop() if ms else 1), batched
+
+    def stack(self, parts, also=()):
+        """The operand lists `parts` of several replicas' sweeps as the
+        operands of one batched launch: the state and the operands named in
+        `also` stacked on a leading replica axis, every other taken from
+        the first replica (the same tensor for all: data, masks, the
+        temperature)."""
+        per_replica = self.state | set(also)
+        return [torch.stack(ops) if k in per_replica else ops[0]
+                for k, ops in zip(self.names, zip(*parts))]
+
+    def loop(self, fn, args, kw):
+        """fn(*args, **kw) replica by replica (each operand that carries
+        the replica axis sliced to its replica), the outputs stacked on a
+        leading axis: the plain versions' form of a batched launch."""
+        m, batched = self.replica_axis(args)
+        outs = [fn(*(a[r] if b else a for a, b in zip(args, batched)), **kw)
+                for r in range(m)]
+
+        def stack(parts):
+            if parts[0] is None:
+                return None
+            if isinstance(parts[0], tuple):
+                return tuple(stack(list(p)) for p in zip(*parts))
+            return torch.stack(parts)
+        return tuple(stack(list(p)) for p in zip(*outs))
+
+
+# sweep_fused's operands: x, the Gram blocks and the masks are shared by
+# all replicas; X^T Y (each replica's own in impute mode) and c (one
+# temperature) may be either
+FUSED = Operands(
+    dict(x=2, cp_x_y=2, gram_flat=2, l_aug=2, n_stack=3, beta=2, fitted=2,
+         theta=1, p_mask=1, zeta=1, q_mask=1, sig2_beta=1, tau=1, c=0, kz=0),
+    shared=("x", "gram_flat", "p_mask", "q_mask"), either=("cp_x_y", "c"))
+
+
 def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                       theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
                       block_size: int, emit_gam_mu: bool = True,
                       c_one: bool = False):
     """The kernel's function in plain tensor ops, block by block and row by
     row in flat sequential order.  Same arguments and outputs as
-    `sweep_fused`."""
+    `sweep_fused`; with a replica axis, one replica after another."""
+    args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
+            zeta, q_mask, sig2_beta, tau, c, kz)
+    kw = dict(block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one)
+    if beta.dim() == 3:
+        return FUSED.loop(_sweep_fused_plain_one, args, kw)
+    return _sweep_fused_plain_one(*args, **kw)
+
+
+def _sweep_fused_plain_one(x, cp_x_y, gram_flat, l_aug, n_stack, beta,
+                           fitted, theta, p_mask, zeta, q_mask, sig2_beta,
+                           tau, c, kz, *, block_size, emit_gam_mu, c_one):
     B = block_size
     ct = c * sig2_beta * tau
     c_inv_2s2 = c * 0.5 / sig2_beta
@@ -382,61 +466,79 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     atlasqtl_sweep_staggered, B4: the same arguments and function) under
     `plan(n, q, block, r + 2, sms)` (None: B1's `fused_launch_plan`), whose
     slice width `slice_width` overrides; a block over FUSED_BMAX goes in as
-    its `sub_block` pieces with their Gram pieces.  Raises on what the
-    kernels cannot take and on a failed launch."""
-    n, p = x.shape
-    q = beta.shape[1]
+    its `sub_block` pieces with their Gram pieces.  B1 takes a replica axis
+    (the state's operands of `FUSED` stacked): one launch of grid x m
+    CTAs, each replica's outputs bit for bit those of its own launch in
+    slices of the same width (the plan for m replicas may pick another
+    width than one replica's, and z_row then sums in another order).
+    Raises on what the kernels cannot take and on a failed launch."""
+    n, p = x.shape[-2:]
+    q = beta.shape[-1]
+    r_aug = l_aug.shape[-1]
     what = entry.replace("atlasqtl_", "")
-    operands = dict(x=x, cp_x_y=cp_x_y, gram_flat=gram_flat, l_aug=l_aug,
-                    n_stack=n_stack, beta=beta, fitted=fitted, theta=theta,
-                    p_mask=p_mask, zeta=zeta, q_mask=q_mask,
-                    sig2_beta=sig2_beta, tau=tau)
-    shapes = dict(x=(n, p), cp_x_y=(p, q), gram_flat=(p, block_size),
-                  l_aug=(p, l_aug.shape[1]), n_stack=(3, l_aug.shape[1], q),
-                  beta=(p, q), fitted=(n, q), theta=(p,), p_mask=(p,),
-                  zeta=(q,), q_mask=(q,), sig2_beta=(q,), tau=(q,))
-    for name, t in operands.items():
+    args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
+            zeta, q_mask, sig2_beta, tau, c, kz)
+    try:
+        m, batched = FUSED.replica_axis(args)
+    except ValueError as e:
+        raise ValueError(f"{what} kernel: {e}") from None
+    if any(batched) and entry != "atlasqtl_sweep_fused":
+        raise ValueError(f"{what} kernel: no replica axis (B1 only)")
+    shapes = ((n, p), (p, q), (p, block_size), (p, r_aug), (3, r_aug, q),
+              (p, q), (n, q), (p,), (p,), (q,), (q,), (q,), (q,))
+    for i, (name, shape) in enumerate(zip(FUSED.names, shapes)):
+        t = args[i]
+        shape = (m, *shape) if batched[i] else shape
+        # every replica's slice is 16-byte aligned too
+        step = t[0].numel() * 4 if batched[i] else 0
         if (t.device.type != "cuda" or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shapes[name]
-                or t.data_ptr() % 16):
+                or not t.is_contiguous() or tuple(t.shape) != shape
+                or t.data_ptr() % 16 or step % 16):
             raise ValueError(
                 f"{what} kernel: {name} must be a contiguous, 16-byte "
-                f"aligned float32 CUDA tensor of shape {shapes[name]}, got "
+                f"aligned float32 CUDA tensor of shape {shape}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if (block_size <= 0 or block_size % 8 or p % block_size or q % 4
-            or l_aug.shape[1] > 48):
+            or r_aug > 48):
         raise ValueError(f"{what} kernel: unsupported shape n={n}, p={p},"
-                         f" q={q}, block={block_size}, r+2={l_aug.shape[1]}")
+                         f" q={q}, block={block_size}, r+2={r_aug}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    launch = (plan or fused_launch_plan)(n, q, block_size, l_aug.shape[1],
-                                         sms)
+    launch = (plan(n, q, block_size, r_aug, sms) if plan is not None
+              else fused_launch_plan(n, q, block_size, r_aug, sms, m))
     slice_width = slice_width or launch["slice_width"]
     sub = launch["sub_block"]
     gram_flat = sub_block_gram(gram_flat, block_size, sub)
     lib = _load()
-    scal = torch.stack([as_scalar(c, torch.float32, x.device).reshape(()),
-                        as_scalar(kz, torch.float32, x.device).reshape(())])
+    dev = x.device
+    lead = (m,) if any(batched) else ()
+    scal = torch.stack([
+        as_scalar(c, torch.float32, dev).expand(lead),
+        as_scalar(kz, torch.float32, dev).expand(lead)], dim=-1).contiguous()
     fitted = fitted.clone()
     beta_out = torch.empty_like(beta)
     gam_out = torch.empty_like(beta) if emit_gam_mu else None
     mu_out = torch.empty_like(beta) if emit_gam_mu else None
-    zrow_part = torch.empty((launch["zrow_parts"] * -(-q // slice_width), p),
-                            dtype=torch.float32, device=x.device)
+    zrow_part = torch.empty(
+        (*lead, launch["zrow_parts"] * -(-q // slice_width), p),
+        dtype=torch.float32, device=dev)
     z_row = torch.empty_like(theta)
     z_col, gcol, m2gcol, b2col = (torch.empty_like(zeta) for _ in range(4))
     ptr = lambda t: None if t is None else t.data_ptr()
+    # B1's replica count and whether X^T Y is per replica
+    extra = ((m, int(batched[1])) if entry == "atlasqtl_sweep_fused"
+             else ())
     err = getattr(lib, entry)(
         ptr(x), ptr(cp_x_y), ptr(gram_flat), ptr(l_aug), ptr(n_stack),
         ptr(beta), ptr(fitted), ptr(theta), ptr(p_mask), ptr(zeta),
         ptr(q_mask), ptr(sig2_beta), ptr(tau), ptr(scal), ptr(beta_out),
         ptr(gam_out), ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col),
         ptr(gcol), ptr(m2gcol), ptr(b2col), n, p, q, sub,
-        l_aug.shape[1], int(bool(c_one)), slice_width,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        r_aug, int(bool(c_one)), slice_width, *extra,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed at n={n}, p={p}, "
                            f"q={q}, block={block_size} (pieces of {sub}), "
-                           f"{slice_width}-column slices: "
+                           f"{slice_width}-column slices, {m} replica(s): "
                            + lib.atlasqtl_error_string(err).decode())
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)
@@ -461,9 +563,14 @@ def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
     mu'|None, fitted', z_row (p,), z_col (q,), (colsum gam, colsum mu^2 gam,
     colsum beta^2)).  The inputs are not modified.
 
+    Replicas: the state's operands (l_aug, n_stack, beta, fitted, theta,
+    zeta, sig2_beta, tau, kz) may carry a leading axis of m replicas, and
+    then cp_x_y and c may too; every output then carries it.  That is one
+    kernel launch for all m sweeps.
+
     CPU tensors run `sweep_fused_plain`; CUDA tensors launch the kernel
     (csrc/sweep_fused.cu) or raise.  `sweep_fused.launches` counts kernel
-    launches.
+    launches (one per call, whatever m).
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_fused: unsupported device {x.device}")

@@ -33,7 +33,8 @@ import torch
 
 from .interp import K_BASE, tail_interp_operands
 from .special import as_scalar
-from .sweep_fused import H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, _load, sub_block
+from .sweep_fused import (H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, Operands,
+                          _load, sub_block)
 
 # the kernel's constants (csrc/sweep_missing_fused.cu)
 MIS_QS = 32                          # response columns per slice
@@ -62,27 +63,29 @@ def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int) -> int:
     return 4 * (fixed + (nloc * (MIS_QS + 2 * MIS_W + 1) if on_chip else 0))
 
 
-def missing_launch_plan(n: int, q: int, block: int, r_aug: int) -> dict:
-    """The launch of B2 at (n, q, block, r + 2).  The rows of each 32-column
-    slice are split over the smallest cluster (1..MIS_MAX_CLUSTER CTAs)
-    whose CTAs each hold their rows of Fm on chip in at most
+def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
+                        m: int = 1) -> dict:
+    """The launch of B2 at (n, q, block, r + 2) for m replicas (one launch
+    of grid x m CTAs; `grid` counts one replica's).  The rows of each
+    32-column slice are split over the smallest cluster (1..MIS_MAX_CLUSTER
+    CTAs) whose CTAs each hold their rows of Fm on chip in at most
     SMEM_TWO_PER_SM bytes, so that two CTAs share an SM and one's chain
     overlaps the other's pass; failing that, in at most SMEM_MAX bytes (one
     per SM).  While the card would still hold one CTA per SM of a cluster
-    one larger, the cluster grows (up to MIS_SPREAD), so that few slices
-    spread over more SMs.  Where no cluster holds the rows, the
-    device-memory branch: Fm stays in device memory, one CTA per slice.
-    A block over 128 is walked in pieces of `sub_block` rows
-    (ops/sweep_fused.py:sub_block); the kernel builds its pair Grams per
-    window, so no piece needs anything precomputed.  Returns slice_width,
+    one larger for all m replicas' slices, the cluster grows (up to
+    MIS_SPREAD), so that few slices spread over more SMs.  Where no
+    cluster holds the rows, the device-memory branch: Fm stays in device
+    memory, one CTA per slice.  A block over 128 is walked in pieces of
+    `sub_block` rows (ops/sweep_fused.py:sub_block); the kernel builds its
+    pair Grams per window, so no piece needs anything precomputed.  Returns slice_width,
     sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta and
     ctas_per_sm (the CTAs that share an SM); the C entry point takes the
     decisions (piece, cluster, fm_on_chip) and derives the rest.  Raises
     ValueError on a shape the kernel does not take."""
     if (n <= 0 or block <= 0 or block % MIS_W or q % 4 or q <= 0
-            or not 0 < r_aug <= 48):
+            or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
-                         f"n={n}, q={q}, block={block}, r+2={r_aug}")
+                         f"n={n}, q={q}, block={block}, r+2={r_aug}, m={m}")
     sub = sub_block(block)
     slices = -(-q // MIS_QS)
     smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug)
@@ -91,7 +94,7 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int) -> dict:
                 if smem(cs) <= limit]
         if fits:
             cs = fits[0]
-            while cs < MIS_SPREAD and slices * (cs + 1) <= H100_SMS:
+            while cs < MIS_SPREAD and m * slices * (cs + 1) <= H100_SMS:
                 cs += 1
             return dict(slice_width=MIS_QS, sub_block=sub, cluster=cs,
                         grid=slices * cs,
@@ -141,12 +144,35 @@ def phase_clocks() -> dict:
     return dict(zip(PHASES, out))
 
 
+# sweep_missing_fused's operands: x, X^T Y, x_norm_sq, the observation
+# pattern and the masks are shared by all replicas; c (one temperature) may
+# be either
+MISSING = Operands(
+    dict(x=2, cp_x_y=2, x_norm_sq=2, mis_pat=2, l_aug=2, n_stack=3, gam=2,
+         mu=2, fitted=2, theta=1, p_mask=1, zeta=1, q_mask=1, tau=1, c=0,
+         kz=0, sig2_inv=0),
+    shared=("x", "cp_x_y", "x_norm_sq", "mis_pat", "p_mask", "q_mask"),
+    either=("c",))
+
+
 def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
                               tau, c, kz, sig2_inv, *, block_size: int):
     """The kernel's function in plain tensor ops, block by block and one
     coordinate at a time in flat sequential order.  Same arguments and
-    outputs as `sweep_missing_fused`."""
+    outputs as `sweep_missing_fused`; with a replica axis, one replica
+    after another."""
+    args = (x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
+            theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv)
+    if gam.dim() == 3:
+        return MISSING.loop(_sweep_missing_plain_one, args,
+                            dict(block_size=block_size))
+    return _sweep_missing_plain_one(*args, block_size=block_size)
+
+
+def _sweep_missing_plain_one(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
+                             gam, mu, fitted, theta, p_mask, zeta, q_mask,
+                             tau, c, kz, sig2_inv, *, block_size):
     p = x.shape[1]
     B = block_size
     fm = fitted.clone()
@@ -189,40 +215,50 @@ def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
 
 def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
-                              tau, c, kz, sig2_inv, *, block_size):
-    n, p = x.shape
-    q = gam.shape[1]
-    r_aug = l_aug.shape[1]
-    operands = dict(x=x, cp_x_y=cp_x_y, x_norm_sq=x_norm_sq, mis_pat=mis_pat,
-                    l_aug=l_aug, n_stack=n_stack, gam=gam, mu=mu,
-                    fitted=fitted, theta=theta, p_mask=p_mask, zeta=zeta,
-                    q_mask=q_mask, tau=tau)
-    shapes = dict(x=(n, p), cp_x_y=(p, q), x_norm_sq=(p, q), mis_pat=(n, q),
-                  l_aug=(p, r_aug), n_stack=(3, r_aug, q), gam=(p, q),
-                  mu=(p, q), fitted=(n, q), theta=(p,), p_mask=(p,),
-                  zeta=(q,), q_mask=(q,), tau=(q,))
-    for name, t in operands.items():
+                              tau, c, kz, sig2_inv, *, block_size, plan=None):
+    """Check the operands of one B2 launch, launch it and count it: the
+    state's operands of `MISSING` with or without a replica axis, one
+    launch of grid x m CTAs.  `plan` (None: `missing_launch_plan` for the
+    operands' replica count) is there only to compare a replica's single
+    launch with a batched one under the batched launch's plan.  Raises on
+    what the kernel cannot take and on a failed launch."""
+    n, p = x.shape[-2:]
+    q = gam.shape[-1]
+    r_aug = l_aug.shape[-1]
+    args = (x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
+            theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv)
+    try:
+        m, batched = MISSING.replica_axis(args)
+    except ValueError as e:
+        raise ValueError(f"sweep_missing_fused kernel: {e}") from None
+    shapes = ((n, p), (p, q), (p, q), (n, q), (p, r_aug), (3, r_aug, q),
+              (p, q), (p, q), (n, q), (p,), (p,), (q,), (q,), (q,))
+    for i, (name, shape) in enumerate(zip(MISSING.names, shapes)):
+        t = args[i]
+        shape = (m, *shape) if batched[i] else shape
+        # every replica's slice is 16-byte aligned too
+        step = t[0].numel() * 4 if batched[i] else 0
         if (t.device.type != "cuda" or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shapes[name]
-                or t.data_ptr() % 16):
+                or not t.is_contiguous() or tuple(t.shape) != shape
+                or t.data_ptr() % 16 or step % 16):
             raise ValueError(
                 f"sweep_missing_fused kernel: {name} must be a contiguous, "
-                f"16-byte aligned float32 CUDA tensor of shape "
-                f"{shapes[name]}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
+                f"16-byte aligned float32 CUDA tensor of shape {shape}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if block_size <= 0 or block_size % 8 or p % block_size or q % 4 \
             or r_aug > 48:
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, p={p}, q={q}, block={block_size}, "
                          f"r+2={r_aug}")
-    plan = missing_launch_plan(n, q, block_size, r_aug)
+    plan = plan or missing_launch_plan(n, q, block_size, r_aug, m)
     lib = _load()
-    f32 = lambda v: as_scalar(v, torch.float32, x.device).reshape(())
-    scal = torch.stack([f32(c), f32(kz), f32(sig2_inv)])
+    lead = (m,) if any(batched) else ()
+    f32 = lambda v: as_scalar(v, torch.float32, x.device).expand(lead)
+    scal = torch.stack([f32(c), f32(kz), f32(sig2_inv)], dim=-1).contiguous()
     fitted = fitted.clone()
     gam_out = torch.empty_like(gam)
     mu_out = torch.empty_like(mu)
-    zrow_part = torch.empty((plan["grid"] // plan["cluster"], p),
+    zrow_part = torch.empty((*lead, plan["grid"] // plan["cluster"], p),
                             dtype=torch.float32, device=x.device)
     z_row = torch.empty_like(theta)
     z_col = torch.empty_like(zeta)
@@ -233,11 +269,11 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
         plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        m, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "
-            f"q={q}, block={block_size}, plan {plan}: "
+            f"q={q}, block={block_size}, {m} replica(s), plan {plan}: "
             + lib.atlasqtl_error_string(err).decode())
     sweep_missing_fused.launches += 1
     return gam_out, mu_out, fitted, z_row, z_col
@@ -255,9 +291,15 @@ def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
     (gam', mu', Fm', z_row (p,), z_col (q,)), gam' and mu' masked.  The
     inputs are not modified.
 
+    Replicas: the state's operands (l_aug, n_stack, gam, mu, fitted, theta,
+    zeta, tau, kz, sig2_inv) may carry a leading axis of m replicas, and
+    then c may too; every output then carries it.  That is one kernel
+    launch for all m sweeps.
+
     CPU tensors run `sweep_missing_fused_plain`; CUDA tensors launch the
     kernel (csrc/sweep_missing_fused.cu) or raise.
-    `sweep_missing_fused.launches` counts kernel launches.
+    `sweep_missing_fused.launches` counts kernel launches (one per call,
+    whatever m).
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_missing_fused: unsupported device {x.device}")

@@ -89,13 +89,28 @@ per source, started together) and prints ptxas's registers and spills
           kernels, advances and z_row reduction;
   scaling  B1 and B2 timed at (n, 2048, 10000), n = 250 .. 2000, and each
           time split into a + b n: the part that does not grow with n (the
-          chain, tiles, waits) and the cost per sample.
+          chain, tiles, waits) and the cost per sample;
+  replica_kernel  B1 and B2 with a replica axis (one launch sweeps m
+          annealing replicas) at (300, 2000, 500) and (1000, 2048, 10000),
+          B2 with 15% of Y missing, c = 1 and 0.5, m = 1, 2, 4: each
+          replica bit for bit its own single launch, which matches the
+          plain version; ms per batched launch against m single launches,
+          the plan for m replicas, % of bound;
+  a8_fit  at the sim_anneal shape: anneal_replicas=3 on complete data,
+          exact missing and impute (one sweep launch per rung, the
+          converged phase on the graph loop, the selected replica's ELBO
+          the largest of the three computed apart, AUC >= 0.95); a fit with
+          checkpoint_path and trace_path cut at maxit, resumed through
+          load_checkpoint to convergence; full_output=True with the
+          reference's names; permutation_null_calibration, 4 permutations,
+          timed.
 Each phase prints one JSON line; then a `kernels` line, and last the
 contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
 """
 import dataclasses
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -122,7 +137,8 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
               (8000, 256, 256, 0.15))
 PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
           "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
-          "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling")
+          "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling",
+          "replica_kernel", "a8_fit")
 SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
@@ -1783,6 +1799,388 @@ def phase_device_loop():
     emit(dict(phase="device_loop_profile", route="b1", **profiles))
 
 
+# ---------------------------------------------------- annealing replicas (A8)
+
+REPLICA_SHAPES = ((300, 2000, 500), (1000, 2048, 10000))
+REPLICA_MS = (1, 2, 4)
+
+
+def replica_problem(kind, n, p, q, m, seed=0):
+    """One seeded problem at (n, p, q) (15% of Y missing for B2) and m
+    host-drawn states of it (seeds seed .. seed + m - 1), on the card."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.models import global_local as gl
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.ops.sweep import block_gram
+
+    frac = 0.15 if kind == "b2" else 0.0
+    x, y = simulate(n, p, q, seed, min(10, p), max(2, q // 5), frac)
+    x = (x - x.mean(0)) / x.std(0, ddof=1)
+    y = y - np.nanmean(y, axis=0)
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q), block_size=128)
+    data = gl.build_data(x, y, cfg, DEVICE)
+    block = gl.data_block(cfg, data)
+    states = [gl.build_state(elic.auto_set_init(y, p, (4, 16), float(q),
+                                                seed + r), data, cfg)
+              for r in range(m)]
+    gram = block_gram(data.x, block) if kind == "b1" else None
+    return data, states, gram, block
+
+
+def replica_operands(kind, data, states, gram, block, c):
+    """Each replica's operands of one sweep at temperature c (its own
+    tau, slab precision and log-expectations drawn from its seed), and
+    the stacked operands of the batched launch."""
+    import torch
+    from atlasqtl_tpu_torch.ops import updates as upd
+    from atlasqtl_tpu_torch.ops.sweep import SweepConsts
+    from atlasqtl_tpu_torch.ops.sweep_fused import fused_operands
+    from atlasqtl_tpu_torch.ops.sweep_missing_fused import \
+        missing_fused_operands
+
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+    parts = []
+    for r, st in enumerate(states):
+        rng = np.random.default_rng(100 + r)
+        tau = f32(rng.uniform(0.5, 2.0, data.y.shape[1]))
+        s2i = f32(rng.uniform(0.5, 1.0))
+        consts = SweepConsts(
+            sig2_beta=upd.sig2_beta_update(data.n, s2i, tau, data.x_norm_sq,
+                                           f32(c)),
+            tau=tau, log_tau=torch.log(tau) - 0.1, log_sig2_inv=f32(-0.3),
+            theta=st.theta, zeta=st.zeta, c=f32(c))
+        if kind == "b2":
+            parts.append(missing_fused_operands(
+                data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, st.gam,
+                st.mu_beta, st.fitted, consts, s2i, data.p_mask,
+                data.q_mask))
+        else:
+            parts.append(fused_operands(
+                data.x, data.cp_x_y, gram, st.beta, st.fitted, consts, block,
+                data.p_mask, data.q_mask))
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+    return parts, (sm.MISSING if kind == "b2" else sf.FUSED).stack(parts)
+
+
+def replica_bound_ms(kind, n, p, q, block, r_aug, m):
+    """Least time of one launch of m replicas' sweeps: m times one sweep's
+    operations; the shared operands' bytes once (x, X^T Y and the Gram
+    blocks; for B2 also x_norm_sq and the mask), the state's m times."""
+    if kind == "b1":
+        ops = m * p * q * (4 * n + block + 6 * r_aug)
+        shared = n * p + p * q + p * block
+        per = 2 * p * q + 2 * n * q + p * r_aug + 3 * r_aug * q
+    else:
+        ops = m * p * q * (5 * n + 6 * r_aug)
+        shared = n * p + 2 * p * q + n * q
+        per = 4 * p * q + 2 * n * q + p * r_aug + 3 * r_aug * q
+    nbytes = 4 * (shared + m * per)
+    return 1e3 * max(ops / FP32_PEAK, nbytes / HBM_RATE), \
+        ("operations" if ops / FP32_PEAK >= nbytes / HBM_RATE else "bytes")
+
+
+def phase_replica_kernel():
+    """B1 and B2 with a replica axis (annealing replicas: one launch sweeps
+    m states), at REPLICA_SHAPES (B2 with 15% of Y missing), c = 1 and
+    c = 0.5, m = 1, 2, 4: each replica of a batched launch bit for bit
+    equal to its own single launch under the same plan, and each
+    replica's single launch held against the plain version at the kernel
+    phases' tolerance; then (c = 1) ms per batched
+    launch against m single launches in a row (CUDA events, median of 7),
+    the plan for m replicas (width or cluster, waves) and the share of
+    the bound per launch."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, timing, max_abs = [], {"b1": {}, "b2": {}}, {"b1": 0.0, "b2": 0.0}
+    for kind in ("b1", "b2"):
+        fn = sf.sweep_fused if kind == "b1" else sm.sweep_missing_fused
+        plain = (sf.sweep_fused_plain if kind == "b1"
+                 else sm.sweep_missing_fused_plain)
+        flat = ((lambda o: list(o[:6]) + list(o[6])) if kind == "b1"
+                else list)
+        names = (B1_NAMES if kind == "b1"
+                 else ("gam", "mu", "fitted", "z_row", "z_col"))
+        for n, p, q in REPLICA_SHAPES:
+            data, states, gram, block = replica_problem(kind, n, p, q,
+                                                        max(REPLICA_MS))
+            for c in (1.0, 0.5):
+                parts, stacked = replica_operands(kind, data, states, gram,
+                                                  block, c)
+                kw = (dict(block_size=block, emit_gam_mu=c != 1.0,
+                           c_one=c == 1.0) if kind == "b1"
+                      else dict(block_size=block))
+                singles = [flat(fn(*ops, **kw)) for ops in parts]
+                errs = {}
+                for r, ops in enumerate(parts):
+                    e = held(f"{kind} replica {r} vs plain at n={n} p={p} "
+                             f"q={q} c={c}", singles[r],
+                             flat(plain(*ops, **kw)), names)
+                    errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+                max_abs[kind] = max(max_abs[kind], *errs.values())
+                r_aug = parts[0][3 if kind == "b1" else 4].shape[1]
+                q_pad = parts[0][5 if kind == "b1" else 6].shape[1]
+                n_pad, p_pad = parts[0][0].shape
+                for m in REPLICA_MS:
+                    ops_m = [o if o.dim() == parts[0][i].dim() else o[:m]
+                             for i, o in enumerate(stacked)]
+                    before = fn.launches
+                    got = flat(fn(*ops_m, **kw))
+                    torch.cuda.synchronize()
+                    if fn.launches != before + 1:
+                        raise AssertionError(f"{kind} at m={m}: "
+                                             f"{fn.launches - before} "
+                                             "launches counted for one")
+                    # each replica against its single launch under the
+                    # same plan (m replicas may take another slice width
+                    # or cluster, which sums in another order); the count
+                    # is put back after them
+                    plan = (sf.fused_launch_plan(n_pad, q_pad, block, r_aug,
+                                                 sms, m) if kind == "b1"
+                            else sm.missing_launch_plan(n_pad, q_pad, block,
+                                                        r_aug, m))
+                    for r in range(m):
+                        one = flat(
+                            sf.fused_launch("atlasqtl_sweep_fused", *parts[r],
+                                            **kw,
+                                            slice_width=plan["slice_width"])
+                            if kind == "b1"
+                            else sm._sweep_missing_fused_cuda(
+                                *parts[r], **kw, plan=plan))
+                        for name, a, b in zip(names, got, one):
+                            if b is not None and not torch.equal(a[r], b):
+                                raise AssertionError(
+                                    f"{kind} replica {r} of {m} at n={n} "
+                                    f"p={p} q={q} c={c}: {name} differs "
+                                    "from its single launch")
+                    fn.launches = before + 1
+                    case = dict(kernel=kind, n=n, p=p, q=q, c=c, m=m,
+                                bitwise_equal=True, max_abs_err=errs,
+                                plan=plan)
+                    if c == 1.0:
+                        case["ms"] = cuda_ms(lambda: fn(*ops_m, **kw), 7)
+                        case["single_ms"] = cuda_ms(
+                            lambda: [fn(*parts[r], **kw) for r in range(m)],
+                            7)
+                        case["bound_ms"], case["bound_by"] = \
+                            replica_bound_ms(kind, n_pad, p_pad, q_pad,
+                                             block, r_aug, m)
+                        case["pct_of_bound"] = pct(case["bound_ms"],
+                                                   case["ms"])
+                        if kind == "b1":
+                            case["waves"] = plan["waves"]
+                        else:
+                            case["ctas"] = plan["grid"] * m
+                            case["waves"] = -(-plan["grid"] * m
+                                              // (sms * plan["ctas_per_sm"]))
+                        timing[kind].setdefault(f"{n}x{p}x{q}", {})[m] = {
+                            k: case[k] for k in ("ms", "single_ms",
+                                                 "bound_ms", "pct_of_bound",
+                                                 "waves")}
+                    cases.append(case)
+                    del got
+                del parts, stacked, singles
+            del data, states, gram
+            torch.cuda.empty_cache()
+    emit({"phase": "replica_kernel", "cases": cases, "max_abs_err": max_abs})
+    return timing, max_abs
+
+
+def _replica_elbos_apart(y, x, seed, missing, m):
+    """Each of the m replicas a fit with anneal_replicas=m and user_seed=
+    seed anneals (the host draws of seeds seed, seed + 1 + r), each taken
+    through the ladder alone (single-replica iterations, the last rung
+    full): their float64 ELBOs."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.models import global_local as gl
+    from atlasqtl_tpu_torch.ops.annealing import annealing_ladder
+    from atlasqtl_tpu_torch.ops.sweep import block_gram
+
+    dat = prepare_data(y, x, 0.1, 1000, seed, 0)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q), missing=missing)
+    data = gl.build_data(dat.x, dat.y, cfg, DEVICE)
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                           data.y.shape[1], cfg, DEVICE)
+    block = gl.data_block(cfg, data)
+    gram = block_gram(data.x, block) if data.x_norm_sq is None else None
+    ladder = annealing_ladder(np.array([1.0, 2.0, 10.0]))
+    elbos = []
+    for s in [seed] + [seed + 1 + r for r in range(m - 1)]:
+        st = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
+                                               s), data, cfg)
+        for k, c in enumerate(ladder[:-1]):
+            st = gl.cavi_iteration(data, hyper, st, gram, c, c, cfg=cfg,
+                                   annealed=True, block=block,
+                                   lite=k + 1 < len(ladder) - 1)
+        elbos.append(float(gl.compute_elbo(data, hyper, st, cfg=cfg)))
+    return elbos
+
+
+class _ReplicaElbos(logging.Handler):
+    """Collects a fit's 'Annealing replica r: ELBO = x' log lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.elbos = {}
+
+    def emit(self, record):
+        m = re.match(r"Annealing replica (\d+): ELBO = (\S+)",
+                     record.getMessage())
+        if m:
+            self.elbos[int(m.group(1))] = float(m.group(2))
+
+
+def phase_a8_fit():
+    """The A8 options at the sim_anneal shape (float32, anneal=(1, 2, 10)):
+    anneal_replicas=3 on complete data, with 15% of Y missing (exact, B2)
+    and imputed (B1): one sweep launch per rung for the three replicas plus
+    one per converged iteration (counts set to 0 just before each fit and
+    read just after), the converged phase on the graph loop, the selected
+    replica's ELBO the largest of the three as each replica's ladder
+    computes it alone, AUC >= 0.95; a fit with checkpoint_path and
+    trace_path (the host loop) cut at maxit before convergence, then a
+    resume from its last snapshot through load_checkpoint that converges;
+    full_output=True with the reference's 24 names (cp_X formed at
+    p = 2000); permutation_null_calibration with n_perms=4, timed."""
+    import os
+    import tempfile
+    import torch
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    base = dict(p0=(5, 25), anneal=(1, 2, 10), dtype=torch.float32,
+                device=DEVICE)
+    out = {"phase": "a8_fit", "n": n, "p": p, "q": q}
+    logger = logging.getLogger("atlasqtl_tpu_torch")
+    for missing in (None, "exact", "impute"):
+        frac = 0.0 if missing is None else 0.15
+        x, y = simulate(n, p, q, 0, p_act, q_hit, frac)
+        rec = _ReplicaElbos()
+        logger.addHandler(rec)
+        level = logger.level
+        logger.setLevel(logging.INFO)
+        torch.cuda.synchronize()
+        sf.sweep_fused.launches = sm.sweep_missing_fused.launches = 0
+        dl.replays = 0
+        t0 = time.perf_counter()
+        try:
+            res = at.atlasqtl(y, x, verbose=1, user_seed=0, anneal_replicas=3,
+                              missing=missing or "exact", **base)
+            torch.cuda.synchronize()
+        finally:
+            logger.removeHandler(rec)
+            logger.setLevel(level)
+        secs = time.perf_counter() - t0
+        counts = {"sweep_fused": sf.sweep_fused.launches,
+                  "sweep_missing_fused": sm.sweep_missing_fused.launches}
+        replays = dl.replays
+        own = "sweep_missing_fused" if missing == "exact" else "sweep_fused"
+        apart = _replica_elbos_apart(y, x, 0, missing or "exact", 3)
+        fit_elbos = [rec.elbos.get(r) for r in range(3)]
+        auc = hotspot_auc(res.theta_vb, p_act)
+        key = missing or "complete"
+        out[key] = dict(converged=bool(res.converged), it=res.it,
+                        launches=counts, graph_replays=replays, seconds=secs,
+                        replica_elbos=fit_elbos, replica_elbos_apart=apart,
+                        hotspot_auc_theta=auc, lb_opt=res.lb_opt)
+        if not res.converged or auc < 0.95:
+            raise AssertionError(f"a8_fit replicas {key}: converged="
+                                 f"{res.converged}, AUC {auc:.3f}")
+        if counts[own] != res.it or sum(counts.values()) != res.it:
+            raise AssertionError(f"a8_fit replicas {key}: launches {counts} "
+                                 f"for {res.it} iterations (9 rungs of 3 "
+                                 "replicas, one launch each)")
+        if replays == 0:
+            raise AssertionError(f"a8_fit replicas {key}: the converged "
+                                 "phase did not run on the graph loop")
+        if None in fit_elbos or int(np.argmax(fit_elbos)) != int(
+                np.argmax(apart)) or not np.allclose(fit_elbos, apart,
+                                                     rtol=1e-6):
+            raise AssertionError(f"a8_fit replicas {key}: the fit's replica "
+                                 f"ELBOs {fit_elbos} vs apart {apart}")
+
+    x, y = simulate(n, p, q, 0, p_act, q_hit)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, tr = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+        os.makedirs(ck), os.makedirs(tr)
+        dl.replays = 0
+        t0 = time.perf_counter()
+        cut = at.atlasqtl(y, x, verbose=0, user_seed=0, maxit=110,
+                          checkpoint_path=ck, trace_path=tr, **base)
+        torch.cuda.synchronize()
+        cut_s, cut_replays = time.perf_counter() - t0, dl.replays
+        snaps = sorted(f for f in os.listdir(ck) if f.startswith("tmp_"))
+        with open(os.path.join(
+                tr, "traces_top_local_x_global_parameters.csv")) as fh:
+            trace_rows = len(fh.read().splitlines()) - 1
+        if cut.converged or snaps != ["tmp_output_it_100.npz"] or \
+                cut_replays != 0 or trace_rows != 5:
+            raise AssertionError(f"a8_fit checkpoint: converged="
+                                 f"{cut.converged}, snapshots {snaps}, "
+                                 f"graph replays {cut_replays}, trace rows "
+                                 f"{trace_rows}")
+        init = at.load_checkpoint(os.path.join(ck, snaps[-1]))
+        t0 = time.perf_counter()
+        res = at.atlasqtl(y, x, verbose=0, list_init=init, **dict(
+            base, anneal=None))
+        torch.cuda.synchronize()
+        auc = hotspot_auc(res.theta_vb, p_act)
+        out["checkpoint"] = dict(cut_it=cut.it, cut_seconds=cut_s,
+                                 snapshots=snaps, trace_rows=trace_rows,
+                                 resume_it=res.it,
+                                 resume_converged=bool(res.converged),
+                                 resume_seconds=time.perf_counter() - t0,
+                                 hotspot_auc_theta=auc)
+        if not res.converged or auc < 0.95:
+            raise AssertionError(f"a8_fit resume: converged={res.converged}"
+                                 f", AUC {auc:.3f}")
+
+    t0 = time.perf_counter()
+    res = at.atlasqtl(y, x, verbose=0, user_seed=0, full_output=True, **base)
+    torch.cuda.synchronize()
+    fo = res.full_output
+    expected = {"beta_vb", "eta_vb", "gam_vb", "kappa_vb", "lam2_inv_vb",
+                "nu_s0_vb", "nu_vb", "nu_xi_inv_vb", "rho_s0_vb", "rho_vb",
+                "rho_xi_inv_vb", "shr_fac_inv", "sig02_inv_vb",
+                "sig2_beta_vb", "sig2_inv_vb", "sig2_theta_vb",
+                "sig2_zeta_vb", "tau_vb", "theta_vb", "cp_Y_X", "cp_X",
+                "cp_X_Xbeta", "xi_inv_vb", "zeta_vb"}
+    auc = hotspot_auc(res.theta_vb, p_act)
+    finite = all(np.isfinite(np.asarray(v)).all() for v in fo.values())
+    out["full_output"] = dict(seconds=time.perf_counter() - t0, keys=len(fo),
+                              cp_X_shape=list(np.shape(fo["cp_X"])),
+                              finite=bool(finite), hotspot_auc_theta=auc)
+    if set(fo) != expected or np.shape(fo["cp_X"]) != (p, p) or not finite \
+            or auc < 0.95 or not res.converged:
+        raise AssertionError(f"a8_fit full_output: {sorted(fo)}, cp_X "
+                             f"{np.shape(fo['cp_X'])}, finite={finite}, "
+                             f"AUC {auc:.3f}")
+
+    t0 = time.perf_counter()
+    cal = at.permutation_null_calibration(y, x, p0=(5, 25), n_perms=4,
+                                          seed=0, dtype=torch.float32,
+                                          device=DEVICE)
+    torch.cuda.synchronize()
+    out["permutation"] = dict(seconds=time.perf_counter() - t0, n_perms=4,
+                              threshold=cal["threshold"],
+                              null_stats=cal["null_stats"].tolist())
+    if not (0.0 < cal["threshold"] <= 1.0) or cal["null_stats"].shape != (4,):
+        raise AssertionError(f"a8_fit permutation: {cal}")
+    emit(out)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1844,6 +2242,11 @@ def main():
         route_profile_ = phase_eqtl_sweeps()
     if "scaling" in phases:
         phase_scaling()
+    replica = {"b1": None, "b2": None}
+    if "replica_kernel" in phases:
+        replica, _ = phase_replica_kernel()
+    if "a8_fit" in phases:
+        phase_a8_fit()
     kernels = []
     if timing is not None:
         kernels.append({
@@ -1860,7 +2263,8 @@ def main():
             "ctas_per_sm": timing["ctas_per_sm"], "plan": timing["plan"],
             "ms_by_width": {w: d["ms"]
                             for w, d in timing["by_width"].items()},
-            "impute_fit_launches": mis_launches.get("impute")})
+            "impute_fit_launches": mis_launches.get("impute"),
+            "replica_ms": replica["b1"]})
     if mis_timing is not None:
         kernels.append({
             "name": "sweep_missing_fused", "route": "cuda",
@@ -1877,7 +2281,7 @@ def main():
             "bound_by": mis_timing["bound_by"], "library_ms": None,
             "pct_of_bound": pct(mis_timing["bound_ms"], mis_timing["ms"]),
             "ctas_per_sm": mis_timing["ctas_per_sm"],
-            "plan": mis_timing["plan"]})
+            "plan": mis_timing["plan"], "replica_ms": replica["b2"]})
     if gs_timing is not None:
         kernels.append({
             "name": "block_gs", "route": "cuda",

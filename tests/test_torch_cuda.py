@@ -816,3 +816,212 @@ else:
     assert r.returncode == 0, r.stderr[-2000:]
     assert "raised: device loop: capturing the converged full + ELBO " \
         "step" in r.stdout, r.stdout + r.stderr[-2000:]
+
+
+# ------------------------------------------------- annealing replicas (A8)
+
+def _replica_operands(kind, n, p, q, c, m, block=128, frac=0.2):
+    """The operands of m replicas' sweeps of one problem (x, the Gram
+    blocks, the masks shared; each replica its own host-drawn state and
+    constants), each replica's list and the stacked ones: B1 (kind "b1",
+    X^T Y shared; "b1_cp", X^T Y per replica as impute mode gives it) or
+    B2 ("b2")."""
+    y, x, _ = simulate_fixture(n=n, p=p, p_act=8, q=q, seed=3,
+                               missing_frac=frac if kind == "b2" else 0.0)
+    dat = prepare_data(y, x, 0.1, 1000)
+    p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
+    cfg = Config(dtype=torch.float32, shr_fac_inv=float(q_eff), sweep="fused",
+                 block_size=block)
+    data = gl.build_data(dat.x, dat.y, cfg, "cpu")
+    block = gl.data_block(cfg, data)
+    gram = block_gram(data.x, block) if kind != "b2" else None
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    parts = []
+    for r in range(m):
+        state = gl.build_state(elic.auto_set_init(dat.y, p_eff, (4, 16),
+                                                  float(q_eff), 10 + r),
+                               data, cfg)
+        rng = np.random.default_rng(20 + r)
+        tau = f32(rng.uniform(0.5, 2.0, data.y.shape[1]))
+        s2i = f32(rng.uniform(0.5, 1.0))
+        consts = SweepConsts(
+            sig2_beta=upd.sig2_beta_update(data.n, s2i, tau, data.x_norm_sq,
+                                           f32(c)),
+            tau=tau, log_tau=torch.log(tau) - 0.1, log_sig2_inv=f32(-0.3),
+            theta=state.theta, zeta=state.zeta, c=f32(c))
+        if kind == "b2":
+            parts.append(sm.missing_fused_operands(
+                data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+                state.mu_beta, state.fitted, consts, s2i, data.p_mask,
+                data.q_mask))
+        else:
+            cp = data.cp_x_y
+            if kind == "b1_cp":
+                cp = cp + 0.1 * r * torch.ones_like(cp)
+            parts.append(sf.fused_operands(
+                data.x, cp, gram, state.beta, state.fitted, consts, block,
+                data.p_mask, data.q_mask))
+    stacked = (sm.MISSING.stack(parts) if kind == "b2"
+               else sf.FUSED.stack(parts, ("cp_x_y",) if kind == "b1_cp"
+                                   else ()))
+    return parts, stacked, block
+
+
+def _replica_case(cuda, kind, parts, stacked, kw):
+    """One batched launch against m single launches under the batched
+    launch's plan (bit for bit: the plan for m replicas may take another
+    slice width or cluster than one replica's, which sums in another
+    order) and against the plain version (f32 tolerances); one launch
+    counted."""
+    fn = sm.sweep_missing_fused if kind == "b2" else sf.sweep_fused
+    flat = (lambda o: list(o)) if kind == "b2" else _flat
+    names = MIS_NAMES if kind == "b2" else NAMES
+    dev = lambda ops: [o.to(cuda) for o in ops]
+    m = len(parts)
+    n, q = parts[0][0].shape[0], parts[0][6 if kind == "b2" else 5].shape[1]
+    r_aug = parts[0][4 if kind == "b2" else 3].shape[1]
+    if kind == "b2":
+        plan = sm.missing_launch_plan(n, q, kw["block_size"], r_aug, m)
+        single = lambda ops: sm._sweep_missing_fused_cuda(*dev(ops), **kw,
+                                                          plan=plan)
+    else:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        plan = sf.fused_launch_plan(n, q, kw["block_size"], r_aug, sms, m)
+        single = lambda ops: sf.fused_launch(
+            "atlasqtl_sweep_fused", *dev(ops), **kw,
+            slice_width=plan["slice_width"])
+    launches = fn.launches
+    got = flat(fn(*dev(stacked), **kw))
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    for r, ops in enumerate(parts):
+        one = flat(single(ops))
+        fn.launches = launches + 1   # the comparisons count nothing
+        ref = flat(fn(*ops, **kw))  # the plain version on the CPU
+        for name, a, b, c in zip(names, got, one, ref):
+            if b is None:
+                assert a is None, name
+                continue
+            assert torch.equal(a[r], b), (name, r)
+            err = float((b.cpu() - c).abs().max())
+            limit = 1e-4 if name == "gam" else 1e-4 * float(c.abs().max())
+            assert err <= limit, (name, r, err, limit)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("kind,n,p,q,blk,c_one,emit", [
+    ("b1", 120, 256, 200, 128, True, False),
+    ("b1", 120, 256, 200, 128, False, True),
+    ("b1_cp", 100, 75, 48, 80, False, True),
+    ("b1", 120, 512, 200, 256, True, True),
+    ("b1", 100, 128, 4804, 128, False, False)])
+def test_batched_b1_equals_single_launches(cuda, kind, n, p, q, blk, c_one,
+                                           emit, m):
+    """Each replica of one batched B1 launch equals its own launch bit for
+    bit: ragged q; X^T Y per replica (impute) at n % 8 != 0 and block 80;
+    block 256 walked in pieces of 128; 40-column slices."""
+    parts, stacked, block = _replica_operands(kind, n, p, q,
+                                              1.0 if c_one else 0.5, m,
+                                              block=blk)
+    _replica_case(cuda, kind, parts, stacked,
+                  dict(block_size=block, emit_gam_mu=emit, c_one=c_one))
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("n,p,q,blk,c", [
+    (80, 250, 40, 128, 0.5), (100, 75, 48, 80, 1.0),
+    (100, 512, 40, 256, 0.5), (300, 256, 504, 128, 1.0),
+    (8000, 128, 256, 128, 0.5)])
+def test_batched_b2_equals_single_launches(cuda, n, p, q, blk, c, m):
+    """Each replica of one batched B2 launch equals its own launch bit for
+    bit: ragged q; n % 8 != 0 and block 80; block 256 in pieces of 128; a
+    cluster that shrinks with m (q = 504); the device-memory branch
+    (n = 8000)."""
+    parts, stacked, block = _replica_operands("b2", n, p, q, c, m, block=blk,
+                                              frac=0.15)
+    plan = sm.missing_launch_plan(stacked[0].shape[0], stacked[6].shape[-1],
+                                  block, stacked[4].shape[-1], m)
+    assert plan["fm_on_chip"] == (n < 8000)
+    _replica_case(cuda, "b2", parts, stacked, dict(block_size=block))
+
+
+def test_batched_launch_rejects_mixed_operands(cuda):
+    parts, stacked, block = _replica_operands("b1", 120, 256, 200, 0.5, 2)
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
+    ops = [o.to(cuda) for o in stacked]
+    bad = list(ops)
+    bad[7] = ops[7][0]   # theta of one replica only
+    with pytest.raises(ValueError, match="replica axis"):
+        sf.sweep_fused(*bad, **kw)
+    bad = list(ops)
+    bad[0] = torch.stack([ops[0], ops[0]])   # x per replica
+    with pytest.raises(ValueError, match="replica axis"):
+        sf.sweep_fused(*bad, **kw)
+    with pytest.raises(ValueError, match="replica axis"):
+        ss.sweep_fused_staggered(*ops, **kw)
+
+
+@pytest.mark.parametrize("missing", [None, "exact", "impute"])
+def test_replica_fit_one_launch_per_rung(cuda, missing):
+    """anneal_replicas=3: one sweep launch per rung for all three replicas
+    plus one per converged iteration, under the host loop and the graph
+    loop, which agree."""
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    y, x, p_act = simulate_fixture(missing_frac=0.15 if missing else 0.0,
+                                   seed=5)
+    own = sm.sweep_missing_fused if missing == "exact" else sf.sweep_fused
+    fits = {}
+    for loop in ("off", "on"):
+        _reset_counts()
+        res = at.atlasqtl(y, x, p0=(5, 25), verbose=0, user_seed=5,
+                          maxit=600, anneal_replicas=3, device_loop=loop,
+                          **({} if missing is None else dict(missing=missing)))
+        assert res.converged and own.launches == res.it
+        assert (dl.replays > 0) == (loop == "on")
+        assert (res.hotspot_sizes()[:p_act] > 5).all()
+        fits[loop] = res
+    off, on = fits["off"], fits["on"]
+    assert off.it == on.it
+    np.testing.assert_allclose([lb for _, lb in on.elbo_history],
+                               [lb for _, lb in off.elbo_history], rtol=1e-6)
+
+
+def test_checkpoint_fit_keeps_the_host_loop(cuda, tmp_path):
+    """A checkpoint path (a host hook) keeps the host loop even under
+    device_loop="on"; the snapshots are cleaned up on convergence, and the
+    full output holds the reference's names."""
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    y, x, _ = simulate_fixture()
+    _reset_counts()
+    res = at.atlasqtl(y, x, p0=(5, 25), verbose=0, user_seed=1,
+                      device_loop="on", checkpoint_path=str(tmp_path),
+                      trace_path=str(tmp_path), full_output=True)
+    assert res.converged and dl.replays == 0
+    assert not list(tmp_path.glob("tmp_output_it_*.npz"))
+    assert (tmp_path / "traces_top_local_x_global_parameters.csv").exists()
+    assert len(res.full_output) == 24 and res.full_output["cp_X"].shape == (
+        75, 75)
+
+
+def test_no_garbage_collection_while_capturing(cuda, monkeypatch):
+    """An earlier fit's device loop, cyclic garbage holding CUDA graphs, is
+    never collected during a capture: destroying a graph while a stream
+    captures invalidates the capture (chip_smoke.py met it after a dozen
+    fits in one process)."""
+    import gc
+    from atlasqtl_tpu_torch.models import global_local as tgl
+    y, x, _ = simulate_fixture()
+    kw = dict(p0=(5, 25), verbose=0, user_seed=1, device_loop="on")
+    at.atlasqtl(y, x, **kw)   # its loop is garbage from here on
+    seen = []
+    orig = tgl.compute_elbo
+
+    def elbo(*a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tgl, "compute_elbo", elbo)
+    res = at.atlasqtl(y, x, **kw)
+    assert res.converged and seen and not any(seen)
+    assert gc.isenabled()

@@ -3,8 +3,8 @@ preparation, elicitation, initialization and the annealing ladder must equal
 the JAX package's exactly (the port keeps its own NumPy copies so it never
 imports JAX); the port imports no JAX; a missing GPU is an error, never a
 silent CPU run; NaN in Y fits in both missing-data modes; options outside
-the ported slices raise NotImplementedError, and the sweep options of the
-B3/B4 kernels route as in the JAX package.
+the ported slices (mesh) raise NotImplementedError, and the sweep options
+of the B3/B4 kernels route as in the JAX package.
 """
 import os
 import subprocess
@@ -73,9 +73,7 @@ def test_default_device_requires_gpu(fixture_small):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(anneal_replicas=2), "A8"),
-    (dict(full_output=True), "A8"), (dict(checkpoint_path="."), "A8"),
-    (dict(trace_path="."), "A8"), (dict(mesh=object()), "A12"),
+    (dict(mesh=object()), "A12"),
 ])
 def test_unported_options_raise(fixture_small, kwargs, item):
     y, x, _ = fixture_small
