@@ -67,6 +67,44 @@
 //    replica's outputs are those of its own launch in slices of the same
 //    width bit for bit; m replicas put m times the CTAs on the card in one
 //    launch.
+//
+// The bf16 instance (BF = true) is the TPU kernel's mxu_bf16 mode
+// (atlasqtl_tpu/ops/sweep_fused.py:151-160, 366-371): the two products
+// take bfloat16 operands and accumulate in float32, here on the tensor
+// cores (mma.sync m16n8k16 bf16 x bf16 -> f32, fed by ldmatrix), where the
+// FP32 SIMT products took 74% of CTA 0's cycles.  What bounds it: the
+// products' 4 n p q operations at the bf16 dense tensor rate (989
+// TFLOP/s) take 2 ms per eQTL sweep, so the chain and the FP32 rest come
+// first.  Only the two product sections of the pass change:
+//  - x chunks arrive as bf16 (the caller's bf16 copy of x, rounded once per
+//    fit) by the same cp.async stages, in rows of ld16(B16) bf16 (an odd
+//    number of 16-byte units: ldmatrix without bank conflicts; a block
+//    that is not a multiple of 16 is padded with zero columns);
+//  - the projection r0 = x_b^T F (B x QS, depth: the chunk's 32 rows) is
+//    8 x QS/8 tiles of 16 x 8, four per warp, accumulated across the pass
+//    in 16 registers per thread: no partial sums to add after it;
+//  - the advance (32 x QS, depth B) is 2 x QS/8 tiles, one per warp over
+//    the whole depth, so its one partial is added to F as before (an f32
+//    add), and that thread writes the bf16 copy of the advanced F chunk
+//    that the next step projects (rows of 40 bf16, read by ldmatrix.trans);
+//  - delta is rounded to bf16 once per block into its own tile (rows of
+//    40 bf16, zero rows up to a multiple of 32); the chain keeps f32 delta;
+//  - a block over BMAX (Bfull rows, walked in pieces of B) is the JAX
+//    kernel's block: every piece is projected against the bf16 F of the
+//    block's start, and sees the block's earlier pieces' deltas through
+//    the float32 Gram, not through F.  The first piece's pass writes its
+//    bf16 F chunks to a workspace (n x the slices' columns) as it makes
+//    them; a later piece's pass stages them back by cp.async in place of
+//    making them from the advanced F (F itself still advances piece by
+//    piece, in f32).  Each piece but the last writes its f32 deltas to a
+//    second workspace ((Bfull - B) rows), and before a later piece's chain
+//    all threads add G[piece, earlier rows] x those deltas to its
+//    projections (f32 FMAs in 4 x 4 register tiles, the Gram rows read
+//    from the (p, Bfull) blocks).
+// Conversions use __float2bfloat16_rn (round to nearest even, as JAX's
+// astype and torch's .to(bfloat16)); no TF32 anywhere.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -110,29 +148,80 @@ __host__ __device__ constexpr int xld(int B) { return B + 4; }  // x row
 __host__ __device__ constexpr int gp_floats(int B) {  // packed triangle
   return (B * (B + 1) / 2 + 3) & ~3;
 }
-// the pass stages and the advance partials after them: between passes they
-// hold the projection partials, the logit-constant tile and the rows of L
-template <int QS>
+// the bf16 instance: a row of w bf16 padded to an odd number of 16-byte
+// units, so that the 8 rows an ldmatrix reads fall in distinct banks
+__host__ __device__ constexpr int ld16(int w) {
+  return (w / 8) % 2 ? w : w + 8;
+}
+__host__ __device__ constexpr int b16(int B) { return (B + 15) & ~15; }
+__host__ __device__ constexpr int xl16(int B) { return ld16(b16(B)); }
+constexpr int HLD = 40;  // bf16 row of an F chunk or the delta tile
+__host__ __device__ constexpr int kd32(int B) { return (B + 31) & ~31; }
+// the pass stages and the advance partials after them (the bf16 instance:
+// bf16 x chunks, one partial, two bf16 F chunks): between passes they hold
+// the projection partials, the logit-constant tile and the rows of L
+template <int QS, bool BF>
 __host__ __device__ constexpr int pass_floats(int B) {
-  return NSTAGE * NCH * QS + (NSTAGE + NXA) * NCH * xld(B) + NG * NCH * QS;
+  return BF ? NSTAGE * NCH * QS + (NSTAGE + NXA) * NCH * xl16(B) / 2 +
+                  NCH * QS + NCH * HLD
+            : NSTAGE * NCH * QS + (NSTAGE + NXA) * NCH * xld(B) +
+                  NG * NCH * QS;
 }
 
 // the packed Gram triangle, two B x QS tiles (deltas, projections), the
 // pass stages and advance partials, three window tiles (corrections twice,
 // cp and pre-sweep beta NRW times), the nodes, the block's p_mask and
-// theta, the slice's zeta and q_mask
-template <int QS>
+// theta, the slice's zeta and q_mask; the bf16 instance's bf16 delta tile
+template <int QS, bool BF>
 size_t smem_bytes(int B, int R) {
   return sizeof(float) * ((size_t)gp_floats(B) + 2 * B * QS +
-                          pass_floats<QS>(B) + (2 + 2 * NRW) * W * QS +
-                          3 * R * QS + 2 * BMAX + 2 * QS);
+                          pass_floats<QS, BF>(B) + (2 + 2 * NRW) * W * QS +
+                          3 * R * QS + 2 * BMAX + 2 * QS +
+                          (BF ? kd32(B) * HLD / 2 : 0));
 }
 
-// the between-pass tiles (three projection partials, the logit-constant
-// tile, the rows of L) fit where the pass stages were
-template <int QS>
+// the between-pass tiles (the projection partials, none in the bf16
+// instance, the new-gam tile in their place, the logit-constant tile, the
+// rows of L) fit where the pass stages were
+template <int QS, bool BF>
 bool overlay_fits(int B, int R) {
-  return 4 * B * QS + B * R <= pass_floats<QS>(B);
+  return (BF ? 2 : 4) * B * QS + B * R <= pass_floats<QS, BF>(B);
+}
+
+// ldmatrix: four 8 x 8 b16 matrices, thread t giving the address of row
+// t % 8 of matrix t / 8 (16 contiguous bytes); .trans delivers each
+// transposed
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* ptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* ptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// four floats rounded to bf16 (nearest even) into 8 bytes of shared memory
+__device__ __forceinline__ void st_bf16x4(__nv_bfloat16* dst, const float* f) {
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
+  d[0] = __floats2bfloat162_rn(f[0], f[1]);
+  d[1] = __floats2bfloat162_rn(f[2], f[3]);
 }
 
 // element (i, m), m <= i, of the packed lower triangle
@@ -147,9 +236,9 @@ __device__ __forceinline__ void unpack4(const float4 v, float* a) {
   a[3] = v.w;
 }
 
-template <int QS>
+template <int QS, bool BF>
 __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
-    const float* __restrict__ x,        // (n, p)
+    const void* __restrict__ x_any,     // (n, p), float (bf16 if BF)
     const float* __restrict__ cp,       // (p, q)
     const float* __restrict__ gram,     // (p, B) stacked diagonal Gram blocks
     const float* __restrict__ l_aug,    // (p, R)
@@ -171,8 +260,13 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     float* __restrict__ gcol,           // (q,)
     float* __restrict__ m2gcol,         // (q,)
     float* __restrict__ b2col,          // (q,)
-    int n, int p, int q, int B, int R, int c_one, int cp_batched) {
+    const float* __restrict__ gram_full,  // bf16, Bfull > B: (p, Bfull)
+    __nv_bfloat16* __restrict__ fh_ws,  // bf16, Bfull > B: (n, slices x QS)
+    float* __restrict__ dw_ws,          // bf16, Bfull > B: (Bfull - B, ..)
+    int n, int p, int q, int B, int R, int c_one, int cp_batched, int Bfull) {
   using S = Slice<QS>;
+  // the bf16 instance's workspaces: row stride of all slices' columns
+  const int qsw = gridDim.x * QS;
   // blockIdx.y is the replica: every operand of the state (and X^T Y where
   // cp_batched) and every output is one replica's slice of a stacked array
   {
@@ -197,11 +291,23 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     gcol += r * q;
     m2gcol += r * q;
     b2col += r * q;
+    if (fh_ws != nullptr) {
+      fh_ws += r * (size_t)n * qsw;
+      dw_ws += r * (size_t)(Bfull - B) * qsw;
+    }
   }
   constexpr int NT = S::NT, NW = S::NW, TC = S::TC, WQ = S::WQ;
   constexpr int H0 = S::NCW * 32;  // the first thread of the helper warps
+  constexpr int NTL = QS / 8;      // bf16: 16 x 8 tiles across the slice
+  static_assert(!BF || NW == 2 * NTL,
+                "bf16: 2 x QS/8 warps (the advance's tiles; the "
+                "projection's, four each)");
   extern __shared__ __align__(16) float smem[];
+  const float* __restrict__ x = static_cast<const float*>(x_any);
+  const __nv_bfloat16* __restrict__ xh =
+      static_cast<const __nv_bfloat16*>(x_any);
   const int XL = xld(B), BQ = B * QS;
+  const int B16 = b16(B), XLH = xl16(B);  // bf16: padded depth, x row
   float* GP_s = smem;                         // packed lower Gram triangle
   float* D_s = GP_s + gp_floats(B);           // B x QS deltas
   float* R_s = D_s + BQ;                      // B x QS projections
@@ -210,25 +316,39 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   float* XA_s = XB_s + NSTAGE * NCH * XL;     // NXA x NCH x XL x_{b-1}
   float* AP_s = XA_s + NXA * NCH * XL;        // NG x NCH x QS advance
   float* C_s = AP_s + NG * NCH * QS;          // 2 x W x QS corrections
+  // bf16: NSTAGE x NCH x XLH x_b and NXA x NCH x XLH x_{b-1} chunks, one
+  // NCH x QS advance partial, two NCH x HLD bf16 F chunks
+  __nv_bfloat16* XB_h = reinterpret_cast<__nv_bfloat16*>(XB_s);
+  __nv_bfloat16* XA_h = XB_h + NSTAGE * NCH * XLH;
+  __nv_bfloat16* FH_h = nullptr;
+  if constexpr (BF) {
+    AP_s = reinterpret_cast<float*>(XA_h + NXA * NCH * XLH);
+    FH_h = reinterpret_cast<__nv_bfloat16*>(AP_s + NCH * QS);
+    C_s = reinterpret_cast<float*>(FH_h + 2 * NCH * HLD);
+  }
   float* CPW_s = C_s + 2 * WQ;                // NRW x W x QS X^T Y rows
   float* BOW_s = CPW_s + NRW * WQ;            // NRW x W x QS pre-sweep beta
   float* N_s = BOW_s + NRW * WQ;              // 3 x R x QS node values
   float* PM_s = N_s + 3 * R * QS;             // the block's p_mask
   float* TH_s = PM_s + BMAX;                  // the block's theta
   float* ZQ_s = TH_s + BMAX;                  // the slice's zeta, q_mask
-  // between passes the stages hold the (NG-1) projection partials, then
-  // the new-gam tile in their place, the logit-constant tile (after the
-  // chain: the z_row partials) and the rows of L of the block
+  // bf16: kd32(B) x HLD bf16 deltas of the latest block
+  __nv_bfloat16* DH_h = reinterpret_cast<__nv_bfloat16*>(ZQ_s + 2 * QS);
+  // between passes the stages hold the (NG-1) projection partials (none in
+  // the bf16 instance), then the new-gam tile in their place, the
+  // logit-constant tile (after the chain: the z_row partials) and the rows
+  // of L of the block
   float* PP_s = F_s;
   float* GT_s = F_s;
-  float* AD_s = F_s + (NG - 1) * BQ;
+  float* AD_s = F_s + (BF ? 1 : NG - 1) * BQ;
   float* ZR_s = AD_s;
   float* L_s = AD_s + BQ;
 
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.x * QS;
   const float c = scal[0], kz = scal[1];
   const int nb = p / B, nwin = B / W;
+  const int npc = BF ? Bfull / B : 1;  // pieces of a block
   // the probe thread adds its cycles straight into g_clocks, so that no
   // other thread holds registers for them
   const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
@@ -278,6 +398,10 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   const int pi = gi / S::PC, pc = (gi % S::PC) * 8;
   const bool prow = pi * 8 < B;
   const int ar = gi / TC, ac = (gi % TC) * 4;
+  // bf16: warp (wm, wn) takes the projection's rows wm*64.. (four 16-row
+  // tiles) and the advance's chunk rows wm*16.., both at columns wn*8..;
+  // lane's fragment rows gr, gr + 8, columns 2 tq, 2 tq + 1
+  const int wm = warp / NTL, wn = warp % NTL, gr = lane >> 2, tq = lane & 3;
 
   // cp and pre-sweep beta rows j .. j + W of this slice, by threads
   // t0 .. t0 + NT/2 - 1, into window buffer `buf` (missing columns zeroed)
@@ -295,6 +419,11 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   for (int b = 0; b <= nb; ++b) {
     const bool adv = b > 0, proj = b < nb;
     const int j0 = b * B;  // the projected block's first predictor
+    // bf16, a block in pieces: piece kp of its block; the first piece's
+    // pass saves the block-start bf16 F, a later piece's projects it
+    const int kp = b % npc;
+    const bool to_ws = BF && npc > 1 && proj && kp == 0;
+    const bool from_ws = BF && npc > 1 && proj && kp > 0;
 
     // ---- one pass over the samples: advance by block b-1, project b -------
     auto stage = [&](int ch) {
@@ -309,19 +438,35 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                          ok ? fitted + (size_t)(n0 + r) * q + k0 + c4 : fitted,
                          ok);
       }
-      for (int e = tid; e < NCH * B / 4; e += NT) {
-        const int r = e / (B / 4), c4 = (e % (B / 4)) * 4;
-        const bool ok = n0 + r < n;
-        const float* row = x + (size_t)(ok ? n0 + r : 0) * p + c4;
-        if (adv) cp_async16_zfill(xast + r * XL + c4, row + j0 - B, ok);
-        if (proj) cp_async16_zfill(xbst + r * XL + c4, row + j0, ok);
+      if constexpr (BF) {  // 8 bf16 a copy; the padding columns zeroed
+        __nv_bfloat16* xbst_h = XB_h + (ch % NSTAGE) * NCH * XLH;
+        __nv_bfloat16* xast_h = XA_h + (ch % NXA) * NCH * XLH;
+        for (int e = tid; e < NCH * B16 / 8; e += NT) {
+          const int r = e / (B16 / 8), c8 = (e % (B16 / 8)) * 8;
+          const bool ok = n0 + r < n && c8 < B;
+          const __nv_bfloat16* row =
+              xh + (size_t)(n0 + r < n ? n0 + r : 0) * p + (c8 < B ? c8 : 0);
+          if (adv) cp_async16_zfill(xast_h + r * XLH + c8, row + j0 - B, ok);
+          if (proj) cp_async16_zfill(xbst_h + r * XLH + c8, row + j0, ok);
+        }
+      } else {
+        for (int e = tid; e < NCH * B / 4; e += NT) {
+          const int r = e / (B / 4), c4 = (e % (B / 4)) * 4;
+          const bool ok = n0 + r < n;
+          const float* row = x + (size_t)(ok ? n0 + r : 0) * p + c4;
+          if (adv) cp_async16_zfill(xast + r * XL + c4, row + j0 - B, ok);
+          if (proj) cp_async16_zfill(xbst + r * XL + c4, row + j0, ok);
+        }
       }
     };
-    float acc[8][8];
+    // the projection's accumulators: f32 8 x 8 register tiles; bf16 the
+    // four 16 x 8 tiles' fragments
+    constexpr int AM = BF ? 4 : 8, AN = BF ? 4 : 8;
+    float acc[AM][AN];
 #pragma unroll
-    for (int a = 0; a < 8; ++a)
+    for (int a = 0; a < AM; ++a)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[a][jj] = 0.f;
+      for (int jj = 0; jj < AN; ++jj) acc[a][jj] = 0.f;
     if (proj) {  // the block's lower Gram triangle, packed; p_mask, theta
       for (int i = warp; i < B; i += NW)
         for (int m = tid & 31; m <= i; m += 32)
@@ -341,11 +486,73 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
       __syncthreads();     // ... everyone's; chunk ch-1 is advanced, ch-2
                            // projected, so the stages of ch+1 are free
       if (ch + 1 < nch) stage(ch + 1);
+      if (from_ws && ch < nch)  // the block-start bf16 F chunk ch, whose
+        // buffer the step before last read
+        for (int e = tid; e < NCH * QS / 8; e += NT) {
+          const int r = e / (QS / 8), c8 = (e % (QS / 8)) * 8;
+          const bool ok = ch * NCH + r < n;
+          cp_async16_zfill(
+              FH_h + (ch & 1) * NCH * HLD + r * HLD + c8,
+              fh_ws + (size_t)(ok ? ch * NCH + r : 0) * qsw + k0 + c8, ok);
+        }
       cp_async_commit();
       float* fs = F_s + (ch % NSTAGE) * NCH * QS;
       const float* xa = XA_s + (ch % NXA) * NCH * XL;
       const bool adv_ch = adv && ch < nch;
-      if (adv_ch) {  // this quarter of the depth's part of F += x_{b-1} delta
+      if constexpr (BF) {
+        if (adv_ch) {  // this warp's 16 x 8 tile of x_{b-1} delta, all depth
+          const __nv_bfloat16* xa_h = XA_h + (ch % NXA) * NCH * XLH;
+          float d4[4] = {0.f, 0.f, 0.f, 0.f};
+          const int nks = B16 / 16;
+          for (int ks = 0; ks < nks; ks += 2) {
+            unsigned bq[4], a[4];
+            ldsm_x4_t(bq, DH_h + (ks * 16 + lane) * HLD + wn * 8);
+            ldsm_x4(a, xa_h + (wm * 16 + (lane & 15)) * XLH + ks * 16 +
+                           (lane >> 4) * 8);
+            mma_bf16(d4, a, bq[0], bq[1]);
+            if (ks + 1 < nks) {
+              ldsm_x4(a, xa_h + (wm * 16 + (lane & 15)) * XLH + ks * 16 +
+                             16 + (lane >> 4) * 8);
+              mma_bf16(d4, a, bq[2], bq[3]);
+            }
+          }
+          float* ap = AP_s + (wm * 16 + gr) * QS + wn * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(ap) = make_float2(d4[0], d4[1]);
+          *reinterpret_cast<float2*>(ap + 8 * QS) = make_float2(d4[2], d4[3]);
+        }
+        if (proj && ch > 0) {  // r0 += x_b^T F over chunk ch-1, 4 tiles
+          const __nv_bfloat16* fh = FH_h + ((ch - 1) & 1) * NCH * HLD;
+          const __nv_bfloat16* xp = XB_h + ((ch - 1) % NSTAGE) * NCH * XLH;
+          unsigned bq[4];
+          ldsm_x4_t(bq, fh + lane * HLD + wn * 8);
+          const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int mt = wm * 4 + i;
+            if (mt * 16 < B16) {
+#pragma unroll
+              for (int ks = 0; ks < 2; ++ks) {
+                unsigned a[4];
+                ldsm_x4_t(a, xp + (ks * 16 + (mi >> 1) * 8 + r8) * XLH +
+                                 mt * 16 + (mi & 1) * 8);
+                mma_bf16(acc[i], a, bq[2 * ks], bq[2 * ks + 1]);
+              }
+            }
+          }
+        }
+        if (!adv && proj && ch < nch) {  // the first block: F as staged
+          const int row = tid / TC, c4 = (tid % TC) * 4;
+          float f[4];
+          unpack4(ld4(fs + row * QS + c4), f);
+          __nv_bfloat16* fh = FH_h + (ch & 1) * NCH * HLD + row * HLD + c4;
+          st_bf16x4(fh, f);
+          if (to_ws && ch * NCH + row < n)
+            *reinterpret_cast<uint2*>(fh_ws + (size_t)(ch * NCH + row) * qsw +
+                                      k0 + c4) =
+                *reinterpret_cast<const uint2*>(fh);
+        }
+      }
+      if (!BF && adv_ch) {  // this quarter of the depth's part of F += x_{b-1} delta
         float a4[4][4];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -374,7 +581,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                                      ac) =
               make_float4(a4[r][0], a4[r][1], a4[r][2], a4[r][3]);
       }
-      if (proj && prow && ch > 0) {  // r0 += x_b^T F over chunk ch-1
+      if (!BF && proj && prow && ch > 0) {  // r0 += x_b^T F over chunk ch-1
         const float* fp = F_s + ((ch - 1) % NSTAGE) * NCH * QS;
         const float* xp = XB_s + ((ch - 1) % NSTAGE) * NCH * XL;
 #pragma unroll(QS == 32 ? 2 : 1)
@@ -385,20 +592,21 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           unpack4(ld4(fp + r * QS + pc), fv);
           unpack4(ld4(fp + r * QS + pc + 4), fv + 4);
 #pragma unroll
-          for (int a = 0; a < 8; ++a)
+          for (int a = 0; a < AM; ++a)
 #pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
+            for (int jj = 0; jj < AN; ++jj)
               acc[a][jj] = fmaf(xv[a], fv[jj], acc[a][jj]);
         }
       }
       if (adv_ch) {
         __syncthreads();
-        // F + the four quarters, in order: four columns of one row each
+        // F + the four quarters (bf16: the one partial), in order: four
+        // columns of one row each
         const int row = tid / TC, c4 = (tid % TC) * 4;
         float f[4], t[4];
         unpack4(ld4(fs + row * QS + c4), f);
 #pragma unroll
-        for (int h = 0; h < NG; ++h) {
+        for (int h = 0; h < (BF ? 1 : NG); ++h) {
           unpack4(ld4(AP_s + h * NCH * QS + row * QS + c4), t);
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) f[jj] = __fadd_rn(f[jj], t[jj]);
@@ -406,6 +614,13 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         const float4 v = make_float4(f[0], f[1], f[2], f[3]);
         *reinterpret_cast<float4*>(fs + row * QS + c4) = v;
         const int nr = ch * NCH + row;
+        if (BF && proj && !from_ws) {  // the bf16 copy the next step projects
+          __nv_bfloat16* fh = FH_h + (ch & 1) * NCH * HLD + row * HLD + c4;
+          st_bf16x4(fh, f);
+          if (to_ws && nr < n)
+            *reinterpret_cast<uint2*>(fh_ws + (size_t)nr * qsw + k0 + c4) =
+                *reinterpret_cast<const uint2*>(fh);
+        }
         if (nr < n && k0 + c4 < q)
           *reinterpret_cast<float4*>(fitted + (size_t)nr * q + k0 + c4) = v;
       }
@@ -423,15 +638,26 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     cp_async_commit();
     if (nwin > 1) stage_rows(j0 + W, 1, NT / 2);  // window 1's, the others
     cp_async_commit();
-    if (g > 0 && prow)
+    if constexpr (BF) {  // each warp's four tiles are whole: into R_s
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+      for (int i = 0; i < AM; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (wm * 4 + i) * 16 + gr + 8 * h;
+          if (row < B)
+            *reinterpret_cast<float2*>(R_s + row * QS + wn * 8 + 2 * tq) =
+                make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+        }
+    } else if (g > 0 && prow) {
+#pragma unroll
+      for (int a = 0; a < AM; ++a)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           *reinterpret_cast<float4*>(PP_s + (g - 1) * BQ +
                                      (pi * 8 + a) * QS + pc + 4 * h) =
               make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2],
                           acc[a][4 * h + 3]);
+    }
     cp_async_wait<1>();  // L and window 0's rows (window 1's may fly on)
     __syncthreads();
     // the logit-constant tile ad = base + L_b N_ad (4 x 4 per thread)
@@ -465,11 +691,11 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
               __fadd_rn(logit_base(th + zeta4[jj], c, c_one), dot[a][jj]);
       }
     }
-    if (g == 0 && prow)
+    if (!BF && g == 0 && prow)
 #pragma unroll
-      for (int a = 0; a < 8; ++a)
+      for (int a = 0; a < AM; ++a)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
+        for (int jj = 0; jj < AN; ++jj) {
           const int e = (pi * 8 + a) * QS + pc + jj;
           float r = acc[a][jj];
 #pragma unroll
@@ -477,6 +703,40 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           R_s[e] = r;
         }
     __syncthreads();  // R_s is whole: the partials' room takes the gam tile
+    if (from_ws && trow) {  // the block's earlier pieces' deltas through
+      // the f32 cross-Gram: 4 x 4 tiles, rows ty*4.., columns tx*4..
+      float s[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[a][jj] = 0.f;
+      const float* g0 = gram_full + (size_t)(j0 + ty * 4) * Bfull;
+      const float* d0 = dw_ws + k0 + tx * 4;
+      for (int m = 0; m < kp * B; m += 4) {
+        float gv[4][4], dv[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          unpack4(*reinterpret_cast<const float4*>(g0 + a * Bfull + m), gv[a]);
+          unpack4(*reinterpret_cast<const float4*>(d0 + (size_t)(m + a) * qsw),
+                  dv[a]);
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              s[a][jj] = fmaf(gv[a][t], dv[t][jj], s[a][jj]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float* r = R_s + (ty * 4 + a) * QS + tx * 4 + jj;
+          *r = __fadd_rn(*r, s[a][jj]);
+        }
+    }
+    if (from_ws) __syncthreads();
 
     tick(1);
 
@@ -553,6 +813,20 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
 
     tick(2);
 
+    if constexpr (BF) {  // delta rounded to bf16 once for the next advance
+      for (int e = tid; e < kd32(B) * QS / 2; e += NT) {
+        const int row = e / (QS / 2), c2 = (e % (QS / 2)) * 2;
+        const float2 v =
+            row < B ? *reinterpret_cast<const float2*>(D_s + row * QS + c2)
+                    : make_float2(0.f, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(DH_h + row * HLD + c2) =
+            __floats2bfloat162_rn(v.x, v.y);
+      }
+      if (npc > 1 && kp < npc - 1)  // for the block's later pieces
+        for (int e = tid; e < BQ; e += NT)
+          dw_ws[(size_t)(kp * B + e / QS) * qsw + k0 + e % QS] = D_s[e];
+    }
+
     // ---- Z moments: z = gam * imrd + imr0u, masked row/column sums --------
     {
       float d1[4][4], d2[4][4];
@@ -626,34 +900,36 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
 
 // the shared-memory bytes of a QS-column launch at (B, R), or 0 where the
 // kernel cannot take them
-template <int QS>
+template <int QS, bool BF>
 size_t checked_smem(int B, int R) {
-  const size_t smem = smem_bytes<QS>(B, R);
-  return smem <= SMEM_MAX && overlay_fits<QS>(B, R) ? smem : 0;
+  const size_t smem = smem_bytes<QS, BF>(B, R);
+  return smem <= SMEM_MAX && overlay_fits<QS, BF>(B, R) ? smem : 0;
 }
 
-template <int QS>
-int launch(const float* x, const float* cp, const float* gram,
+template <int QS, bool BF>
+int launch(const void* x, const float* cp, const float* gram,
            const float* l_aug, const float* n_stack, const float* beta_in,
            float* fitted, const float* theta, const float* p_mask,
            const float* zeta, const float* q_mask, const float* s2v,
            const float* tauv, const float* scal, float* beta_out,
            float* gam_out, float* mu_out, float* zrow_part, float* z_row,
-           float* z_col, float* gcol, float* m2gcol, float* b2col, int n,
-           int p, int q, int B, int R, int c_one, int m, int cp_batched,
+           float* z_col, float* gcol, float* m2gcol, float* b2col,
+           const float* gram_full, void* fh_ws, float* dw_ws, int n, int p,
+           int q, int B, int R, int c_one, int m, int cp_batched, int Bfull,
            cudaStream_t st) {
-  const size_t smem = checked_smem<QS>(B, R);
+  const size_t smem = checked_smem<QS, BF>(B, R);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(sweep_fused_kernel<QS>,
+      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_slices = (q + QS - 1) / QS;
-  sweep_fused_kernel<QS><<<dim3(n_slices, m), Slice<QS>::NT, smem, st>>>(
+  sweep_fused_kernel<QS, BF><<<dim3(n_slices, m), Slice<QS>::NT, smem, st>>>(
       x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, zeta,
       q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part, z_col,
-      gcol, m2gcol, b2col, n, p, q, B, R, c_one, cp_batched);
+      gcol, m2gcol, b2col, gram_full, static_cast<__nv_bfloat16*>(fh_ws),
+      dw_ws, n, p, q, B, R, c_one, cp_batched, Bfull);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
@@ -661,16 +937,17 @@ int launch(const float* x, const float* cp, const float* gram,
   return (int)cudaGetLastError();
 }
 
-template <int QS>
+template <int QS, bool BF>
 int occupancy(int B, int R) {
-  const size_t smem = checked_smem<QS>(B, R);
+  const size_t smem = checked_smem<QS, BF>(B, R);
   int nb = -1;
   if (smem == 0 ||
-      cudaFuncSetAttribute(sweep_fused_kernel<QS>,
+      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &nb, sweep_fused_kernel<QS>, Slice<QS>::NT, smem) != cudaSuccess)
+          &nb, sweep_fused_kernel<QS, BF>, Slice<QS>::NT, smem) !=
+          cudaSuccess)
     return -1;
   return nb;
 }
@@ -685,9 +962,14 @@ extern "C" {
 // sizes the rest of its launch.  The operands of the state and the outputs
 // are m stacked arrays (X^T Y too where cp_batched; x, the Gram blocks and
 // the masks are shared); zrow_part holds m x ceil(q / qs) rows of p.
-// Returns the CUDA error code of the launches (0 on success);
+// bf16 != 0 launches the bf16 instance (mxu_bf16), whose x is the (n, p)
+// bf16 copy of x; B is the piece of a block of Bfull rows (a multiple of
+// B), which only the bf16 instance reads: where Bfull > B it takes the
+// (p, Bfull) Gram blocks `gram_full` and the workspaces fh_ws (m x n x
+// ceil(q / qs) qs bf16) and dw_ws (m x (Bfull - B) x ceil(q / qs) qs
+// floats).  Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape or width it does not take.
-int atlasqtl_sweep_fused(const float* x, const float* cp, const float* gram,
+int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                          const float* l_aug, const float* n_stack,
                          const float* beta_in, float* fitted,
                          const float* theta, const float* p_mask,
@@ -697,33 +979,40 @@ int atlasqtl_sweep_fused(const float* x, const float* cp, const float* gram,
                          float* mu_out, float* zrow_part, float* z_row,
                          float* z_col, float* gcol, float* m2gcol,
                          float* b2col, int n, int p, int q, int B, int R,
-                         int c_one, int qs, int m, int cp_batched,
-                         void* stream) {
+                         int c_one, int qs, int m, int cp_batched, int bf16,
+                         int Bfull, const float* gram_full, void* fh_ws,
+                         float* dw_ws, void* stream) {
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || R <= 0 || R > RMAX ||
       q % 4 != 0 || n <= 0 || (gam_out == nullptr) != (mu_out == nullptr) ||
-      m < 1 || m > 65535)
+      m < 1 || m > 65535 || Bfull < B || Bfull % B != 0 || p % Bfull != 0 ||
+      (bf16 && Bfull > B &&
+       (gram_full == nullptr || fh_ws == nullptr || dw_ws == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qs == 32)
-    return launch<32>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta,
-                      p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,
-                      gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,
-                      b2col, n, p, q, B, R, c_one, m, cp_batched, st);
-  if (qs == 40)
-    return launch<40>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta,
-                      p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,
-                      gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,
-                      b2col, n, p, q, B, R, c_one, m, cp_batched, st);
+#define ATLASQTL_LAUNCH(QS, BF)                                              \
+  launch<QS, BF>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, \
+                 zeta, q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out,    \
+                 zrow_part, z_row, z_col, gcol, m2gcol, b2col, gram_full,     \
+                 fh_ws, dw_ws, n, p, q, B, R, c_one, m, cp_batched, Bfull, st)
+  if (qs == 32) return bf16 ? ATLASQTL_LAUNCH(32, true)
+                            : ATLASQTL_LAUNCH(32, false);
+  if (qs == 40) return bf16 ? ATLASQTL_LAUNCH(40, true)
+                            : ATLASQTL_LAUNCH(40, false);
+#undef ATLASQTL_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // The shared-memory bytes of a launch in `qs`-column slices at block B and
-// interpolation width R; -1 for a width or shape the kernel does not take
-// (the card checks ops/sweep_fused.py:_fused_smem_bytes against it).
-long long atlasqtl_sweep_fused_smem(int qs, int B, int R) {
-  const size_t smem = qs == 32 ? checked_smem<32>(B, R)
-                      : qs == 40 ? checked_smem<40>(B, R)
-                                 : 0;
+// interpolation width R (of the bf16 instance if bf16 != 0); -1 for a
+// width or shape the kernel does not take (the card checks
+// ops/sweep_fused.py:_fused_smem_bytes against it).
+long long atlasqtl_sweep_fused_smem(int qs, int B, int R, int bf16) {
+  const size_t smem =
+      qs == 32 ? (bf16 ? checked_smem<32, true>(B, R)
+                       : checked_smem<32, false>(B, R))
+      : qs == 40 ? (bf16 ? checked_smem<40, true>(B, R)
+                         : checked_smem<40, false>(B, R))
+                 : 0;
   return smem == 0 ? -1 : (long long)smem;
 }
 
@@ -733,10 +1022,15 @@ int atlasqtl_sweep_fused_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * NCLK);
 }
 
-// CTAs of the sweep kernel in `qs`-column slices resident on one SM at
-// block B and interpolation width R (the occupancy calculator), -1 on error.
-int atlasqtl_sweep_fused_occupancy(int qs, int B, int R) {
-  return qs == 32 ? occupancy<32>(B, R) : qs == 40 ? occupancy<40>(B, R) : -1;
+// CTAs of the sweep kernel (its bf16 instance if bf16 != 0) in
+// `qs`-column slices resident on one SM at block B and interpolation width
+// R (the occupancy calculator), -1 on error.
+int atlasqtl_sweep_fused_occupancy(int qs, int B, int R, int bf16) {
+  if (qs == 32) return bf16 ? occupancy<32, true>(B, R)
+                            : occupancy<32, false>(B, R);
+  if (qs == 40) return bf16 ? occupancy<40, true>(B, R)
+                            : occupancy<40, false>(B, R);
+  return -1;
 }
 
 const char* atlasqtl_error_string(int err) {

@@ -75,7 +75,18 @@
 //    are its slices of stacked arrays (x, X^T Y, x_norm_sq and the masks
 //    are shared).  The per-CTA code is unchanged, so each replica's outputs
 //    are those of its own launch with the same cluster bit for bit.
+//
+// The pair_bf16 instance (PB = true) is the TPU kernel's mis_pair_bf16 mode
+// (atlasqtl_tpu/ops/sweep_missing_fused.py:127-141): each pair product
+// x_na x_nb is formed in f32 (__fmul_rn, so that it is never contracted
+// into an FMA), rounded to bf16 (nearest even, two per conversion) and
+// added under the exact mask, v += m bf16(x_na x_nb), in f32.  Only the
+// pair sums of a row change; the rounded products do not depend on the
+// column.  Its windows are W = 8 wide where the JAX kernel's are
+// Config.mis_sub (16 by default), which under this mode decides which
+// corrections are rounded (ROADMAP.md C6).
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -175,9 +186,9 @@ __device__ __forceinline__ void stage_tiles(
 
 // One row of a window pass: ADV advances f by the previous window (x row
 // xa, deltas dl: f += m * (xa . dl)); PROJ then adds this window's
-// projections and masked pair Grams of the advanced f (x row xp) into v.
-// Returns the new f.
-template <bool ADV, bool PROJ>
+// projections and masked pair Grams of the advanced f (x row xp) into v,
+// the pair products rounded to bf16 if PB.  Returns the new f.
+template <bool ADV, bool PROJ, bool PB>
 __device__ __forceinline__ float row_update(float f, float m,
                                             const float* xa, const float* xp,
                                             const float* dl, float* v) {
@@ -194,13 +205,29 @@ __device__ __forceinline__ float row_update(float f, float m,
     load8(xp, xv);
 #pragma unroll
     for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], f, v[i]);
+    if constexpr (PB) {
+      float pr[NP];
+      int e = 0;
 #pragma unroll
-    for (int b = 0; b < W - 1; ++b) mx[b] = m * xv[b];
-    int e = W;
+      for (int a = 1; a < W; ++a)
 #pragma unroll
-    for (int a = 1; a < W; ++a)
+        for (int b = 0; b < a; ++b, ++e) pr[e] = __fmul_rn(xv[a], xv[b]);
+      static_assert(NP % 2 == 0, "pair products rounded two at a time");
 #pragma unroll
-      for (int b = 0; b < a; ++b, ++e) v[e] = fmaf(xv[a], mx[b], v[e]);
+      for (int e2 = 0; e2 < NP; e2 += 2) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(pr[e2], pr[e2 + 1]);
+        v[W + e2] = fmaf(m, __low2float(h), v[W + e2]);
+        v[W + e2 + 1] = fmaf(m, __high2float(h), v[W + e2 + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < W - 1; ++b) mx[b] = m * xv[b];
+      int e = W;
+#pragma unroll
+      for (int a = 1; a < W; ++a)
+#pragma unroll
+        for (int b = 0; b < a; ++b, ++e) v[e] = fmaf(xv[a], mx[b], v[e]);
+    }
   }
   return f;
 }
@@ -212,7 +239,7 @@ __device__ __forceinline__ float row_update(float f, float m,
 // the windows' first columns and Fm is the device slice at fm.  Each warp
 // takes two rows per step, both read before either is written back, so
 // their loads and FMA chains overlap.
-template <bool ON_CHIP, bool ADV, bool PROJ>
+template <bool ON_CHIP, bool ADV, bool PROJ, bool PB>
 __device__ __forceinline__ void window_pass(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
@@ -238,16 +265,16 @@ __device__ __forceinline__ void window_pass(
     const int u = t + NW;
     float f0 = fm_at(t), f1 = fm_at(u);
     const float m0 = m_at(t), m1 = m_at(u);
-    f0 = row_update<ADV, PROJ>(f0, m0, xa + t * xs, xp + t * xs, dl, v);
-    f1 = row_update<ADV, PROJ>(f1, m1, xa + u * xs, xp + u * xs, dl, v);
+    f0 = row_update<ADV, PROJ, PB>(f0, m0, xa + t * xs, xp + t * xs, dl, v);
+    f1 = row_update<ADV, PROJ, PB>(f1, m1, xa + u * xs, xp + u * xs, dl, v);
     if (ADV) {
       fm_at(t) = f0;
       fm_at(u) = f1;
     }
   }
   if (t < nr) {
-    const float f = row_update<ADV, PROJ>(fm_at(t), m_at(t), xa + t * xs,
-                                          xp + t * xs, dl, v);
+    const float f = row_update<ADV, PROJ, PB>(fm_at(t), m_at(t), xa + t * xs,
+                                              xp + t * xs, dl, v);
     if (ADV) fm_at(t) = f;
   }
 }
@@ -353,7 +380,7 @@ __device__ __forceinline__ void z_rows_of_rank(
                zeta_k, qm_k, kz, zc);
 }
 
-template <bool FM_ON_CHIP>
+template <bool FM_ON_CHIP, bool PB>
 __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     const float* __restrict__ x,        // (n, p)
     const float* __restrict__ cp,       // (p, q)
@@ -486,13 +513,13 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
                                  : x + (jw - W);
     const float* xp = FM_ON_CHIP ? XS_s + (w & 1) * nloc * W : x + jw;
     if (w > 0)
-      window_pass<FM_ON_CHIP, true, true>(FM_s, MB_s, fm_rows, mask_rows, xa,
-                                          xp, D_s, v, nr, p, q, k, cvalid,
-                                          warp, lane);
+      window_pass<FM_ON_CHIP, true, true, PB>(FM_s, MB_s, fm_rows, mask_rows,
+                                              xa, xp, D_s, v, nr, p, q, k,
+                                              cvalid, warp, lane);
     else
-      window_pass<FM_ON_CHIP, false, true>(FM_s, MB_s, fm_rows, mask_rows,
-                                           xa, xp, D_s, v, nr, p, q, k,
-                                           cvalid, warp, lane);
+      window_pass<FM_ON_CHIP, false, true, PB>(FM_s, MB_s, fm_rows,
+                                               mask_rows, xa, xp, D_s, v, nr,
+                                               p, q, k, cvalid, warp, lane);
     tick(1);
     // the warps' sums in a fixed order into three slots, the two partial
     // slots and this window's sum buffer (its peers last read it two
@@ -617,7 +644,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     z_rows_of_rank(warp, GW_s + ((nwin - 1) & 1) * W * QS, N_s,
                    WS_s + ((nwin - 1) % NWS) * WSF, zrow_part, p - W, cs,
                    rank, R, p, slice, lane, zeta_k, qm_k, kz, zc);
-  window_pass<FM_ON_CHIP, true, false>(
+  window_pass<FM_ON_CHIP, true, false, PB>(
       FM_s, MB_s, fm_rows, mask_rows,
       FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * nloc * W : x + (p - W), nullptr,
       D_s, v, nr, p, q, k, cvalid, warp, lane);
@@ -645,11 +672,20 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   cluster.sync();  // no CTA leaves while a peer may still read its sums
 }
 
-template <bool FM_ON_CHIP>
+template <bool FM_ON_CHIP, bool PB>
 cudaError_t set_smem(size_t smem) {
-  return cudaFuncSetAttribute(sweep_missing_kernel<FM_ON_CHIP>,
+  return cudaFuncSetAttribute(sweep_missing_kernel<FM_ON_CHIP, PB>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+// sets the instance's shared memory and launches it on the config
+template <bool FM_ON_CHIP, bool PB, typename... Args>
+cudaError_t launch_instance(const cudaLaunchConfig_t& cfg, Args... args) {
+  const cudaError_t err = set_smem<FM_ON_CHIP, PB>(cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&cfg, sweep_missing_kernel<FM_ON_CHIP, PB>,
+                            args...);
 }
 
 cudaLaunchConfig_t launch_config(int grid, int m, int smem, int cluster,
@@ -689,8 +725,9 @@ extern "C" {
 // cluster size and whether Fm is on chip; the kernel derives its rows per
 // CTA, grid and shared memory from them.  The operands of the state and the
 // outputs are m stacked arrays; x, X^T Y, x_norm_sq, the mask and the
-// p/q masks are shared.  Returns the CUDA error code of the launches (0 on
-// success); cudaErrorInvalidValue for a shape or plan it does not take.
+// p/q masks are shared.  pair_bf16 != 0 launches the pair_bf16 instance.
+// Returns the CUDA error code of the launches (0 on success);
+// cudaErrorInvalidValue for a shape or plan it does not take.
 int atlasqtl_sweep_missing_fused(
     const float* x, const float* cp, const float* gam_in, const float* mu_in,
     const float* xns, const float* mask, const float* l_aug,
@@ -698,7 +735,7 @@ int atlasqtl_sweep_missing_fused(
     const float* zeta, const float* q_mask, const float* tauv,
     const float* scal, float* gam_out, float* mu_out, float* zrow_part,
     float* z_row, float* z_col, int n, int p, int q, int B, int R,
-    int cluster, int fm_on_chip, int m, void* stream) {
+    int cluster, int fm_on_chip, int m, int pair_bf16, void* stream) {
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
@@ -706,23 +743,21 @@ int atlasqtl_sweep_missing_fused(
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
       smem < 0 || m < 1 || m > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = fm_on_chip ? set_smem<true>(smem) : set_smem<false>(smem);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(grid, m, smem, cluster, attr, st);
-  err = fm_on_chip
-            ? cudaLaunchKernelEx(&cfg, sweep_missing_kernel<true>, x, cp,
-                                 gam_in, mu_in, xns, mask, l_aug, n_stack, fm,
-                                 theta, p_mask, zeta, q_mask, tauv, scal,
-                                 gam_out, mu_out, zrow_part, z_col, n, p, q,
-                                 R, nloc)
-            : cudaLaunchKernelEx(&cfg, sweep_missing_kernel<false>, x, cp,
-                                 gam_in, mu_in, xns, mask, l_aug, n_stack, fm,
-                                 theta, p_mask, zeta, q_mask, tauv, scal,
-                                 gam_out, mu_out, zrow_part, z_col, n, p, q,
-                                 R, nloc);
+#define ATLASQTL_MIS_LAUNCH(ON, PB)                                          \
+  launch_instance<ON, PB>(cfg, x, cp, gam_in, mu_in, xns, mask, l_aug,       \
+                          n_stack, fm, theta, p_mask, zeta, q_mask, tauv,    \
+                          scal, gam_out, mu_out, zrow_part, z_col, n, p, q,  \
+                          R, nloc)
+  cudaError_t err =
+      fm_on_chip ? (pair_bf16 ? ATLASQTL_MIS_LAUNCH(true, true)
+                              : ATLASQTL_MIS_LAUNCH(true, false))
+                 : (pair_bf16 ? ATLASQTL_MIS_LAUNCH(false, true)
+                              : ATLASQTL_MIS_LAUNCH(false, false));
+#undef ATLASQTL_MIS_LAUNCH
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -755,21 +790,22 @@ int atlasqtl_sweep_missing_occupancy(int n, int cluster, int fm_on_chip,
   *clusters = -1;
   const int smem = plan_smem(n, cluster, fm_on_chip, R);
   if (smem < 0) return -1;
-  cudaError_t err = fm_on_chip ? set_smem<true>(smem) : set_smem<false>(smem);
+  cudaError_t err = fm_on_chip ? set_smem<true, false>(smem)
+                               : set_smem<false, false>(smem);
   int nb = -1;
   if (err == cudaSuccess)
     err = fm_on_chip ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &nb, sweep_missing_kernel<true>, NT, smem)
+                           &nb, sweep_missing_kernel<true, false>, NT, smem)
                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &nb, sweep_missing_kernel<false>, NT, smem);
+                           &nb, sweep_missing_kernel<false, false>, NT, smem);
   if (err != cudaSuccess) return -1;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(cluster * 64, 1, smem, cluster, attr, nullptr);
   err = fm_on_chip ? cudaOccupancyMaxActiveClusters(
-                         clusters, sweep_missing_kernel<true>, &cfg)
+                         clusters, sweep_missing_kernel<true, false>, &cfg)
                    : cudaOccupancyMaxActiveClusters(
-                         clusters, sweep_missing_kernel<false>, &cfg);
+                         clusters, sweep_missing_kernel<false, false>, &cfg);
   if (err != cudaSuccess) *clusters = -1;
   return nb;
 }

@@ -11,6 +11,7 @@ padding never leaks into the math.
 """
 from __future__ import annotations
 
+import functools
 import logging
 from typing import NamedTuple
 
@@ -41,19 +42,20 @@ def _round_up(v, m):
 
 def check_config(cfg: Config):
     """Reject the options whose paths the port does not have yet (each
-    names its ROADMAP.md item).  The TPU scheduling fields are ignored."""
+    names its ROADMAP.md item).  The TPU scheduling fields are ignored;
+    mxu_bf16 and mis_pair_bf16 reach B1 and B2 (types.py:Config)."""
     if cfg.sweep not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"unknown Config.sweep={cfg.sweep!r}")
-    unsupported = [
-        (cfg.mxu_bf16, "Config.mxu_bf16 (ROADMAP.md B5)"),
-        (cfg.sweep_probe != "none", "Config.sweep_probe (ROADMAP.md B5)"),
-        (cfg.mis_pair_bf16, "Config.mis_pair_bf16 (ROADMAP.md B5)"),
-        (cfg.q_axis is not None or cfg.p_axis is not None,
-         "mesh axes (ROADMAP.md A12)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.sweep_probe != "none":
+        raise NotImplementedError(
+            "Config.sweep_probe (ROADMAP.md B5c) is not ported: its values "
+            "are wrong-math perf probes of the TPU kernel; on the card the "
+            "kernels' per-phase clocks take their place "
+            "(ops/sweep_fused.py:phase_clocks(), "
+            "ops/sweep_missing_fused.py:phase_clocks())")
+    if cfg.q_axis is not None or cfg.p_axis is not None:
+        raise NotImplementedError("mesh axes (ROADMAP.md A12) are not "
+                                  "ported yet")
 
 
 def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
@@ -109,11 +111,14 @@ def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
     p_mask = np.zeros(p_pad); p_mask[:p] = 1.0
     q_mask = np.zeros(q_pad); q_mask[:q] = 1.0
     scalar = lambda v: torch.tensor(float(v), dtype=dt, device=device)
+    # B1's bf16 operand, rounded once per fit (round to nearest even)
+    x_bf16 = (xd.to(torch.bfloat16) if not exact
+              and _b1_bf16(cfg, xd.device) else None)
     return Data(
         x=xd, y=yd, cp_x_y=xd.T @ yd, y_norm_sq=torch.sum(yd * yd, dim=0),
         mis_pat=md, x_norm_sq=x_norm_sq, n_eff=t(n_eff), n_mis=t(n_mis),
         p_mask=t(p_mask), q_mask=t(q_mask), n=scalar(n), p_true=scalar(p),
-        q_true=scalar(q), mis_pair_gram=pair_gram)
+        q_true=scalar(q), mis_pair_gram=pair_gram, x_bf16=x_bf16)
 
 
 def build_hyper(hs, q_pad: int, cfg: Config, device) -> Hyper:
@@ -326,14 +331,28 @@ def _select_sweep(cfg: Config, data: Data) -> str:
     sweep="pallas" on the CPU runs B3's plain version.  JAX's third case,
     float32 on an accelerator whose fused kernel finds no q tile, cannot
     arise here: B1 takes every padded q."""
+    return _complete_impl(cfg, data.x.device)
+
+
+def _complete_impl(cfg: Config, device) -> str:
     impl = cfg.sweep
     if impl == "auto":
         if cfg.block_size < 8:
             return "xla"  # batch="0" reference mode
-        if cfg.dtype == torch.float32 and data.x.device.type == "cuda":
+        if (cfg.dtype == torch.float32
+                and torch.device(device).type == "cuda"):
             return "fused"
         return "pallas" if cfg.use_pallas else "xla"
     return impl
+
+
+def _b1_bf16(cfg: Config, device) -> bool:
+    """Whether cfg.mxu_bf16 reaches B1 on complete data and impute: only
+    where B1 (not B4, B3 or the plain sweep) is the engine, as in the JAX
+    package, which passes the flag to its fused kernel alone
+    (atlasqtl_tpu/models/global_local.py:556-578)."""
+    return (cfg.mxu_bf16 and _complete_impl(cfg, device) == "fused"
+            and not cfg.sweep_stagger)
 
 
 def _missing_uses_kernel(cfg: Config, device) -> bool:
@@ -450,12 +469,12 @@ def cavi_iteration_replicas(data: Data, hyper: Hyper, states, gram_blocks,
     pres = [_pre_sweep(data, hyper, st, c, cfg) for st in states]
     engine = _engine(cfg, data)
     if engine == "b1":
-        outs = _sweep_fused_replicas(data, states, pres, gram_blocks, lite,
-                                     annealed)
+        outs = _sweep_fused_replicas(data, states, pres, gram_blocks, cfg,
+                                     lite, annealed)
     elif engine == "b2":
         outs = _sweep_missing_replicas(
             data, states, pres, data_block(cfg, data) if block is None
-            else block)
+            else block, cfg.mis_pair_bf16)
     else:
         outs = [_sweep(data, st, pre, gram_blocks, cfg, annealed, lite,
                        block) for st, pre in zip(states, pres)]
@@ -538,7 +557,7 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
                 data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
                 state.mu_beta, state.fitted, consts, sig2_inv,
                 data_block(cfg, data) if block is None else block,
-                data.p_mask, data.q_mask)
+                data.p_mask, data.q_mask, pair_bf16=cfg.mis_pair_bf16)
             # the kernel masks gam/mu at write time
         elif engine == "blocked":
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_blocked(
@@ -557,9 +576,12 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
                                          block_size=cfg.block_size)
         return gam_new, mu_new, None, fitted, z_row, z_col, None
     if engine in ("b1", "b4"):
-        # B4 takes every shape B1 takes, so sweep_stagger never gives way
-        fused = (sweep_complete_staggered if engine == "b4"
-                 else sweep_complete_fused)
+        # B4 takes every shape B1 takes, so sweep_stagger never gives way;
+        # mxu_bf16 reaches B1 only, as in the JAX package
+        fused = sweep_complete_staggered
+        if engine == "b1":
+            fused = functools.partial(sweep_complete_fused,
+                                      bf16=cfg.mxu_bf16, x_bf16=data.x_bf16)
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = fused(
             data.x, cp_x_y, gram_blocks, state.beta, state.fitted,
@@ -581,25 +603,26 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
     return gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats
 
 
-def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, lite,
-                          annealed):
+def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, cfg: Config,
+                          lite, annealed):
     """One B1 sweep of every state (sweep_fused with a replica axis)."""
     block = gram_blocks.shape[1]
     parts = [fused_operands(data.x, pre.cp_x_y, gram_blocks, st.beta,
                             st.fitted, pre.consts, block, data.p_mask,
-                            data.q_mask)
+                            data.q_mask, bf16=cfg.mxu_bf16,
+                            x_bf16=data.x_bf16)
              for st, pre in zip(states, pres)]
     # X^T Y is each replica's own in impute mode (Y_eff holds its fitted)
     also = ("cp_x_y",) if data.mis_pat is not None else ()
     beta, gam, mu, fitted, z_row, z_col, stats = sweep_fused(
-        *FUSED.stack(parts, also), block_size=block,
-        emit_gam_mu=not lite, c_one=not annealed)
+        *FUSED.stack(parts, also), block_size=block, emit_gam_mu=not lite,
+        c_one=not annealed, bf16=cfg.mxu_bf16)
     return [(None if gam is None else gam[r], None if mu is None else mu[r],
              beta[r], fitted[r], z_row[r], z_col[r],
              tuple(s[r] for s in stats)) for r in range(len(states))]
 
 
-def _sweep_missing_replicas(data: Data, states, pres, block):
+def _sweep_missing_replicas(data: Data, states, pres, block, pair_bf16):
     """One B2 sweep of every state (sweep_missing_fused with a replica
     axis)."""
     parts = [missing_fused_operands(
@@ -607,7 +630,7 @@ def _sweep_missing_replicas(data: Data, states, pres, block):
         st.mu_beta, st.fitted, pre.consts, pre.sig2_inv, data.p_mask,
         data.q_mask) for st, pre in zip(states, pres)]
     gam, mu, fitted, z_row, z_col = sweep_missing_fused(
-        *MISSING.stack(parts), block_size=block)
+        *MISSING.stack(parts), block_size=block, pair_bf16=pair_bf16)
     return [(gam[r], mu[r], None, fitted[r], z_row[r], z_col[r], None)
             for r in range(len(states))]
 

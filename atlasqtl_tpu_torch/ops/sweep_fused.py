@@ -22,6 +22,17 @@ diagonal is the true x_j^T x_j, where the TPU kernel uses n_pad - 1
 (atlasqtl_tpu/ops/sweep_fused.py:504), which is wrong whenever the sample
 count is not a multiple of 8.
 
+bf16=True is the TPU kernel's mxu_bf16 mode (atlasqtl_tpu/ops/
+sweep_fused.py:151-160, 366-371): the operands of the two products are
+rounded to bfloat16 (x once per fit, F before each projection, delta
+before each advance) and the products accumulate in float32, on the card
+as tensor-core mma.sync tiles (the kernel's bf16 instance); the chain's
+Gram corrections and the interpolation products stay float32.  A block
+over FUSED_BMAX is the JAX kernel's block there too: the kernel walks it in
+its `sub_block` pieces, but projects each against the bf16 F of the block's
+start and passes the earlier pieces' deltas through the float32 Gram, as
+the whole-block sweep of the plain version and of JAX does.
+
 Per block b: r = x_b^T F - beta_b * diag(G_b); ad/imrd/imr0u = L_b @ N +
 sqrt base (ops/interp.py); the strictly sequential update of the B
 coordinates; gam, mu, beta masked at write; column statistics and Z sums;
@@ -34,6 +45,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import torch
@@ -122,15 +134,15 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 9 + [ptr]
+        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 11 + [ptr] * 4
         lib.atlasqtl_sweep_staggered.argtypes = [ptr] * 23 + [i32] * 7 + [ptr]
         for fn in (lib.atlasqtl_sweep_fused, lib.atlasqtl_sweep_staggered):
             fn.restype = i32
         lib.atlasqtl_sweep_fused_clocks.argtypes = [ptr]
         lib.atlasqtl_sweep_fused_clocks.restype = i32
-        lib.atlasqtl_sweep_fused_occupancy.argtypes = [i32] * 3
+        lib.atlasqtl_sweep_fused_occupancy.argtypes = [i32] * 4
         lib.atlasqtl_sweep_fused_occupancy.restype = i32
-        lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 3
+        lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 4
         lib.atlasqtl_sweep_fused_smem.restype = ctypes.c_longlong
         lib.atlasqtl_sweep_staggered_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_sweep_staggered_occupancy.restype = i32
@@ -140,7 +152,7 @@ def _load():
         lib.atlasqtl_sweep_staggered_clocks.restype = i32
         lib.atlasqtl_inner_gs_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_inner_gs_occupancy.restype = i32
-        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 8
+        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 9
                                                      + [ptr])
         lib.atlasqtl_sweep_missing_fused.restype = i32
         lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 4
@@ -174,22 +186,41 @@ FUSED_NSTAGE = 3          # F and x_b chunk stages
 FUSED_NXA = 2             # x_{b-1} chunk stages
 FUSED_NG = 4              # thread groups of the two products
 FUSED_W = 8               # chain window
+FUSED_HLD = 40            # bf16 row of an F chunk or delta tile (odd 16 B)
 
 
-def _fused_smem_bytes(width: int, block: int, r_aug: int) -> int:
+def _ld16(width: int) -> int:
+    """csrc/sweep_fused.cu:ld16: a bf16 row of `width` values padded to an
+    odd number of 16-byte units (ldmatrix without bank conflicts)."""
+    return width if (width // 8) % 2 else width + 8
+
+
+def _fused_smem_bytes(width: int, block: int, r_aug: int,
+                      bf16: bool = False) -> int:
     """csrc/sweep_fused.cu:smem_bytes for `width`-column slices: the packed
     Gram triangle, the delta and projection tiles, the pass stages (F, x_b
     and x_{b-1} chunks, x rows padded by 4), the advance partials, the
     window tiles (corrections twice, cp and beta rows three times), the
     nodes, the block's p_mask and theta, the slice's zeta and q_mask.  The
-    card holds it to the kernel's own (`kernel_smem_bytes`)."""
+    bf16 instance stages x chunks as bf16 rows of `_ld16` of the block
+    rounded up to 16, keeps one advance partial, two bf16 F chunks and a
+    bf16 delta tile of the block rounded up to 32 rows.  The card holds it
+    to the kernel's own (`kernel_smem_bytes`)."""
     gp = (block * (block + 1) // 2 + 3) & ~3
-    stages = (FUSED_NSTAGE * FUSED_NCH * width
-              + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * (block + 4))
+    if bf16:
+        xl = _ld16(-(-block // 16) * 16)
+        stages = (FUSED_NSTAGE * FUSED_NCH * width
+                  + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * xl // 2
+                  + FUSED_NCH * width + FUSED_NCH * FUSED_HLD)
+        extra = -(-block // 32) * 32 * FUSED_HLD // 2
+    else:
+        stages = (FUSED_NSTAGE * FUSED_NCH * width
+                  + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * (block + 4)
+                  + FUSED_NG * FUSED_NCH * width)
+        extra = 0
     return 4 * (gp + 2 * block * width + stages
-                + FUSED_NG * FUSED_NCH * width
                 + 8 * FUSED_W * width + 3 * r_aug * width + 2 * 128
-                + 2 * width)
+                + 2 * width + extra)
 
 
 def sub_block(block: int) -> int:
@@ -199,7 +230,8 @@ def sub_block(block: int) -> int:
     The Gauss-Seidel order is unchanged: a coordinate of a later piece sees
     the earlier pieces' updates through F (x_j^T (F + X_1 delta_1) =
     x_j^T F + G_j1 delta_1), so the sweep equals the whole-block sweep up to
-    rounding.  Raises ValueError for a block that is not a positive
+    rounding (B1's bf16 instance, where rounding F to bf16 would make them
+    differ by more, passes them through G_j1 itself).  Raises ValueError for a block that is not a positive
     multiple of 8."""
     if block <= 0 or block % 8:
         raise ValueError(f"unsupported block {block} (a positive multiple "
@@ -221,7 +253,8 @@ def sub_block_gram(gram_flat, block: int, sub: int):
 
 
 def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
-                      sms: int = H100_SMS, m: int = 1) -> dict:
+                      sms: int = H100_SMS, m: int = 1,
+                      bf16: bool = False) -> dict:
     """The launch of B1 at (n, q, block, r + 2) for m replicas on a card of
     `sms` SMs: one CTA per slice and replica and one CTA per SM (a second
     needs at most 128 registers per thread and 113 KB of shared memory,
@@ -234,8 +267,10 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     grid (the slices of one replica; the launch is grid x m CTAs), waves
     (of all m replicas), smem_bytes, ctas_per_sm and zrow_parts (z_row
     partial rows per slice); the C entry point takes the width and the
-    piece and sizes the rest itself.  Raises ValueError on a shape the
-    kernel does not take."""
+    piece and sizes the rest itself.  bf16: the plan of the bf16 instance
+    (mxu_bf16), the same width and grid, its own shared memory (under 190
+    KB at block 128: still one CTA per SM).  Raises ValueError on a shape
+    the kernel does not take."""
     if (n <= 0 or block <= 0 or block % FUSED_W or q <= 0 or q % 4
             or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
@@ -244,7 +279,7 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     width, waves = _widest_fill(q, FUSED_WIDTHS, sms, m)
     return dict(slice_width=width, sub_block=sub, cluster=1,
                 grid=-(-q // width), waves=waves,
-                smem_bytes=_fused_smem_bytes(width, sub, r_aug),
+                smem_bytes=_fused_smem_bytes(width, sub, r_aug, bf16),
                 ctas_per_sm=1, zrow_parts=1)
 
 
@@ -257,16 +292,19 @@ def _widest_fill(q: int, widths, sms: int, m: int = 1):
     return width, waves(width)
 
 
-def occupancy(width: int, block: int, r_aug: int) -> int:
-    """CTAs of B1 in `width`-column slices resident on one SM at (block,
-    r + 2), from the occupancy calculator on the card."""
-    return _load().atlasqtl_sweep_fused_occupancy(width, block, r_aug)
+def occupancy(width: int, block: int, r_aug: int, bf16: bool = False) -> int:
+    """CTAs of B1 (its bf16 instance if bf16) in `width`-column slices
+    resident on one SM at (block, r + 2), from the occupancy calculator on
+    the card."""
+    return _load().atlasqtl_sweep_fused_occupancy(width, block, r_aug,
+                                                  int(bf16))
 
 
-def kernel_smem_bytes(width: int, block: int, r_aug: int) -> int:
-    """The kernel's own shared-memory bytes at (width, block, r + 2), -1
-    where it refuses them."""
-    return _load().atlasqtl_sweep_fused_smem(width, block, r_aug)
+def kernel_smem_bytes(width: int, block: int, r_aug: int,
+                      bf16: bool = False) -> int:
+    """The kernel's own shared-memory bytes at (width, block, r + 2) (of
+    its bf16 instance if bf16), -1 where it refuses them."""
+    return _load().atlasqtl_sweep_fused_smem(width, block, r_aug, int(bf16))
 
 
 PHASES = ("pass", "tiles", "chain", "z_tile", "total")
@@ -423,35 +461,46 @@ FUSED = Operands(
 def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                       theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
                       block_size: int, emit_gam_mu: bool = True,
-                      c_one: bool = False):
+                      c_one: bool = False, bf16: bool = False):
     """The kernel's function in plain tensor ops, block by block and row by
     row in flat sequential order.  Same arguments and outputs as
     `sweep_fused`; with a replica axis, one replica after another."""
     args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
             zeta, q_mask, sig2_beta, tau, c, kz)
-    kw = dict(block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one)
+    kw = dict(block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one,
+              bf16=bf16)
     if beta.dim() == 3:
         return FUSED.loop(_sweep_fused_plain_one, args, kw)
     return _sweep_fused_plain_one(*args, **kw)
 
 
+def _bf16_round(t, dtype):
+    """t rounded to bfloat16 (round to nearest even), in `dtype`."""
+    return t.to(torch.bfloat16).to(dtype)
+
+
 def _sweep_fused_plain_one(x, cp_x_y, gram_flat, l_aug, n_stack, beta,
                            fitted, theta, p_mask, zeta, q_mask, sig2_beta,
-                           tau, c, kz, *, block_size, emit_gam_mu, c_one):
+                           tau, c, kz, *, block_size, emit_gam_mu, c_one,
+                           bf16):
     B = block_size
     ct = c * sig2_beta * tau
     c_inv_2s2 = c * 0.5 / sig2_beta
     fitted = fitted.clone()
     out = _new_outputs(beta, theta, emit_gam_mu)
+    # the products' operands: bf16 rounds x (once), F and delta
+    rnd = ((lambda t: _bf16_round(t, fitted.dtype)) if bf16
+           else (lambda t: t))
+    xp = rnd(x)
     for b in range(x.shape[1] // B):
         sl = slice(b * B, (b + 1) * B)
-        xb, g = x[:, sl], gram_flat[sl]
+        xb, g = xp[:, sl], gram_flat[sl]
         ad, imrd, imr0u = _tiles(theta[sl, None] + zeta[None, :], l_aug[sl],
                                  n_stack, c, kz, c_one)
-        r = xb.T @ fitted - beta[sl] * torch.diagonal(g)[:, None]
+        r = xb.T @ rnd(fitted) - beta[sl] * torch.diagonal(g)[:, None]
         gam_b, mu_b, delta = _chain(r, g, ad, cp_x_y[sl], beta[sl], ct,
                                     c_inv_2s2)
-        fitted += xb @ delta
+        fitted += xb @ rnd(delta)
         _emit_block(out, sl, gam_b, mu_b, gam_b * imrd + imr0u, p_mask[sl],
                     q_mask)
     return _outputs(out, fitted)
@@ -460,18 +509,21 @@ def _sweep_fused_plain_one(x, cp_x_y, gram_flat, l_aug, n_stack, beta,
 def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                  theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
                  block_size, emit_gam_mu, c_one, slice_width=None,
-                 plan=None):
+                 plan=None, bf16=False):
     """Check the operands of one fused-sweep launch and launch the C entry
     point `entry` of the kernel library (atlasqtl_sweep_fused, B1, or
     atlasqtl_sweep_staggered, B4: the same arguments and function) under
     `plan(n, q, block, r + 2, sms)` (None: B1's `fused_launch_plan`), whose
     slice width `slice_width` overrides; a block over FUSED_BMAX goes in as
-    its `sub_block` pieces with their Gram pieces.  B1 takes a replica axis
+    its `sub_block` pieces with their Gram pieces (B1's bf16 instance also
+    reads the whole blocks, and two workspaces).  B1 takes a replica axis
     (the state's operands of `FUSED` stacked): one launch of grid x m
     CTAs, each replica's outputs bit for bit those of its own launch in
     slices of the same width (the plan for m replicas may pick another
     width than one replica's, and z_row then sums in another order).
-    Raises on what the kernels cannot take and on a failed launch."""
+    bf16 launches B1's bf16 instance (mxu_bf16), whose x is the bfloat16
+    copy (`bf16_operand`); B4 has none.  Raises on what the kernels cannot
+    take and on a failed launch."""
     n, p = x.shape[-2:]
     q = beta.shape[-1]
     r_aug = l_aug.shape[-1]
@@ -484,6 +536,9 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         raise ValueError(f"{what} kernel: {e}") from None
     if any(batched) and entry != "atlasqtl_sweep_fused":
         raise ValueError(f"{what} kernel: no replica axis (B1 only)")
+    if bf16 and entry != "atlasqtl_sweep_fused":
+        raise ValueError(f"{what} kernel: no bf16 instance (mxu_bf16 "
+                         "reaches B1 only)")
     shapes = ((n, p), (p, q), (p, block_size), (p, r_aug), (3, r_aug, q),
               (p, q), (n, q), (p,), (p,), (q,), (q,), (q,), (q,))
     for i, (name, shape) in enumerate(zip(FUSED.names, shapes)):
@@ -491,12 +546,14 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         shape = (m, *shape) if batched[i] else shape
         # every replica's slice is 16-byte aligned too
         step = t[0].numel() * 4 if batched[i] else 0
-        if (t.device.type != "cuda" or t.dtype != torch.float32
+        # the bf16 instance stages the bfloat16 copy of x
+        dt = torch.bfloat16 if bf16 and i == 0 else torch.float32
+        if (t.device.type != "cuda" or t.dtype != dt
                 or not t.is_contiguous() or tuple(t.shape) != shape
                 or t.data_ptr() % 16 or step % 16):
             raise ValueError(
                 f"{what} kernel: {name} must be a contiguous, 16-byte "
-                f"aligned float32 CUDA tensor of shape {shape}, got "
+                f"aligned {str(dt)[6:]} CUDA tensor of shape {shape}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if (block_size <= 0 or block_size % 8 or p % block_size or q % 4
             or r_aug > 48):
@@ -504,9 +561,10 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                          f" q={q}, block={block_size}, r+2={r_aug}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     launch = (plan(n, q, block_size, r_aug, sms) if plan is not None
-              else fused_launch_plan(n, q, block_size, r_aug, sms, m))
+              else fused_launch_plan(n, q, block_size, r_aug, sms, m, bf16))
     slice_width = slice_width or launch["slice_width"]
     sub = launch["sub_block"]
+    gram_full = gram_flat
     gram_flat = sub_block_gram(gram_flat, block_size, sub)
     lib = _load()
     dev = x.device
@@ -524,9 +582,20 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     z_row = torch.empty_like(theta)
     z_col, gcol, m2gcol, b2col = (torch.empty_like(zeta) for _ in range(4))
     ptr = lambda t: None if t is None else t.data_ptr()
-    # B1's replica count and whether X^T Y is per replica
-    extra = ((m, int(batched[1])) if entry == "atlasqtl_sweep_fused"
-             else ())
+    # the bf16 instance's workspaces for a block in pieces: the bf16 F of
+    # the block's start and the earlier pieces' deltas, for all slices
+    fh_ws = dw_ws = None
+    if bf16 and block_size > sub:
+        cols = -(-q // slice_width) * slice_width
+        fh_ws = torch.empty((*lead, n, cols), dtype=torch.bfloat16,
+                            device=dev)
+        dw_ws = torch.empty((*lead, block_size - sub, cols),
+                            dtype=torch.float32, device=dev)
+    # B1's replica count, whether X^T Y is per replica, its instance, the
+    # whole block and what its bf16 instance reads of it
+    extra = ((m, int(batched[1]), int(bool(bf16)), block_size,
+              ptr(gram_full), ptr(fh_ws), ptr(dw_ws))
+             if entry == "atlasqtl_sweep_fused" else ())
     err = getattr(lib, entry)(
         ptr(x), ptr(cp_x_y), ptr(gram_flat), ptr(l_aug), ptr(n_stack),
         ptr(beta), ptr(fitted), ptr(theta), ptr(p_mask), ptr(zeta),
@@ -538,22 +607,25 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed at n={n}, p={p}, "
                            f"q={q}, block={block_size} (pieces of {sub}), "
-                           f"{slice_width}-column slices, {m} replica(s): "
+                           f"{slice_width}-column slices, {m} replica(s)"
+                           f"{', bf16' if bf16 else ''}: "
                            + lib.atlasqtl_error_string(err).decode())
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)
 
 
-def _sweep_fused_cuda(*args, **kw):
-    out = fused_launch("atlasqtl_sweep_fused", *args, **kw)
+def _sweep_fused_cuda(*args, bf16=False, **kw):
+    out = fused_launch("atlasqtl_sweep_fused", *args, bf16=bf16, **kw)
     sweep_fused.launches += 1
+    if bf16:
+        sweep_fused.bf16.launches += 1
     return out
 
 
 def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
                 p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
                 block_size: int, emit_gam_mu: bool = True,
-                c_one: bool = False):
+                c_one: bool = False, bf16: bool = False):
     """One full Gauss-Seidel sweep with fused Z and column reductions.
 
     x: (n, p); cp_x_y/beta: (p, q); fitted: (n, q); gram_flat: (p, B)
@@ -568,25 +640,39 @@ def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
     then cp_x_y and c may too; every output then carries it.  That is one
     kernel launch for all m sweeps.
 
+    bf16 (Config.mxu_bf16): the two products take bfloat16 operands with
+    float32 accumulation; x is then the bfloat16 copy of x
+    (`bf16_operand`; the plain version also takes float32 x and rounds
+    it), and only then may it be bfloat16.
+
     CPU tensors run `sweep_fused_plain`; CUDA tensors launch the kernel
-    (csrc/sweep_fused.cu) or raise.  `sweep_fused.launches` counts kernel
-    launches (one per call, whatever m).
+    (csrc/sweep_fused.cu; its bf16 instance if bf16) or raise.
+    `sweep_fused.launches` counts kernel launches (one per call, whatever
+    m, either instance), `sweep_fused.bf16.launches` those of the bf16
+    instance.
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_fused: unsupported device {x.device}")
+    if x.dtype == torch.bfloat16 and not bf16:
+        raise ValueError("sweep_fused: a bfloat16 x is the operand of the "
+                         "bf16 mode (bf16=True)")
     fn = _sweep_fused_cuda if x.device.type == "cuda" else sweep_fused_plain
     return fn(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
               p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
-              block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one)
+              block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one,
+              bf16=bf16)
 
 
 sweep_fused.launches = 0
+sweep_fused.bf16 = types.SimpleNamespace(launches=0)
 
 
 def fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts, block_size,
-                   p_mask=None, q_mask=None, interp_r: int = 40):
+                   p_mask=None, q_mask=None, interp_r: int = 40,
+                   bf16: bool = False, x_bf16=None):
     """The positional operands of `sweep_fused` for one iteration: the
-    flattened Gram blocks and the interpolation operands (ops/interp.py)."""
+    flattened Gram blocks and the interpolation operands (ops/interp.py);
+    under bf16 (the mxu_bf16 mode) x is `bf16_operand(x, x_bf16)`."""
     p = x.shape[1]
     q = beta.shape[1]
     gram_flat = gram_blocks.reshape(p, block_size)
@@ -600,20 +686,32 @@ def fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts, block_size,
                   + torch.log(consts.sig2_beta))
     l_aug, n_stack, kz = tail_interp_operands(
         consts.theta, consts.zeta, cst, consts.c, p_mask, r=interp_r)
+    if bf16:
+        x = bf16_operand(x, x_bf16)
     return (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, consts.theta,
             p_mask, consts.zeta, q_mask, consts.sig2_beta, consts.tau,
             consts.c, kz)
 
 
+def bf16_operand(x, x_bf16=None):
+    """The x operand of the bf16 mode: `x_bf16` (Data.x_bf16, rounded once
+    per fit) if given, else x rounded to bfloat16 now (round to nearest
+    even, as JAX's astype)."""
+    return x_bf16 if x_bf16 is not None else x.to(torch.bfloat16)
+
+
 def sweep_complete_fused(x, cp_x_y, gram_blocks, beta, fitted, consts,
                          block_size, p_mask=None, q_mask=None,
                          interp_r: int = 40, emit_gam_mu: bool = True,
-                         annealed: bool = False):
+                         annealed: bool = False, bf16: bool = False,
+                         x_bf16=None):
     """Driver-facing wrapper matching ops/sweep.py:sweep_complete, carrying
     beta = gam * mu_beta.  annealed=False asserts the converged phase
     (c == 1), which the kernel specializes on; annealed=True takes the
-    tempered path for any consts.c."""
+    tempered path for any consts.c.  bf16: the mxu_bf16 mode, x staged as
+    `x_bf16` (made from x if None)."""
     return sweep_fused(
         *fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts,
-                        block_size, p_mask, q_mask, interp_r),
-        block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=not annealed)
+                        block_size, p_mask, q_mask, interp_r, bf16, x_bf16),
+        block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=not annealed,
+        bf16=bf16)

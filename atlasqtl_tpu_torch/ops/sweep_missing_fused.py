@@ -24,10 +24,20 @@ which roughly doubles its operations.  Each CTA keeps its rows of a
 32-column Fm slice in shared memory for the whole sweep, split over a
 thread-block cluster where one SM cannot hold them (`missing_launch_plan`);
 csrc/sweep_missing_fused.cu says how it is laid out.
+
+pair_bf16=True is the TPU kernel's mis_pair_bf16 mode (atlasqtl_tpu/ops/
+sweep_missing_fused.py:127-141): each pair product x_na x_nb of a window's
+masked pair Grams is formed in float32, rounded to bfloat16, and summed in
+float32 under the exact mask.  The plain version then runs the kernel's
+windows of MIS_W = 8 predictors (`_sweep_missing_plain_windows`), since
+only pair Grams can show the rounding.  The JAX kernel's windows are
+Config.mis_sub wide (16 by default): under this mode the port equals it at
+mis_sub=8 (ROADMAP.md C6).
 """
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -157,17 +167,54 @@ MISSING = Operands(
 
 def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
-                              tau, c, kz, sig2_inv, *, block_size: int):
-    """The kernel's function in plain tensor ops, block by block and one
-    coordinate at a time in flat sequential order.  Same arguments and
+                              tau, c, kz, sig2_inv, *, block_size: int,
+                              pair_bf16: bool = False):
+    """The kernel's function in plain tensor ops, block by block in flat
+    sequential order: one coordinate at a time, or under pair_bf16 in the
+    kernel's windows with bf16-rounded pair Grams.  Same arguments and
     outputs as `sweep_missing_fused`; with a replica axis, one replica
     after another."""
     args = (x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
             theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv)
+    one = _sweep_missing_plain_windows if pair_bf16 else \
+        _sweep_missing_plain_one
     if gam.dim() == 3:
-        return MISSING.loop(_sweep_missing_plain_one, args,
-                            dict(block_size=block_size))
-    return _sweep_missing_plain_one(*args, block_size=block_size)
+        return MISSING.loop(one, args, dict(block_size=block_size))
+    return one(*args, block_size=block_size)
+
+
+def _missing_tiles(l_blk, n_stack, u, kz, c, den):
+    """The block's logit constant (with -(c/2) log(den)), Mills tiles and
+    1/den (the kernel's per-(j, k) factor)."""
+    u2 = u * u
+    s_z = torch.sqrt(u2 + kz)
+    ad = (c * (0.5 * u * torch.sqrt(u2 + K_BASE)) + l_blk @ n_stack[0]
+          - 0.5 * c * torch.log(den))
+    imrd = s_z + l_blk @ n_stack[1]
+    imr0u = l_blk @ n_stack[2] - 0.5 * (s_z + u)
+    return ad, imrd, imr0u, 1.0 / den
+
+
+def _missing_block_out(out, sl, gam_b, mu_b, imrd, imr0u, p_mask, q_mask):
+    """Write block sl's masked gam and mu and add its Z sums."""
+    gam_out, mu_out, z_row, z_col = out
+    msk = p_mask[sl, None] * q_mask[None, :]
+    gam_out[sl] = gam_b * msk
+    mu_out[sl] = mu_b * msk
+    z = (gam_out[sl] * imrd + imr0u) * msk
+    z_row[sl] = torch.sum(z, dim=1)
+    z_col += torch.sum(z, dim=0)
+
+
+def _missing_coordinate(j, r, cp_x_y, gam, mu, x_norm_sq, ct_i, ad_i, tau,
+                        c):
+    """Coordinate j's update from its projection r = x_j^T Fm: (gam, mu,
+    delta)."""
+    beta_old = gam[j] * mu[j]
+    d = cp_x_y[j] - (r - beta_old * x_norm_sq[j])
+    mu_i = ct_i * d
+    gam_i = torch.sigmoid(ad_i + 0.5 * c * c * tau * (mu_i * d))
+    return gam_i, mu_i, gam_i * mu_i - beta_old
 
 
 def _sweep_missing_plain_one(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
@@ -176,49 +223,81 @@ def _sweep_missing_plain_one(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
     p = x.shape[1]
     B = block_size
     fm = fitted.clone()
-    gam_out = torch.empty_like(gam)
-    mu_out = torch.empty_like(mu)
-    z_row = torch.empty_like(theta)
-    z_col = torch.zeros_like(zeta)
+    out = (torch.empty_like(gam), torch.empty_like(mu),
+           torch.empty_like(theta), torch.zeros_like(zeta))
     for b in range(p // B):
         sl = slice(b * B, (b + 1) * B)
-        l_blk = l_aug[sl]
-        u = theta[sl, None] + zeta[None, :]
-        u2 = u * u
-        s_z = torch.sqrt(u2 + kz)
-        den = x_norm_sq[sl] + sig2_inv
-        ad = (c * (0.5 * u * torch.sqrt(u2 + K_BASE)) + l_blk @ n_stack[0]
-              - 0.5 * c * torch.log(den))
-        imrd = s_z + l_blk @ n_stack[1]
-        imr0u = l_blk @ n_stack[2] - 0.5 * (s_z + u)
-        ct = 1.0 / den
+        ad, imrd, imr0u, ct = _missing_tiles(
+            l_aug[sl], n_stack, theta[sl, None] + zeta[None, :], kz, c,
+            x_norm_sq[sl] + sig2_inv)
         gam_b = torch.empty_like(ad)
         mu_b = torch.empty_like(ad)
         for i in range(B):
             j = b * B + i
             x_j = x[:, j]
-            beta_old = gam[j] * mu[j]
-            r = x_j @ fm - beta_old * x_norm_sq[j]
-            d = cp_x_y[j] - r
-            mu_i = ct[i] * d
-            gam_i = torch.sigmoid(ad[i] + 0.5 * c * c * tau * (mu_i * d))
-            fm.addcmul_(mis_pat, torch.outer(x_j, gam_i * mu_i - beta_old))
-            gam_b[i], mu_b[i] = gam_i, mu_i
-        msk = p_mask[sl, None] * q_mask[None, :]
-        gam_out[sl] = gam_b * msk
-        mu_out[sl] = mu_b * msk
-        z = (gam_out[sl] * imrd + imr0u) * msk
-        z_row[sl] = torch.sum(z, dim=1)
-        z_col += torch.sum(z, dim=0)
-    return gam_out, mu_out, fm, z_row, z_col
+            gam_b[i], mu_b[i], delta = _missing_coordinate(
+                j, x_j @ fm, cp_x_y, gam, mu, x_norm_sq, ct[i], ad[i], tau, c)
+            fm.addcmul_(mis_pat, torch.outer(x_j, delta))
+        _missing_block_out(out, sl, gam_b, mu_b, imrd, imr0u, p_mask, q_mask)
+    return out[0], out[1], fm, out[2], out[3]
+
+
+def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
+                                 n_stack, gam, mu, fitted, theta, p_mask,
+                                 zeta, q_mask, tau, c, kz, sig2_inv, *,
+                                 block_size, round_pairs=True):
+    """The sweep in the kernel's windows of MIS_W predictors, aligned at
+    each block's start (atlasqtl_tpu/ops/sweep_missing_fused.py:157-215 at
+    sub = MIS_W): each window's projections against Fm advanced through
+    the previous window; the corrections inside the window through the
+    masked pair Grams h[(a, b), k] = sum_n m_nk x_na x_nb (round_pairs:
+    each f32 product rounded to bfloat16, the mask exact, f32 sums); then
+    Fm += M * (x_w delta_w).  In float32 (round_pairs False) it is the
+    per-coordinate sweep up to rounding."""
+    p = x.shape[1]
+    B = block_size
+    W = MIS_W
+    fm = fitted.clone()
+    out = (torch.empty_like(gam), torch.empty_like(mu),
+           torch.empty_like(theta), torch.zeros_like(zeta))
+    pairs = [(a, b_) for b_ in range(W - 1) for a in range(b_ + 1, W)]
+    ia = torch.tensor([a for a, _ in pairs], device=x.device)
+    ib = torch.tensor([b_ for _, b_ in pairs], device=x.device)
+    for b in range(p // B):
+        sl = slice(b * B, (b + 1) * B)
+        ad, imrd, imr0u, ct = _missing_tiles(
+            l_aug[sl], n_stack, theta[sl, None] + zeta[None, :], kz, c,
+            x_norm_sq[sl] + sig2_inv)
+        gam_b = torch.empty_like(ad)
+        mu_b = torch.empty_like(ad)
+        for lo in range(0, B, W):
+            j0 = b * B + lo
+            xw = x[:, j0:j0 + W]
+            r = xw.T @ fm
+            prod = xw[:, ia] * xw[:, ib]          # (n, pairs), f32
+            if round_pairs:
+                prod = prod.to(torch.bfloat16).to(x.dtype)
+            h = dict(zip(pairs, prod.T @ mis_pat))  # (a, b) -> (q,)
+            deltas = []
+            for i in range(W):
+                gam_b[lo + i], mu_b[lo + i], delta = _missing_coordinate(
+                    j0 + i, r[i], cp_x_y, gam, mu, x_norm_sq, ct[lo + i],
+                    ad[lo + i], tau, c)
+                for a in range(i + 1, W):
+                    r[a] = r[a] + h[(a, i)] * delta
+                deltas.append(delta)
+            fm += mis_pat * (xw @ torch.stack(deltas))
+        _missing_block_out(out, sl, gam_b, mu_b, imrd, imr0u, p_mask, q_mask)
+    return out[0], out[1], fm, out[2], out[3]
 
 
 def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
-                              tau, c, kz, sig2_inv, *, block_size, plan=None):
+                              tau, c, kz, sig2_inv, *, block_size, plan=None,
+                              pair_bf16=False):
     """Check the operands of one B2 launch, launch it and count it: the
     state's operands of `MISSING` with or without a replica axis, one
-    launch of grid x m CTAs.  `plan` (None: `missing_launch_plan` for the
+    launch of grid x m CTAs (the pair_bf16 instance if pair_bf16).  `plan` (None: `missing_launch_plan` for the
     operands' replica count) is there only to compare a replica's single
     launch with a batched one under the batched launch's plan.  Raises on
     what the kernel cannot take and on a failed launch."""
@@ -269,19 +348,24 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
         plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
-        m, torch.cuda.current_stream(x.device).cuda_stream)
+        m, int(bool(pair_bf16)),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "
-            f"q={q}, block={block_size}, {m} replica(s), plan {plan}: "
+            f"q={q}, block={block_size}, {m} replica(s), plan {plan}"
+            f"{', pair_bf16' if pair_bf16 else ''}: "
             + lib.atlasqtl_error_string(err).decode())
     sweep_missing_fused.launches += 1
+    if pair_bf16:
+        sweep_missing_fused.pair_bf16.launches += 1
     return gam_out, mu_out, fitted, z_row, z_col
 
 
 def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
                         mu, fitted, theta, p_mask, zeta, q_mask, tau, c, kz,
-                        sig2_inv, *, block_size: int):
+                        sig2_inv, *, block_size: int,
+                        pair_bf16: bool = False):
     """One exact-missing Gauss-Seidel sweep with fused Z reductions.
 
     x: (n, p); cp_x_y/x_norm_sq/gam/mu: (p, q); mis_pat/fitted: (n, q), the
@@ -296,10 +380,15 @@ def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
     then c may too; every output then carries it.  That is one kernel
     launch for all m sweeps.
 
+    pair_bf16 (Config.mis_pair_bf16): the windows' pair products are
+    rounded to bfloat16 before their float32 sums.
+
     CPU tensors run `sweep_missing_fused_plain`; CUDA tensors launch the
-    kernel (csrc/sweep_missing_fused.cu) or raise.
-    `sweep_missing_fused.launches` counts kernel launches (one per call,
-    whatever m).
+    kernel (csrc/sweep_missing_fused.cu; its pair_bf16 instance if
+    pair_bf16) or raise.  `sweep_missing_fused.launches` counts kernel
+    launches (one per call, whatever m, either instance),
+    `sweep_missing_fused.pair_bf16.launches` those of the pair_bf16
+    instance.
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_missing_fused: unsupported device {x.device}")
@@ -307,10 +396,11 @@ def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
           else sweep_missing_fused_plain)
     return fn(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
               theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv,
-              block_size=block_size)
+              block_size=block_size, pair_bf16=pair_bf16)
 
 
 sweep_missing_fused.launches = 0
+sweep_missing_fused.pair_bf16 = types.SimpleNamespace(launches=0)
 
 
 def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
@@ -336,7 +426,8 @@ def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
 
 def sweep_missing_fused_driver(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
                                fitted, consts, sig2_inv, block_size, p_mask,
-                               q_mask, interp_r: int = 40):
+                               q_mask, interp_r: int = 40,
+                               pair_bf16: bool = False):
     """Driver-facing wrapper matching ops/sweep.py:sweep_missing_blocked.
     sig2_inv is the scalar slab precision; consts.sig2_beta is not read
     (the kernel derives the per-cell variance from x_norm_sq)."""
@@ -344,4 +435,4 @@ def sweep_missing_fused_driver(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
         *missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
                                 fitted, consts, sig2_inv, p_mask, q_mask,
                                 interp_r),
-        block_size=block_size)
+        block_size=block_size, pair_bf16=pair_bf16)

@@ -87,6 +87,10 @@ class Data:
     x_norm_sq (p, q) = (X * X)^T mis_pat and, for the blocked CPU engine,
     mis_pair_gram (nb, B(B-1)/2, q); both are None in impute mode and for
     complete data, and mis_pat is None for complete data.
+
+    x_bf16 (n, p) is x rounded to bfloat16 (round to nearest even, as
+    JAX's astype), the operand B1 stages under Config.mxu_bf16; built once
+    per fit where that flag reaches B1, else None.
     """
     x: Any
     y: Any
@@ -102,6 +106,7 @@ class Data:
     p_true: Any
     q_true: Any
     mis_pair_gram: Any = None
+    x_bf16: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +118,24 @@ class Config:
     sweep_qchunk, sweep_sub) are accepted and ignored: they never change the
     math.  Fields that select a path the port does not have yet are
     rejected by models/global_local.py:check_config.
+
+    The two bf16 modes are honoured where the JAX package honours them:
+    - mxu_bf16: B1 (ops/sweep_fused.py, complete data and impute) rounds
+      the operands of its two large products, r0 = x_b^T F and
+      F += x_b delta, to bfloat16 and accumulates in float32 (on the card
+      on tensor cores); the chain's Gram corrections and the interpolation
+      products stay float32.  The B3, B4 and plain routes ignore it, as
+      the JAX package's do (so does the exact-missing path).
+    - mis_pair_bf16: B2 (ops/sweep_missing_fused.py, exact missing) rounds
+      each masked pair-Gram product x_na x_nb of its windows to bfloat16
+      (the f32 product rounded once, then to bf16; the mask stays exact)
+      and sums in float32.  The blocked and scan engines ignore it.
+      B2's windows are 8 predictors wide where the JAX kernel's are
+      mis_sub (16 by default); in float32 the window does not change the
+      math, but under this flag it decides which corrections are rounded,
+      so the port's fit equals the JAX package's with
+      Config(mis_sub=8, mis_pair_bf16=True) (ROADMAP.md C6;
+      tests/bf16_departures.py measures the distance at mis_sub=16).
     """
     block_size: int = 128
     dtype: Any = torch.float32

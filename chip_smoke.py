@@ -103,7 +103,23 @@ per source, started together) and prints ptxas's registers and spills
           checkpoint_path and trace_path cut at maxit, resumed through
           load_checkpoint to convergence; full_output=True with the
           reference's names; permutation_null_calibration, 4 permutations,
-          timed.
+          timed;
+  bf16_modes  the two bf16 modes: B1's tensor-core instance
+          (Config.mxu_bf16) against its plain version at (120, 120, 200)
+          (block 120, zero-padded to 128), (300, 2000, 500), (1000, 2048,
+          10000) and block 256, c = 1 and 0.5, under the mean criterion
+          (mean_held), both slice widths, its plan and SASS (bf16 HMMA, none
+          in the float32 instances); B2's pair_bf16 instance
+          (Config.mis_pair_bf16) against its plain version at three
+          MIS_SHAPES (the fit shape, the eQTL cut, the device-memory
+          branch) at the kernel phases' tolerance and under the mean
+          criterion; each timed beside its
+          float32 instance with its bound; sim_anneal fits in each mode
+          (complete and impute under mxu_bf16, exact under mis_pair_bf16)
+          on the graph loop beside the float32 fit from the same draw (AUC
+          >= 0.95, PIPs within 5e-2, the instance launched once per
+          iteration); the eQTL cut (maxit 10) in both B1 instances from one
+          device draw, ms per sweep and per iteration.
 Each phase prints one JSON line; then a `kernels` line, and last the
 contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
@@ -138,7 +154,7 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
 PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
           "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
           "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling",
-          "replica_kernel", "a8_fit")
+          "replica_kernel", "a8_fit", "bf16_modes")
 SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
@@ -2180,6 +2196,382 @@ def phase_a8_fit():
     emit(out)
     return out
 
+BF16_PEAK = 989e12    # H100 SXM bf16 dense on the tensor cores, FLOP/s
+# B1's bf16 instance: a block not a multiple of 16 (120, zero-padded
+# columns), the fit shape (32-column slices) and the eQTL cut (40)
+BF16_SHAPES = ((120, 120, 200), (300, 2000, 500), (1000, 2048, 10000))
+# B2's pair_bf16 instance: the fit shape, the eQTL cut, the device-memory
+# branch
+BF16_MIS_SHAPES = (MIS_SHAPES[2], MIS_SHAPES[3], MIS_SHAPES[9])
+BF16_RATIO = 20       # kernel's mean error <= the mode's mean distance / 20
+BF16_FIT_PIP = 5e-2   # a bf16 fit's PIPs against the float32 fit's
+
+
+def bf16_bound_ms(n, p, q, block, r_aug, emit_gam_mu):
+    """Least time of one sweep of B1's bf16 instance on an H100: the
+    largest of its tensor-core operations (the two n-products, 4 n p q, at
+    the bf16 dense tensor rate), its other operations (sweep_bound_ms's
+    FP32 work at the FP32 rate: a separate pipe, which may run at the same
+    time) and its bytes (sweep_bound_ms's, with x at 2 bytes) over the HBM
+    rate."""
+    t_ops = max(4 * n * p * q / BF16_PEAK,
+                p * q * (block + 6 * r_aug) / FP32_PEAK)
+    nbytes = 2 * n * p + 4 * (p * q * (3 + 2 * emit_gam_mu) + 2 * n * q
+                              + p * block + p * r_aug + 3 * r_aug * q)
+    t_bytes = nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def b1_any_launch_bound(a, k):
+    """bound_ms of one B1 launch, either instance, from its operands."""
+    fn = bf16_bound_ms if k.get("bf16") else sweep_bound_ms
+    return fn(a[0].shape[0], a[0].shape[1], a[5].shape[1], k["block_size"],
+              a[3].shape[1], k["emit_gam_mu"])[0]
+
+
+def mean_held(label, got, ref, f32, f32_kernel, names, ratio=BF16_RATIO):
+    """The bf16 criterion, per output: mean |got - ref| <= mean |f32 - ref|
+    / ratio (the mode's own distance from float32) + 2 mean |f32_kernel -
+    f32| (the float32 instance's own distance from its plain version: the
+    sums of z_row and the column statistics run in another order, as in
+    float32).  B1: a bf16 operand may move 2^-8 relative where a float32
+    sum order differs by 1 ulp, so the max is not at float32 grade while
+    the mean is.  B2: the mode moves its outputs far less than B2's max
+    tolerance, so only this criterion fails an instance that rounds no
+    pair product, or others than the mode's.  Returns the mean and max
+    errors, the mode's mean distance and that floor per output; raises
+    past it."""
+    errs = {}
+    for name, a, r, f, k in zip(names, got, ref, f32, f32_kernel):
+        if r is None:
+            continue
+        d = (a - r).abs().double()
+        err, mode = float(d.mean()), float((f - r).abs().double().mean())
+        floor = float((k - f).abs().double().mean())
+        errs[name] = dict(mean=err, max=float(d.max()), mode_mean=mode,
+                          f32_floor=floor)
+        if not (err <= mode / ratio + 2 * floor):
+            raise AssertionError(f"{label}: {name} mean abs err {err:.3g} > "
+                                 f"1/{ratio} of the mode's {mode:.3g} + 2 x "
+                                 f"the float32 floor {floor:.3g}")
+    return errs
+
+
+def sass_hmma(lib):
+    """{kernel function: [HMMA instructions, those not bf16]} from
+    cuobjdump's SASS of the built library."""
+    import os
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    exe = os.path.join(os.path.dirname(sf._nvcc()), "cuobjdump")
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = [0, 0]
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name][0] += 1
+            counts[name][1] += ".BF16" not in line
+    return counts
+
+
+def device_fit(y, x, cfg, seed, anneal):
+    """fit_global_local as prepared_fit runs it, from the initial state
+    drawn on the card (auto_init_device, as atlasqtl() draws it there with
+    user_seed=seed)."""
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.inference.driver import fit_global_local
+    from atlasqtl_tpu_torch.models import global_local as gl
+
+    dat = prepare_data(y, x, 0.1, cfg.maxit, seed, 0)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+    data = gl.build_data(dat.x, dat.y, cfg, DEVICE)
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                           data.y.shape[1], cfg, DEVICE)
+    state = gl.auto_init_device(seed, data, (5.0, 25.0), float(q), cfg)
+    return fit_global_local(data, hyper, state, cfg, anneal=anneal,
+                            verbose=0)
+
+
+def phase_bf16_modes():
+    """The two bf16 modes (Config.mxu_bf16 on B1's tensor-core instance,
+    Config.mis_pair_bf16 on B2's): each instance against its plain
+    version (B1 under the mean criterion, B2 at the kernel phases'
+    tolerance and under the mean criterion), repeatable bit for bit, timed beside its float32 instance
+    in the same call (CUDA events, median of 9) with its bound; B1's SASS
+    holds bf16 HMMA and its float32 instances none; sim_anneal fits in
+    each mode (complete and impute under mxu_bf16, exact under
+    mis_pair_bf16) on the graph loop, each beside the float32 fit from the
+    same draw, the instance's launches counted; the eQTL cut in both B1
+    instances from one device draw."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    out = {"phase": "bf16_modes"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sass = sass_hmma(sf.build())
+    b1_sass = {k: v for k, v in sass.items() if "sweep_fused_kernel" in k}
+    out["b1_sass_hmma"] = b1_sass
+    bf_inst = {k: v for k, v in b1_sass.items() if "Lb1E" in k}
+    if (len(bf_inst) != 2 or any(v[0] == 0 or v[1] for v in bf_inst.values())
+            or any(v[0] for k, v in b1_sass.items() if k not in bf_inst)):
+        raise AssertionError(f"B1's SASS: HMMA (all, not bf16) per instance "
+                             f"{b1_sass}: the bf16 instances need bf16 HMMA, "
+                             f"the float32 instances none")
+    out["registers"] = {k: v for k, v in
+                        ptxas_summary(sf.build.ptxas_report).items()
+                        if "Lb1E" in k}
+    flat = lambda o: list(o[:6]) + list(o[6])
+
+    # ---- B1's bf16 instance against its plain version ----
+    b1_cases, b1_timing = [], None
+    for n, p, q in BF16_SHAPES:
+        for c in (1.0, 0.5):
+            ops, block = kernel_inputs(n, p, q, c)
+            ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+            kw = dict(block_size=block, emit_gam_mu=True, c_one=c == 1.0)
+            got = flat(sf.sweep_fused(*ops16, **kw, bf16=True))
+            again = flat(sf.sweep_fused(*ops16, **kw, bf16=True))
+            ref = flat(sf.sweep_fused_plain(*ops16, **kw, bf16=True))
+            f32 = flat(sf.sweep_fused_plain(*ops, **kw))
+            f32_kernel = flat(sf.sweep_fused(*ops, **kw))
+            torch.cuda.synchronize()
+            label = f"B1 bf16 vs plain at n={n} p={p} q={q} c={c}"
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: two launches differ")
+            case = dict(n=n, p=p, q=q, block=block, c=c,
+                        err=mean_held(label, got, ref, f32, f32_kernel,
+                                      B1_NAMES))
+            dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1],
+                    block, ops[3].shape[1])
+            if p >= 2000 and c == 1.0:  # converged, lite; both widths
+                kwl = dict(kw, emit_gam_mu=False)
+                plan = sf.fused_launch_plan(dims[0], dims[2], block, dims[4],
+                                            sms, bf16=True)
+                w = plan["slice_width"]
+                smem = sf.kernel_smem_bytes(w, block, dims[4], True)
+                ctas = sf.occupancy(w, block, dims[4], True)
+                if smem != plan["smem_bytes"] or ctas != plan["ctas_per_sm"]:
+                    raise AssertionError(f"B1 bf16 plan {plan} vs the kernel:"
+                                         f" {smem} bytes, {ctas} CTAs per SM")
+                by_width = {}
+                for width in sf.FUSED_WIDTHS:
+                    fw = lambda: sf.fused_launch(
+                        "atlasqtl_sweep_fused", *ops16, **kw, bf16=True,
+                        slice_width=width)
+                    gw = flat(fw())
+                    by_width[width] = dict(
+                        err=mean_held(f"{label} in {width}-column slices",
+                                      gw, ref, f32, f32_kernel, B1_NAMES),
+                        ms=cuda_ms(lambda: sf.fused_launch(
+                            "atlasqtl_sweep_fused", *ops16, **kwl, bf16=True,
+                            slice_width=width), 9))
+                lite = lambda: sf.sweep_fused(*ops16, **kwl, bf16=True)
+                lite()
+                torch.cuda.synchronize()
+                clocks = sf.phase_clocks()
+                case.update(
+                    plan=plan, smem_bytes=smem, ctas_per_sm=ctas,
+                    by_width=by_width, clocks=clocks,
+                    ms=cuda_ms(lite, 9),
+                    f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kwl), 9),
+                    ms_2=cuda_ms(lite, 9),
+                    plain_ms=cuda_ms(lambda: sf.sweep_fused_plain(
+                        *ops16, **kwl, bf16=True), 3))
+                case["bound_ms"], case["bound_by"] = bf16_bound_ms(
+                    *dims, False)
+                case["f32_bound_ms"] = sweep_bound_ms(*dims, False)[0]
+                case["pct_of_bound"] = pct(case["bound_ms"], case["ms"])
+                case["f32_pct_of_bound"] = pct(case["f32_bound_ms"],
+                                               case["f32_ms"])
+                b1_timing = case
+            b1_cases.append(case)
+            emit({"phase": "bf16_modes", "b1_case": case})
+            del ops, ops16, got, again, ref, f32, f32_kernel
+            torch.cuda.empty_cache()
+    # block 256: two pieces of 128, the second projected against the
+    # block-start F and corrected through the Gram (the whole-block sweep)
+    n, p, q = BLOCK256_SHAPE
+    ops, block = kernel_inputs(n, p, q, 0.5, block=256)
+    ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
+    b1_cases.append(dict(
+        n=n, p=p, q=q, block=block, c=0.5, err=mean_held(
+            f"B1 bf16 vs plain at block {block}",
+            flat(sf.sweep_fused(*ops16, **kw, bf16=True)),
+            flat(sf.sweep_fused_plain(*ops16, **kw, bf16=True)),
+            flat(sf.sweep_fused_plain(*ops, **kw)),
+            flat(sf.sweep_fused(*ops, **kw)), B1_NAMES),
+        ms=cuda_ms(lambda: sf.sweep_fused(*ops16, **kw, bf16=True), 9),
+        f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 9)))
+    # the same sweep at block 128: what the pieces' workspaces and cross-
+    # Gram cost the bf16 instance
+    ops, _ = kernel_inputs(n, p, q, 0.5, block=128)
+    ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+    kw = dict(kw, block_size=128)
+    b1_cases[-1].update(
+        block128_ms=cuda_ms(lambda: sf.sweep_fused(*ops16, **kw, bf16=True),
+                            9),
+        block128_f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 9))
+    emit({"phase": "bf16_modes", "b1_case": b1_cases[-1]})
+    del ops, ops16
+    out["b1"] = b1_cases
+
+    # ---- B2's pair_bf16 instance against its plain version ----
+    names = ("gam", "mu", "fitted", "z_row", "z_col")
+    b2_cases, b2_timing = [], None
+    for n, p, q, frac in BF16_MIS_SHAPES:
+        for c in (1.0, 0.5):
+            ops, block = mis_kernel_inputs(n, p, q, c, frac)
+            kw = dict(block_size=block, pair_bf16=True)
+            got = sm.sweep_missing_fused(*ops, **kw)
+            again = sm.sweep_missing_fused(*ops, **kw)
+            ref = sm.sweep_missing_fused_plain(*ops, **kw)
+            f32 = sm.sweep_missing_fused_plain(*ops, block_size=block)
+            f32_kernel = sm.sweep_missing_fused(*ops, block_size=block)
+            torch.cuda.synchronize()
+            label = (f"B2 pair_bf16 vs plain at n={n} p={p} q={q} c={c}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: two launches differ")
+            dims = (ops[0].shape[0], ops[0].shape[1], ops[6].shape[1],
+                    ops[4].shape[1])
+            # B2's own tolerance, and the mean criterion, which a kernel
+            # that rounds no pair product (or others) does not meet
+            case = dict(n=n, p=p, q=q, missing_frac=frac, block=block, c=c,
+                        plan=sm.missing_launch_plan(dims[0], dims[2], block,
+                                                    dims[3]),
+                        max_abs_err=held(label, got, ref, names),
+                        err=mean_held(label, got, ref, f32, f32_kernel,
+                                      names))
+            if p >= 2000 and c == 1.0:
+                kernel = lambda: sm.sweep_missing_fused(*ops, **kw)
+                kernel()
+                torch.cuda.synchronize()
+                case.update(
+                    clocks=sm.phase_clocks(), ms=cuda_ms(kernel, 9),
+                    f32_ms=cuda_ms(lambda: sm.sweep_missing_fused(
+                        *ops, block_size=block), 9),
+                    ms_2=cuda_ms(kernel, 9),
+                    plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
+                        *ops, **kw), 3))
+                case["bound_ms"], case["bound_by"] = mis_bound_ms(*dims)
+                case["pct_of_bound"] = pct(case["bound_ms"], case["ms"])
+                b2_timing = case
+            b2_cases.append(case)
+            emit({"phase": "bf16_modes", "b2_case": case})
+            del ops, got, again, ref, f32, f32_kernel
+            torch.cuda.empty_cache()
+    out["b2"] = b2_cases
+
+    # ---- sim_anneal fits in each mode beside the float32 fit ----
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    complete = simulate(n, p, q, 0, p_act, q_hit)
+    missing = simulate(n, p, q, 0, p_act, q_hit, missing_frac=0.15)
+    fits = {}
+    for mode, (xx, yy), base, flag, inst, own in (
+            ("complete", complete, Config(), "mxu_bf16", sf.sweep_fused.bf16,
+             sf.sweep_fused),
+            ("impute", missing, Config(missing="impute"), "mxu_bf16",
+             sf.sweep_fused.bf16, sf.sweep_fused),
+            ("exact", missing, Config(), "mis_pair_bf16",
+             sm.sweep_missing_fused.pair_bf16, sm.sweep_missing_fused)):
+        t0 = time.perf_counter()
+        ref, _, ref_gam = prepared_fit(yy, xx, base, DEVICE, seed=0)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for fn in dl.launch_counters():
+            fn.launches = 0
+        dl.replays = 0
+        t0 = time.perf_counter()
+        res, theta, gam = prepared_fit(
+            yy, xx, dataclasses.replace(base, **{flag: True}), DEVICE, seed=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"instance": inst.launches, "wrapper": own.launches,
+                  "replays": dl.replays}
+        auc = hotspot_auc(theta, p_act)
+        fits[mode] = dict(flag=flag, it=res.it, f32_it=ref.it, seconds=secs,
+                          f32_seconds=ref_s, converged=bool(res.converged),
+                          launches=counts, hotspot_auc_theta=auc,
+                          pip_max_diff_vs_f32=float(
+                              np.abs(gam - ref_gam).max()),
+                          lb_opt=res.lb_opt, f32_lb_opt=ref.lb_opt)
+        if not (res.converged and counts["instance"] == res.it
+                and counts["wrapper"] == res.it and counts["replays"] > 0):
+            raise AssertionError(f"bf16 {mode} fit: converged="
+                                 f"{res.converged}, it {res.it}, launches "
+                                 f"{counts}")
+        if not (auc >= 0.95 and np.isfinite(gam).all()
+                and fits[mode]["pip_max_diff_vs_f32"] <= BF16_FIT_PIP):
+            raise AssertionError(f"bf16 {mode} fit: AUC {auc:.3f}, PIPs "
+                                 f"{fits[mode]['pip_max_diff_vs_f32']:.3g} "
+                                 f"from the float32 fit's")
+    out["fits"] = fits
+
+    # ---- the eQTL cut, both B1 instances from one device draw ----
+    n, p, q, p_act, q_hit = EQTL_SHAPE
+    x, y = simulate(n, p, q, 1, p_act, q_hit)
+    eqtl = {}
+    for flag in (False, True):
+        cfg = Config(mxu_bf16=flag, maxit=10)
+        res, stats = timed_run(
+            lambda: device_fit(y, x, cfg, 1, (1, 2, 5)),
+            (sf, "_sweep_fused_cuda"), sf.sweep_fused, b1_any_launch_bound)
+        eqtl["bf16" if flag else "f32"] = dict(
+            it=res.it, launches=stats["launches"],
+            sweep_ms_median=stats["sweep_ms_median"],
+            iter_ms_median=stats["iter_ms_median"],
+            sweep_bound_ms=statistics.median(stats["sweep_bound_ms"]),
+            total_s=stats["total_s"],
+            max_memory_allocated_gb=stats["max_memory_allocated_gb"])
+        if stats["launches"] != res.it:
+            raise AssertionError(f"bf16_modes eQTL cut: {stats['launches']} "
+                                 f"launches for {res.it} iterations")
+        del res
+    del x, y
+    out["eqtl"] = eqtl
+    emit(out)
+    return dict(
+        b1=dict(launches=fits["complete"]["launches"]["instance"],
+                impute_fit_launches=fits["impute"]["launches"]["instance"],
+                timing=b1_timing,
+                max_abs_err=max(e["max"] for cs in b1_cases
+                                for e in cs["err"].values()),
+                mean_abs_err=max(e["mean"] for cs in b1_cases
+                                 for e in cs["err"].values()),
+                eqtl=eqtl),
+        b2=dict(launches=fits["exact"]["launches"]["instance"],
+                timing=b2_timing,
+                max_abs_err=max(v for cs in b2_cases
+                                for v in cs["max_abs_err"].values()),
+                mean_abs_err=max(e["mean"] for cs in b2_cases
+                                 for e in cs["err"].values())))
+
+
+def bf16_mode(res, instance):
+    """A kernel line's entry for one bf16 instance from phase_bf16_modes:
+    its launches on the mode's sim_anneal fit, its time, its float32
+    instance's time, its plain version's, its bound, its errors."""
+    t = res["timing"]
+    return dict(instance=instance, launches=res["launches"],
+                shape={k: t[k] for k in ("n", "p", "q", "block")},
+                ms=t["ms"], f32_ms=t["f32_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                pct_of_bound=t["pct_of_bound"], library_ms=None,
+                max_abs_err=res["max_abs_err"],
+                mean_abs_err=res["mean_abs_err"],
+                **{k: res[k] for k in ("impute_fit_launches", "eqtl")
+                   if k in res})
+
 
 def main():
     import torch
@@ -2247,6 +2639,7 @@ def main():
         replica, _ = phase_replica_kernel()
     if "a8_fit" in phases:
         phase_a8_fit()
+    bf16 = phase_bf16_modes() if "bf16_modes" in phases else None
     kernels = []
     if timing is not None:
         kernels.append({
@@ -2264,7 +2657,10 @@ def main():
             "ms_by_width": {w: d["ms"]
                             for w, d in timing["by_width"].items()},
             "impute_fit_launches": mis_launches.get("impute"),
-            "replica_ms": replica["b1"]})
+            "replica_ms": replica["b1"],
+            "modes": None if bf16 is None else {"mxu_bf16": bf16_mode(
+                bf16["b1"], "csrc/sweep_fused.cu:sweep_fused_kernel<QS, "
+                "true>")}})
     if mis_timing is not None:
         kernels.append({
             "name": "sweep_missing_fused", "route": "cuda",
@@ -2281,7 +2677,10 @@ def main():
             "bound_by": mis_timing["bound_by"], "library_ms": None,
             "pct_of_bound": pct(mis_timing["bound_ms"], mis_timing["ms"]),
             "ctas_per_sm": mis_timing["ctas_per_sm"],
-            "plan": mis_timing["plan"], "replica_ms": replica["b2"]})
+            "plan": mis_timing["plan"], "replica_ms": replica["b2"],
+            "modes": None if bf16 is None else {"mis_pair_bf16": bf16_mode(
+                bf16["b2"], "csrc/sweep_missing_fused.cu:"
+                "sweep_missing_kernel<FM_ON_CHIP, true>")}})
     if gs_timing is not None:
         kernels.append({
             "name": "block_gs", "route": "cuda",

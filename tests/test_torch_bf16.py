@@ -1,0 +1,500 @@
+"""The two bf16 modes of the port's kernels, held against the JAX package:
+Config.mxu_bf16 on B1 (ops/sweep_fused.py) and Config.mis_pair_bf16 on B2
+(ops/sweep_missing_fused.py).  On the CPU the wrappers run the kernels'
+plain versions; the CUDA instances are held against those on the card
+(tests/test_torch_cuda.py, chip_smoke.py's bf16_modes phase).
+
+Tolerances.
+- B1 under mxu_bf16: F is rounded to bfloat16 before each projection, so a
+  1-ulp float32 difference in F from the order of a sum can move one
+  operand by 2^-8 relative; the maximum error is therefore not at float32
+  grade, while the mean is.  Per output: mean |port - JAX bf16| <= 1/20 of
+  mean |JAX f32 - JAX bf16| (the mode's own distance from float32; the
+  ratio measured on these problems is far smaller), and max |port - JAX
+  bf16| <= 2.5e-3 on beta, gam and mu.
+- B2 under mis_pair_bf16: the rounded quantity, the float32 product of
+  one sample row, is formed the same whatever the order of the sums, so
+  B2's own tolerances hold (tests/test_torch_missing.py:_check_b2: gam
+  atol 5e-5, the rest 5e-4), against the JAX kernel at sub=8, the port's
+  window (ROADMAP.md C6).
+- Fits: PIPs within 5e-2 of the float32 fit, the JAX package's own bound
+  for the mode (tests/test_pallas.py:test_fused_mxu_bf16_close_to_f32).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from atlasqtl_tpu.types import Config as JConfig
+from atlasqtl_tpu.models import global_local as jgl
+from atlasqtl_tpu.inference import elicitation as jelic
+from atlasqtl_tpu.io.prepare import prepare_data as jprepare
+from atlasqtl_tpu.ops import sweep as jsw
+from atlasqtl_tpu.ops.sweep_fused import sweep_complete_fused as j_fused
+from atlasqtl_tpu.ops.sweep_missing_fused import sweep_missing_fused_driver
+
+import atlasqtl_tpu_torch as at
+from atlasqtl_tpu_torch import convert
+from atlasqtl_tpu_torch.models import global_local as tgl
+from atlasqtl_tpu_torch.ops import sweep as tsw
+from atlasqtl_tpu_torch.ops import sweep_fused as tsf
+from atlasqtl_tpu_torch.ops import sweep_missing_fused as tsm
+
+from conftest import simulate_fixture
+from test_torch_missing import OUT as MIS_OUT
+from test_torch_missing import _check_b2, _consts, _jax_problem
+from test_torch_sweep_fused import NAMES, _problem, _t
+
+MEAN_RATIO = 20      # port's mean error <= the mode's mean distance / 20
+MAX_COEF = 2.5e-3    # max error on beta, gam, mu
+FIT_PIP = 5e-2       # a bf16 fit's PIPs against the float32 fit's
+
+
+def _flat(out):
+    return list(out[:6]) + list(out[6])
+
+
+def _mean_criterion(got, ref, f32, names, max_names=("beta", "gam", "mu"),
+                    floor=None):
+    """Per output: mean |got - ref| <= mean |f32 - ref| / MEAN_RATIO (+ 2
+    mean |port f32 - JAX f32| where `floor` gives those two output lists:
+    the packages' own float32 distance), and max |got - ref| <= MAX_COEF
+    on `max_names`.  Returns the ratios."""
+    ratios = {}
+    fps, fjs = floor if floor is not None else (got, got)  # none: 0
+    for name, a, r, f, fp, fj in zip(names, got, ref, f32, fps, fjs):
+        if r is None:
+            assert a is None, name
+            continue
+        a, r, f = (np.asarray(v, np.float64) for v in (a, r, f))
+        assert a.shape == r.shape, name
+        err, mode = np.abs(a - r).mean(), np.abs(f - r).mean()
+        lim = mode / MEAN_RATIO + 2 * _dist(fp, fj)[0]
+        assert err <= lim, (name, err, mode, lim)
+        if name in max_names:
+            assert np.abs(a - r).max() <= MAX_COEF, (name,
+                                                     np.abs(a - r).max())
+        ratios[name] = mode / err if err else np.inf
+    return ratios
+
+
+_JAX_B1 = {}
+
+
+def _jax_b1(c, emit, bf16):
+    """The JAX fused kernel in interpret mode on `_problem(120, 128, c,
+    32)`, once per (c, emit, bf16) for the module."""
+    key = (c, emit, bf16)
+    if key not in _JAX_B1:
+        data, state, gram, consts = _problem(120, 128, c, 32)
+        _JAX_B1[key] = j_fused(
+            data.x, data.cp_x_y, gram, state.gam * state.mu_beta,
+            state.fitted, consts, 32, p_mask=data.p_mask, q_mask=data.q_mask,
+            q_tile=128, sub=32, qchunk=128, mxu_bf16=bf16, emit_gam_mu=emit,
+            annealed=c != 1.0)
+    return _JAX_B1[key]
+
+
+def _port_b1(c, emit, bf16, x_bf16=False):
+    data, state, gram, consts = _problem(120, 128, c, 32)
+    tconsts = tsw.SweepConsts(*[_t(v) for v in consts])
+    x = _t(data.x)
+    return tsf.sweep_complete_fused(
+        x, _t(data.cp_x_y), _t(gram), _t(state.gam * state.mu_beta),
+        _t(state.fitted), tconsts, 32, p_mask=_t(data.p_mask),
+        q_mask=_t(data.q_mask), emit_gam_mu=emit, annealed=c != 1.0,
+        bf16=bf16, x_bf16=x.to(torch.bfloat16) if x_bf16 else None)
+
+
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("c", [1.0, 0.5])
+def test_b1_plain_bf16_matches_jax_kernel(c, emit):
+    """`_problem(120, 128, c, 32)` (q padded to 128, 8 blocks of 32) at
+    q_tile=128, sub=32, qchunk=128: the port's plain bf16 sweep against the
+    JAX kernel with mxu_bf16=True, under the mean criterion."""
+    got = _port_b1(c, emit, True, x_bf16=emit)
+    assert tsf.sweep_fused.launches == 0  # CPU: the plain version
+    ratios = _mean_criterion(_flat(got), _flat(_jax_b1(c, emit, True)),
+                             _flat(_jax_b1(c, emit, False)), NAMES)
+    assert min(ratios.values()) > MEAN_RATIO
+
+
+def _dist(a, b):
+    """(mean, max) of |a - b| in float64."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(d.mean()), float(d.max())
+
+
+def c7_departure():
+    """`_problem(120, 128, 1, 256)`: the port's bf16 sweep at block 256
+    (two pieces of 128 in the kernel) against the JAX kernel's bf16 sweep
+    at block 256, beside the mode's own distance from float32 in JAX there
+    and the packages' float32 distance.  Returns the port's {bf16:
+    outputs}, JAX's {bf16: outputs} and per output {"port_vs_jax", "mode",
+    "f32_port_vs_jax"}, each (mean, max)."""
+    data, state, gram256, consts = _problem(120, 128, 1.0, 256)
+    kw = dict(p_mask=data.p_mask, q_mask=data.q_mask, q_tile=128, sub=32,
+              qchunk=128, emit_gam_mu=True, annealed=False)
+    beta = state.gam * state.mu_beta
+    jax_at = {bf: _flat(j_fused(data.x, data.cp_x_y, gram256, beta,
+                                state.fitted, consts, 256, mxu_bf16=bf, **kw))
+              for bf in (False, True)}
+    tconsts = tsw.SweepConsts(*[_t(v) for v in consts])
+    port = {bf: _flat(tsf.sweep_complete_fused(
+        _t(data.x), _t(data.cp_x_y), _t(gram256), _t(beta),
+        _t(state.fitted), tconsts, 256, p_mask=_t(data.p_mask),
+        q_mask=_t(data.q_mask), emit_gam_mu=True, bf16=bf))
+        for bf in (False, True)}
+    out = {name: dict(port_vs_jax=_dist(port[True][i], jax_at[True][i]),
+                      mode=_dist(jax_at[False][i], jax_at[True][i]),
+                      f32_port_vs_jax=_dist(port[False][i],
+                                            jax_at[False][i]))
+           for i, name in enumerate(NAMES) if port[True][i] is not None}
+    return port, jax_at, out
+
+
+def test_b1_bf16_block_over_128_matches_jax_kernel():
+    """A block over 128 under mxu_bf16 is the JAX kernel's block: the
+    port's block-256 sweep (projections against the block-start bf16 F,
+    every in-block correction through the float32 Gram) against the JAX
+    kernel's at block 256, under the mean criterion with the packages'
+    float32 distance as its floor (z_col's is ~1/15 of the mode's there:
+    the mode moves z_col less at block 256 than at 128) and the max
+    bound (tests/bf16_departures.py prints the distances)."""
+    port, jax_at, _ = c7_departure()
+    _mean_criterion(port[True], jax_at[True], jax_at[False], NAMES,
+                    floor=(port[False], jax_at[False]))
+
+
+def test_b1_bf16_mode_rounds():
+    """The mode is not a no-op: the port's bf16 and float32 plain sweeps
+    differ by more than 1e-4 in mean |fitted|, and the bfloat16 copy of x
+    (Data.x_bf16) gives the same sweep as x rounded on the fly."""
+    f32 = _port_b1(1.0, True, False)
+    b16 = _port_b1(1.0, True, True)
+    assert np.abs(np.asarray(b16[3]) - np.asarray(f32[3])).mean() > 1e-4
+    copy = _port_b1(1.0, True, True, x_bf16=True)
+    for a, b in zip(_flat(b16), _flat(copy)):
+        assert torch.equal(a, b)
+
+
+def _iteration_problem():
+    """tests/test_pallas.py:test_fused_mxu_bf16_close_to_f32's problem: n =
+    120, p = 256, q = 48 padded to 128, block 128."""
+    y, x, _ = simulate_fixture(n=120, p=256, p_act=8, q=48, seed=5)
+    dat = jprepare(y, x, 0.1, 1000)
+    p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
+    jcfg = JConfig(dtype=jnp.float32, block_size=128,
+                   shr_fac_inv=float(q_eff), sweep="fused")
+    data = jgl.build_data(dat.x, dat.y, jcfg, q_pad_to=128)
+    hyper = jgl.build_hyper(jelic.auto_set_hyper(dat.y, p_eff, (4, 16)),
+                            data.y.shape[1], jcfg)
+    state = jgl.build_state(
+        jelic.auto_set_init(dat.y, p_eff, (4, 16), float(q_eff), 7), data,
+        jcfg)
+    return data, hyper, state, jcfg
+
+
+def _arrays(obj):
+    return {f.name: None if getattr(obj, f.name) is None
+            else np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def test_one_cavi_iteration_bf16_matches_jax():
+    """One cavi_iteration of each package with Config(dtype=float32,
+    block_size=128, sweep="fused", mxu_bf16=True).  Per field: mean |port
+    - JAX| <= 1/20 of the mode's mean distance from float32 in JAX, plus
+    twice the packages' own float32 distance (mean |port f32 - JAX f32|):
+    at this first iteration the mode moves some fields (gam ~5e-5, zeta,
+    the pre-sweep updates not at all) less than float32 rounding between
+    the packages does.  The mode's distance dominates where it is large:
+    fitted and mu_beta, which it must move beyond that floor."""
+    data, hyper, state, jcfg = _iteration_problem()
+    gram = jsw.block_gram(data.x, 128)
+    tdata = convert.data_from_numpy(_arrays(data), device="cpu")
+    thyper = convert.hyper_from_numpy(_arrays(hyper), device="cpu")
+    tstate = convert.state_from_numpy(_arrays(state), device="cpu")
+    j, t = {}, {}
+    for bf in (False, True):
+        j[bf] = jgl.cavi_iteration(data, hyper, state, gram, 1.0, 1.0,
+                                   cfg=dataclasses.replace(jcfg, mxu_bf16=bf),
+                                   annealed=False)
+        tcfg = at.Config(dtype=torch.float32, block_size=128, sweep="fused",
+                         mxu_bf16=bf, shr_fac_inv=jcfg.shr_fac_inv)
+        t[bf] = tgl.cavi_iteration(tdata, thyper, tstate,
+                                   tsw.block_gram(tdata.x, 128), 1.0, 1.0,
+                                   cfg=tcfg, annealed=False)
+    for f in dataclasses.fields(t[True]):
+        r = getattr(j[True], f.name)
+        if r is None:
+            continue
+        get = lambda s: np.asarray(getattr(s, f.name), np.float64)
+        a, r, jf, tf = get(t[True]), get(j[True]), get(j[False]), get(t[False])
+        mode, floor = np.abs(jf - r).mean(), np.abs(tf - jf).mean()
+        assert np.abs(a - r).mean() <= mode / MEAN_RATIO + 2 * floor, f.name
+        if f.name in ("fitted", "mu_beta"):
+            assert mode > MEAN_RATIO * 2 * floor, f.name
+
+
+_JAX_B2 = {}
+
+
+def _jax_b2(c, sub, pair_bf16):
+    """The JAX exact-missing kernel in interpret mode on `_b2_problem(c)` at
+    window `sub`, wgroup=4, once per (c, sub, pair_bf16) for the module."""
+    key = (c, sub, pair_bf16)
+    if key not in _JAX_B2:
+        data, state, consts, sig2_inv = _b2_problem(c)
+        jc = jsw.SweepConsts(**{k: jnp.asarray(v) for k, v in consts.items()})
+        _JAX_B2[key] = sweep_missing_fused_driver(
+            data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+            state.mu_beta, state.fitted, jc, jnp.asarray(sig2_inv), 128,
+            p_mask=data.p_mask, q_mask=data.q_mask, q_tile=256, sub=sub,
+            wgroup=4, pair_bf16=pair_bf16, qchunk=256)
+    return _JAX_B2[key]
+
+
+def _b2_operands(data, state, consts, sig2_inv):
+    tc = tsw.SweepConsts(**{k: _t(v) for k, v in consts.items()})
+    d = {k: _t(v) for k, v in _arrays(data).items() if v is not None}
+    return tsm.missing_fused_operands(
+        d["x"], d["cp_x_y"], d["x_norm_sq"], d["mis_pat"], _t(state.gam),
+        _t(state.mu_beta), _t(state.fitted), tc, _t(sig2_inv), d["p_mask"],
+        d["q_mask"])
+
+
+def _b2_problem(c):
+    """tests/test_torch_missing.py:test_b2_plain_matches_jax_kernel's
+    problem (n=80, p=250, q=40 padded to 256, 20% missing)."""
+    data, _, state, _, _ = _jax_problem(jnp.float32, n=80, p=250, q=40,
+                                        seed=7, mis_block=16, q_pad_to=256)
+    consts, sig2_inv = _consts(data, state, c, np.float32)
+    return data, state, consts, sig2_inv
+
+
+def _b2_masked(out, data):
+    """JAX's B2 outputs with gam and mu masked as the port writes them."""
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    return [np.asarray(v, np.float64) * (msk if name in ("gam", "mu") else 1)
+            for name, v in zip(MIS_OUT, out)]
+
+
+def _b2_port(c, pair_bf16):
+    data, state, consts, sig2_inv = _b2_problem(c)
+    return tsm.sweep_missing_fused(*_b2_operands(data, state, consts,
+                                                 sig2_inv),
+                                   block_size=128, pair_bf16=pair_bf16)
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+def test_b2_plain_pair_bf16_matches_jax_kernel(c):
+    """The windowed plain sweep with bf16 pair products against the JAX
+    kernel in interpret mode with pair_bf16=True at sub=8 (the port's
+    window), wgroup=4, within B2's tolerances and under the mean
+    criterion.  The port's float32 sweep fails B2's tolerances against that
+    output: the mode moves the result past them here, so they separate
+    it."""
+    data = _b2_problem(c)[0]
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    ref = _jax_b2(c, 8, True)
+    got, f32 = _b2_port(c, True), _b2_port(c, False)
+    _check_b2(got, ref, msk)
+    with pytest.raises(AssertionError):
+        _check_b2(f32, ref, msk)
+    masked = _b2_masked(ref, data)
+    ratios = _mean_criterion(got, masked, f32, MIS_OUT, max_names=())
+    assert min(ratios.values()) > MEAN_RATIO
+
+
+def c6_departure(c):
+    """ROADMAP.md C6 on `_b2_problem(c)`: the port's pair_bf16 sweep (windows
+    of 8) against the JAX kernel's with pair_bf16 at sub=16 (the default
+    Config.mis_sub) and at sub=8, beside the mode's own distance from
+    float32 in JAX at sub=16.  Per output: {"port_vs_jax", "mode",
+    "port_vs_jax_8"}, each (mean, max)."""
+    data = _b2_problem(c)[0]
+    got = _b2_port(c, True)
+    j16, f16, j8 = (_b2_masked(_jax_b2(c, *k), data)
+                    for k in ((16, True), (16, False), (8, True)))
+    return {name: dict(port_vs_jax=_dist(got[i], j16[i]),
+                       mode=_dist(f16[i], j16[i]),
+                       port_vs_jax_8=_dist(got[i], j8[i]))
+            for i, name in enumerate(MIS_OUT)}
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+def test_b2_pair_bf16_window_departure(c):
+    """C6: with pair_bf16 the port is the JAX kernel at sub=8, not at the
+    default sub=16, whose windows round other corrections: against that
+    one the port fails B2's tolerances, yet stands less than half as far
+    in the mean as the mode's own distance from float32 there
+    (tests/bf16_departures.py prints the distances)."""
+    data = _b2_problem(c)[0]
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    with pytest.raises(AssertionError):
+        _check_b2(_b2_port(c, True), _jax_b2(c, 16, True), msk)
+    for name, d in c6_departure(c).items():
+        assert d["port_vs_jax"][0] < d["mode"][0] / 2, (name, d)
+        assert d["port_vs_jax_8"][0] < d["port_vs_jax"][0] / 10, (name, d)
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+def test_windowed_plain_f32_matches_per_coordinate(c):
+    """The windowed plain branch without rounding is the per-coordinate
+    plain sweep up to float32 rounding (B2's tolerances): the windows,
+    pair Grams and window advances are right."""
+    data, state, consts, sig2_inv = _b2_problem(c)
+    ops = _b2_operands(data, state, consts, sig2_inv)
+    win = tsm._sweep_missing_plain_windows(*ops, block_size=128,
+                                           round_pairs=False)
+    one = tsm._sweep_missing_plain_one(*ops, block_size=128)
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    _check_b2(win, one, msk)
+
+
+def _replicas(operands, ops, m=2, seed=0):
+    """m replicas of the operands `ops` (an `Operands` list): each operand
+    of the state but the 0-d ones scaled per replica by a seeded factor."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for r in range(m):
+        f = 1.0 + 0.05 * r * rng.standard_normal()
+        parts.append([o * f if k in operands.state and o.dim() > 0 else o
+                      for k, o in zip(operands.names, ops)])
+    return parts
+
+
+def test_b1_bf16_replica_axis():
+    """Plain B1-bf16 with m = 2 replicas stacked equals each replica swept
+    alone, bit for bit."""
+    data, state, gram, consts = _problem(120, 128, 0.5, 32)
+    tconsts = tsw.SweepConsts(*[_t(v) for v in consts])
+    ops = list(tsf.fused_operands(
+        _t(data.x), _t(data.cp_x_y), _t(gram),
+        _t(state.gam * state.mu_beta), _t(state.fitted), tconsts, 32,
+        _t(data.p_mask), _t(data.q_mask)))
+    ops[0] = tsf.bf16_operand(ops[0])
+    parts = _replicas(tsf.FUSED, ops)
+    kw = dict(block_size=32, emit_gam_mu=True, c_one=False, bf16=True)
+    both = tsf.sweep_fused(*tsf.FUSED.stack(parts), **kw)
+    for r, part in enumerate(parts):
+        one = tsf.sweep_fused(*part, **kw)
+        for a, b in zip(_flat(both), _flat(one)):
+            assert torch.equal(a[r], b)
+
+
+def test_b2_pair_bf16_replica_axis():
+    """Plain B2-pair-bf16 with m = 2 replicas stacked equals each replica
+    swept alone, bit for bit."""
+    ops = _b2_operands(*_b2_problem(0.5))
+    parts = _replicas(tsm.MISSING, ops)
+    kw = dict(block_size=128, pair_bf16=True)
+    both = tsm.sweep_missing_fused(*tsm.MISSING.stack(parts), **kw)
+    for r, part in enumerate(parts):
+        one = tsm.sweep_missing_fused(*part, **kw)
+        for a, b in zip(both, one):
+            assert torch.equal(a[r], b)
+
+
+def _port_problem(missing_frac=0.0, seed=5):
+    y, x, _ = simulate_fixture(n=100, p=75, p_act=8, q=20, seed=seed,
+                               missing_frac=missing_frac)
+    return y, x
+
+
+def _port_iteration(cfg, missing_frac=0.0):
+    """One cavi_iteration of the port on the CPU from a host draw: the
+    returned state's fields."""
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    y, x = _port_problem(missing_frac)
+    dat = prepare_data(y, x, 0.1, 1000, 1, 0)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+    data = tgl.build_data(dat.x, dat.y, cfg, "cpu")
+    hyper = tgl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                            data.y.shape[1], cfg, "cpu")
+    state = tgl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
+                                               1), data, cfg)
+    gram = tsw.block_gram(data.x, tgl.data_block(cfg, data))
+    out = tgl.cavi_iteration(data, hyper, state, gram, 0.5, 0.5, cfg=cfg,
+                             annealed=True)
+    return data, out
+
+
+@pytest.mark.parametrize("route,missing", [
+    (dict(sweep_stagger=True, sweep="fused"), 0.0),    # B4
+    (dict(sweep="pallas"), 0.0),                       # B3
+    (dict(sweep="xla"), 0.0),                          # the plain sweep
+    (dict(sweep="auto", dtype=torch.float64), 0.0),    # float64, plain
+    (dict(sweep="xla"), 0.15),                         # exact: blocked
+])
+def test_bf16_flags_leave_other_engines_alone(route, missing):
+    """mxu_bf16 and mis_pair_bf16 reach B1 and B2 only: every other engine
+    gives its sweep bit for bit as without them, and no bf16 copy of x is
+    made for it."""
+    base = at.Config(**{"dtype": torch.float32, **route})
+    flags = dataclasses.replace(base, mxu_bf16=True, mis_pair_bf16=True)
+    tgl.check_config(flags)
+    d0, s0 = _port_iteration(base, missing)
+    d1, s1 = _port_iteration(flags, missing)
+    assert d1.x_bf16 is None
+    for f in dataclasses.fields(s0):
+        a, b = getattr(s0, f.name), getattr(s1, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is not None:
+            assert torch.equal(a, b), f.name
+
+
+def test_bf16_flags_reach_b1_and_b2():
+    """On sweep="fused" the flags change the iteration (B1 under
+    mxu_bf16, with its bf16 copy of x made once in build_data; B2 under
+    mis_pair_bf16)."""
+    cfg = at.Config(dtype=torch.float32, sweep="fused")
+    for missing, flag in ((0.0, "mxu_bf16"), (0.15, "mis_pair_bf16")):
+        _, s0 = _port_iteration(cfg, missing)
+        d1, s1 = _port_iteration(dataclasses.replace(cfg, **{flag: True}),
+                                 missing)
+        assert (d1.x_bf16 is not None) == (flag == "mxu_bf16")
+        if d1.x_bf16 is not None:
+            assert d1.x_bf16.dtype == torch.bfloat16
+            assert torch.equal(d1.x_bf16, d1.x.to(torch.bfloat16))
+        assert not torch.equal(s0.gam, s1.gam), flag
+
+
+def _fit(cfg, missing_frac, seed=5):
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.inference.driver import fit_global_local
+    y, x = _port_problem(missing_frac, seed)
+    dat = prepare_data(y, x, 0.1, 1000, 1, 0)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+    data = tgl.build_data(dat.x, dat.y, cfg, "cpu")
+    hyper = tgl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                            data.y.shape[1], cfg, "cpu")
+    state = tgl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
+                                               1), data, cfg)
+    res = fit_global_local(data, hyper, state, cfg, anneal=(1, 2, 5),
+                           verbose=0)
+    return res, res.state.gam[:p, :q].double().numpy()
+
+
+@pytest.mark.parametrize("flag,missing", [("mxu_bf16", None),
+                                          ("mxu_bf16", "impute"),
+                                          ("mis_pair_bf16", "exact")])
+def test_small_bf16_fit_converges_near_f32(flag, missing):
+    """A small fit (n=100, p=75, q=20; 15% NaN for the missing modes) on
+    sweep="fused" in each mode converges, its PIPs within 5e-2 of the
+    float32 fit's from the same initial state."""
+    frac = 0.0 if missing is None else 0.15
+    cfg = at.Config(dtype=torch.float32, sweep="fused",
+                    missing=missing or "exact")
+    ref, ref_gam = _fit(cfg, frac)
+    res, gam = _fit(dataclasses.replace(cfg, **{flag: True}), frac)
+    assert ref.converged and res.converged
+    assert np.isfinite(gam).all()
+    assert np.abs(gam - ref_gam).max() <= FIT_PIP

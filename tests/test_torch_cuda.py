@@ -1025,3 +1025,229 @@ def test_no_garbage_collection_while_capturing(cuda, monkeypatch):
     res = at.atlasqtl(y, x, **kw)
     assert res.converged and seen and not any(seen)
     assert gc.isenabled()
+
+
+# ------------------------------------------- the bf16 modes (B5a, B5b)
+
+BF16_RATIO = 20   # mean error <= the mode's mean distance from f32 / 20
+
+
+def _bf16_held(got, ref, f32, f32_kernel, names):
+    """A bf16 instance against its plain version: per output, mean
+    |kernel - plain| <= mean |plain f32 - plain bf16| / BF16_RATIO + 2
+    mean |f32 kernel - plain f32| (the float32 instance's own distance
+    from its plain version: sums in another order).  B1: a bf16 operand
+    moves 2^-8 relative where a float32 sum order differs by one ulp, so
+    the max is not at float32 grade (tests/test_torch_bf16.py).  B2: the
+    mode moves the outputs far less than B2's max tolerance, so only this
+    fails an instance that rounds no pair product, or the wrong ones."""
+    for name, a, r, f, k in zip(names, got, ref, f32, f32_kernel):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.device.type == "cuda" and a.shape == r.shape, name
+        err = float((a.cpu() - r).abs().double().mean())
+        mode = float((f - r).abs().double().mean())
+        floor = float((k.cpu() - f).abs().double().mean())
+        assert err <= mode / BF16_RATIO + 2 * floor, (name, err, mode, floor)
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+@pytest.mark.parametrize("n,p,q,width,blk", [(120, 256, 200, 32, 128),
+                                             (100, 128, 4804, 40, 128),
+                                             (100, 120, 48, 32, 120),
+                                             (120, 512, 200, 32, 256),
+                                             (120, 400, 200, 32, 200)])
+def test_bf16_kernel_matches_plain(cuda, n, p, q, width, blk, c):
+    """B1's bf16 instance (mxu_bf16, tensor cores) against its plain
+    version: ragged q in 32-column slices; 40-column slices; block 120,
+    not a multiple of 16 (zero-padded columns); block 256 in pieces of
+    128 and block 200 in five of 40, each piece projected against the
+    block-start F with the earlier pieces through the Gram, as the plain
+    version's whole-block sweep.  One launch counted, as the bf16
+    instance's too."""
+    ops, block = _operands(n, p, q, c, block=blk)
+    assert block == blk
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sf.fused_launch_plan(n, q, block, ops[3].shape[1], sms,
+                                bf16=True)["slice_width"] == width
+    ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=c == 1.0)
+    ref = _flat(sf.sweep_fused(*ops16, **kw, bf16=True))
+    f32 = _flat(sf.sweep_fused(*ops, **kw))
+    launches, inst = sf.sweep_fused.launches, sf.sweep_fused.bf16.launches
+    got = _flat(sf.sweep_fused(*[o.to(cuda) for o in ops16], **kw,
+                               bf16=True))
+    torch.cuda.synchronize()
+    assert sf.sweep_fused.launches == launches + 1
+    assert sf.sweep_fused.bf16.launches == inst + 1
+    f32_kernel = _flat(sf.sweep_fused(*[o.to(cuda) for o in ops], **kw))
+    _bf16_held(got, ref, f32, f32_kernel, NAMES)
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+@pytest.mark.parametrize("n,p,q,blk", [(80, 250, 40, 128), (100, 75, 48, 80),
+                                       (100, 512, 40, 256),
+                                       (8000, 128, 256, 128)])
+def test_pair_bf16_kernel_matches_plain(cuda, n, p, q, blk, c):
+    """B2's pair_bf16 instance against its windowed plain version at B2's
+    tolerances (the rounded pair products are formed alike) and under the
+    mean criterion: ragged q; n % 8 != 0 and block 80; block 256 in pieces
+    of 128; the device-memory branch (n = 8000)."""
+    ops, block = _mis_operands(n, p, q, c, block=blk, frac=0.15)
+    assert block == blk
+    ref = sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True)
+    f32 = sm.sweep_missing_fused(*ops, block_size=block)
+    launches = sm.sweep_missing_fused.launches
+    inst = sm.sweep_missing_fused.pair_bf16.launches
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops],
+                                 block_size=block, pair_bf16=True)
+    f32_kernel = sm.sweep_missing_fused(*[o.to(cuda) for o in ops],
+                                        block_size=block)
+    torch.cuda.synchronize()
+    assert sm.sweep_missing_fused.launches == launches + 2
+    assert sm.sweep_missing_fused.pair_bf16.launches == inst + 1
+    for name, a, r in zip(MIS_NAMES, got, ref):
+        assert a.device.type == "cuda" and a.shape == r.shape, name
+        err = float((a.cpu() - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
+    assert any(not torch.equal(a, b) for a, b in zip(got, f32_kernel))
+    _bf16_held(got, ref, f32, f32_kernel, MIS_NAMES)
+
+
+def test_bf16_instances_are_deterministic(cuda):
+    """Both bf16 instances: two launches agree bit for bit."""
+    for q in (200, 4804):
+        ops, block = _operands(120, 256, q, 0.5)
+        ops = [sf.bf16_operand(ops[0].to(cuda))] + [o.to(cuda)
+                                                    for o in ops[1:]]
+        kw = dict(block_size=block, emit_gam_mu=True, c_one=False, bf16=True)
+        a, b = (_flat(sf.sweep_fused(*ops, **kw)) for _ in range(2))
+        for name, u, v in zip(NAMES, a, b):
+            assert torch.equal(u, v), (q, name)
+    ops, block = _mis_operands(80, 250, 40, 0.5)
+    ops = [o.to(cuda) for o in ops]
+    a, b = (sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True)
+            for _ in range(2))
+    for name, u, v in zip(MIS_NAMES, a, b):
+        assert torch.equal(u, v), name
+
+
+def test_bf16_plan_matches_the_kernel(cuda):
+    """The bf16 instance's shared-memory arithmetic (its plan) equals the
+    kernel's own, at blocks that are and are not multiples of 16 and 32,
+    and it holds the one CTA per SM its plan counts on."""
+    for width in sf.FUSED_WIDTHS:
+        for block in (8, 40, 80, 120, 128):
+            for r_aug in (1, 42, 48):
+                assert (sf.kernel_smem_bytes(width, block, r_aug, True)
+                        == sf._fused_smem_bytes(width, block, r_aug, True))
+                plan = sf.fused_launch_plan(1000, 10000, block, r_aug,
+                                            bf16=True)
+                assert sf.occupancy(width, block, r_aug, True) \
+                    == plan["ctas_per_sm"] == 1
+
+
+def test_bf16_operands_and_b4_refuse(cuda):
+    """B4 has no bf16 instance and refuses the flag; the bf16 instance
+    takes only the bfloat16 copy of x, and a bfloat16 x is refused without
+    the flag; nothing launches."""
+    ops, block = _operands(120, 256, 200, 1.0)
+    ops = [o.to(cuda) for o in ops]
+    ops16 = [sf.bf16_operand(ops[0])] + ops[1:]
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=True)
+    launches = sf.sweep_fused.launches
+    with pytest.raises(ValueError, match="no bf16 instance"):
+        sf.fused_launch("atlasqtl_sweep_staggered", *ops16, **kw, bf16=True,
+                        plan=ss.staggered_launch_plan)
+    with pytest.raises(ValueError, match="x must"):
+        sf.sweep_fused(*ops, **kw, bf16=True)
+    with pytest.raises(ValueError, match="bf16 mode"):
+        sf.sweep_fused(*ops16, **kw)
+    assert sf.sweep_fused.launches == launches
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["b1", "b1_cp", "b1_256", "b2"])
+def test_batched_bf16_equals_single_launches(cuda, kind, m):
+    """Each replica of one batched launch of a bf16 instance equals its own
+    launch under the same plan bit for bit (B1's at n % 8 != 0 and block 80
+    with X^T Y per replica, as impute gives it; at block 256, in pieces,
+    with each replica's workspaces)."""
+    shape = dict(b1=(120, 256, 200, 128), b1_cp=(100, 75, 48, 80),
+                 b1_256=(120, 512, 200, 256), b2=(80, 250, 40, 128))[kind]
+    parts, stacked, block = _replica_operands(kind, *shape[:3], 0.5, m,
+                                              block=shape[3], frac=0.15)
+    dev = lambda ops: [o.to(cuda) for o in ops]
+    if kind == "b2":
+        kw = dict(block_size=block, pair_bf16=True)
+        plan = sm.missing_launch_plan(shape[0], stacked[6].shape[-1], block,
+                                      stacked[4].shape[-1], m)
+        got = list(sm.sweep_missing_fused(*dev(stacked), **kw))
+        singles = [list(sm._sweep_missing_fused_cuda(*dev(ops), **kw,
+                                                     plan=plan))
+                   for ops in parts]
+    else:
+        kw = dict(block_size=block, emit_gam_mu=True, c_one=False, bf16=True)
+        x16 = sf.bf16_operand(stacked[0].to(cuda))
+        plan = sf.fused_launch_plan(
+            stacked[0].shape[0], stacked[5].shape[-1], block,
+            stacked[3].shape[-1],
+            torch.cuda.get_device_properties(cuda).multi_processor_count, m,
+            bf16=True)
+        got = _flat(sf.sweep_fused(x16, *dev(stacked[1:]), **kw))
+        singles = [_flat(sf.fused_launch(
+            "atlasqtl_sweep_fused", x16, *dev(ops[1:]), **kw,
+            slice_width=plan["slice_width"])) for ops in parts]
+    torch.cuda.synchronize()
+    for r, one in enumerate(singles):
+        for a, b in zip(got, one):
+            if b is None:
+                assert a is None
+                continue
+            assert torch.equal(a[r], b), r
+
+
+BF16_FITS = {"mxu_bf16": (None, "mxu_bf16"),
+             "impute": ("impute", "mxu_bf16"),
+             "exact": ("exact", "mis_pair_bf16")}
+
+
+@pytest.mark.parametrize("mode", list(BF16_FITS))
+def test_bf16_graph_loop_matches_host_loop(cuda, mode):
+    """A fit in each bf16 mode under the CUDA-graph loop takes the host
+    loop's iterations and ELBO history (to 1e-6 relative, as the float32
+    routes); under both loops the mode's instance launches once per
+    iteration (replays counted) and is the only sweep launched."""
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    missing, flag = BF16_FITS[mode]
+    y, x, _ = simulate_fixture(missing_frac=0.2 if missing else 0.0, seed=5)
+    own = sm.sweep_missing_fused if mode == "exact" else sf.sweep_fused
+    inst = own.pair_bf16 if mode == "exact" else own.bf16
+    fits = {}
+    for loop in ("off", "on"):
+        cfg = Config(missing=missing or "exact", device_loop=loop,
+                     **{flag: True})
+        dat = prepare_data(y, x, 0.1, 1000)
+        p, q = dat.x.shape[1], dat.y.shape[1]
+        cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+        data = gl.build_data(dat.x, dat.y, cfg, cuda)
+        hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                               data.y.shape[1], cfg, cuda)
+        state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25),
+                                                  float(q), 11), data, cfg)
+        _reset_counts()
+        res = fit_global_local(data, hyper, state, cfg, anneal=(1, 2, 10),
+                               verbose=0)
+        fits[loop] = res
+        assert inst.launches == own.launches == res.it
+        assert sum(fn.launches for fn in dl.launch_counters()) \
+            == 2 * res.it
+        assert (dl.replays > 0) == (loop == "on")
+    off, on = fits["off"], fits["on"]
+    assert off.converged and on.converged and off.it == on.it
+    assert [i for i, _ in off.elbo_history] == [i for i, _ in
+                                               on.elbo_history]
+    np.testing.assert_allclose([lb for _, lb in on.elbo_history],
+                               [lb for _, lb in off.elbo_history], rtol=1e-6)

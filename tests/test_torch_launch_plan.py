@@ -155,3 +155,34 @@ def test_staggered_smem_arithmetic(width, block, r_aug, expected):
     (15872): 55360 floats."""
     got = ss._stag_smem_bytes(width, block, r_aug)
     assert got == expected and got <= SMEM_MAX
+
+
+@pytest.mark.parametrize("width,block,r_aug,expected", [
+    (40, 128, 42, 185088), (32, 128, 42, 166656), (32, 120, 48, 162928),
+    (40, 8, 1, 50608)])
+def test_fused_bf16_smem_arithmetic(width, block, r_aug, expected):
+    """B1's bf16 instance (csrc/sweep_fused.cu:smem_bytes<QS, true>),
+    counted by hand at the eQTL cut's 40 columns: the packed Gram 8256
+    floats, the delta and projection tiles 10240, the stage area 17280 (F
+    3 x 32 x 40; five bf16 x chunks of 32 rows of 136 bf16, 10880 floats;
+    one advance partial 32 x 40; two bf16 F chunks of 32 x 40), the window
+    tiles 2560, the nodes 3 x 42 x 40 = 5040, p_mask and theta 256, zeta
+    and q_mask 80, the bf16 delta tile 128 x 40 bf16 (2560): 46272
+    floats.  Block 120 is padded to 128 columns and its delta tile to 128
+    rows, block 8 to 16 columns (rows of 24 bf16) and 32 rows.  Every case
+    fits one CTA and takes less than the float32 instance."""
+    got = sf._fused_smem_bytes(width, block, r_aug, bf16=True)
+    assert got == expected and got <= SMEM_MAX
+    assert got < sf._fused_smem_bytes(width, block, r_aug)
+
+
+@pytest.mark.parametrize("n,q,block", SHAPES)
+def test_fused_bf16_plan_matches_f32_plan(n, q, block):
+    """The bf16 instance's plan takes the float32 plan's width, grid and
+    waves (one CTA per SM), with its own shared memory."""
+    plan = sf.fused_launch_plan(n, q, block, R_AUG, bf16=True)
+    f32 = sf.fused_launch_plan(n, q, block, R_AUG)
+    assert {k: v for k, v in plan.items() if k != "smem_bytes"} == \
+        {k: v for k, v in f32.items() if k != "smem_bytes"}
+    assert plan["smem_bytes"] == sf._fused_smem_bytes(
+        plan["slice_width"], plan["sub_block"], R_AUG, True) <= SMEM_MAX
