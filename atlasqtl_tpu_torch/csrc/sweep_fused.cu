@@ -101,6 +101,26 @@
 //    all threads add G[piece, earlier rows] x those deltas to its
 //    projections (f32 FMAs in 4 x 4 register tiles, the Gram rows read
 //    from the (p, Bfull) blocks).
+// The bf16 instance's lookahead variant (LA = true) is the TPU kernel's
+// one-block-lookahead schedule under mxu_bf16 (atlasqtl_tpu/ops/
+// sweep_fused.py:166-184, 378-388), another function there: block b
+// projects the bf16 F from before block b-1's advance and takes block
+// b-1's float32 deltas through the float32 off-diagonal Gram goff[b-1] =
+// x_b^T x_{b-1} ((p, Bfull) stacked, rows of block b).  The TPU's grid of
+// one projection ahead is not carried over; the pass already fuses
+// "advance by b-1, project b", so:
+//  - the bf16 copy of each F chunk that the pass projects is made from the
+//    chunk as staged, before its advance (F itself still advances in f32
+//    and is written back as before);
+//  - after the pass and before the chain, all threads add goff[b-1] x
+//    delta_{b-1} to the projections in f32 4 x 4 register tiles, as the
+//    pieces' cross-Gram; delta_{b-1} is still in its shared tile;
+//  - a block in pieces: every piece of block b projects the bf16 F of
+//    block b-1's start and takes all of block b-1's deltas, so both
+//    workspaces are kept two deep, by the block's parity: the bf16 F of
+//    each block's start (written by its first piece's pass, after the
+//    advance; read back by cp.async by every piece of the next block) and
+//    every piece's f32 deltas (Bfull rows per block).
 // Conversions use __float2bfloat16_rn (round to nearest even, as JAX's
 // astype and torch's .to(bfloat16)); no TF32 anywhere.
 #include <cuda_bf16.h>
@@ -223,6 +243,12 @@ __device__ __forceinline__ void st_bf16x4(__nv_bfloat16* dst, const float* f) {
   d[0] = __floats2bfloat162_rn(f[0], f[1]);
   d[1] = __floats2bfloat162_rn(f[2], f[3]);
 }
+// the same four as one 8-byte value
+__device__ __forceinline__ uint2 bf16x4(const float* f) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(f[0], f[1]),
+                         __floats2bfloat162_rn(f[2], f[3])};
+  return *reinterpret_cast<const uint2*>(h);
+}
 
 // element (i, m), m <= i, of the packed lower triangle
 __device__ __forceinline__ float gp(const float* g, int i, int m) {
@@ -236,7 +262,7 @@ __device__ __forceinline__ void unpack4(const float4 v, float* a) {
   a[3] = v.w;
 }
 
-template <int QS, bool BF>
+template <int QS, bool BF, bool LA>
 __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const void* __restrict__ x_any,     // (n, p), float (bf16 if BF)
     const float* __restrict__ cp,       // (p, q)
@@ -261,9 +287,13 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     float* __restrict__ m2gcol,         // (q,)
     float* __restrict__ b2col,          // (q,)
     const float* __restrict__ gram_full,  // bf16, Bfull > B: (p, Bfull)
-    __nv_bfloat16* __restrict__ fh_ws,  // bf16, Bfull > B: (n, slices x QS)
-    float* __restrict__ dw_ws,          // bf16, Bfull > B: (Bfull - B, ..)
+    const float* __restrict__ goff,       // LA: (p, Bfull)
+    __nv_bfloat16* __restrict__ fh_ws,  // bf16, Bfull > B: ([2,] n, slices
+                                        // x QS), two if LA
+    float* __restrict__ dw_ws,          // bf16, Bfull > B: (Bfull - B, ..),
+                                        // LA (2 Bfull, ..)
     int n, int p, int q, int B, int R, int c_one, int cp_batched, int Bfull) {
+  static_assert(BF || !LA, "lookahead: a variant of the bf16 instance");
   using S = Slice<QS>;
   // the bf16 instance's workspaces: row stride of all slices' columns
   const int qsw = gridDim.x * QS;
@@ -292,8 +322,8 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     m2gcol += r * q;
     b2col += r * q;
     if (fh_ws != nullptr) {
-      fh_ws += r * (size_t)n * qsw;
-      dw_ws += r * (size_t)(Bfull - B) * qsw;
+      fh_ws += r * (LA ? 2 : 1) * (size_t)n * qsw;
+      dw_ws += r * (size_t)(LA ? 2 * Bfull : Bfull - B) * qsw;
     }
   }
   constexpr int NT = S::NT, NW = S::NW, TC = S::TC, WQ = S::WQ;
@@ -419,11 +449,21 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   for (int b = 0; b <= nb; ++b) {
     const bool adv = b > 0, proj = b < nb;
     const int j0 = b * B;  // the projected block's first predictor
-    // bf16, a block in pieces: piece kp of its block; the first piece's
-    // pass saves the block-start bf16 F, a later piece's projects it
-    const int kp = b % npc;
+    // bf16, a block in pieces: piece kp of its whole block bb; the first
+    // piece's pass saves the block-start bf16 F, a later piece's projects
+    // it (LA: every piece of block bb projects block bb-1's, so the first
+    // piece's pass of a block after the first projects it too)
+    const int kp = b % npc, bb = b / npc;
     const bool to_ws = BF && npc > 1 && proj && kp == 0;
-    const bool from_ws = BF && npc > 1 && proj && kp > 0;
+    const bool from_ws = BF && npc > 1 && proj && (kp > 0 || (LA && bb > 0));
+    // the bf16 copy the pass projects: of F as staged (the first block;
+    // LA, whole blocks: every block), else of the advanced F
+    const bool fh_pre = !adv || (LA && npc == 1);
+    const bool fh_post = adv && !from_ws && !(LA && npc == 1);
+    // LA: the workspaces by the block's parity: this block's start F and
+    // deltas in the one, the previous block's in the other (kept as two
+    // parities, not four pointers, for the registers)
+    const int par = LA ? bb & 1 : 0, par_prev = LA && bb > 0 ? par ^ 1 : 0;
 
     // ---- one pass over the samples: advance by block b-1, project b -------
     auto stage = [&](int ch) {
@@ -493,7 +533,9 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           const bool ok = ch * NCH + r < n;
           cp_async16_zfill(
               FH_h + (ch & 1) * NCH * HLD + r * HLD + c8,
-              fh_ws + (size_t)(ok ? ch * NCH + r : 0) * qsw + k0 + c8, ok);
+              fh_ws + ((size_t)par_prev * n + (ok ? ch * NCH + r : 0)) * qsw +
+                  k0 + c8,
+              ok);
         }
       cp_async_commit();
       float* fs = F_s + (ch % NSTAGE) * NCH * QS;
@@ -540,15 +582,16 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
             }
           }
         }
-        if (!adv && proj && ch < nch) {  // the first block: F as staged
+        if (fh_pre && proj && ch < nch) {  // F as staged (before the
+          // advance, which reads the same four values in this thread)
           const int row = tid / TC, c4 = (tid % TC) * 4;
           float f[4];
           unpack4(ld4(fs + row * QS + c4), f);
           __nv_bfloat16* fh = FH_h + (ch & 1) * NCH * HLD + row * HLD + c4;
           st_bf16x4(fh, f);
           if (to_ws && ch * NCH + row < n)
-            *reinterpret_cast<uint2*>(fh_ws + (size_t)(ch * NCH + row) * qsw +
-                                      k0 + c4) =
+            *reinterpret_cast<uint2*>(
+                fh_ws + ((size_t)par * n + ch * NCH + row) * qsw + k0 + c4) =
                 *reinterpret_cast<const uint2*>(fh);
         }
       }
@@ -614,12 +657,16 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         const float4 v = make_float4(f[0], f[1], f[2], f[3]);
         *reinterpret_cast<float4*>(fs + row * QS + c4) = v;
         const int nr = ch * NCH + row;
-        if (BF && proj && !from_ws) {  // the bf16 copy the next step projects
-          __nv_bfloat16* fh = FH_h + (ch & 1) * NCH * HLD + row * HLD + c4;
-          st_bf16x4(fh, f);
+        if (BF && proj && (fh_post || to_ws)) {  // the bf16 copy the next
+          // step projects; the block-start F of the workspace (LA: for the
+          // next block only)
+          const uint2 h = bf16x4(f);
+          if (fh_post)
+            *reinterpret_cast<uint2*>(FH_h + (ch & 1) * NCH * HLD + row * HLD +
+                                      c4) = h;
           if (to_ws && nr < n)
-            *reinterpret_cast<uint2*>(fh_ws + (size_t)nr * qsw + k0 + c4) =
-                *reinterpret_cast<const uint2*>(fh);
+            *reinterpret_cast<uint2*>(fh_ws + ((size_t)par * n + nr) * qsw +
+                                      k0 + c4) = h;
         }
         if (nr < n && k0 + c4 < q)
           *reinterpret_cast<float4*>(fitted + (size_t)nr * q + k0 + c4) = v;
@@ -703,21 +750,21 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           R_s[e] = r;
         }
     __syncthreads();  // R_s is whole: the partials' room takes the gam tile
-    if (from_ws && trow) {  // the block's earlier pieces' deltas through
-      // the f32 cross-Gram: 4 x 4 tiles, rows ty*4.., columns tx*4..
+    // R_s rows ty*4.., columns tx*4.. += G d over `depth` rows, G's rows
+    // from g0 (stride Bfull), d's from d0 (stride dld): f32 4 x 4 tiles
+    auto cross_add = [&](const float* g0, const float* d0, size_t dld,
+                         int depth) {
       float s[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) s[a][jj] = 0.f;
-      const float* g0 = gram_full + (size_t)(j0 + ty * 4) * Bfull;
-      const float* d0 = dw_ws + k0 + tx * 4;
-      for (int m = 0; m < kp * B; m += 4) {
+      for (int m = 0; m < depth; m += 4) {
         float gv[4][4], dv[4][4];
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           unpack4(*reinterpret_cast<const float4*>(g0 + a * Bfull + m), gv[a]);
-          unpack4(*reinterpret_cast<const float4*>(d0 + (size_t)(m + a) * qsw),
+          unpack4(*reinterpret_cast<const float4*>(d0 + (size_t)(m + a) * dld),
                   dv[a]);
         }
 #pragma unroll
@@ -735,8 +782,21 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           float* r = R_s + (ty * 4 + a) * QS + tx * 4 + jj;
           *r = __fadd_rn(*r, s[a][jj]);
         }
-    }
-    if (from_ws) __syncthreads();
+    };
+    // LA: block bb-1's f32 deltas through goff[bb-1] (whole blocks: still
+    // in D_s; pieces: the previous block's workspace)
+    const bool la_corr = LA && bb > 0;
+    if (la_corr && trow)
+      cross_add(goff + (size_t)(j0 + ty * 4 - Bfull) * Bfull,
+                npc > 1 ? dw_ws + (size_t)par_prev * Bfull * qsw + k0 + tx * 4
+                        : D_s + tx * 4,
+                npc > 1 ? (size_t)qsw : (size_t)QS, Bfull);
+    // the block's earlier pieces' deltas through the f32 cross-Gram
+    const bool c7 = BF && npc > 1 && kp > 0;
+    if (c7 && trow)
+      cross_add(gram_full + (size_t)(j0 + ty * 4) * Bfull,
+                dw_ws + (size_t)par * Bfull * qsw + k0 + tx * 4, qsw, kp * B);
+    if (la_corr || c7) __syncthreads();
 
     tick(1);
 
@@ -822,9 +882,11 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         *reinterpret_cast<__nv_bfloat162*>(DH_h + row * HLD + c2) =
             __floats2bfloat162_rn(v.x, v.y);
       }
-      if (npc > 1 && kp < npc - 1)  // for the block's later pieces
+      if (npc > 1 && (LA || kp < npc - 1))  // for the block's later
+        // pieces (LA: and the next block's)
         for (int e = tid; e < BQ; e += NT)
-          dw_ws[(size_t)(kp * B + e / QS) * qsw + k0 + e % QS] = D_s[e];
+          dw_ws[(size_t)(par * Bfull + kp * B + e / QS) * qsw + k0 + e % QS] =
+              D_s[e];
     }
 
     // ---- Z moments: z = gam * imrd + imr0u, masked row/column sums --------
@@ -906,7 +968,7 @@ size_t checked_smem(int B, int R) {
   return smem <= SMEM_MAX && overlay_fits<QS, BF>(B, R) ? smem : 0;
 }
 
-template <int QS, bool BF>
+template <int QS, bool BF, bool LA>
 int launch(const void* x, const float* cp, const float* gram,
            const float* l_aug, const float* n_stack, const float* beta_in,
            float* fitted, const float* theta, const float* p_mask,
@@ -914,22 +976,24 @@ int launch(const void* x, const float* cp, const float* gram,
            const float* tauv, const float* scal, float* beta_out,
            float* gam_out, float* mu_out, float* zrow_part, float* z_row,
            float* z_col, float* gcol, float* m2gcol, float* b2col,
-           const float* gram_full, void* fh_ws, float* dw_ws, int n, int p,
-           int q, int B, int R, int c_one, int m, int cp_batched, int Bfull,
-           cudaStream_t st) {
+           const float* gram_full, const float* goff, void* fh_ws,
+           float* dw_ws, int n, int p, int q, int B, int R, int c_one, int m,
+           int cp_batched, int Bfull, cudaStream_t st) {
   const size_t smem = checked_smem<QS, BF>(B, R);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF>,
+      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF, LA>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_slices = (q + QS - 1) / QS;
-  sweep_fused_kernel<QS, BF><<<dim3(n_slices, m), Slice<QS>::NT, smem, st>>>(
-      x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, zeta,
-      q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part, z_col,
-      gcol, m2gcol, b2col, gram_full, static_cast<__nv_bfloat16*>(fh_ws),
-      dw_ws, n, p, q, B, R, c_one, cp_batched, Bfull);
+  sweep_fused_kernel<QS, BF, LA>
+      <<<dim3(n_slices, m), Slice<QS>::NT, smem, st>>>(
+          x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, zeta,
+          q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part,
+          z_col, gcol, m2gcol, b2col, gram_full, goff,
+          static_cast<__nv_bfloat16*>(fh_ws), dw_ws, n, p, q, B, R, c_one,
+          cp_batched, Bfull);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
@@ -942,11 +1006,11 @@ int occupancy(int B, int R) {
   const size_t smem = checked_smem<QS, BF>(B, R);
   int nb = -1;
   if (smem == 0 ||
-      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF>,
+      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &nb, sweep_fused_kernel<QS, BF>, Slice<QS>::NT, smem) !=
+          &nb, sweep_fused_kernel<QS, BF, false>, Slice<QS>::NT, smem) !=
           cudaSuccess)
     return -1;
   return nb;
@@ -967,7 +1031,11 @@ extern "C" {
 // B), which only the bf16 instance reads: where Bfull > B it takes the
 // (p, Bfull) Gram blocks `gram_full` and the workspaces fh_ws (m x n x
 // ceil(q / qs) qs bf16) and dw_ws (m x (Bfull - B) x ceil(q / qs) qs
-// floats).  Returns the CUDA error code of the launches (0 on success);
+// floats).  lookahead != 0 (with bf16 only) launches that instance's
+// lookahead variant, which reads the (p, Bfull) off-diagonal Gram blocks
+// `goff` and, where Bfull > B, takes workspaces twice as deep: fh_ws m x 2
+// x n x ceil(q / qs) qs bf16, dw_ws m x 2 Bfull x ceil(q / qs) qs floats.
+// Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape or width it does not take.
 int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                          const float* l_aug, const float* n_stack,
@@ -980,24 +1048,31 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                          float* z_col, float* gcol, float* m2gcol,
                          float* b2col, int n, int p, int q, int B, int R,
                          int c_one, int qs, int m, int cp_batched, int bf16,
-                         int Bfull, const float* gram_full, void* fh_ws,
-                         float* dw_ws, void* stream) {
+                         int lookahead, int Bfull, const float* gram_full,
+                         const float* goff, void* fh_ws, float* dw_ws,
+                         void* stream) {
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || R <= 0 || R > RMAX ||
       q % 4 != 0 || n <= 0 || (gam_out == nullptr) != (mu_out == nullptr) ||
       m < 1 || m > 65535 || Bfull < B || Bfull % B != 0 || p % Bfull != 0 ||
       (bf16 && Bfull > B &&
-       (gram_full == nullptr || fh_ws == nullptr || dw_ws == nullptr)))
+       (gram_full == nullptr || fh_ws == nullptr || dw_ws == nullptr)) ||
+      (lookahead && (!bf16 || goff == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATLASQTL_LAUNCH(QS, BF)                                              \
-  launch<QS, BF>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, \
-                 zeta, q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out,    \
-                 zrow_part, z_row, z_col, gcol, m2gcol, b2col, gram_full,     \
-                 fh_ws, dw_ws, n, p, q, B, R, c_one, m, cp_batched, Bfull, st)
-  if (qs == 32) return bf16 ? ATLASQTL_LAUNCH(32, true)
-                            : ATLASQTL_LAUNCH(32, false);
-  if (qs == 40) return bf16 ? ATLASQTL_LAUNCH(40, true)
-                            : ATLASQTL_LAUNCH(40, false);
+#define ATLASQTL_LAUNCH(QS, BF, LA)                                          \
+  launch<QS, BF, LA>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta,     \
+                     p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,         \
+                     gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,  \
+                     b2col, gram_full, goff, fh_ws, dw_ws, n, p, q, B, R,     \
+                     c_one, m, cp_batched, Bfull, st)
+  if (qs == 32)
+    return lookahead ? ATLASQTL_LAUNCH(32, true, true)
+           : bf16    ? ATLASQTL_LAUNCH(32, true, false)
+                     : ATLASQTL_LAUNCH(32, false, false);
+  if (qs == 40)
+    return lookahead ? ATLASQTL_LAUNCH(40, true, true)
+           : bf16    ? ATLASQTL_LAUNCH(40, true, false)
+                     : ATLASQTL_LAUNCH(40, false, false);
 #undef ATLASQTL_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -25,8 +25,8 @@ from ..ops.horseshoe import lam2_inv_annealed, lam2_inv_exact
 from ..ops.special import as_scalar, log_ndtr_both, q_approx
 from ..ops.sweep import (SweepConsts, mis_pair_gram, sweep_complete,
                          sweep_missing, sweep_missing_blocked)
-from ..ops.sweep_fused import (FUSED, fused_operands, sweep_complete_fused,
-                               sweep_fused)
+from ..ops.sweep_fused import (FUSED, fused_operands, lookahead_gram,
+                               sweep_complete_fused, sweep_fused)
 from ..ops.sweep_pallas import sweep_complete_pallas
 from ..ops.sweep_staggered import sweep_complete_staggered
 from ..ops.sweep_missing_fused import (MISSING, missing_fused_operands,
@@ -42,8 +42,10 @@ def _round_up(v, m):
 
 def check_config(cfg: Config):
     """Reject the options whose paths the port does not have yet (each
-    names its ROADMAP.md item).  The TPU scheduling fields are ignored;
-    mxu_bf16 and mis_pair_bf16 reach B1 and B2 (types.py:Config)."""
+    names its ROADMAP.md item).  The TPU scheduling fields are ignored but
+    for sweep_lookahead, which B1 honours under mxu_bf16 (in float32 it is
+    the baseline's algebra); mxu_bf16 and mis_pair_bf16 reach B1 and B2
+    (types.py:Config)."""
     if cfg.sweep not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"unknown Config.sweep={cfg.sweep!r}")
     if cfg.sweep_probe != "none":
@@ -111,14 +113,17 @@ def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
     p_mask = np.zeros(p_pad); p_mask[:p] = 1.0
     q_mask = np.zeros(q_pad); q_mask[:q] = 1.0
     scalar = lambda v: torch.tensor(float(v), dtype=dt, device=device)
-    # B1's bf16 operand, rounded once per fit (round to nearest even)
-    x_bf16 = (xd.to(torch.bfloat16) if not exact
-              and _b1_bf16(cfg, xd.device) else None)
+    # B1's bf16 operand, rounded once per fit (round to nearest even), and
+    # the lookahead's off-diagonal Gram blocks, also once per fit
+    b1_bf16 = not exact and _b1_bf16(cfg, xd.device)
+    x_bf16 = xd.to(torch.bfloat16) if b1_bf16 else None
+    goff = (lookahead_gram(xd, block) if b1_bf16 and cfg.sweep_lookahead
+            else None)
     return Data(
         x=xd, y=yd, cp_x_y=xd.T @ yd, y_norm_sq=torch.sum(yd * yd, dim=0),
         mis_pat=md, x_norm_sq=x_norm_sq, n_eff=t(n_eff), n_mis=t(n_mis),
         p_mask=t(p_mask), q_mask=t(q_mask), n=scalar(n), p_true=scalar(p),
-        q_true=scalar(q), mis_pair_gram=pair_gram, x_bf16=x_bf16)
+        q_true=scalar(q), mis_pair_gram=pair_gram, x_bf16=x_bf16, goff=goff)
 
 
 def build_hyper(hs, q_pad: int, cfg: Config, device) -> Hyper:
@@ -355,6 +360,16 @@ def _b1_bf16(cfg: Config, device) -> bool:
             and not cfg.sweep_stagger)
 
 
+def _b1_lookahead(cfg: Config, device) -> bool:
+    """Whether cfg.sweep_lookahead reaches B1: only under mxu_bf16, where
+    the JAX kernel's lookahead schedule computes another function
+    (atlasqtl_tpu/ops/sweep_fused.py:166-184, 378-388); in float32 it is
+    the baseline's algebra, which B1 runs.  The JAX package passes the
+    flag to its fused kernel alone (atlasqtl_tpu/models/global_local.py:
+    576), as this one to B1 alone."""
+    return cfg.sweep_lookahead and _b1_bf16(cfg, device)
+
+
 def _missing_uses_kernel(cfg: Config, device) -> bool:
     """Whether the exact-missing sweep goes through B2: its kernel for
     float32 on CUDA (which raises on a predictor block it cannot take, as
@@ -577,11 +592,12 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
         return gam_new, mu_new, None, fitted, z_row, z_col, None
     if engine in ("b1", "b4"):
         # B4 takes every shape B1 takes, so sweep_stagger never gives way;
-        # mxu_bf16 reaches B1 only, as in the JAX package
+        # mxu_bf16 and its lookahead reach B1 only, as in the JAX package
         fused = sweep_complete_staggered
         if engine == "b1":
-            fused = functools.partial(sweep_complete_fused,
-                                      bf16=cfg.mxu_bf16, x_bf16=data.x_bf16)
+            fused = functools.partial(
+                sweep_complete_fused, bf16=cfg.mxu_bf16, x_bf16=data.x_bf16,
+                lookahead=_b1_lookahead(cfg, data.x.device), goff=data.goff)
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = fused(
             data.x, cp_x_y, gram_blocks, state.beta, state.fitted,
@@ -614,9 +630,15 @@ def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, cfg: Config,
              for st, pre in zip(states, pres)]
     # X^T Y is each replica's own in impute mode (Y_eff holds its fitted)
     also = ("cp_x_y",) if data.mis_pat is not None else ()
+    lookahead = _b1_lookahead(cfg, data.x.device)
+    goff = None
+    if lookahead:
+        goff = (data.goff if data.goff is not None
+                else lookahead_gram(data.x, block))
     beta, gam, mu, fitted, z_row, z_col, stats = sweep_fused(
-        *FUSED.stack(parts, also), block_size=block, emit_gam_mu=not lite,
-        c_one=not annealed, bf16=cfg.mxu_bf16)
+        *FUSED.stack(parts, also), goff, block_size=block,
+        emit_gam_mu=not lite, c_one=not annealed, bf16=cfg.mxu_bf16,
+        lookahead=lookahead)
     return [(None if gam is None else gam[r], None if mu is None else mu[r],
              beta[r], fitted[r], z_row[r], z_col[r],
              tuple(s[r] for s in stats)) for r in range(len(states))]

@@ -31,7 +31,10 @@ Gram corrections and the interpolation products stay float32.  A block
 over FUSED_BMAX is the JAX kernel's block there too: the kernel walks it in
 its `sub_block` pieces, but projects each against the bf16 F of the block's
 start and passes the earlier pieces' deltas through the float32 Gram, as
-the whole-block sweep of the plain version and of JAX does.
+the whole-block sweep of the plain version and of JAX does.  lookahead=True
+(Config.sweep_lookahead under mxu_bf16) is the TPU kernel's one-block-
+lookahead schedule there, another function under bf16 (`sweep_fused`
+says which); the kernel's bf16 instance has a variant for it.
 
 Per block b: r = x_b^T F - beta_b * diag(G_b); ad/imrd/imr0u = L_b @ N +
 sqrt base (ops/interp.py); the strictly sequential update of the B
@@ -134,7 +137,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 11 + [ptr] * 4
+        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 12 + [ptr] * 5
         lib.atlasqtl_sweep_staggered.argtypes = [ptr] * 23 + [i32] * 7 + [ptr]
         for fn in (lib.atlasqtl_sweep_fused, lib.atlasqtl_sweep_staggered):
             fn.restype = i32
@@ -449,26 +452,29 @@ class Operands:
         return tuple(stack(list(p)) for p in zip(*outs))
 
 
-# sweep_fused's operands: x, the Gram blocks and the masks are shared by
-# all replicas; X^T Y (each replica's own in impute mode) and c (one
-# temperature) may be either
+# sweep_fused's operands: x, the Gram blocks, the masks and the lookahead's
+# off-diagonal Gram blocks are shared by all replicas; X^T Y (each
+# replica's own in impute mode) and c (one temperature) may be either
 FUSED = Operands(
     dict(x=2, cp_x_y=2, gram_flat=2, l_aug=2, n_stack=3, beta=2, fitted=2,
-         theta=1, p_mask=1, zeta=1, q_mask=1, sig2_beta=1, tau=1, c=0, kz=0),
-    shared=("x", "gram_flat", "p_mask", "q_mask"), either=("cp_x_y", "c"))
+         theta=1, p_mask=1, zeta=1, q_mask=1, sig2_beta=1, tau=1, c=0, kz=0,
+         goff=2),
+    shared=("x", "gram_flat", "p_mask", "q_mask", "goff"),
+    either=("cp_x_y", "c"))
 
 
 def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
-                      theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
-                      block_size: int, emit_gam_mu: bool = True,
-                      c_one: bool = False, bf16: bool = False):
+                      theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
+                      goff=None, *, block_size: int, emit_gam_mu: bool = True,
+                      c_one: bool = False, bf16: bool = False,
+                      lookahead: bool = False):
     """The kernel's function in plain tensor ops, block by block and row by
     row in flat sequential order.  Same arguments and outputs as
     `sweep_fused`; with a replica axis, one replica after another."""
     args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
-            zeta, q_mask, sig2_beta, tau, c, kz)
+            zeta, q_mask, sig2_beta, tau, c, kz, goff)
     kw = dict(block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one,
-              bf16=bf16)
+              bf16=bf16, lookahead=lookahead)
     if beta.dim() == 3:
         return FUSED.loop(_sweep_fused_plain_one, args, kw)
     return _sweep_fused_plain_one(*args, **kw)
@@ -481,35 +487,42 @@ def _bf16_round(t, dtype):
 
 def _sweep_fused_plain_one(x, cp_x_y, gram_flat, l_aug, n_stack, beta,
                            fitted, theta, p_mask, zeta, q_mask, sig2_beta,
-                           tau, c, kz, *, block_size, emit_gam_mu, c_one,
-                           bf16):
+                           tau, c, kz, goff, *, block_size, emit_gam_mu,
+                           c_one, bf16, lookahead):
     B = block_size
     ct = c * sig2_beta * tau
     c_inv_2s2 = c * 0.5 / sig2_beta
-    fitted = fitted.clone()
     out = _new_outputs(beta, theta, emit_gam_mu)
     # the products' operands: bf16 rounds x (once), F and delta
     rnd = ((lambda t: _bf16_round(t, fitted.dtype)) if bf16
            else (lambda t: t))
     xp = rnd(x)
+    # lookahead: block b projects F before block b-1's advance (F_{<=b-2}),
+    # and block b-1's deltas come in through goff[b-1] = x_b^T x_{b-1}
+    f_proj = fitted
+    delta = None
     for b in range(x.shape[1] // B):
         sl = slice(b * B, (b + 1) * B)
         xb, g = xp[:, sl], gram_flat[sl]
         ad, imrd, imr0u = _tiles(theta[sl, None] + zeta[None, :], l_aug[sl],
                                  n_stack, c, kz, c_one)
-        r = xb.T @ rnd(fitted) - beta[sl] * torch.diagonal(g)[:, None]
+        r = xb.T @ rnd(f_proj if lookahead else fitted)
+        if lookahead and b > 0:
+            r = r + goff[sl.start - B:sl.start] @ delta
+        r = r - beta[sl] * torch.diagonal(g)[:, None]
         gam_b, mu_b, delta = _chain(r, g, ad, cp_x_y[sl], beta[sl], ct,
                                     c_inv_2s2)
-        fitted += xb @ rnd(delta)
+        f_proj = fitted
+        fitted = fitted + xb @ rnd(delta)
         _emit_block(out, sl, gam_b, mu_b, gam_b * imrd + imr0u, p_mask[sl],
                     q_mask)
     return _outputs(out, fitted)
 
 
 def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
-                 theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
-                 block_size, emit_gam_mu, c_one, slice_width=None,
-                 plan=None, bf16=False):
+                 theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
+                 goff=None, *, block_size, emit_gam_mu, c_one,
+                 slice_width=None, plan=None, bf16=False, lookahead=False):
     """Check the operands of one fused-sweep launch and launch the C entry
     point `entry` of the kernel library (atlasqtl_sweep_fused, B1, or
     atlasqtl_sweep_staggered, B4: the same arguments and function) under
@@ -522,14 +535,15 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     slices of the same width (the plan for m replicas may pick another
     width than one replica's, and z_row then sums in another order).
     bf16 launches B1's bf16 instance (mxu_bf16), whose x is the bfloat16
-    copy (`bf16_operand`); B4 has none.  Raises on what the kernels cannot
-    take and on a failed launch."""
+    copy (`bf16_operand`); B4 has none.  lookahead launches that instance's
+    lookahead variant, which also reads `goff` (`lookahead_gram`).  Raises
+    on what the kernels cannot take and on a failed launch."""
     n, p = x.shape[-2:]
     q = beta.shape[-1]
     r_aug = l_aug.shape[-1]
     what = entry.replace("atlasqtl_", "")
     args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
-            zeta, q_mask, sig2_beta, tau, c, kz)
+            zeta, q_mask, sig2_beta, tau, c, kz, goff)
     try:
         m, batched = FUSED.replica_axis(args)
     except ValueError as e:
@@ -539,9 +553,19 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     if bf16 and entry != "atlasqtl_sweep_fused":
         raise ValueError(f"{what} kernel: no bf16 instance (mxu_bf16 "
                          "reaches B1 only)")
+    if lookahead and not bf16:
+        raise ValueError(f"{what} kernel: lookahead is a variant of B1's "
+                         "bf16 instance (in float32 it is the same algebra "
+                         "as the baseline, which the port runs)")
+    if (goff is not None) != bool(lookahead):
+        raise ValueError(f"{what} kernel: goff goes with lookahead and only "
+                         "with it")
     shapes = ((n, p), (p, q), (p, block_size), (p, r_aug), (3, r_aug, q),
-              (p, q), (n, q), (p,), (p,), (q,), (q,), (q,), (q,))
+              (p, q), (n, q), (p,), (p,), (q,), (q,), (q,), (q,), (), (),
+              (p, block_size))
     for i, (name, shape) in enumerate(zip(FUSED.names, shapes)):
+        if name in ("c", "kz") or (name == "goff" and goff is None):
+            continue
         t = args[i]
         shape = (m, *shape) if batched[i] else shape
         # every replica's slice is 16-byte aligned too
@@ -583,18 +607,21 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     z_col, gcol, m2gcol, b2col = (torch.empty_like(zeta) for _ in range(4))
     ptr = lambda t: None if t is None else t.data_ptr()
     # the bf16 instance's workspaces for a block in pieces: the bf16 F of
-    # the block's start and the earlier pieces' deltas, for all slices
+    # the block's start and the earlier pieces' deltas, for all slices;
+    # under lookahead two of each, by the block's parity (a block projects
+    # the previous block's start F and takes all of its deltas)
     fh_ws = dw_ws = None
     if bf16 and block_size > sub:
         cols = -(-q // slice_width) * slice_width
-        fh_ws = torch.empty((*lead, n, cols), dtype=torch.bfloat16,
-                            device=dev)
-        dw_ws = torch.empty((*lead, block_size - sub, cols),
+        fh_ws = torch.empty((*lead, 2 if lookahead else 1, n, cols),
+                            dtype=torch.bfloat16, device=dev)
+        dw_ws = torch.empty((*lead, 2 * block_size if lookahead
+                             else block_size - sub, cols),
                             dtype=torch.float32, device=dev)
-    # B1's replica count, whether X^T Y is per replica, its instance, the
-    # whole block and what its bf16 instance reads of it
-    extra = ((m, int(batched[1]), int(bool(bf16)), block_size,
-              ptr(gram_full), ptr(fh_ws), ptr(dw_ws))
+    # B1's replica count, whether X^T Y is per replica, its instance and
+    # variant, the whole block and what its bf16 instance reads of it
+    extra = ((m, int(batched[1]), int(bool(bf16)), int(bool(lookahead)),
+              block_size, ptr(gram_full), ptr(goff), ptr(fh_ws), ptr(dw_ws))
              if entry == "atlasqtl_sweep_fused" else ())
     err = getattr(lib, entry)(
         ptr(x), ptr(cp_x_y), ptr(gram_flat), ptr(l_aug), ptr(n_stack),
@@ -608,24 +635,29 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         raise RuntimeError(f"{what} kernel launch failed at n={n}, p={p}, "
                            f"q={q}, block={block_size} (pieces of {sub}), "
                            f"{slice_width}-column slices, {m} replica(s)"
-                           f"{', bf16' if bf16 else ''}: "
+                           f"{', bf16' if bf16 else ''}"
+                           f"{', lookahead' if lookahead else ''}: "
                            + lib.atlasqtl_error_string(err).decode())
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)
 
 
-def _sweep_fused_cuda(*args, bf16=False, **kw):
-    out = fused_launch("atlasqtl_sweep_fused", *args, bf16=bf16, **kw)
+def _sweep_fused_cuda(*args, bf16=False, lookahead=False, **kw):
+    out = fused_launch("atlasqtl_sweep_fused", *args, bf16=bf16,
+                       lookahead=lookahead, **kw)
     sweep_fused.launches += 1
     if bf16:
         sweep_fused.bf16.launches += 1
+    if lookahead:
+        sweep_fused.lookahead.launches += 1
     return out
 
 
 def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
-                p_mask, zeta, q_mask, sig2_beta, tau, c, kz, *,
+                p_mask, zeta, q_mask, sig2_beta, tau, c, kz, goff=None, *,
                 block_size: int, emit_gam_mu: bool = True,
-                c_one: bool = False, bf16: bool = False):
+                c_one: bool = False, bf16: bool = False,
+                lookahead: bool = False):
     """One full Gauss-Seidel sweep with fused Z and column reductions.
 
     x: (n, p); cp_x_y/beta: (p, q); fitted: (n, q); gram_flat: (p, B)
@@ -645,34 +677,50 @@ def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
     (`bf16_operand`; the plain version also takes float32 x and rounds
     it), and only then may it be bfloat16.
 
+    lookahead (Config.sweep_lookahead under mxu_bf16; bf16 only): the TPU
+    kernel's one-block-lookahead schedule (atlasqtl_tpu/ops/sweep_fused.py:
+    166-184, 378-388), another function under bf16.  Block b >= 1 projects
+    the bf16 F from before block b-1's advance, and block b-1's float32
+    deltas come in through the float32 off-diagonal Gram `goff`
+    (`lookahead_gram`, required then): r_b = bf16(x_b)^T bf16(F_{<=b-2})
+    + goff[b-1] delta_{b-1} - beta_b diag(G_b).  Block 0 and the advance
+    are unchanged.
+
     CPU tensors run `sweep_fused_plain`; CUDA tensors launch the kernel
-    (csrc/sweep_fused.cu; its bf16 instance if bf16) or raise.
-    `sweep_fused.launches` counts kernel launches (one per call, whatever
-    m, either instance), `sweep_fused.bf16.launches` those of the bf16
-    instance.
+    (csrc/sweep_fused.cu; its bf16 instance if bf16, that instance's
+    lookahead variant if lookahead) or raise.  `sweep_fused.launches`
+    counts kernel launches (one per call, whatever m, any instance),
+    `sweep_fused.bf16.launches` those of the bf16 instance (lookahead or
+    not), `sweep_fused.lookahead.launches` those of its lookahead variant.
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_fused: unsupported device {x.device}")
     if x.dtype == torch.bfloat16 and not bf16:
         raise ValueError("sweep_fused: a bfloat16 x is the operand of the "
                          "bf16 mode (bf16=True)")
+    if lookahead and (not bf16 or goff is None):
+        raise ValueError("sweep_fused: lookahead is a schedule of the bf16 "
+                         "mode (bf16=True) and takes goff (lookahead_gram)")
     fn = _sweep_fused_cuda if x.device.type == "cuda" else sweep_fused_plain
     return fn(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
               p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
-              block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one,
-              bf16=bf16)
+              goff if lookahead else None, block_size=block_size,
+              emit_gam_mu=emit_gam_mu, c_one=c_one, bf16=bf16,
+              lookahead=lookahead)
 
 
 sweep_fused.launches = 0
 sweep_fused.bf16 = types.SimpleNamespace(launches=0)
+sweep_fused.lookahead = types.SimpleNamespace(launches=0)
 
 
 def fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts, block_size,
                    p_mask=None, q_mask=None, interp_r: int = 40,
                    bf16: bool = False, x_bf16=None):
-    """The positional operands of `sweep_fused` for one iteration: the
-    flattened Gram blocks and the interpolation operands (ops/interp.py);
-    under bf16 (the mxu_bf16 mode) x is `bf16_operand(x, x_bf16)`."""
+    """The positional operands of `sweep_fused` for one iteration up to kz
+    (goff, the lookahead's, is `lookahead_gram`'s): the flattened Gram
+    blocks and the interpolation operands (ops/interp.py); under bf16 (the
+    mxu_bf16 mode) x is `bf16_operand(x, x_bf16)`."""
     p = x.shape[1]
     q = beta.shape[1]
     gram_flat = gram_blocks.reshape(p, block_size)
@@ -700,18 +748,36 @@ def bf16_operand(x, x_bf16=None):
     return x_bf16 if x_bf16 is not None else x.to(torch.bfloat16)
 
 
+def lookahead_gram(x, block_size: int):
+    """The (p, B) float32 stacked off-diagonal Gram blocks of the lookahead
+    schedule, goff[b] = x_{b+1}^T x_b (rows: block b+1's predictors), the
+    last block's zero: the counterpart of atlasqtl_tpu/ops/sweep_fused.py:
+    570-574, from the float32 x (never its bfloat16 copy).  Built once per
+    fit (Data.goff), as X does not change; p x B x 4 bytes."""
+    n, p = x.shape
+    nb = p // block_size
+    xr = x.reshape(n, nb, block_size)
+    goff = torch.zeros((nb, block_size, block_size), dtype=x.dtype,
+                       device=x.device)
+    goff[:-1] = torch.einsum("nkj,nki->kji", xr[:, 1:], xr[:, :-1])
+    return goff.reshape(p, block_size)
+
+
 def sweep_complete_fused(x, cp_x_y, gram_blocks, beta, fitted, consts,
                          block_size, p_mask=None, q_mask=None,
                          interp_r: int = 40, emit_gam_mu: bool = True,
                          annealed: bool = False, bf16: bool = False,
-                         x_bf16=None):
+                         x_bf16=None, lookahead: bool = False, goff=None):
     """Driver-facing wrapper matching ops/sweep.py:sweep_complete, carrying
     beta = gam * mu_beta.  annealed=False asserts the converged phase
     (c == 1), which the kernel specializes on; annealed=True takes the
     tempered path for any consts.c.  bf16: the mxu_bf16 mode, x staged as
-    `x_bf16` (made from x if None)."""
+    `x_bf16` (made from x if None).  lookahead (under bf16 only): the
+    lookahead schedule, with `goff` (made from x if None)."""
+    if lookahead and goff is None:
+        goff = lookahead_gram(x, block_size)
     return sweep_fused(
         *fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts,
                         block_size, p_mask, q_mask, interp_r, bf16, x_bf16),
-        block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=not annealed,
-        bf16=bf16)
+        goff, block_size=block_size, emit_gam_mu=emit_gam_mu,
+        c_one=not annealed, bf16=bf16, lookahead=lookahead)

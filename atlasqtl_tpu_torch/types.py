@@ -90,7 +90,10 @@ class Data:
 
     x_bf16 (n, p) is x rounded to bfloat16 (round to nearest even, as
     JAX's astype), the operand B1 stages under Config.mxu_bf16; built once
-    per fit where that flag reaches B1, else None.
+    per fit where that flag reaches B1, else None.  goff (p, B) holds the
+    float32 off-diagonal Gram blocks x_{b+1}^T x_b of the lookahead
+    schedule (ops/sweep_fused.py:lookahead_gram); built once per fit where
+    Config.sweep_lookahead reaches B1 (under mxu_bf16), else None.
     """
     x: Any
     y: Any
@@ -107,6 +110,7 @@ class Data:
     q_true: Any
     mis_pair_gram: Any = None
     x_bf16: Any = None
+    goff: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,10 +118,16 @@ class Config:
     """Static configuration of the CAVI engine — the reference's fields
     (atlasqtl_tpu/types.py:132-216).
 
-    Fields that select a TPU schedule (sweep_lookahead, sweep_interleave,
-    sweep_qchunk, sweep_sub) are accepted and ignored: they never change the
-    math.  Fields that select a path the port does not have yet are
-    rejected by models/global_local.py:check_config.
+    Fields that select a TPU schedule (sweep_interleave, sweep_qchunk,
+    sweep_sub) are accepted and ignored: they never change the math.
+    sweep_lookahead, the TPU kernel's one-block-lookahead schedule, is
+    ignored in float32, where it is the baseline's algebra up to rounding
+    (tests/test_pallas.py:test_fused_lookahead_matches_baseline), and
+    honoured under mxu_bf16 on B1, where it is another function: block b
+    projects the bf16 F from before block b-1's advance, and block b-1's
+    float32 deltas come in through the float32 off-diagonal Gram
+    (ops/sweep_fused.py:sweep_fused).  Fields that select a path the port
+    does not have yet are rejected by models/global_local.py:check_config.
 
     The two bf16 modes are honoured where the JAX package honours them:
     - mxu_bf16: B1 (ops/sweep_fused.py, complete data and impute) rounds
@@ -125,7 +135,8 @@ class Config:
       F += x_b delta, to bfloat16 and accumulates in float32 (on the card
       on tensor cores); the chain's Gram corrections and the interpolation
       products stay float32.  The B3, B4 and plain routes ignore it, as
-      the JAX package's do (so does the exact-missing path).
+      the JAX package's do (so does the exact-missing path); with
+      sweep_lookahead B1 takes the lookahead schedule above.
     - mis_pair_bf16: B2 (ops/sweep_missing_fused.py, exact missing) rounds
       each masked pair-Gram product x_na x_nb of its windows to bfloat16
       (the f32 product rounded once, then to bf16; the mask stays exact)

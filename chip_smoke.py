@@ -109,7 +109,11 @@ per source, started together) and prints ptxas's registers and spills
           (block 120, zero-padded to 128), (300, 2000, 500), (1000, 2048,
           10000) and block 256, c = 1 and 0.5, under the mean criterion
           (mean_held), both slice widths, its plan and SASS (bf16 HMMA, none
-          in the float32 instances); B2's pair_bf16 instance
+          in the float32 instances); its lookahead variant
+          (Config(mxu_bf16=True, sweep_lookahead=True)) against its plain
+          version at the same shapes, timed beside the bf16 and float32
+          instances, with a sim_anneal fit beside the bf16 fit without it;
+          B2's pair_bf16 instance
           (Config.mis_pair_bf16) against its plain version at three
           MIS_SHAPES (the fit shape, the eQTL cut, the device-memory
           branch) at the kernel phases' tolerance and under the mean
@@ -2207,27 +2211,32 @@ BF16_RATIO = 20       # kernel's mean error <= the mode's mean distance / 20
 BF16_FIT_PIP = 5e-2   # a bf16 fit's PIPs against the float32 fit's
 
 
-def bf16_bound_ms(n, p, q, block, r_aug, emit_gam_mu):
+def bf16_bound_ms(n, p, q, block, r_aug, emit_gam_mu, lookahead=False):
     """Least time of one sweep of B1's bf16 instance on an H100: the
     largest of its tensor-core operations (the two n-products, 4 n p q, at
     the bf16 dense tensor rate), its other operations (sweep_bound_ms's
     FP32 work at the FP32 rate: a separate pipe, which may run at the same
     time) and its bytes (sweep_bound_ms's, with x at 2 bytes) over the HBM
-    rate."""
+    rate.  lookahead (its lookahead variant): the FP32 work adds the goff
+    product, 2 p q B, and the bytes the (p, B) goff blocks."""
     t_ops = max(4 * n * p * q / BF16_PEAK,
-                p * q * (block + 6 * r_aug) / FP32_PEAK)
+                p * q * (block + 6 * r_aug + 2 * block * lookahead)
+                / FP32_PEAK)
     nbytes = 2 * n * p + 4 * (p * q * (3 + 2 * emit_gam_mu) + 2 * n * q
-                              + p * block + p * r_aug + 3 * r_aug * q)
+                              + p * block * (1 + lookahead) + p * r_aug
+                              + 3 * r_aug * q)
     t_bytes = nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def b1_any_launch_bound(a, k):
-    """bound_ms of one B1 launch, either instance, from its operands."""
-    fn = bf16_bound_ms if k.get("bf16") else sweep_bound_ms
-    return fn(a[0].shape[0], a[0].shape[1], a[5].shape[1], k["block_size"],
-              a[3].shape[1], k["emit_gam_mu"])[0]
+    """bound_ms of one B1 launch, any instance, from its operands."""
+    dims = (a[0].shape[0], a[0].shape[1], a[5].shape[1], k["block_size"],
+            a[3].shape[1], k["emit_gam_mu"])
+    if k.get("bf16"):
+        return bf16_bound_ms(*dims, bool(k.get("lookahead")))[0]
+    return sweep_bound_ms(*dims)[0]
 
 
 def mean_held(label, got, ref, f32, f32_kernel, names, ratio=BF16_RATIO):
@@ -2300,15 +2309,18 @@ def device_fit(y, x, cfg, seed, anneal):
 
 def phase_bf16_modes():
     """The two bf16 modes (Config.mxu_bf16 on B1's tensor-core instance,
+    with its lookahead variant under Config.sweep_lookahead;
     Config.mis_pair_bf16 on B2's): each instance against its plain
-    version (B1 under the mean criterion, B2 at the kernel phases'
-    tolerance and under the mean criterion), repeatable bit for bit, timed beside its float32 instance
-    in the same call (CUDA events, median of 9) with its bound; B1's SASS
-    holds bf16 HMMA and its float32 instances none; sim_anneal fits in
-    each mode (complete and impute under mxu_bf16, exact under
-    mis_pair_bf16) on the graph loop, each beside the float32 fit from the
-    same draw, the instance's launches counted; the eQTL cut in both B1
-    instances from one device draw."""
+    version (B1 and its lookahead variant under the mean criterion, B2 at
+    the kernel phases' tolerance and under the mean criterion), repeatable
+    bit for bit, timed beside its float32 instance in the same call (CUDA
+    events, median of 9; the lookahead variant beside the bf16 and float32
+    instances) with its bound; B1's SASS holds bf16 HMMA and its float32
+    instances none; sim_anneal fits in each mode (complete, lookahead and
+    impute under mxu_bf16, exact under mis_pair_bf16) on the graph loop,
+    each beside the float32 fit from the same draw (the lookahead fit also
+    beside the bf16 fit without it), the instance's launches counted; the
+    eQTL cut in both B1 instances from one device draw."""
     import torch
     from atlasqtl_tpu_torch.types import Config
     from atlasqtl_tpu_torch.inference import device_loop as dl
@@ -2320,8 +2332,9 @@ def phase_bf16_modes():
     sass = sass_hmma(sf.build())
     b1_sass = {k: v for k, v in sass.items() if "sweep_fused_kernel" in k}
     out["b1_sass_hmma"] = b1_sass
+    # the bf16 instances and their lookahead variants: <QS, true, LA>
     bf_inst = {k: v for k, v in b1_sass.items() if "Lb1E" in k}
-    if (len(bf_inst) != 2 or any(v[0] == 0 or v[1] for v in bf_inst.values())
+    if (len(bf_inst) != 4 or any(v[0] == 0 or v[1] for v in bf_inst.values())
             or any(v[0] for k, v in b1_sass.items() if k not in bf_inst)):
         raise AssertionError(f"B1's SASS: HMMA (all, not bf16) per instance "
                              f"{b1_sass}: the bf16 instances need bf16 HMMA, "
@@ -2331,12 +2344,26 @@ def phase_bf16_modes():
                         if "Lb1E" in k}
     flat = lambda o: list(o[:6]) + list(o[6])
 
-    # ---- B1's bf16 instance against its plain version ----
-    b1_cases, b1_timing = [], None
+    # ---- B1's bf16 instance (and its lookahead variant) against its
+    # plain version ----
+    def lookahead_held(label, ops16, goff, kw, f32, f32_kernel):
+        """The lookahead variant against its plain version (mean
+        criterion) and itself (two launches bit for bit)."""
+        kwl = dict(kw, bf16=True, lookahead=True)
+        got = flat(sf.sweep_fused(*ops16, goff, **kwl))
+        again = flat(sf.sweep_fused(*ops16, goff, **kwl))
+        ref = flat(sf.sweep_fused_plain(*ops16, goff, **kwl))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two launches differ")
+        return mean_held(label, got, ref, f32, f32_kernel, B1_NAMES)
+
+    b1_cases, b1_timing, la_cases, la_timing = [], None, [], None
     for n, p, q in BF16_SHAPES:
         for c in (1.0, 0.5):
             ops, block = kernel_inputs(n, p, q, c)
             ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+            goff = sf.lookahead_gram(ops[0], block)
             kw = dict(block_size=block, emit_gam_mu=True, c_one=c == 1.0)
             got = flat(sf.sweep_fused(*ops16, **kw, bf16=True))
             again = flat(sf.sweep_fused(*ops16, **kw, bf16=True))
@@ -2350,6 +2377,11 @@ def phase_bf16_modes():
             case = dict(n=n, p=p, q=q, block=block, c=c,
                         err=mean_held(label, got, ref, f32, f32_kernel,
                                       B1_NAMES))
+            la_case = dict(n=n, p=p, q=q, block=block, c=c,
+                           err=lookahead_held(
+                               f"B1 bf16 lookahead vs plain at n={n} p={p} "
+                               f"q={q} c={c}", ops16, goff, kw, f32,
+                               f32_kernel))
             dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1],
                     block, ops[3].shape[1])
             if p >= 2000 and c == 1.0:  # converged, lite; both widths
@@ -2393,9 +2425,29 @@ def phase_bf16_modes():
                 case["f32_pct_of_bound"] = pct(case["f32_bound_ms"],
                                                case["f32_ms"])
                 b1_timing = case
+                # the lookahead variant beside the bf16 and float32
+                # instances, in turns, in this call
+                kwla = dict(kwl, bf16=True, lookahead=True)
+                la = lambda: sf.sweep_fused(*ops16, goff, **kwla)
+                la()
+                torch.cuda.synchronize()
+                la_case.update(
+                    plan=plan, clocks=sf.phase_clocks(), ms=cuda_ms(la, 9),
+                    bf16_ms=cuda_ms(lite, 9),
+                    f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kwl), 9),
+                    ms_2=cuda_ms(la, 9),
+                    plain_ms=cuda_ms(lambda: sf.sweep_fused_plain(
+                        *ops16, goff, **kwla), 3))
+                la_case["bound_ms"], la_case["bound_by"] = bf16_bound_ms(
+                    *dims, False, True)
+                la_case["pct_of_bound"] = pct(la_case["bound_ms"],
+                                              la_case["ms"])
+                la_timing = la_case
             b1_cases.append(case)
-            emit({"phase": "bf16_modes", "b1_case": case})
-            del ops, ops16, got, again, ref, f32, f32_kernel
+            la_cases.append(la_case)
+            emit({"phase": "bf16_modes", "b1_case": case,
+                  "lookahead_case": la_case})
+            del ops, ops16, goff, got, again, ref, f32, f32_kernel
             torch.cuda.empty_cache()
     # block 256: two pieces of 128, the second projected against the
     # block-start F and corrected through the Gram (the whole-block sweep)
@@ -2403,6 +2455,20 @@ def phase_bf16_modes():
     ops, block = kernel_inputs(n, p, q, 0.5, block=256)
     ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
     kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
+    # the lookahead variant: every piece projects the previous block's
+    # start F and takes all of its deltas through goff
+    goff = sf.lookahead_gram(ops[0], block)
+    f32, f32_kernel = (flat(sf.sweep_fused_plain(*ops, **kw)),
+                       flat(sf.sweep_fused(*ops, **kw)))
+    la_cases.append(dict(
+        n=n, p=p, q=q, block=block, c=0.5, err=lookahead_held(
+            f"B1 bf16 lookahead vs plain at block {block}", ops16, goff, kw,
+            f32, f32_kernel),
+        ms=cuda_ms(lambda: sf.sweep_fused(*ops16, goff, **kw, bf16=True,
+                                          lookahead=True), 9),
+        bf16_ms=cuda_ms(lambda: sf.sweep_fused(*ops16, **kw, bf16=True), 9)))
+    emit({"phase": "bf16_modes", "lookahead_case": la_cases[-1]})
+    del goff, f32, f32_kernel
     b1_cases.append(dict(
         n=n, p=p, q=q, block=block, c=0.5, err=mean_held(
             f"B1 bf16 vs plain at block {block}",
@@ -2424,6 +2490,7 @@ def phase_bf16_modes():
     emit({"phase": "bf16_modes", "b1_case": b1_cases[-1]})
     del ops, ops16
     out["b1"] = b1_cases
+    out["b1_lookahead"] = la_cases
 
     # ---- B2's pair_bf16 instance against its plain version ----
     names = ("gam", "mu", "fitted", "z_row", "z_col")
@@ -2475,13 +2542,15 @@ def phase_bf16_modes():
     n, p, q, p_act, q_hit = FIT_SHAPE
     complete = simulate(n, p, q, 0, p_act, q_hit)
     missing = simulate(n, p, q, 0, p_act, q_hit, missing_frac=0.15)
-    fits = {}
-    for mode, (xx, yy), base, flag, inst, own in (
-            ("complete", complete, Config(), "mxu_bf16", sf.sweep_fused.bf16,
-             sf.sweep_fused),
-            ("impute", missing, Config(missing="impute"), "mxu_bf16",
+    fits, gams = {}, {}
+    for mode, (xx, yy), base, flags, inst, own in (
+            ("complete", complete, Config(), ("mxu_bf16",),
              sf.sweep_fused.bf16, sf.sweep_fused),
-            ("exact", missing, Config(), "mis_pair_bf16",
+            ("lookahead", complete, Config(), ("mxu_bf16", "sweep_lookahead"),
+             sf.sweep_fused.lookahead, sf.sweep_fused),
+            ("impute", missing, Config(missing="impute"), ("mxu_bf16",),
+             sf.sweep_fused.bf16, sf.sweep_fused),
+            ("exact", missing, Config(), ("mis_pair_bf16",),
              sm.sweep_missing_fused.pair_bf16, sm.sweep_missing_fused)):
         t0 = time.perf_counter()
         ref, _, ref_gam = prepared_fit(yy, xx, base, DEVICE, seed=0)
@@ -2493,18 +2562,27 @@ def phase_bf16_modes():
         dl.replays = 0
         t0 = time.perf_counter()
         res, theta, gam = prepared_fit(
-            yy, xx, dataclasses.replace(base, **{flag: True}), DEVICE, seed=0)
+            yy, xx, dataclasses.replace(base, **dict.fromkeys(flags, True)),
+            DEVICE, seed=0)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {"instance": inst.launches, "wrapper": own.launches,
                   "replays": dl.replays}
         auc = hotspot_auc(theta, p_act)
-        fits[mode] = dict(flag=flag, it=res.it, f32_it=ref.it, seconds=secs,
-                          f32_seconds=ref_s, converged=bool(res.converged),
+        gams[mode] = gam
+        fits[mode] = dict(flag="+".join(flags), it=res.it, f32_it=ref.it,
+                          seconds=secs, f32_seconds=ref_s,
+                          converged=bool(res.converged),
                           launches=counts, hotspot_auc_theta=auc,
                           pip_max_diff_vs_f32=float(
                               np.abs(gam - ref_gam).max()),
                           lb_opt=res.lb_opt, f32_lb_opt=ref.lb_opt)
+        if mode == "lookahead":  # beside the bf16 fit without it
+            fits[mode].update(
+                bf16_it=fits["complete"]["it"],
+                bf16_lb_opt=fits["complete"]["lb_opt"],
+                pip_max_diff_vs_bf16=float(
+                    np.abs(gam - gams["complete"]).max()))
         if not (res.converged and counts["instance"] == res.it
                 and counts["wrapper"] == res.it and counts["replays"] > 0):
             raise AssertionError(f"bf16 {mode} fit: converged="
@@ -2549,6 +2627,13 @@ def phase_bf16_modes():
                 mean_abs_err=max(e["mean"] for cs in b1_cases
                                  for e in cs["err"].values()),
                 eqtl=eqtl),
+        b1_lookahead=dict(
+            launches=fits["lookahead"]["launches"]["instance"],
+            timing=la_timing,
+            max_abs_err=max(e["max"] for cs in la_cases
+                            for e in cs["err"].values()),
+            mean_abs_err=max(e["mean"] for cs in la_cases
+                             for e in cs["err"].values())),
         b2=dict(launches=fits["exact"]["launches"]["instance"],
                 timing=b2_timing,
                 max_abs_err=max(v for cs in b2_cases
@@ -2565,6 +2650,7 @@ def bf16_mode(res, instance):
     return dict(instance=instance, launches=res["launches"],
                 shape={k: t[k] for k in ("n", "p", "q", "block")},
                 ms=t["ms"], f32_ms=t["f32_ms"], plain_ms=t["plain_ms"],
+                **{k: t[k] for k in ("bf16_ms",) if k in t},
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 pct_of_bound=t["pct_of_bound"], library_ms=None,
                 max_abs_err=res["max_abs_err"],
@@ -2658,9 +2744,13 @@ def main():
                             for w, d in timing["by_width"].items()},
             "impute_fit_launches": mis_launches.get("impute"),
             "replica_ms": replica["b1"],
-            "modes": None if bf16 is None else {"mxu_bf16": bf16_mode(
-                bf16["b1"], "csrc/sweep_fused.cu:sweep_fused_kernel<QS, "
-                "true>")}})
+            "modes": None if bf16 is None else {
+                "mxu_bf16": bf16_mode(
+                    bf16["b1"], "csrc/sweep_fused.cu:sweep_fused_kernel<QS, "
+                    "true, false>"),
+                "mxu_bf16_lookahead": bf16_mode(
+                    bf16["b1_lookahead"], "csrc/sweep_fused.cu:"
+                    "sweep_fused_kernel<QS, true, true>")}})
     if mis_timing is not None:
         kernels.append({
             "name": "sweep_missing_fused", "route": "cuda",

@@ -1251,3 +1251,155 @@ def test_bf16_graph_loop_matches_host_loop(cuda, mode):
                                                on.elbo_history]
     np.testing.assert_allclose([lb for _, lb in on.elbo_history],
                                [lb for _, lb in off.elbo_history], rtol=1e-6)
+
+
+# --------------------------------- the bf16 lookahead schedule (B5d)
+
+def _lookahead_operands(ops, block):
+    """The bf16 instance's operands of `_operands`'s float32 ones, and
+    the lookahead's off-diagonal Gram blocks (from the float32 x)."""
+    return ([sf.bf16_operand(ops[0])] + list(ops[1:]),
+            sf.lookahead_gram(ops[0], block))
+
+
+@pytest.mark.parametrize("c", [1.0, 0.5])
+@pytest.mark.parametrize("n,p,q,width,blk", [(120, 256, 200, 32, 128),
+                                             (100, 128, 4804, 40, 128),
+                                             (100, 120, 48, 32, 120),
+                                             (120, 512, 200, 32, 256),
+                                             (120, 400, 200, 32, 200)])
+def test_lookahead_kernel_matches_plain(cuda, n, p, q, width, blk, c):
+    """The bf16 instance's lookahead variant (Config(mxu_bf16=True,
+    sweep_lookahead=True)) against its plain version under the bf16 mean
+    criterion, at test_bf16_kernel_matches_plain's shapes: ragged q; 40-
+    column slices (one block: the schedule is the baseline's); block 120;
+    block 256 in pieces of 128 and block 200 in five of 40, every piece
+    projecting the previous block's start F and taking all of its deltas
+    through goff.  One launch counted, as the bf16 instance's and the
+    variant's too; where there are two blocks or more it is not the bf16
+    sweep without lookahead."""
+    ops, block = _operands(n, p, q, c, block=blk)
+    ops16, goff = _lookahead_operands(ops, block)
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=c == 1.0)
+    ref = _flat(sf.sweep_fused(*ops16, goff, **kw, bf16=True,
+                               lookahead=True))
+    f32 = _flat(sf.sweep_fused(*ops, **kw))
+    counts = (sf.sweep_fused.launches, sf.sweep_fused.bf16.launches,
+              sf.sweep_fused.lookahead.launches)
+    dev = [o.to(cuda) for o in ops16]
+    got = _flat(sf.sweep_fused(*dev, goff.to(cuda), **kw, bf16=True,
+                               lookahead=True))
+    torch.cuda.synchronize()
+    assert (sf.sweep_fused.launches, sf.sweep_fused.bf16.launches,
+            sf.sweep_fused.lookahead.launches) == tuple(k + 1 for k in counts)
+    f32_kernel = _flat(sf.sweep_fused(*[o.to(cuda) for o in ops], **kw))
+    _bf16_held(got, ref, f32, f32_kernel, NAMES)
+    base = _flat(sf.sweep_fused(*dev, **kw, bf16=True))
+    assert torch.equal(got[3], base[3]) == (ops[0].shape[1] == block)
+
+
+def test_lookahead_kernel_is_deterministic_and_refuses(cuda):
+    """The lookahead variant: two launches agree bit for bit (32- and 40-
+    column slices, block 256 in pieces); it refuses lookahead without
+    bf16, goff without lookahead and a goff of the wrong shape, and
+    nothing launches then."""
+    for n, p, q, blk in ((120, 256, 200, 128), (100, 256, 4804, 128),
+                         (120, 512, 200, 256)):
+        ops, block = _operands(n, p, q, 0.5, block=blk)
+        ops16, goff = _lookahead_operands(ops, block)
+        dev = [o.to(cuda) for o in ops16] + [goff.to(cuda)]
+        kw = dict(block_size=block, emit_gam_mu=True, c_one=False,
+                  bf16=True, lookahead=True)
+        a, b = (_flat(sf.sweep_fused(*dev, **kw)) for _ in range(2))
+        for name, u, v in zip(NAMES, a, b):
+            assert torch.equal(u, v), (q, blk, name)
+    launches = sf.sweep_fused.launches
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=False)
+    f32 = [o.to(cuda) for o in ops]
+    with pytest.raises(ValueError, match="variant of B1's bf16"):
+        sf.fused_launch("atlasqtl_sweep_fused", *f32, dev[-1], **kw,
+                        lookahead=True)
+    with pytest.raises(ValueError, match="goff goes with lookahead"):
+        sf.fused_launch("atlasqtl_sweep_fused", *dev, **kw, bf16=True)
+    with pytest.raises(ValueError, match="goff must"):
+        sf.fused_launch("atlasqtl_sweep_fused", *dev[:-1],
+                        dev[-1][:, :block // 2].contiguous(), **kw,
+                        bf16=True, lookahead=True)
+    assert sf.sweep_fused.launches == launches
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["b1", "b1_cp", "b1_256"])
+def test_batched_lookahead_equals_single_launches(cuda, kind, m):
+    """Each replica of one batched launch of the lookahead variant (goff
+    shared) equals its own launch under the same plan bit for bit: X^T Y
+    per replica at n % 8 != 0 and block 80; block 256 in pieces, with each
+    replica's two-deep workspaces."""
+    shape = dict(b1=(120, 256, 200, 128), b1_cp=(100, 75, 48, 80),
+                 b1_256=(120, 512, 200, 256))[kind]
+    parts, stacked, block = _replica_operands(kind, *shape[:3], 0.5, m,
+                                              block=shape[3])
+    dev = lambda ops: [o.to(cuda) for o in ops]
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=False, bf16=True,
+              lookahead=True)
+    x16 = sf.bf16_operand(stacked[0].to(cuda))
+    goff = sf.lookahead_gram(stacked[0], block).to(cuda)
+    plan = sf.fused_launch_plan(
+        stacked[0].shape[0], stacked[5].shape[-1], block,
+        stacked[3].shape[-1],
+        torch.cuda.get_device_properties(cuda).multi_processor_count, m,
+        bf16=True)
+    launches = sf.sweep_fused.lookahead.launches
+    got = _flat(sf.sweep_fused(x16, *dev(stacked[1:]), goff, **kw))
+    torch.cuda.synchronize()
+    assert sf.sweep_fused.lookahead.launches == launches + 1
+    singles = [_flat(sf.fused_launch(
+        "atlasqtl_sweep_fused", x16, *dev(ops[1:]), goff, **kw,
+        slice_width=plan["slice_width"])) for ops in parts]
+    torch.cuda.synchronize()
+    for r, one in enumerate(singles):
+        for a, b in zip(got, one):
+            if b is None:
+                assert a is None
+                continue
+            assert torch.equal(a[r], b), r
+
+
+def test_lookahead_graph_loop_matches_host_loop(cuda):
+    """A fit under Config(mxu_bf16=True, sweep_lookahead=True) (block 32:
+    p = 75 in three blocks) under the CUDA-graph loop takes the host loop's
+    iterations and ELBO history (to 1e-6 relative, as the float32 routes);
+    under both loops the lookahead variant launches once per iteration
+    (replays counted) and is the only sweep launched; goff is built once,
+    in build_data."""
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    y, x, _ = simulate_fixture(seed=5)
+    fits = {}
+    for loop in ("off", "on"):
+        cfg = Config(mxu_bf16=True, sweep_lookahead=True, block_size=32,
+                     device_loop=loop)
+        dat = prepare_data(y, x, 0.1, 1000)
+        p, q = dat.x.shape[1], dat.y.shape[1]
+        cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+        data = gl.build_data(dat.x, dat.y, cfg, cuda)
+        assert data.goff is not None and data.goff.shape == (96, 32)
+        hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                               data.y.shape[1], cfg, cuda)
+        state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25),
+                                                  float(q), 11), data, cfg)
+        _reset_counts()
+        res = fit_global_local(data, hyper, state, cfg, anneal=(1, 2, 10),
+                               verbose=0)
+        fits[loop] = res
+        assert (sf.sweep_fused.lookahead.launches
+                == sf.sweep_fused.bf16.launches
+                == sf.sweep_fused.launches == res.it)
+        assert sum(fn.launches for fn in dl.launch_counters()) \
+            == 3 * res.it
+        assert (dl.replays > 0) == (loop == "on")
+    off, on = fits["off"], fits["on"]
+    assert off.converged and on.converged and off.it == on.it
+    assert [i for i, _ in off.elbo_history] == [i for i, _ in
+                                               on.elbo_history]
+    np.testing.assert_allclose([lb for _, lb in on.elbo_history],
+                               [lb for _, lb in off.elbo_history], rtol=1e-6)
