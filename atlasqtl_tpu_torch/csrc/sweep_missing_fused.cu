@@ -76,15 +76,24 @@
 //    are shared).  The per-CTA code is unchanged, so each replica's outputs
 //    are those of its own launch with the same cluster bit for bit.
 //
-// The pair_bf16 instance (PB = true) is the TPU kernel's mis_pair_bf16 mode
-// (atlasqtl_tpu/ops/sweep_missing_fused.py:127-141): each pair product
-// x_na x_nb is formed in f32 (__fmul_rn, so that it is never contracted
-// into an FMA), rounded to bf16 (nearest even, two per conversion) and
-// added under the exact mask, v += m bf16(x_na x_nb), in f32.  Only the
-// pair sums of a row change; the rounded products do not depend on the
-// column.  Its windows are W = 8 wide where the JAX kernel's are
-// Config.mis_sub (16 by default), which under this mode decides which
-// corrections are rounded (ROADMAP.md C6).
+// The pair_bf16 instances (SUB = 2, 4, 8, 16; SUB = 0 is the float32 one)
+// are the TPU kernel's mis_pair_bf16 mode at its window sub = SUB
+// (atlasqtl_tpu/ops/sweep_missing_fused.py:100-215): windows of SUB
+// predictors, each projected against Fm as of its start, every pair a > b
+// inside one through the masked pair Gram sum_n m_nk bf16(x_na x_nb), Fm
+// advanced once per window.  A rounded pair product is formed in f32
+// (__fmul_rn, so that it is never contracted into an FMA), rounded to
+// bf16 (nearest even) and added under the exact mask in f32; the rounded
+// products do not depend on the column.  The kernel keeps its chain
+// windows of W = 8, and the windows only decide which pairs are rounded:
+//  - SUB <= 8: the pairs of an 8-window inside one SUB-aligned group are
+//    rounded, the others keep the f32 pair Gram, which is the f32 advance
+//    of the JAX kernel's windows up to rounding;
+//  - SUB = 16: each odd 8-window (the second of its 16-window, blocks
+//    start at multiples of 16) projects Fm from before the pass's advance
+//    by the even one, which is the 16-window's start, and adds
+//    sum_n m_nk sum_b bf16(x_na x_nb) delta_b over that window's b
+//    (cross_row_update); one row per warp step there, for registers.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -184,11 +193,50 @@ __device__ __forceinline__ void stage_tiles(
     *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// The masked pair sums of one row of a window (its x in xv, mask m) into
+// v[W ..]: the products of a and b in one RW-aligned group ((a ^ b) < RW)
+// rounded to bf16, the others in f32 (RW = 0: none rounded, the float32
+// instance).
+template <int RW>
+__device__ __forceinline__ void pair_sums(const float* xv, float m,
+                                          float* v) {
+  if constexpr (RW == W) {
+    float pr[NP];
+    int e = 0;
+#pragma unroll
+    for (int a = 1; a < W; ++a)
+#pragma unroll
+      for (int b = 0; b < a; ++b, ++e) pr[e] = __fmul_rn(xv[a], xv[b]);
+    static_assert(NP % 2 == 0, "pair products rounded two at a time");
+#pragma unroll
+    for (int e2 = 0; e2 < NP; e2 += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(pr[e2], pr[e2 + 1]);
+      v[W + e2] = fmaf(m, __low2float(h), v[W + e2]);
+      v[W + e2 + 1] = fmaf(m, __high2float(h), v[W + e2 + 1]);
+    }
+  } else {
+    float mx[W - 1];
+#pragma unroll
+    for (int b = 0; b < W - 1; ++b) mx[b] = m * xv[b];
+    int e = W;
+#pragma unroll
+    for (int a = 1; a < W; ++a)
+#pragma unroll
+      for (int b = 0; b < a; ++b, ++e) {
+        if ((a ^ b) < RW)
+          v[e] = fmaf(m, __bfloat162float(__float2bfloat16_rn(
+                             __fmul_rn(xv[a], xv[b]))), v[e]);
+        else
+          v[e] = fmaf(xv[a], mx[b], v[e]);
+      }
+  }
+}
+
 // One row of a window pass: ADV advances f by the previous window (x row
 // xa, deltas dl: f += m * (xa . dl)); PROJ then adds this window's
 // projections and masked pair Grams of the advanced f (x row xp) into v,
-// the pair products rounded to bf16 if PB.  Returns the new f.
-template <bool ADV, bool PROJ, bool PB>
+// the pair products rounded as pair_sums<RW>.  Returns the new f.
+template <bool ADV, bool PROJ, int RW>
 __device__ __forceinline__ float row_update(float f, float m,
                                             const float* xa, const float* xp,
                                             const float* dl, float* v) {
@@ -201,45 +249,56 @@ __device__ __forceinline__ float row_update(float f, float m,
     f = fmaf(m, s, f);
   }
   if (PROJ) {
-    float xv[W], mx[W - 1];
+    float xv[W];
     load8(xp, xv);
 #pragma unroll
     for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], f, v[i]);
-    if constexpr (PB) {
-      float pr[NP];
-      int e = 0;
-#pragma unroll
-      for (int a = 1; a < W; ++a)
-#pragma unroll
-        for (int b = 0; b < a; ++b, ++e) pr[e] = __fmul_rn(xv[a], xv[b]);
-      static_assert(NP % 2 == 0, "pair products rounded two at a time");
-#pragma unroll
-      for (int e2 = 0; e2 < NP; e2 += 2) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(pr[e2], pr[e2 + 1]);
-        v[W + e2] = fmaf(m, __low2float(h), v[W + e2]);
-        v[W + e2 + 1] = fmaf(m, __high2float(h), v[W + e2 + 1]);
-      }
-    } else {
-#pragma unroll
-      for (int b = 0; b < W - 1; ++b) mx[b] = m * xv[b];
-      int e = W;
-#pragma unroll
-      for (int a = 1; a < W; ++a)
-#pragma unroll
-        for (int b = 0; b < a; ++b, ++e) v[e] = fmaf(xv[a], mx[b], v[e]);
-    }
+    pair_sums<RW>(xv, m, v);
   }
   return f;
 }
 
+// One row of the pass of an odd 8-window under SUB = 16: advance f by the
+// previous (even) window as row_update does, but project this window (x
+// row xp) against f from before that advance, the 16-window's start, and
+// add the rounded cross pairs with the even window (x row xa, deltas dl),
+// m sum_b bf16(x_a x_b) delta_b, beside this window's own rounded pairs.
+// Returns the advanced f.
+__device__ __forceinline__ float cross_row_update(float f, float m,
+                                                  const float* xa,
+                                                  const float* xp,
+                                                  const float* dl, float* v) {
+  float xb[W], xv[W];
+  load8(xa, xb);
+  float s = xb[0] * dl[0];
+#pragma unroll
+  for (int i = 1; i < W; ++i) s = fmaf(xb[i], dl[i], s);
+  load8(xp, xv);
+#pragma unroll
+  for (int a = 0; a < W; ++a) {
+    float t = 0.f;
+#pragma unroll
+    for (int b = 0; b < W; b += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(
+          __fmul_rn(xv[a], xb[b]), __fmul_rn(xv[a], xb[b + 1]));
+      t = fmaf(__low2float(h), dl[b], t);
+      t = fmaf(__high2float(h), dl[b + 1], t);
+    }
+    v[a] = fmaf(m, t, fmaf(xv[a], f, v[a]));
+  }
+  pair_sums<W>(xv, m, v);
+  return fmaf(m, s, f);
+}
+
 // One pass over this CTA's rows: ADV advances Fm by the previous window
 // (x in xa, deltas in D_s); PROJ then accumulates this window's projections
-// and masked pair Grams (x in xp) on the advanced Fm into v.  On chip, xa
-// and xp are x slots and Fm lives in fm_s; otherwise they point into x at
-// the windows' first columns and Fm is the device slice at fm.  Each warp
-// takes two rows per step, both read before either is written back, so
-// their loads and FMA chains overlap.
-template <bool ON_CHIP, bool ADV, bool PROJ, bool PB>
+// and masked pair Grams (x in xp) on the advanced Fm into v (CROSS: the
+// rows of cross_row_update).  On chip, xa and xp are x slots and Fm lives
+// in fm_s; otherwise they point into x at the windows' first columns and Fm
+// is the device slice at fm.  Each warp takes two rows per step, both read
+// before either is written back, so their loads and FMA chains overlap
+// (CROSS: one).
+template <bool ON_CHIP, bool ADV, bool PROJ, int RW, bool CROSS = false>
 __device__ __forceinline__ void window_pass(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
@@ -261,19 +320,27 @@ __device__ __forceinline__ void window_pass(
                    : mask[(size_t)t * q + k];
   };
   int t = warp;
+  if constexpr (CROSS) {
+    static_assert(ADV && PROJ && RW == W, "a cross pass advances, projects "
+                  "and rounds its 8-window's pairs");
+    for (; t < nr; t += NW)
+      fm_at(t) = cross_row_update(fm_at(t), m_at(t), xa + t * xs,
+                                  xp + t * xs, dl, v);
+    return;
+  }
   for (; t + NW < nr; t += 2 * NW) {
     const int u = t + NW;
     float f0 = fm_at(t), f1 = fm_at(u);
     const float m0 = m_at(t), m1 = m_at(u);
-    f0 = row_update<ADV, PROJ, PB>(f0, m0, xa + t * xs, xp + t * xs, dl, v);
-    f1 = row_update<ADV, PROJ, PB>(f1, m1, xa + u * xs, xp + u * xs, dl, v);
+    f0 = row_update<ADV, PROJ, RW>(f0, m0, xa + t * xs, xp + t * xs, dl, v);
+    f1 = row_update<ADV, PROJ, RW>(f1, m1, xa + u * xs, xp + u * xs, dl, v);
     if (ADV) {
       fm_at(t) = f0;
       fm_at(u) = f1;
     }
   }
   if (t < nr) {
-    const float f = row_update<ADV, PROJ, PB>(fm_at(t), m_at(t), xa + t * xs,
+    const float f = row_update<ADV, PROJ, RW>(fm_at(t), m_at(t), xa + t * xs,
                                               xp + t * xs, dl, v);
     if (ADV) fm_at(t) = f;
   }
@@ -380,7 +447,8 @@ __device__ __forceinline__ void z_rows_of_rank(
                zeta_k, qm_k, kz, zc);
 }
 
-template <bool FM_ON_CHIP, bool PB>
+// SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, 8, 16)
+template <bool FM_ON_CHIP, int SUB>
 __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     const float* __restrict__ x,        // (n, p)
     const float* __restrict__ cp,       // (p, q)
@@ -402,6 +470,12 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     float* __restrict__ zrow_part,      // (n_slices, p)
     float* __restrict__ z_col,          // (q,)
     int n, int p, int q, int R, int nloc) {
+  static_assert(SUB == 0 || SUB == 2 || SUB == 4 || SUB == W || SUB == 2 * W,
+                "the float32 instance or a pair_bf16 window");
+  // pairs rounded within RW-aligned groups of an 8-window; CROSS: odd
+  // 8-windows take the cross pass
+  constexpr int RW = SUB < W ? SUB : W;
+  constexpr bool CROSS = SUB > W;
   extern __shared__ __align__(16) float smem[];
   float* WT_s = smem;                       // 2 x NWT x W x QS window tiles
   float* GW_s = WT_s + 2 * NWT * W * QS;    // 2 x W x QS masked new gam
@@ -512,14 +586,24 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     const float* xa = FM_ON_CHIP ? XS_s + ((w + 1) & 1) * nloc * W
                                  : x + (jw - W);
     const float* xp = FM_ON_CHIP ? XS_s + (w & 1) * nloc * W : x + jw;
-    if (w > 0)
-      window_pass<FM_ON_CHIP, true, true, PB>(FM_s, MB_s, fm_rows, mask_rows,
-                                              xa, xp, D_s, v, nr, p, q, k,
-                                              cvalid, warp, lane);
-    else
-      window_pass<FM_ON_CHIP, false, true, PB>(FM_s, MB_s, fm_rows,
+    if (w == 0) {
+      window_pass<FM_ON_CHIP, false, true, RW>(FM_s, MB_s, fm_rows,
                                                mask_rows, xa, xp, D_s, v, nr,
                                                p, q, k, cvalid, warp, lane);
+    } else if constexpr (CROSS) {
+      if (w & 1)
+        window_pass<FM_ON_CHIP, true, true, RW, true>(
+            FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+            cvalid, warp, lane);
+      else
+        window_pass<FM_ON_CHIP, true, true, RW>(
+            FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+            cvalid, warp, lane);
+    } else {
+      window_pass<FM_ON_CHIP, true, true, RW>(FM_s, MB_s, fm_rows, mask_rows,
+                                              xa, xp, D_s, v, nr, p, q, k,
+                                              cvalid, warp, lane);
+    }
     tick(1);
     // the warps' sums in a fixed order into three slots, the two partial
     // slots and this window's sum buffer (its peers last read it two
@@ -644,7 +728,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     z_rows_of_rank(warp, GW_s + ((nwin - 1) & 1) * W * QS, N_s,
                    WS_s + ((nwin - 1) % NWS) * WSF, zrow_part, p - W, cs,
                    rank, R, p, slice, lane, zeta_k, qm_k, kz, zc);
-  window_pass<FM_ON_CHIP, true, false, PB>(
+  window_pass<FM_ON_CHIP, true, false, RW>(
       FM_s, MB_s, fm_rows, mask_rows,
       FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * nloc * W : x + (p - W), nullptr,
       D_s, v, nr, p, q, k, cvalid, warp, lane);
@@ -672,20 +756,40 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   cluster.sync();  // no CTA leaves while a peer may still read its sums
 }
 
-template <bool FM_ON_CHIP, bool PB>
+template <bool FM_ON_CHIP, int SUB>
 cudaError_t set_smem(size_t smem) {
-  return cudaFuncSetAttribute(sweep_missing_kernel<FM_ON_CHIP, PB>,
+  return cudaFuncSetAttribute(sweep_missing_kernel<FM_ON_CHIP, SUB>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
 // sets the instance's shared memory and launches it on the config
-template <bool FM_ON_CHIP, bool PB, typename... Args>
+template <bool FM_ON_CHIP, int SUB, typename... Args>
 cudaError_t launch_instance(const cudaLaunchConfig_t& cfg, Args... args) {
-  const cudaError_t err = set_smem<FM_ON_CHIP, PB>(cfg.dynamicSmemBytes);
+  const cudaError_t err = set_smem<FM_ON_CHIP, SUB>(cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, sweep_missing_kernel<FM_ON_CHIP, PB>,
+  return cudaLaunchKernelEx(&cfg, sweep_missing_kernel<FM_ON_CHIP, SUB>,
                             args...);
+}
+
+// the instance of (fm_on_chip, sub) launched on the config
+template <typename... Args>
+cudaError_t launch_sub(bool on_chip, int sub, const cudaLaunchConfig_t& cfg,
+                       Args... args) {
+#define ATLASQTL_MIS_SUB(S)                                        \
+  case S:                                                          \
+    return on_chip ? launch_instance<true, S>(cfg, args...)        \
+                   : launch_instance<false, S>(cfg, args...)
+  switch (sub) {
+    ATLASQTL_MIS_SUB(0);
+    ATLASQTL_MIS_SUB(2);
+    ATLASQTL_MIS_SUB(4);
+    ATLASQTL_MIS_SUB(W);
+    ATLASQTL_MIS_SUB(2 * W);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ATLASQTL_MIS_SUB
 }
 
 cudaLaunchConfig_t launch_config(int grid, int m, int smem, int cluster,
@@ -725,9 +829,10 @@ extern "C" {
 // cluster size and whether Fm is on chip; the kernel derives its rows per
 // CTA, grid and shared memory from them.  The operands of the state and the
 // outputs are m stacked arrays; x, X^T Y, x_norm_sq, the mask and the
-// p/q masks are shared.  pair_bf16 != 0 launches the pair_bf16 instance.
+// p/q masks are shared.  sub = 0 launches the float32 instance, sub = 2,
+// 4, 8 or 16 the pair_bf16 instance at that window (p a multiple of it).
 // Returns the CUDA error code of the launches (0 on success);
-// cudaErrorInvalidValue for a shape or plan it does not take.
+// cudaErrorInvalidValue for a shape, plan or window it does not take.
 int atlasqtl_sweep_missing_fused(
     const float* x, const float* cp, const float* gam_in, const float* mu_in,
     const float* xns, const float* mask, const float* l_aug,
@@ -735,29 +840,22 @@ int atlasqtl_sweep_missing_fused(
     const float* zeta, const float* q_mask, const float* tauv,
     const float* scal, float* gam_out, float* mu_out, float* zrow_part,
     float* z_row, float* z_col, int n, int p, int q, int B, int R,
-    int cluster, int fm_on_chip, int m, int pair_bf16, void* stream) {
+    int cluster, int fm_on_chip, int m, int sub, void* stream) {
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
   const int smem = plan_smem(n, cluster, fm_on_chip, R);
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
-      smem < 0 || m < 1 || m > 65535)
+      smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && p % sub != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(grid, m, smem, cluster, attr, st);
-#define ATLASQTL_MIS_LAUNCH(ON, PB)                                          \
-  launch_instance<ON, PB>(cfg, x, cp, gam_in, mu_in, xns, mask, l_aug,       \
-                          n_stack, fm, theta, p_mask, zeta, q_mask, tauv,    \
-                          scal, gam_out, mu_out, zrow_part, z_col, n, p, q,  \
-                          R, nloc)
-  cudaError_t err =
-      fm_on_chip ? (pair_bf16 ? ATLASQTL_MIS_LAUNCH(true, true)
-                              : ATLASQTL_MIS_LAUNCH(true, false))
-                 : (pair_bf16 ? ATLASQTL_MIS_LAUNCH(false, true)
-                              : ATLASQTL_MIS_LAUNCH(false, false));
-#undef ATLASQTL_MIS_LAUNCH
+  cudaError_t err = launch_sub(fm_on_chip != 0, sub, cfg, x, cp, gam_in,
+                               mu_in, xns, mask, l_aug, n_stack, fm, theta,
+                               p_mask, zeta, q_mask, tauv, scal, gam_out,
+                               mu_out, zrow_part, z_col, n, p, q, R, nloc);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -790,22 +888,22 @@ int atlasqtl_sweep_missing_occupancy(int n, int cluster, int fm_on_chip,
   *clusters = -1;
   const int smem = plan_smem(n, cluster, fm_on_chip, R);
   if (smem < 0) return -1;
-  cudaError_t err = fm_on_chip ? set_smem<true, false>(smem)
-                               : set_smem<false, false>(smem);
+  cudaError_t err = fm_on_chip ? set_smem<true, 0>(smem)
+                               : set_smem<false, 0>(smem);
   int nb = -1;
   if (err == cudaSuccess)
     err = fm_on_chip ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &nb, sweep_missing_kernel<true, false>, NT, smem)
+                           &nb, sweep_missing_kernel<true, 0>, NT, smem)
                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &nb, sweep_missing_kernel<false, false>, NT, smem);
+                           &nb, sweep_missing_kernel<false, 0>, NT, smem);
   if (err != cudaSuccess) return -1;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(cluster * 64, 1, smem, cluster, attr, nullptr);
   err = fm_on_chip ? cudaOccupancyMaxActiveClusters(
-                         clusters, sweep_missing_kernel<true, false>, &cfg)
+                         clusters, sweep_missing_kernel<true, 0>, &cfg)
                    : cudaOccupancyMaxActiveClusters(
-                         clusters, sweep_missing_kernel<false, false>, &cfg);
+                         clusters, sweep_missing_kernel<false, 0>, &cfg);
   if (err != cudaSuccess) *clusters = -1;
   return nb;
 }

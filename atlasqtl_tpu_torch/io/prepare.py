@@ -1,9 +1,11 @@
 """Host-side data preparation and validation.
 
-Copy of atlasqtl_tpu/io/prepare.py restricted to its NumPy path (the C++
-preparation pass of atlasqtl_tpu/native is not ported yet), kept in the port
-so it never imports the JAX package.  Re-design of R/prepare_atlasqtl.R:8-124
-and the column-removal utilities (R/utils.R:276-343)."""
+Copy of atlasqtl_tpu/io/prepare.py, kept in the port so it never imports
+the JAX package.  Re-design of R/prepare_atlasqtl.R:8-124 and the
+column-removal utilities (R/utils.R:276-343).  NumPy on the host; a large X
+(2^20 entries or more) takes the multithreaded C++ pass of
+atlasqtl_tpu_torch/native where its library builds, as the reference's
+does."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,14 +44,45 @@ def standardize_columns(x):
         return (x - mean) / sd
 
 
-def standardize_and_flag(x):
+NATIVE_MIN_SIZE = 1 << 20   # the entries of X from which the native pass runs
+
+
+def standardize_and_flag(x, use_native=None):
     """Standardize columns and flag constants/duplicates in one pass.
 
     Returns (x_standardized, bool_cst (p,), bool_dup (p,), twin (p,)).
-    Constant columns come back NaN-filled and are removed by the caller.
-    bool_dup/twin are computed among non-constant columns only.
+    use_native None takes the reference's rule (atlasqtl_tpu/io/prepare.py:
+    45-90): the native C++ pass (atlasqtl_tpu_torch/native) for
+    x.size >= NATIVE_MIN_SIZE where its library is available, else NumPy;
+    True requires the library (raises without it), False is NumPy.
+    Constant columns come back zero-filled from the native pass and
+    NaN-filled from NumPy; the caller removes both.  bool_dup/twin are
+    computed among non-constant columns only.
     """
+    from .. import native
+
     p = x.shape[1]
+    if use_native is None:
+        use_native = x.size >= NATIVE_MIN_SIZE and native.get_lib() is not None
+    if use_native:
+        x = np.ascontiguousarray(x, dtype=np.float64)
+        bool_cst, hashes = native.standardize_and_hash(x)
+        bool_dup = np.zeros(p, dtype=bool)
+        twin = np.full(p, -1, dtype=np.int64)
+        groups: dict = {}
+        for j in range(p):
+            if bool_cst[j]:
+                continue
+            h = int(hashes[j])
+            for i in groups.setdefault(h, []):
+                if native.columns_equal(x, i, j):
+                    bool_dup[j] = True
+                    twin[j] = i
+                    break
+            else:
+                groups[h].append(j)
+        return x, bool_cst, bool_dup, twin
+
     x = standardize_columns(x)
     bool_cst = np.isnan(x.sum(axis=0))
     x_nc = x[:, ~bool_cst]
@@ -154,7 +187,8 @@ def prepare_data(y, x, tol, maxit, user_seed=None, verbose=1,
     names_y = list(names_y) if names_y is not None else [f"Resp_{k+1}" for k in range(q)]
 
     # standardize + constant-column + duplicate-column detection in one pass
-    # (reference: scale/rm_constant_/rm_collinear_)
+    # (the native C++ pass for a large X; reference: scale/rm_constant_/
+    # rm_collinear_)
     x, bool_cst, bool_dup, twin = standardize_and_flag(x)
     rmvd_cst = [names_x[j] for j in np.where(bool_cst)[0]]
     keep = ~bool_cst

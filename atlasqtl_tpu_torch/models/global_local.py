@@ -30,7 +30,7 @@ from ..ops.sweep_fused import (FUSED, fused_operands, lookahead_gram,
 from ..ops.sweep_pallas import sweep_complete_pallas
 from ..ops.sweep_staggered import sweep_complete_staggered
 from ..ops.sweep_missing_fused import (MISSING, missing_fused_operands,
-                                       sweep_missing_fused,
+                                       pair_window, sweep_missing_fused,
                                        sweep_missing_fused_driver)
 
 log = logging.getLogger("atlasqtl_tpu_torch")
@@ -45,7 +45,12 @@ def check_config(cfg: Config):
     names its ROADMAP.md item).  The TPU scheduling fields are ignored but
     for sweep_lookahead, which B1 honours under mxu_bf16 (in float32 it is
     the baseline's algebra); mxu_bf16 and mis_pair_bf16 reach B1 and B2
-    (types.py:Config)."""
+    (types.py:Config).  Under mis_pair_bf16 at block_size 128, the one
+    block where the flag reaches B2, the JAX kernel's window mis_sub must
+    be one B2's pair_bf16 instance takes (ops/sweep_missing_fused.py:
+    pair_window): a window that does not divide the block raises
+    ValueError, as the JAX kernel's assert does, and one over 16
+    NotImplementedError (ROADMAP.md C6b)."""
     if cfg.sweep not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"unknown Config.sweep={cfg.sweep!r}")
     if cfg.sweep_probe != "none":
@@ -58,6 +63,8 @@ def check_config(cfg: Config):
     if cfg.q_axis is not None or cfg.p_axis is not None:
         raise NotImplementedError("mesh axes (ROADMAP.md A12) are not "
                                   "ported yet")
+    if cfg.mis_pair_bf16 and cfg.block_size == 128:
+        pair_window(cfg.mis_sub, cfg.block_size)
 
 
 def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
@@ -374,17 +381,40 @@ def _missing_uses_kernel(cfg: Config, device) -> bool:
     """Whether the exact-missing sweep goes through B2: its kernel for
     float32 on CUDA (which raises on a predictor block it cannot take, as
     B1 does), or sweep="fused" anywhere (the kernel's plain version on the
-    CPU), at any block of 8 or more.  Otherwise (float64, the CPU,
-    sweep="xla", or a block under 8 as batch="0" sets, which the reference
-    never sends to its fused kernel: atlasqtl_tpu/models/global_local.py:
-    390-404) the plain engines run: blocked when pair Grams were
-    precomputed, else one coordinate at a time."""
+    CPU), at any block of 8 or more.  In float32 B2 is the JAX package's
+    blocked engine up to rounding, so it also runs at the blocks where
+    the JAX package would not take its fused kernel; cfg.mis_pair_bf16
+    reaches it only where that kernel would run (`_b2_pair_bf16`).
+    Otherwise (float64, the CPU, sweep="xla", or a block under 8 as
+    batch="0" sets, which the reference never sends to its fused kernel:
+    atlasqtl_tpu/models/global_local.py:390-404) the plain engines run:
+    blocked when pair Grams were precomputed, else one coordinate at a
+    time."""
     if cfg.block_size < 8:
         return False
     if cfg.sweep == "fused":
         return True
     return (cfg.sweep == "auto" and cfg.dtype == torch.float32
             and torch.device(device).type == "cuda")
+
+
+def _b2_pair_bf16(cfg: Config, data: Data) -> bool:
+    """Whether cfg.mis_pair_bf16 reaches B2: only where the JAX package
+    sends the exact-missing sweep to its fused kernel, the one engine of
+    its that reads the flag (atlasqtl_tpu/models/global_local.py:396-401),
+    condition for condition: no mesh (check_config refuses one);
+    cfg.sweep "auto" or "fused" and float32 (`_engine` gives B2 and the
+    dtype is float32; the CPU runs B2's plain version, the port's stand-in
+    for a kernel there); cfg.block_size == 128 and the padded p a multiple
+    of 128 (build_data pads p to min(block_size, round_up(p, 8)), so p = 75
+    pads to 80 and fails).  JAX's last condition, a q tile of its kernel,
+    always holds under its atlasqtl() on an accelerator (q padded to 256
+    there) and has no counterpart: B2 takes every padded q.  Elsewhere the
+    JAX package runs its blocked or scan engine, whose float32 fit the
+    flag leaves as it is, and so does the port."""
+    return (cfg.mis_pair_bf16 and cfg.dtype == torch.float32
+            and _engine(cfg, data) == "b2" and cfg.block_size == 128
+            and data.x.shape[1] % 128 == 0)
 
 
 def _select_missing_sweep(cfg: Config, data: Data) -> str:
@@ -489,7 +519,7 @@ def cavi_iteration_replicas(data: Data, hyper: Hyper, states, gram_blocks,
     elif engine == "b2":
         outs = _sweep_missing_replicas(
             data, states, pres, data_block(cfg, data) if block is None
-            else block, cfg.mis_pair_bf16)
+            else block, _b2_pair_bf16(cfg, data), cfg.mis_sub)
     else:
         outs = [_sweep(data, st, pre, gram_blocks, cfg, annealed, lite,
                        block) for st, pre in zip(states, pres)]
@@ -572,7 +602,8 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
                 data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
                 state.mu_beta, state.fitted, consts, sig2_inv,
                 data_block(cfg, data) if block is None else block,
-                data.p_mask, data.q_mask, pair_bf16=cfg.mis_pair_bf16)
+                data.p_mask, data.q_mask, pair_bf16=_b2_pair_bf16(cfg, data),
+                sub=cfg.mis_sub)
             # the kernel masks gam/mu at write time
         elif engine == "blocked":
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_blocked(
@@ -644,7 +675,8 @@ def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, cfg: Config,
              tuple(s[r] for s in stats)) for r in range(len(states))]
 
 
-def _sweep_missing_replicas(data: Data, states, pres, block, pair_bf16):
+def _sweep_missing_replicas(data: Data, states, pres, block, pair_bf16,
+                            sub):
     """One B2 sweep of every state (sweep_missing_fused with a replica
     axis)."""
     parts = [missing_fused_operands(
@@ -652,7 +684,8 @@ def _sweep_missing_replicas(data: Data, states, pres, block, pair_bf16):
         st.mu_beta, st.fitted, pre.consts, pre.sig2_inv, data.p_mask,
         data.q_mask) for st, pre in zip(states, pres)]
     gam, mu, fitted, z_row, z_col = sweep_missing_fused(
-        *MISSING.stack(parts), block_size=block, pair_bf16=pair_bf16)
+        *MISSING.stack(parts), block_size=block, pair_bf16=pair_bf16,
+        sub=sub)
     return [(gam[r], mu[r], None, fitted[r], z_row[r], z_col[r], None)
             for r in range(len(states))]
 

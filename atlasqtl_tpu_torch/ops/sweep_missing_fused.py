@@ -26,13 +26,20 @@ thread-block cluster where one SM cannot hold them (`missing_launch_plan`);
 csrc/sweep_missing_fused.cu says how it is laid out.
 
 pair_bf16=True is the TPU kernel's mis_pair_bf16 mode (atlasqtl_tpu/ops/
-sweep_missing_fused.py:127-141): each pair product x_na x_nb of a window's
-masked pair Grams is formed in float32, rounded to bfloat16, and summed in
-float32 under the exact mask.  The plain version then runs the kernel's
-windows of MIS_W = 8 predictors (`_sweep_missing_plain_windows`), since
-only pair Grams can show the rounding.  The JAX kernel's windows are
-Config.mis_sub wide (16 by default): under this mode the port equals it at
-mis_sub=8 (ROADMAP.md C6).
+sweep_missing_fused.py:100-215) at its window sub (Config.mis_sub, 16 by
+default; `pair_window` clips it to the block as the JAX kernel does): the
+windows of sub predictors are aligned at each block's start, each window's
+projections are taken against Fm as of the window's start, every pair
+(a > b) inside a window goes through the masked pair Gram
+sum_n m_nk bf16(x_na x_nb) (each float32 product rounded to bfloat16, the
+mask exact, float32 sums), and Fm advances in float32 once per window.
+The plain version then walks those windows (`_sweep_missing_plain_windows`).
+The kernel keeps its chain windows of W = 8 and rounds the same pairs:
+under sub < 8 only those of one sub-window; under sub = 16 also the cross
+pairs of the two 8-windows of each 16-window, whose second 8-window
+projects Fm from before the first one's advance and adds them
+(csrc/sweep_missing_fused.cu).  In float32 the window does not change the
+function, and sub is ignored.
 """
 from __future__ import annotations
 
@@ -57,6 +64,26 @@ MIS_MAX_CLUSTER = 8                  # largest cluster the kernel takes
 MIS_SPREAD = 4                       # largest cluster taken only to spread
 MIS_NCLK = 10                        # the kernel's phase clock slots
 MIS_CLKF = (2 * MIS_NCLK + 3) & ~3   # their floats, kept 16-byte whole
+PAIR_WINDOWS = (1, 2, 4, 8, 16)      # the pair_bf16 windows B2 takes
+
+
+def pair_window(sub: int, block: int) -> int:
+    """The pair_bf16 mode's window at Config.mis_sub = sub and predictor
+    block `block`: min(sub, block), as the JAX kernel clips it
+    (atlasqtl_tpu/ops/sweep_missing_fused.py:272-273).  Raises ValueError
+    where it does not divide the block (that kernel's assert) and
+    NotImplementedError for one B2's pair_bf16 instance does not take: not
+    in PAIR_WINDOWS, so over 16 or not a power of two (ROADMAP.md C6b)."""
+    s = min(int(sub), int(block))
+    if s < 1 or block % s:
+        raise ValueError(f"sweep_missing_fused pair_bf16: the window "
+                         f"mis_sub={sub} (clipped to {s}) must divide the "
+                         f"predictor block {block}")
+    if s not in PAIR_WINDOWS:
+        raise NotImplementedError(
+            f"sweep_missing_fused pair_bf16: window {s} (mis_sub={sub}) is "
+            f"not ported; B2 takes {PAIR_WINDOWS} (ROADMAP.md C6b)")
+    return s
 
 
 def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int) -> int:
@@ -168,19 +195,22 @@ MISSING = Operands(
 def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
                               tau, c, kz, sig2_inv, *, block_size: int,
-                              pair_bf16: bool = False):
+                              pair_bf16: bool = False, sub: int = 16):
     """The kernel's function in plain tensor ops, block by block in flat
     sequential order: one coordinate at a time, or under pair_bf16 in the
-    kernel's windows with bf16-rounded pair Grams.  Same arguments and
-    outputs as `sweep_missing_fused`; with a replica axis, one replica
-    after another."""
+    JAX kernel's windows of `pair_window(sub, block_size)` predictors with
+    bf16-rounded pair Grams.  Same arguments and outputs as
+    `sweep_missing_fused`; with a replica axis, one replica after
+    another."""
     args = (x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
             theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv)
-    one = _sweep_missing_plain_windows if pair_bf16 else \
-        _sweep_missing_plain_one
+    one, kw = _sweep_missing_plain_one, dict(block_size=block_size)
+    if pair_bf16:
+        one = _sweep_missing_plain_windows
+        kw["sub"] = pair_window(sub, block_size)
     if gam.dim() == 3:
-        return MISSING.loop(one, args, dict(block_size=block_size))
-    return one(*args, block_size=block_size)
+        return MISSING.loop(one, args, kw)
+    return one(*args, **kw)
 
 
 def _missing_tiles(l_blk, n_stack, u, kz, c, den):
@@ -245,18 +275,18 @@ def _sweep_missing_plain_one(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
 def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
                                  n_stack, gam, mu, fitted, theta, p_mask,
                                  zeta, q_mask, tau, c, kz, sig2_inv, *,
-                                 block_size, round_pairs=True):
-    """The sweep in the kernel's windows of MIS_W predictors, aligned at
-    each block's start (atlasqtl_tpu/ops/sweep_missing_fused.py:157-215 at
-    sub = MIS_W): each window's projections against Fm advanced through
-    the previous window; the corrections inside the window through the
-    masked pair Grams h[(a, b), k] = sum_n m_nk x_na x_nb (round_pairs:
-    each f32 product rounded to bfloat16, the mask exact, f32 sums); then
+                                 block_size, sub=MIS_W, round_pairs=True):
+    """The sweep in windows of `sub` predictors (a divisor of the block),
+    aligned at each block's start (atlasqtl_tpu/ops/sweep_missing_fused.py:
+    157-215): each window's projections against Fm advanced through the
+    previous window; the corrections inside the window through the masked
+    pair Grams h[(a, b), k] = sum_n m_nk x_na x_nb (round_pairs: each f32
+    product rounded to bfloat16, the mask exact, f32 sums); then
     Fm += M * (x_w delta_w).  In float32 (round_pairs False) it is the
     per-coordinate sweep up to rounding."""
     p = x.shape[1]
     B = block_size
-    W = MIS_W
+    W = sub
     fm = fitted.clone()
     out = (torch.empty_like(gam), torch.empty_like(mu),
            torch.empty_like(theta), torch.zeros_like(zeta))
@@ -294,13 +324,16 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
 def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
                               tau, c, kz, sig2_inv, *, block_size, plan=None,
-                              pair_bf16=False):
+                              pair_bf16=False, sub=16):
     """Check the operands of one B2 launch, launch it and count it: the
     state's operands of `MISSING` with or without a replica axis, one
-    launch of grid x m CTAs (the pair_bf16 instance if pair_bf16).  `plan` (None: `missing_launch_plan` for the
-    operands' replica count) is there only to compare a replica's single
-    launch with a batched one under the batched launch's plan.  Raises on
-    what the kernel cannot take and on a failed launch."""
+    launch of grid x m CTAs (the pair_bf16 instance at the window
+    `pair_window(sub, block_size)` if pair_bf16; at window 1 the mode
+    rounds no pair, and the float32 instance runs).  `plan` (None:
+    `missing_launch_plan` for the operands' replica count) is there only
+    to compare a replica's single launch with a batched one under the
+    batched launch's plan.  Raises on what the kernel cannot take and on a
+    failed launch."""
     n, p = x.shape[-2:]
     q = gam.shape[-1]
     r_aug = l_aug.shape[-1]
@@ -329,6 +362,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, p={p}, q={q}, block={block_size}, "
                          f"r+2={r_aug}")
+    window = pair_window(sub, block_size) if pair_bf16 else 1
     plan = plan or missing_launch_plan(n, q, block_size, r_aug, m)
     lib = _load()
     lead = (m,) if any(batched) else ()
@@ -348,16 +382,16 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
         plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
-        m, int(bool(pair_bf16)),
+        m, window if window > 1 else 0,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "
             f"q={q}, block={block_size}, {m} replica(s), plan {plan}"
-            f"{', pair_bf16' if pair_bf16 else ''}: "
+            f"{f', pair_bf16 window {window}' if pair_bf16 else ''}: "
             + lib.atlasqtl_error_string(err).decode())
     sweep_missing_fused.launches += 1
-    if pair_bf16:
+    if window > 1:
         sweep_missing_fused.pair_bf16.launches += 1
     return gam_out, mu_out, fitted, z_row, z_col
 
@@ -365,7 +399,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
 def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
                         mu, fitted, theta, p_mask, zeta, q_mask, tau, c, kz,
                         sig2_inv, *, block_size: int,
-                        pair_bf16: bool = False):
+                        pair_bf16: bool = False, sub: int = 16):
     """One exact-missing Gauss-Seidel sweep with fused Z reductions.
 
     x: (n, p); cp_x_y/x_norm_sq/gam/mu: (p, q); mis_pat/fitted: (n, q), the
@@ -380,13 +414,17 @@ def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
     then c may too; every output then carries it.  That is one kernel
     launch for all m sweeps.
 
-    pair_bf16 (Config.mis_pair_bf16): the windows' pair products are
-    rounded to bfloat16 before their float32 sums.
+    pair_bf16 (Config.mis_pair_bf16): the JAX kernel's windows of sub
+    predictors (Config.mis_sub, clipped to the block; `pair_window` raises
+    on one that does not divide it or that B2 does not take), whose pair
+    products are rounded to bfloat16 before their float32 sums.  sub is
+    read only under pair_bf16.
 
     CPU tensors run `sweep_missing_fused_plain`; CUDA tensors launch the
-    kernel (csrc/sweep_missing_fused.cu; its pair_bf16 instance if
-    pair_bf16) or raise.  `sweep_missing_fused.launches` counts kernel
-    launches (one per call, whatever m, either instance),
+    kernel (csrc/sweep_missing_fused.cu; its pair_bf16 instance at the
+    window if pair_bf16, but at window 1, where the mode rounds nothing)
+    or raise.  `sweep_missing_fused.launches` counts kernel launches (one
+    per call, whatever m, any instance),
     `sweep_missing_fused.pair_bf16.launches` those of the pair_bf16
     instance.
     """
@@ -396,7 +434,7 @@ def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
           else sweep_missing_fused_plain)
     return fn(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
               theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv,
-              block_size=block_size, pair_bf16=pair_bf16)
+              block_size=block_size, pair_bf16=pair_bf16, sub=sub)
 
 
 sweep_missing_fused.launches = 0
@@ -427,12 +465,14 @@ def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
 def sweep_missing_fused_driver(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
                                fitted, consts, sig2_inv, block_size, p_mask,
                                q_mask, interp_r: int = 40,
-                               pair_bf16: bool = False):
-    """Driver-facing wrapper matching ops/sweep.py:sweep_missing_blocked.
-    sig2_inv is the scalar slab precision; consts.sig2_beta is not read
-    (the kernel derives the per-cell variance from x_norm_sq)."""
+                               pair_bf16: bool = False, sub: int = 8):
+    """Driver-facing wrapper matching ops/sweep.py:sweep_missing_blocked
+    (sub defaults to 8, as the JAX driver's does; the fit passes
+    Config.mis_sub).  sig2_inv is the scalar slab precision;
+    consts.sig2_beta is not read (the kernel derives the per-cell variance
+    from x_norm_sq)."""
     return sweep_missing_fused(
         *missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
                                 fitted, consts, sig2_inv, p_mask, q_mask,
                                 interp_r),
-        block_size=block_size, pair_bf16=pair_bf16)
+        block_size=block_size, pair_bf16=pair_bf16, sub=sub)

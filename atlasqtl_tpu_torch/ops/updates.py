@@ -14,6 +14,17 @@ import torch
 from .special import as_scalar, digamma, inv_mills_ratio, log_ndtr_both
 
 
+def beta_mean(gam, mu_beta):
+    """E[beta] = gam * mu (reference: R/update_vb.R:17)."""
+    return gam * mu_beta
+
+
+def m2_beta(gam, mu_beta, sig2_beta):
+    """E[beta^2] = gam * (mu^2 + sig2) (reference: R/update_vb.R:19-31);
+    sig2_beta broadcasts: (q,) or (p, q)."""
+    return (mu_beta * mu_beta + sig2_beta) * gam
+
+
 def sig2_beta_update(n, sig2_inv, tau, x_norm_sq=None, c=1.0):
     """Posterior slab variance (reference: R/update_vb.R:33-50).
     Complete data: 1/(c (n-1+sig2_inv) tau) -> (q,).

@@ -137,16 +137,18 @@ class Config:
       products stay float32.  The B3, B4 and plain routes ignore it, as
       the JAX package's do (so does the exact-missing path); with
       sweep_lookahead B1 takes the lookahead schedule above.
-    - mis_pair_bf16: B2 (ops/sweep_missing_fused.py, exact missing) rounds
-      each masked pair-Gram product x_na x_nb of its windows to bfloat16
-      (the f32 product rounded once, then to bf16; the mask stays exact)
-      and sums in float32.  The blocked and scan engines ignore it.
-      B2's windows are 8 predictors wide where the JAX kernel's are
-      mis_sub (16 by default); in float32 the window does not change the
-      math, but under this flag it decides which corrections are rounded,
-      so the port's fit equals the JAX package's with
-      Config(mis_sub=8, mis_pair_bf16=True) (ROADMAP.md C6;
-      tests/bf16_departures.py measures the distance at mis_sub=16).
+    - mis_pair_bf16: B2 (ops/sweep_missing_fused.py, exact missing) takes
+      the JAX kernel's windows of mis_sub predictors (16 by default,
+      clipped to the block) and rounds each masked pair-Gram product
+      x_na x_nb inside a window to bfloat16 (the f32 product rounded once,
+      then to bf16; the mask stays exact), summed in float32.  The flag
+      reaches B2 only where the JAX package sends the sweep to its fused
+      kernel: float32, block_size 128 and a padded p that is a multiple of
+      128 (models/global_local.py:_b2_pair_bf16); everywhere else, as the
+      JAX package's blocked and scan engines, the fit is the float32 fit.
+      There mis_sub must divide 128 (ValueError) and be at most 16
+      (NotImplementedError, ROADMAP.md C6b).  In float32 the window does
+      not change the math, and mis_sub and mis_wgroup are ignored.
     """
     block_size: int = 128
     dtype: Any = torch.float32

@@ -6,7 +6,8 @@
 
 Builds the CUDA sweep kernels from the sources in this checkout (one nvcc
 per source, started together) and prints ptxas's registers and spills
-(no kernel may spill), then:
+(no kernel may spill), and the host preparation pass
+(atlasqtl_tpu_torch/native/fastprep.cpp, g++), then:
   kernel  the kernel against its plain PyTorch version on the card, float32,
           one sweep each, identical inputs, all four mode pairs
           (converged/annealed x full/lite), at four shapes (ragged q;
@@ -28,7 +29,9 @@ per source, started together) and prints ptxas's registers and spills
           anneal=(1, 2, 5), maxit=10: ms per sweep and per iteration, host
           init and ELBO seconds, seconds from prepare_data to the first
           iteration, peak device memory, launches (the eQTL phases share
-          each problem's host-drawn initial state, passed as list_init);
+          one host draw of the initial state, passed as list_init);
+          prepare_data's host seconds on the NumPy and the native path,
+          their outputs equal, and the path the fit took;
   dev_init  the eqtl fit with no list_init: the initial state drawn on the
           card; its seconds and the host path's, the drawn moments against
           their theory, peak memory no more than the host-init fit's;
@@ -114,18 +117,20 @@ per source, started together) and prints ptxas's registers and spills
           version at the same shapes, timed beside the bf16 and float32
           instances, with a sim_anneal fit beside the bf16 fit without it;
           B2's pair_bf16 instance
-          (Config.mis_pair_bf16) against its plain version at three
-          MIS_SHAPES (the fit shape, the eQTL cut, the device-memory
-          branch) at the kernel phases' tolerance and under the mean
-          criterion; each timed beside its
-          float32 instance with its bound; sim_anneal fits in each mode
+          (Config.mis_pair_bf16) at the windows mis_sub = 16, 8 and 4
+          against its plain version at three MIS_SHAPES (the fit shape,
+          the eQTL cut, the device-memory branch) at the kernel phases'
+          tolerance and under the mean criterion, timed at each window in
+          turns with the float32 instance, with its phase clocks and
+          registers; each timed beside its float32 instance with its
+          bound; sim_anneal fits in each mode
           (complete and impute under mxu_bf16, exact under mis_pair_bf16)
           on the graph loop beside the float32 fit from the same draw (AUC
           >= 0.95, PIPs within 5e-2, the instance launched once per
           iteration); the eQTL cut (maxit 10) in both B1 instances from one
           device draw, ms per sweep and per iteration.
-Each phase prints one JSON line; then a `kernels` line, and last the
-contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
+Each phase prints one JSON line; then each phase's seconds, a `kernels`
+line, and last the contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
 """
 import dataclasses
@@ -921,35 +926,92 @@ def eqtl_problem(missing_frac=0.0):
     """The eQTL shape's seeded (x, y) with a share missing_frac of Y
     missing, and the initial state atlasqtl(user_seed=1) would draw for it
     on the host, made once per missing fraction and shared by the phases
-    that fit it (the host init takes ~30-40 s at this shape): (x, y, init,
-    host seconds of the init)."""
+    that fit it: (x, y, init, host seconds of the init).  The host draw
+    takes ~30 s at this shape and is made once: the problems share x and
+    the draws, and auto_set_init reads Y only for tau's point value (1 /
+    the median column variance), on which sig2_beta's draw depends only as
+    a scale, 1 / Gamma(2, scale=sig2_inv tau); so a second problem's init
+    is the first one's with its own tau and sig2_beta rescaled, the state
+    auto_set_init draws for it, to rounding."""
     if missing_frac not in _EQTL:
         from atlasqtl_tpu_torch.io.prepare import prepare_data
         from atlasqtl_tpu_torch.inference import elicitation as elic
         n, p, q, p_act, q_hit = EQTL_SHAPE
         x, y = simulate(n, p, q, 1, p_act, q_hit, missing_frac=missing_frac)
-        dat = prepare_data(y, x, 0.1, 10, 1, 0)
-        t0 = time.perf_counter()
-        init = elic.auto_set_init(dat.y, dat.x.shape[1], (5, 25), float(q), 1)
-        _EQTL[missing_frac] = (x, y, init, time.perf_counter() - t0)
+        if _EQTL:
+            init, init_s = next(iter(_EQTL.values()))[2:]
+            tau = 1.0 / np.nanmedian(np.nanvar(y, axis=0, ddof=1))
+            init = dataclasses.replace(
+                init, tau_vb=np.full(q, tau),
+                sig2_beta_vb=init.sig2_beta_vb * (init.tau_vb / tau))
+        else:
+            dat = prepare_data(y, x, 0.1, 10, 1, 0)
+            t0 = time.perf_counter()
+            init = elic.auto_set_init(dat.y, dat.x.shape[1], (5, 25),
+                                      float(q), 1)
+            init_s = time.perf_counter() - t0
+        _EQTL[missing_frac] = (x, y, init, init_s)
     return _EQTL[missing_frac]
 
 
+def prepare_paths(y, x):
+    """prepare_data at (y, x) on the NumPy path and on the native C++ path
+    (atlasqtl_tpu_torch/native), host seconds of each, their outputs equal
+    (X to 1e-12 relative, flags exactly); raises if the native library is
+    not there."""
+    from atlasqtl_tpu_torch import native
+    from atlasqtl_tpu_torch.io import prepare as prep
+
+    if native.get_lib() is None:
+        raise AssertionError(f"native library: {native.get_lib.error}")
+    orig, out, dats = prep.standardize_and_flag, {}, {}
+    try:
+        for path, flag in (("numpy", False), ("native", True)):
+            prep.standardize_and_flag = (
+                lambda xx, use_native=None, f=flag: orig(xx, use_native=f))
+            t0 = time.perf_counter()
+            dats[path] = prep.prepare_data(y, x, 0.1, 10, 1, 0)
+            out[f"prepare_{path}_s"] = time.perf_counter() - t0
+    finally:
+        prep.standardize_and_flag = orig
+    a, b = dats["numpy"], dats["native"]
+    if not (np.allclose(a.x, b.x, rtol=1e-12, atol=0)
+            and np.array_equal(a.bool_rmvd_x, b.bool_rmvd_x)
+            and a.rmvd_coll_x == b.rmvd_coll_x):
+        raise AssertionError("prepare_data: the native and NumPy paths "
+                             "differ at the eQTL shape")
+    return out
+
+
 def eqtl_run(phase, missing_frac, launch_mod, launch_fn, counter, bound,
-             **fit_kw):
+             prepare=False, **fit_kw):
     """One atlasqtl() at the eQTL shape under `timed_run`'s timers, from
-    eqtl_problem's shared initial state (list_init)."""
+    eqtl_problem's shared initial state (list_init); prepare: also
+    prepare_data's host seconds on both paths (`prepare_paths`) and the
+    path the fit's prepare_data took."""
     import torch
     import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch import native
 
     x, y, init, init_s = eqtl_problem(missing_frac)
     n, p = x.shape
     q = y.shape[1]
-    res, stats = timed_run(
-        lambda: at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5), maxit=10,
-                            dtype=torch.float32, verbose=0, user_seed=1,
-                            device=DEVICE, list_init=init, **fit_kw),
-        (launch_mod, launch_fn), counter, bound)
+    paths = prepare_paths(y, x) if prepare else {}
+    native_calls = []
+    orig = native.standardize_and_hash
+    native.standardize_and_hash = lambda xx: (native_calls.append(1)
+                                              or orig(xx))
+    try:
+        res, stats = timed_run(
+            lambda: at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 5),
+                                maxit=10, dtype=torch.float32, verbose=0,
+                                user_seed=1, device=DEVICE, list_init=init,
+                                **fit_kw),
+            (launch_mod, launch_fn), counter, bound)
+    finally:
+        native.standardize_and_hash = orig
+    stats.update(paths, fit_prepare_path="native" if native_calls
+                 else "numpy")
     stats["host_init_s"] = init_s  # drawn once, by eqtl_problem
     # the host path from prepare_data to the first iteration: the draw
     # (eqtl_problem's) and then build_data/build_state
@@ -983,7 +1045,7 @@ def b2_launch_bound(a, k):
 def phase_eqtl():
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
     eqtl_run("eqtl", 0.0, sf, "_sweep_fused_cuda", sf.sweep_fused,
-             b1_launch_bound)
+             b1_launch_bound, prepare=True)
 
 
 def phase_eqtl_missing():
@@ -2205,8 +2267,9 @@ BF16_PEAK = 989e12    # H100 SXM bf16 dense on the tensor cores, FLOP/s
 # columns), the fit shape (32-column slices) and the eQTL cut (40)
 BF16_SHAPES = ((120, 120, 200), (300, 2000, 500), (1000, 2048, 10000))
 # B2's pair_bf16 instance: the fit shape, the eQTL cut, the device-memory
-# branch
+# branch; at the windows Config.mis_sub = 16 (the default), 8 and 4
 BF16_MIS_SHAPES = (MIS_SHAPES[2], MIS_SHAPES[3], MIS_SHAPES[9])
+BF16_MIS_SUBS = (16, 8, 4)
 BF16_RATIO = 20       # kernel's mean error <= the mode's mean distance / 20
 BF16_FIT_PIP = 5e-2   # a bf16 fit's PIPs against the float32 fit's
 
@@ -2312,10 +2375,11 @@ def phase_bf16_modes():
     with its lookahead variant under Config.sweep_lookahead;
     Config.mis_pair_bf16 on B2's): each instance against its plain
     version (B1 and its lookahead variant under the mean criterion, B2 at
-    the kernel phases' tolerance and under the mean criterion), repeatable
-    bit for bit, timed beside its float32 instance in the same call (CUDA
-    events, median of 9; the lookahead variant beside the bf16 and float32
-    instances) with its bound; B1's SASS holds bf16 HMMA and its float32
+    the kernel phases' tolerance and under the mean criterion at each
+    window of BF16_MIS_SUBS), repeatable bit for bit, timed beside its
+    float32 instance in the same call (CUDA events, median of 9; the
+    lookahead variant beside the bf16 and float32 instances, B2's windows
+    in turns, `b2_turns`) with its bound; B1's SASS holds bf16 HMMA and its float32
     instances none; sim_anneal fits in each mode (complete, lookahead and
     impute under mxu_bf16, exact under mis_pair_bf16) on the graph loop,
     each beside the float32 fit from the same draw (the lookahead fit also
@@ -2492,49 +2556,46 @@ def phase_bf16_modes():
     out["b1"] = b1_cases
     out["b1_lookahead"] = la_cases
 
-    # ---- B2's pair_bf16 instance against its plain version ----
+    # ---- B2's pair_bf16 instance against its plain version, at each
+    # window mis_sub ----
     names = ("gam", "mu", "fitted", "z_row", "z_col")
     b2_cases, b2_timing = [], None
+    out["b2_registers"] = {
+        k: v for k, v in ptxas_summary(sf.build.ptxas_report).items()
+        if "sweep_missing_kernel" in k}
     for n, p, q, frac in BF16_MIS_SHAPES:
         for c in (1.0, 0.5):
             ops, block = mis_kernel_inputs(n, p, q, c, frac)
-            kw = dict(block_size=block, pair_bf16=True)
-            got = sm.sweep_missing_fused(*ops, **kw)
-            again = sm.sweep_missing_fused(*ops, **kw)
-            ref = sm.sweep_missing_fused_plain(*ops, **kw)
             f32 = sm.sweep_missing_fused_plain(*ops, block_size=block)
             f32_kernel = sm.sweep_missing_fused(*ops, block_size=block)
-            torch.cuda.synchronize()
-            label = (f"B2 pair_bf16 vs plain at n={n} p={p} q={q} c={c}")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{label}: two launches differ")
             dims = (ops[0].shape[0], ops[0].shape[1], ops[6].shape[1],
                     ops[4].shape[1])
-            # B2's own tolerance, and the mean criterion, which a kernel
-            # that rounds no pair product (or others) does not meet
-            case = dict(n=n, p=p, q=q, missing_frac=frac, block=block, c=c,
-                        plan=sm.missing_launch_plan(dims[0], dims[2], block,
-                                                    dims[3]),
-                        max_abs_err=held(label, got, ref, names),
-                        err=mean_held(label, got, ref, f32, f32_kernel,
-                                      names))
-            if p >= 2000 and c == 1.0:
-                kernel = lambda: sm.sweep_missing_fused(*ops, **kw)
-                kernel()
+            plan = sm.missing_launch_plan(dims[0], dims[2], block, dims[3])
+            for sub in BF16_MIS_SUBS:
+                kw = dict(block_size=block, pair_bf16=True, sub=sub)
+                got = sm.sweep_missing_fused(*ops, **kw)
+                again = sm.sweep_missing_fused(*ops, **kw)
+                ref = sm.sweep_missing_fused_plain(*ops, **kw)
                 torch.cuda.synchronize()
-                case.update(
-                    clocks=sm.phase_clocks(), ms=cuda_ms(kernel, 9),
-                    f32_ms=cuda_ms(lambda: sm.sweep_missing_fused(
-                        *ops, block_size=block), 9),
-                    ms_2=cuda_ms(kernel, 9),
-                    plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
-                        *ops, **kw), 3))
-                case["bound_ms"], case["bound_by"] = mis_bound_ms(*dims)
-                case["pct_of_bound"] = pct(case["bound_ms"], case["ms"])
-                b2_timing = case
-            b2_cases.append(case)
-            emit({"phase": "bf16_modes", "b2_case": case})
-            del ops, got, again, ref, f32, f32_kernel
+                label = (f"B2 pair_bf16 mis_sub={sub} vs plain at n={n} "
+                         f"p={p} q={q} c={c}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: two launches differ")
+                # B2's own tolerance, and the mean criterion, which a
+                # kernel that rounds no pair product (or others) does not
+                # meet
+                case = dict(n=n, p=p, q=q, missing_frac=frac, block=block,
+                            c=c, mis_sub=sub, plan=plan,
+                            max_abs_err=held(label, got, ref, names),
+                            err=mean_held(label, got, ref, f32, f32_kernel,
+                                          names))
+                b2_cases.append(case)
+                emit({"phase": "bf16_modes", "b2_case": case})
+                del got, again, ref
+            if p >= 2000 and c == 1.0:
+                b2_timing = b2_turns(ops, block, dims)
+                emit({"phase": "bf16_modes", "b2_timing": b2_timing})
+            del ops, f32, f32_kernel
             torch.cuda.empty_cache()
     out["b2"] = b2_cases
 
@@ -2642,6 +2703,40 @@ def phase_bf16_modes():
                                  for e in cs["err"].values())))
 
 
+def b2_turns(ops, block, dims):
+    """B2's float32 instance and its pair_bf16 instance at each window of
+    BF16_MIS_SUBS timed in turns on one problem (f32, 16, 8, 4, then 4, 8,
+    16, f32; CUDA events, median of 9 each), with each one's phase clocks
+    and the plain version's time at the default window."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    kern = {sub: (lambda s=sub: sm.sweep_missing_fused(
+        *ops, block_size=block, pair_bf16=True, sub=s))
+        for sub in BF16_MIS_SUBS}
+    kern["f32"] = lambda: sm.sweep_missing_fused(*ops, block_size=block)
+    order = ["f32", *BF16_MIS_SUBS]
+    turns = {k: [] for k in order}
+    for k in order + order[::-1]:
+        turns[k].append(cuda_ms(kern[k], 9))
+    clocks = {}
+    for k in order:
+        kern[k]()
+        torch.cuda.synchronize()
+        clocks[str(k)] = sm.phase_clocks()
+    sub = BF16_MIS_SUBS[0]
+    t = dict(n=dims[0], p=dims[1], q=dims[2], block=block, mis_sub=sub,
+             ms=turns[sub][0], ms_2=turns[sub][1], f32_ms=turns["f32"][0],
+             f32_ms_2=turns["f32"][1],
+             ms_by_mis_sub={str(k): turns[k] for k in BF16_MIS_SUBS},
+             clocks=clocks,
+             plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
+                 *ops, block_size=block, pair_bf16=True, sub=sub), 3))
+    t["bound_ms"], t["bound_by"] = mis_bound_ms(*dims)
+    t["pct_of_bound"] = pct(t["bound_ms"], t["ms"])
+    return t
+
+
 def bf16_mode(res, instance):
     """A kernel line's entry for one bf16 instance from phase_bf16_modes:
     its launches on the mode's sim_anneal fit, its time, its float32
@@ -2650,7 +2745,8 @@ def bf16_mode(res, instance):
     return dict(instance=instance, launches=res["launches"],
                 shape={k: t[k] for k in ("n", "p", "q", "block")},
                 ms=t["ms"], f32_ms=t["f32_ms"], plain_ms=t["plain_ms"],
-                **{k: t[k] for k in ("bf16_ms",) if k in t},
+                **{k: t[k] for k in ("bf16_ms", "mis_sub", "ms_by_mis_sub",
+                                     "f32_ms_2") if k in t},
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 pct_of_bound=t["pct_of_bound"], library_ms=None,
                 max_abs_err=res["max_abs_err"],
@@ -2677,55 +2773,52 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    from atlasqtl_tpu_torch import native
     t0 = time.perf_counter()
     lib = sf.build(verbose=True)
     regs = ptxas_summary(sf.build.ptxas_report)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name, "ptxas": regs})
+    t1 = time.perf_counter()
+    native_lib = native.build()   # the host preparation pass, g++
+    emit({"phase": "build", "seconds": t1 - t0, "library": lib.name,
+          "native_seconds": time.perf_counter() - t1,
+          "native_library": native_lib.name, "ptxas": regs})
     spills = {k: v for k, v in regs.items()
               if v.get("spill_stores") or v.get("spill_loads")}
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
 
-    max_abs, timing, launches = None, None, None
-    mis_max_abs, mis_timing, mis_launches = None, None, {}
-    if "kernel" in phases:
-        max_abs, timing = phase_kernel()
-    if "fit" in phases:
-        launches = phase_fit()
-    if "eqtl" in phases:
-        phase_eqtl()
-    if "dev_init" in phases:
-        phase_dev_init()
-    if "mis_kernel" in phases:
-        mis_max_abs, mis_timing = phase_mis_kernel()
-    if "missing_fit" in phases:
-        mis_launches = phase_missing_fit()
-    if "eqtl_missing" in phases:
-        phase_eqtl_missing()
-    if "block_fits" in phases:
-        phase_block_fits()
-    gs_max_abs, gs_timing, stag_max_abs, stag_timing = None, None, None, None
-    route_launches = {}
-    if "gs_kernel" in phases:
-        gs_max_abs, gs_timing = phase_gs_kernel()
-    if "stag_kernel" in phases:
-        stag_max_abs, stag_timing = phase_stag_kernel()
-    if "sweeps_fit" in phases:
-        route_launches = phase_sweeps_fit()
-    if "device_loop" in phases:
-        phase_device_loop()
-    route_profile_ = None
-    if "eqtl_sweeps" in phases:
-        route_profile_ = phase_eqtl_sweeps()
-    if "scaling" in phases:
-        phase_scaling()
-    replica = {"b1": None, "b2": None}
-    if "replica_kernel" in phases:
-        replica, _ = phase_replica_kernel()
-    if "a8_fit" in phases:
-        phase_a8_fit()
-    bf16 = phase_bf16_modes() if "bf16_modes" in phases else None
+    seconds = {}
+
+    def run(name, fn, default=None):
+        """Phase `name` if it was asked for, its seconds kept."""
+        if name not in phases:
+            return default
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    max_abs, timing = run("kernel", phase_kernel, (None, None))
+    launches = run("fit", phase_fit)
+    run("eqtl", phase_eqtl)
+    run("dev_init", phase_dev_init)
+    mis_max_abs, mis_timing = run("mis_kernel", phase_mis_kernel,
+                                  (None, None))
+    mis_launches = run("missing_fit", phase_missing_fit, {})
+    run("eqtl_missing", phase_eqtl_missing)
+    run("block_fits", phase_block_fits)
+    gs_max_abs, gs_timing = run("gs_kernel", phase_gs_kernel, (None, None))
+    stag_max_abs, stag_timing = run("stag_kernel", phase_stag_kernel,
+                                    (None, None))
+    route_launches = run("sweeps_fit", phase_sweeps_fit, {})
+    run("device_loop", phase_device_loop)
+    route_profile_ = run("eqtl_sweeps", phase_eqtl_sweeps)
+    run("scaling", phase_scaling)
+    replica = run("replica_kernel", phase_replica_kernel,
+                  ({"b1": None, "b2": None}, None))[0]
+    run("a8_fit", phase_a8_fit)
+    bf16 = run("bf16_modes", phase_bf16_modes)
+    emit({"phase_seconds": seconds})
     kernels = []
     if timing is not None:
         kernels.append({
@@ -2770,7 +2863,7 @@ def main():
             "plan": mis_timing["plan"], "replica_ms": replica["b2"],
             "modes": None if bf16 is None else {"mis_pair_bf16": bf16_mode(
                 bf16["b2"], "csrc/sweep_missing_fused.cu:"
-                "sweep_missing_kernel<FM_ON_CHIP, true>")}})
+                "sweep_missing_kernel<FM_ON_CHIP, SUB>, SUB = mis_sub")}})
     if gs_timing is not None:
         kernels.append({
             "name": "block_gs", "route": "cuda",

@@ -15,8 +15,8 @@ Tolerances.
 - B2 under mis_pair_bf16: the rounded quantity, the float32 product of
   one sample row, is formed the same whatever the order of the sums, so
   B2's own tolerances hold (tests/test_torch_missing.py:_check_b2: gam
-  atol 5e-5, the rest 5e-4), against the JAX kernel at sub=8, the port's
-  window (ROADMAP.md C6).
+  atol 5e-5, the rest 5e-4) against the JAX kernel at the same window
+  sub (Config.mis_sub), with the mean criterion above.
 - Fits: PIPs within 5e-2 of the float32 fit, the JAX package's own bound
   for the mode (tests/test_pallas.py:test_fused_mxu_bf16_close_to_f32).
 """
@@ -282,63 +282,104 @@ def _b2_masked(out, data):
             for name, v in zip(MIS_OUT, out)]
 
 
-def _b2_port(c, pair_bf16):
+def _b2_port(c, pair_bf16, **sub):
     data, state, consts, sig2_inv = _b2_problem(c)
     return tsm.sweep_missing_fused(*_b2_operands(data, state, consts,
                                                  sig2_inv),
-                                   block_size=128, pair_bf16=pair_bf16)
+                                   block_size=128, pair_bf16=pair_bf16, **sub)
+
+
+def _b2_held_to_jax(c, jax_sub, **port_sub):
+    """The port's plain pair_bf16 sweep (window `port_sub`, default the
+    wrapper's) against the JAX kernel's at window `jax_sub`: within B2's
+    tolerances and under the mean criterion, while the port's float32
+    sweep fails B2's tolerances there (the mode moves the result past
+    them, so they separate it).  Returns the mean-criterion ratios."""
+    data = _b2_problem(c)[0]
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    ref = _jax_b2(c, jax_sub, True)
+    got, f32 = _b2_port(c, True, **port_sub), _b2_port(c, False)
+    _check_b2(got, ref, msk)
+    with pytest.raises(AssertionError):
+        _check_b2(f32, ref, msk)
+    ratios = _mean_criterion(got, _b2_masked(ref, data), f32, MIS_OUT,
+                             max_names=())
+    assert min(ratios.values()) > MEAN_RATIO
+    return ratios
 
 
 @pytest.mark.parametrize("c", [1.0, 0.5])
 def test_b2_plain_pair_bf16_matches_jax_kernel(c):
-    """The windowed plain sweep with bf16 pair products against the JAX
-    kernel in interpret mode with pair_bf16=True at sub=8 (the port's
-    window), wgroup=4, within B2's tolerances and under the mean
-    criterion.  The port's float32 sweep fails B2's tolerances against that
-    output: the mode moves the result past them here, so they separate
-    it."""
-    data = _b2_problem(c)[0]
-    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
-    ref = _jax_b2(c, 8, True)
-    got, f32 = _b2_port(c, True), _b2_port(c, False)
-    _check_b2(got, ref, msk)
-    with pytest.raises(AssertionError):
-        _check_b2(f32, ref, msk)
-    masked = _b2_masked(ref, data)
-    ratios = _mean_criterion(got, masked, f32, MIS_OUT, max_names=())
-    assert min(ratios.values()) > MEAN_RATIO
+    """The windowed plain sweep with bf16 pair products at the wrapper's
+    default window (16, Config.mis_sub's default) against the JAX kernel
+    in interpret mode with pair_bf16=True at its default sub=16, wgroup=4,
+    within B2's tolerances and under the mean criterion."""
+    _b2_held_to_jax(c, 16)
 
 
-def c6_departure(c):
-    """ROADMAP.md C6 on `_b2_problem(c)`: the port's pair_bf16 sweep (windows
-    of 8) against the JAX kernel's with pair_bf16 at sub=16 (the default
-    Config.mis_sub) and at sub=8, beside the mode's own distance from
-    float32 in JAX at sub=16.  Per output: {"port_vs_jax", "mode",
-    "port_vs_jax_8"}, each (mean, max)."""
-    data = _b2_problem(c)[0]
-    got = _b2_port(c, True)
-    j16, f16, j8 = (_b2_masked(_jax_b2(c, *k), data)
-                    for k in ((16, True), (16, False), (8, True)))
-    return {name: dict(port_vs_jax=_dist(got[i], j16[i]),
-                       mode=_dist(f16[i], j16[i]),
-                       port_vs_jax_8=_dist(got[i], j8[i]))
-            for i, name in enumerate(MIS_OUT)}
-
-
+@pytest.mark.parametrize("sub", [16, 8, 4])
 @pytest.mark.parametrize("c", [1.0, 0.5])
-def test_b2_pair_bf16_window_departure(c):
-    """C6: with pair_bf16 the port is the JAX kernel at sub=8, not at the
-    default sub=16, whose windows round other corrections: against that
-    one the port fails B2's tolerances, yet stands less than half as far
-    in the mean as the mode's own distance from float32 there
-    (tests/bf16_departures.py prints the distances)."""
+def test_b2_plain_pair_bf16_matches_jax_at_mis_sub(c, sub):
+    """C6, repaired: at each window sub the port's plain pair_bf16 sweep is
+    the JAX kernel's at that sub (B2's tolerances and the mean criterion);
+    the windows decide which corrections are rounded, so at another sub
+    the port fails B2's tolerances against it (tests/bf16_departures.py
+    prints the distances)."""
+    _b2_held_to_jax(c, sub, sub=sub)
     data = _b2_problem(c)[0]
     msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    other = 8 if sub == 16 else 16
     with pytest.raises(AssertionError):
-        _check_b2(_b2_port(c, True), _jax_b2(c, 16, True), msk)
-    for name, d in c6_departure(c).items():
-        assert d["port_vs_jax"][0] < d["mode"][0] / 2, (name, d)
-        assert d["port_vs_jax_8"][0] < d["port_vs_jax"][0] / 10, (name, d)
+        _check_b2(_b2_port(c, True, sub=other), _jax_b2(c, sub, True), msk)
+
+
+def c6_distances(c):
+    """The port's pair_bf16 sweep on `_b2_problem(c)` against the JAX
+    kernel's with pair_bf16 at sub = 16, 8 and 4, each at the same sub,
+    beside the mode's own distance from float32 in JAX at sub = 16.  Per
+    sub and output: {"port_vs_jax", "mode"}, each (mean, max)."""
+    data = _b2_problem(c)[0]
+    f16 = _b2_masked(_jax_b2(c, 16, False), data)
+    out = {}
+    for sub in (16, 8, 4):
+        got = _b2_port(c, True, sub=sub)
+        ref = _b2_masked(_jax_b2(c, sub, True), data)
+        out[sub] = {name: dict(port_vs_jax=_dist(got[i], ref[i]),
+                               mode=_dist(f16[i], ref[i]))
+                    for i, name in enumerate(MIS_OUT)}
+    return out
+
+
+def test_pair_window_follows_the_jax_kernel():
+    """The window is mis_sub clipped to the block, as the JAX kernel clips
+    it; one that does not divide the block raises ValueError (the JAX
+    kernel's assert), one B2 does not take NotImplementedError naming
+    ROADMAP.md C6b; check_config raises the same under the mode at block
+    128, and the sweep raises before it runs."""
+    assert [tsm.pair_window(s, 128) for s in (1, 2, 4, 8, 16)] == \
+        [1, 2, 4, 8, 16]
+    assert tsm.pair_window(16, 8) == 8 and tsm.pair_window(16, 80) == 16
+    for sub, block in ((16, 120), (16, 40), (3, 128), (8, 12)):
+        with pytest.raises(ValueError, match="must divide"):
+            tsm.pair_window(sub, block)
+    for sub in (32, 64, 128):
+        with pytest.raises(NotImplementedError, match="C6b"):
+            tsm.pair_window(sub, 128)
+    with pytest.raises(NotImplementedError, match="C6b"):
+        tsm.pair_window(12, 96)
+    tgl.check_config(at.Config(mis_pair_bf16=True))
+    tgl.check_config(at.Config(mis_sub=32))   # float32: mis_sub is ignored
+    tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=32,
+                               block_size=256))   # the flag is ignored
+    with pytest.raises(ValueError, match="must divide"):
+        tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=24))
+    with pytest.raises(NotImplementedError, match="C6b"):
+        tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=32))
+    ops = _b2_operands(*_b2_problem(1.0))
+    with pytest.raises(ValueError, match="must divide"):
+        tsm.sweep_missing_fused(*ops, block_size=128, pair_bf16=True, sub=48)
+    # float32 ignores the window
+    tsm.sweep_missing_fused(*ops, block_size=128, sub=48)
 
 
 @pytest.mark.parametrize("c", [1.0, 0.5])
@@ -399,18 +440,18 @@ def test_b2_pair_bf16_replica_axis():
             assert torch.equal(a[r], b)
 
 
-def _port_problem(missing_frac=0.0, seed=5):
-    y, x, _ = simulate_fixture(n=100, p=75, p_act=8, q=20, seed=seed,
+def _port_problem(missing_frac=0.0, seed=5, p=75):
+    y, x, _ = simulate_fixture(n=100, p=p, p_act=8, q=20, seed=seed,
                                missing_frac=missing_frac)
     return y, x
 
 
-def _port_iteration(cfg, missing_frac=0.0):
-    """One cavi_iteration of the port on the CPU from a host draw: the
-    returned state's fields."""
+def _port_iteration(cfg, missing_frac=0.0, p=75):
+    """One cavi_iteration of the port on the CPU from a host draw at
+    n = 100, q = 20 and `p` predictors: the returned state's fields."""
     from atlasqtl_tpu_torch.io.prepare import prepare_data
     from atlasqtl_tpu_torch.inference import elicitation as elic
-    y, x = _port_problem(missing_frac)
+    y, x = _port_problem(missing_frac, p=p)
     dat = prepare_data(y, x, 0.1, 1000, 1, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
@@ -452,12 +493,14 @@ def test_bf16_flags_leave_other_engines_alone(route, missing):
 def test_bf16_flags_reach_b1_and_b2():
     """On sweep="fused" the flags change the iteration (B1 under
     mxu_bf16, with its bf16 copy of x made once in build_data; B2 under
-    mis_pair_bf16)."""
+    mis_pair_bf16, at p = 250, whose padded p, 256, is a multiple of 128,
+    as the JAX package's fused kernel needs: `_b2_pair_bf16`)."""
     cfg = at.Config(dtype=torch.float32, sweep="fused")
-    for missing, flag in ((0.0, "mxu_bf16"), (0.15, "mis_pair_bf16")):
-        _, s0 = _port_iteration(cfg, missing)
+    for missing, flag, p in ((0.0, "mxu_bf16", 75),
+                             (0.15, "mis_pair_bf16", 250)):
+        _, s0 = _port_iteration(cfg, missing, p)
         d1, s1 = _port_iteration(dataclasses.replace(cfg, **{flag: True}),
-                                 missing)
+                                 missing, p)
         assert (d1.x_bf16 is not None) == (flag == "mxu_bf16")
         if d1.x_bf16 is not None:
             assert d1.x_bf16.dtype == torch.bfloat16
@@ -465,11 +508,33 @@ def test_bf16_flags_reach_b1_and_b2():
         assert not torch.equal(s0.gam, s1.gam), flag
 
 
-def _fit(cfg, missing_frac, seed=5):
+@pytest.mark.parametrize("block,p,reaches", [(256, 75, False),
+                                             (64, 75, False),
+                                             (128, 75, False),
+                                             (128, 250, True)])
+def test_c9_pair_bf16_reaches_b2_only_at_block_128(block, p, reaches):
+    """C9: under Config(mis_pair_bf16=True, sweep="fused") one
+    cavi_iteration on the CPU is the iteration without the flag, bit for
+    bit, wherever the JAX package would not take its fused kernel: block
+    256 and 64 (p = 75 pads to 80 and 128), and block 128 at p = 75
+    (padded to 80, not a multiple of 128).  At block 128 with p = 250
+    (padded to 256) the flag reaches B2 and the iteration differs."""
+    cfg = at.Config(dtype=torch.float32, sweep="fused", block_size=block)
+    flag = dataclasses.replace(cfg, mis_pair_bf16=True)
+    d0, s0 = _port_iteration(cfg, 0.15, p)
+    d1, s1 = _port_iteration(flag, 0.15, p)
+    assert tgl._engine(flag, d1) == "b2"
+    assert tgl._b2_pair_bf16(flag, d1) == reaches
+    same = [torch.equal(getattr(s0, f.name), getattr(s1, f.name))
+            for f in dataclasses.fields(s0) if getattr(s0, f.name) is not None]
+    assert all(same) != reaches
+
+
+def _fit(cfg, missing_frac, seed=5, p=75):
     from atlasqtl_tpu_torch.io.prepare import prepare_data
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.inference.driver import fit_global_local
-    y, x = _port_problem(missing_frac, seed)
+    y, x = _port_problem(missing_frac, seed, p=p)
     dat = prepare_data(y, x, 0.1, 1000, 1, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
@@ -487,14 +552,16 @@ def _fit(cfg, missing_frac, seed=5):
                                           ("mxu_bf16", "impute"),
                                           ("mis_pair_bf16", "exact")])
 def test_small_bf16_fit_converges_near_f32(flag, missing):
-    """A small fit (n=100, p=75, q=20; 15% NaN for the missing modes) on
-    sweep="fused" in each mode converges, its PIPs within 5e-2 of the
-    float32 fit's from the same initial state."""
+    """A small fit (n=100, p=75, q=20; 15% NaN for the missing modes; p =
+    250 under mis_pair_bf16, which reaches B2 only where the padded p is a
+    multiple of 128) on sweep="fused" in each mode converges, its PIPs
+    within 5e-2 of the float32 fit's from the same initial state."""
     frac = 0.0 if missing is None else 0.15
+    p = 250 if flag == "mis_pair_bf16" else 75
     cfg = at.Config(dtype=torch.float32, sweep="fused",
                     missing=missing or "exact")
-    ref, ref_gam = _fit(cfg, frac)
-    res, gam = _fit(dataclasses.replace(cfg, **{flag: True}), frac)
+    ref, ref_gam = _fit(cfg, frac, p=p)
+    res, gam = _fit(dataclasses.replace(cfg, **{flag: True}), frac, p=p)
     assert ref.converged and res.converged
     assert np.isfinite(gam).all()
     assert np.abs(gam - ref_gam).max() <= FIT_PIP

@@ -1085,23 +1085,26 @@ def test_bf16_kernel_matches_plain(cuda, n, p, q, width, blk, c):
     _bf16_held(got, ref, f32, f32_kernel, NAMES)
 
 
+@pytest.mark.parametrize("sub", [16, 8, 4])
 @pytest.mark.parametrize("c", [1.0, 0.5])
 @pytest.mark.parametrize("n,p,q,blk", [(80, 250, 40, 128), (100, 75, 48, 80),
                                        (100, 512, 40, 256),
                                        (8000, 128, 256, 128)])
-def test_pair_bf16_kernel_matches_plain(cuda, n, p, q, blk, c):
-    """B2's pair_bf16 instance against its windowed plain version at B2's
-    tolerances (the rounded pair products are formed alike) and under the
-    mean criterion: ragged q; n % 8 != 0 and block 80; block 256 in pieces
-    of 128; the device-memory branch (n = 8000)."""
+def test_pair_bf16_kernel_matches_plain(cuda, n, p, q, blk, c, sub):
+    """B2's pair_bf16 instance at window sub (Config.mis_sub) against its
+    plain version in the JAX kernel's windows of sub, at B2's tolerances
+    (the rounded pair products are formed alike) and under the mean
+    criterion: ragged q; n % 8 != 0 and block 80 (80 = 5 x 16, so every
+    sub here divides it); block 256 in pieces of 128; the device-memory
+    branch (n = 8000)."""
     ops, block = _mis_operands(n, p, q, c, block=blk, frac=0.15)
     assert block == blk
-    ref = sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True)
+    kw = dict(block_size=block, pair_bf16=True, sub=sub)
+    ref = sm.sweep_missing_fused(*ops, **kw)
     f32 = sm.sweep_missing_fused(*ops, block_size=block)
     launches = sm.sweep_missing_fused.launches
     inst = sm.sweep_missing_fused.pair_bf16.launches
-    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops],
-                                 block_size=block, pair_bf16=True)
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], **kw)
     f32_kernel = sm.sweep_missing_fused(*[o.to(cuda) for o in ops],
                                         block_size=block)
     torch.cuda.synchronize()
@@ -1114,6 +1117,56 @@ def test_pair_bf16_kernel_matches_plain(cuda, n, p, q, blk, c):
         assert err <= limit, (name, err, limit)
     assert any(not torch.equal(a, b) for a, b in zip(got, f32_kernel))
     _bf16_held(got, ref, f32, f32_kernel, MIS_NAMES)
+
+
+def test_pair_bf16_window_refused(cuda):
+    """A window that does not divide the block (16 at block 120) or that B2
+    does not take (24, which divides it) raises before any launch; at
+    window 1 the mode rounds no pair and the float32 instance runs, bit
+    for bit."""
+    ops, block = _mis_operands(100, 120, 48, 1.0, block=120, frac=0.15)
+    ops = [o.to(cuda) for o in ops]
+    launches = sm.sweep_missing_fused.launches
+    with pytest.raises(ValueError, match="must divide"):
+        sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True, sub=16)
+    with pytest.raises(NotImplementedError, match="C6b"):
+        sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True, sub=24)
+    assert sm.sweep_missing_fused.launches == launches
+    inst = sm.sweep_missing_fused.pair_bf16.launches
+    one = sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True,
+                                 sub=1)
+    f32 = sm.sweep_missing_fused(*ops, block_size=block)
+    assert sm.sweep_missing_fused.pair_bf16.launches == inst
+    for name, a, b in zip(MIS_NAMES, one, f32):
+        assert torch.equal(a, b), name
+
+
+def test_pair_bf16_off_at_block_256(cuda):
+    """C9: an exact-missing fit under Config(mis_pair_bf16=True) at block
+    256, where the JAX package runs its blocked engine and the flag
+    changes nothing, launches B2's float32 instance once per iteration and
+    the pair_bf16 instance never, and is the fit without the flag."""
+    y, x, _ = simulate_fixture(p=250, missing_frac=0.2, seed=5)
+    fits = {}
+    for flag in (False, True):
+        cfg = Config(block_size=256, mis_pair_bf16=flag, device_loop="off")
+        dat = prepare_data(y, x, 0.1, 1000)
+        p, q = dat.x.shape[1], dat.y.shape[1]
+        cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
+        data = gl.build_data(dat.x, dat.y, cfg, cuda)
+        hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
+                               data.y.shape[1], cfg, cuda)
+        state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25),
+                                                  float(q), 11), data, cfg)
+        _reset_counts()
+        res = fit_global_local(data, hyper, state, cfg, anneal=(1, 2, 10),
+                               verbose=0)
+        assert sm.sweep_missing_fused.launches == res.it
+        assert sm.sweep_missing_fused.pair_bf16.launches == 0
+        fits[flag] = res
+    assert fits[True].it == fits[False].it
+    assert fits[True].lb_opt == fits[False].lb_opt
+    assert torch.equal(fits[True].state.gam, fits[False].state.gam)
 
 
 def test_bf16_instances_are_deterministic(cuda):
@@ -1209,9 +1262,11 @@ def test_batched_bf16_equals_single_launches(cuda, kind, m):
             assert torch.equal(a[r], b), r
 
 
-BF16_FITS = {"mxu_bf16": (None, "mxu_bf16"),
-             "impute": ("impute", "mxu_bf16"),
-             "exact": ("exact", "mis_pair_bf16")}
+# missing mode, flag, p: mis_pair_bf16 reaches B2 only where the padded p
+# is a multiple of 128 (C9), so the exact fit takes p = 250 (padded to 256)
+BF16_FITS = {"mxu_bf16": (None, "mxu_bf16", 75),
+             "impute": ("impute", "mxu_bf16", 75),
+             "exact": ("exact", "mis_pair_bf16", 250)}
 
 
 @pytest.mark.parametrize("mode", list(BF16_FITS))
@@ -1221,8 +1276,9 @@ def test_bf16_graph_loop_matches_host_loop(cuda, mode):
     routes); under both loops the mode's instance launches once per
     iteration (replays counted) and is the only sweep launched."""
     from atlasqtl_tpu_torch.inference import device_loop as dl
-    missing, flag = BF16_FITS[mode]
-    y, x, _ = simulate_fixture(missing_frac=0.2 if missing else 0.0, seed=5)
+    missing, flag, p = BF16_FITS[mode]
+    y, x, _ = simulate_fixture(p=p, missing_frac=0.2 if missing else 0.0,
+                               seed=5)
     own = sm.sweep_missing_fused if mode == "exact" else sf.sweep_fused
     inst = own.pair_bf16 if mode == "exact" else own.bf16
     fits = {}
