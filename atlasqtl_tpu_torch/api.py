@@ -2,11 +2,13 @@
 re-design of the reference entry point R/atlasqtl.R:179-322).
 
 The same surface as the reference package.  This port runs the global-local
-and the global-only fits on one device, on complete data or with NaN in Y
+and the global-only fits, on complete data or with NaN in Y
 (missing="exact" or "impute"), with the host loop or the device loop
 (device_loop), with annealing replicas, checkpoints, hotspot traces and
-the full output; `mesh` keeps its place in the signature and raises
-NotImplementedError naming its ROADMAP.md item (A12).
+the full output, on one device or on a mesh of processes
+(parallel/mesh.py: one process per device over torch.distributed, q- or
+p x q-sharded; every rank calls atlasqtl with the same inputs and gets the
+full result).
 
 On a CUDA device with no list_init (and not save_init, one replica,
 model="global_local"), the initial state is drawn on the device
@@ -23,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .types import Config
 from .io.prepare import prepare_data, add_collinear_back
@@ -32,6 +35,7 @@ from .inference.full_output import assemble_full_output
 from .inference.summarise import AtlasQTLResult
 from .models import global_local as gl
 from .ops.annealing import check_annealing
+from .parallel import mesh as pmesh
 
 log = logging.getLogger("atlasqtl_tpu_torch")
 
@@ -69,10 +73,30 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
     model="global" fits the global-scale-only variant.  device_loop "auto"
     (the default) runs the fit loop on the device for a CUDA device and at
     most 2^25 padded cells, "on" and "off" force it (verbose=2 keeps the
-    host loop)."""
-    dev = resolve_device(device)
+    host loop).
+
+    mesh (parallel/mesh.py:make_mesh, after initialize_distributed): every
+    rank of the mesh calls atlasqtl with the same inputs; the fit runs on
+    the mesh's device (`device` None, or the same), q is padded to
+    q_pad_multiple(mesh) (on a CUDA device to 32 per q-shard, whole
+    32-column slices of B1 and B2) and p to whole blocks per p-shard; the
+    initial state is drawn on the host (an unseeded fit takes the mesh's
+    first rank's seed), checkpoints and traces are written by that rank,
+    and every rank returns the full result."""
     if mesh is not None:
-        raise NotImplementedError("mesh (ROADMAP.md A12) is not ported yet")
+        if not isinstance(mesh, pmesh.Mesh):
+            raise TypeError("atlasqtl: mesh must be a Mesh of "
+                            "atlasqtl_tpu_torch.parallel.mesh.make_mesh "
+                            "(ROADMAP.md A12), not a JAX mesh")
+        if not mesh.member:
+            raise ValueError(f"atlasqtl: this rank is not in {mesh}")
+        req = torch.device(mesh.device if device is None else device)
+        if req.type != mesh.device.type or req.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"atlasqtl: device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
+    dev = resolve_device(device)
     if verbose not in (0, 1, 2):
         raise ValueError("verbose must be 0, 1 or 2")
     if batch not in ("y", "0"):
@@ -126,14 +150,29 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
         raise ValueError("df must be an odd natural number (1, 3, 5, ...)")
     if missing not in ("exact", "impute"):
         raise ValueError("missing must be 'exact' or 'impute'")
+    two_d = pmesh.has_p(mesh)
     cfg = Config(block_size=(1 if batch == "0" else block_size), dtype=dtype,
                  tol=float(tol), maxit=int(maxit), df=int(df),
                  shr_fac_inv=shr_fac_inv,
                  thinned_elbo_eval=thinned_elbo_eval, debug=True,
-                 missing=missing, device_loop=device_loop)
+                 missing=missing, device_loop=device_loop,
+                 q_axis=None if mesh is None else pmesh.Q_AXIS,
+                 p_axis=pmesh.P_AXIS if two_d else None)
     gl.check_config(cfg)
 
-    data = gl.build_data(dat.x, dat.y, cfg, dev)
+    q_pad_to, p_shards = 8, 1
+    if mesh is not None:
+        # every rank draws the same init: an unseeded fit takes the first
+        # rank's seed
+        if user_seed is None:
+            user_seed = pmesh.broadcast_int(mesh, int(
+                np.random.SeedSequence().generate_state(1)[0] & 0x7FFFFFFF))
+        q_pad_to = pmesh.q_pad_multiple(mesh)
+        if dev.type == "cuda":
+            q_pad_to = max(q_pad_to, 32 * mesh.n_q)
+        p_shards = mesh.n_p
+    data = gl.build_data(dat.x, dat.y, cfg, dev, q_pad_to=q_pad_to,
+                         p_shards=p_shards)
     hyper = gl.build_hyper(hyper_spec, data.y.shape[1], cfg, dev)
     # the reference's rule (atlasqtl_tpu/api.py:151-163): draw on the
     # device when nothing needs the host InitSpec
@@ -174,6 +213,19 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
         replica_states = [state] + [gl.build_state(
             elic.auto_set_init(dat.y, p, p0, shr_fac_inv, s_), data, cfg)
             for s_ in seeds]
+    full_data, full_hyper = data, hyper
+    if mesh is not None:
+        data = pmesh.shard_data(data, mesh)
+        hyper = pmesh.shard_hyper(hyper, mesh)
+        state = pmesh.shard_state(state, mesh)
+        if replica_states is not None:
+            replica_states = [pmesh.shard_state(s_, mesh)
+                              for s_ in replica_states]
+        # the host writers run on the first rank only
+        if checkpointer is not None:
+            checkpointer = _FirstRankHook(checkpointer, mesh)
+        if tracer is not None:
+            tracer = _FirstRankHook(tracer, mesh)
     res = fit_global_local(data, hyper, state, cfg, anneal=anneal,
                            verbose=verbose, checkpointer=checkpointer,
                            tracer=tracer, model=model,
@@ -182,7 +234,9 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
         # the reference cleans up unconditionally (R/utils.R:614-627); the
         # last snapshots stay after a fit that did not converge, to resume
         checkpointer.clean_up()
-    st = res.state
+    # every rank returns the full matrices
+    st = pmesh.to_host(res.state, mesh)
+    data, hyper = full_data, full_hyper
     host = lambda t: t.detach().to(torch.float64).cpu().numpy()
     gam_vb = host(st.gam)[:p, :q]
     beta_vb = host(st.gam * st.mu_beta)[:p, :q]
@@ -212,3 +266,27 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
         full_state=st if full_output else None,
         full_output=(assemble_full_output(data, hyper, st, cfg, model=model)
                      if full_output else None))
+
+
+class _FirstRankHook:
+    """A host hook (a Checkpointer or a HotspotTrace) under a mesh: every
+    rank gathers the state the hook is called with (the gather is
+    collective), and the mesh's first rank hands the full state to the
+    hook; the others write nothing.  A checkpointer's off iterations
+    (it % rate) gather nothing."""
+
+    def __init__(self, hook, mesh):
+        self.hook, self.mesh = hook, mesh
+        self.first = dist.get_rank() == int(mesh.devices.ravel()[0])
+        self.rate = getattr(hook, "rate", 1)
+
+    def __call__(self, it, state, *args):
+        if it % self.rate:
+            return
+        full = pmesh.to_host(state, self.mesh)
+        if self.first:
+            self.hook(it, full, *args)
+
+    def clean_up(self):
+        if self.first:
+            self.hook.clean_up()

@@ -76,7 +76,7 @@
 //    are shared).  The per-CTA code is unchanged, so each replica's outputs
 //    are those of its own launch with the same cluster bit for bit.
 //
-// The pair_bf16 instances (SUB = 2, 4, 8, 16; SUB = 0 is the float32 one)
+// The pair_bf16 instances (SUB = 2, 4, ..., 128; SUB = 0 is the float32 one)
 // are the TPU kernel's mis_pair_bf16 mode at its window sub = SUB
 // (atlasqtl_tpu/ops/sweep_missing_fused.py:100-215): windows of SUB
 // predictors, each projected against Fm as of its start, every pair a > b
@@ -93,7 +93,17 @@
 //    start at multiples of 16) projects Fm from before the pass's advance
 //    by the even one, which is the 16-window's start, and adds
 //    sum_n m_nk sum_b bf16(x_na x_nb) delta_b over that window's b
-//    (cross_row_update); one row per warp step there, for registers.
+//    (cross_row_update); one row per warp step there, for registers;
+//  - SUB = 32, 64, 128 (DEEP): Fm stays as of the SUB-window's start for
+//    its SUB / 8 chain windows, the deltas of the whole SUB-window stay in
+//    shared memory (SUB x 32 floats), and each chain window j projects Fm
+//    as it stands and adds the rounded cross pairs with every earlier chain
+//    window 0 .. j-1 of the SUB-window; the next SUB-window's first pass
+//    (or the tail) advances Fm by all SUB deltas (deep_pass).  The x rows
+//    of the earlier chain windows are read from device memory, where x (n,
+//    p) is L2-resident at a block's width: on chip, beside the CTA's Fm
+//    rows, they do not fit (nloc x SUB floats).  The pair work per row
+//    grows as SUB (8 SUB / 2 rounded products per predictor on average).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -139,14 +149,21 @@ __device__ long long g_clocks[NCLK];
 // interpolation basis L
 __host__ __device__ constexpr int ws_floats(int R) { return 2 * W + W * R; }
 
+// the deltas a CTA keeps: those of its window, or under a DEEP pair_bf16
+// window (SUB > 2 W) those of the whole SUB-window
+__host__ __device__ constexpr int delta_rows(int sub) {
+  return sub > 2 * W ? sub : W;
+}
+
 // shared memory of one CTA: two sets of window operand tiles, two windows
-// of masked gam, the window's deltas, two cluster-visible sum buffers, the
-// partial slots, the phase clocks, three sets of window scalars, the
+// of masked gam, the deltas (delta_rows), two cluster-visible sum buffers,
+// the partial slots, the phase clocks, three sets of window scalars, the
 // slice's interpolation nodes; on chip also nloc rows of Fm, two x slots of
 // W per row and one mask word per row
-size_t smem_bytes(bool on_chip, int nloc, int R) {
+size_t smem_bytes(bool on_chip, int nloc, int R, int sub) {
   return sizeof(float) *
-         ((size_t)2 * NWT * W * QS + 2 * W * QS + W * QS + 2 * NRH * QS +
+         ((size_t)2 * NWT * W * QS + 2 * W * QS + (size_t)delta_rows(sub) * QS +
+          2 * NRH * QS +
           NSLOT * NRH * QS + CLKF + NWS * ws_floats(R) + 3 * R * QS +
           (on_chip ? (size_t)nloc * (QS + 2 * W + 1) : 0));
 }
@@ -288,6 +305,73 @@ __device__ __forceinline__ float cross_row_update(float f, float m,
   }
   pair_sums<W>(xv, m, v);
   return fmaf(m, s, f);
+}
+
+// One pass over this CTA's rows under a DEEP pair_bf16 window (SUB > 2 W).
+// jadv >= 0: first advance Fm by the SUB deltas in D_s of the SUB-window
+// that starts at predictor jadv (f += m * sum_b x_b delta_b, x from device
+// memory).  proj: then add this chain window's projections (x in xp, as
+// window_pass) of Fm as it stands, the start of its SUB-window (first
+// predictor jS), the rounded cross pairs with the ncross earlier chain
+// windows of that SUB-window (m sum_b bf16(x_a x_b) delta_b, x from device
+// memory, deltas in D_s) and its own rounded pairs into v.  One row per
+// warp step, for registers.
+template <bool ON_CHIP, int SUB>
+__device__ __forceinline__ void deep_pass(
+    float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
+    float* __restrict__ fm, const float* __restrict__ mask,
+    const float* __restrict__ x, const float* __restrict__ xp,
+    const float* __restrict__ D_s, float* __restrict__ v, int row0, int nr,
+    int p, int q, int k, bool cvalid, int warp, int lane, int jadv,
+    bool proj, int jS, int ncross) {
+  static_assert(SUB > 2 * W && SUB % W == 0, "a DEEP pair_bf16 window");
+#pragma unroll
+  for (int e = 0; e < NRH; ++e) v[e] = 0.f;
+  if (!ON_CHIP && !cvalid) return;
+  const size_t xs = ON_CHIP ? W : (size_t)p;  // row stride of the x window
+  for (int t = warp; t < nr; t += NW) {
+    float& fr = ON_CHIP ? fm_s[t * QS + lane] : fm[(size_t)t * q + k];
+    const float m = ON_CHIP ? ((mb_s[t] >> lane) & 1u ? 1.f : 0.f)
+                            : mask[(size_t)t * q + k];
+    const float* xrow = x + (size_t)(row0 + t) * p;
+    float f = fr;
+    if (jadv >= 0) {
+      float s = 0.f;
+#pragma unroll 1
+      for (int c = 0; c < SUB; c += W) {
+        float xb[W];
+        load8(xrow + jadv + c, xb);
+#pragma unroll
+        for (int i = 0; i < W; ++i) s = fmaf(xb[i], D_s[(c + i) * QS + lane], s);
+      }
+      f = fmaf(m, s, f);
+      fr = f;
+    }
+    if (!proj) continue;
+    float xv[W], tt[W];
+    load8(xp + t * xs, xv);
+#pragma unroll
+    for (int a = 0; a < W; ++a) tt[a] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < ncross * W; c += W) {
+      float xb[W], dl[W];
+      load8(xrow + jS + c, xb);
+#pragma unroll
+      for (int b = 0; b < W; ++b) dl[b] = D_s[(c + b) * QS + lane];
+#pragma unroll
+      for (int a = 0; a < W; ++a)
+#pragma unroll
+        for (int b = 0; b < W; b += 2) {
+          const __nv_bfloat162 h = __floats2bfloat162_rn(
+              __fmul_rn(xv[a], xb[b]), __fmul_rn(xv[a], xb[b + 1]));
+          tt[a] = fmaf(__low2float(h), dl[b], tt[a]);
+          tt[a] = fmaf(__high2float(h), dl[b + 1], tt[a]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < W; ++a) v[a] = fmaf(m, tt[a], fmaf(xv[a], f, v[a]));
+    pair_sums<W>(xv, m, v);
+  }
 }
 
 // One pass over this CTA's rows: ADV advances Fm by the previous window
@@ -447,7 +531,7 @@ __device__ __forceinline__ void z_rows_of_rank(
                zeta_k, qm_k, kz, zc);
 }
 
-// SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, 8, 16)
+// SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, ..., 128)
 template <bool FM_ON_CHIP, int SUB>
 __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     const float* __restrict__ x,        // (n, p)
@@ -470,17 +554,22 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     float* __restrict__ zrow_part,      // (n_slices, p)
     float* __restrict__ z_col,          // (q,)
     int n, int p, int q, int R, int nloc) {
-  static_assert(SUB == 0 || SUB == 2 || SUB == 4 || SUB == W || SUB == 2 * W,
+  static_assert(SUB == 0 || SUB == 2 || SUB == 4 || SUB == W || SUB == 2 * W ||
+                    SUB == 4 * W || SUB == 8 * W || SUB == 16 * W,
                 "the float32 instance or a pair_bf16 window");
   // pairs rounded within RW-aligned groups of an 8-window; CROSS: odd
-  // 8-windows take the cross pass
+  // 8-windows take the cross pass; DEEP: chain windows of a SUB-window
+  // take deep_pass, J of them
   constexpr int RW = SUB < W ? SUB : W;
-  constexpr bool CROSS = SUB > W;
+  constexpr bool CROSS = SUB == 2 * W;
+  constexpr bool DEEP = SUB > 2 * W;
+  constexpr int J = DEEP ? SUB / W : 1;
   extern __shared__ __align__(16) float smem[];
   float* WT_s = smem;                       // 2 x NWT x W x QS window tiles
   float* GW_s = WT_s + 2 * NWT * W * QS;    // 2 x W x QS masked new gam
-  float* D_s = GW_s + 2 * W * QS;           // W x QS deltas, latest window
-  float* RH_s = D_s + W * QS;               // 2 x NRH x QS this CTA's sums
+  float* D_s = GW_s + 2 * W * QS;           // deltas: latest window (DEEP:
+                                            // its SUB-window), x QS
+  float* RH_s = D_s + delta_rows(SUB) * QS; // 2 x NRH x QS this CTA's sums
   float* PART_s = RH_s + 2 * NRH * QS;      // NSLOT x NRH x QS warp partials
   long long* CLK_s = reinterpret_cast<long long*>(PART_s + NSLOT * NRH * QS);
   float* WS_s = PART_s + NSLOT * NRH * QS + CLKF;  // NWS window scalars
@@ -586,7 +675,13 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     const float* xa = FM_ON_CHIP ? XS_s + ((w + 1) & 1) * nloc * W
                                  : x + (jw - W);
     const float* xp = FM_ON_CHIP ? XS_s + (w & 1) * nloc * W : x + jw;
-    if (w == 0) {
+    if constexpr (DEEP) {
+      const int j = w % J;  // this chain window's place in its SUB-window
+      deep_pass<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, xp, D_s,
+                                 v, row0, nr, p, q, k, cvalid, warp, lane,
+                                 j == 0 && w > 0 ? jw - SUB : -1, true,
+                                 jw - j * W, j);
+    } else if (w == 0) {
       window_pass<FM_ON_CHIP, false, true, RW>(FM_s, MB_s, fm_rows,
                                                mask_rows, xa, xp, D_s, v, nr,
                                                p, q, k, cvalid, warp, lane);
@@ -682,6 +777,8 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
           hh[e - W] = sum;
       }
       float* gw = GW_s + (w & 1) * W * QS;
+      // DEEP: this window's rows of the SUB-window's deltas
+      float* dw = D_s + (DEEP ? (w % J) * W * QS : 0);
 #pragma unroll
       for (int i = 0; i < W; ++i) {
         const int e = i * QS + lane;
@@ -691,7 +788,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
         const float logit = wt[3 * W * QS + e] + c2tau * (mu * d);
         const float gam = __fdividef(1.f, 1.f + __expf(-logit));
         const float delta = gam * mu - bo;
-        D_s[e] = delta;
+        dw[e] = delta;
 #pragma unroll
         for (int a = i + 1; a < W; ++a)
           rr[a] += hh[a * (a - 1) / 2 + i] * delta;
@@ -728,10 +825,15 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
     z_rows_of_rank(warp, GW_s + ((nwin - 1) & 1) * W * QS, N_s,
                    WS_s + ((nwin - 1) % NWS) * WSF, zrow_part, p - W, cs,
                    rank, R, p, slice, lane, zeta_k, qm_k, kz, zc);
-  window_pass<FM_ON_CHIP, true, false, RW>(
-      FM_s, MB_s, fm_rows, mask_rows,
-      FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * nloc * W : x + (p - W), nullptr,
-      D_s, v, nr, p, q, k, cvalid, warp, lane);
+  if constexpr (DEEP)
+    deep_pass<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
+                               D_s, v, row0, nr, p, q, k, cvalid, warp, lane,
+                               p - SUB, false, 0, 0);
+  else
+    window_pass<FM_ON_CHIP, true, false, RW>(
+        FM_s, MB_s, fm_rows, mask_rows,
+        FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * nloc * W : x + (p - W),
+        nullptr, D_s, v, nr, p, q, k, cvalid, warp, lane);
   if (FM_ON_CHIP && cvalid)
     for (int t = warp; t < nr; t += NW)
       fm_rows[(size_t)t * q + k] = FM_s[t * QS + lane];
@@ -786,6 +888,9 @@ cudaError_t launch_sub(bool on_chip, int sub, const cudaLaunchConfig_t& cfg,
     ATLASQTL_MIS_SUB(4);
     ATLASQTL_MIS_SUB(W);
     ATLASQTL_MIS_SUB(2 * W);
+    ATLASQTL_MIS_SUB(4 * W);
+    ATLASQTL_MIS_SUB(8 * W);
+    ATLASQTL_MIS_SUB(16 * W);
     default:
       return cudaErrorInvalidValue;
   }
@@ -808,14 +913,15 @@ cudaLaunchConfig_t launch_config(int grid, int m, int smem, int cluster,
   return cfg;
 }
 
-// the shared-memory bytes of a CTA under the plan (cluster, fm_on_chip) at
-// n samples and interpolation width R, or -1 where the kernel cannot take it
-int plan_smem(int n, int cluster, int fm_on_chip, int R) {
+// the shared-memory bytes of a CTA of the instance `sub` under the plan
+// (cluster, fm_on_chip) at n samples and interpolation width R, or -1 where
+// the kernel cannot take it
+int plan_smem(int n, int cluster, int fm_on_chip, int R, int sub) {
   if (n <= 0 || R <= 0 || R > RMAX || cluster < 1 || cluster > MAX_CLUSTER ||
       (!fm_on_chip && cluster != 1))
     return -1;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
-  const size_t smem = smem_bytes(fm_on_chip != 0, nloc, R);
+  const size_t smem = smem_bytes(fm_on_chip != 0, nloc, R, sub);
   return smem <= SMEM_MAX ? (int)smem : -1;
 }
 
@@ -830,7 +936,8 @@ extern "C" {
 // CTA, grid and shared memory from them.  The operands of the state and the
 // outputs are m stacked arrays; x, X^T Y, x_norm_sq, the mask and the
 // p/q masks are shared.  sub = 0 launches the float32 instance, sub = 2,
-// 4, 8 or 16 the pair_bf16 instance at that window (p a multiple of it).
+// 4, ..., 128 the pair_bf16 instance at that window (B, and so p, a
+// multiple of it).
 // Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape, plan or window it does not take.
 int atlasqtl_sweep_missing_fused(
@@ -844,9 +951,9 @@ int atlasqtl_sweep_missing_fused(
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
-  const int smem = plan_smem(n, cluster, fm_on_chip, R);
+  const int smem = plan_smem(n, cluster, fm_on_chip, R, sub);
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
-      smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && p % sub != 0))
+      smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && B % sub != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -872,21 +979,24 @@ int atlasqtl_sweep_missing_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * NCLK);
 }
 
-// The shared-memory bytes of one CTA under the plan (cluster, fm_on_chip)
-// at n samples and interpolation width R; -1 for a plan the kernel does not
-// take (the card checks ops/sweep_missing_fused.py:_mis_smem_bytes
-// against it).
-int atlasqtl_sweep_missing_smem(int n, int cluster, int fm_on_chip, int R) {
-  return plan_smem(n, cluster, fm_on_chip, R);
+// The shared-memory bytes of one CTA of the instance `sub` under the plan
+// (cluster, fm_on_chip) at n samples and interpolation width R; -1 for a
+// plan the kernel does not take (the card checks
+// ops/sweep_missing_fused.py:_mis_smem_bytes against it).
+int atlasqtl_sweep_missing_smem(int n, int cluster, int fm_on_chip, int R,
+                                int sub) {
+  return plan_smem(n, cluster, fm_on_chip, R, sub);
 }
 
 // CTAs of the sweep kernel resident on one SM and clusters resident on the
 // card under the plan (cluster, fm_on_chip) at n samples and interpolation
-// width R (the occupancy calculator), each -1 on error.
+// width R, at the shared memory of the instance `sub` (the occupancy
+// calculator, on the float32 instance: every instance keeps to the same
+// register bound), each -1 on error.
 int atlasqtl_sweep_missing_occupancy(int n, int cluster, int fm_on_chip,
-                                     int R, int* clusters) {
+                                     int R, int sub, int* clusters) {
   *clusters = -1;
-  const int smem = plan_smem(n, cluster, fm_on_chip, R);
+  const int smem = plan_smem(n, cluster, fm_on_chip, R, sub);
   if (smem < 0) return -1;
   cudaError_t err = fm_on_chip ? set_smem<true, 0>(smem)
                                : set_smem<false, 0>(smem);

@@ -24,6 +24,7 @@ from ..models import global_local as gl
 from ..ops.annealing import annealing_ladder
 from ..ops.special import as_scalar
 from ..ops.sweep import block_gram
+from ..parallel.mesh import P_AXIS, gather, has_p
 
 log = logging.getLogger("atlasqtl_tpu_torch")
 
@@ -48,10 +49,14 @@ def _log_hotspot_scales(data: Data, state: VBState, cfg: Config,
     """verbose=2's per-evaluation hotspot-scale diagnostics, the global
     scale and the quantiles of the local scales (reference:
     R/atlasqtl_global_local_core.R:297-305), from one host copy of
-    nu_s0, rho_s0, p and lam2_inv."""
+    nu_s0, rho_s0, p and lam2_inv (gathered over the p-shards of a 2-D
+    mesh)."""
+    lam2_inv = state.lam2_inv
+    if has_p(data.mesh):
+        lam2_inv = gather(lam2_inv, data.mesh, (P_AXIS,))
     host = torch.cat([state.nu_s0_vb.reshape(1), state.rho_s0_vb.reshape(1),
                       data.p_true.reshape(1).to(state.lam2_inv.dtype),
-                      state.lam2_inv]).double().cpu().numpy()
+                      lam2_inv]).double().cpu().numpy()
     nu_s0, rho_s0, p_t = host[0], host[1], int(host[2])
     glob = math.sqrt(rho_s0 / max(nu_s0 - 1.0, eps) / cfg.shr_fac_inv)
     lam = np.sqrt(1.0 / host[3:3 + p_t])
@@ -69,9 +74,10 @@ def _anneal_replicas_batched(mod, data: Data, hyper: Hyper, replica_states,
     atlasqtl_tpu/inference/driver.py:_anneal_replicas_batched): the m
     initial states are annealed side by side, every rung of the ladder one
     batched iteration of all of them (`cavi_iteration_replicas`: on the B1
-    and B2 routes one kernel launch sweeps all m; a model without it steps
-    the replicas in turn), the last rung full because the selection reads
-    its gam/mu.  The replica with the largest float64 ELBO after the ladder
+    and B2 routes one kernel launch sweeps all m; a model without it, and
+    any model under a mesh, steps the replicas in turn, as the JAX
+    package's lax.map does there), the last rung full because the
+    selection reads its gam/mu.  The replica with the largest float64 ELBO after the ladder
     is returned with the rung count.  The rungs run eagerly under host
     control, as the JAX package's do."""
     m = len(replica_states)
@@ -80,7 +86,8 @@ def _anneal_replicas_batched(mod, data: Data, hyper: Hyper, replica_states,
     one = as_scalar(1.0, cfg.dtype, dev)
     cs = torch.as_tensor(np.asarray(ladder[:-1], np.float64), dtype=cfg.dtype,
                          device=dev)
-    rung = getattr(mod, "cavi_iteration_replicas", None)
+    rung = (getattr(mod, "cavi_iteration_replicas", None)
+            if data.mesh is None else None)
     if rung is None:
         rung = lambda dat, hyp, sts, gram, c, c_s, **kw: [
             mod.cavi_iteration(dat, hyp, st, gram, c, c_s, **kw)

@@ -32,6 +32,8 @@ from ..ops.sweep_staggered import sweep_complete_staggered
 from ..ops.sweep_missing_fused import (MISSING, missing_fused_operands,
                                        pair_window, sweep_missing_fused,
                                        sweep_missing_fused_driver)
+from ..parallel.mesh import has_p, p_sum, q_sum
+from ..parallel.pipeline import pipelined_sweep_2d, pipelined_sweep_missing_2d
 
 log = logging.getLogger("atlasqtl_tpu_torch")
 
@@ -47,10 +49,9 @@ def check_config(cfg: Config):
     the baseline's algebra); mxu_bf16 and mis_pair_bf16 reach B1 and B2
     (types.py:Config).  Under mis_pair_bf16 at block_size 128, the one
     block where the flag reaches B2, the JAX kernel's window mis_sub must
-    be one B2's pair_bf16 instance takes (ops/sweep_missing_fused.py:
-    pair_window): a window that does not divide the block raises
-    ValueError, as the JAX kernel's assert does, and one over 16
-    NotImplementedError (ROADMAP.md C6b)."""
+    divide the block (ops/sweep_missing_fused.py:pair_window raises
+    ValueError, as the JAX kernel's assert does).  The mesh axes q_axis and
+    p_axis come from atlasqtl(mesh=...) (parallel/mesh.py)."""
     if cfg.sweep not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"unknown Config.sweep={cfg.sweep!r}")
     if cfg.sweep_probe != "none":
@@ -60,21 +61,21 @@ def check_config(cfg: Config):
             "kernels' per-phase clocks take their place "
             "(ops/sweep_fused.py:phase_clocks(), "
             "ops/sweep_missing_fused.py:phase_clocks())")
-    if cfg.q_axis is not None or cfg.p_axis is not None:
-        raise NotImplementedError("mesh axes (ROADMAP.md A12) are not "
-                                  "ported yet")
     if cfg.mis_pair_bf16 and cfg.block_size == 128:
         pair_window(cfg.mis_sub, cfg.block_size)
 
 
-def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8) -> Data:
-    """Pad to n -> 8, p -> block, q -> q_pad_to and precompute the sufficient
-    statistics on `device` (R/atlasqtl_global_local_core.R:19-42).  NaN in
-    Y marks a missing cell; cfg.missing chooses how the fit treats them."""
+def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8,
+               p_shards: int = 1) -> Data:
+    """Pad to n -> 8, p -> block x p_shards, q -> q_pad_to and precompute
+    the sufficient statistics on `device`
+    (R/atlasqtl_global_local_core.R:19-42).  NaN in Y marks a missing cell;
+    cfg.missing chooses how the fit treats them.  p_shards: a 2-D mesh's
+    p-shards each hold whole predictor blocks."""
     n, p = x_np.shape
     q = y_np.shape[1]
     block = min(cfg.block_size, _round_up(p, 8))
-    p_pad = _round_up(p, block)
+    p_pad = _round_up(p, block * p_shards)
     q_pad = _round_up(q, q_pad_to)
     # padded samples are all-zero rows: they add nothing to any statistic
     # and the n of the update formulas stays the true n
@@ -342,12 +343,20 @@ def _select_sweep(cfg: Config, data: Data) -> str:
     sweep="fused" on the CPU runs the kernel's plain version, and
     sweep="pallas" on the CPU runs B3's plain version.  JAX's third case,
     float32 on an accelerator whose fused kernel finds no q tile, cannot
-    arise here: B1 takes every padded q."""
+    arise here: B1 takes every padded q.  Under a mesh (cfg.q_axis) the
+    engine is B1 or the plain sweep, never B3 or B4: sweep="pallas",
+    use_pallas and sweep_stagger apply to one device only
+    (atlasqtl_tpu/models/global_local.py:422, 553-566)."""
     return _complete_impl(cfg, data.x.device)
 
 
 def _complete_impl(cfg: Config, device) -> str:
     impl = cfg.sweep
+    if cfg.q_axis is not None:
+        on_card = torch.device(device).type == "cuda"
+        return ("fused" if impl == "fused" or (
+            impl == "auto" and cfg.block_size >= 8
+            and cfg.dtype == torch.float32 and on_card) else "xla")
     if impl == "auto":
         if cfg.block_size < 8:
             return "xla"  # batch="0" reference mode
@@ -364,7 +373,7 @@ def _b1_bf16(cfg: Config, device) -> bool:
     package, which passes the flag to its fused kernel alone
     (atlasqtl_tpu/models/global_local.py:556-578)."""
     return (cfg.mxu_bf16 and _complete_impl(cfg, device) == "fused"
-            and not cfg.sweep_stagger)
+            and (not cfg.sweep_stagger or cfg.q_axis is not None))
 
 
 def _b1_lookahead(cfg: Config, device) -> bool:
@@ -373,8 +382,11 @@ def _b1_lookahead(cfg: Config, device) -> bool:
     (atlasqtl_tpu/ops/sweep_fused.py:166-184, 378-388); in float32 it is
     the baseline's algebra, which B1 runs.  The JAX package passes the
     flag to its fused kernel alone (atlasqtl_tpu/models/global_local.py:
-    576), as this one to B1 alone."""
-    return cfg.sweep_lookahead and _b1_bf16(cfg, device)
+    576, and on a 1-D mesh :712), as this one to B1 alone; its 2-D
+    pipeline's tile processor does not take it
+    (atlasqtl_tpu/parallel/pipeline.py:110-140), nor does the port's."""
+    return cfg.sweep_lookahead and cfg.p_axis is None and _b1_bf16(cfg,
+                                                                   device)
 
 
 def _missing_uses_kernel(cfg: Config, device) -> bool:
@@ -402,7 +414,8 @@ def _b2_pair_bf16(cfg: Config, data: Data) -> bool:
     """Whether cfg.mis_pair_bf16 reaches B2: only where the JAX package
     sends the exact-missing sweep to its fused kernel, the one engine of
     its that reads the flag (atlasqtl_tpu/models/global_local.py:396-401),
-    condition for condition: no mesh (check_config refuses one);
+    condition for condition: no mesh (the JAX package never takes its
+    fused missing kernel under one, :396);
     cfg.sweep "auto" or "fused" and float32 (`_engine` gives B2 and the
     dtype is float32; the CPU runs B2's plain version, the port's stand-in
     for a kernel there); cfg.block_size == 128 and the padded p a multiple
@@ -412,7 +425,8 @@ def _b2_pair_bf16(cfg: Config, data: Data) -> bool:
     there) and has no counterpart: B2 takes every padded q.  Elsewhere the
     JAX package runs its blocked or scan engine, whose float32 fit the
     flag leaves as it is, and so does the port."""
-    return (cfg.mis_pair_bf16 and cfg.dtype == torch.float32
+    return (cfg.mis_pair_bf16 and cfg.q_axis is None
+            and cfg.dtype == torch.float32
             and _engine(cfg, data) == "b2" and cfg.block_size == 128
             and data.x.shape[1] % 128 == 0)
 
@@ -449,7 +463,9 @@ def _colsum_stats(data: Data, state: VBState, use_cached: bool = True):
     use_cached=False (an ELBO that re-accumulates in its own dtype):
     recomputed from the (p, q) state, and m2b = (mu^2 + s2) gam and beta =
     gam mu are returned too for the x_norm_sq-weighted sums (m2b is None
-    for a (q,) slab variance; both None from the cached sums)."""
+    for a (q,) slab variance; both None from the cached sums).  On a 2-D
+    mesh the recomputed sums are summed over the p-shards (the cached ones
+    were, by the sweep)."""
     yf_colsum = torch.einsum("nq,nq->q", data.y, state.fitted)
     ff_colsum = torch.einsum("nq,nq->q", state.fitted, state.fitted)
     if use_cached and state.gam_colsum is not None:
@@ -466,8 +482,10 @@ def _colsum_stats(data: Data, state: VBState, use_cached: bool = True):
     else:
         m2b = (state.mu_beta * state.mu_beta + state.sig2_beta) * gam
         m2b_colsum = torch.sum(m2b, dim=0)
-    return (gam_colsum, m2b_colsum, torch.einsum("pq,pq->q", beta, beta),
-            yf_colsum, ff_colsum, m2b, beta)
+    gam_colsum, m2b_colsum, beta2_colsum = p_sum(data.mesh, torch.stack(
+        [gam_colsum, m2b_colsum, torch.einsum("pq,pq->q", beta, beta)]))
+    return (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum, ff_colsum, m2b,
+            beta)
 
 
 def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
@@ -540,6 +558,25 @@ class _Pre(NamedTuple):
     cp_x_y: torch.Tensor   # X^T Y, or X^T Y_eff in impute mode
 
 
+def _q_total(mesh):
+    """t -> the sum of all of t over the q-shards (torch.sum with no
+    mesh)."""
+    return lambda t: q_sum(mesh, torch.sum(t))
+
+
+def _p_total(mesh):
+    """t -> the sum of all of t over the p-shards of a 2-D mesh."""
+    return lambda t: p_sum(mesh, torch.sum(t))
+
+
+def _xns_sums(data: Data, m2b, beta):
+    """The exact path's x_norm_sq-weighted column sums of m2b and beta^2,
+    summed over the p-shards of a 2-D mesh."""
+    return p_sum(data.mesh, torch.stack([
+        torch.einsum("pq,pq->q", data.x_norm_sq, m2b),
+        torch.einsum("pq,pq->q", data.x_norm_sq, beta * beta)]))
+
+
 def _pre_sweep(data: Data, hyper: Hyper, state: VBState, c,
                cfg: Config) -> _Pre:
     """Steps 1-4: slab and residual precisions, slab variance and the
@@ -559,18 +596,19 @@ def _pre_sweep(data: Data, hyper: Hyper, state: VBState, c,
                      + data.n_mis * v_mis)
         yf_colsum = torch.einsum("nq,nq->q", y_eff, state.fitted)
 
-    # 1-2: slab precision (:134-137)
-    sum_gam = torch.sum(gam_colsum * data.q_mask)
+    # 1-2: slab precision (:134-137); sums over q cross the q-shards
+    q_total = _q_total(data.mesh)
+    sum_gam = q_total(gam_colsum * data.q_mask)
     nu_vb = upd.nu_update(hyper.nu, sum_gam, c)
-    rho_vb = upd.rho_update(hyper.rho, m2b_colsum, state.tau, data.q_mask, c)
+    rho_vb = upd.rho_update(hyper.rho, m2b_colsum, state.tau, data.q_mask, c,
+                            total=q_total)
     sig2_inv = nu_vb / rho_vb
 
     # residual precision (:141-145)
     eta_vb = upd.eta_update(data.n_eff, hyper.eta, gam_colsum, c)
     xns_m2b = xns_b2 = None
     if exact:
-        xns_m2b = torch.einsum("pq,pq->q", data.x_norm_sq, m2b)
-        xns_b2 = torch.einsum("pq,pq->q", data.x_norm_sq, beta * beta)
+        xns_m2b, xns_b2 = _xns_sums(data, m2b, beta)
     kappa_vb = upd.kappa_update(data.n, y_norm_sq, yf_colsum, ff_colsum,
                                 hyper.kappa, m2b_colsum, beta2_colsum,
                                 sig2_inv, c, x_norm_sq_m2b=xns_m2b,
@@ -592,10 +630,38 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
     """Step 5, the Gauss-Seidel sweep (:166-176 -> src/coreLoop.cpp), by
     the engine the configuration selects.  Returns (gam, mu, beta, fitted,
     z_row, z_col, column statistics); gam/mu None after a lite fused
-    sweep, beta and the statistics None on the exact-missing path."""
+    sweep, beta and the statistics None on the exact-missing path.  On a
+    1-D mesh the engine sweeps the local q-shard and z_row is summed over
+    the q-shards (atlasqtl_tpu/models/global_local.py:689-735); on a 2-D
+    mesh the pipeline of parallel/pipeline.py runs the same engine on
+    q-tiles of the shard."""
     consts, sig2_inv, cp_x_y = pre
     msk = data.p_mask[:, None] * data.q_mask[None, :]
     engine = _engine(cfg, data)
+    if has_p(data.mesh):
+        block = data_block(cfg, data) if block is None else block
+        if data.x_norm_sq is not None:
+            gam_new, mu_new, fitted, z_row, z_col = \
+                pipelined_sweep_missing_2d(data, state, consts, sig2_inv,
+                                           block, cfg, engine)
+            return gam_new, mu_new, None, fitted, z_row, z_col, None
+        (beta_new, gam_new, mu_new, fitted, z_row, z_col,
+         colstats) = pipelined_sweep_2d(
+            data, state, state.beta, gram_blocks, cp_x_y, consts, block, cfg,
+            engine == "b1", bf16=_b1_bf16(cfg, data.x.device),
+            emit_gam_mu=not lite, annealed=annealed)
+        return gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats
+    (gam_new, mu_new, beta_new, fitted, z_row, z_col,
+     colstats) = _sweep_local(data, state, pre, gram_blocks, cfg, annealed,
+                              lite, block, engine, msk)
+    return (gam_new, mu_new, beta_new, fitted, q_sum(data.mesh, z_row),
+            z_col, colstats)
+
+
+def _sweep_local(data, state, pre, gram_blocks, cfg, annealed, lite, block,
+                 engine, msk):
+    """`_sweep` on one device, or on the local shard of a 1-D mesh."""
+    consts, sig2_inv, cp_x_y = pre
     if data.x_norm_sq is not None:
         if engine == "b2":
             gam_new, mu_new, fitted, z_row, z_col = sweep_missing_fused_driver(
@@ -713,17 +779,19 @@ def _post_sweep(data: Data, hyper: Hyper, state: VBState, pre: _Pre, out,
     xi_inv = 1.0 / rho_xi_inv
     sig02_lam_shr = state.sig02_inv * lam2_inv * shr
     sig2_theta = upd.sig2_c0_update(data.q_true, 1.0 / sig02_lam_shr, c)
-    zeta_sum = torch.sum(state.zeta * data.q_mask)
+    # sums over q and over p cross the shards of a mesh
+    zeta_sum = _q_total(data.mesh)(state.zeta * data.q_mask)
     theta = upd.theta_update(z_row, hyper.m0, sig02_lam_shr, sig2_theta,
                              zeta_sum, c) * data.p_mask
 
+    p_total = _p_total(data.mesh)
     nu_s0_vb = upd.nu_update(0.5, data.p_true, c_s)
-    rho_s0_vb = c_s * (xi_inv + 0.5 * torch.sum(
+    rho_s0_vb = c_s * (xi_inv + 0.5 * p_total(
         lam2_inv * shr * (theta ** 2 + sig2_theta) * data.p_mask))
     sig02_inv = nu_s0_vb / rho_s0_vb
 
     sig2_zeta = upd.sig2_c0_update(data.p_true, hyper.t02, c)
-    theta_sum = torch.sum(theta)
+    theta_sum = p_total(theta)
     zeta = upd.zeta_update(z_col, theta_sum, hyper.n0, sig2_zeta,
                            1.0 / hyper.t02, c) * data.q_mask
 
@@ -752,7 +820,9 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
     peak memory stays O(block x q) above the state.  Impute mode re-derives
     the q(y_mis) moments (a coordinate update, so the ELBO stays monotone)
     and adds their entropy; the exact-missing path takes the
-    x_norm_sq-weighted column sums and the per-(j, k) slab variance."""
+    x_norm_sq-weighted column sums and the per-(j, k) slab variance.  On a
+    mesh every sum over q or p crosses the shards (`q_sum`, `p_sum`), so
+    every rank gets the same value."""
     dt = cfg.elbo_dtype
     f = lambda a: a.to(dt)
     shr = as_scalar(cfg.shr_fac_inv, dt, data.x.device)
@@ -828,6 +898,18 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
         sum_gam = sum_gam + torch.sum(gam_m)
         m2b_tau_sum = m2b_tau_sum + torch.sum(m2_b * tau[None, :] * cell)
         s2theta_sum = s2theta_sum + torch.sum(f(state.sig2_theta[sl]) * pm_b)
+    mesh = data.mesh
+    q_total, p_total = _q_total(mesh), _p_total(mesh)
+    # the blocked pass summed this rank's predictors: the (q,) sums over
+    # the p-shards, the totals over both axes, s2theta over p only (it is
+    # q-replicated)
+    (gam_colsum, mu2g_colsum, beta2_colsum, xns_m2b, xns_b2) = p_sum(
+        mesh, torch.stack([gam_colsum, mu2g_colsum, beta2_colsum, xns_m2b,
+                           xns_b2]))
+    bg_fixed, sum_gam, m2b_tau_sum = q_sum(mesh, p_sum(mesh, torch.stack(
+        [bg_fixed, sum_gam, m2b_tau_sum])))
+    s2theta_sum = p_sum(mesh, s2theta_sum)
+    entropy_y_mis = q_sum(mesh, entropy_y_mis)
     m2b_colsum = mu2g_colsum  # (mu^2 + s2) gam summed — already includes s2
 
     eta_vb = upd.eta_update(n_eff, eta, gam_colsum)
@@ -836,7 +918,7 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
         sig2_inv, x_norm_sq_m2b=xns_m2b if missing_exact else None,
         x_norm_sq_beta2=xns_b2 if missing_exact else None)
     nu_vb = upd.nu_update(nu, sum_gam)
-    rho_vb = upd.rho_update(rho, m2b_colsum, tau, q_mask)
+    rho_vb = upd.rho_update(rho, m2b_colsum, tau, q_mask, total=q_total)
     log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
     log_sig2_inv = upd.log_gamma_mean(nu_vb, rho_vb)
     nu_s0_vb, rho_s0_vb = f(state.nu_s0_vb), f(state.rho_s0_vb)
@@ -845,24 +927,25 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
     log_xi_inv = upd.log_gamma_mean(torch.ones_like(rho_xi_inv), rho_xi_inv)
     xi_inv = 1.0 / rho_xi_inv
 
-    term_a = elbo_ops.e_y(n_eff, kappa, kappa_vb, log_tau, m2b_colsum,
-                          sig2_inv, tau, q_mask)
+    term_a = q_sum(mesh, elbo_ops.e_y(n_eff, kappa, kappa_vb, log_tau,
+                                      m2b_colsum, sig2_inv, tau, q_mask))
     term_b = (bg_fixed
               + 0.5 * log_sig2_inv * sum_gam
-              + 0.5 * torch.sum(gam_colsum * log_tau * q_mask)
+              + 0.5 * q_total(gam_colsum * log_tau * q_mask)
               - 0.5 * sig2_inv * m2b_tau_sum
               - 0.5 * sig2_zeta * p_true * q_true
               - 0.5 * q_true * s2theta_sum)
 
     l_vb = f(state.l_vb)
-    term_c = elbo_ops.e_theta_hs(
+    term_c = p_sum(mesh, elbo_ops.e_theta_hs(
         f(state.lam2_inv), l_vb, log_sig02_inv + torch.log(shr),
         f(state.theta), q_approx(l_vb), f(state.sig02_inv) * shr,
-        f(state.sig2_theta), f(data.p_mask), cfg.df)
+        f(state.sig2_theta), f(data.p_mask), cfg.df))
     term_d = elbo_ops.e_zeta(zeta, n0, sig2_zeta, t02_inv,
-                             vec_sum_log_det_zeta, q_true, q_mask)
-    term_e = elbo_ops.e_tau(eta, eta_vb, kappa, kappa_vb, log_tau, tau,
-                            q_mask)
+                             vec_sum_log_det_zeta, q_true, q_mask,
+                             total=q_total)
+    term_e = q_sum(mesh, elbo_ops.e_tau(eta, eta_vb, kappa, kappa_vb,
+                                        log_tau, tau, q_mask))
     term_f = elbo_ops.e_sig2_inv_hs(xi_inv, nu_s0_vb, log_xi_inv,
                                     log_sig02_inv, rho_s0_vb,
                                     f(state.sig02_inv))

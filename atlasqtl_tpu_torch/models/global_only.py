@@ -8,7 +8,10 @@ atlasqtl(..., model="global").
 The update order differs from the global-local model: theta and zeta are
 refreshed before the global scale (R/atlasqtl_global_core.R:229-244), and
 sig2_theta uses the previous iteration's sig02_inv.  The sweeps are the
-plain engines (ops/sweep.py), as in the reference: no kernel.
+plain engines (ops/sweep.py), as in the reference: no kernel.  On a mesh
+(Data.mesh) the sums over q and p cross the shards as in the global-local
+model, and a 2-D mesh pipelines the plain engines over the p-stages
+(parallel/pipeline.py).
 """
 from __future__ import annotations
 
@@ -22,7 +25,10 @@ from ..ops import elbo as elbo_ops
 from ..ops import updates as upd
 from ..ops.special import as_scalar
 from ..ops.sweep import SweepConsts, sweep_complete, sweep_missing
-from .global_local import _colsum_stats, divisor_block
+from ..parallel.mesh import has_p, p_sum, q_sum
+from ..parallel.pipeline import pipelined_sweep_2d, pipelined_sweep_missing_2d
+from .global_local import (_colsum_stats, _p_total, _q_total, _xns_sums,
+                           data_block, divisor_block)
 
 NU_S0 = 0.5   # Cauchy prior for theta (R/atlasqtl_global_core.R:90)
 RHO_S0 = 0.5
@@ -35,8 +41,9 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     (R/atlasqtl_global_core.R:117-271; atlasqtl_tpu/models/global_only.py:
     _iteration_impl).  annealed, lite and block are accepted for the
     drivers and not needed: no special-function branch, the plain engines
-    always emit fresh gam/mu and take the block from the Gram blocks."""
-    del annealed, lite, block
+    always emit fresh gam/mu and take the block from the Gram blocks (a
+    2-D mesh's exact-missing pipeline reads `block`)."""
+    del annealed, lite
     dt = cfg.dtype
     dev = data.x.device
     c, c_s = as_scalar(c, dt, dev), as_scalar(c_s, dt, dev)
@@ -57,16 +64,18 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
                      + data.n_mis * v_mis)
         yf_colsum = torch.einsum("nq,nq->q", y_eff, state.fitted)
 
-    sum_gam = torch.sum(gam_colsum * data.q_mask)
+    mesh = data.mesh
+    q_total, p_total = _q_total(mesh), _p_total(mesh)
+    sum_gam = q_total(gam_colsum * data.q_mask)
     nu_vb = upd.nu_update(hyper.nu, sum_gam, c)
-    rho_vb = upd.rho_update(hyper.rho, m2b_colsum, state.tau, data.q_mask, c)
+    rho_vb = upd.rho_update(hyper.rho, m2b_colsum, state.tau, data.q_mask, c,
+                            total=q_total)
     sig2_inv = nu_vb / rho_vb
 
     eta_vb = upd.eta_update(data.n_eff, hyper.eta, gam_colsum, c)
     xns_m2b = xns_b2 = None
     if exact:
-        xns_m2b = torch.einsum("pq,pq->q", data.x_norm_sq, m2b)
-        xns_b2 = torch.einsum("pq,pq->q", data.x_norm_sq, beta * beta)
+        xns_m2b, xns_b2 = _xns_sums(data, m2b, beta)
     kappa_vb = upd.kappa_update(data.n, y_norm_sq, yf_colsum, ff_colsum,
                                 hyper.kappa, m2b_colsum, beta2_colsum,
                                 sig2_inv, c, x_norm_sq_m2b=xns_m2b,
@@ -81,7 +90,19 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
                          zeta=state.zeta, c=c)
     msk = data.p_mask[:, None] * data.q_mask[None, :]
     beta_new = colstats = None
-    if not exact:  # complete data or impute
+    if has_p(mesh):
+        if not exact:
+            (beta_new, gam_new, mu_new, fitted, z_row, z_col,
+             colstats) = pipelined_sweep_2d(
+                data, state, None, gram_blocks, cp_x_y, consts,
+                gram_blocks.shape[1], cfg, False)
+        else:
+            gam_new, mu_new, fitted, z_row, z_col = \
+                pipelined_sweep_missing_2d(
+                    data, state, consts, None,
+                    data_block(cfg, data) if block is None else block, cfg,
+                    "scan")
+    elif not exact:  # complete data or impute
         gam_new, mu_new, fitted, z_row, z_col = sweep_complete(
             data.x, cp_x_y, gram_blocks, state.gam, state.mu_beta,
             state.fitted, consts, gram_blocks.shape[1], p_mask=data.p_mask,
@@ -101,6 +122,8 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
         z_row, z_col = upd.z_moments(gam_new, state.theta, state.zeta,
                                      data.p_mask, data.q_mask, c,
                                      block_size=cfg.block_size)
+    if not has_p(mesh):
+        z_row = q_sum(mesh, z_row)   # on a 1-D mesh, over the q-shards
 
     # theta/zeta with the previous global scale
     # (R/atlasqtl_global_core.R:229-235): sig2_theta is one value for all
@@ -109,16 +132,16 @@ def cavi_iteration(data: Data, hyper: Hyper, state: VBState, gram_blocks, c,
     sig2_theta = upd.sig2_c0_update(
         data.q_true, 1.0 / (state.sig02_inv * shr), c).expand(
             data.p_mask.shape)
-    zeta_sum = torch.sum(state.zeta * data.q_mask)
+    zeta_sum = q_total(state.zeta * data.q_mask)
     theta = upd.theta_update(z_row, hyper.m0, state.sig02_inv * shr,
                              sig2_theta, zeta_sum, c) * data.p_mask
     sig2_zeta = upd.sig2_c0_update(data.p_true, hyper.t02, c)
-    zeta = upd.zeta_update(z_col, torch.sum(theta), hyper.n0, sig2_zeta,
+    zeta = upd.zeta_update(z_col, p_total(theta), hyper.n0, sig2_zeta,
                            1.0 / hyper.t02, c) * data.q_mask
 
     # conjugate global-scale update (R/atlasqtl_global_core.R:241-244)
     nu_s0_vb = c_s * (NU_S0 + 0.5 * data.p_true) - c_s + 1.0
-    rho_s0_vb = c_s * (RHO_S0 + 0.5 * torch.sum(
+    rho_s0_vb = c_s * (RHO_S0 + 0.5 * p_total(
         (sig2_theta + theta * theta) * data.p_mask))
     sig02_inv = nu_s0_vb / rho_s0_vb
 
@@ -154,7 +177,9 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
 
     (gam_colsum, m2b_colsum, beta2_colsum, yf_colsum, ff_colsum, m2b,
      beta) = _colsum_stats(dat, st, use_cached=False)
-    sum_gam = torch.sum(gam_colsum * dat.q_mask)
+    mesh = data.mesh
+    q_total, p_total = _q_total(mesh), _p_total(mesh)
+    sum_gam = q_total(gam_colsum * dat.q_mask)
 
     # impute: re-derived q(y_mis) moments and the imputation factor's
     # entropy (as models/global_local.py:compute_elbo)
@@ -166,21 +191,21 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
         y_eff = dat.y + (1.0 - dat.mis_pat) * st.fitted
         y_norm_sq = torch.einsum("nq,nq->q", y_eff, y_eff) + dat.n_mis * v_mis
         yf_colsum = torch.einsum("nq,nq->q", y_eff, st.fitted)
-        entropy_y_mis = 0.5 * torch.sum(
+        entropy_y_mis = 0.5 * q_total(
             dat.n_mis * (torch.log(2.0 * math.pi * v_mis) + 1.0)
             * dat.q_mask)
 
     eta_vb = upd.eta_update(dat.n_eff, hy.eta, gam_colsum)
     xns_m2b = xns_b2 = None
     if exact:
-        xns_m2b = torch.einsum("pq,pq->q", dat.x_norm_sq, m2b)
-        xns_b2 = torch.einsum("pq,pq->q", dat.x_norm_sq, beta * beta)
+        xns_m2b, xns_b2 = _xns_sums(dat, m2b, beta)
     kappa_vb = upd.kappa_update(dat.n, y_norm_sq, yf_colsum, ff_colsum,
                                 hy.kappa, m2b_colsum, beta2_colsum,
                                 st.sig2_inv, x_norm_sq_m2b=xns_m2b,
                                 x_norm_sq_beta2=xns_b2)
     nu_vb = upd.nu_update(hy.nu, sum_gam)
-    rho_vb = upd.rho_update(hy.rho, m2b_colsum, st.tau, dat.q_mask)
+    rho_vb = upd.rho_update(hy.rho, m2b_colsum, st.tau, dat.q_mask,
+                            total=q_total)
     log_tau = upd.log_gamma_mean(eta_vb, kappa_vb)
     log_sig2_inv = upd.log_gamma_mean(nu_vb, rho_vb)
     log_sig02_inv = upd.log_gamma_mean(st.nu_s0_vb, st.rho_s0_vb)
@@ -191,10 +216,11 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
                                + torch.log(dat.p_true + t02_inv))
     # E log det of the theta prior and posterior covariances
     vsld_theta = (dat.p_true * (log_sig02_inv + torch.log(shr))
-                  + torch.sum(torch.log(st.sig2_theta) * dat.p_mask))
+                  + p_total(torch.log(st.sig2_theta) * dat.p_mask))
 
-    term_a = elbo_ops.e_y(dat.n_eff, hy.kappa, kappa_vb, log_tau, m2b_colsum,
-                          st.sig2_inv, st.tau, dat.q_mask)
+    term_a = q_sum(mesh, elbo_ops.e_y(dat.n_eff, hy.kappa, kappa_vb, log_tau,
+                                      m2b_colsum, st.sig2_inv, st.tau,
+                                      dat.q_mask))
 
     p_pad, q_pad = state.gam.shape
     block = divisor_block(cfg.block_size, p_pad)
@@ -207,14 +233,15 @@ def compute_elbo(data: Data, hyper: Hyper, state: VBState, *,
             st.gam[sl], st.mu_beta[sl], st.theta[sl], st.zeta, log_tau,
             st.tau, s2_b, log_sig2_inv, st.sig2_inv, sig2_zeta,
             st.sig2_theta[sl], dat.p_mask[sl], dat.q_mask)
+    term_b = q_sum(mesh, p_sum(mesh, term_b))
 
     term_c = elbo_ops.e_theta_global(st.theta, st.sig02_inv * shr,
                                      st.sig2_theta, vsld_theta, dat.p_mask,
-                                     dat.p_true)
+                                     dat.p_true, total=p_total)
     term_d = elbo_ops.e_zeta(st.zeta, hy.n0, sig2_zeta, t02_inv, vsld_zeta,
-                             dat.q_true, dat.q_mask)
-    term_e = elbo_ops.e_tau(hy.eta, eta_vb, hy.kappa, kappa_vb, log_tau,
-                            st.tau, dat.q_mask)
+                             dat.q_true, dat.q_mask, total=q_total)
+    term_e = q_sum(mesh, elbo_ops.e_tau(hy.eta, eta_vb, hy.kappa, kappa_vb,
+                                        log_tau, st.tau, dat.q_mask))
     term_f = elbo_ops.e_sig2_inv(hy.nu, nu_vb, log_sig2_inv, hy.rho, rho_vb,
                                  st.sig2_inv)
     term_g = elbo_ops.e_sig2_inv(as_scalar(NU_S0, dt, dev), st.nu_s0_vb,

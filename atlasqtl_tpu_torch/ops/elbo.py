@@ -99,17 +99,20 @@ def e_y(n_eff, kappa, kappa_vb, log_tau_vb, m2b_colsum, sig2_inv, tau_vb,
     return torch.sum(per_k * q_mask)
 
 
-def e_zeta(zeta, n0, sig2_zeta, t02_inv, vec_sum_log_det_zeta, q_true, q_mask):
-    """Response-propensity term (reference: R/elbo.R:153-161)."""
-    ss = torch.sum((zeta - n0) ** 2 * q_mask)
+def e_zeta(zeta, n0, sig2_zeta, t02_inv, vec_sum_log_det_zeta, q_true, q_mask,
+           total=torch.sum):
+    """Response-propensity term (reference: R/elbo.R:153-161); `total`
+    sums over the responses (over every q-shard under a mesh)."""
+    ss = total((zeta - n0) ** 2 * q_mask)
     return (vec_sum_log_det_zeta - t02_inv * ss
             - q_true * t02_inv * sig2_zeta + q_true) / 2.0
 
 
 def e_theta_global(theta, sig02_inv_shr, sig2_theta, vec_sum_log_det_theta,
-                   p_mask, p_true):
+                   p_mask, p_true, total=torch.sum):
     """The global-only model's theta term (reference: R/elbo.R:75-82;
-    m0 = 0); vec_sum_log_det_theta is the summed log-determinant term."""
-    ss = torch.sum(theta * theta * p_mask)
-    tr = sig02_inv_shr * torch.sum(sig2_theta * p_mask)
+    m0 = 0); vec_sum_log_det_theta is the summed log-determinant term;
+    `total` sums over the predictors (over every p-shard under a mesh)."""
+    ss = total(theta * theta * p_mask)
+    tr = sig02_inv_shr * total(sig2_theta * p_mask)
     return (vec_sum_log_det_theta - sig02_inv_shr * ss - tr + p_true) / 2.0

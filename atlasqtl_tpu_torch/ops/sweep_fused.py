@@ -158,9 +158,9 @@ def _load():
         lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 9
                                                      + [ptr])
         lib.atlasqtl_sweep_missing_fused.restype = i32
-        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 4
+        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 5
         lib.atlasqtl_sweep_missing_smem.restype = i32
-        lib.atlasqtl_sweep_missing_occupancy.argtypes = [i32] * 4 + [ptr]
+        lib.atlasqtl_sweep_missing_occupancy.argtypes = [i32] * 5 + [ptr]
         lib.atlasqtl_sweep_missing_occupancy.restype = i32
         lib.atlasqtl_sweep_missing_clocks.argtypes = [ptr]
         lib.atlasqtl_sweep_missing_clocks.restype = i32

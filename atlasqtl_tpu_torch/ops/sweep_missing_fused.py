@@ -37,7 +37,10 @@ The plain version then walks those windows (`_sweep_missing_plain_windows`).
 The kernel keeps its chain windows of W = 8 and rounds the same pairs:
 under sub < 8 only those of one sub-window; under sub = 16 also the cross
 pairs of the two 8-windows of each 16-window, whose second 8-window
-projects Fm from before the first one's advance and adds them
+projects Fm from before the first one's advance and adds them; under
+sub = 32, 64 and 128 every 8-window of a sub-window projects Fm as of the
+sub-window's start and adds the rounded cross pairs with every earlier
+8-window of it, and Fm advances once per sub-window
 (csrc/sweep_missing_fused.cu).  In float32 the window does not change the
 function, and sub is ignored.
 """
@@ -64,7 +67,7 @@ MIS_MAX_CLUSTER = 8                  # largest cluster the kernel takes
 MIS_SPREAD = 4                       # largest cluster taken only to spread
 MIS_NCLK = 10                        # the kernel's phase clock slots
 MIS_CLKF = (2 * MIS_NCLK + 3) & ~3   # their floats, kept 16-byte whole
-PAIR_WINDOWS = (1, 2, 4, 8, 16)      # the pair_bf16 windows B2 takes
+PAIR_WINDOWS = (1, 2, 4, 8, 16, 32, 64, 128)   # the pair_bf16 windows B2 takes
 
 
 def pair_window(sub: int, block: int) -> int:
@@ -72,8 +75,9 @@ def pair_window(sub: int, block: int) -> int:
     block `block`: min(sub, block), as the JAX kernel clips it
     (atlasqtl_tpu/ops/sweep_missing_fused.py:272-273).  Raises ValueError
     where it does not divide the block (that kernel's assert) and
-    NotImplementedError for one B2's pair_bf16 instance does not take: not
-    in PAIR_WINDOWS, so over 16 or not a power of two (ROADMAP.md C6b)."""
+    NotImplementedError for a window that is not a power of two (B2's
+    instances take PAIR_WINDOWS; the mode reaches B2 only at block 128,
+    whose divisors all are)."""
     s = min(int(sub), int(block))
     if s < 1 or block % s:
         raise ValueError(f"sweep_missing_fused pair_bf16: the window "
@@ -82,18 +86,27 @@ def pair_window(sub: int, block: int) -> int:
     if s not in PAIR_WINDOWS:
         raise NotImplementedError(
             f"sweep_missing_fused pair_bf16: window {s} (mis_sub={sub}) is "
-            f"not ported; B2 takes {PAIR_WINDOWS} (ROADMAP.md C6b)")
+            f"not a power of two; B2 takes {PAIR_WINDOWS}")
     return s
 
 
-def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int) -> int:
+def _delta_rows(window: int) -> int:
+    """The deltas a CTA keeps (csrc:delta_rows): one chain window's, or
+    under a pair_bf16 window over 16 those of the whole window."""
+    return window if window > 2 * MIS_W else MIS_W
+
+
+def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int,
+                    window: int = 0) -> int:
     """csrc/sweep_missing_fused.cu:smem_bytes: two sets of window operand
-    tiles, two windows of gam, the deltas, two sum buffers, the partial
+    tiles, two windows of gam, the deltas (`_delta_rows` of the pair_bf16
+    window, 0 for float32), two sum buffers, the partial
     slots, the phase clocks, three sets of window scalars (p_mask, theta,
     rows of L), the slice's interpolation nodes; on chip also nloc rows of
     Fm (32 floats), of x (two slots of W) and of mask bits.  The card holds
     it to the kernel's own (`kernel_smem_bytes`)."""
-    fixed = (2 * MIS_NWT * MIS_W * MIS_QS + 3 * MIS_W * MIS_QS
+    fixed = (2 * MIS_NWT * MIS_W * MIS_QS + 2 * MIS_W * MIS_QS
+             + _delta_rows(window) * MIS_QS
              + 2 * MIS_NRH * MIS_QS + MIS_NSLOT * MIS_NRH * MIS_QS
              + MIS_CLKF + MIS_NWS * (2 * MIS_W + MIS_W * r_aug)
              + 3 * r_aug * MIS_QS)
@@ -101,9 +114,11 @@ def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int) -> int:
 
 
 def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
-                        m: int = 1) -> dict:
+                        m: int = 1, window: int = 0) -> dict:
     """The launch of B2 at (n, q, block, r + 2) for m replicas (one launch
-    of grid x m CTAs; `grid` counts one replica's).  The rows of each
+    of grid x m CTAs; `grid` counts one replica's) of the instance at the
+    pair_bf16 window `window` (0: the float32 instance; a window over 16
+    keeps all its deltas on chip).  The rows of each
     32-column slice are split over the smallest cluster (1..MIS_MAX_CLUSTER
     CTAs) whose CTAs each hold their rows of Fm on chip in at most
     SMEM_TWO_PER_SM bytes, so that two CTAs share an SM and one's chain
@@ -115,17 +130,17 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
     memory, one CTA per slice.  A block over 128 is walked in pieces of
     `sub_block` rows (ops/sweep_fused.py:sub_block); the kernel builds its
     pair Grams per window, so no piece needs anything precomputed.  Returns slice_width,
-    sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta and
-    ctas_per_sm (the CTAs that share an SM); the C entry point takes the
-    decisions (piece, cluster, fm_on_chip) and derives the rest.  Raises
-    ValueError on a shape the kernel does not take."""
+    sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta,
+    ctas_per_sm (the CTAs that share an SM) and window; the C entry point
+    takes the decisions (piece, cluster, fm_on_chip) and derives the rest.
+    Raises ValueError on a shape the kernel does not take."""
     if (n <= 0 or block <= 0 or block % MIS_W or q % 4 or q <= 0
             or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, q={q}, block={block}, r+2={r_aug}, m={m}")
     sub = sub_block(block)
     slices = -(-q // MIS_QS)
-    smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug)
+    smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug, window)
     for limit, ctas in ((SMEM_TWO_PER_SM, 2), (SMEM_MAX, 1)):
         fits = [cs for cs in range(1, MIS_MAX_CLUSTER + 1)
                 if smem(cs) <= limit]
@@ -136,10 +151,12 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
             return dict(slice_width=MIS_QS, sub_block=sub, cluster=cs,
                         grid=slices * cs,
                         smem_bytes=smem(cs), fm_on_chip=True,
-                        rows_per_cta=-(-n // cs), ctas_per_sm=ctas)
+                        rows_per_cta=-(-n // cs), ctas_per_sm=ctas,
+                        window=window)
     return dict(slice_width=MIS_QS, sub_block=sub, cluster=1, grid=slices,
-                smem_bytes=_mis_smem_bytes(False, 0, r_aug), fm_on_chip=False,
-                rows_per_cta=n, ctas_per_sm=2)
+                smem_bytes=_mis_smem_bytes(False, 0, r_aug, window),
+                fm_on_chip=False, rows_per_cta=n, ctas_per_sm=2,
+                window=window)
 
 
 def window() -> int:
@@ -154,7 +171,7 @@ def occupancy(plan: dict, n: int, r_aug: int) -> tuple:
     card."""
     clusters = ctypes.c_int(-1)
     ctas = _load().atlasqtl_sweep_missing_occupancy(
-        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug,
+        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug, plan["window"],
         ctypes.byref(clusters))
     return ctas, clusters.value
 
@@ -163,7 +180,7 @@ def kernel_smem_bytes(plan: dict, n: int, r_aug: int) -> int:
     """The kernel's own shared-memory bytes under `plan` at n samples and
     r + 2, -1 where it refuses the plan."""
     return _load().atlasqtl_sweep_missing_smem(
-        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug)
+        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug, plan["window"])
 
 
 PHASES = ("prologue", "pass", "reduce", "cluster_sync", "gather", "chain",
@@ -272,6 +289,24 @@ def _sweep_missing_plain_one(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
     return out[0], out[1], fm, out[2], out[3]
 
 
+def _pair_grams(xw, mis_pat, round_pairs, chunk=16):
+    """The masked pair Grams of one window x_w (n, W): h[a, b, k] =
+    sum_n m_nk x_na x_nb for b < a (round_pairs: each product rounded to
+    bfloat16, the mask exact, sums in x's dtype), built `chunk` rows of a
+    at a time so that a window of 128 (8128 pairs) stays small; h[a, b]
+    for b >= a is not read."""
+    n, W = xw.shape
+    h = xw.new_zeros((W, W, mis_pat.shape[1]))
+    for a0 in range(1, W, chunk):
+        a1 = min(W, a0 + chunk)
+        prod = xw[:, a0:a1, None] * xw[:, None, :a1 - 1]
+        if round_pairs:
+            prod = prod.to(torch.bfloat16).to(xw.dtype)
+        h[a0:a1, :a1 - 1] = (prod.reshape(n, -1).T @ mis_pat).reshape(
+            a1 - a0, a1 - 1, -1)
+    return h
+
+
 def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
                                  n_stack, gam, mu, fitted, theta, p_mask,
                                  zeta, q_mask, tau, c, kz, sig2_inv, *,
@@ -280,7 +315,7 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
     aligned at each block's start (atlasqtl_tpu/ops/sweep_missing_fused.py:
     157-215): each window's projections against Fm advanced through the
     previous window; the corrections inside the window through the masked
-    pair Grams h[(a, b), k] = sum_n m_nk x_na x_nb (round_pairs: each f32
+    pair Grams h[a, b, k] = sum_n m_nk x_na x_nb (round_pairs: each f32
     product rounded to bfloat16, the mask exact, f32 sums); then
     Fm += M * (x_w delta_w).  In float32 (round_pairs False) it is the
     per-coordinate sweep up to rounding."""
@@ -290,9 +325,6 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
     fm = fitted.clone()
     out = (torch.empty_like(gam), torch.empty_like(mu),
            torch.empty_like(theta), torch.zeros_like(zeta))
-    pairs = [(a, b_) for b_ in range(W - 1) for a in range(b_ + 1, W)]
-    ia = torch.tensor([a for a, _ in pairs], device=x.device)
-    ib = torch.tensor([b_ for _, b_ in pairs], device=x.device)
     for b in range(p // B):
         sl = slice(b * B, (b + 1) * B)
         ad, imrd, imr0u, ct = _missing_tiles(
@@ -304,17 +336,13 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
             j0 = b * B + lo
             xw = x[:, j0:j0 + W]
             r = xw.T @ fm
-            prod = xw[:, ia] * xw[:, ib]          # (n, pairs), f32
-            if round_pairs:
-                prod = prod.to(torch.bfloat16).to(x.dtype)
-            h = dict(zip(pairs, prod.T @ mis_pat))  # (a, b) -> (q,)
+            h = _pair_grams(xw, mis_pat, round_pairs)
             deltas = []
             for i in range(W):
                 gam_b[lo + i], mu_b[lo + i], delta = _missing_coordinate(
                     j0 + i, r[i], cp_x_y, gam, mu, x_norm_sq, ct[lo + i],
                     ad[lo + i], tau, c)
-                for a in range(i + 1, W):
-                    r[a] = r[a] + h[(a, i)] * delta
+                r[i + 1:] += h[i + 1:, i] * delta
                 deltas.append(delta)
             fm += mis_pat * (xw @ torch.stack(deltas))
         _missing_block_out(out, sl, gam_b, mu_b, imrd, imr0u, p_mask, q_mask)
@@ -363,7 +391,8 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                          f"n={n}, p={p}, q={q}, block={block_size}, "
                          f"r+2={r_aug}")
     window = pair_window(sub, block_size) if pair_bf16 else 1
-    plan = plan or missing_launch_plan(n, q, block_size, r_aug, m)
+    ksub = window if window > 1 else 0   # the instance: 0 is float32
+    plan = plan or missing_launch_plan(n, q, block_size, r_aug, m, ksub)
     lib = _load()
     lead = (m,) if any(batched) else ()
     f32 = lambda v: as_scalar(v, torch.float32, x.device).expand(lead)
@@ -382,8 +411,7 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
         plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
-        m, window if window > 1 else 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        m, ksub, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "

@@ -39,9 +39,10 @@ def nu_update(nu, sum_gam, c=1.0):
     return c * (nu + 0.5 * sum_gam) - c + 1.0
 
 
-def rho_update(rho, m2b_colsum, tau, q_mask, c=1.0):
-    """Slab-precision rate (reference: R/update_vb.R:118)."""
-    return c * (rho + 0.5 * torch.sum(tau * m2b_colsum * q_mask))
+def rho_update(rho, m2b_colsum, tau, q_mask, c=1.0, total=torch.sum):
+    """Slab-precision rate (reference: R/update_vb.R:118); `total` sums
+    over the responses (over every q-shard under a mesh)."""
+    return c * (rho + 0.5 * total(tau * m2b_colsum * q_mask))
 
 
 def eta_update(n_eff, eta, gam_colsum, c=1.0):

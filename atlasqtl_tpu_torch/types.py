@@ -94,6 +94,10 @@ class Data:
     float32 off-diagonal Gram blocks x_{b+1}^T x_b of the lookahead
     schedule (ops/sweep_fused.py:lookahead_gram); built once per fit where
     Config.sweep_lookahead reaches B1 (under mxu_bf16), else None.
+
+    mesh is the parallel/mesh.py Mesh whose local shards the tensors are
+    (parallel/mesh.py:shard_data), None for one device: the model's
+    cross-shard reductions run on its process groups.
     """
     x: Any
     y: Any
@@ -111,6 +115,7 @@ class Data:
     mis_pair_gram: Any = None
     x_bf16: Any = None
     goff: Any = None
+    mesh: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +151,9 @@ class Config:
       kernel: float32, block_size 128 and a padded p that is a multiple of
       128 (models/global_local.py:_b2_pair_bf16); everywhere else, as the
       JAX package's blocked and scan engines, the fit is the float32 fit.
-      There mis_sub must divide 128 (ValueError) and be at most 16
-      (NotImplementedError, ROADMAP.md C6b).  In float32 the window does
+      There mis_sub must divide 128 (ValueError): 1, 2, 4, ..., 128.
+      Under a mesh the flag is ignored, as the JAX package never takes its
+      fused missing kernel there.  In float32 the window does
       not change the math, and mis_sub and mis_wgroup are ignored.
     """
     block_size: int = 128
@@ -161,7 +167,7 @@ class Config:
     shr_fac_inv: float = 1.0
     missing: str = "exact"
     mis_block: int = 8
-    mis_sub: int = 16
+    mis_sub: int = 16     # the window of mis_pair_bf16, in predictors
     mis_wgroup: int = 1
     mis_pair_bf16: bool = False
     anneal_scale: bool = True
@@ -175,6 +181,11 @@ class Config:
     debug: bool = True
     thinned_elbo_eval: bool = True
     device_loop: str = "auto"
+    # the mesh's axis names, set by atlasqtl(mesh=...) from the mesh
+    # (parallel/mesh.py): q_axis "q" on any mesh, p_axis "p" on a 2-D one;
+    # None for one device
     q_axis: Optional[str] = None
     p_axis: Optional[str] = None
+    # the 2-D pipeline's per-step overhead in q columns of tile compute
+    # (parallel/pipeline.py:pick_q_tile); 0 takes the asymptotic rule
     pipeline_step_overhead_qcols: float = 0.0

@@ -117,18 +117,27 @@ per source, started together) and prints ptxas's registers and spills
           version at the same shapes, timed beside the bf16 and float32
           instances, with a sim_anneal fit beside the bf16 fit without it;
           B2's pair_bf16 instance
-          (Config.mis_pair_bf16) at the windows mis_sub = 16, 8 and 4
-          against its plain version at three MIS_SHAPES (the fit shape,
+          (Config.mis_pair_bf16) at the windows mis_sub = 16, 8, 4, 32,
+          64 and 128 against its plain version at three MIS_SHAPES (the fit shape,
           the eQTL cut, the device-memory branch) at the kernel phases'
           tolerance and under the mean criterion, timed at each window in
           turns with the float32 instance, with its phase clocks and
           registers; each timed beside its float32 instance with its
           bound; sim_anneal fits in each mode
-          (complete and impute under mxu_bf16, exact under mis_pair_bf16)
-          on the graph loop beside the float32 fit from the same draw (AUC
-          >= 0.95, PIPs within 5e-2, the instance launched once per
-          iteration); the eQTL cut (maxit 10) in both B1 instances from one
-          device draw, ms per sweep and per iteration.
+          (complete and impute under mxu_bf16, exact under mis_pair_bf16,
+          at mis_sub 16 and at 32, 64 and 128) on the graph loop beside
+          the float32 fit from the same draw (AUC >= 0.95, PIPs within
+          5e-2, the instance launched once per iteration); the eQTL cut
+          (maxit 10) in both B1 instances from one device draw, ms per
+          sweep and per iteration;
+  mesh    the mesh (atlasqtl_tpu_torch.parallel) at world size 1 on NCCL:
+          atlasqtl(mesh=...) at the sim_anneal shape on the 1-D mesh and
+          the (1, 1) pipeline (2 q-tiles), complete (B1) and 15% exact
+          missing (B2), each reaching the single-device fit from the same
+          list_init (iterations, PIPs within 1e-4, AUC >= 0.95) with its
+          launches per iteration (1; 2); a graph-loop fit under the mesh
+          (its all-reduces captured); the eQTL cut under the 1-D mesh
+          beside one device, ms per iteration and launches.
 Each phase prints one JSON line; then each phase's seconds, a `kernels`
 line, and last the contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
@@ -163,7 +172,7 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
 PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
           "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
           "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling",
-          "replica_kernel", "a8_fit", "bf16_modes")
+          "replica_kernel", "a8_fit", "bf16_modes", "mesh")
 SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
@@ -1018,7 +1027,9 @@ def eqtl_run(phase, missing_frac, launch_mod, launch_fn, counter, bound,
     stats["host_path_prepare_to_first_iteration_s"] = \
         stats["prepare_to_first_iteration_s"] + init_s
     _EQTL_STATS[(phase, fit_kw.get("missing"))] = stats
-    out = dict(phase=phase, **fit_kw, n=n, p=p, q=q, anneal=[1, 2, 5],
+    shown = {k: (dict(v.shape) if k == "mesh" else v)
+             for k, v in fit_kw.items()}
+    out = dict(phase=phase, **shown, n=n, p=p, q=q, anneal=[1, 2, 5],
                maxit=10, **stats, finite=bool(np.isfinite(res.gam_vb).all()))
     emit(out)
     if out["launches"] != res.it or not out["finite"]:
@@ -2267,9 +2278,12 @@ BF16_PEAK = 989e12    # H100 SXM bf16 dense on the tensor cores, FLOP/s
 # columns), the fit shape (32-column slices) and the eQTL cut (40)
 BF16_SHAPES = ((120, 120, 200), (300, 2000, 500), (1000, 2048, 10000))
 # B2's pair_bf16 instance: the fit shape, the eQTL cut, the device-memory
-# branch; at the windows Config.mis_sub = 16 (the default), 8 and 4
+# branch; at the windows Config.mis_sub = 16 (the default), 8, 4 and the
+# windows over 16 (32, 64, 128: Fm held at the window's start)
 BF16_MIS_SHAPES = (MIS_SHAPES[2], MIS_SHAPES[3], MIS_SHAPES[9])
-BF16_MIS_SUBS = (16, 8, 4)
+BF16_MIS_SUBS = (16, 8, 4, 32, 64, 128)
+BF16_DEEP_SUBS = (32, 64, 128)
+MESH_PIP = 1e-4      # a mesh fit's PIPs against the single-device fit's
 BF16_RATIO = 20       # kernel's mean error <= the mode's mean distance / 20
 BF16_FIT_PIP = 5e-2   # a bf16 fit's PIPs against the float32 fit's
 
@@ -2654,6 +2668,36 @@ def phase_bf16_modes():
             raise AssertionError(f"bf16 {mode} fit: AUC {auc:.3f}, PIPs "
                                  f"{fits[mode]['pip_max_diff_vs_f32']:.3g} "
                                  f"from the float32 fit's")
+        if mode == "exact":
+            f32_exact_gam = ref_gam
+    # B2's windows over 16 (C6b), each beside the float32 exact fit
+    xx, yy = missing
+    for sub in BF16_DEEP_SUBS:
+        for fn in dl.launch_counters():
+            fn.launches = 0
+        dl.replays = 0
+        t0 = time.perf_counter()
+        res, theta, gam = prepared_fit(
+            yy, xx, Config(mis_pair_bf16=True, mis_sub=sub), DEVICE, seed=0)
+        torch.cuda.synchronize()
+        counts = {"instance": sm.sweep_missing_fused.pair_bf16.launches,
+                  "wrapper": sm.sweep_missing_fused.launches,
+                  "replays": dl.replays}
+        auc = hotspot_auc(theta, p_act)
+        pip = float(np.abs(gam - f32_exact_gam).max())
+        fits[f"exact_mis_sub{sub}"] = dict(
+            flag=f"mis_pair_bf16, mis_sub={sub}", it=res.it,
+            f32_it=fits["exact"]["f32_it"],
+            seconds=time.perf_counter() - t0,
+            converged=bool(res.converged), launches=counts,
+            hotspot_auc_theta=auc, pip_max_diff_vs_f32=pip,
+            lb_opt=res.lb_opt)
+        if not (res.converged and counts["instance"] == res.it
+                and counts["wrapper"] == res.it and counts["replays"] > 0
+                and auc >= 0.95 and np.isfinite(gam).all()
+                and pip <= BF16_FIT_PIP):
+            raise AssertionError(f"bf16 exact fit at mis_sub={sub}: "
+                                 f"{fits[f'exact_mis_sub{sub}']}")
     out["fits"] = fits
 
     # ---- the eQTL cut, both B1 instances from one device draw ----
@@ -2696,6 +2740,10 @@ def phase_bf16_modes():
             mean_abs_err=max(e["mean"] for cs in la_cases
                              for e in cs["err"].values())),
         b2=dict(launches=fits["exact"]["launches"]["instance"],
+                launches_by_mis_sub={
+                    "16": fits["exact"]["launches"]["instance"],
+                    **{str(s_): fits[f"exact_mis_sub{s_}"]["launches"][
+                        "instance"] for s_ in BF16_DEEP_SUBS}},
                 timing=b2_timing,
                 max_abs_err=max(v for cs in b2_cases
                                 for v in cs["max_abs_err"].values()),
@@ -2705,9 +2753,9 @@ def phase_bf16_modes():
 
 def b2_turns(ops, block, dims):
     """B2's float32 instance and its pair_bf16 instance at each window of
-    BF16_MIS_SUBS timed in turns on one problem (f32, 16, 8, 4, then 4, 8,
-    16, f32; CUDA events, median of 9 each), with each one's phase clocks
-    and the plain version's time at the default window."""
+    BF16_MIS_SUBS timed in turns on one problem (f32, 16, 8, ..., 128, then
+    back, f32; CUDA events, median of 9 each), with each one's phase
+    clocks and the plain version's time at the default window."""
     import torch
     from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
 
@@ -2751,8 +2799,121 @@ def bf16_mode(res, instance):
                 pct_of_bound=t["pct_of_bound"], library_ms=None,
                 max_abs_err=res["max_abs_err"],
                 mean_abs_err=res["mean_abs_err"],
-                **{k: res[k] for k in ("impute_fit_launches", "eqtl")
-                   if k in res})
+                **{k: res[k] for k in ("impute_fit_launches", "eqtl",
+                                       "launches_by_mis_sub") if k in res})
+
+
+def phase_mesh():
+    """The mesh (atlasqtl_tpu_torch.parallel) on the card: NCCL at world size
+    1; atlasqtl(mesh=...) on the 1-D mesh and on a (1, 1) 2-D mesh (the
+    p x q pipeline, T >= 2 q-tiles per iteration) at the sim_anneal shape,
+    on complete data (B1) and with 15% of Y missing (exact: B2), each
+    beside the single-device fit from the same list_init (the same
+    iterations, PIPs within MESH_PIP, AUC >= 0.95) with its kernel's
+    launches per iteration (1 on the 1-D mesh, T on the pipeline); one
+    fit on the graph loop under the 1-D mesh (its NCCL all-reduces
+    captured) beside the host loop's; the eQTL cut (maxit 10) under the
+    1-D mesh from the phases' shared host draw, ms per iteration and B1
+    launches per iteration beside the single-device run's."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.parallel import mesh as pmesh
+    from atlasqtl_tpu_torch.parallel import pipeline as pp
+    from atlasqtl_tpu_torch.inference import device_loop as dl
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    at.initialize_distributed(init_method=f"tcp://localhost:{port}",
+                              world_size=1, rank=0, device=DEVICE)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"mesh phase: backend {dist.get_backend()}")
+    meshes = {"1d": pmesh.make_mesh(), "2d": pmesh.make_mesh(two_d=True)}
+    out = {"phase": "mesh", "backend": dist.get_backend(),
+           "world_size": dist.get_world_size(),
+           "meshes": {k: dict(m.shape) for k, m in meshes.items()}}
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    fits = {}
+    for kind, frac, wrapper in (("complete", 0.0, sf.sweep_fused),
+                                ("exact", 0.15, sm.sweep_missing_fused)):
+        x, y = simulate(n, p, q, 0, p_act, q_hit, missing_frac=frac)
+        kw = dict(p0=(5, 25), anneal=(1, 2, 10), dtype=torch.float32,
+                  verbose=0, user_seed=0, device=DEVICE,
+                  list_init=host_init(y, x, 0), device_loop="off")
+
+        def run(mesh, **more):
+            for fn in dl.launch_counters():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = at.atlasqtl(y, x, mesh=mesh, **{**kw, **more})
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, wrapper.launches
+
+        single, single_s, single_l = run(None)
+        q_local = -(-q // 32) * 32   # the mesh pads q to 32 per q-shard
+        tiles = q_local // pp.pick_q_tile(q_local, 1)
+        for mname, mesh in meshes.items():
+            res, secs, launches = run(mesh)
+            per_it = 1 if mname == "1d" else tiles
+            pip = float(np.abs(res.gam_vb - single.gam_vb).max())
+            auc = hotspot_auc(res.theta_vb, p_act)
+            fits[f"{mname}_{kind}"] = dict(
+                it=res.it, single_it=single.it, converged=res.converged,
+                seconds=secs, single_seconds=single_s, launches=launches,
+                single_launches=single_l, launches_per_iteration=per_it,
+                pip_max_diff_vs_single=pip, hotspot_auc_theta=auc,
+                lb_opt=res.lb_opt, single_lb_opt=single.lb_opt)
+            if not (res.converged and res.it == single.it
+                    and launches == per_it * res.it and single_l == single.it
+                    and pip <= MESH_PIP and auc >= 0.95
+                    and np.isfinite(res.gam_vb).all()):
+                raise AssertionError(f"mesh {mname} {kind} fit: "
+                                     f"{fits[f'{mname}_{kind}']}")
+        if kind == "complete":
+            # the graph loop under the 1-D mesh
+            for fn in dl.launch_counters():
+                fn.launches = 0
+            dl.replays = 0
+            t0 = time.perf_counter()
+            res = at.atlasqtl(y, x, mesh=meshes["1d"],
+                              **{**kw, "device_loop": "on"})
+            torch.cuda.synchronize()
+            host = fits["1d_complete"]
+            fits["1d_complete_graph_loop"] = dict(
+                it=res.it, host_loop_it=host["it"],
+                seconds=time.perf_counter() - t0,
+                launches=sf.sweep_fused.launches, replays=dl.replays,
+                lb_opt=res.lb_opt, host_loop_lb_opt=host["lb_opt"])
+            if not (res.it == host["it"] and dl.replays > 0
+                    and sf.sweep_fused.launches == res.it
+                    and abs(res.lb_opt - host["lb_opt"])
+                    <= 1e-6 * abs(host["lb_opt"])):
+                raise AssertionError(f"mesh graph-loop fit: "
+                                     f"{fits['1d_complete_graph_loop']}")
+    out["fits"] = fits
+    emit(out)
+    # the eQTL cut under the 1-D mesh, and without one if the eqtl phase
+    # has not run in this call
+    if ("eqtl", None) not in _EQTL_STATS:
+        eqtl_run("eqtl", 0.0, sf, "_sweep_fused_cuda", sf.sweep_fused,
+                 b1_launch_bound)
+    eqtl_run("mesh_eqtl", 0.0, sf, "_sweep_fused_cuda", sf.sweep_fused,
+             b1_launch_bound, mesh=meshes["1d"])
+    single, mesh_ = _EQTL_STATS[("eqtl", None)], _EQTL_STATS[("mesh_eqtl",
+                                                                None)]
+    out["eqtl"] = {k: dict(iter_ms_median=v["iter_ms_median"],
+                           sweep_ms_median=v["sweep_ms_median"],
+                           launches_per_iteration=v["launches"] / v["it"],
+                           it=v["it"], total_s=v["total_s"])
+                   for k, v in (("single", single), ("mesh_1d", mesh_))}
+    emit(out)
+    dist.destroy_process_group()
+    return dict(fits=fits, eqtl=out["eqtl"])
 
 
 def main():
@@ -2818,6 +2979,7 @@ def main():
                   ({"b1": None, "b2": None}, None))[0]
     run("a8_fit", phase_a8_fit)
     bf16 = run("bf16_modes", phase_bf16_modes)
+    mesh = run("mesh", phase_mesh)
     emit({"phase_seconds": seconds})
     kernels = []
     if timing is not None:

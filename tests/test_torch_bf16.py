@@ -244,7 +244,9 @@ _JAX_B2 = {}
 
 def _jax_b2(c, sub, pair_bf16):
     """The JAX exact-missing kernel in interpret mode on `_b2_problem(c)` at
-    window `sub`, wgroup=4, once per (c, sub, pair_bf16) for the module."""
+    window `sub`, wgroup=4 (fewer where the block holds fewer windows; it
+    does not change the function), once per (c, sub, pair_bf16) for the
+    module."""
     key = (c, sub, pair_bf16)
     if key not in _JAX_B2:
         data, state, consts, sig2_inv = _b2_problem(c)
@@ -253,7 +255,7 @@ def _jax_b2(c, sub, pair_bf16):
             data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
             state.mu_beta, state.fitted, jc, jnp.asarray(sig2_inv), 128,
             p_mask=data.p_mask, q_mask=data.q_mask, q_tile=256, sub=sub,
-            wgroup=4, pair_bf16=pair_bf16, qchunk=256)
+            wgroup=min(4, 128 // sub), pair_bf16=pair_bf16, qchunk=256)
     return _JAX_B2[key]
 
 
@@ -317,20 +319,30 @@ def test_b2_plain_pair_bf16_matches_jax_kernel(c):
     _b2_held_to_jax(c, 16)
 
 
-@pytest.mark.parametrize("sub", [16, 8, 4])
+@pytest.mark.parametrize("sub", [16, 8, 4, 32, 128])
 @pytest.mark.parametrize("c", [1.0, 0.5])
 def test_b2_plain_pair_bf16_matches_jax_at_mis_sub(c, sub):
-    """C6, repaired: at each window sub the port's plain pair_bf16 sweep is
-    the JAX kernel's at that sub (B2's tolerances and the mean criterion);
-    the windows decide which corrections are rounded, so at another sub
-    the port fails B2's tolerances against it (tests/bf16_departures.py
-    prints the distances)."""
+    """C6 and C6b, repaired: at each window sub the port's plain pair_bf16
+    sweep is the JAX kernel's at that sub (B2's tolerances and the mean
+    criterion); the windows decide which corrections are rounded, so at
+    another sub the port fails B2's tolerances against it
+    (tests/bf16_departures.py prints the distances)."""
     _b2_held_to_jax(c, sub, sub=sub)
     data = _b2_problem(c)[0]
     msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
     other = 8 if sub == 16 else 16
     with pytest.raises(AssertionError):
         _check_b2(_b2_port(c, True, sub=other), _jax_b2(c, sub, True), msk)
+
+
+def test_c6b_sixteen_windows_fail_at_32():
+    """C6b's evidence: the port's sweep in windows of 16, all it took
+    before, fails B2's tolerances against the JAX kernel at mis_sub = 32
+    (as the 8-windows failed against 16 in C6)."""
+    data = _b2_problem(1.0)[0]
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    with pytest.raises(AssertionError):
+        _check_b2(_b2_port(1.0, True, sub=16), _jax_b2(1.0, 32, True), msk)
 
 
 def c6_distances(c):
@@ -353,28 +365,29 @@ def c6_distances(c):
 def test_pair_window_follows_the_jax_kernel():
     """The window is mis_sub clipped to the block, as the JAX kernel clips
     it; one that does not divide the block raises ValueError (the JAX
-    kernel's assert), one B2 does not take NotImplementedError naming
-    ROADMAP.md C6b; check_config raises the same under the mode at block
-    128, and the sweep raises before it runs."""
-    assert [tsm.pair_window(s, 128) for s in (1, 2, 4, 8, 16)] == \
-        [1, 2, 4, 8, 16]
+    kernel's assert).  Every power of two up to the block is taken (C6b
+    repaired: 32, 64 and 128 at block 128 raised NotImplementedError
+    before); a window that is not one raises NotImplementedError, which a
+    fit cannot reach (the mode reaches B2 only at block 128).
+    check_config accepts every window the mode takes at block 128 and
+    raises the same ValueError, and the sweep raises before it runs."""
+    assert [tsm.pair_window(s, 128) for s in (1, 2, 4, 8, 16, 32, 64, 128)] \
+        == [1, 2, 4, 8, 16, 32, 64, 128]
     assert tsm.pair_window(16, 8) == 8 and tsm.pair_window(16, 80) == 16
-    for sub, block in ((16, 120), (16, 40), (3, 128), (8, 12)):
+    assert tsm.pair_window(256, 128) == 128
+    for sub, block in ((16, 120), (16, 40), (3, 128), (8, 12), (48, 128)):
         with pytest.raises(ValueError, match="must divide"):
             tsm.pair_window(sub, block)
-    for sub in (32, 64, 128):
-        with pytest.raises(NotImplementedError, match="C6b"):
-            tsm.pair_window(sub, 128)
-    with pytest.raises(NotImplementedError, match="C6b"):
+    with pytest.raises(NotImplementedError, match="power of two"):
         tsm.pair_window(12, 96)
     tgl.check_config(at.Config(mis_pair_bf16=True))
-    tgl.check_config(at.Config(mis_sub=32))   # float32: mis_sub is ignored
-    tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=32,
+    tgl.check_config(at.Config(mis_sub=24))   # float32: mis_sub is ignored
+    tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=24,
                                block_size=256))   # the flag is ignored
+    for sub in (32, 64, 128):
+        tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=sub))
     with pytest.raises(ValueError, match="must divide"):
         tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=24))
-    with pytest.raises(NotImplementedError, match="C6b"):
-        tgl.check_config(at.Config(mis_pair_bf16=True, mis_sub=32))
     ops = _b2_operands(*_b2_problem(1.0))
     with pytest.raises(ValueError, match="must divide"):
         tsm.sweep_missing_fused(*ops, block_size=128, pair_bf16=True, sub=48)

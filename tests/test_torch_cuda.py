@@ -186,10 +186,13 @@ def test_launch_plans_match_the_kernels(cuda):
                 assert ss.occupancy(width, block, r_aug) == 1
     for n in (1, 80, 1000, 4000, 7000, 8000, 50000):
         for r_aug in (1, 42, 48):
-            plan = sm.missing_launch_plan(n, 10000, 128, r_aug)
-            assert sm.kernel_smem_bytes(plan, n, r_aug) == plan["smem_bytes"]
-            ctas, clusters = sm.occupancy(plan, n, r_aug)
-            assert ctas >= plan["ctas_per_sm"] and clusters >= 1
+            for window in (0, 16, 32, 128):
+                plan = sm.missing_launch_plan(n, 10000, 128, r_aug,
+                                              window=window)
+                assert (sm.kernel_smem_bytes(plan, n, r_aug)
+                        == plan["smem_bytes"])
+                ctas, clusters = sm.occupancy(plan, n, r_aug)
+                assert ctas >= plan["ctas_per_sm"] and clusters >= 1
 
 
 def _host_init(y, x, seed):
@@ -1097,6 +1100,23 @@ def test_pair_bf16_kernel_matches_plain(cuda, n, p, q, blk, c, sub):
     criterion: ragged q; n % 8 != 0 and block 80 (80 = 5 x 16, so every
     sub here divides it); block 256 in pieces of 128; the device-memory
     branch (n = 8000)."""
+    _pair_bf16_held(cuda, n, p, q, blk, c, sub)
+
+
+@pytest.mark.parametrize("sub", [32, 64, 128])
+@pytest.mark.parametrize("c", [1.0, 0.5])
+@pytest.mark.parametrize("n,p,q,blk", [(80, 250, 40, 128),
+                                       (100, 512, 40, 256),
+                                       (8000, 128, 256, 128)])
+def test_pair_bf16_deep_windows_match_plain(cuda, n, p, q, blk, c, sub):
+    """C6b: B2's pair_bf16 instances at the windows over 16 (Fm held at the
+    window's start for its 8-windows, the cross pairs with every earlier
+    8-window of it) against the plain version in the JAX kernel's windows:
+    ragged q; block 256 in pieces of 128; the device-memory branch."""
+    _pair_bf16_held(cuda, n, p, q, blk, c, sub)
+
+
+def _pair_bf16_held(cuda, n, p, q, blk, c, sub):
     ops, block = _mis_operands(n, p, q, c, block=blk, frac=0.15)
     assert block == blk
     kw = dict(block_size=block, pair_bf16=True, sub=sub)
@@ -1120,8 +1140,8 @@ def test_pair_bf16_kernel_matches_plain(cuda, n, p, q, blk, c, sub):
 
 
 def test_pair_bf16_window_refused(cuda):
-    """A window that does not divide the block (16 at block 120) or that B2
-    does not take (24, which divides it) raises before any launch; at
+    """A window that does not divide the block (16 at block 120) or that is
+    not a power of two (24, which divides it) raises before any launch; at
     window 1 the mode rounds no pair and the float32 instance runs, bit
     for bit."""
     ops, block = _mis_operands(100, 120, 48, 1.0, block=120, frac=0.15)
@@ -1129,7 +1149,7 @@ def test_pair_bf16_window_refused(cuda):
     launches = sm.sweep_missing_fused.launches
     with pytest.raises(ValueError, match="must divide"):
         sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True, sub=16)
-    with pytest.raises(NotImplementedError, match="C6b"):
+    with pytest.raises(NotImplementedError, match="power of two"):
         sm.sweep_missing_fused(*ops, block_size=block, pair_bf16=True, sub=24)
     assert sm.sweep_missing_fused.launches == launches
     inst = sm.sweep_missing_fused.pair_bf16.launches

@@ -76,8 +76,11 @@ def test_default_device_requires_gpu(fixture_small):
     (dict(mesh=object()), "A12"),
 ])
 def test_unported_options_raise(fixture_small, kwargs, item):
+    """The mesh (ROADMAP.md A12) is ported: atlasqtl takes the port's own
+    Mesh (tests/test_torch_mesh.py) and refuses anything else, naming the
+    item."""
     y, x, _ = fixture_small
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         at.atlasqtl(y, x, p0=(5, 25), verbose=0, device="cpu", **kwargs)
 
 
