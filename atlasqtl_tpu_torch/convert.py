@@ -1,6 +1,7 @@
-"""Build the port's Data / Hyper / VBState from NumPy arrays keyed by field
-name — how a state of the reference package (or one saved to disk) is handed
-to the port without the port importing JAX:
+"""Build the port's Data / Hyper / VBState, and the samplers' GibbsState,
+from NumPy arrays keyed by field name — how a state of the reference
+package (or one saved to disk) is handed to the port without the port
+importing JAX:
 
     arrays = {f.name: np.asarray(getattr(s, f.name))
               for f in dataclasses.fields(s)}
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .api import resolve_device
+from .mcmc.gibbs import GibbsState
 from .types import Data, Hyper, VBState
 
 
@@ -47,3 +49,11 @@ def hyper_from_numpy(arrays, device=None, dtype=None) -> Hyper:
 def state_from_numpy(arrays, device=None, dtype=None) -> VBState:
     """VBState from {field: array}; dtype None keeps each array's dtype."""
     return _from_numpy(VBState, arrays, device, dtype)
+
+
+def gibbs_state_from_numpy(arrays, device=None,
+                           dtype=None) -> GibbsState:
+    """mcmc/gibbs.py:GibbsState from {field: array} (a JAX chain's
+    GibbsState fields; its `key` has no counterpart and is ignored); dtype
+    None keeps each array's dtype."""
+    return _from_numpy(GibbsState, arrays, device, dtype)

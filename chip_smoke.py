@@ -137,7 +137,18 @@ per source, started together) and prints ptxas's registers and spills
           list_init (iterations, PIPs within 1e-4, AUC >= 0.95) with its
           launches per iteration (1; 2); a graph-loop fit under the mesh
           (its all-reduces captured); the eQTL cut under the 1-D mesh
-          beside one device, ms per iteration and launches.
+          beside one device, ms per iteration and launches;
+  mcmc    the cross-check samplers (atlasqtl_tpu_torch.mcmc): at the test
+          shape (60, 30, 12) in float64, three Gibbs sweeps, one NUTS
+          iteration and one batched SMC mutation on the card equal the
+          same calls on the CPU from the same draws; at the fit shape in
+          float32 on the card's own generator run_gibbs (ms and CUDA
+          launches per sweep, the device's busy share), run_nuts (ms and
+          leapfrogs per iteration), run_smc (8 particles, ms per batched
+          mutation) and run_gibbs_sharded on a world-size-1 NCCL mesh equal
+          to run_gibbs from the same seed; each sampler's theta-mean
+          hotspot AUC (Gibbs >= 0.95) and mean |PIP - CAVI gam| against
+          the fit phase's fit.
 Each phase prints one JSON line; then each phase's seconds, a `kernels`
 line, and last the contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
@@ -172,7 +183,22 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
 PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
           "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
           "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling",
-          "replica_kernel", "a8_fit", "bf16_modes", "mesh")
+          "replica_kernel", "a8_fit", "bf16_modes", "mesh", "mcmc")
+# the mcmc phase: the test shape of tests/test_torch_mcmc.py (n, p, q,
+# active SNPs, hit traits; block 16), run in float64 on the CPU and on the
+# card from the same draws, then the samplers' runs at FIT_SHAPE (float32,
+# block 128) on the card.  The chain starts with the horseshoe scales
+# shrunk (sig02_inv = q, as the JAX package's init_state) and an active
+# SNP whose local scale collapsed leaves the funnel slowly: 20 burn-in
+# sweeps left the theta-mean AUC at 0.957 on the card (PERF.md), hence 100
+MCMC_TEST_SHAPE = (60, 30, 12, 5, 12)
+MCMC_GIBBS = dict(n_burnin=100, n_samples=50, seed=1)
+MCMC_NUTS = dict(n_burnin=4, n_samples=4, seed=1)
+MCMC_SMC = dict(n_particles=8, anneal=(1, 2, 5), n_mutations=1, n_final=5,
+                seed=1)
+MCMC_MESH = dict(n_burnin=2, n_samples=3, seed=7)
+MCMC_AUC = 0.95       # PERF.md section 2's gate, on Gibbs's theta mean
+MCMC_PARTICLES = 8
 SCALE_NS = (250, 500, 1000, 2000)   # the scaling phase's sample counts
 SCALE_PQ = (2048, 10000)            # and its (p, q)
 GS_SHAPES = ((128, 200), (80, 48), (128, 504), (128, 10000),
@@ -635,6 +661,9 @@ def host_init(y, x, seed, p0=(5, 25)):
                               float(dat.y.shape[1]), seed)
 
 
+_FIT = {}   # the fit phase's atlasqtl() result, for the mcmc phase
+
+
 def phase_fit():
     import torch
     import atlasqtl_tpu_torch as at
@@ -663,6 +692,7 @@ def phase_fit():
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = sf.sweep_fused.launches
+    _FIT["res"] = res
     auc = hotspot_auc(res.theta_vb, p_act)
     out = dict(phase="fit", n=n, p=p, q=q, anneal=[1, 2, 10],
                converged=bool(res.converged), it=res.it, launches=launches,
@@ -2916,6 +2946,216 @@ def phase_mesh():
     return dict(fits=fits, eqtl=out["eqtl"])
 
 
+def mcmc_problem(n, p, q, p_act, q_hit, device, dtype, block, seed=0):
+    """The samplers' (data, hyper, cfg) of simulate(n, p, q, seed, ...) on
+    `device`, built as tests/test_mcmc.py builds them (shr_fac_inv = q,
+    p0 = (5, 25))."""
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.io.prepare import prepare_data
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.models import global_local as gl
+    x, y = simulate(n, p, q, seed, p_act, q_hit)
+    dat = prepare_data(y, x, 0.1, 1000)
+    p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
+    cfg = at.Config(dtype=dtype, block_size=block, shr_fac_inv=float(q_eff))
+    data = gl.build_data(dat.x, dat.y, cfg, device)
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p_eff, (5, 25)),
+                           data.y.shape[1], cfg, device)
+    return data, hyper, cfg
+
+
+def mcmc_same_draws():
+    """At MCMC_TEST_SHAPE in float64: three Gibbs sweeps, one NUTS
+    iteration and one SMC mutation (4 particles, temper 0.5) on the card
+    from the draws the same calls made on the CPU; each output's max abs
+    difference, held to rtol 1e-9."""
+    import torch
+    from atlasqtl_tpu_torch.mcmc import gibbs as mg, nuts as mn
+    from atlasqtl_tpu_torch.mcmc.draws import RecordingDraws, TorchDraws
+    from atlasqtl_tpu_torch.ops.sweep import block_gram
+
+    def fields(st):
+        return [getattr(st, f.name).cpu().numpy()
+                for f in dataclasses.fields(st)]
+
+    def gibbs(data, hyper, cfg, draws):
+        gram, st = block_gram(data.x, 16), mg.init_state(data, cfg)
+        for _ in range(3):
+            st = mg.gibbs_sweep(st, data, hyper, gram, draws, cfg=cfg)
+        return fields(st)
+
+    def nuts(data, hyper, cfg, draws):
+        return mn.run_nuts(data, hyper, cfg, n_samples=1, n_burnin=0,
+                           seed=3, draws=draws)
+
+    def smc(data, hyper, cfg, draws):
+        st = mg.init_state(data, cfg, 4)
+        return fields(mg.gibbs_sweep(st, data, hyper, block_gram(data.x, 16),
+                                     draws, cfg=cfg, temper=0.5))
+
+    out = {}
+    for name, run in (("gibbs_3_sweeps", gibbs), ("nuts_1_iteration", nuts),
+                      ("smc_1_mutation", smc)):
+        rec = RecordingDraws(TorchDraws.seeded(3, "cpu", torch.float64))
+        ref = run(*mcmc_problem(*MCMC_TEST_SHAPE, "cpu", torch.float64, 16),
+                  rec)
+        got = run(*mcmc_problem(*MCMC_TEST_SHAPE, DEVICE, torch.float64, 16),
+                  rec.replay(DEVICE))
+        out[name] = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+        if not all(np.allclose(g, r, rtol=1e-9, atol=1e-12)
+                   for g, r in zip(got, ref)):
+            raise AssertionError(f"mcmc {name}: the card's chain differs "
+                                 f"from the CPU's by {out[name]:.3g}")
+    return out
+
+
+def sweep_launches(sweep):
+    """One call of sweep() under torch.profiler (after one to warm the
+    tracer up): its CUDA launches (kernels, memsets and copies on the
+    device) and their device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            sweep()
+            torch.cuda.synchronize()
+            prof.step()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    return (sum(e.count for e in dev),
+            sum((getattr(e, "device_time_total", None)
+                 or getattr(e, "cuda_time_total", 0)) for e in dev) / 1e3)
+
+
+def phase_mcmc():
+    """The cross-check samplers (atlasqtl_tpu_torch.mcmc) on the card: the
+    card's chains equal the CPU's under the same draws (mcmc_same_draws);
+    then at FIT_SHAPE in float32 with the card's own generator, run_gibbs
+    (ms and CUDA launches per sweep, the device's busy share of a sweep),
+    run_nuts (ms and leapfrogs per iteration), run_smc (MCMC_PARTICLES
+    particles; ms per batched mutation) and run_gibbs_sharded on a
+    world-size-1 NCCL mesh beside run_gibbs from the same seed; each
+    sampler's theta-mean hotspot AUC (Gibbs's held to MCMC_AUC) and its
+    mean |PIP - CAVI gam| against the fit phase's fit."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    import atlasqtl_tpu_torch as at
+    from atlasqtl_tpu_torch.mcmc import gibbs as mg, nuts as mn, smc as ms
+    from atlasqtl_tpu_torch.mcmc.draws import TorchDraws
+    from atlasqtl_tpu_torch.mcmc.sharded import run_gibbs_sharded
+    from atlasqtl_tpu_torch.ops.sweep import block_gram
+    from atlasqtl_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    out = {"phase": "mcmc", "same_draws_max_abs_diff": mcmc_same_draws(),
+           "same_draws_seconds": time.perf_counter() - t0}
+    n, p, q, p_act, q_hit = FIT_SHAPE
+    data, hyper, cfg = mcmc_problem(n, p, q, p_act, q_hit, DEVICE,
+                                    torch.float32, 128)
+    out["cavi_fit_from_fit_phase"] = "res" in _FIT
+    if "res" not in _FIT:   # the fit phase did not run in this call
+        x, y = simulate(n, p, q, 0, p_act, q_hit)
+        _FIT["res"] = at.atlasqtl(y, x, p0=(5, 25), anneal=(1, 2, 10),
+                                  dtype=torch.float32, verbose=0, user_seed=0,
+                                  device=DEVICE)
+    cavi = _FIT["res"].gam_vb
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def summary(res, secs, steps):
+        pip, theta = res[0][:p, :q], res[2][:p]
+        return dict(seconds=secs, ms_per_step=1e3 * secs / steps,
+                    hotspot_auc_theta=hotspot_auc(theta, p_act),
+                    pip_mean_abs_diff_vs_cavi=float(np.abs(pip - cavi).mean()),
+                    pip_active_mean=float(pip[:p_act, :q_hit].mean()),
+                    pip_null_mean=float(pip[p_act:].mean()),
+                    finite=all(bool(np.isfinite(v).all()) for v in res))
+
+    # Gibbs: its sweep's launches and device time, then the chain
+    gram = block_gram(data.x, 128)
+    draws = TorchDraws.seeded(0, DEVICE, torch.float32)
+    st = mg.init_state(data, cfg)
+    t0 = time.perf_counter()
+    launches, device_ms = sweep_launches(
+        lambda: mg.gibbs_sweep(st, data, hyper, gram, draws, cfg=cfg))
+    out["profile_seconds"] = time.perf_counter() - t0
+    res, secs = timed(lambda: mg.run_gibbs(data, hyper, cfg, **MCMC_GIBBS))
+    steps = MCMC_GIBBS["n_burnin"] + MCMC_GIBBS["n_samples"]
+    out["gibbs"] = dict(summary(res, secs, steps), sweeps=steps,
+                        launches_per_sweep=launches,
+                        launches_per_coordinate=launches / data.x.shape[1],
+                        device_ms_per_sweep=device_ms,
+                        device_busy_share=device_ms / (1e3 * secs / steps))
+
+    # NUTS-within-Gibbs: count the leapfrogs of its trees
+    leapfrog, count = mn._leapfrog, [0]
+
+    def counted(*a):
+        count[0] += 1
+        return leapfrog(*a)
+    mn._leapfrog = counted
+    try:
+        res, secs = timed(lambda: mn.run_nuts(data, hyper, cfg, **MCMC_NUTS))
+    finally:
+        mn._leapfrog = leapfrog
+    steps = MCMC_NUTS["n_burnin"] + MCMC_NUTS["n_samples"]
+    out["nuts"] = dict(summary(res, secs, steps), iterations=steps,
+                       leapfrogs_per_iteration=count[0] / steps)
+
+    # SMC: one batched mutation of MCMC_PARTICLES particles, then the run
+    ps = mg.init_state(data, cfg, MCMC_PARTICLES)
+    ps = mg.gibbs_sweep(ps, data, hyper, gram, draws, cfg=cfg, temper=0.5)
+    _, mut_s = timed(lambda: mg.gibbs_sweep(ps, data, hyper, gram, draws,
+                                            cfg=cfg, temper=0.5))
+    res, secs = timed(lambda: ms.run_smc(data, hyper, cfg, **MCMC_SMC))
+    rungs = MCMC_SMC["anneal"][2]
+    steps = rungs * MCMC_SMC["n_mutations"] + MCMC_SMC["n_final"]
+    out["smc"] = dict(summary(res[:4], secs, steps), mutations=steps,
+                      particles=MCMC_PARTICLES,
+                      ms_per_batched_mutation=1e3 * mut_s,
+                      log_evidence=res[4])
+
+    # run_gibbs_sharded on a world-size-1 NCCL mesh
+    if not dist.is_initialized():
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        at.initialize_distributed(init_method=f"tcp://localhost:{port}",
+                                  world_size=1, rank=0, device=DEVICE)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"mcmc phase: backend {dist.get_backend()}")
+        one, one_s = timed(lambda: mg.run_gibbs(data, hyper, cfg,
+                                                **MCMC_MESH))
+        shd, shd_s = timed(lambda: run_gibbs_sharded(
+            data, hyper, cfg, pmesh.make_mesh(), **MCMC_MESH))
+    finally:
+        dist.destroy_process_group()
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(shd, one))
+    out["sharded_gibbs"] = dict(backend="nccl", world_size=1,
+                                seconds=shd_s, single_seconds=one_s,
+                                max_abs_diff_vs_single=diff)
+    emit(out)
+    g = out["gibbs"]
+    if not (g["hotspot_auc_theta"] >= MCMC_AUC and g["finite"]
+            and out["nuts"]["finite"] and out["smc"]["finite"]
+            and np.isfinite(res[4])):
+        raise AssertionError(f"mcmc phase: {out}")
+    if diff > 1e-6:
+        raise AssertionError(f"mcmc phase: the sharded chain differs from "
+                             f"run_gibbs by {diff:.3g}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2980,6 +3220,7 @@ def main():
     run("a8_fit", phase_a8_fit)
     bf16 = run("bf16_modes", phase_bf16_modes)
     mesh = run("mesh", phase_mesh)
+    run("mcmc", phase_mcmc)
     emit({"phase_seconds": seconds})
     kernels = []
     if timing is not None:

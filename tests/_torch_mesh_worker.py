@@ -9,6 +9,11 @@ first two ranks (torch.distributed.new_group is collective), and on each
 runs, per case (complete data, exact missing, impute, model="global"):
 three CAVI iterations and the ELBO from the host-drawn state (gathered),
 and an atlasqtl() fit; rank r also fits case r in one process (no mesh).
+Then the samplers (atlasqtl_tpu_torch.mcmc) on the 1-D and (2, 2) meshes:
+run_gibbs_sharded from the port's own draws and from the JAX package's
+(recorded by the parent, which writes them to MCMC_DRAWS meanwhile),
+run_nuts_sharded and run_smc on the shards, beside the single-process
+runs.
 
 Usage: python _torch_mesh_worker.py <port> <rank> <world> <out.npz>
 (the parent imports it for its constants and `simulate`).
@@ -25,6 +30,12 @@ import torch  # noqa: E402
 
 import atlasqtl_tpu_torch as at  # noqa: E402
 from atlasqtl_tpu_torch.inference import elicitation as elic  # noqa: E402
+from atlasqtl_tpu_torch.mcmc.draws import ArrayDraws  # noqa: E402
+from atlasqtl_tpu_torch.mcmc.gibbs import run_gibbs  # noqa: E402
+from atlasqtl_tpu_torch.mcmc.nuts import run_nuts  # noqa: E402
+from atlasqtl_tpu_torch.mcmc.sharded import (  # noqa: E402
+    run_gibbs_sharded, run_nuts_sharded, shard_data_by_traits)
+from atlasqtl_tpu_torch.mcmc.smc import run_smc  # noqa: E402
 from atlasqtl_tpu_torch.io.prepare import prepare_data  # noqa: E402
 from atlasqtl_tpu_torch.models import global_local as gl  # noqa: E402
 from atlasqtl_tpu_torch.models import global_only as go  # noqa: E402
@@ -39,6 +50,19 @@ CASES = dict(complete=(0.0, "exact", "global_local"),
              impute=(0.2, "impute", "global_local"),
              glob=(0.0, "exact", "global"))
 
+# the samplers' problem, tests/test_mcmc_sharded.py:_build (q padded to 64,
+# 16 columns per shard on the 1-D mesh), their runs, and the file in which
+# the parent leaves the JAX package's recorded draws of MCMC_GIBBS
+MCMC_SIM = dict(n=100, p=32, p_act=5, q=16, seed=11)
+MCMC_BLOCK, MCMC_Q_PAD, MCMC_P0 = 16, 64, (4, 12)
+MCMC_GIBBS = dict(n_samples=3, n_burnin=2, seed=5)
+MCMC_NUTS = dict(n_samples=2, n_burnin=2, seed=5)
+MCMC_SMC = dict(n_particles=3, anneal=(1, 2, 2), n_mutations=1, n_final=2,
+                seed=5)
+MCMC_MESHES = ("1d", "2x2")
+MCMC_DRAWS = "jax_mcmc_draws.npz"
+MCMC_WAIT_S = 100
+
 T0 = time.time()
 
 
@@ -46,14 +70,14 @@ def mark(msg):
     print(f"[mesh-worker +{time.time() - T0:.1f}s] {msg}", flush=True)
 
 
-def simulate(missing_frac):
+def simulate(missing_frac, n=N, p=P, p_act=P_ACT, q=Q, seed=SEED):
     """tests/conftest.py:simulate_fixture (inlined: conftest imports
     JAX's environment machinery)."""
-    rng = np.random.default_rng(SEED)
-    x = rng.binomial(2, 0.2, size=(N, P)).astype(np.float64)
-    beta = np.zeros((P, Q))
-    beta[:P_ACT] = rng.normal(1.0, 0.5, size=(P_ACT, Q))
-    y = x @ beta + rng.normal(size=(N, Q))
+    rng = np.random.default_rng(seed)
+    x = rng.binomial(2, 0.2, size=(n, p)).astype(np.float64)
+    beta = np.zeros((p, q))
+    beta[:p_act] = rng.normal(1.0, 0.5, size=(p_act, q))
+    y = x @ beta + rng.normal(size=(n, q))
     if missing_frac > 0:
         mask = rng.uniform(size=y.shape) < missing_frac
         y = y.copy()
@@ -111,6 +135,59 @@ def replica_fit(mesh, y, x, **kw):
                        device="cpu", block_size=BLOCK, maxit=MAXIT,
                        user_seed=INIT_SEED, mesh=mesh, anneal_replicas=2,
                        full_output=True, **kw)
+
+
+def mcmc_problem():
+    """The samplers' (data, hyper, cfg), float64 on the CPU."""
+    y, x = simulate(0.0, **MCMC_SIM)
+    dat = prepare_data(y, x, 0.1, 1000)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = at.Config(dtype=torch.float64, block_size=MCMC_BLOCK,
+                    shr_fac_inv=float(q))
+    data = gl.build_data(dat.x, dat.y, cfg, "cpu", q_pad_to=MCMC_Q_PAD)
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, MCMC_P0),
+                           data.y.shape[1], cfg, "cpu")
+    return data, hyper, cfg
+
+
+def jax_draws(path):
+    """The JAX package's recorded draws, once the parent has written them
+    (tests/_jax_mcmc.py:save_sites), as ArrayDraws."""
+    deadline = time.time() + MCMC_WAIT_S
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"no {path} after {MCMC_WAIT_S} s")
+        time.sleep(0.2)
+    sites = {}
+    with np.load(path) as f:
+        for k in sorted(f.files):
+            sites.setdefault(k.rsplit("__", 1)[0], []).append(f[k])
+    return ArrayDraws(sites, "cpu", torch.float64)
+
+
+def mcmc_cases(meshes, outdir, out):
+    """run_gibbs_sharded (the port's own draws, and the JAX package's),
+    run_nuts_sharded and run_smc on the shards of each of MCMC_MESHES, and
+    the single-process runs."""
+    data, hyper, cfg = mcmc_problem()
+    names = ("pip", "beta", "theta", "zeta")
+    runs = {"single__gibbs": run_gibbs(data, hyper, cfg, **MCMC_GIBBS),
+            "single__nuts": run_nuts(data, hyper, cfg, **MCMC_NUTS),
+            "single__smc": run_smc(data, hyper, cfg, **MCMC_SMC)}
+    for m in MCMC_MESHES:
+        mesh = meshes[m]
+        runs[f"{m}__gibbs"] = run_gibbs_sharded(data, hyper, cfg, mesh,
+                                                **MCMC_GIBBS)
+        runs[f"{m}__gibbs_jax_draws"] = run_gibbs_sharded(
+            data, hyper, cfg, mesh, **MCMC_GIBBS,
+            draws=jax_draws(os.path.join(outdir, MCMC_DRAWS)))
+        runs[f"{m}__nuts"] = run_nuts_sharded(data, hyper, cfg, mesh,
+                                              **MCMC_NUTS)
+        runs[f"{m}__smc"] = run_smc(*shard_data_by_traits(data, hyper, mesh),
+                                    cfg, **MCMC_SMC)
+    for key, res in runs.items():
+        for name, v in zip(names + ("log_evidence",), res):
+            out[f"mcmc__{key}__{name}"] = v
 
 
 def main(port, rank, world, outfile):
@@ -203,6 +280,8 @@ def main(port, rank, world, outfile):
         for k, v in fit(pair, y, x, "exact", "global_local",
                         user_seed=None).items():
             out[f"pair__unseeded__fit__{k}"] = v
+    mcmc_cases(meshes, os.path.dirname(outfile), out)
+    mark("samplers done")
     mark("saving")
     np.savez(outfile, **out)
     torch.distributed.destroy_process_group()

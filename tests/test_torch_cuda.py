@@ -1479,3 +1479,102 @@ def test_lookahead_graph_loop_matches_host_loop(cuda):
                                                on.elbo_history]
     np.testing.assert_allclose([lb for _, lb in on.elbo_history],
                                [lb for _, lb in off.elbo_history], rtol=1e-6)
+
+
+# ------------------------------------------------ the samplers (mcmc/)
+
+def _mcmc_problem(device, seed=3):
+    """The samplers' float64 (data, hyper, cfg) at (60, 30, 12), block 16,
+    built on the CPU and moved to `device` field by field (the same
+    inputs on both devices)."""
+    from atlasqtl_tpu_torch.types import Data, Hyper
+    y, x, _ = simulate_fixture(n=60, p=30, p_act=5, q=12, seed=seed)
+    dat = prepare_data(y, x, 0.1, 1000)
+    p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
+    cfg = Config(dtype=torch.float64, block_size=16,
+                 shr_fac_inv=float(q_eff))
+    data = gl.build_data(dat.x, dat.y, cfg, "cpu")
+    hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p_eff, (4, 12)),
+                           data.y.shape[1], cfg, "cpu")
+    move = lambda obj: dataclasses.replace(obj, **{
+        f.name: v.to(device) for f in dataclasses.fields(obj)
+        if isinstance(v := getattr(obj, f.name), torch.Tensor)})
+    return move(data), move(hyper), cfg
+
+
+def _mcmc_held(got, ref, label):
+    for f in dataclasses.fields(ref):
+        np.testing.assert_allclose(getattr(got, f.name).cpu().numpy(),
+                                   getattr(ref, f.name).numpy(), rtol=1e-9,
+                                   atol=1e-12, err_msg=f"{label}: {f.name}")
+
+
+@pytest.mark.parametrize("particles", [None, 4])
+def test_gibbs_sweep_on_card_matches_cpu(cuda, particles):
+    """Three gibbs_sweeps (temper 1, then 0.5: an SMC mutation of 4
+    particles with a particle axis) on the card equal the same sweeps on
+    the CPU under the same draws."""
+    from atlasqtl_tpu_torch.mcmc import gibbs as mg
+    from atlasqtl_tpu_torch.mcmc.draws import RecordingDraws, TorchDraws
+    out = {}
+    rec = RecordingDraws(TorchDraws.seeded(4, "cpu", torch.float64))
+    for dev, draws in (("cpu", rec), ("cuda", None)):
+        data, hyper, cfg = _mcmc_problem(dev)
+        draws = draws or rec.replay(dev)
+        gram = block_gram(data.x, 16)
+        st = mg.init_state(data, cfg, particles)
+        for temper in (1.0, 0.5, 0.5):
+            st = mg.gibbs_sweep(st, data, hyper, gram, draws, cfg=cfg,
+                                temper=temper)
+        out[dev] = st
+    _mcmc_held(out["cuda"], out["cpu"], f"particles={particles}")
+    assert out["cpu"].gam.sum() > 0
+
+
+def test_nuts_step_on_card_matches_cpu(cuda):
+    """One NUTS transition on the card takes the CPU's tree from the same
+    host rng: the same w' and acceptance statistic."""
+    from atlasqtl_tpu_torch.mcmc import nuts as mn
+    rng = np.random.default_rng(7)
+    a = dict(zrow=rng.normal(size=32) * 5, zcol=rng.normal(size=16) * 3,
+             p_mask=(np.arange(32) < 30).astype(float),
+             q_mask=(np.arange(16) < 12).astype(float), p_true=30.0,
+             q_true=12.0, n0=rng.normal(size=16) - 1.0, t0=0.7,
+             shr_sqrt=np.sqrt(12.0))
+    w = rng.normal(size=2 * 32 + 1 + 16) * 0.3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        stats = mn.NutsStats(**{k: torch.as_tensor(v, dtype=torch.float64,
+                                                   device=dev)
+                                for k, v in a.items()})
+        out[dev] = mn.nuts_step(np.random.default_rng(9),
+                                torch.as_tensor(w, device=dev), 0.1, stats)
+    np.testing.assert_allclose(out["cuda"][0].cpu().numpy(),
+                               out["cpu"][0].numpy(), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-9)
+
+
+def test_samplers_run_on_the_card_with_its_generator(cuda):
+    """run_gibbs, run_nuts and run_smc on data that live on the card draw
+    from a CUDA generator (torch._standard_gamma takes it there): the same
+    seed gives the same summaries, and they are finite, of full shape."""
+    from atlasqtl_tpu_torch.mcmc import gibbs as mg, nuts as mn, smc as ms
+    from atlasqtl_tpu_torch.mcmc.draws import TorchDraws
+    data, hyper, cfg = _mcmc_problem("cuda")
+    d = TorchDraws.seeded(1, "cuda", torch.float64)
+    assert d.generator.device.type == "cuda"
+    g = d.standard_gamma("tau", torch.full((5,), 2.0, dtype=torch.float64,
+                                           device="cuda"))
+    assert g.device.type == "cuda" and bool((g > 0).all())
+    runs = [mg.run_gibbs(data, hyper, cfg, n_samples=4, n_burnin=2, seed=1)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+    nuts = mn.run_nuts(data, hyper, cfg, n_samples=2, n_burnin=2, seed=1)
+    smc = ms.run_smc(data, hyper, cfg, n_particles=4, anneal=(1, 2, 3),
+                     n_mutations=1, n_final=2, seed=1)
+    p_pad, q_pad = data.x.shape[1], data.y.shape[1]
+    for res in (runs[0], nuts, smc[:4]):
+        assert res[0].shape == (p_pad, q_pad) and res[2].shape == (p_pad,)
+        assert all(np.isfinite(v).all() for v in res)
+    assert np.isfinite(smc[4])

@@ -55,7 +55,15 @@ def test_annealing_ladder_exact(anneal):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, atlasqtl_tpu_torch, atlasqtl_tpu_torch.convert\n"
+    """Importing every module of the port (pkgutil.walk_packages: mcmc/,
+    parallel/ and the rest) loads no jax, jaxlib or atlasqtl_tpu module."""
+    code = ("import importlib, pkgutil, sys, atlasqtl_tpu_torch as at\n"
+            "names = [m.name for m in pkgutil.walk_packages(at.__path__, "
+            "'atlasqtl_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'atlasqtl_tpu_torch.mcmc.sharded' in names, names\n"
+            "assert 'atlasqtl_tpu_torch.convert' in names, names\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'atlasqtl_tpu')]\n"
             "assert not bad, bad\n")

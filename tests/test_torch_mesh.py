@@ -49,6 +49,7 @@ import atlasqtl_tpu_torch as at
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_mesh_worker as W  # noqa: E402  (constants only: no main)
+import _jax_mcmc as J  # noqa: E402
 
 WORLD = 4
 MESHES = ("1d", "2x2", f"{WORLD}x1")
@@ -62,6 +63,10 @@ ITER_TOL = dict(gam=dict(rtol=1e-10, atol=1e-12),
 # the port's fit against the JAX package's (tests/test_torch_model.py)
 FIT_ATOL, FIT_LB_RTOL = 1e-6, 1e-9
 JAX_FIT_CASES = ("glob",)   # the case whose fits converge within MAXIT
+MCMC_NAMES = ("pip", "beta", "theta", "zeta")
+# a sharded chain against the single-process chain or the JAX package's
+# (tests/test_mcmc_sharded.py:46)
+MCMC_ATOL = 1e-8
 
 
 def _free_port():
@@ -90,6 +95,24 @@ def _jax_iterations(frac, missing, model):
                 theta=np.asarray(s.theta)[:p],
                 fitted=np.asarray(s.fitted)[:W.N, :q],
                 lb=float(mod.compute_elbo(data, hyper, s, cfg=cfg)))
+
+
+def _jax_mcmc(d):
+    """The JAX package's run_gibbs on the samplers' problem
+    (tests/test_mcmc_sharded.py:_build), its draws recorded and left in d
+    for the workers; returns its summaries by name."""
+    y, x = W.simulate(0.0, **W.MCMC_SIM)
+    dat = jprepare(y, x, 0.1, 1000)
+    p, q = dat.x.shape[1], dat.y.shape[1]
+    cfg = JConfig(dtype=jnp.float64, block_size=W.MCMC_BLOCK,
+                  shr_fac_inv=float(q))
+    data = jgl.build_data(dat.x, dat.y, cfg, q_pad_to=W.MCMC_Q_PAD)
+    hyper = jgl.build_hyper(jelic.auto_set_hyper(dat.y, p, W.MCMC_P0),
+                            data.y.shape[1], cfg)
+    rec, res = J.run_recorded("gibbs", data, hyper, cfg, W.MCMC_BLOCK,
+                              **W.MCMC_GIBBS)
+    J.save_sites(d / W.MCMC_DRAWS, rec)
+    return dict(zip(MCMC_NAMES, res))
 
 
 def _fit_kw(missing, model):
@@ -143,6 +166,7 @@ def _compute(d):
     procs = _start_workers(d)
     try:
         deadline = time.time() + WAIT_S
+        jax_mcmc = _jax_mcmc(d)
         jax_iter, jax_fit = {}, {}
         for case, (frac, missing, model) in W.CASES.items():
             jax_iter[case] = _jax_iterations(frac, missing, model)
@@ -160,6 +184,8 @@ def _compute(d):
     assert not logs, f"mesh worker failed:\n{logs[0][-4000:]}"
     with open(d / "refs.pkl", "wb") as fh:
         pickle.dump((jax_iter, jax_fit), fh)
+    with open(d / "mcmc_ref.pkl", "wb") as fh:
+        pickle.dump(jax_mcmc, fh)
 
 
 @pytest.fixture(scope="module")
@@ -330,3 +356,54 @@ def test_unseeded_fit_agrees_on_both_ranks(runs):
     assert a and b and not _fit_of(ranks[2], "pair__unseeded")
     for name in ("gam", "theta", "zeta", "lb", "it"):
         np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def mcmc_ref(runs):
+    """The JAX package's run_gibbs summaries on the samplers' problem."""
+    with open(runs[4] / "mcmc_ref.pkl", "rb") as fh:
+        return pickle.load(fh)
+
+
+def _mcmc_of(rank, key):
+    return {n: rank[f"mcmc__{key}__{n}"] for n in MCMC_NAMES}
+
+
+@pytest.mark.parametrize("mesh", W.MCMC_MESHES)
+def test_sharded_gibbs_matches_one_process_and_jax(runs, mcmc_ref, mesh):
+    """run_gibbs_sharded equals the port's single-process run_gibbs from the
+    same seed (draws made at the full q width on every rank), and, from
+    the JAX package's recorded draws, JAX's run_gibbs; every rank returns
+    the full summaries."""
+    ranks, ref = runs[0], mcmc_ref
+    for r, rank in enumerate(ranks):
+        one = _mcmc_of(rank, "single__gibbs")
+        own = _mcmc_of(rank, f"{mesh}__gibbs")
+        jx = _mcmc_of(rank, f"{mesh}__gibbs_jax_draws")
+        for n in MCMC_NAMES:
+            assert own[n].shape == ref[n].shape
+            np.testing.assert_allclose(own[n], one[n], rtol=0,
+                                       atol=MCMC_ATOL, err_msg=f"{r} {n}")
+            np.testing.assert_allclose(jx[n], ref[n], rtol=0,
+                                       atol=MCMC_ATOL, err_msg=f"{r} {n}")
+        assert one["pip"].sum() > 0
+
+
+@pytest.mark.parametrize("sampler", ["nuts", "smc"])
+@pytest.mark.parametrize("mesh", W.MCMC_MESHES)
+def test_sharded_nuts_and_smc_match_one_process(runs, mesh, sampler):
+    """run_nuts_sharded (the tree replicated on every rank from the q-summed
+    and gathered Z sums) equals the port's single-process run_nuts, and
+    run_smc on the shards (its log-likelihood summed over the q group)
+    equals run_smc, log evidence too."""
+    for r, rank in enumerate(runs[0]):
+        one = _mcmc_of(rank, f"single__{sampler}")
+        got = _mcmc_of(rank, f"{mesh}__{sampler}")
+        for n in MCMC_NAMES:
+            np.testing.assert_allclose(got[n], one[n], rtol=0,
+                                       atol=MCMC_ATOL, err_msg=f"{r} {n}")
+        if sampler == "smc":
+            key = "mcmc__{}__smc__log_evidence"
+            np.testing.assert_allclose(rank[key.format(mesh)],
+                                       rank[key.format("single")],
+                                       rtol=1e-12)
