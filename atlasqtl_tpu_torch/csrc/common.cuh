@@ -44,6 +44,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col): thread
+// (g = lane / 4, t = lane % 4) holds a rows g, g + 8 at columns 2t, 2t + 1
+// (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); b rows 2t, 2t + 1 (b0) and
+// 2t + 8, 2t + 9 (b1) at column g; d rows g (d[0], d[1]) and g + 8 (d[2],
+// d[3]) at columns 2t, 2t + 1; each 32-bit register holds two bf16, the
+// lower index in its low half.  B1's and B2's bf16 instances take it.
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // The per-element formulas of the complete-data sweep, shared by B1
 // (sweep_fused.cu) and B4 (sweep_staggered.cu) with every rounding written
 // out: fmaf, __fmul_rn, __fadd_rn, __fsub_rn and __fdiv_rn are never fused

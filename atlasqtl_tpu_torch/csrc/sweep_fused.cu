@@ -228,15 +228,6 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* ptr) {
       : "r"(s)
       : "memory");
 }
-// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // four floats rounded to bf16 (nearest even) into 8 bytes of shared memory
 __device__ __forceinline__ void st_bf16x4(__nv_bfloat16* dst, const float* f) {
   __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);

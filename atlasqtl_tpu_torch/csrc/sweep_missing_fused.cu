@@ -80,32 +80,63 @@
 // are the TPU kernel's mis_pair_bf16 mode at its window sub = SUB
 // (atlasqtl_tpu/ops/sweep_missing_fused.py:100-215): windows of SUB
 // predictors, each projected against Fm as of its start, every pair a > b
-// inside one through the masked pair Gram sum_n m_nk bf16(x_na x_nb), Fm
-// advanced once per window.  A rounded pair product is formed in f32
-// (__fmul_rn, so that it is never contracted into an FMA), rounded to
-// bf16 (nearest even) and added under the exact mask in f32; the rounded
-// products do not depend on the column.  The kernel keeps its chain
-// windows of W = 8, and the windows only decide which pairs are rounded:
-//  - SUB <= 8: the pairs of an 8-window inside one SUB-aligned group are
-//    rounded, the others keep the f32 pair Gram, which is the f32 advance
-//    of the JAX kernel's windows up to rounding;
-//  - SUB = 16: each odd 8-window (the second of its 16-window, blocks
-//    start at multiples of 16) projects Fm from before the pass's advance
-//    by the even one, which is the 16-window's start, and adds
-//    sum_n m_nk sum_b bf16(x_na x_nb) delta_b over that window's b
-//    (cross_row_update); one row per warp step there, for registers;
+// inside one through the masked pair Gram H[(a, b), k] = sum_n m_nk
+// bf16(x_na x_nb), Fm advanced once per window.  A rounded pair product is
+// formed in f32 (__fmul_rn, never contracted into an FMA) and rounded to
+// bf16 (nearest even); the mask is exact in bf16.  Under the mode the pair
+// Grams are the function's largest term, (SUB - 1) n p q operations per
+// sweep, which the JAX kernel takes as one MXU product (_pair_dot,
+// :127-145).  The kernel keeps its chain windows of W = 8:
+//  - SUB = 2, 4: only the pairs of one SUB-aligned group of an 8-window are
+//    rounded, the others keep the f32 pair Gram (the f32 advance of the JAX
+//    kernel's windows up to rounding); these keep the float32 instance's
+//    SIMT pair sums, each lane rounding its own products (pair_sums);
+//  - SUB >= 8 (TC): every pair of an 8-window is rounded, and the pair
+//    Grams run on the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32:
+//    A is 16 pairs x 16 samples of rounded products, B 16 samples x 8
+//    columns of the exact mask (built from the packed mask bits on chip,
+//    from the mask rows in device memory), the slice's 32 columns four n8
+//    tiles.  The warps split the samples (chunks of KC = 16 rows, dealt
+//    round robin), so each rounded product is formed once per CTA, straight
+//    into its A fragment, and the warp partials are added in the fixed slot
+//    order of the f32 sums.  The 28 pairs of the 8-window (window_grams)
+//    feed the chain through the cluster sum, as the f32 pair sums do; each
+//    thread's A rows pair its own x_g with a partner, and its B columns
+//    are four adjacent mask bits (the n8 tiles' columns are permuted), so
+//    that a fragment costs few loads.  The window's pair sums go through
+//    the slots in phases of their own, before the cross pairs, so that
+//    their 32 accumulators are dead by then (128 registers: two CTAs per
+//    SM; in device memory from SUB = 16 on, with more 64-bit addresses
+//    live, one CTA per SM);
+//  - SUB = 16: each odd 8-window (the second of its 16-window; blocks start
+//    at multiples of 16) projects Fm from before the pass's advance by the
+//    even one, the 16-window's start, and needs its cross pairs with the
+//    even window only as sum_b H[(a, b), k] delta_bk.  Those deltas are
+//    known before the pass, so each warp contracts its partial H tiles with
+//    them in f32 registers (cross_grams) and adds the result to its
+//    projections, which ride the cluster sum: no cross-pair tile is kept in
+//    shared memory;
 //  - SUB = 32, 64, 128 (DEEP): Fm stays as of the SUB-window's start for
-//    its SUB / 8 chain windows, the deltas of the whole SUB-window stay in
-//    shared memory (SUB x 32 floats), and each chain window j projects Fm
-//    as it stands and adds the rounded cross pairs with every earlier chain
-//    window 0 .. j-1 of the SUB-window; the next SUB-window's first pass
-//    (or the tail) advances Fm by all SUB deltas (deep_pass).  The x rows
-//    of the earlier chain windows are read from device memory, where x (n,
-//    p) is L2-resident at a block's width: on chip, beside the CTA's Fm
-//    rows, they do not fit (nloc x SUB floats).  The pair work per row
-//    grows as SUB (8 SUB / 2 rounded products per predictor on average).
+//    its SUB / 8 chain windows, whose deltas stay in shared memory (SUB x 32
+//    floats); chain window j projects Fm as it stands and contracts its
+//    cross pairs with every earlier chain window of the SUB-window as
+//    above; the next SUB-window's first pass (or the tail) advances Fm by
+//    all SUB deltas in f32 (deep_rows, x from device memory).  The cross
+//    pairs need the earlier windows' x in f32 for the CTA's rows, nloc x
+//    SUB floats (128 KB at nloc 250 and SUB 128), which do not fit beside
+//    Fm.  Each warp stages them by cp.async, KC rows x 8 predictors at a
+//    time, through a two-stage ring in the x slot that the deep pass does
+//    not read (the previous window's, made at least RING_ROWS rows): one
+//    stage lands while the other is multiplied.  A larger cluster would
+//    hold fewer rows per CTA but repeat the chain in more CTAs, so the
+//    cluster stays the plan's.
+// The float32 parts (the projections, the masked advance, the chain, the Z
+// rows) stay in f32 on the FP32 pipe: the JAX kernel's products there are
+// f32 under the mode.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -126,21 +157,26 @@ constexpr int BMAX = 128;            // largest predictor block
 constexpr int RMAX = 48;             // largest interpolation width (r + 2)
 constexpr int SMEM_MAX = 232448;     // shared memory one CTA may take
 constexpr int MAX_CLUSTER = 8;       // largest portable cluster (any size 1..8)
-constexpr int NCLK = 10;             // phase clock slots of the probe CTA
-constexpr int CLKF = (2 * NCLK + 3) & ~3;  // their floats, kept 16-byte whole
+constexpr int NCLK = 11;             // phase clock slots of the probe CTA
+// their floats with the probe's start and latest tick, kept 16-byte whole
+constexpr int CLKF = (2 * (NCLK + 2) + 3) & ~3;
 constexpr int NOPW = 4;              // warps that build a window's operands
 constexpr int ROP = W / NOPW;        // window rows per operand warp
 constexpr int NZW = NW - 1 - NOPW;   // warps that build this rank's Z rows
 constexpr int RZ = (W + NZW - 1) / NZW;  // most Z rows per warp
 static_assert(W % NOPW == 0 && NZW >= 1 && RZ == 3,
               "the chain warp, operand warps and Z warps share the CTA");
+constexpr int KC = 16;                   // samples per tensor-core step
+constexpr int RING_ROWS = NW * 2 * KC;   // x rows of the DEEP warps' rings
+constexpr unsigned BF16_ONE = 0x3F80u;   // 1.0 in bf16
 
 // clock64() cycles of CTA 0's thread 0 (rank 0 of slice 0, which runs the
 // chain) per phase of the latest launch: the prologue, its own share of the
-// window passes, the partial reduction (with the wait for the other warps'
-// passes), the cluster barrier, the gather of the cluster's sums, the
-// chain, the wait for the next window's x, the wait at the window's last
-// barrier for the other warps' tiles, the tail, the whole kernel
+// window passes (TC: their f32 rows), the partial reduction (with the wait
+// for the other warps' passes), the cluster barrier, the gather of the
+// cluster's sums, the chain, the wait for the next window's x, the wait at
+// the window's last barrier for the other warps' tiles, the tail, its
+// share of the tensor-core pair Grams (TC), the whole kernel
 // (atlasqtl_sweep_missing_clocks;
 // chip_smoke.py's mis_kernel phase prints them beside the eQTL-cut timing)
 __device__ long long g_clocks[NCLK];
@@ -155,17 +191,24 @@ __host__ __device__ constexpr int delta_rows(int sub) {
   return sub > 2 * W ? sub : W;
 }
 
+// the rows of one x slot: the CTA's rows (none in device memory), under a
+// DEEP window at least the warps' rings
+__host__ __device__ constexpr int x_rows(int rows, int sub) {
+  return sub > 2 * W && rows < RING_ROWS ? RING_ROWS : rows;
+}
+
 // shared memory of one CTA: two sets of window operand tiles, two windows
 // of masked gam, the deltas (delta_rows), two cluster-visible sum buffers,
 // the partial slots, the phase clocks, three sets of window scalars, the
-// slice's interpolation nodes; on chip also nloc rows of Fm, two x slots of
-// W per row and one mask word per row
+// slice's interpolation nodes; on chip also nloc rows of Fm and one mask
+// word per row; two x slots of W per row of x_rows
 size_t smem_bytes(bool on_chip, int nloc, int R, int sub) {
+  const size_t rows = on_chip ? nloc : 0;
   return sizeof(float) *
          ((size_t)2 * NWT * W * QS + 2 * W * QS + (size_t)delta_rows(sub) * QS +
           2 * NRH * QS +
           NSLOT * NRH * QS + CLKF + NWS * ws_floats(R) + 3 * R * QS +
-          (on_chip ? (size_t)nloc * (QS + 2 * W + 1) : 0));
+          rows * (QS + 1) + (size_t)2 * x_rows((int)rows, sub) * W);
 }
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
@@ -213,25 +256,12 @@ __device__ __forceinline__ void stage_tiles(
 // The masked pair sums of one row of a window (its x in xv, mask m) into
 // v[W ..]: the products of a and b in one RW-aligned group ((a ^ b) < RW)
 // rounded to bf16, the others in f32 (RW = 0: none rounded, the float32
-// instance).
+// instance; RW = W, every pair rounded: the tensor cores sum them,
+// window_grams, so none here).
 template <int RW>
 __device__ __forceinline__ void pair_sums(const float* xv, float m,
                                           float* v) {
-  if constexpr (RW == W) {
-    float pr[NP];
-    int e = 0;
-#pragma unroll
-    for (int a = 1; a < W; ++a)
-#pragma unroll
-      for (int b = 0; b < a; ++b, ++e) pr[e] = __fmul_rn(xv[a], xv[b]);
-    static_assert(NP % 2 == 0, "pair products rounded two at a time");
-#pragma unroll
-    for (int e2 = 0; e2 < NP; e2 += 2) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(pr[e2], pr[e2 + 1]);
-      v[W + e2] = fmaf(m, __low2float(h), v[W + e2]);
-      v[W + e2 + 1] = fmaf(m, __high2float(h), v[W + e2 + 1]);
-    }
-  } else {
+  if constexpr (RW < W) {
     float mx[W - 1];
 #pragma unroll
     for (int b = 0; b < W - 1; ++b) mx[b] = m * xv[b];
@@ -251,12 +281,13 @@ __device__ __forceinline__ void pair_sums(const float* xv, float m,
 
 // One row of a window pass: ADV advances f by the previous window (x row
 // xa, deltas dl: f += m * (xa . dl)); PROJ then adds this window's
-// projections and masked pair Grams of the advanced f (x row xp) into v,
-// the pair products rounded as pair_sums<RW>.  Returns the new f.
-template <bool ADV, bool PROJ, int RW>
+// projections (x row xp) of the advanced f (PRE: of f from before the
+// advance) and masked pair sums (pair_sums<RW>) into v.  Returns the new f.
+template <bool ADV, bool PROJ, int RW, bool PRE = false>
 __device__ __forceinline__ float row_update(float f, float m,
                                             const float* xa, const float* xp,
                                             const float* dl, float* v) {
+  const float f0 = f;
   if (ADV) {
     float xv[W];
     load8(xa, xv);
@@ -269,61 +300,26 @@ __device__ __forceinline__ float row_update(float f, float m,
     float xv[W];
     load8(xp, xv);
 #pragma unroll
-    for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], f, v[i]);
+    for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], PRE ? f0 : f, v[i]);
     pair_sums<RW>(xv, m, v);
   }
   return f;
 }
 
-// One row of the pass of an odd 8-window under SUB = 16: advance f by the
-// previous (even) window as row_update does, but project this window (x
-// row xp) against f from before that advance, the 16-window's start, and
-// add the rounded cross pairs with the even window (x row xa, deltas dl),
-// m sum_b bf16(x_a x_b) delta_b, beside this window's own rounded pairs.
-// Returns the advanced f.
-__device__ __forceinline__ float cross_row_update(float f, float m,
-                                                  const float* xa,
-                                                  const float* xp,
-                                                  const float* dl, float* v) {
-  float xb[W], xv[W];
-  load8(xa, xb);
-  float s = xb[0] * dl[0];
-#pragma unroll
-  for (int i = 1; i < W; ++i) s = fmaf(xb[i], dl[i], s);
-  load8(xp, xv);
-#pragma unroll
-  for (int a = 0; a < W; ++a) {
-    float t = 0.f;
-#pragma unroll
-    for (int b = 0; b < W; b += 2) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(
-          __fmul_rn(xv[a], xb[b]), __fmul_rn(xv[a], xb[b + 1]));
-      t = fmaf(__low2float(h), dl[b], t);
-      t = fmaf(__high2float(h), dl[b + 1], t);
-    }
-    v[a] = fmaf(m, t, fmaf(xv[a], f, v[a]));
-  }
-  pair_sums<W>(xv, m, v);
-  return fmaf(m, s, f);
-}
-
-// One pass over this CTA's rows under a DEEP pair_bf16 window (SUB > 2 W).
-// jadv >= 0: first advance Fm by the SUB deltas in D_s of the SUB-window
+// One f32 pass over this CTA's rows under a DEEP window (SUB > 2 W):
+// jadv >= 0 first advances Fm by the SUB deltas in D_s of the SUB-window
 // that starts at predictor jadv (f += m * sum_b x_b delta_b, x from device
-// memory).  proj: then add this chain window's projections (x in xp, as
-// window_pass) of Fm as it stands, the start of its SUB-window (first
-// predictor jS), the rounded cross pairs with the ncross earlier chain
-// windows of that SUB-window (m sum_b bf16(x_a x_b) delta_b, x from device
-// memory, deltas in D_s) and its own rounded pairs into v.  One row per
-// warp step, for registers.
+// memory); proj then adds this chain window's projections (x in xp, as
+// window_pass) of Fm as it stands, its SUB-window's start, into v.  Its
+// pair Grams are the tensor cores' (window_grams, cross_grams).
 template <bool ON_CHIP, int SUB>
-__device__ __forceinline__ void deep_pass(
+__device__ __forceinline__ void deep_rows(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
     const float* __restrict__ x, const float* __restrict__ xp,
     const float* __restrict__ D_s, float* __restrict__ v, int row0, int nr,
     int p, int q, int k, bool cvalid, int warp, int lane, int jadv,
-    bool proj, int jS, int ncross) {
+    bool proj) {
   static_assert(SUB > 2 * W && SUB % W == 0, "a DEEP pair_bf16 window");
 #pragma unroll
   for (int e = 0; e < NRH; ++e) v[e] = 0.f;
@@ -333,14 +329,14 @@ __device__ __forceinline__ void deep_pass(
     float& fr = ON_CHIP ? fm_s[t * QS + lane] : fm[(size_t)t * q + k];
     const float m = ON_CHIP ? ((mb_s[t] >> lane) & 1u ? 1.f : 0.f)
                             : mask[(size_t)t * q + k];
-    const float* xrow = x + (size_t)(row0 + t) * p;
     float f = fr;
     if (jadv >= 0) {
+      const float* xrow = x + (size_t)(row0 + t) * p + jadv;
       float s = 0.f;
-#pragma unroll 1
+#pragma unroll 4
       for (int c = 0; c < SUB; c += W) {
         float xb[W];
-        load8(xrow + jadv + c, xb);
+        load8(xrow + c, xb);
 #pragma unroll
         for (int i = 0; i < W; ++i) s = fmaf(xb[i], D_s[(c + i) * QS + lane], s);
       }
@@ -348,41 +344,21 @@ __device__ __forceinline__ void deep_pass(
       fr = f;
     }
     if (!proj) continue;
-    float xv[W], tt[W];
+    float xv[W];
     load8(xp + t * xs, xv);
 #pragma unroll
-    for (int a = 0; a < W; ++a) tt[a] = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < ncross * W; c += W) {
-      float xb[W], dl[W];
-      load8(xrow + jS + c, xb);
-#pragma unroll
-      for (int b = 0; b < W; ++b) dl[b] = D_s[(c + b) * QS + lane];
-#pragma unroll
-      for (int a = 0; a < W; ++a)
-#pragma unroll
-        for (int b = 0; b < W; b += 2) {
-          const __nv_bfloat162 h = __floats2bfloat162_rn(
-              __fmul_rn(xv[a], xb[b]), __fmul_rn(xv[a], xb[b + 1]));
-          tt[a] = fmaf(__low2float(h), dl[b], tt[a]);
-          tt[a] = fmaf(__high2float(h), dl[b + 1], tt[a]);
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < W; ++a) v[a] = fmaf(m, tt[a], fmaf(xv[a], f, v[a]));
-    pair_sums<W>(xv, m, v);
+    for (int a = 0; a < W; ++a) v[a] = fmaf(xv[a], f, v[a]);
   }
 }
 
 // One pass over this CTA's rows: ADV advances Fm by the previous window
 // (x in xa, deltas in D_s); PROJ then accumulates this window's projections
-// and masked pair Grams (x in xp) on the advanced Fm into v (CROSS: the
-// rows of cross_row_update).  On chip, xa and xp are x slots and Fm lives
-// in fm_s; otherwise they point into x at the windows' first columns and Fm
-// is the device slice at fm.  Each warp takes two rows per step, both read
-// before either is written back, so their loads and FMA chains overlap
-// (CROSS: one).
-template <bool ON_CHIP, bool ADV, bool PROJ, int RW, bool CROSS = false>
+// (PRE: of Fm from before the advance) and pair sums (pair_sums<RW>; x in
+// xp) into v.  On chip, xa and xp are x slots and Fm lives in fm_s;
+// otherwise they point into x at the windows' first columns and Fm is the
+// device slice at fm.  Each warp takes two rows per step, both read before
+// either is written back, so their loads and FMA chains overlap.
+template <bool ON_CHIP, bool ADV, bool PROJ, int RW, bool PRE = false>
 __device__ __forceinline__ void window_pass(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
@@ -404,30 +380,304 @@ __device__ __forceinline__ void window_pass(
                    : mask[(size_t)t * q + k];
   };
   int t = warp;
-  if constexpr (CROSS) {
-    static_assert(ADV && PROJ && RW == W, "a cross pass advances, projects "
-                  "and rounds its 8-window's pairs");
-    for (; t < nr; t += NW)
-      fm_at(t) = cross_row_update(fm_at(t), m_at(t), xa + t * xs,
-                                  xp + t * xs, dl, v);
-    return;
-  }
   for (; t + NW < nr; t += 2 * NW) {
     const int u = t + NW;
     float f0 = fm_at(t), f1 = fm_at(u);
     const float m0 = m_at(t), m1 = m_at(u);
-    f0 = row_update<ADV, PROJ, RW>(f0, m0, xa + t * xs, xp + t * xs, dl, v);
-    f1 = row_update<ADV, PROJ, RW>(f1, m1, xa + u * xs, xp + u * xs, dl, v);
+    f0 = row_update<ADV, PROJ, RW, PRE>(f0, m0, xa + t * xs, xp + t * xs, dl,
+                                        v);
+    f1 = row_update<ADV, PROJ, RW, PRE>(f1, m1, xa + u * xs, xp + u * xs, dl,
+                                        v);
     if (ADV) {
       fm_at(t) = f0;
       fm_at(u) = f1;
     }
   }
   if (t < nr) {
-    const float f = row_update<ADV, PROJ, RW>(fm_at(t), m_at(t), xa + t * xs,
-                                              xp + t * xs, dl, v);
+    const float f = row_update<ADV, PROJ, RW, PRE>(
+        fm_at(t), m_at(t), xa + t * xs, xp + t * xs, dl, v);
     if (ADV) fm_at(t) = f;
   }
+}
+
+// ---- the pair Grams on the tensor cores (the TC instances, SUB >= W) ----
+// Thread (g = lane / 4, t = lane % 4) of a warp holds, in a chunk of KC
+// samples from row r0, the fragment samples r0 + 2t, 2t + 1, 2t + 8, 2t + 9
+// (frag_row i = 0..3; mma_bf16 in common.cuh).  Column c of n8 tile j is
+// the slice's column 4 c + j, so that the thread's B columns are 4 g .. 4 g
+// + 3 (four adjacent mask bits) and its D columns 8 t .. 8 t + 3 (d[0],
+// d[2] of tiles j = 0..3) and 8 t + 4 .. 8 t + 7 (d[1], d[3]).
+
+__device__ __forceinline__ int frag_row(int r0, int lane, int i) {
+  return r0 + 2 * (lane & 3) + (i & 1) + 8 * (i >> 1);
+}
+
+// two floats rounded to bf16 (nearest even) in one register, lo in the low
+// half
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// The B fragments of the chunk from row r0: the exact 0/1 mask, KC samples
+// x 8 columns per n8 tile j (bf[j]; from the mask words on chip, else from
+// the mask rows), 0 at rows past nr and at columns past q.
+template <bool ON_CHIP>
+__device__ __forceinline__ void mask_frags(unsigned (&bf)[4][2],
+                                           const unsigned* __restrict__ mb_s,
+                                           const float* __restrict__ mask,
+                                           int r0, int nr, int q, int k0,
+                                           int lane) {
+  const int c4 = 4 * (lane >> 2);
+  unsigned u[4];  // bit j: fragment sample i's mask at column c4 + j
+  if constexpr (ON_CHIP) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = frag_row(r0, lane, i);
+      u[i] = s < nr ? (mb_s[s] >> c4) & 0xFu : 0u;
+    }
+  } else {
+    // one sample's float4 at a time (in device memory, for registers)
+    u[0] = u[1] = u[2] = u[3] = 0u;
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) {
+      const int s = frag_row(r0, lane, i);
+      unsigned b = 0u;
+      if (s < nr && k0 + c4 < q) {  // q % 4 == 0: all four or none
+        const float4 m = ld4(mask + (size_t)s * q + k0 + c4);
+        b = (m.x != 0.f) | (m.y != 0.f) << 1 | (m.z != 0.f) << 2 |
+            (m.w != 0.f) << 3;
+      }
+      u[0] = i == 0 ? b : u[0];
+      u[1] = i == 1 ? b : u[1];
+      u[2] = i == 2 ? b : u[2];
+      u[3] = i == 3 ? b : u[3];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const unsigned z = u[2 * h] | u[2 * h + 1] << 16;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bf[j][h] = (z >> j & 0x10001u) * BF16_ONE;
+  }
+}
+
+// The pair of A row (k = 2 mt + h, g) of window_grams: g and its partner
+// (g + k + 1) % 8.  Rows k = 0, 1, 2 hold the pairs at distance k + 1 and
+// 7 - k, row 3 those at distance 4 (g < 4; g >= 4 repeats them): the 28
+// pairs once each, and every product has the thread's own x_g as a factor.
+__device__ __forceinline__ int partner(int g, int k) { return (g + k + 1) & 7; }
+
+// The masked pair Grams of this window's 28 pairs, summed over this warp's
+// chunks (warp, warp + NW, ...): acc[mt][j] is the 16 x 8 tile of A rows
+// (2 mt, g) and (2 mt + 1, g) (d[0..1], d[2..3]) at n8 tile j.  The
+// window's x is at xw, row stride xs; each rounded product is formed once,
+// in its A fragment.
+template <bool ON_CHIP>
+__device__ __forceinline__ void window_grams(
+    float (&acc)[2][4][4], const float* __restrict__ xw, size_t xs,
+    const unsigned* __restrict__ mb_s, const float* __restrict__ mask,
+    int nr, int q, int k0, int warp, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  const int g = lane >> 2;
+  for (int r0 = warp * KC; r0 < nr; r0 += NW * KC) {
+    unsigned bf[4][2];
+    mask_frags<ON_CHIP>(bf, mb_s, mask, r0, nr, q, k0, lane);
+    float xg[4];  // x_g at the fragment samples
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = frag_row(r0, lane, i);
+      xg[i] = s < nr ? xw[(size_t)s * xs + g] : 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float p0[4], p1[4];  // A rows (2 mt, g), (2 mt + 1, g)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = frag_row(r0, lane, i);
+        const float* xr = xw + (size_t)s * xs;
+        p0[i] = s < nr ? __fmul_rn(xg[i], xr[partner(g, 2 * mt)]) : 0.f;
+        p1[i] = s < nr ? __fmul_rn(xg[i], xr[partner(g, 2 * mt + 1)]) : 0.f;
+      }
+      const unsigned a[4] = {bf16x2(p0[0], p0[1]), bf16x2(p1[0], p1[1]),
+                             bf16x2(p0[2], p0[3]), bf16x2(p1[2], p1[3])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, bf[j][0], bf[j][1]);
+    }
+  }
+}
+
+// The cross pairs of this window (a = 0..7; x at xw, row stride xs) with
+// nb earlier 8-windows of its SUB-window (block jb: its deltas in rows
+// 8 jb .. of D_s, its x at predictor jb0 + 8 jb), needed only as
+// sum_b H[(a, b), k] delta_bk: cacc[j][0] (cacc[j][1]) += that sum at
+// a = g and column 8 t + j (8 t + 4 + j), over this warp's (chunk, block)
+// steps (warp, warp + NW, ... of chunk-major steps), each contracted in
+// f32 as soon as its tensor-core tile is done.  The tile of block jb's m16
+// tile i holds rows (b = 2 i, a = g) and (b = 2 i + 1, a = g).  RING
+// (DEEP): each block's x comes by cp.async from x in device memory (rows
+// from row0, stride p) through this warp's two-stage ring (KC x W floats a
+// stage); else (SUB = 16) block 0 is the previous window's x at xb, row
+// stride xs.
+template <bool ON_CHIP, bool RING>
+__device__ __forceinline__ void cross_grams(
+    float (&cacc)[4][2], const float* __restrict__ xw,
+    const float* __restrict__ xb, size_t xs, const float* __restrict__ x,
+    float* __restrict__ ring, int row0, int p, int jb0,
+    const float* __restrict__ D_s, int nb, const unsigned* __restrict__ mb_s,
+    const float* __restrict__ mask, int nr, int q, int k0, int warp,
+    int lane) {
+  const int g = lane >> 2, t8 = 8 * (lane & 3);
+  const int steps = (nr + KC - 1) / KC * nb;
+  // step it's KC x W block of x into ring stage st, 16 bytes per lane
+  // (zeros past nr)
+  auto stage = [&](int it, int st) {
+    const int c = it / nb, row = c * KC + (lane >> 1);
+    const bool ok = row < nr;
+    cp_async16_zfill(ring + (st * KC + (lane >> 1)) * W + 4 * (lane & 1),
+                     x + (size_t)(row0 + (ok ? row : 0)) * p + jb0 +
+                         (it - c * nb) * W + 4 * (lane & 1),
+                     ok);
+  };
+  if constexpr (RING) {
+    if (warp < steps) stage(warp, 0);
+    cp_async_commit();
+    if (warp + NW < steps) stage(warp + NW, 1);
+    cp_async_commit();
+  }
+  int cur = -1;
+  unsigned bf[4][2];
+  float xa[4];  // x_g at this thread's fragment samples
+  int u = 0;    // this warp's steps so far
+  for (int it = warp; it < steps; it += NW, ++u) {
+    const int c = it / nb, jb = it - c * nb, r0 = c * KC;
+    if (c != cur) {
+      cur = c;
+      mask_frags<ON_CHIP>(bf, mb_s, mask, r0, nr, q, k0, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = frag_row(r0, lane, i);
+        xa[i] = s < nr ? xw[(size_t)s * xs + g] : 0.f;
+      }
+    }
+    if constexpr (RING) {
+      cp_async_wait<1>();  // this step's stage has landed
+      __syncwarp();
+    }
+    // m16 tile i4 of block jb: its products, four n8 tiles and their
+    // contraction; two tiles at a time on chip under a ring, else one (for
+    // registers: the others hold more addresses)
+    auto m_tile = [&](int i4) {
+      float p0[4], p1[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = frag_row(r0, lane, i);
+        const float* src =
+            RING ? ring + ((u & 1) * KC + s - r0) * W : xb + (size_t)s * xs;
+        const float2 xv = s < nr
+                              ? *reinterpret_cast<const float2*>(src + 2 * i4)
+                              : make_float2(0.f, 0.f);
+        p0[i] = __fmul_rn(xa[i], xv.x);
+        p1[i] = __fmul_rn(xa[i], xv.y);
+      }
+      const unsigned a[4] = {bf16x2(p0[0], p0[1]), bf16x2(p1[0], p1[1]),
+                             bf16x2(p0[2], p0[3]), bf16x2(p1[2], p1[3])};
+      // the deltas of b = 2 i4 (e0) and 2 i4 + 1 (e1) at this thread's
+      // columns 8 t + j (a) and 8 t + 4 + j (b), two tiles j at a time
+      const float* d0 = D_s + (jb * W + 2 * i4) * QS + t8;
+#pragma unroll
+      for (int j2 = 0; j2 < 4; j2 += 2) {
+        const float2 e0a = ld2(d0 + j2), e0b = ld2(d0 + 4 + j2);
+        const float2 e1a = ld2(d0 + QS + j2), e1b = ld2(d0 + QS + 4 + j2);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int j = j2 + jj;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(d, a, bf[j][0], bf[j][1]);
+          cacc[j][0] = fmaf(d[2], jj ? e1a.y : e1a.x,
+                            fmaf(d[0], jj ? e0a.y : e0a.x, cacc[j][0]));
+          cacc[j][1] = fmaf(d[3], jj ? e1b.y : e1b.x,
+                            fmaf(d[1], jj ? e0b.y : e0b.x, cacc[j][1]));
+        }
+      }
+    };
+    if constexpr (RING && ON_CHIP) {
+#pragma unroll 2
+      for (int i4 = 0; i4 < 4; ++i4) m_tile(i4);
+    } else {
+#pragma unroll 1
+      for (int i4 = 0; i4 < 4; ++i4) m_tile(i4);
+    }
+    if constexpr (RING) {
+      __syncwarp();  // every lane has read the stage before it is refilled
+      if (it + 2 * NW < steps) stage(it + 2 * NW, u & 1);
+      cp_async_commit();
+    }
+  }
+  if constexpr (RING) cp_async_wait<0>();
+}
+
+// four values at 16-byte aligned shared memory: stored (first) or added
+__device__ __forceinline__ void put4(float* dst, float4 v, bool first) {
+  if (!first) {
+    const float4 o = ld4(dst);
+    v = make_float4(v.x + o.x, v.y + o.y, v.z + o.z, v.w + o.w);
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// The slot this warp's partial sums go to: warps 5-7 write slots 0, 1, 2
+// (the two partial slots, then the window's sum buffer rh), warps 2-4 add
+// to them, warps 0-1 to the two partial slots.
+__device__ __forceinline__ float* partial_slot(float* part, float* rh,
+                                               int warp) {
+  const int sl = warp >= 5 ? warp - 5 : warp >= 2 ? warp - 2 : warp;
+  return sl == NSLOT ? rh : part + sl * NRH * QS;
+}
+
+// This warp's pair Grams of the window into rows W + e of its partial
+// slot (first: stored, else added).
+__device__ __forceinline__ void put_pairs(float* slot,
+                                          const float (&acc)[2][4][4],
+                                          bool first, int lane) {
+  const int g = lane >> 2, t8 = 8 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 2 * mt + h, o = partner(g, k);
+      if (k < 3 || g < 4) {
+        const int a = max(g, o), b = min(g, o);
+        float* row = slot + (W + a * (a - 1) / 2 + b) * QS + t8;
+        const float (&c)[4][4] = acc[mt];
+        put4(row, make_float4(c[0][2 * h], c[1][2 * h], c[2][2 * h],
+                              c[3][2 * h]), first);
+        put4(row + 4, make_float4(c[0][2 * h + 1], c[1][2 * h + 1],
+                                  c[2][2 * h + 1], c[3][2 * h + 1]), first);
+      }
+    }
+}
+
+// This warp's contraction of the cross pairs (cross_grams) added to its
+// projections, rows 0 .. W - 1 of its slot, after its own f32 sums there.
+__device__ __forceinline__ void put_cross(float* slot,
+                                          const float (&cacc)[4][2],
+                                          int lane) {
+  __syncwarp();
+  float* row = slot + (lane >> 2) * QS + 8 * (lane & 3);
+  put4(row, make_float4(cacc[0][0], cacc[1][0], cacc[2][0], cacc[3][0]),
+       false);
+  put4(row + 4, make_float4(cacc[0][1], cacc[1][1], cacc[2][1], cacc[3][1]),
+       false);
 }
 
 // What the chain reads of one window, built by the warps that do not run
@@ -531,9 +781,13 @@ __device__ __forceinline__ void z_rows_of_rank(
                zeta_k, qm_k, kz, zc);
 }
 
-// SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, ..., 128)
+// SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, ...,
+// 128).  Two CTAs per SM (128 registers), but in device memory from SUB =
+// 16 on one (its cross pairs' 64-bit addresses do not fit 128 registers
+// without spilling; missing_launch_plan counts on one there)
 template <bool FM_ON_CHIP, int SUB>
-__global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
+__global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
+    sweep_missing_kernel(
     const float* __restrict__ x,        // (n, p)
     const float* __restrict__ cp,       // (p, q)
     const float* __restrict__ gam_in,   // (p, q)
@@ -557,10 +811,12 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   static_assert(SUB == 0 || SUB == 2 || SUB == 4 || SUB == W || SUB == 2 * W ||
                     SUB == 4 * W || SUB == 8 * W || SUB == 16 * W,
                 "the float32 instance or a pair_bf16 window");
-  // pairs rounded within RW-aligned groups of an 8-window; CROSS: odd
-  // 8-windows take the cross pass; DEEP: chain windows of a SUB-window
-  // take deep_pass, J of them
+  // pairs rounded within RW-aligned groups of an 8-window; TC: every pair
+  // of an 8-window rounded, its pair Grams on the tensor cores; CROSS: odd
+  // 8-windows project the 16-window's start and add its cross pairs; DEEP:
+  // chain windows of a SUB-window take deep_rows, J of them
   constexpr int RW = SUB < W ? SUB : W;
+  constexpr bool TC = SUB >= W;
   constexpr bool CROSS = SUB == 2 * W;
   constexpr bool DEEP = SUB > 2 * W;
   constexpr int J = DEEP ? SUB / W : 1;
@@ -575,8 +831,10 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   float* WS_s = PART_s + NSLOT * NRH * QS + CLKF;  // NWS window scalars
   float* N_s = WS_s + NWS * ws_floats(R);   // 3 x R x QS interpolation nodes
   float* FM_s = N_s + 3 * R * QS;           // nloc x QS Fm rows
-  float* XS_s = FM_s + nloc * QS;                      // 2 x nloc x W x
-  unsigned* MB_s = reinterpret_cast<unsigned*>(XS_s + 2 * nloc * W);
+  // 2 x xr x W x (DEEP: the other one's rows from 0 also the warps' rings)
+  const int xr = x_rows(FM_ON_CHIP ? nloc : 0, SUB);
+  float* XS_s = FM_s + nloc * QS;
+  unsigned* MB_s = reinterpret_cast<unsigned*>(XS_s + 2 * xr * W);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -616,16 +874,18 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   const int nwin = p / W;
   const int WSF = ws_floats(R);
 
+  // the probe thread keeps its start and latest tick in CLK_s[NCLK ..],
+  // not in registers
   const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
-  if (probe)
+  if (probe) {
     for (int e = 0; e < NCLK; ++e) CLK_s[e] = 0;
-  const long long clk0 = clock64();
-  long long clk = clk0;
+    CLK_s[NCLK] = CLK_s[NCLK + 1] = clock64();
+  }
   auto tick = [&](int slot) {  // the probe thread's cycles since the last tick
     if (probe) {
       const long long t = clock64();
-      CLK_s[slot] += t - clk;
-      clk = t;
+      CLK_s[slot] += t - CLK_s[NCLK + 1];
+      CLK_s[NCLK + 1] = t;
     }
   };
 
@@ -671,22 +931,26 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
                   l_aug, jw + W, R, k0, q, tid);
     cp_async_commit();
 
-    // advance by the previous window (if any), project this one
-    const float* xa = FM_ON_CHIP ? XS_s + ((w + 1) & 1) * nloc * W
+    // the x of this window and the previous one, and their row stride
+    const float* xa = FM_ON_CHIP ? XS_s + ((w + 1) & 1) * xr * W
                                  : x + (jw - W);
-    const float* xp = FM_ON_CHIP ? XS_s + (w & 1) * nloc * W : x + jw;
+    const float* xp = FM_ON_CHIP ? XS_s + (w & 1) * xr * W : x + jw;
+    const size_t xs = FM_ON_CHIP ? W : (size_t)p;
+    // advance by the previous window (if any), project this one
+    bool cross = false;  // TC: this pass contracts cross pairs
     if constexpr (DEEP) {
       const int j = w % J;  // this chain window's place in its SUB-window
-      deep_pass<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, xp, D_s,
+      deep_rows<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, xp, D_s,
                                  v, row0, nr, p, q, k, cvalid, warp, lane,
-                                 j == 0 && w > 0 ? jw - SUB : -1, true,
-                                 jw - j * W, j);
+                                 j == 0 && w > 0 ? jw - SUB : -1, true);
+      cross = j > 0;
     } else if (w == 0) {
       window_pass<FM_ON_CHIP, false, true, RW>(FM_s, MB_s, fm_rows,
                                                mask_rows, xa, xp, D_s, v, nr,
                                                p, q, k, cvalid, warp, lane);
     } else if constexpr (CROSS) {
-      if (w & 1)
+      cross = w & 1;
+      if (cross)
         window_pass<FM_ON_CHIP, true, true, RW, true>(
             FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
             cvalid, warp, lane);
@@ -700,29 +964,67 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
                                               cvalid, warp, lane);
     }
     tick(1);
-    // the warps' sums in a fixed order into three slots, the two partial
-    // slots and this window's sum buffer (its peers last read it two
-    // windows ago): warps 5-7 write, warps 2-4 add, warps 0-1 add
-    float* rh = RH_s + (w & 1) * NRH * QS;
+    // the warps' sums in a fixed order into three slots (partial_slot):
+    // warps 5-7 write, warps 2-4 add, warps 0-1 add.  TC: the window's pair
+    // Grams (acc, rows W ..) first, in phases of their own, so that acc is
+    // dead before the cross pairs' contraction (cacc); then the projections
+    // with the contraction added (rows 0 .. W - 1)
+    float* rh = RH_s + (w & 1) * NRH * QS;  // this window's sum buffer
     {
-      const int sl = warp >= 5 ? warp - 5 : warp >= 2 ? warp - 2 : warp;
-      float* dst = (sl == NSLOT ? rh : PART_s + sl * NRH * QS) + lane;
-      if (warp >= 5)
+      float* slot = partial_slot(PART_s, rh, warp);
+      float cacc[4][2];
+      if constexpr (TC) {
+        {
+          float acc[2][4][4];
+          window_grams<FM_ON_CHIP>(acc, xp, xs, MB_s, mask_rows, nr, q, k0,
+                                   warp, lane);
+          tick(9);
+          if (warp >= 5) put_pairs(slot, acc, true, lane);
+          __syncthreads();
+          if (warp >= 2 && warp < 5) put_pairs(slot, acc, false, lane);
+          __syncthreads();
+          if (warp < 2) put_pairs(slot, acc, false, lane);
+        }
+        tick(2);
 #pragma unroll
-        for (int e = 0; e < NRH; ++e) dst[e * QS] = v[e];
+        for (int j = 0; j < 4; ++j) cacc[j][0] = cacc[j][1] = 0.f;
+        if (cross) {
+          if constexpr (DEEP) {
+            const int j = w % J;
+            cross_grams<FM_ON_CHIP, true>(
+                cacc, xp, nullptr, xs, x,
+                XS_s + ((w + 1) & 1) * xr * W + warp * 2 * KC * W, row0, p,
+                jw - j * W, D_s, j, MB_s, mask_rows, nr, q, k0, warp, lane);
+          } else {
+            cross_grams<FM_ON_CHIP, false>(cacc, xp, xa, xs, x, nullptr,
+                                           row0, p, 0, D_s, 1, MB_s,
+                                           mask_rows, nr, q, k0, warp, lane);
+          }
+        }
+        tick(9);
+      }
+      // this warp's f32 sums into its slot (store, else added); TC: the
+      // projections, then the cross pairs' contraction
+      auto put = [&](bool store) {
+        constexpr int NV = TC ? W : NRH;
+#pragma unroll
+        for (int e = 0; e < NV; ++e)
+          slot[e * QS + lane] = store ? v[e] : v[e] + slot[e * QS + lane];
+        if constexpr (TC)
+          if (cross) put_cross(slot, cacc, lane);
+      };
+      if (warp >= 5) put(true);
       __syncthreads();
-      // the next window's x goes to the slot this pass advanced from
+      // the next window's x goes to the slot this pass advanced from (DEEP:
+      // the warps' rings, read by every warp's cross pairs before that
+      // barrier)
       if (FM_ON_CHIP && w + 1 < nwin)
-        stage_x(XS_s + ((w + 1) & 1) * nloc * W, x, row0, nr, p, jw + W, tid);
+        stage_x(XS_s + ((w + 1) & 1) * xr * W, x, row0, nr, p, jw + W, tid);
       cp_async_commit();
       cp_async_wait<1>();  // the next window's tiles have landed
-      if (warp >= 2 && warp < 5)
-#pragma unroll
-        for (int e = 0; e < NRH; ++e) dst[e * QS] = v[e] + dst[e * QS];
+      if (warp >= 2 && warp < 5) put(false);
       __syncthreads();
-      if (warp < 2)
-#pragma unroll
-        for (int e = 0; e < NRH; ++e) dst[e * QS] = v[e] + dst[e * QS];
+      if (warp < 2) put(false);
       __syncthreads();
     }
     for (int e = tid; e < NRH * QS; e += NT)
@@ -826,13 +1128,13 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
                    WS_s + ((nwin - 1) % NWS) * WSF, zrow_part, p - W, cs,
                    rank, R, p, slice, lane, zeta_k, qm_k, kz, zc);
   if constexpr (DEEP)
-    deep_pass<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
+    deep_rows<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
                                D_s, v, row0, nr, p, q, k, cvalid, warp, lane,
-                               p - SUB, false, 0, 0);
+                               p - SUB, false);
   else
     window_pass<FM_ON_CHIP, true, false, RW>(
         FM_s, MB_s, fm_rows, mask_rows,
-        FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * nloc * W : x + (p - W),
+        FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * xr * W : x + (p - W),
         nullptr, D_s, v, nr, p, q, k, cvalid, warp, lane);
   if (FM_ON_CHIP && cvalid)
     for (int t = warp; t < nr; t += NW)
@@ -852,7 +1154,7 @@ __global__ void __launch_bounds__(NT, 2) sweep_missing_kernel(
   }
   tick(8);
   if (probe) {
-    CLK_s[NCLK - 1] = clock64() - clk0;
+    CLK_s[NCLK - 1] = clock64() - CLK_s[NCLK];
     for (int e = 0; e < NCLK; ++e) g_clocks[e] = CLK_s[e];
   }
   cluster.sync();  // no CTA leaves while a peer may still read its sums
@@ -874,14 +1176,14 @@ cudaError_t launch_instance(const cudaLaunchConfig_t& cfg, Args... args) {
                             args...);
 }
 
-// the instance of (fm_on_chip, sub) launched on the config
-template <typename... Args>
-cudaError_t launch_sub(bool on_chip, int sub, const cudaLaunchConfig_t& cfg,
-                       Args... args) {
-#define ATLASQTL_MIS_SUB(S)                                        \
-  case S:                                                          \
-    return on_chip ? launch_instance<true, S>(cfg, args...)        \
-                   : launch_instance<false, S>(cfg, args...)
+// f(on_chip, sub) for the instance of (fm_on_chip, sub), both passed as
+// compile-time constants (std::integral_constant)
+template <typename F>
+cudaError_t with_instance(bool on_chip, int sub, F f) {
+#define ATLASQTL_MIS_SUB(S)                                     \
+  case S:                                                       \
+    return on_chip ? f(std::true_type{}, std::integral_constant<int, S>{}) \
+                   : f(std::false_type{}, std::integral_constant<int, S>{})
   switch (sub) {
     ATLASQTL_MIS_SUB(0);
     ATLASQTL_MIS_SUB(2);
@@ -959,10 +1261,13 @@ int atlasqtl_sweep_missing_fused(
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(grid, m, smem, cluster, attr, st);
-  cudaError_t err = launch_sub(fm_on_chip != 0, sub, cfg, x, cp, gam_in,
-                               mu_in, xns, mask, l_aug, n_stack, fm, theta,
-                               p_mask, zeta, q_mask, tauv, scal, gam_out,
-                               mu_out, zrow_part, z_col, n, p, q, R, nloc);
+  cudaError_t err =
+      with_instance(fm_on_chip != 0, sub, [&](auto on, auto s) {
+        return launch_instance<decltype(on)::value, decltype(s)::value>(
+            cfg, x, cp, gam_in, mu_in, xns, mask, l_aug, n_stack, fm, theta,
+            p_mask, zeta, q_mask, tauv, scal, gam_out, mu_out, zrow_part,
+            z_col, n, p, q, R, nloc);
+      });
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -988,34 +1293,34 @@ int atlasqtl_sweep_missing_smem(int n, int cluster, int fm_on_chip, int R,
   return plan_smem(n, cluster, fm_on_chip, R, sub);
 }
 
-// CTAs of the sweep kernel resident on one SM and clusters resident on the
-// card under the plan (cluster, fm_on_chip) at n samples and interpolation
-// width R, at the shared memory of the instance `sub` (the occupancy
-// calculator, on the float32 instance: every instance keeps to the same
-// register bound), each -1 on error.
+// CTAs of the sweep kernel's instance `sub` resident on one SM and
+// clusters resident on the card under the plan (cluster, fm_on_chip) at n
+// samples and interpolation width R (the occupancy calculator), each -1 on
+// error.
 int atlasqtl_sweep_missing_occupancy(int n, int cluster, int fm_on_chip,
                                      int R, int sub, int* clusters) {
   *clusters = -1;
   const int smem = plan_smem(n, cluster, fm_on_chip, R, sub);
   if (smem < 0) return -1;
-  cudaError_t err = fm_on_chip ? set_smem<true, 0>(smem)
-                               : set_smem<false, 0>(smem);
   int nb = -1;
-  if (err == cudaSuccess)
-    err = fm_on_chip ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &nb, sweep_missing_kernel<true, 0>, NT, smem)
-                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &nb, sweep_missing_kernel<false, 0>, NT, smem);
-  if (err != cudaSuccess) return -1;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      launch_config(cluster * 64, 1, smem, cluster, attr, nullptr);
-  err = fm_on_chip ? cudaOccupancyMaxActiveClusters(
-                         clusters, sweep_missing_kernel<true, 0>, &cfg)
-                   : cudaOccupancyMaxActiveClusters(
-                         clusters, sweep_missing_kernel<false, 0>, &cfg);
-  if (err != cudaSuccess) *clusters = -1;
-  return nb;
+  const cudaError_t err =
+      with_instance(fm_on_chip != 0, sub, [&](auto on, auto s) {
+        constexpr bool ON = decltype(on)::value;
+        constexpr int S = decltype(s)::value;
+        cudaError_t e = set_smem<ON, S>(smem);
+        if (e == cudaSuccess)
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &nb, sweep_missing_kernel<ON, S>, NT, smem);
+        if (e != cudaSuccess) return e;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg =
+            launch_config(cluster * 64, 1, smem, cluster, attr, nullptr);
+        if (cudaOccupancyMaxActiveClusters(
+                clusters, sweep_missing_kernel<ON, S>, &cfg) != cudaSuccess)
+          *clusters = -1;
+        return cudaSuccess;
+      });
+  return err == cudaSuccess ? nb : -1;
 }
 
 }  // extern "C"

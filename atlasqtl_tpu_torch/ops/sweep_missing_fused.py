@@ -40,9 +40,11 @@ pairs of the two 8-windows of each 16-window, whose second 8-window
 projects Fm from before the first one's advance and adds them; under
 sub = 32, 64 and 128 every 8-window of a sub-window projects Fm as of the
 sub-window's start and adds the rounded cross pairs with every earlier
-8-window of it, and Fm advances once per sub-window
-(csrc/sweep_missing_fused.cu).  In float32 the window does not change the
-function, and sub is ignored.
+8-window of it, and Fm advances once per sub-window.  From sub = 8 on,
+the pair Grams run on the tensor cores (bf16 x bf16 -> f32 products of the
+rounded pairs and the exact mask), the cross pairs contracted with their
+deltas in registers (csrc/sweep_missing_fused.cu).  In float32 the window
+does not change the function, and sub is ignored.
 """
 from __future__ import annotations
 
@@ -65,9 +67,11 @@ MIS_NWT = 4                          # chain operand tiles per window
 MIS_NWS = 3                          # window scalar sets
 MIS_MAX_CLUSTER = 8                  # largest cluster the kernel takes
 MIS_SPREAD = 4                       # largest cluster taken only to spread
-MIS_NCLK = 10                        # the kernel's phase clock slots
-MIS_CLKF = (2 * MIS_NCLK + 3) & ~3   # their floats, kept 16-byte whole
+MIS_NCLK = 11                        # the kernel's phase clock slots
+MIS_CLKF = (2 * (MIS_NCLK + 2) + 3) & ~3   # with the probe's two ticks
 PAIR_WINDOWS = (1, 2, 4, 8, 16, 32, 64, 128)   # the pair_bf16 windows B2 takes
+MIS_KC = 16                          # samples per tensor-core step
+MIS_RING_ROWS = 8 * 2 * MIS_KC       # x rows of the deep windows' rings
 
 
 def pair_window(sub: int, block: int) -> int:
@@ -96,6 +100,12 @@ def _delta_rows(window: int) -> int:
     return window if window > 2 * MIS_W else MIS_W
 
 
+def _x_rows(rows: int, window: int) -> int:
+    """The rows of one x slot (csrc:x_rows): the CTA's rows, under a
+    pair_bf16 window over 16 at least the warps' cp.async rings."""
+    return max(rows, MIS_RING_ROWS) if window > 2 * MIS_W else rows
+
+
 def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int,
                     window: int = 0) -> int:
     """csrc/sweep_missing_fused.cu:smem_bytes: two sets of window operand
@@ -103,14 +113,17 @@ def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int,
     window, 0 for float32), two sum buffers, the partial
     slots, the phase clocks, three sets of window scalars (p_mask, theta,
     rows of L), the slice's interpolation nodes; on chip also nloc rows of
-    Fm (32 floats), of x (two slots of W) and of mask bits.  The card holds
-    it to the kernel's own (`kernel_smem_bytes`)."""
+    Fm (32 floats) and of mask bits; two x slots of W floats per row of
+    `_x_rows` (in device memory only under a window over 16, the rings).
+    The card holds it to the kernel's own (`kernel_smem_bytes`)."""
+    rows = nloc if on_chip else 0
     fixed = (2 * MIS_NWT * MIS_W * MIS_QS + 2 * MIS_W * MIS_QS
              + _delta_rows(window) * MIS_QS
              + 2 * MIS_NRH * MIS_QS + MIS_NSLOT * MIS_NRH * MIS_QS
              + MIS_CLKF + MIS_NWS * (2 * MIS_W + MIS_W * r_aug)
              + 3 * r_aug * MIS_QS)
-    return 4 * (fixed + (nloc * (MIS_QS + 2 * MIS_W + 1) if on_chip else 0))
+    return 4 * (fixed + rows * (MIS_QS + 1)
+                + 2 * _x_rows(rows, window) * MIS_W)
 
 
 def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
@@ -127,9 +140,11 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
     one larger for all m replicas' slices, the cluster grows (up to
     MIS_SPREAD), so that few slices spread over more SMs.  Where no
     cluster holds the rows, the device-memory branch: Fm stays in device
-    memory, one CTA per slice.  A block over 128 is walked in pieces of
-    `sub_block` rows (ops/sweep_fused.py:sub_block); the kernel builds its
-    pair Grams per window, so no piece needs anything precomputed.  Returns slice_width,
+    memory, one CTA per slice, two per SM (one from window 16 on, whose
+    cross pairs take more registers: csrc's launch bounds).  A block over
+    128 is walked in pieces of `sub_block` rows (ops/sweep_fused.py:
+    sub_block); the kernel builds its pair Grams per window, so no piece
+    needs anything precomputed.  Returns slice_width,
     sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta,
     ctas_per_sm (the CTAs that share an SM) and window; the C entry point
     takes the decisions (piece, cluster, fm_on_chip) and derives the rest.
@@ -155,8 +170,8 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
                         window=window)
     return dict(slice_width=MIS_QS, sub_block=sub, cluster=1, grid=slices,
                 smem_bytes=_mis_smem_bytes(False, 0, r_aug, window),
-                fm_on_chip=False, rows_per_cta=n, ctas_per_sm=2,
-                window=window)
+                fm_on_chip=False, rows_per_cta=n,
+                ctas_per_sm=2 if window < 2 * MIS_W else 1, window=window)
 
 
 def window() -> int:
@@ -166,9 +181,9 @@ def window() -> int:
 
 
 def occupancy(plan: dict, n: int, r_aug: int) -> tuple:
-    """(CTAs of B2 resident on one SM, clusters resident on the card) under
-    `plan` at n samples and r + 2, from the occupancy calculator on the
-    card."""
+    """(CTAs of B2's instance at the plan's window resident on one SM,
+    clusters resident on the card) under `plan` at n samples and r + 2,
+    from the occupancy calculator on the card."""
     clusters = ctypes.c_int(-1)
     ctas = _load().atlasqtl_sweep_missing_occupancy(
         n, plan["cluster"], int(plan["fm_on_chip"]), r_aug, plan["window"],
@@ -184,12 +199,15 @@ def kernel_smem_bytes(plan: dict, n: int, r_aug: int) -> int:
 
 
 PHASES = ("prologue", "pass", "reduce", "cluster_sync", "gather", "chain",
-          "x_wait", "barrier", "tail", "total")
+          "x_wait", "barrier", "tail", "pairs", "total")
 
 
 def phase_clocks() -> dict:
     """The SM clock cycles the latest B2 launch's first CTA spent in each
-    phase (its thread 0, which also runs the chain; csrc:g_clocks)."""
+    phase (its thread 0, which also runs the chain; csrc:g_clocks):
+    "pass" is its share of the window passes (under pair_bf16 at windows of
+    8 and over, their float32 rows), "pairs" its share of their pair Grams
+    on the tensor cores (0 in the other instances)."""
     out = (ctypes.c_longlong * MIS_NCLK)()
     err = _load().atlasqtl_sweep_missing_clocks(out)
     if err != 0:

@@ -2337,6 +2337,35 @@ def bf16_bound_ms(n, p, q, block, r_aug, emit_gam_mu, lookahead=False):
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def mis_bf16_bound_ms(n, p, q, r_aug, sub):
+    """Least time of one sweep of B2's pair_bf16 instance at window sub on
+    an H100: the largest of its rounded pair Grams, (sub - 1) n p q
+    operations (sub (sub - 1) / 2 pairs per window of sub, n q multiply-
+    adds each), at the bf16 dense tensor rate; mis_bound_ms's FP32
+    operations at the FP32 rate (a separate pipe, which may run at the
+    same time); and mis_bound_ms's bytes over the HBM rate.  In float32
+    the pair Grams are the kernel's design, not the function; under the
+    mode they are the function (the JAX kernel's _pair_dot)."""
+    t_pairs = (sub - 1) * n * p * q / BF16_PEAK
+    t_fp32 = p * q * (5 * n + 6 * r_aug) / FP32_PEAK
+    t_bytes = 4 * (n * p + 7 * p * q + 3 * n * q + p * r_aug
+                   + 3 * r_aug * q) / HBM_RATE
+    t = max(t_pairs, t_fp32, t_bytes)
+    return 1e3 * t, "bytes" if t == t_bytes else "operations"
+
+
+def b2_instances(by_name):
+    """{(fm_on_chip, sub): value} of B2's instances
+    sweep_missing_kernel<FM_ON_CHIP, SUB> from a dict keyed by their
+    mangled names (sass_hmma's counts, ptxas_summary's reports)."""
+    out = {}
+    for name, v in by_name.items():
+        m = re.search(r"sweep_missing_kernelILb([01])ELi(\d+)E", name)
+        if m:
+            out[(m.group(1) == "1", int(m.group(2)))] = v
+    return out
+
+
 def b1_any_launch_bound(a, k):
     """bound_ms of one B1 launch, any instance, from its operands."""
     dims = (a[0].shape[0], a[0].shape[1], a[5].shape[1], k["block_size"],
@@ -2376,7 +2405,8 @@ def mean_held(label, got, ref, f32, f32_kernel, names, ratio=BF16_RATIO):
 
 def sass_hmma(lib):
     """{kernel function: [HMMA instructions, those not bf16]} from
-    cuobjdump's SASS of the built library."""
+    cuobjdump's SASS of the built library, which links every kernel's
+    source: B1's instances and B2's (`b2_instances`) alike."""
     import os
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
     exe = os.path.join(os.path.dirname(sf._nvcc()), "cuobjdump")
@@ -2450,6 +2480,19 @@ def phase_bf16_modes():
     out["registers"] = {k: v for k, v in
                         ptxas_summary(sf.build.ptxas_report).items()
                         if "Lb1E" in k}
+    # B2's pair_bf16 instances from mis_sub 8 on take the pair Grams on the
+    # tensor cores, the float32 instance (SUB = 0) never
+    b2s = b2_instances(sass)
+    out["b2_sass_hmma"] = {f"{'chip' if oc else 'device'}_{sub}": v
+                           for (oc, sub), v in sorted(b2s.items())}
+    if (len(b2s) != 2 * len(sm.PAIR_WINDOWS)
+            or any(v[0] == 0 or v[1] for (_, sub), v in b2s.items()
+                   if sub >= 8)
+            or any(v[0] for (_, sub), v in b2s.items() if sub == 0)):
+        raise AssertionError(f"B2's SASS: HMMA (all, not bf16) per instance "
+                             f"{out['b2_sass_hmma']}: the pair_bf16 "
+                             f"instances from mis_sub 8 on need bf16 HMMA, "
+                             f"the float32 instance none")
     flat = lambda o: list(o[:6]) + list(o[6])
 
     # ---- B1's bf16 instance (and its lookahead variant) against its
@@ -2785,8 +2828,11 @@ def b2_turns(ops, block, dims):
     """B2's float32 instance and its pair_bf16 instance at each window of
     BF16_MIS_SUBS timed in turns on one problem (f32, 16, 8, ..., 128, then
     back, f32; CUDA events, median of 9 each), with each one's phase
-    clocks and the plain version's time at the default window."""
+    clocks, bound (`mis_bf16_bound_ms`; the float32 instance's
+    `mis_bound_ms`), share of it and registers (ptxas), and the plain
+    version's time at the default window."""
     import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
     from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
 
     kern = {sub: (lambda s=sub: sm.sweep_missing_fused(
@@ -2810,8 +2856,19 @@ def b2_turns(ops, block, dims):
              clocks=clocks,
              plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
                  *ops, block_size=block, pair_bf16=True, sub=sub), 3))
-    t["bound_ms"], t["bound_by"] = mis_bound_ms(*dims)
+    t["bound_ms"], t["bound_by"] = mis_bf16_bound_ms(*dims, sub)
     t["pct_of_bound"] = pct(t["bound_ms"], t["ms"])
+    t["f32_bound_ms"] = mis_bound_ms(*dims)[0]
+    t["bound_ms_by_mis_sub"] = {str(k): mis_bf16_bound_ms(*dims, k)[0]
+                                for k in BF16_MIS_SUBS}
+    t["pct_of_bound_by_mis_sub"] = {
+        k: pct(b, min(turns[int(k)]))
+        for k, b in t["bound_ms_by_mis_sub"].items()}
+    on_chip = sm.missing_launch_plan(dims[0], dims[2], block,
+                                     dims[3])["fm_on_chip"]
+    regs = b2_instances(ptxas_summary(sf.build.ptxas_report))
+    t["registers_by_mis_sub"] = {
+        str(k): regs.get((on_chip, 0 if k == "f32" else k)) for k in order}
     return t
 
 
@@ -2824,7 +2881,9 @@ def bf16_mode(res, instance):
                 shape={k: t[k] for k in ("n", "p", "q", "block")},
                 ms=t["ms"], f32_ms=t["f32_ms"], plain_ms=t["plain_ms"],
                 **{k: t[k] for k in ("bf16_ms", "mis_sub", "ms_by_mis_sub",
-                                     "f32_ms_2") if k in t},
+                                     "f32_ms_2", "bound_ms_by_mis_sub",
+                                     "pct_of_bound_by_mis_sub",
+                                     "registers_by_mis_sub") if k in t},
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 pct_of_bound=t["pct_of_bound"], library_ms=None,
                 max_abs_err=res["max_abs_err"],

@@ -1207,6 +1207,36 @@ def test_bf16_instances_are_deterministic(cuda):
         assert torch.equal(u, v), name
 
 
+@pytest.mark.parametrize("sub", sm.PAIR_WINDOWS[1:])
+@pytest.mark.parametrize("n,p,q", [(100, 256, 40), (8000, 128, 256)])
+def test_pair_bf16_instances_are_deterministic(cuda, n, p, q, sub):
+    """Every pair_bf16 instance, on chip (ragged q, n % 16 != 0) and in the
+    device-memory branch: two launches agree bit for bit (the tensor
+    cores' partials are added in a fixed order, no atomics)."""
+    ops, block = _mis_operands(n, p, q, 0.5, frac=0.15)
+    ops = [o.to(cuda) for o in ops]
+    kw = dict(block_size=block, pair_bf16=True, sub=sub)
+    a, b = (sm.sweep_missing_fused(*ops, **kw) for _ in range(2))
+    for name, u, v in zip(MIS_NAMES, a, b):
+        assert torch.equal(u, v), (sub, name)
+
+
+def test_pair_bf16_sass_holds_bf16_hmma(cuda):
+    """B2's pair_bf16 instances from mis_sub 8 on take their pair Grams on
+    the tensor cores (bf16 HMMA in their SASS, in both branches), the
+    float32 instance holds no HMMA (chip_smoke.sass_hmma, cuobjdump)."""
+    import chip_smoke
+    inst = chip_smoke.b2_instances(chip_smoke.sass_hmma(sf.build()))
+    assert sorted(inst) == sorted((oc, 0 if w == 1 else w)
+                                  for oc in (False, True)
+                                  for w in sm.PAIR_WINDOWS)
+    for (oc, sub), (hmma, not_bf16) in inst.items():
+        if sub >= 8:
+            assert hmma > 0 and not_bf16 == 0, (oc, sub, hmma, not_bf16)
+        elif sub == 0:
+            assert hmma == 0, (oc, sub, hmma)
+
+
 def test_bf16_plan_matches_the_kernel(cuda):
     """The bf16 instance's shared-memory arithmetic (its plan) equals the
     kernel's own, at blocks that are and are not multiples of 16 and 32,

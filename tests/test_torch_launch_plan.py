@@ -81,14 +81,17 @@ def test_fused_plan_fills_the_waves(n, q, width, waves):
 def test_missing_plan_branches():
     """The eQTL shape keeps Fm on chip with two CTAs per SM; the deep-n
     card shape takes one CTA per SM; a few slices spread over a cluster;
-    n = 8000 keeps Fm in device memory."""
+    n = 8000 keeps Fm in device memory, two CTAs per SM up to the
+    pair_bf16 window 8 and one from 16 on (the instances' launch bounds)."""
     eqtl = sm.missing_launch_plan(1000, 10000, 128, R_AUG)
     assert eqtl["fm_on_chip"] and eqtl["ctas_per_sm"] == 2
     deep = sm.missing_launch_plan(4000, 1024, 128, R_AUG)
     assert deep["fm_on_chip"] and deep["ctas_per_sm"] == 1
     few = sm.missing_launch_plan(300, 500, 128, R_AUG)
     assert few["cluster"] > 1
-    assert not sm.missing_launch_plan(8000, 256, 128, R_AUG)["fm_on_chip"]
+    for window, ctas in ((0, 2), (8, 2), (16, 1), (128, 1)):
+        plan = sm.missing_launch_plan(8000, 256, 128, R_AUG, window=window)
+        assert not plan["fm_on_chip"] and plan["ctas_per_sm"] == ctas
 
 
 @pytest.mark.parametrize("plan_fn", [sm.missing_launch_plan,
@@ -186,3 +189,47 @@ def test_fused_bf16_plan_matches_f32_plan(n, q, block):
         {k: v for k, v in f32.items() if k != "smem_bytes"}
     assert plan["smem_bytes"] == sf._fused_smem_bytes(
         plan["slice_width"], plan["sub_block"], R_AUG, True) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("on_chip,nloc,r_aug,window,expected", [
+    (True, 334, 42, 0, 115624), (True, 334, 42, 16, 115624),
+    (True, 250, 42, 32, 102616), (True, 250, 42, 128, 114904),
+    (True, 300, 42, 64, 116128), (False, 0, 42, 16, 50160),
+    (False, 0, 42, 128, 81904)])
+def test_missing_pair_bf16_smem_arithmetic(on_chip, nloc, r_aug, window,
+                                           expected):
+    """B2's layout (csrc/sweep_missing_fused.cu:smem_bytes) per pair_bf16
+    window, counted by hand at r + 2 = 42: the window tiles 2048 floats,
+    two windows of gam 512, the sum buffers and partial slots 4608, the
+    phase clocks with the probe's two ticks 28, the window scalars
+    3 x (16 + 8 x 42) = 1056, the nodes 3 x 42 x 32 = 4032, and the
+    deltas, 8 x 32 up to window 16 (its cross
+    pairs are contracted in registers, never kept) and window x 32 over
+    it; on chip 33 floats per row (Fm, the mask word); two x slots of 8
+    floats per row, over 16 of at least 256 rows (the warps' cp.async
+    rings, in device memory too).  At the eQTL cut (nloc 334, cluster 3)
+    windows up to 16 take the float32 instance's bytes."""
+    got = sm._mis_smem_bytes(on_chip, nloc, r_aug, window)
+    assert got == expected and got <= SMEM_MAX
+    if window <= 2 * sm.MIS_W:
+        assert got == sm._mis_smem_bytes(on_chip, nloc, r_aug)
+
+
+@pytest.mark.parametrize("n,p,q,sub,ms,by", [
+    (1000, 2048, 10000, 16, 1.6053874626865672, "operations"),
+    (1000, 2048, 10000, 8, 1.6053874626865672, "operations"),
+    (1000, 2048, 10000, 128, 127e-9 * 2048 * 10000 / 989e-3, "operations"),
+    (300, 2000, 500, 64, 0.026149253731343285, "operations"),
+    (1, 2048, 10000, 128, 4e3 * (2048 + 7 * 2048 * 10000 + 3 * 10000
+                                 + 2048 * 42 + 3 * 42 * 10000) / 3.35e12,
+     "bytes")])
+def test_mis_bf16_bound_arithmetic(n, p, q, sub, ms, by):
+    """The pair_bf16 instance's bound (chip_smoke.mis_bf16_bound_ms) is the
+    largest of the rounded pair Grams, (sub - 1) n p q operations at 989
+    TFLOP/s, the float32 bound's FP32 operations at 67 TFLOP/s and its
+    bytes at 3.35 TB/s: the float32 bound (1.61 ms at the eQTL cut) up to
+    mis_sub 64 there, the pair Grams (2.63 ms) at 128, the bytes at n = 1."""
+    got, got_by = chip_smoke.mis_bf16_bound_ms(n, p, q, R_AUG, sub)
+    assert got == pytest.approx(ms, rel=1e-12) and got_by == by
+    f32 = chip_smoke.mis_bound_ms(n, p, q, R_AUG)[0]
+    assert got >= f32
