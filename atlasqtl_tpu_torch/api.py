@@ -160,7 +160,7 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
                  p_axis=pmesh.P_AXIS if two_d else None)
     gl.check_config(cfg)
 
-    q_pad_to, p_shards = 8, 1
+    q_pad_to, p_shards, q_shards = 8, 1, 1
     if mesh is not None:
         # every rank draws the same init: an unseeded fit takes the first
         # rank's seed
@@ -170,9 +170,9 @@ def atlasqtl(Y, X, p0=None, anneal=(1, 2, 10), tol: float = 0.1,
         q_pad_to = pmesh.q_pad_multiple(mesh)
         if dev.type == "cuda":
             q_pad_to = max(q_pad_to, 32 * mesh.n_q)
-        p_shards = mesh.n_p
+        p_shards, q_shards = mesh.n_p, mesh.n_q
     data = gl.build_data(dat.x, dat.y, cfg, dev, q_pad_to=q_pad_to,
-                         p_shards=p_shards)
+                         p_shards=p_shards, q_shards=q_shards)
     hyper = gl.build_hyper(hyper_spec, data.y.shape[1], cfg, dev)
     # the reference's rule (atlasqtl_tpu/api.py:151-163): draw on the
     # device when nothing needs the host InitSpec

@@ -1,6 +1,8 @@
 // One whole complete-data Gauss-Seidel sweep of the global-local CAVI
 // iteration, as one CUDA kernel for Hopper (sm_90a), plus a second small
-// kernel that reduces the per-slice z_row partials in a fixed order.
+// kernel that reduces the per-slice z_row partials in a fixed order; the
+// lookahead schedule of the bf16 mode over whole blocks has a kernel of
+// its own (sweep_lookahead_kernel, further down).
 //
 // Replaces the TPU kernel atlasqtl_tpu/ops/sweep_fused.py:_fused_kernel
 // (probe="none").  It computes the same function with one deliberate
@@ -101,26 +103,22 @@
 //    all threads add G[piece, earlier rows] x those deltas to its
 //    projections (f32 FMAs in 4 x 4 register tiles, the Gram rows read
 //    from the (p, Bfull) blocks).
-// The bf16 instance's lookahead variant (LA = true) is the TPU kernel's
+// The bf16 instance's lookahead variant is the TPU kernel's
 // one-block-lookahead schedule under mxu_bf16 (atlasqtl_tpu/ops/
 // sweep_fused.py:166-184, 378-388), another function there: block b
 // projects the bf16 F from before block b-1's advance and takes block
 // b-1's float32 deltas through the float32 off-diagonal Gram goff[b-1] =
-// x_b^T x_{b-1} ((p, Bfull) stacked, rows of block b).  The TPU's grid of
-// one projection ahead is not carried over; the pass already fuses
-// "advance by b-1, project b", so:
-//  - the bf16 copy of each F chunk that the pass projects is made from the
-//    chunk as staged, before its advance (F itself still advances in f32
-//    and is written back as before);
-//  - after the pass and before the chain, all threads add goff[b-1] x
-//    delta_{b-1} to the projections in f32 4 x 4 register tiles, as the
-//    pieces' cross-Gram; delta_{b-1} is still in its shared tile;
-//  - a block in pieces: every piece of block b projects the bf16 F of
-//    block b-1's start and takes all of block b-1's deltas, so both
-//    workspaces are kept two deep, by the block's parity: the bf16 F of
-//    each block's start (written by its first piece's pass, after the
-//    advance; read back by cp.async by every piece of the next block) and
-//    every piece's f32 deltas (Bfull rows per block).
+// x_b^T x_{b-1} ((p, Bfull) stacked, rows of block b).  Whole blocks run
+// sweep_lookahead_kernel below, whose pass runs under the previous
+// block's chain.  A block in pieces runs this kernel's LA = true instance,
+// a serial schedule: every piece of block b projects the bf16 F of block
+// b-1's start and takes all of block b-1's deltas, so both workspaces are
+// kept two deep, by the block's parity: the bf16 F of each block's start
+// (written by its first piece's pass, after the advance; read back by
+// cp.async by every piece of the next block) and every piece's f32
+// deltas (Bfull rows per block); after the pass and before the chain all
+// threads add goff[b-1] x delta_{b-1} to the projections in f32 4 x 4
+// register tiles, as the pieces' cross-Gram.
 // Conversions use __float2bfloat16_rn (round to nearest even, as JAX's
 // astype and torch's .to(bfloat16)); no TF32 anywhere.
 #include <cuda_bf16.h>
@@ -161,8 +159,12 @@ constexpr int NCLK = 5;       // phase clock slots of the probe thread
 // the latest launch, summed over the blocks: the passes, the projection
 // sums and logit tiles, the chain windows, the Z tiles, the whole kernel
 // (atlasqtl_sweep_fused_clocks; chip_smoke.py's kernel phase prints them
-// beside the eQTL-cut timing)
-__device__ long long g_clocks[NCLK];
+// beside the eQTL-cut timing).  The lookahead kernel's overlapped schedule
+// (sweep_lookahead_kernel) also writes the last three slots: the busy
+// cycles of its first pass thread in the passes that run beside a chain,
+// how many of them fall inside the chain thread's span, and the chain
+// thread's wait for the helpers at the end of its windows.
+__device__ long long g_clocks[NCLK + 3];
 
 __host__ __device__ constexpr int xld(int B) { return B + 4; }  // x row
 __host__ __device__ constexpr int gp_floats(int B) {  // packed triangle
@@ -447,10 +449,10 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const int kp = b % npc, bb = b / npc;
     const bool to_ws = BF && npc > 1 && proj && kp == 0;
     const bool from_ws = BF && npc > 1 && proj && (kp > 0 || (LA && bb > 0));
-    // the bf16 copy the pass projects: of F as staged (the first block;
-    // LA, whole blocks: every block), else of the advanced F
-    const bool fh_pre = !adv || (LA && npc == 1);
-    const bool fh_post = adv && !from_ws && !(LA && npc == 1);
+    // the bf16 copy the pass projects: of F as staged (the first block),
+    // else of the advanced F
+    const bool fh_pre = !adv;
+    const bool fh_post = adv && !from_ws;
     // LA: the workspaces by the block's parity: this block's start F and
     // deltas in the one, the previous block's in the other (kept as two
     // parities, not four pointers, for the registers)
@@ -774,14 +776,13 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           *r = __fadd_rn(*r, s[a][jj]);
         }
     };
-    // LA: block bb-1's f32 deltas through goff[bb-1] (whole blocks: still
-    // in D_s; pieces: the previous block's workspace)
+    // LA: block bb-1's f32 deltas through goff[bb-1], from the previous
+    // block's workspace
     const bool la_corr = LA && bb > 0;
     if (la_corr && trow)
       cross_add(goff + (size_t)(j0 + ty * 4 - Bfull) * Bfull,
-                npc > 1 ? dw_ws + (size_t)par_prev * Bfull * qsw + k0 + tx * 4
-                        : D_s + tx * 4,
-                npc > 1 ? (size_t)qsw : (size_t)QS, Bfull);
+                dw_ws + (size_t)par_prev * Bfull * qsw + k0 + tx * 4, qsw,
+                Bfull);
     // the block's earlier pieces' deltas through the f32 cross-Gram
     const bool c7 = BF && npc > 1 && kp > 0;
     if (c7 && trow)
@@ -951,6 +952,688 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   if (probe) g_clocks[NCLK - 1] += clock64();
 }
 
+// ---------------------------------------------------------------------------
+// The lookahead variant's overlapped schedule, for whole blocks (Bfull == B;
+// a block in pieces keeps the serial schedule of sweep_fused_kernel<QS,
+// true, true> above).  Under the lookahead block b+1's projection,
+//   r_{b+1} = bf16(x_{b+1})^T bf16(F_{<=b-1}) + goff[b] delta_b,
+// needs nothing of block b but delta_b, which comes in through the f32
+// off-diagonal Gram.  So a CTA of 512 threads runs a software pipeline in
+// two roles, at step s:
+//   chain role:  chain(s-1)
+//   pass role:   pass: advance F by x_{s-2} delta_{s-2}, project block s
+//                (bf16 x_s against the bf16 of the advanced F chunk)
+// and then, between the chains:
+//   1. the pass role moves the projections of block s from its
+//      accumulators to their tile and adds goff[s-1] delta_{s-1} in f32
+//      (4 x 4 register tiles, the depth in order), the goff rows staged
+//      into shared memory by cp.async as its pass ends; the chain role
+//      rounds delta_{s-1} to bf16 for the next advance and stages block s's
+//      Gram triangle and first two windows of rows;
+//   2. the pass role runs block s-1's Z tile and block s's logit-constant
+//      tile, their rows of L staged where the goff rows were (with block
+//      s's p_mask and theta);
+//   3. block s's chain starts, beside the next pass.
+// Step 0 only projects block 0; step 1 projects block 1 on the same F (no
+// advance); the last two steps only advance.  F is advanced by the same
+// tensor-core tiles and rounded to bf16 from the same f32 values as in the
+// serial schedule, and the goff sum, the chain and the tiles keep their
+// orders, so the outputs are the serial schedule's bit for bit.
+//  - the pass is B1's bf16 pass (8 QS threads, its tensor-core tiling),
+//    but for its staging: each chunk's F and x come two chunks ahead, in
+//    stages last read two steps before (the nodes, which only the tiles
+//    between the chains read, are staged with them there to make room);
+//  - roles: the pass role is B1's bf16 CTA, the last warps; the chain role the first 512 - 8 QS threads (8 warps
+//    at QS = 32, 6 at 40): the first QS run the chain, the warps after the
+//    chain's correct the next window and stage its rows, as the helper
+//    warps of the serial schedule.  Each role loops on its own, so that
+//    neither carries the other's registers; they meet at named barrier 3
+//    (all 512) twice a step, each synchronises among itself on its own (1,
+//    2).  512 threads leave ptxas 128 registers (four warps on each of the
+//    four schedulers' register files, as 14 would); to stay within them,
+//    and to keep the chain's steps short, the chain thread reads the
+//    previous window's deltas back from the delta tile and leaves mu over
+//    the logit tile's element it has read; the chain role writes the
+//    block's masked beta, gam and mu and its column statistics (rows in
+//    order) between the chains, before the logit tile of the next block
+//    takes the room;
+//  - shared memory, as the pass and the chain run at once, holds both:
+//    the Gram triangle, four B x QS tiles (deltas, projections, the logit
+//    tile, gam), the window tiles, two blocks' p_mask and theta, zeta and
+//    q_mask, the bf16 delta tile, and the stages: during the pass its
+//    chunks (F three stages, x_s four, x_{s-2} three, the advance partial,
+//    two bf16 F chunks), between the chains the goff rows (B rows of B + 4
+//    floats), then the nodes, two blocks' rows of L and the z_row
+//    partials; the pass threads' z_col partials have 32 x QS of their own.
+//    Every buffer is sized for B = 128 and R = 48 (LaSmem), at QS = 40:
+//    8256 + 4 x 5120 + 2560 + 512 + 80 + 2560 + 1280 + max(21632, 16896,
+//    19328) = 57360 floats, 229440 bytes of 232448 (at QS = 32: 51456
+//    floats).  The projections of the next block stay in the pass
+//    warps' accumulators (16 registers) until the chain ends;
+constexpr int LA_NXB = 4;  // x_s stages: chunks come two steps ahead
+constexpr int LA_NXA = 3;  // x_{s-2} stages
+// The layout is sized for the largest block and interpolation width, so
+// that every buffer sits at a constant offset: at 512 threads ptxas has 128
+// registers, and the chain's addresses need none of them
+constexpr int LA_XLH = xl16(BMAX);  // a bf16 x row of the stages
+constexpr int LA_GOL = BMAX + 4;    // a goff row
+template <int QS>
+struct LaSmem {  // offsets in floats
+  static constexpr int BQ = BMAX * QS, WQ = W * QS;
+  static constexpr int D = gp_floats(BMAX), R = D + BQ, AD = R + BQ,
+                       GT = AD + BQ, C = GT + BQ, CPW = C + 2 * WQ,
+                       BOW = CPW + NRW * WQ, PM = BOW + NRW * WQ,
+                       TH = PM + 2 * BMAX, ZQ = TH + 2 * BMAX,
+                       DH = ZQ + 2 * QS, ZC = DH + kd32(BMAX) * HLD / 2,
+                       PS = ZC + 32 * QS;
+  // the stages: the pass's, then the goff rows, then the nodes, two
+  // blocks' rows of L and the z_row partials
+  static constexpr int XB = NSTAGE * NCH * QS,  // (bf16 from here)
+      XA = XB + LA_NXB * NCH * LA_XLH / 2, AP = XA + LA_NXA * NCH * LA_XLH / 2,
+      FH = AP + NCH * QS, PASS = FH + NCH * HLD;
+  static constexpr int L0 = 3 * RMAX * QS, L1 = L0 + BMAX * RMAX,
+                       ZR = L1 + BMAX * RMAX, TILES = ZR + BMAX * (QS / 4);
+  static constexpr int GO = BMAX * LA_GOL;
+  static constexpr int STAGES =
+      PASS > GO ? (PASS > TILES ? PASS : TILES) : (GO > TILES ? GO : TILES);
+  static constexpr int FLOATS = PS + STAGES;
+  static_assert(D % 4 == 0 && PS % 4 == 0 && XA % 4 == 0 && AP % 4 == 0 &&
+                    FH % 4 == 0 && L0 % 4 == 0 && ZR % 4 == 0 && ZC % 4 == 0,
+                "16-byte aligned buffers");
+};
+template <int QS>
+size_t la_smem_bytes() {
+  return sizeof(float) * (size_t)LaSmem<QS>::FLOATS;
+}
+
+constexpr int LA_NT = 512;                  // threads of the lookahead CTA
+constexpr int BAR_CHAIN = 1, BAR_PASS = 2, BAR_ALL = 3;  // named barriers
+constexpr int NCLK_LA = NCLK + 3;           // its phase clock slots
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int QS>
+__global__ void __launch_bounds__(LA_NT, 1) sweep_lookahead_kernel(
+    const __nv_bfloat16* __restrict__ xh,  // (n, p) bf16
+    const float* __restrict__ cp, const float* __restrict__ gram,
+    const float* __restrict__ l_aug, const float* __restrict__ n_stack,
+    const float* __restrict__ beta_in, float* __restrict__ fitted,
+    const float* __restrict__ theta, const float* __restrict__ p_mask,
+    const float* __restrict__ zeta, const float* __restrict__ q_mask,
+    const float* __restrict__ s2v, const float* __restrict__ tauv,
+    const float* __restrict__ scal, float* __restrict__ beta_out,
+    float* __restrict__ gam_out, float* __restrict__ mu_out,
+    float* __restrict__ zrow_part, float* __restrict__ z_col,
+    float* __restrict__ gcol, float* __restrict__ m2gcol,
+    float* __restrict__ b2col,
+    const float* __restrict__ goff,  // (p, B)
+    int n, int p, int q, int B, int R, int c_one, int cp_batched) {
+  using S = Slice<QS>;
+  {  // blockIdx.y is the replica, as in sweep_fused_kernel
+    const size_t r = blockIdx.y, pq = (size_t)p * q;
+    if (cp_batched) cp += r * pq;
+    beta_in += r * pq;
+    fitted += r * (size_t)n * q;
+    l_aug += r * (size_t)p * R;
+    n_stack += r * 3 * (size_t)R * q;
+    theta += r * p;
+    zeta += r * q;
+    s2v += r * q;
+    tauv += r * q;
+    scal += r * 2;
+    beta_out += r * pq;
+    if (gam_out != nullptr) {
+      gam_out += r * pq;
+      mu_out += r * pq;
+    }
+    zrow_part += r * gridDim.x * (size_t)p;
+    z_col += r * q;
+    gcol += r * q;
+    m2gcol += r * q;
+    b2col += r * q;
+  }
+  constexpr int NTP = S::NT;          // the pass role: B1's CTA
+  constexpr int NTC = LA_NT - NTP;    // the chain role
+  constexpr int TC = S::TC, WQ = S::WQ;
+  constexpr int H0 = S::NCW * 32;     // the first helper thread
+  constexpr int NTL = QS / 8;
+  static_assert(NTC % 32 == 0 && H0 < NTC, "helper warps beside the chain");
+  using L = LaSmem<QS>;
+  extern __shared__ __align__(16) float smem[];
+  // the probes' clocks: the chain thread's latest tick, its chain's span,
+  // the pass thread's pass span
+  __shared__ long long pclk[5];
+  const int B16 = b16(B);
+  constexpr int XLH = LA_XLH, GOL = LA_GOL;
+  float* const GP_s = smem;             // packed lower Gram triangle
+  float* const D_s = smem + L::D;       // B x QS f32 deltas
+  float* const R_s = smem + L::R;       // B x QS projections
+  float* const AD_s = smem + L::AD;     // B x QS logit-constant tile
+  float* const GT_s = smem + L::GT;     // B x QS new gam
+  float* const C_s = smem + L::C;       // 2 x W x QS corrections
+  float* const CPW_s = smem + L::CPW;   // NRW x W x QS X^T Y rows
+  float* const BOW_s = smem + L::BOW;   // NRW x W x QS pre-sweep beta
+  float* const PM_s = smem + L::PM;     // 2 x BMAX p_mask, by parity
+  float* const TH_s = smem + L::TH;     // 2 x BMAX theta, by parity
+  float* const ZQ_s = smem + L::ZQ;     // the slice's zeta, q_mask
+  // kd32(B) x HLD bf16 deltas
+  __nv_bfloat16* const DH_h = reinterpret_cast<__nv_bfloat16*>(smem + L::DH);
+  // the pass threads' z_col partials, 32 rows of QS (each thread's four)
+  float* const ZC_s = smem + L::ZC;
+  float* const PS = smem + L::PS;       // the stages
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int k0 = blockIdx.x * QS;
+  const int nb = p / B, nwin = B / W;
+  const bool cta0 = blockIdx.x == 0 && blockIdx.y == 0;
+  const int nch = (n + NCH - 1) / NCH;
+  // the chain probe's cycles since its last tick into `slot`
+  auto tick = [&](int slot) {
+    const long long t = clock64();
+    g_clocks[slot] += t - pclk[0];
+    pclk[0] = t;
+  };
+  if (cta0 && tid == 0) {
+    pclk[0] = clock64();
+    for (int e = 0; e < NCLK_LA; ++e) g_clocks[e] = 0;
+    g_clocks[NCLK - 1] = -pclk[0];
+  }
+  for (int e = tid; e < 2 * QS; e += LA_NT) {
+    const int k = k0 + e % QS;
+    ZQ_s[e] = k < q ? (e < QS ? zeta : q_mask)[k] : 0.f;
+  }
+
+  if (tid < NTC) {
+    // ================= the chain role =====================================
+    const bool probe = cta0 && tid == 0;
+    const bool chain = tid < QS;
+    const int kc = k0 + tid;
+    const bool cvalid = chain && kc < q;
+    float ct = 0.f, cinv = 0.f, qmc = 0.f;
+    if (cvalid) {
+      const float c = scal[0], s2 = s2v[kc];
+      ct = c * s2 * tauv[kc];
+      cinv = c * 0.5f / s2;
+      qmc = q_mask[kc];
+    }
+    float gacc = 0.f, m2acc = 0.f, b2acc = 0.f;
+    // cp and pre-sweep beta rows j .. j + W of this slice into window
+    // buffer `buf`, by the threads e0, e0 + stride, ...
+    auto stage_rows = [&](int j, int buf, int e0, int stride) {
+      for (int e = e0; e < 2 * W * TC; e += stride) {
+        const int a = e / (W * TC), i = (e / TC) % W;
+        const int kk = (e % TC) * 4;
+        const bool ok = k0 + kk < q;
+        const float* src =
+            (a == 0 ? cp : beta_in) + (size_t)(j + i) * q + k0 + kk;
+        cp_async16_zfill((a == 0 ? CPW_s : BOW_s) + buf * WQ + i * QS + kk,
+                         ok ? src : cp, ok);
+      }
+    };
+    for (int s = 0; s <= nb; ++s) {
+      if (s >= 1) {  // ---- the chain of block s-1 ------------------------
+        const int j0 = (s - 1) * B;
+        if (probe) pclk[1] = clock64();
+        for (int w = 0; w < nwin; ++w) {
+          const int lo = w * W, cur = w & 1, nxt = cur ^ 1, rw = w % NRW;
+          if (chain) {
+            float rr[W];
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const int row = lo + i;
+              // remove the own contribution with the TRUE Gram diagonal
+              float r = fmaf(-BOW_s[rw * WQ + i * QS + tid],
+                             gp(GP_s, row, row), R_s[row * QS + tid]);
+              if (w > 0) {  // the previous window's deltas, its own
+                r = __fadd_rn(r, C_s[cur * WQ + i * QS + tid]);
+#pragma unroll
+                for (int m = 0; m < W; ++m)
+                  r = fmaf(gp(GP_s, row, lo - W + m),
+                           D_s[(lo - W + m) * QS + tid], r);
+              }
+              rr[i] = r;
+            }
+#pragma unroll
+            for (int i = 0; i < W; ++i) {
+              const int row = lo + i;
+              const int e = rw * WQ + i * QS + tid;
+              const ChainStep st = chain_step(ct, CPW_s[e], rr[i],
+                                              AD_s[row * QS + tid], cinv,
+                                              BOW_s[e]);
+              D_s[row * QS + tid] = st.delta;
+              GT_s[row * QS + tid] = st.gam;
+              // mu over the logit tile's element, which this step read
+              AD_s[row * QS + tid] = st.mu;
+#pragma unroll
+              for (int a = i + 1; a < W; ++a)
+                rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
+            }
+          } else if (tid >= H0 && w + 1 < nwin) {
+            // the helpers: the cp/beta rows two windows ahead, and the next
+            // window's corrections by every delta two or more windows back
+            if (w + 2 < nwin)
+              stage_rows(j0 + lo + 2 * W, (w + 2) % NRW, tid - H0, NTC - H0);
+            cp_async_commit();
+            for (int e = tid - H0; e < WQ; e += NTC - H0) {
+              const int t = e / QS, col = e % QS;
+              const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
+              float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+              for (int m = 0; m < lo; m += 4) {
+                s0 = fmaf(gr[m], D_s[m * QS + col], s0);
+                s1 = fmaf(gr[m + 1], D_s[(m + 1) * QS + col], s1);
+                s2 = fmaf(gr[m + 2], D_s[(m + 2) * QS + col], s2);
+                s3 = fmaf(gr[m + 3], D_s[(m + 3) * QS + col], s3);
+              }
+              C_s[nxt * WQ + e] =
+                  __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+            }
+            cp_async_wait<1>();  // the next window's rows have landed
+          }
+          // the chain thread's wait for the helpers (one barrier
+          // instruction for all: bar.sync is warp-aligned)
+          const long long t_w = probe ? clock64() : 0;
+          bar_sync(BAR_CHAIN, NTC);
+          if (probe) g_clocks[NCLK + 2] += clock64() - t_w;
+        }
+        if (probe) {
+          tick(2);
+          pclk[2] = pclk[0];
+        }
+      }
+      bar_sync(BAR_ALL, LA_NT);  // the chain and the pass of step s are done
+      if (probe) {  // the pass beyond the chain, and its part in the chain's
+        tick(0);
+        if (s >= 1) {
+          const long long cs = pclk[1], ce = pclk[2], ps = pclk[3],
+                          pe = pclk[4];
+          const long long lo = ps > cs ? ps : cs, hi = pe < ce ? pe : ce;
+          g_clocks[NCLK] += pe - ps;
+          g_clocks[NCLK + 1] += hi > lo ? hi - lo : 0;
+        }
+      }
+      if (s >= 1)  // delta_{s-1} rounded to bf16 for the next advance
+        for (int e = tid; e < kd32(B) * QS / 2; e += NTC) {
+          const int row = e / (QS / 2), c2 = (e % (QS / 2)) * 2;
+          const float2 v =
+              row < B ? *reinterpret_cast<const float2*>(D_s + row * QS + c2)
+                      : make_float2(0.f, 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(DH_h + row * HLD + c2) =
+              __floats2bfloat162_rn(v.x, v.y);
+        }
+      if (s < nb) {  // block s's Gram triangle and windows 0 and 1
+        const int jn = s * B;
+        for (int i = tid >> 5; i < B; i += NTC / 32)
+          for (int m = lane; m <= i; m += 32)
+            cp_async4(GP_s + i * (i + 1) / 2 + m,
+                      gram + (size_t)(jn + i) * B + m);
+        stage_rows(jn, 0, tid, NTC);
+        if (nwin > 1) stage_rows(jn + W, 1, tid, NTC);
+      }
+      cp_async_commit();
+      if (s >= 1) {  // block s-1's masked outputs, from gam and mu
+        const int j0 = (s - 1) * B, pm_off = ((s - 1) & 1) * BMAX;
+        for (int e = tid; e < B * QS; e += NTC) {
+          const int row = e / QS, col = e % QS;
+          if (k0 + col < q) {
+            const float g = GT_s[e], mu = AD_s[e];
+            const float msk = __fmul_rn(PM_s[pm_off + row], ZQ_s[QS + col]);
+            const size_t off = (size_t)(j0 + row) * q + k0 + col;
+            beta_out[off] = __fmul_rn(__fmul_rn(g, mu), msk);
+            if (gam_out != nullptr) {
+              gam_out[off] = __fmul_rn(g, msk);
+              mu_out[off] = __fmul_rn(mu, msk);
+            }
+          }
+        }
+        if (chain)  // the column statistics, rows in order
+          for (int row = 0; row < B; ++row) {
+            const float pm = PM_s[pm_off + row], g = GT_s[row * QS + tid],
+                        mu = AD_s[row * QS + tid], bnew = __fmul_rn(g, mu);
+            gacc = fmaf(pm, g, gacc);
+            m2acc = fmaf(pm, __fmul_rn(bnew, mu), m2acc);
+            b2acc = fmaf(pm, __fmul_rn(bnew, bnew), b2acc);
+          }
+      }
+      bar_sync(BAR_ALL, LA_NT);  // mu is read: the logit tile may be written
+      cp_async_wait<0>();
+      bar_sync(BAR_ALL, LA_NT);  // block s's tiles are whole: its chain
+      if (probe) pclk[0] = clock64();  // the pass probe counts between
+    }
+    bar_sync(BAR_ALL, LA_NT);  // the last pass is done
+    if (probe) tick(0);
+    bar_sync(BAR_ALL, LA_NT);  // the z_col partials are whole
+    if (tid < QS && k0 + tid < q) {
+      float sz = 0.f;
+      for (int h = 0; h < NTP / TC; ++h) sz += ZC_s[h * QS + tid];
+      z_col[k0 + tid] = sz;
+    }
+    if (cvalid) {
+      gcol[kc] = gacc * qmc;
+      m2gcol[kc] = m2acc * qmc;
+      b2col[kc] = b2acc * qmc;
+    }
+    if (probe) g_clocks[NCLK - 1] += clock64();
+    return;
+  }
+
+  // ================= the pass role ========================================
+  const int pt = tid - NTC, pw = pt >> 5;
+  const bool pprobe = cta0 && pt == 0;
+  // the 4 x 4 tiles: rows ty*4.., columns tx*4..
+  const int tx = pt % TC, ty = pt / TC;
+  const bool trow = ty * 4 < B;
+  // this thread's z_col partials, in shared memory (the registers are
+  // the chain's and the pass's)
+  float* const zc4 = ZC_s + ty * QS + tx * 4;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) zc4[jj] = 0.f;
+  // warp (wm, wn): the projection's rows wm*64.. (four 16-row tiles) and
+  // the advance's chunk rows wm*16.., both at columns wn*8..; lane's
+  // fragment rows gr, gr + 8, columns 2 tq, 2 tq + 1
+  const int wm = pw / NTL, wn = pw % NTL, gr = lane >> 2, tq = lane & 3;
+  float* const F_s = PS;  // NSTAGE F chunks
+  // LA_NXB x_s and LA_NXA x_{s-2} bf16 chunks, one advance partial, two
+  // bf16 F chunks
+  __nv_bfloat16* const XB_h = reinterpret_cast<__nv_bfloat16*>(PS + L::XB);
+  __nv_bfloat16* const XA_h = reinterpret_cast<__nv_bfloat16*>(PS + L::XA);
+  float* const AP_s = PS + L::AP;
+  __nv_bfloat16* const FH_h = reinterpret_cast<__nv_bfloat16*>(PS + L::FH);
+  float* const N_s = PS;          // 3 x R x QS node values
+  float* const L0_s = PS + L::L0;  // block s-1's rows of L (its Z tile)
+  float* const L1_s = PS + L::L1;  // block s's (its logit tile)
+  float* const ZR_s = PS + L::ZR;
+  for (int s = 0; s <= nb + 1; ++s) {
+    // ---- the pass: advance F by block s-2, project block s --------------
+    const bool adv = s >= 2, proj = s < nb;
+    const int ja = (s - 2) * B, jp = s * B;
+    if (pprobe) pclk[3] = clock64();
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) acc[a][jj] = 0.f;
+    if (adv || proj) {
+      // chunk ch's F (from device memory) and x (from L2) come two steps
+      // ahead, in one commit group: step ch waits for all but chunk ch+1's
+      auto stage = [&](int ch) {
+        if (ch < nch) {
+          float* fst = F_s + (ch % NSTAGE) * NCH * QS;
+          const int n0 = ch * NCH;
+          for (int e = pt; e < NCH * TC; e += NTP) {
+            const int r = e / TC, c4 = (e % TC) * 4;
+            const bool ok = n0 + r < n && k0 + c4 < q;
+            cp_async16_zfill(
+                fst + r * QS + c4,
+                ok ? fitted + (size_t)(n0 + r) * q + k0 + c4 : fitted, ok);
+          }
+          __nv_bfloat16* xbst_h = XB_h + (ch % LA_NXB) * NCH * XLH;
+          __nv_bfloat16* xast_h = XA_h + (ch % LA_NXA) * NCH * XLH;
+          for (int e = pt; e < NCH * B16 / 8; e += NTP) {
+            const int r = e / (B16 / 8), c8 = (e % (B16 / 8)) * 8;
+            const bool ok = n0 + r < n && c8 < B;
+            const __nv_bfloat16* row =
+                xh + (size_t)(n0 + r < n ? n0 + r : 0) * p + (c8 < B ? c8 : 0);
+            if (adv) cp_async16_zfill(xast_h + r * XLH + c8, row + ja, ok);
+            if (proj) cp_async16_zfill(xbst_h + r * XLH + c8, row + jp, ok);
+          }
+        }
+        cp_async_commit();
+      };
+      stage(0);
+      stage(1);
+      // chunk ch is advanced in step ch and projected in step ch + 1; the
+      // stages that chunk ch + 2 takes were last read in step ch - 1
+      const int last = proj ? nch : nch - 1;
+      for (int ch = 0; ch <= last; ++ch) {
+        cp_async_wait<1>();       // chunk ch has landed (this thread's)
+        bar_sync(BAR_PASS, NTP);  // ... everyone's
+        stage(ch + 2);
+        float* fs = F_s + (ch % NSTAGE) * NCH * QS;
+        const bool adv_ch = adv && ch < nch;
+        if (adv_ch) {  // this warp's 16 x 8 tile of x_{s-2} delta
+          const __nv_bfloat16* xa_h = XA_h + (ch % LA_NXA) * NCH * XLH;
+          float d4[4] = {0.f, 0.f, 0.f, 0.f};
+          const int nks = B16 / 16;
+          for (int ks = 0; ks < nks; ks += 2) {
+            unsigned bq[4], a[4];
+            ldsm_x4_t(bq, DH_h + (ks * 16 + lane) * HLD + wn * 8);
+            ldsm_x4(a, xa_h + (wm * 16 + (lane & 15)) * XLH + ks * 16 +
+                           (lane >> 4) * 8);
+            mma_bf16(d4, a, bq[0], bq[1]);
+            if (ks + 1 < nks) {
+              ldsm_x4(a, xa_h + (wm * 16 + (lane & 15)) * XLH + ks * 16 +
+                             16 + (lane >> 4) * 8);
+              mma_bf16(d4, a, bq[2], bq[3]);
+            }
+          }
+          float* ap = AP_s + (wm * 16 + gr) * QS + wn * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(ap) = make_float2(d4[0], d4[1]);
+          *reinterpret_cast<float2*>(ap + 8 * QS) = make_float2(d4[2], d4[3]);
+        }
+        if (proj && ch > 0) {  // r += x_s^T F over chunk ch-1, 4 tiles
+          const __nv_bfloat16* fh = FH_h + ((ch - 1) & 1) * NCH * HLD;
+          const __nv_bfloat16* xp = XB_h + ((ch - 1) % LA_NXB) * NCH * XLH;
+          unsigned bq[4];
+          ldsm_x4_t(bq, fh + lane * HLD + wn * 8);
+          const int mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int mt = wm * 4 + i;
+            if (mt * 16 < B16) {
+#pragma unroll
+              for (int ks = 0; ks < 2; ++ks) {
+                unsigned a[4];
+                ldsm_x4_t(a, xp + (ks * 16 + (mi >> 1) * 8 + r8) * XLH +
+                                 mt * 16 + (mi & 1) * 8);
+                mma_bf16(acc[i], a, bq[2 * ks], bq[2 * ks + 1]);
+              }
+            }
+          }
+        }
+        const int row = pt / TC, c4 = (pt % TC) * 4;
+        if (!adv && proj && ch < nch) {  // F as staged (no advance)
+          float f[4];
+          unpack4(ld4(fs + row * QS + c4), f);
+          st_bf16x4(FH_h + (ch & 1) * NCH * HLD + row * HLD + c4, f);
+        }
+        if (adv_ch) {
+          bar_sync(BAR_PASS, NTP);
+          float f[4], t[4];
+          unpack4(ld4(fs + row * QS + c4), f);
+          unpack4(ld4(AP_s + row * QS + c4), t);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) f[jj] = __fadd_rn(f[jj], t[jj]);
+          const float4 v = make_float4(f[0], f[1], f[2], f[3]);
+          *reinterpret_cast<float4*>(fs + row * QS + c4) = v;
+          if (proj)  // the bf16 copy of the advanced F that ch+1 projects
+            *reinterpret_cast<uint2*>(FH_h + (ch & 1) * NCH * HLD +
+                                      row * HLD + c4) = bf16x4(f);
+          const int nr = ch * NCH + row;
+          if (nr < n && k0 + c4 < q)
+            *reinterpret_cast<float4*>(fitted + (size_t)nr * q + k0 + c4) = v;
+        }
+      }
+      cp_async_wait<0>();
+      bar_sync(BAR_PASS, NTP);  // every chunk is consumed
+    }
+    if (proj && s >= 1)  // goff[s-1]'s rows (block s's), in the stages
+      for (int e = pt; e < B * B / 4; e += NTP) {
+        const int i = e / (B / 4), m4 = (e % (B / 4)) * 4;
+        cp_async16(PS + i * GOL + m4,
+                   goff + (size_t)(jp - B + i) * B + m4);
+      }
+    cp_async_commit();
+    if (pprobe) pclk[4] = clock64();
+    if (s == nb + 1) break;  // the last step only advances
+
+    // ---- between the chains: prepare block s, finish block s-1 ----------
+    bar_sync(BAR_ALL, LA_NT);  // the chain and the pass of step s are done
+    long long pc = 0;  // the pass probe's cycles of the goff and the tiles
+    if (pprobe) pc = clock64();
+    if (proj)  // each warp's four tiles are whole: into R_s
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = (wm * 4 + i) * 16 + gr + 8 * h;
+          if (row < B)
+            *reinterpret_cast<float2*>(R_s + row * QS + wn * 8 + 2 * tq) =
+                make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+        }
+    cp_async_wait<0>();  // the goff rows
+    bar_sync(BAR_PASS, NTP);
+    if (proj && s >= 1 && trow) {  // R_s += goff[s-1] delta_{s-1}, f32
+      float sa[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) sa[a][jj] = 0.f;
+      for (int m = 0; m < B; m += 4) {
+        float gv[4][4], dv[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          unpack4(ld4(PS + (ty * 4 + a) * GOL + m), gv[a]);
+          unpack4(ld4(D_s + (m + a) * QS + tx * 4), dv[a]);
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              sa[a][jj] = fmaf(gv[a][t], dv[t][jj], sa[a][jj]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float* r = R_s + (ty * 4 + a) * QS + tx * 4 + jj;
+          *r = __fadd_rn(*r, sa[a][jj]);
+        }
+    }
+    bar_sync(BAR_PASS, NTP);  // the goff rows are consumed
+    if (pprobe) {
+      const long long t = clock64();
+      g_clocks[1] += t - pc;
+      pc = t;
+    }
+    for (int e = pt; e < 3 * R * QS / 4; e += NTP) {  // the nodes
+      const int mr = e / (QS / 4), kk = (e % (QS / 4)) * 4;
+      const bool ok = k0 + kk < q;
+      cp_async16_zfill(N_s + 4 * e,
+                       ok ? n_stack + (size_t)mr * q + k0 + kk : n_stack, ok);
+    }
+    if (s >= 1)
+      for (int e = pt; e < B * R / 4; e += NTP)
+        cp_async16(L0_s + 4 * e, l_aug + (size_t)(s - 1) * B * R + 4 * e);
+    if (proj) {  // block s's rows of L, p_mask and theta (its parity)
+      for (int e = pt; e < B * R / 4; e += NTP)
+        cp_async16(L1_s + 4 * e, l_aug + (size_t)s * B * R + 4 * e);
+      const int par = s & 1;
+      for (int e = pt; e < B / 2; e += NTP)
+        cp_async16(e < B / 4 ? PM_s + par * BMAX + 4 * e
+                             : TH_s + par * BMAX + 4 * (e - B / 4),
+                   (e < B / 4 ? p_mask + 4 * e : theta + 4 * (e - B / 4)) +
+                       jp);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    bar_sync(BAR_PASS, NTP);
+    if (trow && s >= 1) {  // block s-1's Z moments
+      const int par = (s - 1) & 1;
+      float d1[4][4], d2[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) d1[a][jj] = d2[a][jj] = 0.f;
+      const float* l0 = L0_s + ty * 4 * R;
+#pragma unroll 2
+      for (int rr = 0; rr < R; ++rr) {
+        float n1[4], n2[4];
+        unpack4(ld4(N_s + (R + rr) * QS + tx * 4), n1);
+        unpack4(ld4(N_s + (2 * R + rr) * QS + tx * 4), n2);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float l = l0[a * R + rr];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            d1[a][jj] = fmaf(l, n1[jj], d1[a][jj]);
+            d2[a][jj] = fmaf(l, n2[jj], d2[a][jj]);
+          }
+        }
+      }
+      float zeta4[4], qm4[4];
+      unpack4(ld4(ZQ_s + tx * 4), zeta4);
+      unpack4(ld4(ZQ_s + QS + tx * 4), qm4);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = ty * 4 + a;
+        const float th = TH_s[par * BMAX + i], pm = PM_s[par * BMAX + i];
+        float zr = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float zq = z_cell(th + zeta4[jj], GT_s[i * QS + tx * 4 + jj],
+                                  d1[a][jj], d2[a][jj], qm4[jj], scal[1],
+                                  c_one);
+          zr = __fadd_rn(zr, zq);
+          zc4[jj] = fmaf(pm, zq, zc4[jj]);
+        }
+        ZR_s[i * TC + tx] = zr;
+      }
+    }
+    bar_sync(BAR_ALL, LA_NT);  // the chain role has read mu from AD_s
+    if (trow && proj) {  // block s's logit-constant tile
+      const int par = s & 1;
+      float dot[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) dot[a][jj] = 0.f;
+      const float* l0 = L1_s + ty * 4 * R;
+#pragma unroll 2
+      for (int rr = 0; rr < R; ++rr) {
+        float nv[4];
+        unpack4(ld4(N_s + rr * QS + tx * 4), nv);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float l = l0[a * R + rr];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            dot[a][jj] = fmaf(l, nv[jj], dot[a][jj]);
+        }
+      }
+      float zeta4[4];
+      unpack4(ld4(ZQ_s + tx * 4), zeta4);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = ty * 4 + a;
+        const float th = TH_s[par * BMAX + i];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          AD_s[i * QS + tx * 4 + jj] = __fadd_rn(
+              logit_base(th + zeta4[jj], scal[0], c_one), dot[a][jj]);
+      }
+    }
+    bar_sync(BAR_ALL, LA_NT);  // block s's tiles are whole: its chain
+    if (pprobe) g_clocks[3] += clock64() - pc;
+    if (s >= 1) {  // block s-1's z_row partials, then the stages are free
+      if (pt < B) {
+        const int par = (s - 1) & 1;
+        float zr = 0.f;
+        for (int t = 0; t < TC; ++t) zr = __fadd_rn(zr, ZR_s[pt * TC + t]);
+        zrow_part[(size_t)blockIdx.x * p + (s - 1) * B + pt] =
+            __fmul_rn(PM_s[par * BMAX + pt], zr);
+      }
+      bar_sync(BAR_PASS, NTP);
+    }
+  }
+  // ---- z_col: the partials reduced in a fixed order by the chain role ---
+  bar_sync(BAR_ALL, LA_NT);  // the last pass is done
+  bar_sync(BAR_ALL, LA_NT);
+}
+
 // the shared-memory bytes of a QS-column launch at (B, R), or 0 where the
 // kernel cannot take them
 template <int QS, bool BF>
@@ -985,6 +1668,46 @@ int launch(const void* x, const float* cp, const float* gram,
           z_col, gcol, m2gcol, b2col, gram_full, goff,
           static_cast<__nv_bfloat16*>(fh_ws), dw_ws, n, p, q, B, R, c_one,
           cp_batched, Bfull);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
+      zrow_part, z_row, n_slices, p);
+  return (int)cudaGetLastError();
+}
+
+// the lookahead kernel's bytes at (B, R), 0 where it cannot take them
+// (its static shared memory counts against the limit too)
+template <int QS>
+size_t checked_la_smem(int B, int R) {
+  const size_t smem = la_smem_bytes<QS>();
+  return B <= BMAX && R <= RMAX && smem + 5 * sizeof(long long) <= SMEM_MAX
+             ? smem
+             : 0;
+}
+
+template <int QS>
+int launch_la(const __nv_bfloat16* x, const float* cp, const float* gram,
+              const float* l_aug, const float* n_stack, const float* beta_in,
+              float* fitted, const float* theta, const float* p_mask,
+              const float* zeta, const float* q_mask, const float* s2v,
+              const float* tauv, const float* scal, float* beta_out,
+              float* gam_out, float* mu_out, float* zrow_part, float* z_row,
+              float* z_col, float* gcol, float* m2gcol, float* b2col,
+              const float* goff, int n, int p, int q, int B, int R,
+              int c_one, int m, int cp_batched, cudaStream_t st) {
+  const size_t smem = checked_la_smem<QS>(B, R);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_lookahead_kernel<QS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_slices = (q + QS - 1) / QS;
+  sweep_lookahead_kernel<QS>
+      <<<dim3(n_slices, m), LA_NT, smem, st>>>(
+          x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, zeta,
+          q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part,
+          z_col, gcol, m2gcol, b2col, goff, n, p, q, B, R, c_one,
+          cp_batched);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
@@ -1056,36 +1779,53 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                      gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,  \
                      b2col, gram_full, goff, fh_ws, dw_ws, n, p, q, B, R,     \
                      c_one, m, cp_batched, Bfull, st)
+  // the lookahead variant of whole blocks: the overlapped schedule
+#define ATLASQTL_LAUNCH_LA(QS)                                                \
+  launch_la<QS>(static_cast<const __nv_bfloat16*>(x), cp, gram, l_aug,        \
+                n_stack, beta_in, fitted, theta, p_mask, zeta, q_mask, s2v,   \
+                tauv, scal, beta_out, gam_out, mu_out, zrow_part, z_row,      \
+                z_col, gcol, m2gcol, b2col, goff, n, p, q, B, R, c_one, m,    \
+                cp_batched, st)
+  const bool overlap = lookahead && Bfull == B;
   if (qs == 32)
-    return lookahead ? ATLASQTL_LAUNCH(32, true, true)
-           : bf16    ? ATLASQTL_LAUNCH(32, true, false)
-                     : ATLASQTL_LAUNCH(32, false, false);
+    return overlap     ? ATLASQTL_LAUNCH_LA(32)
+           : lookahead ? ATLASQTL_LAUNCH(32, true, true)
+           : bf16      ? ATLASQTL_LAUNCH(32, true, false)
+                       : ATLASQTL_LAUNCH(32, false, false);
   if (qs == 40)
-    return lookahead ? ATLASQTL_LAUNCH(40, true, true)
-           : bf16    ? ATLASQTL_LAUNCH(40, true, false)
-                     : ATLASQTL_LAUNCH(40, false, false);
+    return overlap     ? ATLASQTL_LAUNCH_LA(40)
+           : lookahead ? ATLASQTL_LAUNCH(40, true, true)
+           : bf16      ? ATLASQTL_LAUNCH(40, true, false)
+                       : ATLASQTL_LAUNCH(40, false, false);
 #undef ATLASQTL_LAUNCH
+#undef ATLASQTL_LAUNCH_LA
   return (int)cudaErrorInvalidValue;
 }
 
 // The shared-memory bytes of a launch in `qs`-column slices at block B and
-// interpolation width R (of the bf16 instance if bf16 != 0); -1 for a
-// width or shape the kernel does not take (the card checks
-// ops/sweep_fused.py:_fused_smem_bytes against it).
-long long atlasqtl_sweep_fused_smem(int qs, int B, int R, int bf16) {
+// interpolation width R (of the bf16 instance if bf16 != 0; of the
+// lookahead variant's overlapped kernel, which takes whole blocks, if
+// lookahead != 0); -1 for a width or shape the kernel does not take (the
+// card checks ops/sweep_fused.py:_fused_smem_bytes against it).
+long long atlasqtl_sweep_fused_smem(int qs, int B, int R, int bf16,
+                                    int lookahead) {
   const size_t smem =
-      qs == 32 ? (bf16 ? checked_smem<32, true>(B, R)
-                       : checked_smem<32, false>(B, R))
-      : qs == 40 ? (bf16 ? checked_smem<40, true>(B, R)
-                         : checked_smem<40, false>(B, R))
+      qs == 32 ? (lookahead ? checked_la_smem<32>(B, R)
+                  : bf16    ? checked_smem<32, true>(B, R)
+                            : checked_smem<32, false>(B, R))
+      : qs == 40 ? (lookahead ? checked_la_smem<40>(B, R)
+                    : bf16    ? checked_smem<40, true>(B, R)
+                              : checked_smem<40, false>(B, R))
                  : 0;
   return smem == 0 ? -1 : (long long)smem;
 }
 
-// Copies the probe's NCLK phase clocks of the latest launch to `out`
-// (host memory); returns the CUDA error code.
+// Copies the probes' NCLK + 3 phase clocks to `out` (host memory): the
+// first NCLK of the latest launch, the last two of the latest launch of
+// the lookahead kernel; returns the CUDA error code.
 int atlasqtl_sweep_fused_clocks(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * NCLK);
+  return (int)cudaMemcpyFromSymbol(out, g_clocks,
+                                   sizeof(long long) * (NCLK + 3));
 }
 
 // CTAs of the sweep kernel (its bf16 instance if bf16 != 0) in

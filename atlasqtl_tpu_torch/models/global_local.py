@@ -66,12 +66,14 @@ def check_config(cfg: Config):
 
 
 def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8,
-               p_shards: int = 1) -> Data:
+               p_shards: int = 1, q_shards: int = 1) -> Data:
     """Pad to n -> 8, p -> block x p_shards, q -> q_pad_to and precompute
     the sufficient statistics on `device`
     (R/atlasqtl_global_local_core.R:19-42).  NaN in Y marks a missing cell;
     cfg.missing chooses how the fit treats them.  p_shards: a 2-D mesh's
-    p-shards each hold whole predictor blocks."""
+    p-shards each hold whole predictor blocks; q_shards: the mesh's
+    q-shards, whose local q decides where the bf16 flags reach
+    (`_b1_bf16`)."""
     n, p = x_np.shape
     q = y_np.shape[1]
     block = min(cfg.block_size, _round_up(p, 8))
@@ -123,7 +125,8 @@ def build_data(x_np, y_np, cfg: Config, device, q_pad_to: int = 8,
     scalar = lambda v: torch.tensor(float(v), dtype=dt, device=device)
     # B1's bf16 operand, rounded once per fit (round to nearest even), and
     # the lookahead's off-diagonal Gram blocks, also once per fit
-    b1_bf16 = not exact and _b1_bf16(cfg, xd.device)
+    b1_bf16 = not exact and _b1_bf16(cfg, xd.device, n_pad,
+                                     q_pad // q_shards)
     x_bf16 = xd.to(torch.bfloat16) if b1_bf16 else None
     goff = (lookahead_gram(xd, block) if b1_bf16 and cfg.sweep_lookahead
             else None)
@@ -335,17 +338,56 @@ def divisor_block(block_size: int, p_pad: int) -> int:
     return b
 
 
+def fused_q_tile(n: int, q_pad: int, block: int = 128):
+    """The response tile of the JAX package's fused complete-data kernel
+    at n padded samples and q_pad (local) responses, None where it finds
+    none: a copy of atlasqtl_tpu/models/global_local.py:_fused_q_tile, its
+    budget formula and candidates as they are.  It states where the
+    reference runs its fused kernel, and so where the flags that only that
+    kernel reads (mxu_bf16, sweep_lookahead) and its staggered sibling
+    (sweep_stagger, from a tile of 256) apply; it is no memory model of
+    the card.  At the sizes fits run it comes to a q_pad that is a multiple
+    of 128, and, for a tile of 256, to a multiple of 256 with n up to
+    about 91k."""
+    budget = max(128, int(95e6 / (4 * (n + 13 * block))) // 128 * 128)
+    for cand in (5120, 2560, 2048, 1024, 512, 256, 128):
+        if cand <= budget and q_pad % cand == 0:
+            return cand
+    return None
+
+
+def mis_fused_q_tile(n: int, q_pad: int, block: int = 128):
+    """The response tile of the JAX package's fused exact-missing kernel,
+    None where it finds none: a copy of atlasqtl_tpu/models/
+    global_local.py:_mis_fused_q_tile (where mis_pair_bf16 applies; a q_pad
+    that is a multiple of 128)."""
+    budget = max(128, int(28e6 / (4 * (2 * n + 7 * block))) // 128 * 128)
+    for cand in (2048, 1024, 512, 256, 128):
+        if cand <= budget and q_pad % cand == 0:
+            return cand
+    return None
+
+
+def _at(data: Data):
+    """(device, padded n, local padded q) of `data`: on a mesh rank its y
+    is the rank's q-shard."""
+    return data.x.device, data.x.shape[0], data.y.shape[1]
+
+
 def _select_sweep(cfg: Config, data: Data) -> str:
     """The complete-data engine, chosen as atlasqtl_tpu's _select_sweep
-    chooses it: "fused" (B1, or B4 under cfg.sweep_stagger) for float32 on
-    CUDA; else "pallas" (the B3 inner kernel) when cfg.use_pallas; else the
-    plain blocked sweep ("xla").  An explicit cfg.sweep passes through:
-    sweep="fused" on the CPU runs the kernel's plain version, and
-    sweep="pallas" on the CPU runs B3's plain version.  JAX's third case,
-    float32 on an accelerator whose fused kernel finds no q tile, cannot
-    arise here: B1 takes every padded q.  Under a mesh (cfg.q_axis) the
-    engine is B1 or the plain sweep, never B3 or B4: sweep="pallas",
-    use_pallas and sweep_stagger apply to one device only
+    chooses it: "fused" (B1, or B4 under cfg.sweep_stagger where
+    `_stagger` says) for float32 on CUDA; else "pallas" (the B3 inner
+    kernel) when cfg.use_pallas; else the plain blocked sweep ("xla").  An
+    explicit cfg.sweep passes through: sweep="fused" on the CPU runs the
+    kernel's plain version, and sweep="pallas" on the CPU runs B3's plain
+    version.  JAX's third case, float32 on an accelerator whose fused
+    kernel finds no q tile (`fused_q_tile`), runs B1 in float32 here: B1
+    takes every padded q and computes the same function up to rounding,
+    but there the flags of JAX's fused kernel (mxu_bf16, sweep_lookahead,
+    sweep_stagger) do not apply.  Under a mesh (cfg.q_axis) the engine is
+    B1 or the plain sweep, never B3 or B4: sweep="pallas", use_pallas and
+    sweep_stagger apply to one device only
     (atlasqtl_tpu/models/global_local.py:422, 553-566)."""
     return _complete_impl(cfg, data.x.device)
 
@@ -367,26 +409,41 @@ def _complete_impl(cfg: Config, device) -> str:
     return impl
 
 
-def _b1_bf16(cfg: Config, device) -> bool:
-    """Whether cfg.mxu_bf16 reaches B1 on complete data and impute: only
-    where B1 (not B4, B3 or the plain sweep) is the engine, as in the JAX
-    package, which passes the flag to its fused kernel alone
-    (atlasqtl_tpu/models/global_local.py:556-578)."""
+def _stagger(cfg: Config, n: int, q: int) -> bool:
+    """Whether cfg.sweep_stagger turns the "fused" engine into B4: on one
+    device, and only where the JAX package's fused tile at (n, q) is at
+    least 256 (atlasqtl_tpu/models/global_local.py:555-557); elsewhere B1
+    runs, and honours mxu_bf16 as JAX's fused kernel does (:566-578)."""
+    tile = fused_q_tile(n, q)
+    return (cfg.sweep_stagger and cfg.q_axis is None and tile is not None
+            and tile >= 256)
+
+
+def _b1_bf16(cfg: Config, device, n: int, q: int) -> bool:
+    """Whether cfg.mxu_bf16 reaches B1 on complete data and impute at n
+    padded samples and a local padded q: only where B1 (not B4, B3 or the
+    plain sweep) is the engine and the JAX package's fused kernel, the one
+    engine of its that reads the flag, finds a q tile (`fused_q_tile`, on
+    a mesh of the per-shard q, atlasqtl_tpu/models/global_local.py:
+    418-421, 700; its 2-D pipeline's fused tiles are the same multiples of
+    128, atlasqtl_tpu/parallel/pipeline.py:78-80).  Where the tile is
+    missing, B1 runs the float32 function, an explicit sweep="fused" too
+    (JAX's own call fails there: its tile is None at :555)."""
     return (cfg.mxu_bf16 and _complete_impl(cfg, device) == "fused"
-            and (not cfg.sweep_stagger or cfg.q_axis is not None))
+            and fused_q_tile(n, q) is not None and not _stagger(cfg, n, q))
 
 
-def _b1_lookahead(cfg: Config, device) -> bool:
-    """Whether cfg.sweep_lookahead reaches B1: only under mxu_bf16, where
-    the JAX kernel's lookahead schedule computes another function
-    (atlasqtl_tpu/ops/sweep_fused.py:166-184, 378-388); in float32 it is
-    the baseline's algebra, which B1 runs.  The JAX package passes the
-    flag to its fused kernel alone (atlasqtl_tpu/models/global_local.py:
-    576, and on a 1-D mesh :712), as this one to B1 alone; its 2-D
-    pipeline's tile processor does not take it
-    (atlasqtl_tpu/parallel/pipeline.py:110-140), nor does the port's."""
-    return cfg.sweep_lookahead and cfg.p_axis is None and _b1_bf16(cfg,
-                                                                   device)
+def _b1_lookahead(cfg: Config, device, n: int, q: int) -> bool:
+    """Whether cfg.sweep_lookahead reaches B1: only under mxu_bf16 where it
+    reaches B1 (`_b1_bf16`), where the JAX kernel's lookahead schedule
+    computes another function (atlasqtl_tpu/ops/sweep_fused.py:166-184,
+    378-388); in float32 it is the baseline's algebra, which B1 runs.  The
+    JAX package passes the flag to its fused kernel alone
+    (atlasqtl_tpu/models/global_local.py: 576, and on a 1-D mesh :712), as
+    this one to B1 alone; its 2-D pipeline's tile processor does not take
+    it (atlasqtl_tpu/parallel/pipeline.py:110-140), nor does the port's."""
+    return (cfg.sweep_lookahead and cfg.p_axis is None
+            and _b1_bf16(cfg, device, n, q))
 
 
 def _missing_uses_kernel(cfg: Config, device) -> bool:
@@ -420,15 +477,17 @@ def _b2_pair_bf16(cfg: Config, data: Data) -> bool:
     dtype is float32; the CPU runs B2's plain version, the port's stand-in
     for a kernel there); cfg.block_size == 128 and the padded p a multiple
     of 128 (build_data pads p to min(block_size, round_up(p, 8)), so p = 75
-    pads to 80 and fails).  JAX's last condition, a q tile of its kernel,
-    always holds under its atlasqtl() on an accelerator (q padded to 256
-    there) and has no counterpart: B2 takes every padded q.  Elsewhere the
-    JAX package runs its blocked or scan engine, whose float32 fit the
-    flag leaves as it is, and so does the port."""
+    pads to 80 and fails); and a q tile of JAX's kernel at the padded n
+    and q (`mis_fused_q_tile`: a padded q that is a multiple of 128, which
+    build_data's default padding to 8 gives only where q already is one).
+    Elsewhere the JAX package runs its blocked or scan engine, whose
+    float32 fit the flag leaves as it is, and so does the port."""
+    _, n, q = _at(data)
     return (cfg.mis_pair_bf16 and cfg.q_axis is None
             and cfg.dtype == torch.float32
             and _engine(cfg, data) == "b2" and cfg.block_size == 128
-            and data.x.shape[1] % 128 == 0)
+            and data.x.shape[1] % 128 == 0
+            and mis_fused_q_tile(n, q) is not None)
 
 
 def _select_missing_sweep(cfg: Config, data: Data) -> str:
@@ -450,7 +509,8 @@ def _engine(cfg: Config, data: Data) -> str:
         return "b2" if engine == "fused" else engine
     impl = _select_sweep(cfg, data)
     if impl == "fused":
-        return "b4" if cfg.sweep_stagger else "b1"
+        _, n, q = _at(data)
+        return "b4" if _stagger(cfg, n, q) else "b1"
     return impl
 
 
@@ -648,7 +708,7 @@ def _sweep(data: Data, state: VBState, pre: _Pre, gram_blocks, cfg: Config,
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = pipelined_sweep_2d(
             data, state, state.beta, gram_blocks, cp_x_y, consts, block, cfg,
-            engine == "b1", bf16=_b1_bf16(cfg, data.x.device),
+            engine == "b1", bf16=_b1_bf16(cfg, *_at(data)),
             emit_gam_mu=not lite, annealed=annealed)
         return gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats
     (gam_new, mu_new, beta_new, fitted, z_row, z_col,
@@ -688,13 +748,14 @@ def _sweep_local(data, state, pre, gram_blocks, cfg, annealed, lite, block,
                                          block_size=cfg.block_size)
         return gam_new, mu_new, None, fitted, z_row, z_col, None
     if engine in ("b1", "b4"):
-        # B4 takes every shape B1 takes, so sweep_stagger never gives way;
-        # mxu_bf16 and its lookahead reach B1 only, as in the JAX package
+        # mxu_bf16 and its lookahead reach B1 only, and only where the JAX
+        # package's fused kernel finds a q tile (`_b1_bf16`)
         fused = sweep_complete_staggered
         if engine == "b1":
             fused = functools.partial(
-                sweep_complete_fused, bf16=cfg.mxu_bf16, x_bf16=data.x_bf16,
-                lookahead=_b1_lookahead(cfg, data.x.device), goff=data.goff)
+                sweep_complete_fused, bf16=_b1_bf16(cfg, *_at(data)),
+                x_bf16=data.x_bf16, lookahead=_b1_lookahead(cfg, *_at(data)),
+                goff=data.goff)
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = fused(
             data.x, cp_x_y, gram_blocks, state.beta, state.fitted,
@@ -720,21 +781,21 @@ def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, cfg: Config,
                           lite, annealed):
     """One B1 sweep of every state (sweep_fused with a replica axis)."""
     block = gram_blocks.shape[1]
+    bf16 = _b1_bf16(cfg, *_at(data))
     parts = [fused_operands(data.x, pre.cp_x_y, gram_blocks, st.beta,
                             st.fitted, pre.consts, block, data.p_mask,
-                            data.q_mask, bf16=cfg.mxu_bf16,
-                            x_bf16=data.x_bf16)
+                            data.q_mask, bf16=bf16, x_bf16=data.x_bf16)
              for st, pre in zip(states, pres)]
     # X^T Y is each replica's own in impute mode (Y_eff holds its fitted)
     also = ("cp_x_y",) if data.mis_pat is not None else ()
-    lookahead = _b1_lookahead(cfg, data.x.device)
+    lookahead = _b1_lookahead(cfg, *_at(data))
     goff = None
     if lookahead:
         goff = (data.goff if data.goff is not None
                 else lookahead_gram(data.x, block))
     beta, gam, mu, fitted, z_row, z_col, stats = sweep_fused(
         *FUSED.stack(parts, also), goff, block_size=block,
-        emit_gam_mu=not lite, c_one=not annealed, bf16=cfg.mxu_bf16,
+        emit_gam_mu=not lite, c_one=not annealed, bf16=bf16,
         lookahead=lookahead)
     return [(None if gam is None else gam[r], None if mu is None else mu[r],
              beta[r], fitted[r], z_row[r], z_col[r],

@@ -145,7 +145,7 @@ def _load():
         lib.atlasqtl_sweep_fused_clocks.restype = i32
         lib.atlasqtl_sweep_fused_occupancy.argtypes = [i32] * 4
         lib.atlasqtl_sweep_fused_occupancy.restype = i32
-        lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 4
+        lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 5
         lib.atlasqtl_sweep_fused_smem.restype = ctypes.c_longlong
         lib.atlasqtl_sweep_staggered_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_sweep_staggered_occupancy.restype = i32
@@ -187,6 +187,8 @@ FUSED_WIDTHS = (32, 40)   # the slice widths built (response columns)
 FUSED_NCH = 32            # sample rows per pass chunk
 FUSED_NSTAGE = 3          # F and x_b chunk stages
 FUSED_NXA = 2             # x_{b-1} chunk stages
+FUSED_LA_NXB = 4          # the lookahead kernel's x_b and x_{b-2} stages
+FUSED_LA_NXA = 3
 FUSED_NG = 4              # thread groups of the two products
 FUSED_W = 8               # chain window
 FUSED_HLD = 40            # bf16 row of an F chunk or delta tile (odd 16 B)
@@ -199,7 +201,7 @@ def _ld16(width: int) -> int:
 
 
 def _fused_smem_bytes(width: int, block: int, r_aug: int,
-                      bf16: bool = False) -> int:
+                      bf16: bool = False, lookahead: bool = False) -> int:
     """csrc/sweep_fused.cu:smem_bytes for `width`-column slices: the packed
     Gram triangle, the delta and projection tiles, the pass stages (F, x_b
     and x_{b-1} chunks, x rows padded by 4), the advance partials, the
@@ -207,15 +209,33 @@ def _fused_smem_bytes(width: int, block: int, r_aug: int,
     nodes, the block's p_mask and theta, the slice's zeta and q_mask.  The
     bf16 instance stages x chunks as bf16 rows of `_ld16` of the block
     rounded up to 16, keeps one advance partial, two bf16 F chunks and a
-    bf16 delta tile of the block rounded up to 32 rows.  The card holds it
-    to the kernel's own (`kernel_smem_bytes`)."""
+    bf16 delta tile of the block rounded up to 32 rows.  lookahead: the
+    lookahead variant's overlapped kernel (whole blocks; la_smem_bytes),
+    whose pass and chain run at once: two more B x QS tiles (the logit
+    tile, gam), two blocks' p_mask and theta, the pass threads' z_col
+    partials (32 x QS), and the stages sized for the
+    largest of the pass (x chunks two ahead: four stages of x_b, three of
+    x_{b-2}), the goff rows (B rows of B + 4) and the nodes with two
+    blocks' rows of L and the z_row partials; every buffer sized for block
+    128 and r + 2 = 48, whatever the launch's (constant offsets).  The
+    card holds it to the kernel's own (`kernel_smem_bytes`)."""
     gp = (block * (block + 1) // 2 + 3) & ~3
-    if bf16:
+    if bf16 or lookahead:
         xl = _ld16(-(-block // 16) * 16)
         stages = (FUSED_NSTAGE * FUSED_NCH * width
                   + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * xl // 2
                   + FUSED_NCH * width + FUSED_NCH * FUSED_HLD)
         extra = -(-block // 32) * 32 * FUSED_HLD // 2
+        if lookahead:  # sized for block 128 and r + 2 = 48, whatever B, R
+            B, R = FUSED_BMAX, 48
+            stages = max(
+                FUSED_NSTAGE * FUSED_NCH * width
+                + (FUSED_LA_NXB + FUSED_LA_NXA) * FUSED_NCH * _ld16(B) // 2
+                + FUSED_NCH * width + FUSED_NCH * FUSED_HLD,
+                B * (B + 4), 3 * R * width + 2 * B * R + B * (width // 4))
+            return 4 * ((B * (B + 1) // 2 + 3 & ~3) + 4 * B * width + stages
+                        + 8 * FUSED_W * width + 4 * B + 2 * width
+                        + B * FUSED_HLD // 2 + 32 * width)
     else:
         stages = (FUSED_NSTAGE * FUSED_NCH * width
                   + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * (block + 4)
@@ -257,7 +277,7 @@ def sub_block_gram(gram_flat, block: int, sub: int):
 
 def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
                       sms: int = H100_SMS, m: int = 1,
-                      bf16: bool = False) -> dict:
+                      bf16: bool = False, lookahead: bool = False) -> dict:
     """The launch of B1 at (n, q, block, r + 2) for m replicas on a card of
     `sms` SMs: one CTA per slice and replica and one CTA per SM (a second
     needs at most 128 registers per thread and 113 KB of shared memory,
@@ -272,8 +292,11 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     partial rows per slice); the C entry point takes the width and the
     piece and sizes the rest itself.  bf16: the plan of the bf16 instance
     (mxu_bf16), the same width and grid, its own shared memory (under 190
-    KB at block 128: still one CTA per SM).  Raises ValueError on a shape
-    the kernel does not take."""
+    KB at block 128: still one CTA per SM).  lookahead (with bf16): its
+    lookahead variant, whose overlapped kernel takes a block up to
+    FUSED_BMAX whole (224 KB at block 128, width 40, r + 2 = 48) and a
+    larger block in pieces through the bf16 instance's serial schedule.
+    Raises ValueError on a shape the kernel does not take."""
     if (n <= 0 or block <= 0 or block % FUSED_W or q <= 0 or q % 4
             or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
@@ -282,7 +305,9 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     width, waves = _widest_fill(q, FUSED_WIDTHS, sms, m)
     return dict(slice_width=width, sub_block=sub, cluster=1,
                 grid=-(-q // width), waves=waves,
-                smem_bytes=_fused_smem_bytes(width, sub, r_aug, bf16),
+                smem_bytes=_fused_smem_bytes(
+                    width, sub, r_aug, bf16,
+                    lookahead=bf16 and lookahead and sub == block),
                 ctas_per_sm=1, zrow_parts=1)
 
 
@@ -304,25 +329,38 @@ def occupancy(width: int, block: int, r_aug: int, bf16: bool = False) -> int:
 
 
 def kernel_smem_bytes(width: int, block: int, r_aug: int,
-                      bf16: bool = False) -> int:
+                      bf16: bool = False, lookahead: bool = False) -> int:
     """The kernel's own shared-memory bytes at (width, block, r + 2) (of
-    its bf16 instance if bf16), -1 where it refuses them."""
-    return _load().atlasqtl_sweep_fused_smem(width, block, r_aug, int(bf16))
+    its bf16 instance if bf16, of the lookahead variant's overlapped kernel
+    if lookahead), -1 where it refuses them."""
+    return _load().atlasqtl_sweep_fused_smem(width, block, r_aug, int(bf16),
+                                             int(lookahead))
 
 
 PHASES = ("pass", "tiles", "chain", "z_tile", "total")
+# the overlapped lookahead kernel's: its first pass thread's busy cycles in
+# the passes beside a chain, the part of them inside the chain's span, and
+# the chain thread's wait for the helper warps at the end of its windows
+LA_PHASES = PHASES + ("pass_busy", "pass_in_chain", "chain_wait")
 
 
-def phase_clocks() -> dict:
+def phase_clocks(lookahead: bool = False) -> dict:
     """The SM clock cycles the latest B1 launch's first CTA spent in each
     phase, summed over the blocks (its thread 0, which also runs the chain;
-    csrc/sweep_fused.cu:g_clocks)."""
-    out = (ctypes.c_longlong * len(PHASES))()
+    csrc/sweep_fused.cu:g_clocks).  lookahead: those of the latest launch
+    of the lookahead variant's overlapped kernel (whole blocks): "pass" is
+    the chain thread's wait for the passes (beyond each chain, and the
+    first and last passes, which run alone), "chain" its chains; "tiles"
+    (the goff product) and "z_tile" (the rows of L, the Z and logit tiles)
+    are the first pass thread's between the chains; with LA_PHASES' three
+    more."""
+    names = LA_PHASES if lookahead else PHASES
+    out = (ctypes.c_longlong * len(LA_PHASES))()
     err = _load().atlasqtl_sweep_fused_clocks(out)
     if err != 0:
         raise RuntimeError("sweep_fused clocks: "
                            + _load().atlasqtl_error_string(err).decode())
-    return dict(zip(PHASES, out))
+    return dict(zip(names, out))
 
 
 def _tiles(u, l_blk, n_stack, c, kz, c_one):
@@ -585,7 +623,8 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                          f" q={q}, block={block_size}, r+2={r_aug}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     launch = (plan(n, q, block_size, r_aug, sms) if plan is not None
-              else fused_launch_plan(n, q, block_size, r_aug, sms, m, bf16))
+              else fused_launch_plan(n, q, block_size, r_aug, sms, m, bf16,
+                                     lookahead))
     slice_width = slice_width or launch["slice_width"]
     sub = launch["sub_block"]
     gram_full = gram_flat

@@ -134,7 +134,12 @@ class Config:
     (ops/sweep_fused.py:sweep_fused).  Fields that select a path the port
     does not have yet are rejected by models/global_local.py:check_config.
 
-    The two bf16 modes are honoured where the JAX package honours them:
+    The two bf16 modes, sweep_lookahead and sweep_stagger are honoured
+    where the JAX package honours them, which includes its q-tile rules
+    (models/global_local.py:fused_q_tile, mis_fused_q_tile): the bf16
+    flags only at a padded q (per shard on a mesh) that is a multiple of
+    128, sweep_stagger (B4) only at a tile of 256 or more; elsewhere B1 or
+    B2 runs the float32 function.  In detail:
     - mxu_bf16: B1 (ops/sweep_fused.py, complete data and impute) rounds
       the operands of its two large products, r0 = x_b^T F and
       F += x_b delta, to bfloat16 and accumulates in float32 (on the card

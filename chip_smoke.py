@@ -71,19 +71,23 @@ per source, started together) and prints ptxas's registers and spills
   sweeps_fit  fit_global_local at the sim_anneal shape to convergence through
           Config(sweep="pallas") (B3's block kernel launches once per
           predictor block per iteration, iterations within 2% of B1's) and
-          Config(sweep_stagger=True) (B4 once per iteration), beside the
-          default route (B1); B4's fit reaches B1's
+          Config(sweep_stagger=True) (B4 once per iteration, at q padded
+          to 512, where the JAX package's fused tile is 512 and the flag
+          selects B4), beside the default route (B1), all three on that
+          padding; B4's fit reaches B1's
           converged state (iterations within 2%, lb_opt within 1e-5
           relative, PIPs within 1e-2); small fits on the card through each
           route, at block 128 and 256, agree with the CPU float64 fit, and
           float64 use_pallas fits on the card match it to 1e-6;
-  device_loop  every route (B1, B2, impute, B3 f32 and f64, B4, block
-          256, model="global") at the sim_anneal shape under
+  device_loop  every route (B1, B2, impute, B3 f32 and f64, B4 at q
+          padded to 512, block 256, model="global") at the sim_anneal
+          shape under
           device_loop="off" and "on" (CUDA graphs): equal iterations, the
           ELBO histories within 1e-6, launches per iteration under both
           loops, graph replays, seconds, and 0 device-to-host copies per
           lite step (torch.profiler); B1's fit profiled under both loops;
-  eqtl_sweeps  the eQTL problem built once, then 10 iterations through B3
+  eqtl_sweeps  the eQTL problem built once (q padded to 10240, where
+          sweep_stagger selects B4), then 10 iterations through B3
           and through B4 from clones of its state; the B3 route's last
           sweep again under torch.profiler: its CUDA launches (3 per
           predictor block -- r0 product, block kernel, advance -- not
@@ -113,9 +117,15 @@ per source, started together) and prints ptxas's registers and spills
           10000) and block 256, c = 1 and 0.5, under the mean criterion
           (mean_held), both slice widths, its plan and SASS (bf16 HMMA, none
           in the float32 instances); its lookahead variant
-          (Config(mxu_bf16=True, sweep_lookahead=True)) against its plain
-          version at the same shapes, timed beside the bf16 and float32
-          instances, with a sim_anneal fit beside the bf16 fit without it;
+          (Config(mxu_bf16=True, sweep_lookahead=True); the overlapped
+          kernel of whole blocks, the serial one in pieces) against its
+          plain version at the same shapes and at LA_EDGES (two, three and
+          five blocks, n % 32 != 0, ragged q, gam/mu emitted or not), two
+          replicas in one launch bit for bit their single launches, timed
+          beside the bf16 and float32 instances with its plan, its phase
+          clocks and how much of its pass ran under the chain, with a
+          sim_anneal fit beside the bf16 fit without it; registers and
+          spills of every B1 instance;
           B2's pair_bf16 instance
           (Config.mis_pair_bf16) at the windows mis_sub = 16, 8, 4, 32,
           64 and 128 against its plain version at three MIS_SHAPES (the fit shape,
@@ -123,13 +133,14 @@ per source, started together) and prints ptxas's registers and spills
           tolerance and under the mean criterion, timed at each window in
           turns with the float32 instance, with its phase clocks and
           registers; each timed beside its float32 instance with its
-          bound; sim_anneal fits in each mode
+          bound; sim_anneal fits in each mode, q padded to 512 (the flags
+          reach their kernels at a multiple of 128)
           (complete and impute under mxu_bf16, exact under mis_pair_bf16,
           at mis_sub 16 and at 32, 64 and 128) on the graph loop beside
           the float32 fit from the same draw (AUC >= 0.95, PIPs within
           5e-2, the instance launched once per iteration); the eQTL cut
-          (maxit 10) in both B1 instances from one device draw, ms per
-          sweep and per iteration;
+          (maxit 10, q padded to 10112) in both B1 instances from one
+          device draw, ms per sweep and per iteration;
   mesh    the mesh (atlasqtl_tpu_torch.parallel) at world size 1 on NCCL:
           atlasqtl(mesh=...) at the sim_anneal shape on the 1-D mesh and
           the (1, 1) pipeline (2 q-tiles), complete (B1) and 15% exact
@@ -220,8 +231,9 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-KERNEL_NAMES = ("sweep_fused_kernel", "sweep_missing_kernel",
-                "inner_gs_kernel", "sweep_staggered_kernel")
+KERNEL_NAMES = ("sweep_fused_kernel", "sweep_lookahead_kernel",
+                "sweep_missing_kernel", "inner_gs_kernel",
+                "sweep_staggered_kernel")
 
 
 def ptxas_summary(report):
@@ -1278,11 +1290,13 @@ def phase_stag_kernel():
     return max_abs, timing
 
 
-def prepared_fit(y, x, cfg, device, anneal=(1, 2, 10), seed=123):
+def prepared_fit(y, x, cfg, device, anneal=(1, 2, 10), seed=123,
+                 q_pad_to=8):
     """fit_global_local through the library's lower-level entry, as
     atlasqtl() prepares it (prepare_data, elicitation with p0 = (5, 25), the
-    model's builders); the caller's Config picks the route.  Returns the
-    FitResult and the unpadded (theta, gam) on the host."""
+    model's builders, q padded to a multiple of q_pad_to); the caller's
+    Config picks the route.  Returns the FitResult and the unpadded (theta,
+    gam) on the host."""
     from atlasqtl_tpu_torch.io.prepare import prepare_data
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.inference.driver import fit_global_local
@@ -1291,7 +1305,7 @@ def prepared_fit(y, x, cfg, device, anneal=(1, 2, 10), seed=123):
     dat = prepare_data(y, x, 0.1, cfg.maxit, seed, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-    data = gl.build_data(dat.x, dat.y, cfg, device)
+    data = gl.build_data(dat.x, dat.y, cfg, device, q_pad_to=q_pad_to)
     hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                            data.y.shape[1], cfg, device)
     state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
@@ -1303,7 +1317,8 @@ def prepared_fit(y, x, cfg, device, anneal=(1, 2, 10), seed=123):
 
 def phase_sweeps_fit():
     """The B3 and B4 routes through fit_global_local, each driven with every
-    sweep kernel's count set to 0 just before it and read just after."""
+    sweep kernel's count set to 0 just before it and read just after; B4's
+    fits with q padded to 256, where sweep_stagger selects it (C10)."""
     import torch
     from atlasqtl_tpu_torch.types import Config
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
@@ -1320,8 +1335,10 @@ def phase_sweeps_fit():
     xs, ys = simulate(100, 75, 20, 123, 10, 20)
     ref, _, ref_gam = prepared_fit(ys, xs, Config(dtype=torch.float64), "cpu")
     small = {}
+    qpad = {"stagger": 256}
     for route, cfg in routes[1:3]:
-        res, _, gam = prepared_fit(ys, xs, cfg, DEVICE)
+        res, _, gam = prepared_fit(ys, xs, cfg, DEVICE,
+                                   q_pad_to=qpad.get(route, 8))
         small[route] = float(np.abs(gam - ref_gam).max())
         if not (res.converged and small[route] <= 1e-2):
             raise AssertionError(
@@ -1343,7 +1360,8 @@ def phase_sweeps_fit():
             ("pallas", Config(sweep="pallas", block_size=256), 1e-2),
             ("stagger", Config(sweep_stagger=True, block_size=256), 1e-2),
             ("pallas_f64", dataclasses.replace(f64, use_pallas=True), 1e-6)):
-        res, _, gam = prepared_fit(ys, xs, cfg, DEVICE)
+        res, _, gam = prepared_fit(ys, xs, cfg, DEVICE,
+                                   q_pad_to=qpad.get(route, 8))
         key = f"{route}_block256"
         small[key] = float(np.abs(gam - ref_gam).max())
         if not (res.converged and small[key] <= tol
@@ -1363,7 +1381,9 @@ def phase_sweeps_fit():
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        res, theta, gam = prepared_fit(y, x, cfg, DEVICE, seed=0)
+        # every route on the problem B4 takes: q = 500 padded to 512
+        res, theta, gam = prepared_fit(y, x, cfg, DEVICE, seed=0,
+                                       q_pad_to=256)
         gams[route] = gam
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1476,8 +1496,9 @@ def route_profile(fn, args, nb):
 
 def phase_eqtl_sweeps():
     """The eQTL problem (full width) built once -- simulation,
-    prepare_data, host init, build_state -- then 10 iterations through B3
-    and through B4, each from a clone of the built state."""
+    prepare_data, host init, build_state, q padded to 256 (10240
+    columns), where sweep_stagger selects B4 (C10) -- then 10 iterations
+    through B3 and through B4, each from a clone of the built state."""
     import torch
     from atlasqtl_tpu_torch.types import Config
     from atlasqtl_tpu_torch.io.prepare import prepare_data
@@ -1495,7 +1516,7 @@ def phase_eqtl_sweeps():
     hyper_spec = elic.auto_set_hyper(dat.y, p, (5, 25))
     t2 = time.perf_counter()
     cfg = Config(dtype=torch.float32, maxit=10, shr_fac_inv=float(q))
-    data = gl.build_data(dat.x, dat.y, cfg, DEVICE)
+    data = gl.build_data(dat.x, dat.y, cfg, DEVICE, q_pad_to=256)
     hyper = gl.build_hyper(hyper_spec, data.y.shape[1], cfg, DEVICE)
     state = gl.build_state(init, data, cfg)
     torch.cuda.synchronize()
@@ -1828,10 +1849,11 @@ def phase_device_loop():
                                **{**api_kw, **kw, **cut})
         return run
 
-    def route_fit(cfg):
+    def route_fit(cfg, q_pad_to=8):
         def run(loop, **cut):
             return prepared_fit(y, x, dataclasses.replace(
-                cfg, device_loop=loop, **cut), DEVICE, seed=0)[0]
+                cfg, device_loop=loop, **cut), DEVICE, seed=0,
+                q_pad_to=q_pad_to)[0]
         return run
 
     routes = (
@@ -1841,7 +1863,8 @@ def phase_device_loop():
         ("b3_f32", route_fit(Config(sweep="pallas")), "block_gs", 16),
         ("b3_f64", route_fit(Config(dtype=torch.float64, use_pallas=True)),
          "block_gs", 16),
-        ("b4", route_fit(Config(sweep_stagger=True)),
+        # B4 where sweep_stagger selects it: q padded to 256 (C10)
+        ("b4", route_fit(Config(sweep_stagger=True), q_pad_to=256),
          "sweep_fused_staggered", 1),
         ("block256", api_fit(y, x, block_size=256), "sweep_fused", 1),
         # the plain engines: ~50k launches per iteration, so cut to 40
@@ -2307,6 +2330,13 @@ BF16_PEAK = 989e12    # H100 SXM bf16 dense on the tensor cores, FLOP/s
 # B1's bf16 instance: a block not a multiple of 16 (120, zero-padded
 # columns), the fit shape (32-column slices) and the eQTL cut (40)
 BF16_SHAPES = ((120, 120, 200), (300, 2000, 500), (1000, 2048, 10000))
+# the lookahead variant's overlapped schedule at its pipeline's edges (n, p,
+# q, c, gam/mu emitted): two blocks, the second projected beside the first
+# chain with no advance; five blocks with n not a multiple of 32 and q (77,
+# padded to 80) not a multiple of the slice width, lite; three blocks
+LA_EDGES = ((120, 256, 200, 0.5, True), (333, 640, 77, 1.0, False),
+            (300, 384, 104, 0.5, False))
+BF16_FIT_QPAD = 128   # the bf16 flags reach their kernels at q % 128 == 0
 # B2's pair_bf16 instance: the fit shape, the eQTL cut, the device-memory
 # branch; at the windows Config.mis_sub = 16 (the default), 8, 4 and the
 # windows over 16 (32, 64, 128: Fm held at the window's start)
@@ -2424,7 +2454,7 @@ def sass_hmma(lib):
     return counts
 
 
-def device_fit(y, x, cfg, seed, anneal):
+def device_fit(y, x, cfg, seed, anneal, q_pad_to=8):
     """fit_global_local as prepared_fit runs it, from the initial state
     drawn on the card (auto_init_device, as atlasqtl() draws it there with
     user_seed=seed)."""
@@ -2436,7 +2466,7 @@ def device_fit(y, x, cfg, seed, anneal):
     dat = prepare_data(y, x, 0.1, cfg.maxit, seed, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-    data = gl.build_data(dat.x, dat.y, cfg, DEVICE)
+    data = gl.build_data(dat.x, dat.y, cfg, DEVICE, q_pad_to=q_pad_to)
     hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                            data.y.shape[1], cfg, DEVICE)
     state = gl.auto_init_device(seed, data, (5.0, 25.0), float(q), cfg)
@@ -2468,18 +2498,24 @@ def phase_bf16_modes():
     out = {"phase": "bf16_modes"}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sass = sass_hmma(sf.build())
-    b1_sass = {k: v for k, v in sass.items() if "sweep_fused_kernel" in k}
+    b1_sass = {k: v for k, v in sass.items()
+               if "sweep_fused_kernel" in k or "sweep_lookahead_kernel" in k}
     out["b1_sass_hmma"] = b1_sass
-    # the bf16 instances and their lookahead variants: <QS, true, LA>
-    bf_inst = {k: v for k, v in b1_sass.items() if "Lb1E" in k}
-    if (len(bf_inst) != 4 or any(v[0] == 0 or v[1] for v in bf_inst.values())
+    # the bf16 instances, their lookahead variants in pieces <QS, true, LA>
+    # and the overlapped lookahead kernel <QS>
+    bf_inst = {k: v for k, v in b1_sass.items()
+               if "Lb1E" in k or "sweep_lookahead_kernel" in k}
+    if (len(bf_inst) != 6 or any(v[0] == 0 or v[1] for v in bf_inst.values())
             or any(v[0] for k, v in b1_sass.items() if k not in bf_inst)):
         raise AssertionError(f"B1's SASS: HMMA (all, not bf16) per instance "
                              f"{b1_sass}: the bf16 instances need bf16 HMMA, "
                              f"the float32 instances none")
+    # registers and spills of every B1 instance (float32 and bf16)
     out["registers"] = {k: v for k, v in
                         ptxas_summary(sf.build.ptxas_report).items()
-                        if "Lb1E" in k}
+                        if k.startswith(("sweep_fused_kernel",
+                                         "sweep_lookahead_kernel"))}
+    emit({"phase": "bf16_modes", "b1_registers": out["registers"]})
     # B2's pair_bf16 instances from mis_sub 8 on take the pair Grams on the
     # tensor cores, the float32 instance (SUB = 0) never
     b2s = b2_instances(sass)
@@ -2505,7 +2541,8 @@ def phase_bf16_modes():
         again = flat(sf.sweep_fused(*ops16, goff, **kwl))
         ref = flat(sf.sweep_fused_plain(*ops16, goff, **kwl))
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        if not all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, again)):
             raise AssertionError(f"{label}: two launches differ")
         return mean_held(label, got, ref, f32, f32_kernel, B1_NAMES)
 
@@ -2579,11 +2616,27 @@ def phase_bf16_modes():
                 # the lookahead variant beside the bf16 and float32
                 # instances, in turns, in this call
                 kwla = dict(kwl, bf16=True, lookahead=True)
+                la_plan = sf.fused_launch_plan(dims[0], dims[2], block,
+                                               dims[4], sms, bf16=True,
+                                               lookahead=True)
+                la_smem = sf.kernel_smem_bytes(la_plan["slice_width"], block,
+                                               dims[4], True, True)
+                if la_smem != la_plan["smem_bytes"]:
+                    raise AssertionError(f"B1 lookahead plan {la_plan} vs "
+                                         f"the kernel: {la_smem} bytes")
                 la = lambda: sf.sweep_fused(*ops16, goff, **kwla)
                 la()
                 torch.cuda.synchronize()
+                clocks = sf.phase_clocks(lookahead=True)
                 la_case.update(
-                    plan=plan, clocks=sf.phase_clocks(), ms=cuda_ms(la, 9),
+                    plan=la_plan, clocks=clocks,
+                    # how much of the pass ran under the chain: of the pass
+                    # thread's busy cycles beside a chain, and of the chain
+                    pass_under_chain=clocks["pass_in_chain"]
+                    / max(1, clocks["pass_busy"]),
+                    chain_under_pass=clocks["pass_in_chain"]
+                    / max(1, clocks["chain"]),
+                    ms=cuda_ms(la, 9),
                     bf16_ms=cuda_ms(lite, 9),
                     f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kwl), 9),
                     ms_2=cuda_ms(la, 9),
@@ -2640,6 +2693,42 @@ def phase_bf16_modes():
         block128_f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kw), 9))
     emit({"phase": "bf16_modes", "b1_case": b1_cases[-1]})
     del ops, ops16
+    # the overlapped lookahead schedule at its edges, then two replicas in
+    # one launch against their single launches, bit for bit
+    for n, p, q, c, emit_gm in LA_EDGES:
+        ops, block = kernel_inputs(n, p, q, c)
+        ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+        kw = dict(block_size=block, emit_gam_mu=emit_gm, c_one=c == 1.0)
+        la_cases.append(dict(
+            n=n, p=p, q=q, block=block, c=c, emit_gam_mu=emit_gm,
+            err=lookahead_held(
+                f"B1 bf16 lookahead vs plain at n={n} p={p} q={q} c={c} "
+                f"emit={emit_gm}", ops16, sf.lookahead_gram(ops[0], block),
+                kw, flat(sf.sweep_fused_plain(*ops, **kw)),
+                flat(sf.sweep_fused(*ops, **kw)))))
+        emit({"phase": "bf16_modes", "lookahead_case": la_cases[-1]})
+    n, p, q, c, _ = LA_EDGES[-1]
+    parts = [kernel_inputs(n, p, q, c, seed=s_)[0] for s_ in (0, 1)]
+    goff = sf.lookahead_gram(parts[0][0], block)
+    parts = [[sf.bf16_operand(ops[0])] + list(ops[1:]) for ops in parts]
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=False, bf16=True,
+              lookahead=True)
+    # every operand but the state's is the first replica's for both
+    both = flat(sf.sweep_fused(*sf.FUSED.stack(
+        [ops + [goff] for ops in parts]), **kw))
+    width = sf.fused_launch_plan(n, parts[0][5].shape[1], block,
+                                 parts[0][3].shape[1], sms, 2)["slice_width"]
+    own = [k in sf.FUSED.state for k in sf.FUSED.names]
+    for r_, ops in enumerate(parts):
+        ops = [b if mine else a for a, b, mine in zip(parts[0], ops, own)]
+        one = flat(sf.fused_launch("atlasqtl_sweep_fused", *ops, goff, **kw,
+                                   slice_width=width))
+        if not all(a is None and b is None or torch.equal(a[r_], b)
+                   for a, b in zip(both, one)):
+            raise AssertionError(f"B1 bf16 lookahead: replica {r_} of a "
+                                 f"batched launch is not its own launch")
+    out["lookahead_replicas_bitwise"] = 2
+    del parts, both, goff
     out["b1"] = b1_cases
     out["b1_lookahead"] = la_cases
 
@@ -2701,7 +2790,8 @@ def phase_bf16_modes():
             ("exact", missing, Config(), ("mis_pair_bf16",),
              sm.sweep_missing_fused.pair_bf16, sm.sweep_missing_fused)):
         t0 = time.perf_counter()
-        ref, _, ref_gam = prepared_fit(yy, xx, base, DEVICE, seed=0)
+        ref, _, ref_gam = prepared_fit(yy, xx, base, DEVICE, seed=0,
+                                       q_pad_to=BF16_FIT_QPAD)
         torch.cuda.synchronize()
         ref_s = time.perf_counter() - t0
         torch.cuda.synchronize()
@@ -2711,7 +2801,7 @@ def phase_bf16_modes():
         t0 = time.perf_counter()
         res, theta, gam = prepared_fit(
             yy, xx, dataclasses.replace(base, **dict.fromkeys(flags, True)),
-            DEVICE, seed=0)
+            DEVICE, seed=0, q_pad_to=BF16_FIT_QPAD)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {"instance": inst.launches, "wrapper": own.launches,
@@ -2751,7 +2841,8 @@ def phase_bf16_modes():
         dl.replays = 0
         t0 = time.perf_counter()
         res, theta, gam = prepared_fit(
-            yy, xx, Config(mis_pair_bf16=True, mis_sub=sub), DEVICE, seed=0)
+            yy, xx, Config(mis_pair_bf16=True, mis_sub=sub), DEVICE, seed=0,
+            q_pad_to=BF16_FIT_QPAD)
         torch.cuda.synchronize()
         counts = {"instance": sm.sweep_missing_fused.pair_bf16.launches,
                   "wrapper": sm.sweep_missing_fused.launches,
@@ -2780,7 +2871,8 @@ def phase_bf16_modes():
     for flag in (False, True):
         cfg = Config(mxu_bf16=flag, maxit=10)
         res, stats = timed_run(
-            lambda: device_fit(y, x, cfg, 1, (1, 2, 5)),
+            lambda: device_fit(y, x, cfg, 1, (1, 2, 5),
+                               q_pad_to=BF16_FIT_QPAD),
             (sf, "_sweep_fused_cuda"), sf.sweep_fused, b1_any_launch_bound)
         eqtl["bf16" if flag else "f32"] = dict(
             it=res.it, launches=stats["launches"],
@@ -3305,7 +3397,8 @@ def main():
                     "true, false>"),
                 "mxu_bf16_lookahead": bf16_mode(
                     bf16["b1_lookahead"], "csrc/sweep_fused.cu:"
-                    "sweep_fused_kernel<QS, true, true>")}})
+                    "sweep_lookahead_kernel<QS> (whole blocks; in pieces "
+                    "sweep_fused_kernel<QS, true, true>)")}})
     if mis_timing is not None:
         kernels.append({
             "name": "sweep_missing_fused", "route": "cuda",

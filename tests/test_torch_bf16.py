@@ -459,16 +459,17 @@ def _port_problem(missing_frac=0.0, seed=5, p=75):
     return y, x
 
 
-def _port_iteration(cfg, missing_frac=0.0, p=75):
+def _port_iteration(cfg, missing_frac=0.0, p=75, q_pad_to=8):
     """One cavi_iteration of the port on the CPU from a host draw at
-    n = 100, q = 20 and `p` predictors: the returned state's fields."""
+    n = 100, q = 20 (padded to a multiple of `q_pad_to`) and `p`
+    predictors: the returned state's fields."""
     from atlasqtl_tpu_torch.io.prepare import prepare_data
     from atlasqtl_tpu_torch.inference import elicitation as elic
     y, x = _port_problem(missing_frac, p=p)
     dat = prepare_data(y, x, 0.1, 1000, 1, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-    data = tgl.build_data(dat.x, dat.y, cfg, "cpu")
+    data = tgl.build_data(dat.x, dat.y, cfg, "cpu", q_pad_to=q_pad_to)
     hyper = tgl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                             data.y.shape[1], cfg, "cpu")
     state = tgl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
@@ -507,13 +508,14 @@ def test_bf16_flags_reach_b1_and_b2():
     """On sweep="fused" the flags change the iteration (B1 under
     mxu_bf16, with its bf16 copy of x made once in build_data; B2 under
     mis_pair_bf16, at p = 250, whose padded p, 256, is a multiple of 128,
-    as the JAX package's fused kernel needs: `_b2_pair_bf16`)."""
+    as the JAX package's fused kernel needs: `_b2_pair_bf16`), at q padded
+    to 128, where the JAX package's fused kernels find a q tile."""
     cfg = at.Config(dtype=torch.float32, sweep="fused")
     for missing, flag, p in ((0.0, "mxu_bf16", 75),
                              (0.15, "mis_pair_bf16", 250)):
-        _, s0 = _port_iteration(cfg, missing, p)
+        _, s0 = _port_iteration(cfg, missing, p, q_pad_to=128)
         d1, s1 = _port_iteration(dataclasses.replace(cfg, **{flag: True}),
-                                 missing, p)
+                                 missing, p, q_pad_to=128)
         assert (d1.x_bf16 is not None) == (flag == "mxu_bf16")
         if d1.x_bf16 is not None:
             assert d1.x_bf16.dtype == torch.bfloat16
@@ -531,11 +533,13 @@ def test_c9_pair_bf16_reaches_b2_only_at_block_128(block, p, reaches):
     bit, wherever the JAX package would not take its fused kernel: block
     256 and 64 (p = 75 pads to 80 and 128), and block 128 at p = 75
     (padded to 80, not a multiple of 128).  At block 128 with p = 250
-    (padded to 256) the flag reaches B2 and the iteration differs."""
+    (padded to 256) the flag reaches B2 and the iteration differs.  q is
+    padded to 128, where the JAX kernel finds its q tile (C10), so that
+    only the block rule decides."""
     cfg = at.Config(dtype=torch.float32, sweep="fused", block_size=block)
     flag = dataclasses.replace(cfg, mis_pair_bf16=True)
-    d0, s0 = _port_iteration(cfg, 0.15, p)
-    d1, s1 = _port_iteration(flag, 0.15, p)
+    d0, s0 = _port_iteration(cfg, 0.15, p, q_pad_to=128)
+    d1, s1 = _port_iteration(flag, 0.15, p, q_pad_to=128)
     assert tgl._engine(flag, d1) == "b2"
     assert tgl._b2_pair_bf16(flag, d1) == reaches
     same = [torch.equal(getattr(s0, f.name), getattr(s1, f.name))
@@ -543,7 +547,7 @@ def test_c9_pair_bf16_reaches_b2_only_at_block_128(block, p, reaches):
     assert all(same) != reaches
 
 
-def _fit(cfg, missing_frac, seed=5, p=75):
+def _fit(cfg, missing_frac, seed=5, p=75, q_pad_to=8):
     from atlasqtl_tpu_torch.io.prepare import prepare_data
     from atlasqtl_tpu_torch.inference import elicitation as elic
     from atlasqtl_tpu_torch.inference.driver import fit_global_local
@@ -551,7 +555,7 @@ def _fit(cfg, missing_frac, seed=5, p=75):
     dat = prepare_data(y, x, 0.1, 1000, 1, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-    data = tgl.build_data(dat.x, dat.y, cfg, "cpu")
+    data = tgl.build_data(dat.x, dat.y, cfg, "cpu", q_pad_to=q_pad_to)
     hyper = tgl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                             data.y.shape[1], cfg, "cpu")
     state = tgl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
@@ -565,16 +569,133 @@ def _fit(cfg, missing_frac, seed=5, p=75):
                                           ("mxu_bf16", "impute"),
                                           ("mis_pair_bf16", "exact")])
 def test_small_bf16_fit_converges_near_f32(flag, missing):
-    """A small fit (n=100, p=75, q=20; 15% NaN for the missing modes; p =
-    250 under mis_pair_bf16, which reaches B2 only where the padded p is a
-    multiple of 128) on sweep="fused" in each mode converges, its PIPs
-    within 5e-2 of the float32 fit's from the same initial state."""
+    """A small fit (n=100, p=75, q=20 padded to 128, where the flags reach
+    their kernels; 15% NaN for the missing modes; p = 250 under
+    mis_pair_bf16, which reaches B2 only where the padded p is a multiple
+    of 128) on sweep="fused" in each mode converges, its PIPs within 5e-2
+    of the float32 fit's from the same initial state."""
     frac = 0.0 if missing is None else 0.15
     p = 250 if flag == "mis_pair_bf16" else 75
     cfg = at.Config(dtype=torch.float32, sweep="fused",
                     missing=missing or "exact")
-    ref, ref_gam = _fit(cfg, frac, p=p)
-    res, gam = _fit(dataclasses.replace(cfg, **{flag: True}), frac, p=p)
+    ref, ref_gam = _fit(cfg, frac, p=p, q_pad_to=128)
+    res, gam = _fit(dataclasses.replace(cfg, **{flag: True}), frac, p=p,
+                    q_pad_to=128)
     assert ref.converged and res.converged
     assert np.isfinite(gam).all()
     assert np.abs(gam - ref_gam).max() <= FIT_PIP
+
+
+# ------------------------------------------------ C10: the q-tile routing
+
+def _spy(monkeypatch, mod, name, key):
+    """Record the keyword `key` of every call of mod.name (a plain version
+    of a kernel, which the CPU wrappers look up at call time)."""
+    calls = []
+    orig = getattr(mod, name)
+
+    def spy(*a, **kw):
+        calls.append(kw.get(key))
+        return orig(*a, **kw)
+    monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
+def _same_iteration(s0, s1):
+    return all(torch.equal(getattr(s0, f.name), getattr(s1, f.name))
+               for f in dataclasses.fields(s0)
+               if getattr(s0, f.name) is not None)
+
+
+@pytest.mark.parametrize("q_pad", [24, 504, 128, 256])
+@pytest.mark.parametrize("flag", ["mxu_bf16", "mis_pair_bf16"])
+def test_c10_bf16_flags_reach_only_at_a_q_tile(monkeypatch, flag, q_pad):
+    """C10: on sweep="fused" (q = 20 padded to q_pad) mxu_bf16 and
+    mis_pair_bf16 reach their kernels' plain versions only where the JAX
+    package's fused kernels find a q tile (models/global_local.py:
+    fused_q_tile, mis_fused_q_tile: a padded q that is a multiple of 128).
+    At 24 and 504 the iteration is the one without the flag, bit for bit,
+    and no bf16 copy of x is built; at 128 and 256 B1 runs its bf16 mode
+    (B2 its pair_bf16 mode at p = 250) and the iteration differs."""
+    missing, p = (0.0, 75) if flag == "mxu_bf16" else (0.15, 250)
+    reaches = q_pad % 128 == 0
+    cfg = at.Config(dtype=torch.float32, sweep="fused")
+    q_pad_to = 8 if q_pad == 24 else q_pad
+    _, s0 = _port_iteration(cfg, missing, p, q_pad_to=q_pad_to)
+    if flag == "mxu_bf16":
+        calls = _spy(monkeypatch, tsf, "sweep_fused_plain", "bf16")
+    else:
+        calls = _spy(monkeypatch, tsm, "sweep_missing_fused_plain",
+                     "pair_bf16")
+    flagged = dataclasses.replace(cfg, **{flag: True})
+    d1, s1 = _port_iteration(flagged, missing, p, q_pad_to=q_pad_to)
+    assert d1.y.shape[1] == q_pad
+    assert d1.x_bf16 is None if not reaches or flag != "mxu_bf16" \
+        else d1.x_bf16.dtype == torch.bfloat16
+    assert calls == [reaches]
+    assert _same_iteration(s0, s1) != reaches
+
+
+@pytest.mark.parametrize("q_pad,engine", [(384, "b1"), (512, "b4")])
+def test_c10_stagger_takes_b4_from_a_tile_of_256(monkeypatch, q_pad, engine):
+    """C10: Config(sweep_stagger=True, mxu_bf16=True) on sweep="fused" runs
+    B4 only where the JAX package's fused tile is at least 256
+    (atlasqtl_tpu/models/global_local.py:555-557): at padded q 384 (tile
+    128) B1 runs, in its bf16 mode, as JAX's fused kernel does; at 512
+    (tile 512) B4 runs and mxu_bf16 leaves its iteration as it is."""
+    from atlasqtl_tpu_torch.ops import sweep_staggered as tss
+    cfg = at.Config(dtype=torch.float32, sweep="fused", sweep_stagger=True,
+                    mxu_bf16=True)
+    _, s0 = _port_iteration(dataclasses.replace(cfg, mxu_bf16=False),
+                            q_pad_to=q_pad)
+    b1 = _spy(monkeypatch, tsf, "sweep_fused_plain", "bf16")
+    b4 = _spy(monkeypatch, tss, "sweep_staggered_plain", "block_size")
+    d1, s1 = _port_iteration(cfg, q_pad_to=q_pad)
+    assert tgl._engine(cfg, d1) == engine
+    if engine == "b1":
+        assert b1 == [True] and b4 == [] and d1.x_bf16 is not None
+        assert not _same_iteration(s0, s1)
+    else:
+        assert b1 == [] and len(b4) == 1 and d1.x_bf16 is None
+        assert _same_iteration(s0, s1)
+
+
+def test_c10_q_tiles_are_the_jax_packages():
+    """The port's copies of the JAX package's q-tile rules give its tiles
+    (atlasqtl_tpu/models/global_local.py:_fused_q_tile,
+    _mis_fused_q_tile) over padded n from 8 to 200k and padded q from 8 to
+    20480: a multiple of 128, and for the staggered kernel's 256 a
+    multiple of 256 up to n ~ 91k."""
+    for n in (8, 104, 1000, 5000, 50000, 91104, 91112, 92000, 200000):
+        for q in (8, 24, 128, 256, 384, 504, 512, 1024, 10000, 10240,
+                  20480):
+            assert tgl.fused_q_tile(n, q) == jgl._fused_q_tile(n, q), (n, q)
+            assert tgl.mis_fused_q_tile(n, q) == \
+                jgl._mis_fused_q_tile(n, q), (n, q)
+    assert tgl.fused_q_tile(91104, 512) == 256
+    assert tgl.fused_q_tile(92000, 512) == 128
+
+
+@pytest.mark.parametrize("q_shards,tile", [(1, 512), (2, 256), (4, 128),
+                                           (8, None)])
+def test_c10_mesh_predicate_takes_the_shard_q(q_shards, tile):
+    """C10 on a 1-D mesh: the flags' predicates take the per-shard q, as
+    atlasqtl_tpu/models/global_local.py:418-421 does: q padded to 512 over
+    1, 2, 4 or 8 shards leaves 512, 256, 128 or 64 columns per shard, and
+    the last has no tile; build_data(q_shards=) then builds x_bf16 and
+    goff only where the flags reach.  sweep_stagger never selects B4 under
+    a mesh.  A unit test of the predicates: no mesh processes."""
+    from atlasqtl_tpu_torch.parallel.mesh import Q_AXIS
+    cfg = at.Config(dtype=torch.float32, sweep="fused", mxu_bf16=True,
+                    sweep_lookahead=True, sweep_stagger=True, q_axis=Q_AXIS)
+    n, q_local = 104, 512 // q_shards
+    assert tgl.fused_q_tile(n, q_local) == tile
+    assert tgl._b1_bf16(cfg, "cpu", n, q_local) == (tile is not None)
+    assert tgl._b1_lookahead(cfg, "cpu", n, q_local) == (tile is not None)
+    assert not tgl._stagger(cfg, n, q_local)
+    y, x = _port_problem()
+    y = np.concatenate([y] * 25, axis=1)[:, :500]
+    data = tgl.build_data(x, y, cfg, "cpu", q_pad_to=128, q_shards=q_shards)
+    assert data.x.shape[0] == n and data.y.shape[1] == 512
+    assert (data.x_bf16 is not None) == (tile is not None)
+    assert (data.goff is not None) == (tile is not None)

@@ -610,15 +610,15 @@ def test_staggered_kernel_repeats_and_rejects(cuda, q):
     assert ss.sweep_fused_staggered.launches == launches
 
 
-def _fit(cfg, device, seed=123, p=75):
+def _fit(cfg, device, seed=123, p=75, q_pad_to=8):
     """fit_global_local from the library's lower-level entry (how a caller
     reaches the B3 and B4 routes): prepare_data, elicitation, the model's
-    builders."""
+    builders (q padded to a multiple of q_pad_to)."""
     y, x, _ = simulate_fixture(p=p)
     dat = prepare_data(y, x, 0.1, 1000, seed, 0)
     p, q = dat.x.shape[1], dat.y.shape[1]
     cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-    data = gl.build_data(dat.x, dat.y, cfg, device)
+    data = gl.build_data(dat.x, dat.y, cfg, device, q_pad_to=q_pad_to)
     hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                            data.y.shape[1], cfg, device)
     state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25), float(q),
@@ -636,7 +636,9 @@ def test_route_fit_on_the_card(cuda, route, block):
     agrees with the
     float64 CPU fit: float32 PIPs within 1e-2; float64 through B3 in the
     same iterations within 1e-6.  Block 128 at p = 75 (one block of 80) and
-    block 256 at p = 300 (two blocks of 256)."""
+    block 256 at p = 300 (two blocks of 256); q padded to 256 for B4, which
+    sweep_stagger selects only where the JAX package's fused tile is at
+    least 256 (C10)."""
     cfg = {"pallas": Config(sweep="pallas", block_size=block),
            "stagger": Config(sweep_stagger=True, block_size=block),
            "pallas_f64": Config(dtype=torch.float64, use_pallas=True,
@@ -644,7 +646,8 @@ def test_route_fit_on_the_card(cuda, route, block):
     p = 75 if block == 128 else 300
     sf.sweep_fused.launches = sp.inner_gs_pallas.launches = 0
     ss.sweep_fused_staggered.launches = sp.block_gs.launches = 0
-    res, gam = _fit(cfg, cuda, p=p)
+    res, gam = _fit(cfg, cuda, p=p, q_pad_to=256 if route == "stagger"
+                    else 8)
     assert res.converged and sf.sweep_fused.launches == 0
     if route == "stagger":
         assert ss.sweep_fused_staggered.launches == res.it
@@ -686,7 +689,9 @@ def _loop_fit(route, loop, device):
         p, q = dat.x.shape[1], dat.y.shape[1]
         cfg = dataclasses.replace(cfg, shr_fac_inv=float(q),
                                   device_loop=loop)
-        data = gl.build_data(dat.x, dat.y, cfg, device)
+        # B4 where sweep_stagger selects it: q padded to 256 (C10)
+        data = gl.build_data(dat.x, dat.y, cfg, device,
+                             q_pad_to=256 if route == "b4" else 8)
         hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                                data.y.shape[1], cfg, device)
         state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25),
@@ -1250,6 +1255,10 @@ def test_bf16_plan_matches_the_kernel(cuda):
                                             bf16=True)
                 assert sf.occupancy(width, block, r_aug, True) \
                     == plan["ctas_per_sm"] == 1
+                # the lookahead variant's overlapped kernel (whole blocks)
+                assert (sf.kernel_smem_bytes(width, block, r_aug, True, True)
+                        == sf._fused_smem_bytes(width, block, r_aug, True,
+                                                True))
 
 
 def test_bf16_operands_and_b4_refuse(cuda):
@@ -1324,7 +1333,8 @@ def test_bf16_graph_loop_matches_host_loop(cuda, mode):
     """A fit in each bf16 mode under the CUDA-graph loop takes the host
     loop's iterations and ELBO history (to 1e-6 relative, as the float32
     routes); under both loops the mode's instance launches once per
-    iteration (replays counted) and is the only sweep launched."""
+    iteration (replays counted) and is the only sweep launched.  q is
+    padded to 128, where the flags reach their kernels (C10)."""
     from atlasqtl_tpu_torch.inference import device_loop as dl
     missing, flag, p = BF16_FITS[mode]
     y, x, _ = simulate_fixture(p=p, missing_frac=0.2 if missing else 0.0,
@@ -1338,7 +1348,7 @@ def test_bf16_graph_loop_matches_host_loop(cuda, mode):
         dat = prepare_data(y, x, 0.1, 1000)
         p, q = dat.x.shape[1], dat.y.shape[1]
         cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-        data = gl.build_data(dat.x, dat.y, cfg, cuda)
+        data = gl.build_data(dat.x, dat.y, cfg, cuda, q_pad_to=128)
         hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                                data.y.shape[1], cfg, cuda)
         state = gl.build_state(elic.auto_set_init(dat.y, p, (5, 25),
@@ -1434,6 +1444,38 @@ def test_lookahead_kernel_is_deterministic_and_refuses(cuda):
     assert sf.sweep_fused.launches == launches
 
 
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("n,p,q,c", [(120, 120, 200, 1.0),
+                                     (120, 256, 200, 0.5),
+                                     (333, 640, 77, 1.0),
+                                     (300, 640, 104, 0.5),
+                                     (100, 384, 4804, 1.0)])
+def test_lookahead_overlap_edges(cuda, n, p, q, c, emit):
+    """The lookahead variant's overlapped schedule (whole blocks of 128:
+    csrc/sweep_fused.cu:sweep_lookahead_kernel) at the edges of its
+    pipeline: one block (nothing to overlap), two blocks (the second
+    projected beside the first chain, with no advance), five and three;
+    n not a multiple of 32; q not a multiple of the slice width (77 padded
+    to 80, 104, 200 in 32-column slices; 4804 in 40-column slices, the
+    last of 121 holding 4); c = 1 and c < 1; gam and mu emitted or not.
+    Against its plain version under the bf16 mean criterion, and two
+    launches agree bit for bit."""
+    ops, block = _operands(n, p, q, c)
+    ops16, goff = _lookahead_operands(ops, block)
+    kw = dict(block_size=block, emit_gam_mu=emit, c_one=c == 1.0)
+    ref = _flat(sf.sweep_fused(*ops16, goff, **kw, bf16=True,
+                               lookahead=True))
+    f32 = _flat(sf.sweep_fused(*ops, **kw))
+    dev = [o.to(cuda) for o in ops16] + [goff.to(cuda)]
+    got, again = (_flat(sf.sweep_fused(*dev, **kw, bf16=True,
+                                       lookahead=True)) for _ in range(2))
+    f32_kernel = _flat(sf.sweep_fused(*[o.to(cuda) for o in ops], **kw))
+    torch.cuda.synchronize()
+    _bf16_held(got, ref, f32, f32_kernel, NAMES)
+    for name, u, v in zip(NAMES, got, again):
+        assert (u is None and v is None) or torch.equal(u, v), name
+
+
 @pytest.mark.parametrize("m", [1, 2, 4])
 @pytest.mark.parametrize("kind", ["b1", "b1_cp", "b1_256"])
 def test_batched_lookahead_equals_single_launches(cuda, kind, m):
@@ -1477,7 +1519,7 @@ def test_lookahead_graph_loop_matches_host_loop(cuda):
     iterations and ELBO history (to 1e-6 relative, as the float32 routes);
     under both loops the lookahead variant launches once per iteration
     (replays counted) and is the only sweep launched; goff is built once,
-    in build_data."""
+    in build_data (q padded to 128, where the flags reach B1: C10)."""
     from atlasqtl_tpu_torch.inference import device_loop as dl
     y, x, _ = simulate_fixture(seed=5)
     fits = {}
@@ -1487,7 +1529,7 @@ def test_lookahead_graph_loop_matches_host_loop(cuda):
         dat = prepare_data(y, x, 0.1, 1000)
         p, q = dat.x.shape[1], dat.y.shape[1]
         cfg = dataclasses.replace(cfg, shr_fac_inv=float(q))
-        data = gl.build_data(dat.x, dat.y, cfg, cuda)
+        data = gl.build_data(dat.x, dat.y, cfg, cuda, q_pad_to=128)
         assert data.goff is not None and data.goff.shape == (96, 32)
         hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p, (5, 25)),
                                data.y.shape[1], cfg, cuda)

@@ -179,6 +179,33 @@ def test_fused_bf16_smem_arithmetic(width, block, r_aug, expected):
     assert got < sf._fused_smem_bytes(width, block, r_aug)
 
 
+@pytest.mark.parametrize("width,block,r_aug,expected", [
+    (40, 128, 48, 229440), (40, 64, 42, 229440), (32, 128, 48, 205824),
+    (32, 8, 1, 205824)])
+def test_fused_lookahead_smem_arithmetic(width, block, r_aug, expected):
+    """The lookahead variant's overlapped kernel (csrc/sweep_fused.cu:
+    LaSmem), counted by hand at 40 columns, whatever the block and r + 2
+    (every buffer sized for block 128 and r + 2 = 48): the packed Gram
+    8256 floats, four tiles of 128 x 40 (20480), the window tiles 2560,
+    two blocks' p_mask and theta 512, zeta and q_mask 80, the bf16 delta
+    tile 2560, the pass threads' z_col partials 32 x 40, and the stages:
+    the largest of the pass (F 3 x 32 x 40, seven bf16 x chunks of 32 x
+    136, 15232 floats, the advance partial and two bf16 F chunks: 21632),
+    the goff rows (128 x 132) and the nodes with two blocks' rows of L and
+    the z_row partials (19328): 57360 floats.  One CTA fits; a block over 128 goes in pieces through the
+    bf16 instance's serial schedule, whose plan it keeps."""
+    got = sf._fused_smem_bytes(width, block, r_aug, True, True)
+    assert got == expected and got <= SMEM_MAX
+    plan = sf.fused_launch_plan(1000, 10000, block, r_aug, bf16=True,
+                                lookahead=True)
+    assert plan["smem_bytes"] == sf._fused_smem_bytes(
+        plan["slice_width"], block, r_aug, True, True)
+    piece = sf.fused_launch_plan(1000, 10000, 256, r_aug, bf16=True,
+                                 lookahead=True)
+    assert piece["smem_bytes"] == sf._fused_smem_bytes(
+        piece["slice_width"], 128, r_aug, True)
+
+
 @pytest.mark.parametrize("n,q,block", SHAPES)
 def test_fused_bf16_plan_matches_f32_plan(n, q, block):
     """The bf16 instance's plan takes the float32 plan's width, grid and

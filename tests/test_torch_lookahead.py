@@ -249,12 +249,14 @@ def test_lookahead_reaches_b1_under_bf16():
     """On sweep="fused" under mxu_bf16 the flag changes the iteration,
     with goff built once in build_data (float32, from the float32 x), and
     the graph-loop counter of the lookahead variant is registered (block
-    32: p = 75 in three blocks; in one block the flag changes nothing)."""
+    32: p = 75 in three blocks; in one block the flag changes nothing; q
+    padded to 128, where the JAX package's fused kernel finds its tile)."""
     from atlasqtl_tpu_torch.inference import device_loop as dl
     cfg = at.Config(dtype=torch.float32, sweep="fused", mxu_bf16=True,
                     block_size=32)
-    _, s0 = _port_iteration(cfg)
-    d1, s1 = _port_iteration(dataclasses.replace(cfg, sweep_lookahead=True))
+    _, s0 = _port_iteration(cfg, q_pad_to=128)
+    d1, s1 = _port_iteration(dataclasses.replace(cfg, sweep_lookahead=True),
+                             q_pad_to=128)
     assert d1.goff is not None and d1.goff.dtype == torch.float32
     assert torch.equal(d1.goff, tsf.lookahead_gram(
         d1.x, tgl.data_block(cfg, d1)))
@@ -276,3 +278,28 @@ def test_lookahead_refused_without_bf16():
         tsf.sweep_fused(*ops, goff, **kw)
     with pytest.raises(ValueError, match="goff"):
         tsf.sweep_fused(*ops, **kw, bf16=True)
+
+
+@pytest.mark.parametrize("q_pad", [24, 504, 128, 256])
+def test_c10_lookahead_reaches_b1_only_at_a_q_tile(monkeypatch, q_pad):
+    """C10: Config(mxu_bf16=True, sweep_lookahead=True) on sweep="fused"
+    (block 32: p = 75 in three blocks; q = 20 padded to q_pad) reaches the
+    lookahead schedule of B1's plain version only where the JAX package's
+    fused kernel finds a q tile (a padded q that is a multiple of 128).  At
+    24 and 504 the iteration is the float32 one without either flag, bit
+    for bit, with no goff and no bf16 x built; at 128 and 256 goff is built
+    and the iteration differs from mxu_bf16's alone."""
+    from test_torch_bf16 import _same_iteration, _spy
+    reaches = q_pad % 128 == 0
+    q_pad_to = 8 if q_pad == 24 else q_pad
+    base = at.Config(dtype=torch.float32, sweep="fused", block_size=32)
+    bf16 = dataclasses.replace(base, mxu_bf16=True)
+    _, s0 = _port_iteration(bf16 if reaches else base, q_pad_to=q_pad_to)
+    calls = _spy(monkeypatch, tsf, "sweep_fused_plain", "lookahead")
+    d1, s1 = _port_iteration(dataclasses.replace(bf16, sweep_lookahead=True),
+                             q_pad_to=q_pad_to)
+    assert d1.y.shape[1] == q_pad
+    assert calls == [reaches]
+    assert (d1.goff is not None) == reaches
+    assert (d1.x_bf16 is not None) == reaches
+    assert _same_iteration(s0, s1) != reaches

@@ -100,14 +100,15 @@ def test_cpu_route_matches_jax_fused_kernel(annealed):
 @pytest.mark.parametrize("lite", [False, True])
 def test_stagger_iteration_is_bitwise_the_fused_one(lite):
     """One CAVI iteration on the CPU with sweep_stagger equals the fused
-    route's bit for bit, in the full and the lite carry; q = 200 splits
-    into halves of 64 and 136 columns."""
+    route's bit for bit, in the full and the lite carry; q = 200 is padded
+    to 256, where the JAX package's fused tile is 256 and the flag selects
+    B4 (C10), and splits into halves of 128 columns."""
     y, x, _ = simulate_fixture(n=80, p=300, p_act=8, q=200, seed=7)
     dat = prepare_data(y, x, 0.1, 1000)
     p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
     cfg = Config(dtype=torch.float32, sweep="fused",
                  shr_fac_inv=float(q_eff))
-    data = gl.build_data(dat.x, dat.y, cfg, "cpu")
+    data = gl.build_data(dat.x, dat.y, cfg, "cpu", q_pad_to=256)
     hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p_eff, (4, 16)),
                            data.y.shape[1], cfg, "cpu")
     state = gl.build_state(elic.auto_set_init(dat.y, p_eff, (4, 16),
@@ -116,6 +117,7 @@ def test_stagger_iteration_is_bitwise_the_fused_one(lite):
     kw = dict(cfg=cfg, annealed=lite, lite=lite)
     ref = gl.cavi_iteration(data, hyper, state, gram, 0.5, 0.5, **kw)
     kw["cfg"] = dataclasses.replace(cfg, sweep_stagger=True)
+    assert gl._engine(kw["cfg"], data) == "b4"
     got = gl.cavi_iteration(data, hyper, state, gram, 0.5, 0.5, **kw)
     for f in dataclasses.fields(ref):
         a, b = getattr(got, f.name), getattr(ref, f.name)
