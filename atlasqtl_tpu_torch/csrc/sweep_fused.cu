@@ -77,20 +77,56 @@
 // FP32 SIMT products took 74% of CTA 0's cycles.  What bounds it: the
 // products' 4 n p q operations at the bf16 dense tensor rate (989
 // TFLOP/s) take 2 ms per eQTL sweep, so the chain and the FP32 rest come
-// first.  Only the two product sections of the pass change:
-//  - x chunks arrive as bf16 (the caller's bf16 copy of x, rounded once per
-//    fit) by the same cp.async stages, in rows of ld16(B16) bf16 (an odd
-//    number of 16-byte units: ldmatrix without bank conflicts; a block
-//    that is not a multiple of 16 is padded with zero columns);
-//  - the projection r0 = x_b^T F (B x QS, depth: the chunk's 32 rows) is
-//    8 x QS/8 tiles of 16 x 8, four per warp, accumulated across the pass
-//    in 16 registers per thread: no partial sums to add after it;
-//  - the advance (32 x QS, depth B) is 2 x QS/8 tiles, one per warp over
-//    the whole depth, so its one partial is added to F as before (an f32
-//    add), and that thread writes the bf16 copy of the advanced F chunk
-//    that the next step projects (rows of 40 bf16, read by ldmatrix.trans);
+// first.  Its pass (bf16_pass, redesigned for the H100) is its own:
+//  - chunks are NCHB = 64 sample rows (16 at n = 1000), and a step holds
+//    ONE CTA barrier: step ch waits on its mbarrier for its copies, passes
+//    the barrier, then advances chunk ch and projects chunk ch-1; thread 0
+//    meanwhile stores F chunk ch-1 and loads chunk ch+1's F and x_{b-1}
+//    and chunk ch's x_b into buffers last read in step ch-1;
+//  - the copies are TMA tensor copies (6 at block 128: F's box of QS x 64
+//    floats each way, x in 64 x 64 bf16 tiles): cp.async of 16 bytes a
+//    thread, as the float32 instance stages, took half of each 64-row step
+//    just to issue (CTA 0 at the eQTL cut on an H100: ~3,100 of ~6,200
+//    cycles), one 1-D bulk copy per row longer still (~50 cycles each).  x
+//    tiles take TMA's 128-byte swizzle (16-byte units XORed across 8 rows),
+//    so that ldmatrix reads them without bank conflicts; F's 128-byte rows
+//    at 32 columns take it too (the float2 fragment accesses conflict two
+//    ways, not four), its 160-byte rows at 40 columns need none.  Rows past
+//    n and columns past q or p arrive as zeros and are not stored back;
+//  - the warps have two roles.  The last NAW = 4 warps advance, each its 16
+//    chunk rows across the whole slice (QS/8 tiles of 16 x 8, one f32
+//    accumulator each, over the block's depth in k order: QS/8 independent
+//    chains of mma.sync m16n8k16 bf16 x bf16 -> f32, fed by ldmatrix);
+//    each x_{b-1} fragment is read once per chunk.  Their B operand,
+//    delta_{b-1} rounded to bf16, stays in registers for the pass at 32
+//    columns (16 per column tile at B = 128); at 40 the 10 warps cap
+//    ptxas at 168 registers and 80 more spill the chain's, so there it is
+//    read from the delta tile each chunk.  A warp adds its accumulators to
+//    F in the fragment layout (the one __fadd_rn per element, as before)
+//    in F's stage, whence the TMA store takes it, and writes the bf16 copy
+//    (rounded from the same f32 values) that the next step projects: no
+//    advance partial goes through shared memory and no second barrier
+//    hands it over.  The other warps (4 at QS = 32, 6 at 40) project,
+//    each its one or two 16-row tiles of the block across the slice
+//    (tiles w and w + 4 where fewer than 8 warps; at QS = 40 the two warps
+//    with a second tile sit on the two schedulers that hold two warps, so
+//    every scheduler issues 80 of the 320 mma of a 64-row step at B =
+//    128), accumulated over the chunk's rows in row order across the pass:
+//    each x_b fragment is read once per chunk; what is re-read is the small
+//    bf16 F chunk (64 x QS).  The accumulation orders are the first
+//    version's (32-row chunks, one warp per 16 x 8 tile), so the outputs
+//    are its bit for bit;
+//  - the pass is a function of its own, not inlined, so that ptxas
+//    allocates its registers apart from the chain's;
 //  - delta is rounded to bf16 once per block into its own tile (rows of
 //    40 bf16, zero rows up to a multiple of 32); the chain keeps f32 delta;
+//  - shared memory at QS = 40, B = 128, r + 2 = 42 (smem_bytes<40, true>):
+//    the Gram triangle 8256 floats, the delta and projection tiles 10240,
+//    the stages 24320 (256 for the 1024-byte boundary, F 2 x 64 x 40 =
+//    5120, x 4 x 2 tiles of 64 x 64 bf16 = 16384, bf16 F 2 x 64 x 40 bf16
+//    = 2560), the window tiles 2560, the nodes 5040, p_mask and theta 256,
+//    zeta and q_mask 80, two mbarriers 4, the bf16 delta tile 2560: 53316
+//    floats, 213264 bytes (the first version 185088);
 //  - a block over BMAX (Bfull rows, walked in pieces of B) is the JAX
 //    kernel's block: every piece is projected against the bf16 F of the
 //    block's start, and sees the block's earlier pieces' deltas through
@@ -121,6 +157,7 @@
 // register tiles, as the pieces' cross-Gram.
 // Conversions use __float2bfloat16_rn (round to nearest even, as JAX's
 // astype and torch's .to(bfloat16)); no TF32 anywhere.
+#include <cuda.h>  // CUtensorMap (the TMA descriptors; no driver link)
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -135,6 +172,8 @@ constexpr int NSTAGE = 3;     // F and x_b stages (advanced, projected, landing)
 constexpr int NXA = 2;        // x_{b-1} stages (advanced, landing)
 constexpr int NG = 4;         // thread groups of the two products
 constexpr int NRW = 3;        // window buffers of cp and beta rows (two ahead)
+constexpr int NCHB = 64;      // bf16 instance: sample rows per pass chunk
+constexpr int NAW = 4;        // bf16 instance: advance warps, 16 rows each
 constexpr int SMEM_MAX = 232448;  // shared memory one CTA may take
 
 // the thread layout of a QS-column slice: eight threads per column
@@ -179,13 +218,25 @@ __host__ __device__ constexpr int b16(int B) { return (B + 15) & ~15; }
 __host__ __device__ constexpr int xl16(int B) { return ld16(b16(B)); }
 constexpr int HLD = 40;  // bf16 row of an F chunk or the delta tile
 __host__ __device__ constexpr int kd32(int B) { return (B + 31) & ~31; }
+// the bf16 instance's stages come by TMA: F in boxes of the slice's QS
+// columns by NCHB rows, x in tiles of xw(B) columns (16, 32 or 64: a row of
+// at most the 128 bytes of TMA's widest swizzle, which the 64-column tiles
+// take, so that ldmatrix reads them without bank conflicts) by NCHB rows,
+// nxt(B) across the block
+__host__ __device__ constexpr int xw(int B) {
+  return b16(B) <= 16 ? 16 : b16(B) <= 32 ? 32 : 64;
+}
+__host__ __device__ constexpr int nxt(int B) {
+  return (b16(B) + xw(B) - 1) / xw(B);
+}
 // the pass stages and the advance partials after them (the bf16 instance:
-// bf16 x chunks, one partial, two bf16 F chunks): between passes they hold
-// the projection partials, the logit-constant tile and the rows of L
+// from the first 1024-byte boundary, the 128-byte swizzle's, two f32 F
+// chunks, two x chunks each of x_{b-1} and x_b, two bf16 F chunks, all of
+// NCHB rows, and no partials): between passes they hold the projection
+// partials, the logit-constant tile and the rows of L
 template <int QS, bool BF>
 __host__ __device__ constexpr int pass_floats(int B) {
-  return BF ? NSTAGE * NCH * QS + (NSTAGE + NXA) * NCH * xl16(B) / 2 +
-                  NCH * QS + NCH * HLD
+  return BF ? 256 + NCHB * (2 * QS + HLD) + 4 * nxt(B) * NCHB * xw(B) / 2
             : NSTAGE * NCH * QS + (NSTAGE + NXA) * NCH * xld(B) +
                   NG * NCH * QS;
 }
@@ -193,13 +244,14 @@ __host__ __device__ constexpr int pass_floats(int B) {
 // the packed Gram triangle, two B x QS tiles (deltas, projections), the
 // pass stages and advance partials, three window tiles (corrections twice,
 // cp and pre-sweep beta NRW times), the nodes, the block's p_mask and
-// theta, the slice's zeta and q_mask; the bf16 instance's bf16 delta tile
+// theta, the slice's zeta and q_mask; the bf16 instance's two mbarriers
+// and bf16 delta tile
 template <int QS, bool BF>
 size_t smem_bytes(int B, int R) {
   return sizeof(float) * ((size_t)gp_floats(B) + 2 * B * QS +
                           pass_floats<QS, BF>(B) + (2 + 2 * NRW) * W * QS +
                           3 * R * QS + 2 * BMAX + 2 * QS +
-                          (BF ? kd32(B) * HLD / 2 : 0));
+                          (BF ? 4 + kd32(B) * HLD / 2 : 0));
 }
 
 // the between-pass tiles (the projection partials, none in the bf16
@@ -230,12 +282,108 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* ptr) {
       : "r"(s)
       : "memory");
 }
+// the bf16 pass's staging: a TMA copy of one box of a tensor map (2-D: x;
+// 3-D: F with its replica axis) into shared memory, completing on an
+// mbarrier; the box's elements outside the tensor arrive as zeros
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
+                                         int c0, int c1,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(tm)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
+                                         int c0, int c1, int c2,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(tm)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// the one arrival of a phase, which also expects `bytes` of copies
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a TMA store of one box of shared memory to a 3-D tensor map (the box's
+// elements outside the tensor are not written), in a bulk group of this
+// thread's; commit the groups, wait until they have read their shared
+// memory, or until they are done
+__device__ __forceinline__ void tma_store(const void* src,
+                                          const CUtensorMap* tm, int c0,
+                                          int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<unsigned long long>(tm)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// order this thread's generic-proxy accesses before later async-proxy
+// ones (the TMA copies) to the same memory: all of it, or shared memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// two 8 x 8 b16 matrices, transposed: threads 0-15 give the row addresses
+__device__ __forceinline__ void ldsm_x2_t(unsigned* r, const void* ptr) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s)
+      : "memory");
+}
 // four floats rounded to bf16 (nearest even) into 8 bytes of shared memory
 __device__ __forceinline__ void st_bf16x4(__nv_bfloat16* dst, const float* f) {
   __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
   d[0] = __floats2bfloat162_rn(f[0], f[1]);
   d[1] = __floats2bfloat162_rn(f[2], f[3]);
 }
+
 // the same four as one 8-byte value
 __device__ __forceinline__ uint2 bf16x4(const float* f) {
   __nv_bfloat162 h[2] = {__floats2bfloat162_rn(f[0], f[1]),
@@ -253,6 +401,282 @@ __device__ __forceinline__ void unpack4(const float4 v, float* a) {
   a[1] = v.y;
   a[2] = v.z;
   a[3] = v.w;
+}
+
+// One pass of the bf16 instance over the samples: F += x_{b-1} delta_{b-1}
+// (adv), r0 = x_b^T F into R_s (proj).  Its own function, so that ptxas
+// allocates its registers (the advance warps hold delta's fragments, 16 per
+// column tile) apart from the rest of the kernel's, whose live values the
+// call saves once per pass; returns the mbarriers' next parities.
+struct BfPass {
+  __nv_bfloat16* fh_ws;  // the block-start bf16 F workspace, this replica's
+  const CUtensorMap* tm_x;
+  const CUtensorMap* tm_f;
+  float* R_s;                  // B x QS projections
+  float* stages;               // the pass stages
+  unsigned long long* MB;      // the two mbarriers, then the bf16 deltas
+  int n, k0, B, j0, nch, qsw, par, par_prev;
+  bool adv, proj, from_ws, to_ws;
+};
+
+template <int QS>
+__device__ __noinline__ unsigned bf16_pass(const BfPass a,
+                                           unsigned mb_phase) {
+  using S = Slice<QS>;
+  constexpr int NW = S::NW, NTL = QS / 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  __nv_bfloat16* const fh_ws = a.fh_ws;
+  const CUtensorMap* const tm_x = a.tm_x;
+  const CUtensorMap* const tm_f = a.tm_f;
+  float* const R_s = a.R_s;
+  unsigned long long* const MB = a.MB;
+  const int n = a.n, k0 = a.k0, B = a.B, j0 = a.j0, nch = a.nch;
+  // the stages: from the first 1024-byte boundary (the 128-byte swizzle's),
+  // 2 x NCHB x QS f32 F chunks, four x chunks (x_{b-1} twice, then x_b
+  // twice) of nxt(B) tiles of NCHB x xw(B) bf16, 2 x NCHB x HLD bf16 F
+  // chunks; after the mbarriers the kd32(B) x HLD bf16 deltas of the
+  // latest block
+  float* const FA_s =
+      a.stages + ((1024 - (smem_u32(a.stages) & 1023)) & 1023) / 4;
+  char* const XT_s = reinterpret_cast<char*>(FA_s + 2 * NCHB * QS);
+  __nv_bfloat16* const FH_h =
+      reinterpret_cast<__nv_bfloat16*>(XT_s + 8 * nxt(B) * NCHB * xw(B));
+  const __nv_bfloat16* const DH_h =
+      reinterpret_cast<const __nv_bfloat16*>(MB + 2);
+  const int qsw = a.qsw, par = a.par, par_prev = a.par_prev;
+  const bool adv = a.adv, proj = a.proj, from_ws = a.from_ws,
+             to_ws = a.to_ws;
+  const int B16 = b16(B);
+  // chunk ch (NCHB rows) is advanced in step ch (of 0 .. nch) by the last
+  // NAW warps, each its 16 rows across the slice, and projected in step
+  // ch + 1 by the others, each its one or two 16-row tiles of the block
+  // across the slice: x_{b-1} and x_b are each read by one warp.  In step
+  // ch thread 0 stores the advanced F chunk ch-1 and loads chunk ch+1's F
+  // and x_{b-1} and chunk ch's x_b, by TMA (6 tensor copies at block 128),
+  // into buffers last read in step ch-1 (F's once the store has read it);
+  // the loads complete on mbarrier (ch+1) & 1, so each step starts at its
+  // wait and the one barrier
+  constexpr int NPW = NW - NAW;
+  // the byte offset of (row, col) in an F chunk of rows of QS floats, col
+  // even: at 32 columns 16-byte units swizzled across 8 rows (TMA's
+  // 128-byte swizzle), at 40 (160-byte rows, whose float2 accesses by a
+  // half-warp, rows gr .. gr + 3, fall in distinct banks) as they are
+  auto foff = [](int row, int col) {
+    return QS == 32 ? row * 128 + ((((col >> 2) ^ (row & 7)) << 4) |
+                                   ((col & 3) << 2))
+                    : (row * QS + col) * 4;
+  };
+  const int XW = xw(B), XS = XW == 64 ? 6 : XW == 32 ? 5 : 4;
+  const int XRB = 2 * XW, XCH = nxt(B) * NCHB * XRB;  // bytes
+  // the byte offset of (row, col) in an x chunk, col a multiple of 8:
+  // 16-byte units swizzled across 8 rows in 128-byte tile rows
+  auto xoff = [&](int row, int col) {
+    const int u = (col & (XW - 1)) >> 3;
+    return (col >> XS) * (NCHB * XRB) + row * XRB +
+           ((XW == 64 ? u ^ (row & 7) : u) << 4);
+  };
+  auto issue = [&](int ch) {  // thread 0, in step ch (-1: before it)
+    const bool store = adv && ch >= 1;
+    if (store) {  // F chunk ch-1, advanced; rows past n, columns past q
+      // are not written
+      tma_store(FA_s + ((ch - 1) & 1) * NCHB * QS, tm_f, k0, (ch - 1) * NCHB,
+                blockIdx.y);
+      bulk_commit();
+    }
+    if (ch == nch) return;
+    const int cf = ch + 1;  // the copies step cf reads
+    const bool fnext = cf < nch, xnext = proj && ch >= 0;
+    unsigned long long* bar = MB + (cf & 1);
+    mbar_expect(bar, (fnext ? NCHB * QS * 4 + (adv ? XCH : 0) : 0) +
+                         (xnext ? XCH : 0));
+    if (xnext)
+      for (int t = 0; t < nxt(B); ++t)
+        tma_load(XT_s + (2 + (ch & 1)) * XCH + t * NCHB * XRB, tm_x,
+                 j0 + t * XW, ch * NCHB, bar);
+    if (fnext) {
+      if (adv)
+        for (int t = 0; t < nxt(B); ++t)
+          tma_load(XT_s + (cf & 1) * XCH + t * NCHB * XRB, tm_x,
+                   j0 - B + t * XW, cf * NCHB, bar);
+      if (store) bulk_wait_read();  // the store has read F's buffer
+      tma_load(FA_s + (cf & 1) * NCHB * QS, tm_f, k0, cf * NCHB, blockIdx.y,
+               bar);
+    }
+  };
+  auto sync_step = [&](int ch) {  // step ch's copies; the one barrier
+    mbar_wait(MB + (ch & 1), (mb_phase >> (ch & 1)) & 1);
+    mb_phase ^= 1u << (ch & 1);
+    cp_async_wait<0>();  // this thread's copies have landed
+    __syncthreads();     // ... everyone's; step ch-1's reads are done
+  };
+  cp_async_commit();  // the Gram triangle, p_mask and theta
+  if (tid == 0) issue(-1);
+  if (warp >= NPW) {
+    // ---- the advance: F += x_{b-1} delta_{b-1} on chunk rows a16..,
+    // one accumulator per 8-column tile, each over the depth in k
+    // order; added to F in the fragments, rounded to bf16 there.  At 32
+    // columns delta's B fragments stay in registers for the pass (8 warps
+    // leave ptxas 255 registers); at 40 the 10 warps cap it at 168, where
+    // 80 more would spill the chain's, so they come from the delta tile
+    // each chunk (4 ldmatrix per 16 x 8 tile)
+    constexpr bool DREG = QS == 32;
+    const int a16 = (warp - NPW) * 16, nks = B16 / 16;
+    unsigned dr[DREG ? BMAX / 16 : 1][NTL][2];  // delta's B fragments
+    if (DREG && adv)
+#pragma unroll
+      for (int ks = 0; ks < BMAX / 16; ks += 2)
+        if (ks < nks)
+#pragma unroll
+          for (int t = 0; t < NTL; ++t) {
+            unsigned bq[4];
+            ldsm_x4_t(bq, DH_h + (ks * 16 + lane) * HLD + t * 8);
+            dr[ks][t][0] = bq[0];
+            dr[ks][t][1] = bq[1];
+            dr[ks + 1][t][0] = bq[2];
+            dr[ks + 1][t][1] = bq[3];
+          }
+    for (int ch = 0; ch <= nch; ++ch) {
+      sync_step(ch);
+      if (ch == nch || ch * NCHB + a16 >= n) continue;
+      float d[NTL][4];
+#pragma unroll
+      for (int t = 0; t < NTL; ++t)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) d[t][jj] = 0.f;
+      if (adv) {
+        const char* xa = XT_s + (ch & 1) * XCH;
+        const int row = a16 + (lane & 15), c8 = (lane >> 4) * 8;
+        if constexpr (DREG) {
+#pragma unroll
+          for (int ks = 0; ks < BMAX / 16; ++ks)
+            if (ks < nks) {
+              unsigned a[4];
+              ldsm_x4(a, xa + xoff(row, ks * 16 + c8));
+#pragma unroll
+              for (int t = 0; t < NTL; ++t)
+                mma_bf16(d[t], a, dr[ks][t][0], dr[ks][t][1]);
+            }
+        } else {
+          for (int ks = 0; ks < nks; ks += 2) {
+            unsigned a0[4], a1[4];
+            ldsm_x4(a0, xa + xoff(row, ks * 16 + c8));
+            if (ks + 1 < nks) ldsm_x4(a1, xa + xoff(row, ks * 16 + 16 + c8));
+#pragma unroll
+            for (int t = 0; t < NTL; ++t) {
+              unsigned bq[4];
+              ldsm_x4_t(bq, DH_h + (ks * 16 + lane) * HLD + t * 8);
+              mma_bf16(d[t], a0, bq[0], bq[1]);
+              if (ks + 1 < nks) mma_bf16(d[t], a1, bq[2], bq[3]);
+            }
+          }
+        }
+      }
+      // F (b > 0: + the advance, the one f32 add, back into its stage
+      // for the store), its bf16 copy that the next step projects (unless
+      // the workspace's), the block-start F of the workspace (LA: for the
+      // next block only)
+      char* fs = reinterpret_cast<char*>(FA_s + (ch & 1) * NCHB * QS);
+      __nv_bfloat16* fh = FH_h + (ch & 1) * NCHB * HLD;
+#pragma unroll
+      for (int t = 0; t < NTL; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = a16 + gr + 8 * h, col = t * 8 + 2 * tq;
+          const int nr = ch * NCHB + row;
+          float2* fp = reinterpret_cast<float2*>(fs + foff(row, col));
+          float2 f = *fp;
+          if (adv) {
+            f.x = __fadd_rn(f.x, d[t][2 * h]);
+            f.y = __fadd_rn(f.y, d[t][2 * h + 1]);
+            *fp = f;
+          }
+          if (proj && (!from_ws || to_ws)) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(f.x, f.y);
+            if (!from_ws)
+              *reinterpret_cast<__nv_bfloat162*>(fh + row * HLD + col) = v;
+            if (to_ws && nr < n)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  fh_ws + ((size_t)par * n + nr) * qsw + k0 + col) = v;
+          }
+        }
+      if (adv) fence_proxy_async_smem();  // before the TMA store reads it
+    }
+  } else {
+    // ---- the projection: r0 += x_b^T F on the block's 16-row tiles
+    // mt0 = warp and, where the warps are fewer than the tiles, mt1 =
+    // warp + 4, over the chunk's rows in order, 16 at a time
+    const int mt0 = warp, mt1 = warp + 4;
+    const bool two = mt1 >= NPW && mt1 < BMAX / 16 && mt1 * 16 < B16;
+    const bool one = mt0 * 16 < B16;
+    float pr[2][NTL][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < NTL; ++t)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) pr[i][t][jj] = 0.f;
+    const int mi = lane >> 3, r8 = lane & 7;
+    for (int ch = 0; ch <= nch; ++ch) {
+      sync_step(ch);
+      if (tid == 0) issue(ch);
+      if (from_ws && ch < nch) {  // the block-start bf16 F chunk ch
+        for (int e = tid; e < NCHB * QS / 8; e += NPW * 32) {
+          const int r = e / (QS / 8), c8 = (e % (QS / 8)) * 8;
+          const bool ok = ch * NCHB + r < n;
+          cp_async16_zfill(
+              FH_h + (ch & 1) * NCHB * HLD + r * HLD + c8,
+              fh_ws + ((size_t)par_prev * n + (ok ? ch * NCHB + r : 0)) *
+                          qsw + k0 + c8,
+              ok);
+        }
+        cp_async_commit();
+      }
+      if (!proj || ch == 0 || !one) continue;
+      const int c = ch - 1;
+      const __nv_bfloat16* fh = FH_h + (c & 1) * NCHB * HLD;
+      const char* xp = XT_s + (2 + (c & 1)) * XCH;
+#pragma unroll
+      for (int kh = 0; kh < NCHB / 32; ++kh) {
+        if (c * NCHB + kh * 32 >= n) break;
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const int k16 = kh * 32 + ks * 16;  // the chunk's rows k16..
+          if (c * NCHB + k16 >= n) break;
+          unsigned a[2][4];  // x_b's A fragments of the warp's tiles
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i == 0 || two)
+              ldsm_x4_t(a[i], xp + xoff(k16 + (mi >> 1) * 8 + r8,
+                                        (i ? mt1 : mt0) * 16 + (mi & 1) * 8));
+#pragma unroll
+          for (int t = 0; t < NTL; ++t) {
+            unsigned b[2];  // F's B fragment: rows k16.., columns t*8..
+            ldsm_x2_t(b, fh + (k16 + (lane & 15)) * HLD + t * 8);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (i == 0 || two) mma_bf16(pr[i][t], a[i], b[0], b[1]);
+          }
+        }
+      }
+    }
+    if (proj && one)  // the tiles are whole: into R_s
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (i == 0 || two)
+#pragma unroll
+          for (int t = 0; t < NTL; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = (i ? mt1 : mt0) * 16 + gr + 8 * h;
+              if (row < B)
+                *reinterpret_cast<float2*>(R_s + row * QS + t * 8 +
+                                           2 * tq) =
+                    make_float2(pr[i][t][2 * h], pr[i][t][2 * h + 1]);
+            }
+  }
+  if (tid == 0) bulk_wait();  // the stores are done: the next pass loads F
+  return mb_phase;
 }
 
 template <int QS, bool BF, bool LA>
@@ -285,7 +709,11 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                                         // x QS), two if LA
     float* __restrict__ dw_ws,          // bf16, Bfull > B: (Bfull - B, ..),
                                         // LA (2 Bfull, ..)
-    int n, int p, int q, int B, int R, int c_one, int cp_batched, int Bfull) {
+    int n, int p, int q, int B, int R, int c_one, int cp_batched, int Bfull,
+    const __grid_constant__ CUtensorMap tm_x,   // bf16: x, boxes of xw(B)
+                                                // x NCHB
+    const __grid_constant__ CUtensorMap tm_f) {  // bf16: fitted (m, n, q),
+                                                 // boxes of QS x NCHB
   static_assert(BF || !LA, "lookahead: a variant of the bf16 instance");
   using S = Slice<QS>;
   // the bf16 instance's workspaces: row stride of all slices' columns
@@ -321,16 +749,13 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   }
   constexpr int NT = S::NT, NW = S::NW, TC = S::TC, WQ = S::WQ;
   constexpr int H0 = S::NCW * 32;  // the first thread of the helper warps
-  constexpr int NTL = QS / 8;      // bf16: 16 x 8 tiles across the slice
-  static_assert(!BF || NW == 2 * NTL,
-                "bf16: 2 x QS/8 warps (the advance's tiles; the "
-                "projection's, four each)");
+  static_assert(!BF || (NW > NAW && NW - NAW <= BMAX / 16 &&
+                         2 * (NW - NAW) >= BMAX / 16 && NAW * 16 == NCHB),
+                "bf16: NAW advance warps of 16 chunk rows; the projection's "
+                "16-row tiles of the block, one or two per other warp");
   extern __shared__ __align__(16) float smem[];
   const float* __restrict__ x = static_cast<const float*>(x_any);
-  const __nv_bfloat16* __restrict__ xh =
-      static_cast<const __nv_bfloat16*>(x_any);
   const int XL = xld(B), BQ = B * QS;
-  const int B16 = b16(B), XLH = xl16(B);  // bf16: padded depth, x row
   float* GP_s = smem;                         // packed lower Gram triangle
   float* D_s = GP_s + gp_floats(B);           // B x QS deltas
   float* R_s = D_s + BQ;                      // B x QS projections
@@ -339,24 +764,19 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   float* XA_s = XB_s + NSTAGE * NCH * XL;     // NXA x NCH x XL x_{b-1}
   float* AP_s = XA_s + NXA * NCH * XL;        // NG x NCH x QS advance
   float* C_s = AP_s + NG * NCH * QS;          // 2 x W x QS corrections
-  // bf16: NSTAGE x NCH x XLH x_b and NXA x NCH x XLH x_{b-1} chunks, one
-  // NCH x QS advance partial, two NCH x HLD bf16 F chunks
-  __nv_bfloat16* XB_h = reinterpret_cast<__nv_bfloat16*>(XB_s);
-  __nv_bfloat16* XA_h = XB_h + NSTAGE * NCH * XLH;
-  __nv_bfloat16* FH_h = nullptr;
-  if constexpr (BF) {
-    AP_s = reinterpret_cast<float*>(XA_h + NXA * NCH * XLH);
-    FH_h = reinterpret_cast<__nv_bfloat16*>(AP_s + NCH * QS);
-    C_s = reinterpret_cast<float*>(FH_h + 2 * NCH * HLD);
-  }
+  // bf16: the stages of bf16_pass
+  if constexpr (BF) C_s = F_s + pass_floats<QS, BF>(B);
   float* CPW_s = C_s + 2 * WQ;                // NRW x W x QS X^T Y rows
   float* BOW_s = CPW_s + NRW * WQ;            // NRW x W x QS pre-sweep beta
   float* N_s = BOW_s + NRW * WQ;              // 3 x R x QS node values
   float* PM_s = N_s + 3 * R * QS;             // the block's p_mask
   float* TH_s = PM_s + BMAX;                  // the block's theta
   float* ZQ_s = TH_s + BMAX;                  // the slice's zeta, q_mask
-  // bf16: kd32(B) x HLD bf16 deltas of the latest block
-  __nv_bfloat16* DH_h = reinterpret_cast<__nv_bfloat16*>(ZQ_s + 2 * QS);
+  // bf16: the two mbarriers of the pass's TMA copies (steps by parity),
+  // then kd32(B) x HLD bf16 deltas of the latest block
+  auto MB = [&] {
+    return reinterpret_cast<unsigned long long*>(ZQ_s + 2 * QS);
+  };
   // between passes the stages hold the (NG-1) projection partials (none in
   // the bf16 instance), then the new-gam tile in their place, the
   // logit-constant tile (after the chain: the z_row partials) and the rows
@@ -367,7 +787,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   float* ZR_s = AD_s;
   float* L_s = AD_s + BQ;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int k0 = blockIdx.x * QS;
   const float c = scal[0], kz = scal[1];
   const int nb = p / B, nwin = B / W;
@@ -388,7 +808,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
       clk = t;
     }
   };
-  const int nch = (n + NCH - 1) / NCH;
+  const int nch = BF ? (n + NCHB - 1) / NCHB : (n + NCH - 1) / NCH;
 
   for (int e = tid; e < 3 * R * QS; e += NT) {
     const int kk = e % QS, mr = e / QS;
@@ -410,6 +830,15 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     qmc = q_mask[kc];
   }
   float gacc = 0.f, m2acc = 0.f, b2acc = 0.f;
+  unsigned mb_phase = 0;  // bf16: the parity of each mbarrier's next phase
+  if constexpr (BF) {
+    if (tid == 0) {
+      mbar_init(MB());
+      mbar_init(MB() + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
   // the 4 x 4 tiles of the logit and Z tiles: rows ty*4.., columns tx*4..
   const int tx = tid % TC, ty = tid / TC;
   const bool trow = ty * 4 < B;
@@ -421,10 +850,6 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   const int pi = gi / S::PC, pc = (gi % S::PC) * 8;
   const bool prow = pi * 8 < B;
   const int ar = gi / TC, ac = (gi % TC) * 4;
-  // bf16: warp (wm, wn) takes the projection's rows wm*64.. (four 16-row
-  // tiles) and the advance's chunk rows wm*16.., both at columns wn*8..;
-  // lane's fragment rows gr, gr + 8, columns 2 tq, 2 tq + 1
-  const int wm = warp / NTL, wn = warp % NTL, gr = lane >> 2, tq = lane & 3;
 
   // cp and pre-sweep beta rows j .. j + W of this slice, by threads
   // t0 .. t0 + NT/2 - 1, into window buffer `buf` (missing columns zeroed)
@@ -449,52 +874,15 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const int kp = b % npc, bb = b / npc;
     const bool to_ws = BF && npc > 1 && proj && kp == 0;
     const bool from_ws = BF && npc > 1 && proj && (kp > 0 || (LA && bb > 0));
-    // the bf16 copy the pass projects: of F as staged (the first block),
-    // else of the advanced F
-    const bool fh_pre = !adv;
-    const bool fh_post = adv && !from_ws;
     // LA: the workspaces by the block's parity: this block's start F and
     // deltas in the one, the previous block's in the other (kept as two
     // parities, not four pointers, for the registers)
     const int par = LA ? bb & 1 : 0, par_prev = LA && bb > 0 ? par ^ 1 : 0;
 
     // ---- one pass over the samples: advance by block b-1, project b -------
-    auto stage = [&](int ch) {
-      float* fst = F_s + (ch % NSTAGE) * NCH * QS;
-      float* xbst = XB_s + (ch % NSTAGE) * NCH * XL;
-      float* xast = XA_s + (ch % NXA) * NCH * XL;
-      const int n0 = ch * NCH;
-      for (int e = tid; e < NCH * TC; e += NT) {
-        const int r = e / TC, c4 = (e % TC) * 4;
-        const bool ok = n0 + r < n && k0 + c4 < q;
-        cp_async16_zfill(fst + r * QS + c4,
-                         ok ? fitted + (size_t)(n0 + r) * q + k0 + c4 : fitted,
-                         ok);
-      }
-      if constexpr (BF) {  // 8 bf16 a copy; the padding columns zeroed
-        __nv_bfloat16* xbst_h = XB_h + (ch % NSTAGE) * NCH * XLH;
-        __nv_bfloat16* xast_h = XA_h + (ch % NXA) * NCH * XLH;
-        for (int e = tid; e < NCH * B16 / 8; e += NT) {
-          const int r = e / (B16 / 8), c8 = (e % (B16 / 8)) * 8;
-          const bool ok = n0 + r < n && c8 < B;
-          const __nv_bfloat16* row =
-              xh + (size_t)(n0 + r < n ? n0 + r : 0) * p + (c8 < B ? c8 : 0);
-          if (adv) cp_async16_zfill(xast_h + r * XLH + c8, row + j0 - B, ok);
-          if (proj) cp_async16_zfill(xbst_h + r * XLH + c8, row + j0, ok);
-        }
-      } else {
-        for (int e = tid; e < NCH * B / 4; e += NT) {
-          const int r = e / (B / 4), c4 = (e % (B / 4)) * 4;
-          const bool ok = n0 + r < n;
-          const float* row = x + (size_t)(ok ? n0 + r : 0) * p + c4;
-          if (adv) cp_async16_zfill(xast + r * XL + c4, row + j0 - B, ok);
-          if (proj) cp_async16_zfill(xbst + r * XL + c4, row + j0, ok);
-        }
-      }
-    };
-    // the projection's accumulators: f32 8 x 8 register tiles; bf16 the
-    // four 16 x 8 tiles' fragments
-    constexpr int AM = BF ? 4 : 8, AN = BF ? 4 : 8;
+    // the projection's accumulators (f32: 8 x 8 register tiles; the bf16
+    // pass keeps its own)
+    constexpr int AM = 8, AN = 8;
     float acc[AM][AN];
 #pragma unroll
     for (int a = 0; a < AM; ++a)
@@ -503,166 +891,117 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     if (proj) {  // the block's lower Gram triangle, packed; p_mask, theta
       for (int i = warp; i < B; i += NW)
         for (int m = tid & 31; m <= i; m += 32)
-          cp_async4(GP_s + i * (i + 1) / 2 + m, gram + (size_t)(j0 + i) * B + m);
+          cp_async4(GP_s + i * (i + 1) / 2 + m,
+                    gram + (size_t)(j0 + i) * B + m);
       for (int e = tid; e < B / 2; e += NT)
         cp_async16(e < B / 4 ? PM_s + 4 * e : TH_s + 4 * (e - B / 4),
                    (e < B / 4 ? p_mask + 4 * e : theta + 4 * (e - B / 4)) + j0);
     }
-    stage(0);
-    cp_async_commit();
-    // chunk ch is advanced in step ch and projected in step ch + 1, so each
-    // step ends at one barrier besides the one that hands over the
-    // advance's partial sums
     const int last = proj ? nch : nch - 1;
-    for (int ch = 0; ch <= last; ++ch) {
-      cp_async_wait<0>();  // chunk ch has landed (this thread's)
-      __syncthreads();     // ... everyone's; chunk ch-1 is advanced, ch-2
-                           // projected, so the stages of ch+1 are free
-      if (ch + 1 < nch) stage(ch + 1);
-      if (from_ws && ch < nch)  // the block-start bf16 F chunk ch, whose
-        // buffer the step before last read
-        for (int e = tid; e < NCH * QS / 8; e += NT) {
-          const int r = e / (QS / 8), c8 = (e % (QS / 8)) * 8;
-          const bool ok = ch * NCH + r < n;
+    if constexpr (BF) {
+      mb_phase = bf16_pass<QS>(
+          BfPass{fh_ws, &tm_x, &tm_f, R_s, F_s, MB(), n, k0, B, j0, nch, qsw,
+                 par, par_prev, adv, proj, from_ws, to_ws},
+          mb_phase);
+    } else {
+      auto stage = [&](int ch) {
+        float* fst = F_s + (ch % NSTAGE) * NCH * QS;
+        float* xbst = XB_s + (ch % NSTAGE) * NCH * XL;
+        float* xast = XA_s + (ch % NXA) * NCH * XL;
+        const int n0 = ch * NCH;
+        for (int e = tid; e < NCH * TC; e += NT) {
+          const int r = e / TC, c4 = (e % TC) * 4;
+          const bool ok = n0 + r < n && k0 + c4 < q;
           cp_async16_zfill(
-              FH_h + (ch & 1) * NCH * HLD + r * HLD + c8,
-              fh_ws + ((size_t)par_prev * n + (ok ? ch * NCH + r : 0)) * qsw +
-                  k0 + c8,
-              ok);
+              fst + r * QS + c4,
+              ok ? fitted + (size_t)(n0 + r) * q + k0 + c4 : fitted, ok);
         }
+        for (int e = tid; e < NCH * B / 4; e += NT) {
+          const int r = e / (B / 4), c4 = (e % (B / 4)) * 4;
+          const bool ok = n0 + r < n;
+          const float* row = x + (size_t)(ok ? n0 + r : 0) * p + c4;
+          if (adv) cp_async16_zfill(xast + r * XL + c4, row + j0 - B, ok);
+          if (proj) cp_async16_zfill(xbst + r * XL + c4, row + j0, ok);
+        }
+      };
+      stage(0);
       cp_async_commit();
-      float* fs = F_s + (ch % NSTAGE) * NCH * QS;
-      const float* xa = XA_s + (ch % NXA) * NCH * XL;
-      const bool adv_ch = adv && ch < nch;
-      if constexpr (BF) {
-        if (adv_ch) {  // this warp's 16 x 8 tile of x_{b-1} delta, all depth
-          const __nv_bfloat16* xa_h = XA_h + (ch % NXA) * NCH * XLH;
-          float d4[4] = {0.f, 0.f, 0.f, 0.f};
-          const int nks = B16 / 16;
-          for (int ks = 0; ks < nks; ks += 2) {
-            unsigned bq[4], a[4];
-            ldsm_x4_t(bq, DH_h + (ks * 16 + lane) * HLD + wn * 8);
-            ldsm_x4(a, xa_h + (wm * 16 + (lane & 15)) * XLH + ks * 16 +
-                           (lane >> 4) * 8);
-            mma_bf16(d4, a, bq[0], bq[1]);
-            if (ks + 1 < nks) {
-              ldsm_x4(a, xa_h + (wm * 16 + (lane & 15)) * XLH + ks * 16 +
-                             16 + (lane >> 4) * 8);
-              mma_bf16(d4, a, bq[2], bq[3]);
-            }
-          }
-          float* ap = AP_s + (wm * 16 + gr) * QS + wn * 8 + 2 * tq;
-          *reinterpret_cast<float2*>(ap) = make_float2(d4[0], d4[1]);
-          *reinterpret_cast<float2*>(ap + 8 * QS) = make_float2(d4[2], d4[3]);
-        }
-        if (proj && ch > 0) {  // r0 += x_b^T F over chunk ch-1, 4 tiles
-          const __nv_bfloat16* fh = FH_h + ((ch - 1) & 1) * NCH * HLD;
-          const __nv_bfloat16* xp = XB_h + ((ch - 1) % NSTAGE) * NCH * XLH;
-          unsigned bq[4];
-          ldsm_x4_t(bq, fh + lane * HLD + wn * 8);
-          const int mi = lane >> 3, r8 = lane & 7;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int mt = wm * 4 + i;
-            if (mt * 16 < B16) {
-#pragma unroll
-              for (int ks = 0; ks < 2; ++ks) {
-                unsigned a[4];
-                ldsm_x4_t(a, xp + (ks * 16 + (mi >> 1) * 8 + r8) * XLH +
-                                 mt * 16 + (mi & 1) * 8);
-                mma_bf16(acc[i], a, bq[2 * ks], bq[2 * ks + 1]);
-              }
-            }
-          }
-        }
-        if (fh_pre && proj && ch < nch) {  // F as staged (before the
-          // advance, which reads the same four values in this thread)
-          const int row = tid / TC, c4 = (tid % TC) * 4;
-          float f[4];
-          unpack4(ld4(fs + row * QS + c4), f);
-          __nv_bfloat16* fh = FH_h + (ch & 1) * NCH * HLD + row * HLD + c4;
-          st_bf16x4(fh, f);
-          if (to_ws && ch * NCH + row < n)
-            *reinterpret_cast<uint2*>(
-                fh_ws + ((size_t)par * n + ch * NCH + row) * qsw + k0 + c4) =
-                *reinterpret_cast<const uint2*>(fh);
-        }
-      }
-      if (!BF && adv_ch) {  // this quarter of the depth's part of F += x_{b-1} delta
-        float a4[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) a4[r][jj] = 0.f;
-        for (int k4 = g; k4 < B / 4; k4 += NG) {
-          const int kk = 4 * k4;
-          float xr[4][4];
-#pragma unroll
+      // chunk ch is advanced in step ch and projected in step ch + 1, so each
+      // step ends at one barrier besides the one that hands over the
+      // advance's partial sums
+      for (int ch = 0; ch <= last; ++ch) {
+        cp_async_wait<0>();  // chunk ch has landed (this thread's)
+        __syncthreads();     // ... everyone's; chunk ch-1 is advanced, ch-2
+                             // projected, so the stages of ch+1 are free
+        if (ch + 1 < nch) stage(ch + 1);
+        cp_async_commit();
+        float* fs = F_s + (ch % NSTAGE) * NCH * QS;
+        const float* xa = XA_s + (ch % NXA) * NCH * XL;
+        const bool adv_ch = adv && ch < nch;
+        if (adv_ch) {  // this quarter of the depth's part of F += x_{b-1} delta
+          float a4[4][4];
+  #pragma unroll
           for (int r = 0; r < 4; ++r)
-            unpack4(ld4(xa + (ar * 4 + r) * XL + kk), xr[r]);
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            float d[4];
-            unpack4(ld4(D_s + (kk + s) * QS + ac), d);
-#pragma unroll
+  #pragma unroll
+            for (int jj = 0; jj < 4; ++jj) a4[r][jj] = 0.f;
+          for (int k4 = g; k4 < B / 4; k4 += NG) {
+            const int kk = 4 * k4;
+            float xr[4][4];
+  #pragma unroll
             for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj)
-                a4[r][jj] = fmaf(xr[r][s], d[jj], a4[r][jj]);
+              unpack4(ld4(xa + (ar * 4 + r) * XL + kk), xr[r]);
+  #pragma unroll
+            for (int s = 0; s < 4; ++s) {
+              float d[4];
+              unpack4(ld4(D_s + (kk + s) * QS + ac), d);
+  #pragma unroll
+              for (int r = 0; r < 4; ++r)
+  #pragma unroll
+                for (int jj = 0; jj < 4; ++jj)
+                  a4[r][jj] = fmaf(xr[r][s], d[jj], a4[r][jj]);
+            }
+          }
+  #pragma unroll
+          for (int r = 0; r < 4; ++r)
+            *reinterpret_cast<float4*>(AP_s + g * NCH * QS + (ar * 4 + r) * QS +
+                                       ac) =
+                make_float4(a4[r][0], a4[r][1], a4[r][2], a4[r][3]);
+        }
+        if (proj && prow && ch > 0) {  // r0 += x_b^T F over chunk ch-1
+          const float* fp = F_s + ((ch - 1) % NSTAGE) * NCH * QS;
+          const float* xp = XB_s + ((ch - 1) % NSTAGE) * NCH * XL;
+  #pragma unroll(QS == 32 ? 2 : 1)
+          for (int r = g * 8; r < g * 8 + 8; ++r) {
+            float xv[8], fv[8];
+            unpack4(ld4(xp + r * XL + pi * 8), xv);
+            unpack4(ld4(xp + r * XL + pi * 8 + 4), xv + 4);
+            unpack4(ld4(fp + r * QS + pc), fv);
+            unpack4(ld4(fp + r * QS + pc + 4), fv + 4);
+  #pragma unroll
+            for (int a = 0; a < AM; ++a)
+  #pragma unroll
+              for (int jj = 0; jj < AN; ++jj)
+                acc[a][jj] = fmaf(xv[a], fv[jj], acc[a][jj]);
           }
         }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          *reinterpret_cast<float4*>(AP_s + g * NCH * QS + (ar * 4 + r) * QS +
-                                     ac) =
-              make_float4(a4[r][0], a4[r][1], a4[r][2], a4[r][3]);
-      }
-      if (!BF && proj && prow && ch > 0) {  // r0 += x_b^T F over chunk ch-1
-        const float* fp = F_s + ((ch - 1) % NSTAGE) * NCH * QS;
-        const float* xp = XB_s + ((ch - 1) % NSTAGE) * NCH * XL;
-#pragma unroll(QS == 32 ? 2 : 1)
-        for (int r = g * 8; r < g * 8 + 8; ++r) {
-          float xv[8], fv[8];
-          unpack4(ld4(xp + r * XL + pi * 8), xv);
-          unpack4(ld4(xp + r * XL + pi * 8 + 4), xv + 4);
-          unpack4(ld4(fp + r * QS + pc), fv);
-          unpack4(ld4(fp + r * QS + pc + 4), fv + 4);
-#pragma unroll
-          for (int a = 0; a < AM; ++a)
-#pragma unroll
-            for (int jj = 0; jj < AN; ++jj)
-              acc[a][jj] = fmaf(xv[a], fv[jj], acc[a][jj]);
+        if (adv_ch) {
+          __syncthreads();
+          // F + the four quarters, in order: four columns of one row each
+          const int row = tid / TC, c4 = (tid % TC) * 4;
+          float f[4], t[4];
+          unpack4(ld4(fs + row * QS + c4), f);
+  #pragma unroll
+          for (int h = 0; h < NG; ++h) {
+            unpack4(ld4(AP_s + h * NCH * QS + row * QS + c4), t);
+  #pragma unroll
+            for (int jj = 0; jj < 4; ++jj) f[jj] = __fadd_rn(f[jj], t[jj]);
+          }
+          const float4 v = make_float4(f[0], f[1], f[2], f[3]);
+          *reinterpret_cast<float4*>(fs + row * QS + c4) = v;
+          const int nr = ch * NCH + row;
+          if (nr < n && k0 + c4 < q)
+            *reinterpret_cast<float4*>(fitted + (size_t)nr * q + k0 + c4) = v;
         }
-      }
-      if (adv_ch) {
-        __syncthreads();
-        // F + the four quarters (bf16: the one partial), in order: four
-        // columns of one row each
-        const int row = tid / TC, c4 = (tid % TC) * 4;
-        float f[4], t[4];
-        unpack4(ld4(fs + row * QS + c4), f);
-#pragma unroll
-        for (int h = 0; h < (BF ? 1 : NG); ++h) {
-          unpack4(ld4(AP_s + h * NCH * QS + row * QS + c4), t);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) f[jj] = __fadd_rn(f[jj], t[jj]);
-        }
-        const float4 v = make_float4(f[0], f[1], f[2], f[3]);
-        *reinterpret_cast<float4*>(fs + row * QS + c4) = v;
-        const int nr = ch * NCH + row;
-        if (BF && proj && (fh_post || to_ws)) {  // the bf16 copy the next
-          // step projects; the block-start F of the workspace (LA: for the
-          // next block only)
-          const uint2 h = bf16x4(f);
-          if (fh_post)
-            *reinterpret_cast<uint2*>(FH_h + (ch & 1) * NCH * HLD + row * HLD +
-                                      c4) = h;
-          if (to_ws && nr < n)
-            *reinterpret_cast<uint2*>(fh_ws + ((size_t)par * n + nr) * qsw +
-                                      k0 + c4) = h;
-        }
-        if (nr < n && k0 + c4 < q)
-          *reinterpret_cast<float4*>(fitted + (size_t)nr * q + k0 + c4) = v;
       }
     }
     cp_async_wait<0>();  // the Gram triangle has landed (this thread's)
@@ -678,17 +1017,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     cp_async_commit();
     if (nwin > 1) stage_rows(j0 + W, 1, NT / 2);  // window 1's, the others
     cp_async_commit();
-    if constexpr (BF) {  // each warp's four tiles are whole: into R_s
-#pragma unroll
-      for (int i = 0; i < AM; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = (wm * 4 + i) * 16 + gr + 8 * h;
-          if (row < B)
-            *reinterpret_cast<float2*>(R_s + row * QS + wn * 8 + 2 * tq) =
-                make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
-        }
-    } else if (g > 0 && prow) {
+    if (!BF && g > 0 && prow) {  // (the bf16 pass wrote R_s itself)
 #pragma unroll
       for (int a = 0; a < AM; ++a)
 #pragma unroll
@@ -866,6 +1195,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     tick(2);
 
     if constexpr (BF) {  // delta rounded to bf16 once for the next advance
+      __nv_bfloat16* DH_h = reinterpret_cast<__nv_bfloat16*>(MB() + 2);
       for (int e = tid; e < kd32(B) * QS / 2; e += NT) {
         const int row = e / (QS / 2), c2 = (e % (QS / 2)) * 2;
         const float2 v =
@@ -930,6 +1260,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         zrow_part[(size_t)blockIdx.x * p + j0 + tid] = __fmul_rn(PM_s[tid], zr);
       }
     }
+    if constexpr (BF) fence_proxy_async();  // before the next bulk copies
     __syncthreads();  // the stages are free for the next pass
     tick(3);
   }
@@ -979,7 +1310,8 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
 // tensor-core tiles and rounded to bf16 from the same f32 values as in the
 // serial schedule, and the goff sum, the chain and the tiles keep their
 // orders, so the outputs are the serial schedule's bit for bit.
-//  - the pass is B1's bf16 pass (8 QS threads, its tensor-core tiling),
+//  - the pass is the first version of B1's bf16 pass (8 QS threads, 32-row
+//    chunks, one warp per 16 x 8 advance tile: its tensor-core tiling),
 //    but for its staging: each chunk's F and x come two chunks ahead, in
 //    stages last read two steps before (the nodes, which only the tiles
 //    between the chains read, are staged with them there to make room);
@@ -1642,6 +1974,55 @@ size_t checked_smem(int B, int R) {
   return smem <= SMEM_MAX && overlay_fits<QS, BF>(B, R) ? smem : 0;
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no link against the
+// driver library); null where the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                   cudaEnableDefault, &got) == cudaSuccess &&
+                   got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the bf16 instance's tensor maps: x (n, p) bf16 in boxes of xw(B) x NCHB
+// (64-column boxes with the 128-byte swizzle), fitted (m, n, q) f32 in
+// boxes of qs x NCHB x 1 (the swizzle at 32 columns, rows of 128 bytes);
+// false where the driver refuses them
+bool tensor_maps(CUtensorMap* tx, CUtensorMap* tf, const void* x,
+                 float* fitted, int n, int p, int q, int m, int B, int qs) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t xd[2] = {(cuuint64_t)p, (cuuint64_t)n};
+  const cuuint64_t xs[1] = {(cuuint64_t)p * 2};
+  const cuuint64_t fd[3] = {(cuuint64_t)q, (cuuint64_t)n, (cuuint64_t)m};
+  const cuuint64_t fs[2] = {(cuuint64_t)q * 4, (cuuint64_t)n * q * 4};
+  const cuuint32_t xb[2] = {(cuuint32_t)xw(B), NCHB};
+  const cuuint32_t fb[3] = {(cuuint32_t)qs, NCHB, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return enc(tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
+             xd, xs, xb, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             xw(B) == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         enc(tf, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, fitted, fd, fs, fb, one,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             qs == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int QS, bool BF, bool LA>
 int launch(const void* x, const float* cp, const float* gram,
            const float* l_aug, const float* n_stack, const float* beta_in,
@@ -1655,6 +2036,9 @@ int launch(const void* x, const float* cp, const float* gram,
            int cp_batched, int Bfull, cudaStream_t st) {
   const size_t smem = checked_smem<QS, BF>(B, R);
   if (smem == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx{}, tf{};  // (the f32 instance takes none)
+  if (BF && !tensor_maps(&tx, &tf, x, fitted, n, p, q, m, B, QS))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(sweep_fused_kernel<QS, BF, LA>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1667,7 +2051,7 @@ int launch(const void* x, const float* cp, const float* gram,
           q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part,
           z_col, gcol, m2gcol, b2col, gram_full, goff,
           static_cast<__nv_bfloat16*>(fh_ws), dw_ws, n, p, q, B, R, c_one,
-          cp_batched, Bfull);
+          cp_batched, Bfull, tx, tf);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   zrow_reduce_kernel<<<dim3((p + 255) / 256, m), 256, 0, st>>>(
@@ -1728,6 +2112,16 @@ int occupancy(int B, int R) {
           cudaSuccess)
     return -1;
   return nb;
+}
+
+// the dynamic shared-memory bytes a launch of `kernel` last set (its
+// cudaFuncAttributeMaxDynamicSharedMemorySize), -1 on error
+template <class K>
+long long set_smem(K kernel) {
+  cudaFuncAttributes a;
+  return cudaFuncGetAttributes(&a, kernel) == cudaSuccess
+             ? (long long)a.maxDynamicSharedSizeBytes
+             : -1;
 }
 
 }  // namespace
@@ -1818,6 +2212,17 @@ long long atlasqtl_sweep_fused_smem(int qs, int B, int R, int bf16,
                               : checked_smem<40, false>(B, R))
                  : 0;
   return smem == 0 ? -1 : (long long)smem;
+}
+
+// The dynamic shared-memory bytes that the latest launch in `qs`-column
+// slices of the sweep kernel (its bf16 instance if bf16 != 0) set for it,
+// -1 on error (before a first launch: 0)
+long long atlasqtl_sweep_fused_launch_smem(int qs, int bf16) {
+  if (qs == 32) return bf16 ? set_smem(sweep_fused_kernel<32, true, false>)
+                            : set_smem(sweep_fused_kernel<32, false, false>);
+  if (qs == 40) return bf16 ? set_smem(sweep_fused_kernel<40, true, false>)
+                            : set_smem(sweep_fused_kernel<40, false, false>);
+  return -1;
 }
 
 // Copies the probes' NCLK + 3 phase clocks to `out` (host memory): the

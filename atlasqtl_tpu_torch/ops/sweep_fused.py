@@ -147,6 +147,8 @@ def _load():
         lib.atlasqtl_sweep_fused_occupancy.restype = i32
         lib.atlasqtl_sweep_fused_smem.argtypes = [i32] * 5
         lib.atlasqtl_sweep_fused_smem.restype = ctypes.c_longlong
+        lib.atlasqtl_sweep_fused_launch_smem.argtypes = [i32] * 2
+        lib.atlasqtl_sweep_fused_launch_smem.restype = ctypes.c_longlong
         lib.atlasqtl_sweep_staggered_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_sweep_staggered_occupancy.restype = i32
         lib.atlasqtl_sweep_staggered_smem.argtypes = [i32] * 3
@@ -192,6 +194,7 @@ FUSED_LA_NXA = 3
 FUSED_NG = 4              # thread groups of the two products
 FUSED_W = 8               # chain window
 FUSED_HLD = 40            # bf16 row of an F chunk or delta tile (odd 16 B)
+FUSED_BF16_NCH = 64       # the bf16 instance's sample rows per pass chunk
 
 
 def _ld16(width: int) -> int:
@@ -207,10 +210,14 @@ def _fused_smem_bytes(width: int, block: int, r_aug: int,
     and x_{b-1} chunks, x rows padded by 4), the advance partials, the
     window tiles (corrections twice, cp and beta rows three times), the
     nodes, the block's p_mask and theta, the slice's zeta and q_mask.  The
-    bf16 instance stages x chunks as bf16 rows of `_ld16` of the block
-    rounded up to 16, keeps one advance partial, two bf16 F chunks and a
-    bf16 delta tile of the block rounded up to 32 rows.  lookahead: the
-    lookahead variant's overlapped kernel (whole blocks; la_smem_bytes),
+    bf16 instance's stages hold chunks of FUSED_BF16_NCH rows, from a
+    1024-byte boundary (256 floats kept for it): two of F in f32 rows of
+    the slice's columns (its TMA box), two each of x_{b-1} and x_b in
+    tiles of 16, 32 or 64 bf16 columns (the block rounded up to 16, to
+    the tile), two bf16 F chunks of FUSED_HLD; no advance partial; then
+    two 8-byte mbarriers (the chunks come by TMA) and a bf16 delta tile
+    of the block rounded up to 32 rows.  lookahead: the lookahead
+    variant's overlapped kernel (whole blocks; la_smem_bytes),
     whose pass and chain run at once: two more B x QS tiles (the logit
     tile, gam), two blocks' p_mask and theta, the pass threads' z_col
     partials (32 x QS), and the stages sized for the
@@ -220,30 +227,29 @@ def _fused_smem_bytes(width: int, block: int, r_aug: int,
     128 and r + 2 = 48, whatever the launch's (constant offsets).  The
     card holds it to the kernel's own (`kernel_smem_bytes`)."""
     gp = (block * (block + 1) // 2 + 3) & ~3
-    if bf16 or lookahead:
-        xl = _ld16(-(-block // 16) * 16)
-        stages = (FUSED_NSTAGE * FUSED_NCH * width
-                  + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * xl // 2
-                  + FUSED_NCH * width + FUSED_NCH * FUSED_HLD)
-        extra = -(-block // 32) * 32 * FUSED_HLD // 2
-        if lookahead:  # sized for block 128 and r + 2 = 48, whatever B, R
-            B, R = FUSED_BMAX, 48
-            stages = max(
-                FUSED_NSTAGE * FUSED_NCH * width
-                + (FUSED_LA_NXB + FUSED_LA_NXA) * FUSED_NCH * _ld16(B) // 2
-                + FUSED_NCH * width + FUSED_NCH * FUSED_HLD,
-                B * (B + 4), 3 * R * width + 2 * B * R + B * (width // 4))
-            return 4 * ((B * (B + 1) // 2 + 3 & ~3) + 4 * B * width + stages
-                        + 8 * FUSED_W * width + 4 * B + 2 * width
-                        + B * FUSED_HLD // 2 + 32 * width)
+    if lookahead:  # sized for block 128 and r + 2 = 48, whatever B, R
+        B, R = FUSED_BMAX, 48
+        stages = max(
+            FUSED_NSTAGE * FUSED_NCH * width
+            + (FUSED_LA_NXB + FUSED_LA_NXA) * FUSED_NCH * _ld16(B) // 2
+            + FUSED_NCH * width + FUSED_NCH * FUSED_HLD,
+            B * (B + 4), 3 * R * width + 2 * B * R + B * (width // 4))
+        return 4 * ((B * (B + 1) // 2 + 3 & ~3) + 4 * B * width + stages
+                    + 8 * FUSED_W * width + 4 * B + 2 * width
+                    + B * FUSED_HLD // 2 + 32 * width)
+    if bf16:
+        b16 = -(-block // 16) * 16
+        xw = 16 if b16 <= 16 else 32 if b16 <= 32 else 64
+        stages = (256 + FUSED_BF16_NCH * (2 * width + FUSED_HLD)
+                  + 4 * -(-b16 // xw) * FUSED_BF16_NCH * xw // 2)
     else:
         stages = (FUSED_NSTAGE * FUSED_NCH * width
                   + (FUSED_NSTAGE + FUSED_NXA) * FUSED_NCH * (block + 4)
                   + FUSED_NG * FUSED_NCH * width)
-        extra = 0
     return 4 * (gp + 2 * block * width + stages
                 + 8 * FUSED_W * width + 3 * r_aug * width + 2 * 128
-                + 2 * width + extra)
+                + 2 * width
+                + bf16 * (4 + -(-block // 32) * 32 * FUSED_HLD // 2))
 
 
 def sub_block(block: int) -> int:
@@ -291,7 +297,7 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     (of all m replicas), smem_bytes, ctas_per_sm and zrow_parts (z_row
     partial rows per slice); the C entry point takes the width and the
     piece and sizes the rest itself.  bf16: the plan of the bf16 instance
-    (mxu_bf16), the same width and grid, its own shared memory (under 190
+    (mxu_bf16), the same width and grid, its own shared memory (under 210
     KB at block 128: still one CTA per SM).  lookahead (with bf16): its
     lookahead variant, whose overlapped kernel takes a block up to
     FUSED_BMAX whole (224 KB at block 128, width 40, r + 2 = 48) and a
@@ -335,6 +341,12 @@ def kernel_smem_bytes(width: int, block: int, r_aug: int,
     if lookahead), -1 where it refuses them."""
     return _load().atlasqtl_sweep_fused_smem(width, block, r_aug, int(bf16),
                                              int(lookahead))
+
+
+def launch_smem_bytes(width: int, bf16: bool = False) -> int:
+    """The dynamic shared-memory bytes that the latest launch of B1 (its
+    bf16 instance if bf16) in `width`-column slices set for its kernel."""
+    return _load().atlasqtl_sweep_fused_launch_smem(width, int(bf16))
 
 
 PHASES = ("pass", "tiles", "chain", "z_tile", "total")

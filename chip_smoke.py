@@ -115,8 +115,10 @@ per source, started together) and prints ptxas's registers and spills
           (Config.mxu_bf16) against its plain version at (120, 120, 200)
           (block 120, zero-padded to 128), (300, 2000, 500), (1000, 2048,
           10000) and block 256, c = 1 and 0.5, under the mean criterion
-          (mean_held), both slice widths, its plan and SASS (bf16 HMMA, none
-          in the float32 instances); its lookahead variant
+          (mean_held), both slice widths, its plan and SASS (bf16 HMMA,
+          none in the float32 instances), timed with its phase clocks and
+          CTA 0's pass cycles per 32 sample rows, its registers and
+          spills; its lookahead variant
           (Config(mxu_bf16=True, sweep_lookahead=True); the overlapped
           kernel of whole blocks, the serial one in pieces) against its
           plain version at the same shapes and at LA_EDGES (two, three and
@@ -233,23 +235,26 @@ def emit(obj):
 
 KERNEL_NAMES = ("sweep_fused_kernel", "sweep_lookahead_kernel",
                 "sweep_missing_kernel", "inner_gs_kernel",
-                "sweep_staggered_kernel")
+                "sweep_staggered_kernel", "bf16_pass")
 
 
 def ptxas_summary(report):
     """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
     `-Xptxas -v` report; a template instance is named with its mangled
     arguments (e.g. sweep_missing_kernel<true> as
-    sweep_missing_kernelILb1E)."""
+    sweep_missing_kernelILb1E); a device function that is not inlined
+    (B1's bf16_pass<QS>) has its spills, its registers counting in its
+    callers'."""
     out, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
+        m = re.search(r"Compiling entry function '(\S+)'|"
+                      r"Function properties for (\S+)", line)
         if m:
-            name = None
+            fn, name = m.group(1) or m.group(2), None
             for k in KERNEL_NAMES:
-                if k in m.group(1):
-                    tail = m.group(1).split(k, 1)[1]
-                    name = k + (tail.split("EEv", 1)[0] + "E"
+                if k in fn:
+                    tail = fn.split(k, 1)[1]
+                    name = k + (re.split(r"EE[vj]", tail, 1)[0] + "E"
                                 if tail.startswith("I") else "")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -2502,6 +2507,7 @@ def phase_bf16_modes():
                if "sweep_fused_kernel" in k or "sweep_lookahead_kernel" in k}
     out["b1_sass_hmma"] = b1_sass
     # the bf16 instances, their lookahead variants in pieces <QS, true, LA>
+    # (each with its copy of bf16_pass<QS>, which ptxas keeps out of line)
     # and the overlapped lookahead kernel <QS>
     bf_inst = {k: v for k, v in b1_sass.items()
                if "Lb1E" in k or "sweep_lookahead_kernel" in k}
@@ -2514,7 +2520,8 @@ def phase_bf16_modes():
     out["registers"] = {k: v for k, v in
                         ptxas_summary(sf.build.ptxas_report).items()
                         if k.startswith(("sweep_fused_kernel",
-                                         "sweep_lookahead_kernel"))}
+                                         "sweep_lookahead_kernel",
+                                         "bf16_pass"))}
     emit({"phase": "bf16_modes", "b1_registers": out["registers"]})
     # B2's pair_bf16 instances from mis_sub 8 on take the pair Grams on the
     # tensor cores, the float32 instance (SUB = 0) never
@@ -2601,6 +2608,13 @@ def phase_bf16_modes():
                 case.update(
                     plan=plan, smem_bytes=smem, ctas_per_sm=ctas,
                     by_width=by_width, clocks=clocks,
+                    # CTA 0's pass cycles per 32 sample rows, over the
+                    # passes (one per block and a last)
+                    pass_cycles_per_32_rows=clocks["pass"] / (
+                        (dims[1] // block + 1) * dims[0] / 32),
+                    registers={k: v for k, v in out["registers"].items()
+                               if k.endswith("Lb1ELb0EE")
+                               or k.startswith("bf16_pass")},
                     ms=cuda_ms(lite, 9),
                     f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kwl), 9),
                     ms_2=cuda_ms(lite, 9),
@@ -2973,6 +2987,7 @@ def bf16_mode(res, instance):
                 shape={k: t[k] for k in ("n", "p", "q", "block")},
                 ms=t["ms"], f32_ms=t["f32_ms"], plain_ms=t["plain_ms"],
                 **{k: t[k] for k in ("bf16_ms", "mis_sub", "ms_by_mis_sub",
+                                     "pass_cycles_per_32_rows", "registers",
                                      "f32_ms_2", "bound_ms_by_mis_sub",
                                      "pct_of_bound_by_mis_sub",
                                      "registers_by_mis_sub") if k in t},

@@ -1093,6 +1093,67 @@ def test_bf16_kernel_matches_plain(cuda, n, p, q, width, blk, c):
     _bf16_held(got, ref, f32, f32_kernel, NAMES)
 
 
+@pytest.mark.parametrize("c", [1.0, 0.5])
+@pytest.mark.parametrize("n,p,q,blk", [(33, 256, 200, 128),
+                                       (120, 640, 77, 128),
+                                       (1000, 256, 4804, 128),
+                                       (100, 64, 48, 8), (100, 240, 48, 120),
+                                       (1000, 512, 104, 256)])
+def test_bf16_pass_edges(cuda, n, p, q, blk, c):
+    """B1's bf16 instance at the edges of its pass (64-row chunks, advance
+    and projection in warps of their own): n = 33, one chunk with three
+    empty 16-row groups; n = 120 and 1000, a last chunk of 56 and 40 rows;
+    q not a multiple of the slice (200 in 32-column slices, 77 padded to
+    80, 4804 in 40-column slices); blocks 8 (one 16-row tile of depth 16),
+    120 (zero-padded columns), 128 and 256 (pieces of 128).  Against its
+    plain version under the mean criterion, and bit for bit from run to
+    run."""
+    ops, block = _operands(n, p, q, c, block=blk)
+    assert block == blk
+    ops16 = [sf.bf16_operand(ops[0])] + list(ops[1:])
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=c == 1.0)
+    ref = _flat(sf.sweep_fused(*ops16, **kw, bf16=True))
+    f32 = _flat(sf.sweep_fused(*ops, **kw))
+    dev16 = [o.to(cuda) for o in ops16]
+    got, again = (_flat(sf.sweep_fused(*dev16, **kw, bf16=True))
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    for name, a, b in zip(NAMES, got, again):
+        assert torch.equal(a, b), name
+    f32_kernel = _flat(sf.sweep_fused(*[o.to(cuda) for o in ops], **kw))
+    _bf16_held(got, ref, f32, f32_kernel, NAMES)
+
+
+@pytest.mark.parametrize("n,p,q,blk,c", [(120, 256, 200, 128, 0.5),
+                                         (1000, 512, 104, 256, 1.0)])
+def test_batched_bf16_equals_single_launches(cuda, n, p, q, blk, c):
+    """B1's bf16 instance with m = 2 replicas in one launch (one counted):
+    each replica equals its own launch under the batched plan bit for bit
+    and holds the mean criterion against its plain version; block 256 in
+    pieces, whose workspaces carry the replica axis."""
+    parts32, _, block = _replica_operands("b1", n, p, q, c, 2, block=blk)
+    parts = [[sf.bf16_operand(ops[0])] + list(ops[1:]) for ops in parts32]
+    kw = dict(block_size=block, emit_gam_mu=True, c_one=c == 1.0)
+    dev = lambda ops: [o.to(cuda) for o in ops]
+    q_pad, r_aug = parts[0][5].shape[1], parts[0][3].shape[1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    width = sf.fused_launch_plan(n, q_pad, block, r_aug, sms, 2,
+                                 bf16=True)["slice_width"]
+    inst = sf.sweep_fused.bf16.launches
+    got = _flat(sf.sweep_fused(*dev(sf.FUSED.stack(parts)), **kw, bf16=True))
+    torch.cuda.synchronize()
+    assert sf.sweep_fused.bf16.launches == inst + 1
+    for r, (ops, ops32) in enumerate(zip(parts, parts32)):
+        one = _flat(sf.fused_launch("atlasqtl_sweep_fused", *dev(ops), **kw,
+                                    bf16=True, slice_width=width))
+        for name, a, b in zip(NAMES, got, one):
+            assert torch.equal(a[r], b), (name, r)
+        _bf16_held(one, _flat(sf.sweep_fused(*ops, **kw, bf16=True)),
+                   _flat(sf.sweep_fused(*ops32, **kw)),
+                   _flat(sf.fused_launch("atlasqtl_sweep_fused", *dev(ops32),
+                                         **kw, slice_width=width)), NAMES)
+
+
 @pytest.mark.parametrize("sub", [16, 8, 4])
 @pytest.mark.parametrize("c", [1.0, 0.5])
 @pytest.mark.parametrize("n,p,q,blk", [(80, 250, 40, 128), (100, 75, 48, 80),
@@ -1244,10 +1305,12 @@ def test_pair_bf16_sass_holds_bf16_hmma(cuda):
 
 def test_bf16_plan_matches_the_kernel(cuda):
     """The bf16 instance's shared-memory arithmetic (its plan) equals the
-    kernel's own, at blocks that are and are not multiples of 16 and 32,
-    and it holds the one CTA per SM its plan counts on."""
+    kernel's own at every block up to 128 (multiples of 8, and so of 16
+    and 32 or not), and it holds the one CTA per SM its plan counts on;
+    a launch at blocks 8, 120 and 128 in each slice width sets the
+    kernel's dynamic shared memory to the plan's bytes."""
     for width in sf.FUSED_WIDTHS:
-        for block in (8, 40, 80, 120, 128):
+        for block in range(8, 129, 8):
             for r_aug in (1, 42, 48):
                 assert (sf.kernel_smem_bytes(width, block, r_aug, True)
                         == sf._fused_smem_bytes(width, block, r_aug, True))
@@ -1259,6 +1322,18 @@ def test_bf16_plan_matches_the_kernel(cuda):
                 assert (sf.kernel_smem_bytes(width, block, r_aug, True, True)
                         == sf._fused_smem_bytes(width, block, r_aug, True,
                                                 True))
+    for block, p in ((8, 64), (120, 240), (128, 256)):
+        ops, blk = _operands(100, p, 48, 0.5, block=block)
+        assert blk == block
+        ops16 = [sf.bf16_operand(ops[0].to(cuda))] + [o.to(cuda)
+                                                      for o in ops[1:]]
+        for width in sf.FUSED_WIDTHS:
+            sf.fused_launch("atlasqtl_sweep_fused", *ops16, block_size=block,
+                            emit_gam_mu=False, c_one=False, bf16=True,
+                            slice_width=width)
+            torch.cuda.synchronize()
+            assert sf.launch_smem_bytes(width, True) == sf._fused_smem_bytes(
+                width, block, ops[3].shape[1], True), (width, block)
 
 
 def test_bf16_operands_and_b4_refuse(cuda):

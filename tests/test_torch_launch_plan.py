@@ -161,19 +161,20 @@ def test_staggered_smem_arithmetic(width, block, r_aug, expected):
 
 
 @pytest.mark.parametrize("width,block,r_aug,expected", [
-    (40, 128, 42, 185088), (32, 128, 42, 166656), (32, 120, 48, 162928),
-    (40, 8, 1, 50608)])
+    (40, 128, 42, 213264), (32, 128, 42, 194832), (32, 120, 48, 191104),
+    (40, 8, 1, 57280)])
 def test_fused_bf16_smem_arithmetic(width, block, r_aug, expected):
     """B1's bf16 instance (csrc/sweep_fused.cu:smem_bytes<QS, true>),
     counted by hand at the eQTL cut's 40 columns: the packed Gram 8256
-    floats, the delta and projection tiles 10240, the stage area 17280 (F
-    3 x 32 x 40; five bf16 x chunks of 32 rows of 136 bf16, 10880 floats;
-    one advance partial 32 x 40; two bf16 F chunks of 32 x 40), the window
-    tiles 2560, the nodes 3 x 42 x 40 = 5040, p_mask and theta 256, zeta
-    and q_mask 80, the bf16 delta tile 128 x 40 bf16 (2560): 46272
-    floats.  Block 120 is padded to 128 columns and its delta tile to 128
-    rows, block 8 to 16 columns (rows of 24 bf16) and 32 rows.  Every case
-    fits one CTA and takes less than the float32 instance."""
+    floats, the delta and projection tiles 10240, the stage area 24320 of
+    64-row chunks (256 floats for a 1024-byte boundary; F 2 x 64 x 40 =
+    5120, the TMA box of the slice; four bf16 x chunks, two of
+    x_{b-1} and two of x_b, of two 64 x 64 tiles, 16384 floats; two bf16 F
+    chunks of 64 x 40 bf16, 2560), the window tiles 2560, the nodes 3 x 42
+    x 40 = 5040, p_mask and theta 256, zeta and q_mask 80, two 8-byte
+    mbarriers, the bf16 delta tile 128 x 40 bf16 (2560): 53316 floats.  At 32 columns the F chunks are 64 x 32; block 120 is padded
+    to 128 columns, block 8 to one tile of 16 columns.  Every case fits
+    one CTA and takes less than the float32 instance."""
     got = sf._fused_smem_bytes(width, block, r_aug, bf16=True)
     assert got == expected and got <= SMEM_MAX
     assert got < sf._fused_smem_bytes(width, block, r_aug)
