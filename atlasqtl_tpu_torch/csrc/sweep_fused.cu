@@ -403,6 +403,54 @@ __device__ __forceinline__ void unpack4(const float4 v, float* a) {
   a[3] = v.w;
 }
 
+// The probe instance (PR = true; ops/sweep_fused.py:Probe, PROBES): its
+// runtime code has one bit per part of the sweep it keeps, then the
+// diagonal's bit and bf16 x (Probe.code)
+enum PrBits : int {
+  PR_TILES = 1, PR_PROJ = 2, PR_PUSHES = 4, PR_CORR = 8, PR_SIGMOID = 16,
+  PR_ADVANCE = 32, PR_MILLS = 64, PR_PIN = 128, PR_DIAG = 256, PR_XBF = 512
+};
+
+// f rounded to bf16 (nearest even) and back
+__device__ __forceinline__ float bf16r(float f) {
+  return __bfloat162float(__float2bfloat16_rn(f));
+}
+
+// the probe instance's four values of a staged x row from column k: f32,
+// or under bf16 x (xbf) the row's bf16 values (its row of XL floats holds
+// B bf16)
+__device__ __forceinline__ void ldx4(const float* row, int k, bool xbf,
+                                     float* v) {
+  if (xbf) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        reinterpret_cast<const char*>(row) + 2 * k);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+    return;
+  }
+  unpack4(ld4(row + k), v);
+}
+
+// the probe instance's update of one coordinate under nosig: chain_step
+// with the logit clipped to [0, 1] in place of its sigmoid
+__device__ __forceinline__ ChainStep clip_step(float ct, float cp, float r,
+                                               float ad, float cinv,
+                                               float bo) {
+  ChainStep s;
+  s.mu = __fmul_rn(ct, __fsub_rn(cp, r));
+  const float logit = fmaf(__fmul_rn(s.mu, s.mu), cinv, ad);
+  s.gam = fminf(fmaxf(logit, 0.f), 1.f);
+  s.bnew = __fmul_rn(s.gam, s.mu);
+  s.delta = __fsub_rn(s.bnew, bo);
+  return s;
+}
+
 // One pass of the bf16 instance over the samples: F += x_{b-1} delta_{b-1}
 // (adv), r0 = x_b^T F into R_s (proj).  Its own function, so that ptxas
 // allocates its registers (the advance warps hold delta's fragments, 16 per
@@ -679,7 +727,7 @@ __device__ __noinline__ unsigned bf16_pass(const BfPass a,
   return mb_phase;
 }
 
-template <int QS, bool BF, bool LA>
+template <int QS, bool BF, bool LA, bool PR = false>
 __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const void* __restrict__ x_any,     // (n, p), float (bf16 if BF)
     const float* __restrict__ cp,       // (p, q)
@@ -694,7 +742,8 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const float* __restrict__ q_mask,   // (q,)
     const float* __restrict__ s2v,      // (q,) slab variance
     const float* __restrict__ tauv,     // (q,)
-    const float* __restrict__ scal,     // (2,) c, K/c
+    const float* __restrict__ scal,     // (2,) c, K/c; PR (4,): and the
+                                        // probe's code (PrBits), its window
     float* __restrict__ beta_out,       // (p, q)
     float* __restrict__ gam_out,        // (p, q) or null
     float* __restrict__ mu_out,         // (p, q) or null
@@ -715,6 +764,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const __grid_constant__ CUtensorMap tm_f) {  // bf16: fitted (m, n, q),
                                                  // boxes of QS x NCHB
   static_assert(BF || !LA, "lookahead: a variant of the bf16 instance");
+  static_assert(!PR || (!BF && !LA), "the probe instance: the f32 schedule");
   using S = Slice<QS>;
   // the bf16 instance's workspaces: row stride of all slices' columns
   const int qsw = gridDim.x * QS;
@@ -731,7 +781,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     zeta += r * q;
     s2v += r * q;
     tauv += r * q;
-    scal += r * 2;
+    scal += r * (PR ? 4 : 2);
     beta_out += r * pq;
     if (gam_out != nullptr) {
       gam_out += r * pq;
@@ -746,6 +796,8 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
       fh_ws += r * (LA ? 2 : 1) * (size_t)n * qsw;
       dw_ws += r * (size_t)(LA ? 2 * Bfull : Bfull - B) * qsw;
     }
+    if constexpr (PR)  // its deltas of a block's earlier pieces
+      if (dw_ws != nullptr) dw_ws += r * (size_t)(Bfull - B) * qsw;
   }
   constexpr int NT = S::NT, NW = S::NW, TC = S::TC, WQ = S::WQ;
   constexpr int H0 = S::NCW * 32;  // the first thread of the helper warps
@@ -790,8 +842,9 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   const int tid = threadIdx.x, warp = tid >> 5;
   const int k0 = blockIdx.x * QS;
   const float c = scal[0], kz = scal[1];
+  const int pcode = PR ? (int)scal[2] : 0, psub = PR ? (int)scal[3] : W;
   const int nb = p / B, nwin = B / W;
-  const int npc = BF ? Bfull / B : 1;  // pieces of a block
+  const int npc = BF || PR ? Bfull / B : 1;  // pieces of a block
   // the probe thread adds its cycles straight into g_clocks, so that no
   // other thread holds registers for them
   const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
@@ -809,6 +862,23 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     }
   };
   const int nch = BF ? (n + NCHB - 1) / NCHB : (n + NCH - 1) / NCH;
+  // the probe instance's parts (PrBits; every other instance keeps all):
+  // the tiles, the projection, the pushes inside a window of psub rows and
+  // the corrections across windows, the sigmoid, the advance, the Mills
+  // tiles, dmalite's pin of x and X^T Y to block 0, the diagonal taken off
+  // r, and x in bf16 (mxu_bf16: F and delta rounded at the products)
+  const bool k_tiles = !PR || (pcode & PR_TILES),
+             k_proj = !PR || (pcode & PR_PROJ),
+             k_push = !PR || (pcode & PR_PUSHES),
+             k_corr = !PR || (pcode & PR_CORR),
+             k_sig = !PR || (pcode & PR_SIGMOID),
+             k_adv = !PR || (pcode & PR_ADVANCE),
+             k_mills = !PR || (pcode & PR_MILLS),
+             k_pin = PR && (pcode & PR_PIN),
+             k_diag = !PR || (pcode & PR_DIAG), xbf = PR && (pcode & PR_XBF);
+  const __nv_bfloat16* __restrict__ xh =
+      static_cast<const __nv_bfloat16*>(x_any);  // PR under bf16 x
+  const float* const cp0 = cp;  // PR: X^T Y (dmalite reads block 0's rows)
 
   for (int e = tid; e < 3 * R * QS; e += NT) {
     const int kk = e % QS, mr = e / QS;
@@ -878,6 +948,52 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     // deltas in the one, the previous block's in the other (kept as two
     // parities, not four pointers, for the registers)
     const int par = LA ? bb & 1 : 0, par_prev = LA && bb > 0 ? par ^ 1 : 0;
+    // the x columns this pass projects and advances by, and whether it
+    // does each: the probe instance drops either by its code, pins x and
+    // X^T Y to block 0 under dmalite, and advances a block in pieces once,
+    // after its last piece (a later piece projects the block-start F, the
+    // earlier pieces come in through the Gram): this pass by the last
+    // piece, the loop below by the others first
+    const int jxp = PR && k_pin ? kp * B : j0;
+    const int jxa = PR && k_pin ? ((b + npc - 1) % npc) * B : j0 - B;
+    const bool dadv = PR ? adv && k_adv && kp == 0 : adv;
+    const bool dproj = PR ? proj && k_proj : proj;
+    if constexpr (PR) {
+      if (k_pin) cp = cp0 + (ptrdiff_t)(jxp - j0) * q;
+      if (dadv && npc > 1) {
+        // F += x_e delta_e for the previous block's pieces e < npc - 1
+        // (deltas from the workspace into R_s, x rows into the x_{b-1}
+        // stage as f32, F in device memory), one chunk of rows at a time
+        const int jcol = k_pin ? 0 : j0 - Bfull;
+        for (int e = 0; e < npc - 1; ++e) {
+          for (int t = tid; t < BQ; t += NT) {
+            const float d =
+                dw_ws[(size_t)(e * B + t / QS) * qsw + k0 + t % QS];
+            R_s[t] = xbf ? bf16r(d) : d;
+          }
+          for (int n0 = 0; n0 < n; n0 += NCH) {
+            for (int t = tid; t < NCH * B; t += NT) {
+              const int r = t / B, k = t % B;
+              const size_t o = (size_t)(n0 + r) * p + jcol + e * B + k;
+              XA_s[r * XL + k] = n0 + r >= n ? 0.f
+                                 : xbf      ? __bfloat162float(xh[o])
+                                            : x[o];
+            }
+            __syncthreads();
+            for (int t = tid; t < NCH * QS; t += NT) {
+              const int r = t / QS, col = t % QS;
+              if (n0 + r >= n || k0 + col >= q) continue;
+              float s = 0.f;
+              for (int k = 0; k < B; ++k)
+                s = fmaf(XA_s[r * XL + k], R_s[k * QS + col], s);
+              float* f = fitted + (size_t)(n0 + r) * q + k0 + col;
+              *f = __fadd_rn(*f, s);
+            }
+            __syncthreads();
+          }
+        }
+      }
+    }
 
     // ---- one pass over the samples: advance by block b-1, project b -------
     // the projection's accumulators (f32: 8 x 8 register tiles; the bf16
@@ -898,7 +1014,9 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                    (e < B / 4 ? p_mask + 4 * e : theta + 4 * (e - B / 4)) + j0);
     }
     const int last = proj ? nch : nch - 1;
-    if constexpr (BF) {
+    if (PR && !dadv && !dproj) {
+      // the probe drops both products: no pass
+    } else if constexpr (BF) {
       mb_phase = bf16_pass<QS>(
           BfPass{fh_ws, &tm_x, &tm_f, R_s, F_s, MB(), n, k0, B, j0, nch, qsw,
                  par, par_prev, adv, proj, from_ws, to_ws},
@@ -916,12 +1034,32 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
               fst + r * QS + c4,
               ok ? fitted + (size_t)(n0 + r) * q + k0 + c4 : fitted, ok);
         }
-        for (int e = tid; e < NCH * B / 4; e += NT) {
-          const int r = e / (B / 4), c4 = (e % (B / 4)) * 4;
-          const bool ok = n0 + r < n;
-          const float* row = x + (size_t)(ok ? n0 + r : 0) * p + c4;
-          if (adv) cp_async16_zfill(xast + r * XL + c4, row + j0 - B, ok);
-          if (proj) cp_async16_zfill(xbst + r * XL + c4, row + j0, ok);
+        if (PR && xbf) {  // the probe under bf16 x: B values of a row
+          for (int e = tid; e < NCH * B / 8; e += NT) {
+            const int r = e / (B / 8), c8 = (e % (B / 8)) * 8;
+            const bool ok = n0 + r < n;
+            const __nv_bfloat16* row = xh + (size_t)(ok ? n0 + r : 0) * p + c8;
+            if (dadv)
+              cp_async16_zfill(
+                  reinterpret_cast<__nv_bfloat16*>(xast + r * XL) + c8,
+                  row + jxa, ok);
+            if (dproj)
+              cp_async16_zfill(
+                  reinterpret_cast<__nv_bfloat16*>(xbst + r * XL) + c8,
+                  row + jxp, ok);
+          }
+        } else {
+          for (int e = tid; e < NCH * B / 4; e += NT) {
+            const int r = e / (B / 4), c4 = (e % (B / 4)) * 4;
+            const bool ok = n0 + r < n;
+            const float* row = x + (size_t)(ok ? n0 + r : 0) * p + c4;
+            if (dadv)
+              cp_async16_zfill(xast + r * XL + c4,
+                               PR ? row + jxa : row + j0 - B, ok);
+            if (dproj)
+              cp_async16_zfill(xbst + r * XL + c4, PR ? row + jxp : row + j0,
+                               ok);
+          }
         }
       };
       stage(0);
@@ -937,7 +1075,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         cp_async_commit();
         float* fs = F_s + (ch % NSTAGE) * NCH * QS;
         const float* xa = XA_s + (ch % NXA) * NCH * XL;
-        const bool adv_ch = adv && ch < nch;
+        const bool adv_ch = dadv && ch < nch;
         if (adv_ch) {  // this quarter of the depth's part of F += x_{b-1} delta
           float a4[4][4];
   #pragma unroll
@@ -949,11 +1087,20 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
             float xr[4][4];
   #pragma unroll
             for (int r = 0; r < 4; ++r)
-              unpack4(ld4(xa + (ar * 4 + r) * XL + kk), xr[r]);
+              if constexpr (PR)
+                ldx4(xa + (ar * 4 + r) * XL, kk, xbf, xr[r]);
+              else
+                unpack4(ld4(xa + (ar * 4 + r) * XL + kk), xr[r]);
   #pragma unroll
             for (int s = 0; s < 4; ++s) {
               float d[4];
               unpack4(ld4(D_s + (kk + s) * QS + ac), d);
+              if constexpr (PR) {
+                if (xbf) {
+  #pragma unroll
+                  for (int jj = 0; jj < 4; ++jj) d[jj] = bf16r(d[jj]);
+                }
+              }
   #pragma unroll
               for (int r = 0; r < 4; ++r)
   #pragma unroll
@@ -967,16 +1114,27 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                                        ac) =
                 make_float4(a4[r][0], a4[r][1], a4[r][2], a4[r][3]);
         }
-        if (proj && prow && ch > 0) {  // r0 += x_b^T F over chunk ch-1
+        if (dproj && prow && ch > 0) {  // r0 += x_b^T F over chunk ch-1
           const float* fp = F_s + ((ch - 1) % NSTAGE) * NCH * QS;
           const float* xp = XB_s + ((ch - 1) % NSTAGE) * NCH * XL;
   #pragma unroll(QS == 32 ? 2 : 1)
           for (int r = g * 8; r < g * 8 + 8; ++r) {
             float xv[8], fv[8];
-            unpack4(ld4(xp + r * XL + pi * 8), xv);
-            unpack4(ld4(xp + r * XL + pi * 8 + 4), xv + 4);
+            if constexpr (PR) {
+              ldx4(xp + r * XL, pi * 8, xbf, xv);
+              ldx4(xp + r * XL, pi * 8 + 4, xbf, xv + 4);
+            } else {
+              unpack4(ld4(xp + r * XL + pi * 8), xv);
+              unpack4(ld4(xp + r * XL + pi * 8 + 4), xv + 4);
+            }
             unpack4(ld4(fp + r * QS + pc), fv);
             unpack4(ld4(fp + r * QS + pc + 4), fv + 4);
+            if constexpr (PR) {
+              if (xbf) {
+  #pragma unroll
+                for (int a = 0; a < 8; ++a) fv[a] = bf16r(fv[a]);
+              }
+            }
   #pragma unroll
             for (int a = 0; a < AM; ++a)
   #pragma unroll
@@ -1029,8 +1187,18 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     }
     cp_async_wait<1>();  // L and window 0's rows (window 1's may fly on)
     __syncthreads();
-    // the logit-constant tile ad = base + L_b N_ad (4 x 4 per thread)
-    if (trow) {
+    // the logit-constant tile ad = base + L_b N_ad (4 x 4 per thread); a
+    // probe without the tiles takes u = theta + zeta
+    if (PR && trow && !k_tiles) {
+      float zeta4[4];
+      unpack4(ld4(ZQ_s + tx * 4), zeta4);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          AD_s[(ty * 4 + a) * QS + tx * 4 + jj] =
+              __fadd_rn(TH_s[ty * 4 + a], zeta4[jj]);
+    } else if (trow) {
       float dot[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -1075,13 +1243,13 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     // R_s rows ty*4.., columns tx*4.. += G d over `depth` rows, G's rows
     // from g0 (stride Bfull), d's from d0 (stride dld): f32 4 x 4 tiles
     auto cross_add = [&](const float* g0, const float* d0, size_t dld,
-                         int depth) {
+                         int m0, int depth) {
       float s[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) s[a][jj] = 0.f;
-      for (int m = 0; m < depth; m += 4) {
+      for (int m = m0; m < depth; m += 4) {
         float gv[4][4], dv[4][4];
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
@@ -1110,13 +1278,19 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const bool la_corr = LA && bb > 0;
     if (la_corr && trow)
       cross_add(goff + (size_t)(j0 + ty * 4 - Bfull) * Bfull,
-                dw_ws + (size_t)par_prev * Bfull * qsw + k0 + tx * 4, qsw,
+                dw_ws + (size_t)par_prev * Bfull * qsw + k0 + tx * 4, qsw, 0,
                 Bfull);
-    // the block's earlier pieces' deltas through the f32 cross-Gram
-    const bool c7 = BF && npc > 1 && kp > 0;
+    // the block's earlier pieces' deltas through the f32 cross-Gram (the
+    // probe instance: those it keeps, corrections from the rows before
+    // this 4-row tile's window of psub and pushes from the rest; a tile
+    // lies in one window, or psub < 4 and every earlier piece's row is in
+    // an earlier window)
+    const bool c7 = (BF || PR) && npc > 1 && kp > 0;
+    const int mp = PR ? min(kp * B, (kp * B + ty * 4) / psub * psub) : 0;
     if (c7 && trow)
       cross_add(gram_full + (size_t)(j0 + ty * 4) * Bfull,
-                dw_ws + (size_t)par * Bfull * qsw + k0 + tx * 4, qsw, kp * B);
+                dw_ws + (size_t)par * Bfull * qsw + k0 + tx * 4, qsw,
+                PR && !k_corr ? mp : 0, PR && !k_push ? mp : kp * B);
     if (la_corr || c7) __syncthreads();
 
     tick(1);
@@ -1127,20 +1301,36 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     for (int i = 0; i < W; ++i) dprev[i] = 0.f;
     for (int w = 0; w < nwin; ++w) {
       const int lo = w * W, cur = w & 1, nxt = cur ^ 1, rw = w % NRW;
+      // the probe instance takes only the pushes and corrections it keeps,
+      // by windows of psub rows of the whole block (a divisor of W or a
+      // multiple of it, so that a window of W rows lies in one window of
+      // psub or is a run of whole ones): the previous window's deltas are
+      // pushes where it lies in this one's window of psub, else
+      // corrections; rows a and i of this window share one where
+      // (a ^ i) < psub
+      const int lb = kp * B + lo;  // the window's first row in the block
+      const bool kprev = !PR || (lb % psub ? k_push : k_corr);
       if (chain) {
         float rr[W], pm[W];
 #pragma unroll
         for (int i = 0; i < W; ++i) {
           const int row = lo + i;
           pm[i] = PM_s[row];
-          // remove the own contribution with the TRUE Gram diagonal
-          float r = fmaf(-BOW_s[rw * WQ + i * QS + tid], gp(GP_s, row, row),
-                         R_s[row * QS + tid]);
+          // remove the own contribution with the TRUE Gram diagonal (a
+          // probe: where it keeps it, after X^T Y where it drops the
+          // projection)
+          float r = fmaf(k_diag ? -BOW_s[rw * WQ + i * QS + tid] : 0.f,
+                         gp(GP_s, row, row),
+                         k_proj ? R_s[row * QS + tid]
+                                : __fadd_rn(CPW_s[rw * WQ + i * QS + tid],
+                                            R_s[row * QS + tid]));
           if (w > 0) {
             r = __fadd_rn(r, C_s[cur * WQ + i * QS + tid]);
+            if (kprev) {
 #pragma unroll
-            for (int m = 0; m < W; ++m)
-              r = fmaf(gp(GP_s, row, lo - W + m), dprev[m], r);
+              for (int m = 0; m < W; ++m)
+                r = fmaf(gp(GP_s, row, lo - W + m), dprev[m], r);
+            }
           }
           rr[i] = r;
         }
@@ -1148,15 +1338,31 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         for (int i = 0; i < W; ++i) {
           const int row = lo + i, j = j0 + row;
           const int e = rw * WQ + i * QS + tid;
-          const ChainStep st = chain_step(ct, CPW_s[e], rr[i],
-                                          AD_s[row * QS + tid], cinv,
-                                          BOW_s[e]);
+          const ChainStep st =
+              k_sig ? chain_step(ct, CPW_s[e], rr[i], AD_s[row * QS + tid],
+                                 cinv, BOW_s[e])
+                    : clip_step(ct, CPW_s[e], rr[i], AD_s[row * QS + tid],
+                                cinv, BOW_s[e]);
           D_s[row * QS + tid] = st.delta;
           GT_s[row * QS + tid] = st.gam;
           dprev[i] = st.delta;
+          if constexpr (PR) {
+            // the window in one window of psub (uniform), or several
+            if (psub >= W ? k_push : false) {
 #pragma unroll
-          for (int a = i + 1; a < W; ++a)
-            rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
+              for (int a = i + 1; a < W; ++a)
+                rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
+            } else if (psub < W) {
+#pragma unroll
+              for (int a = i + 1; a < W; ++a)
+                if ((i ^ a) < psub ? k_push : k_corr)
+                  rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
+            }
+          } else {
+#pragma unroll
+            for (int a = i + 1; a < W; ++a)
+              rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
+          }
           if (cvalid) {
             const float msk = __fmul_rn(pm[i], qmc);
             const size_t off = (size_t)j * q + kc;
@@ -1172,14 +1378,20 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         }
       } else if (warp >= S::NCW && w + 1 < nwin) {
         // meanwhile: the cp/beta rows two windows ahead, and the next
-        // window's corrections by every delta two or more windows back
+        // window's corrections by every delta two or more windows back (a
+        // probe: rows before ms, ahead of the next window's window of psub,
+        // where it keeps the corrections, the rest where it keeps the
+        // pushes; ms is a multiple of W or lo)
         if (w + 2 < nwin) stage_rows(j0 + lo + 2 * W, (w + 2) % NRW, H0);
         cp_async_commit();
+        const int ms =
+            PR ? max(0, min(lo, (lb + W) / psub * psub - kp * B)) : 0;
+        const int mlo = PR && !k_corr ? ms : 0, mhi = PR && !k_push ? ms : lo;
         for (int e = tid - H0; e < WQ; e += NT - H0) {
           const int t = e / QS, col = e % QS;
           const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
           float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-          for (int m = 0; m < lo; m += 4) {
+          for (int m = mlo; m < mhi; m += 4) {
             s0 = fmaf(gr[m], D_s[m * QS + col], s0);
             s1 = fmaf(gr[m + 1], D_s[(m + 1) * QS + col], s1);
             s2 = fmaf(gr[m + 2], D_s[(m + 2) * QS + col], s2);
@@ -1194,6 +1406,10 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
 
     tick(2);
 
+    if constexpr (PR)  // the deltas of a block's earlier pieces
+      if (npc > 1 && kp < npc - 1)
+        for (int e = tid; e < BQ; e += NT)
+          dw_ws[(size_t)(kp * B + e / QS) * qsw + k0 + e % QS] = D_s[e];
     if constexpr (BF) {  // delta rounded to bf16 once for the next advance
       __nv_bfloat16* DH_h = reinterpret_cast<__nv_bfloat16*>(MB() + 2);
       for (int e = tid; e < kd32(B) * QS / 2; e += NT) {
@@ -1218,7 +1434,23 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) d1[a][jj] = d2[a][jj] = 0.f;
-      if (trow) {
+      if (PR && trow && !k_mills) {  // a probe without the Mills: z = gam
+        float qm4[4];
+        unpack4(ld4(ZQ_s + QS + tx * 4), qm4);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = ty * 4 + a;
+          const float pm = PM_s[i];
+          float zr = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float zq = __fmul_rn(GT_s[i * QS + tx * 4 + jj], qm4[jj]);
+            zr = __fadd_rn(zr, zq);
+            zc4[jj] = fmaf(pm, zq, zc4[jj]);
+          }
+          ZR_s[i * TC + tx] = zr;
+        }
+      } else if (trow) {
         const float* l0 = L_s + ty * 4 * R;
 #pragma unroll 2
         for (int rr = 0; rr < R; ++rr) {
@@ -2023,7 +2255,7 @@ bool tensor_maps(CUtensorMap* tx, CUtensorMap* tf, const void* x,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int QS, bool BF, bool LA>
+template <int QS, bool BF, bool LA, bool PR = false>
 int launch(const void* x, const float* cp, const float* gram,
            const float* l_aug, const float* n_stack, const float* beta_in,
            float* fitted, const float* theta, const float* p_mask,
@@ -2040,12 +2272,12 @@ int launch(const void* x, const float* cp, const float* gram,
   if (BF && !tensor_maps(&tx, &tf, x, fitted, n, p, q, m, B, QS))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF, LA>,
+      cudaFuncSetAttribute(sweep_fused_kernel<QS, BF, LA, PR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_slices = (q + QS - 1) / QS;
-  sweep_fused_kernel<QS, BF, LA>
+  sweep_fused_kernel<QS, BF, LA, PR>
       <<<dim3(n_slices, m), Slice<QS>::NT, smem, st>>>(
           x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, p_mask, zeta,
           q_mask, s2v, tauv, scal, beta_out, gam_out, mu_out, zrow_part,
@@ -2143,6 +2375,13 @@ extern "C" {
 // lookahead variant, which reads the (p, Bfull) off-diagonal Gram blocks
 // `goff` and, where Bfull > B, takes workspaces twice as deep: fh_ws m x 2
 // x n x ceil(q / qs) qs bf16, dw_ws m x 2 Bfull x ceil(q / qs) qs floats.
+// probe >= 0 (not with lookahead; qs 32 only: at 40 columns, whose 320
+// threads leave ptxas 168 registers, the f32 schedule takes 167 and the
+// probe's code would spill) launches the probe instance with that
+// code (PrBits; bf16 x under its PR_XBF bit, bf16 then 0) in chain windows
+// of psub rows (a divisor of 8 or a multiple of it, dividing Bfull), both
+// also in scal (c, kz, probe, psub per replica); where Bfull > B it reads
+// gram_full and takes dw_ws as the bf16 instance does (fh_ws null).
 // Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape or width it does not take.
 int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
@@ -2156,23 +2395,27 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                          float* z_col, float* gcol, float* m2gcol,
                          float* b2col, int n, int p, int q, int B, int R,
                          int c_one, int qs, int m, int cp_batched, int bf16,
-                         int lookahead, int Bfull, const float* gram_full,
-                         const float* goff, void* fh_ws, float* dw_ws,
-                         void* stream) {
+                         int lookahead, int Bfull, int probe, int psub,
+                         const float* gram_full, const float* goff,
+                         void* fh_ws, float* dw_ws, void* stream) {
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || R <= 0 || R > RMAX ||
       q % 4 != 0 || n <= 0 || (gam_out == nullptr) != (mu_out == nullptr) ||
       m < 1 || m > 65535 || Bfull < B || Bfull % B != 0 || p % Bfull != 0 ||
       (bf16 && Bfull > B &&
        (gram_full == nullptr || fh_ws == nullptr || dw_ws == nullptr)) ||
-      (lookahead && (!bf16 || goff == nullptr)))
+      (lookahead && (!bf16 || goff == nullptr)) ||
+      (probe >= 0 &&
+       (bf16 || lookahead || psub <= 0 || (W % psub != 0 && psub % W != 0) ||
+        Bfull % psub != 0 ||
+        (Bfull > B && (gram_full == nullptr || dw_ws == nullptr)))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ATLASQTL_LAUNCH(QS, BF, LA)                                          \
-  launch<QS, BF, LA>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta,     \
-                     p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,         \
-                     gam_out, mu_out, zrow_part, z_row, z_col, gcol, m2gcol,  \
-                     b2col, gram_full, goff, fh_ws, dw_ws, n, p, q, B, R,     \
-                     c_one, m, cp_batched, Bfull, st)
+#define ATLASQTL_LAUNCH(QS, BF, LA, PR)                                      \
+  launch<QS, BF, LA, PR>(x, cp, gram, l_aug, n_stack, beta_in, fitted, theta, \
+                         p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,     \
+                         gam_out, mu_out, zrow_part, z_row, z_col, gcol,      \
+                         m2gcol, b2col, gram_full, goff, fh_ws, dw_ws, n, p,  \
+                         q, B, R, c_one, m, cp_batched, Bfull, st)
   // the lookahead variant of whole blocks: the overlapped schedule
 #define ATLASQTL_LAUNCH_LA(QS)                                                \
   launch_la<QS>(static_cast<const __nv_bfloat16*>(x), cp, gram, l_aug,        \
@@ -2182,15 +2425,16 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                 cp_batched, st)
   const bool overlap = lookahead && Bfull == B;
   if (qs == 32)
-    return overlap     ? ATLASQTL_LAUNCH_LA(32)
-           : lookahead ? ATLASQTL_LAUNCH(32, true, true)
-           : bf16      ? ATLASQTL_LAUNCH(32, true, false)
-                       : ATLASQTL_LAUNCH(32, false, false);
-  if (qs == 40)
+    return overlap      ? ATLASQTL_LAUNCH_LA(32)
+           : lookahead  ? ATLASQTL_LAUNCH(32, true, true, false)
+           : bf16       ? ATLASQTL_LAUNCH(32, true, false, false)
+           : probe >= 0 ? ATLASQTL_LAUNCH(32, false, false, true)
+                        : ATLASQTL_LAUNCH(32, false, false, false);
+  if (qs == 40 && probe < 0)  // the probe instance: 32 columns only
     return overlap     ? ATLASQTL_LAUNCH_LA(40)
-           : lookahead ? ATLASQTL_LAUNCH(40, true, true)
-           : bf16      ? ATLASQTL_LAUNCH(40, true, false)
-                       : ATLASQTL_LAUNCH(40, false, false);
+           : lookahead ? ATLASQTL_LAUNCH(40, true, true, false)
+           : bf16      ? ATLASQTL_LAUNCH(40, true, false, false)
+                       : ATLASQTL_LAUNCH(40, false, false, false);
 #undef ATLASQTL_LAUNCH
 #undef ATLASQTL_LAUNCH_LA
   return (int)cudaErrorInvalidValue;

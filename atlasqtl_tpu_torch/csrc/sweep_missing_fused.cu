@@ -257,11 +257,30 @@ __device__ __forceinline__ void stage_tiles(
 // v[W ..]: the products of a and b in one RW-aligned group ((a ^ b) < RW)
 // rounded to bf16, the others in f32 (RW = 0: none rounded, the float32
 // instance; RW = W, every pair rounded: the tensor cores sum them,
-// window_grams, so none here).
-template <int RW>
+// window_grams, so none here).  PRB, the probe instance: the f32 pairs of
+// a and b with (a ^ b) >= mw (in two windows of mw predictors) without the
+// mask (noadvmask's advance between windows under 8).
+template <int RW, bool PRB = false>
 __device__ __forceinline__ void pair_sums(const float* xv, float m,
-                                          float* v) {
+                                          float* v, int mw = W) {
   if constexpr (RW < W) {
+    if constexpr (PRB) {
+      if (mw < W) {  // a probe's pairs across two windows of mw
+        int e = W;
+#pragma unroll
+        for (int a = 1; a < W; ++a)
+#pragma unroll
+          for (int b = 0; b < a; ++b, ++e) {
+            if ((a ^ b) < RW)
+              v[e] = fmaf(m, __bfloat162float(__float2bfloat16_rn(
+                                 __fmul_rn(xv[a], xv[b]))), v[e]);
+            else
+              v[e] = fmaf(__fmul_rn(xv[a], xv[b]), (a ^ b) < mw ? m : 1.f,
+                          v[e]);
+          }
+        return;
+      }
+    }
     float mx[W - 1];
 #pragma unroll
     for (int b = 0; b < W - 1; ++b) mx[b] = m * xv[b];
@@ -283,25 +302,42 @@ __device__ __forceinline__ void pair_sums(const float* xv, float m,
 // xa, deltas dl: f += m * (xa . dl)); PROJ then adds this window's
 // projections (x row xp) of the advanced f (PRE: of f from before the
 // advance) and masked pair sums (pair_sums<RW>) into v.  Returns the new f.
-template <bool ADV, bool PROJ, int RW, bool PRE = false>
+// PRB, the probe instance (ops/sweep_missing_fused.py:MIS_PROBES): f
+// advances by the rule arule (0: not at all, noadv; 1: masked; 2: without
+// the mask, noadvmask); `pre` in place of PRE, where `cross` plus the
+// previous window's masked increment (the f32 pairs of the second 8-window
+// of a 16-window with the first, as one masked projection); the pair sums
+// only where `pairs` (none under noseq), in windows of pwin predictors (the
+// pairs across two windows under 8 by the advance's rule: pair_sums).
+template <bool ADV, bool PROJ, int RW, bool PRE = false, bool PRB = false>
 __device__ __forceinline__ float row_update(float f, float m,
                                             const float* xa, const float* xp,
-                                            const float* dl, float* v) {
+                                            const float* dl, float* v,
+                                            int arule = 1, bool pre = false,
+                                            bool cross = false,
+                                            bool pairs = true, int pwin = W) {
   const float f0 = f;
+  float s = 0.f;
   if (ADV) {
     float xv[W];
     load8(xa, xv);
-    float s = xv[0] * dl[0];
+    s = xv[0] * dl[0];
 #pragma unroll
     for (int i = 1; i < W; ++i) s = fmaf(xv[i], dl[i], s);
-    f = fmaf(m, s, f);
+    if (!PRB || arule == 1)
+      f = fmaf(m, s, f);
+    else if (arule == 2)
+      f = __fadd_rn(f, s);
   }
   if (PROJ) {
     float xv[W];
     load8(xp, xv);
+    const float fp = !(PRB ? pre : PRE) ? f
+                     : PRB && cross     ? fmaf(m, s, f0)
+                                        : f0;
 #pragma unroll
-    for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], PRE ? f0 : f, v[i]);
-    pair_sums<RW>(xv, m, v);
+    for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], fp, v[i]);
+    if (!PRB || pairs) pair_sums<RW, PRB>(xv, m, v, arule == 2 ? pwin : W);
   }
   return f;
 }
@@ -357,14 +393,17 @@ __device__ __forceinline__ void deep_rows(
 // xp) into v.  On chip, xa and xp are x slots and Fm lives in fm_s;
 // otherwise they point into x at the windows' first columns and Fm is the
 // device slice at fm.  Each warp takes two rows per step, both read before
-// either is written back, so their loads and FMA chains overlap.
-template <bool ON_CHIP, bool ADV, bool PROJ, int RW, bool PRE = false>
+// either is written back, so their loads and FMA chains overlap.  PRB: the
+// probe instance's rows (row_update's arule, pre, cross, pairs, pwin).
+template <bool ON_CHIP, bool ADV, bool PROJ, int RW, bool PRE = false,
+          bool PRB = false>
 __device__ __forceinline__ void window_pass(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
     const float* __restrict__ xa, const float* __restrict__ xp,
     const float* __restrict__ D_s, float* __restrict__ v, int nr, int p,
-    int q, int k, bool cvalid, int warp, int lane) {
+    int q, int k, bool cvalid, int warp, int lane, int arule = 1,
+    bool pre = false, bool cross = false, bool pairs = true, int pwin = W) {
   float dl[W];
 #pragma unroll
   for (int i = 0; i < W; ++i) dl[i] = ADV ? D_s[i * QS + lane] : 0.f;
@@ -384,18 +423,21 @@ __device__ __forceinline__ void window_pass(
     const int u = t + NW;
     float f0 = fm_at(t), f1 = fm_at(u);
     const float m0 = m_at(t), m1 = m_at(u);
-    f0 = row_update<ADV, PROJ, RW, PRE>(f0, m0, xa + t * xs, xp + t * xs, dl,
-                                        v);
-    f1 = row_update<ADV, PROJ, RW, PRE>(f1, m1, xa + u * xs, xp + u * xs, dl,
-                                        v);
+    f0 = row_update<ADV, PROJ, RW, PRE, PRB>(f0, m0, xa + t * xs, xp + t * xs,
+                                             dl, v, arule, pre, cross, pairs,
+                                             pwin);
+    f1 = row_update<ADV, PROJ, RW, PRE, PRB>(f1, m1, xa + u * xs, xp + u * xs,
+                                             dl, v, arule, pre, cross, pairs,
+                                             pwin);
     if (ADV) {
       fm_at(t) = f0;
       fm_at(u) = f1;
     }
   }
   if (t < nr) {
-    const float f = row_update<ADV, PROJ, RW, PRE>(
-        fm_at(t), m_at(t), xa + t * xs, xp + t * xs, dl, v);
+    const float f = row_update<ADV, PROJ, RW, PRE, PRB>(
+        fm_at(t), m_at(t), xa + t * xs, xp + t * xs, dl, v, arule, pre,
+        cross, pairs, pwin);
     if (ADV) fm_at(t) = f;
   }
 }
@@ -784,8 +826,23 @@ __device__ __forceinline__ void z_rows_of_rank(
 // SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, ...,
 // 128).  Two CTAs per SM (128 registers), but in device memory from SUB =
 // 16 on one (its cross pairs' 64-bit addresses do not fit 128 registers
-// without spilling; missing_launch_plan counts on one there)
-template <bool FM_ON_CHIP, int SUB>
+// without spilling; missing_launch_plan counts on one there).  PRB: the
+// probe instance of SUB = 0, 2, 4, 8 or 16 (the JAX kernel's probes,
+// atlasqtl_tpu/ops/sweep_missing_fused.py:155, 197, 207-213), whose
+// runtime `pcode` is 0 (noseq, noh: no pairs and no pushes inside a
+// window), 1 (noadv: Fm never advances), 2 (noadvmask: Fm advances
+// without the mask) or 3 (every part kept: the exact function, to time the
+// others against), in windows of pwin = 1, 2, 4, 8 or 16 predictors (under
+// 8, the pairs of an 8-window in one window of pwin are pushed where the
+// probe keeps the pushes, those across two where it keeps the advance,
+// without the mask under noadvmask); at 16 the
+// second 8-window of each 16-window projects Fm from before the first's
+// advance, and takes its pairs with the first (but under noseq) as the
+// first's masked increment in float32 (SUB = 0), through the rounded
+// cross pairs under pair_bf16 (SUB = 16).  The probe instance alone takes
+// the code and the window, as two more arguments (PP: int, int), so that
+// the others keep their parameters.
+template <bool FM_ON_CHIP, int SUB, bool PRB = false, typename... PP>
 __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     sweep_missing_kernel(
     const float* __restrict__ x,        // (n, p)
@@ -807,10 +864,15 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     float* __restrict__ mu_out,         // (p, q)
     float* __restrict__ zrow_part,      // (n_slices, p)
     float* __restrict__ z_col,          // (q,)
-    int n, int p, int q, int R, int nloc) {
+    int n, int p, int q, int R, int nloc,
+    PP... probe_args) {                 // PRB: the probe's code, its window
   static_assert(SUB == 0 || SUB == 2 || SUB == 4 || SUB == W || SUB == 2 * W ||
                     SUB == 4 * W || SUB == 8 * W || SUB == 16 * W,
                 "the float32 instance or a pair_bf16 window");
+  static_assert(PRB == (sizeof...(PP) == 2), "PRB: the code and the window");
+  static_assert(!PRB || SUB == 0 || SUB == 2 || SUB == 4 || SUB == W ||
+                    SUB == 2 * W,
+                "the probe instances: float32, pair_bf16 at 2 to 16");
   // pairs rounded within RW-aligned groups of an 8-window; TC: every pair
   // of an 8-window rounded, its pair Grams on the tensor cores; CROSS: odd
   // 8-windows project the 16-window's start and add its cross pairs; DEEP:
@@ -865,6 +927,12 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   const int row0 = FM_ON_CHIP ? rank * nloc : 0;
   const int nr = FM_ON_CHIP ? max(0, min(n, row0 + nloc) - row0) : n;
   const float c = scal[0], kz = scal[1], sig2_inv = scal[2];
+  int pcode = 0, pwin = W;
+  if constexpr (PRB) {
+    const int pa[] = {probe_args...};
+    pcode = pa[0];
+    pwin = pa[1];
+  }
   const float half_c = 0.5f * c;
   const float zeta_k = cvalid ? zeta[k] : 0.f;
   const float qm_k = cvalid ? q_mask[k] : 0.f;
@@ -873,6 +941,11 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   const float* mask_rows = mask + (size_t)row0 * q;
   const int nwin = p / W;
   const int WSF = ws_floats(R);
+  // PRB: Fm's advance rule (row_update), whether a window forms its pairs
+  // (a pair_bf16 probe instance runs noadv and noadvmask only; under noseq
+  // a window under 8 needs those across its windows)
+  const int arule = pcode == 1 ? 0 : pcode == 2 ? 2 : 1;
+  const bool pairs = SUB != 0 || pcode != 0 || pwin < W;
 
   // the probe thread keeps its start and latest tick in CLK_s[NCLK ..],
   // not in registers
@@ -938,7 +1011,23 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     const size_t xs = FM_ON_CHIP ? W : (size_t)p;
     // advance by the previous window (if any), project this one
     bool cross = false;  // TC: this pass contracts cross pairs
-    if constexpr (DEEP) {
+    if constexpr (PRB) {
+      // the second 8-window of a 16-window projects its start (f32: plus
+      // the first's masked increment, but under noseq; pair_bf16: its
+      // rounded cross pairs)
+      const bool pre = SUB != W && pwin == 2 * W && (w & 1);
+      // noadv: a pass that only projects, but where the f32 cross pairs
+      // need the first 8-window's increment
+      if (w == 0 || (arule == 0 && !(pre && !CROSS && pairs)))
+        window_pass<FM_ON_CHIP, false, true, RW, false, true>(
+            FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+            cvalid, warp, lane, arule, false, false, pairs, pwin);
+      else
+        window_pass<FM_ON_CHIP, true, true, RW, false, true>(
+            FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+            cvalid, warp, lane, arule, pre, !CROSS && pairs, pairs, pwin);
+      cross = CROSS && pre;
+    } else if constexpr (DEEP) {
       const int j = w % J;  // this chain window's place in its SUB-window
       deep_rows<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, xp, D_s,
                                  v, row0, nr, p, q, k, cvalid, warp, lane,
@@ -1091,9 +1180,24 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
         const float gam = __fdividef(1.f, 1.f + __expf(-logit));
         const float delta = gam * mu - bo;
         dw[e] = delta;
+        // a probe pushes inside a window of pwin but under noseq, across
+        // two (pwin < 8) but under noadv
+        if constexpr (PRB) {
+          if (pwin >= W ? pcode != 0 : false) {
 #pragma unroll
-        for (int a = i + 1; a < W; ++a)
-          rr[a] += hh[a * (a - 1) / 2 + i] * delta;
+            for (int a = i + 1; a < W; ++a)
+              rr[a] += hh[a * (a - 1) / 2 + i] * delta;
+          } else if (pwin < W) {
+#pragma unroll
+            for (int a = i + 1; a < W; ++a)
+              if ((i ^ a) < pwin ? pcode != 0 : arule != 0)
+                rr[a] += hh[a * (a - 1) / 2 + i] * delta;
+          }
+        } else {
+#pragma unroll
+          for (int a = i + 1; a < W; ++a)
+            rr[a] += hh[a * (a - 1) / 2 + i] * delta;
+        }
         const float msk = ws[i] * qm_k;
         gw[e] = gam * msk;
         if (cvalid && rank == 0) {
@@ -1127,7 +1231,13 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     z_rows_of_rank(warp, GW_s + ((nwin - 1) & 1) * W * QS, N_s,
                    WS_s + ((nwin - 1) % NWS) * WSF, zrow_part, p - W, cs,
                    rank, R, p, slice, lane, zeta_k, qm_k, kz, zc);
-  if constexpr (DEEP)
+  if constexpr (PRB) {
+    if (arule != 0)  // noadv: no last advance
+      window_pass<FM_ON_CHIP, true, false, RW, false, true>(
+          FM_s, MB_s, fm_rows, mask_rows,
+          FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * xr * W : x + (p - W),
+          nullptr, D_s, v, nr, p, q, k, cvalid, warp, lane, arule);
+  } else if constexpr (DEEP)
     deep_rows<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
                                D_s, v, row0, nr, p, q, k, cvalid, warp, lane,
                                p - SUB, false);
@@ -1167,13 +1277,25 @@ cudaError_t set_smem(size_t smem) {
                               (int)smem);
 }
 
-// sets the instance's shared memory and launches it on the config
-template <bool FM_ON_CHIP, int SUB, typename... Args>
+// sets the instance's shared memory and launches it on the config (PRB:
+// the probe instance, the probe's code and window last in args)
+template <bool FM_ON_CHIP, int SUB, bool PRB, typename... Args>
 cudaError_t launch_instance(const cudaLaunchConfig_t& cfg, Args... args) {
-  const cudaError_t err = set_smem<FM_ON_CHIP, SUB>(cfg.dynamicSmemBytes);
+  cudaError_t err;
+  if constexpr (PRB)
+    err = cudaFuncSetAttribute(
+        sweep_missing_kernel<FM_ON_CHIP, SUB, true, int, int>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)cfg.dynamicSmemBytes);
+  else
+    err = set_smem<FM_ON_CHIP, SUB>(cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&cfg, sweep_missing_kernel<FM_ON_CHIP, SUB>,
-                            args...);
+  if constexpr (PRB)
+    return cudaLaunchKernelEx(
+        &cfg, sweep_missing_kernel<FM_ON_CHIP, SUB, true, int, int>, args...);
+  else
+    return cudaLaunchKernelEx(&cfg, sweep_missing_kernel<FM_ON_CHIP, SUB>,
+                              args...);
 }
 
 // f(on_chip, sub) for the instance of (fm_on_chip, sub), both passed as
@@ -1193,6 +1315,26 @@ cudaError_t with_instance(bool on_chip, int sub, F f) {
     ATLASQTL_MIS_SUB(4 * W);
     ATLASQTL_MIS_SUB(8 * W);
     ATLASQTL_MIS_SUB(16 * W);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ATLASQTL_MIS_SUB
+}
+
+// f(on_chip, sub) for the probe instance of (fm_on_chip, sub): sub 0, 2,
+// 4, 8, 16
+template <typename F>
+cudaError_t with_probe_instance(bool on_chip, int sub, F f) {
+#define ATLASQTL_MIS_SUB(S)                                     \
+  case S:                                                       \
+    return on_chip ? f(std::true_type{}, std::integral_constant<int, S>{}) \
+                   : f(std::false_type{}, std::integral_constant<int, S>{})
+  switch (sub) {
+    ATLASQTL_MIS_SUB(0);
+    ATLASQTL_MIS_SUB(2);
+    ATLASQTL_MIS_SUB(4);
+    ATLASQTL_MIS_SUB(W);
+    ATLASQTL_MIS_SUB(2 * W);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1239,7 +1381,10 @@ extern "C" {
 // outputs are m stacked arrays; x, X^T Y, x_norm_sq, the mask and the
 // p/q masks are shared.  sub = 0 launches the float32 instance, sub = 2,
 // 4, ..., 128 the pair_bf16 instance at that window (B, and so p, a
-// multiple of it).
+// multiple of it).  probe >= 0 launches the probe instance of sub (0, or
+// the pair_bf16 window pwin but under noseq) with that probe (0 noseq, 1
+// noadv, 2 noadvmask, 3 every part kept) in windows of pwin = 1, 2, 4, 8
+// or 16 predictors.
 // Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape, plan or window it does not take.
 int atlasqtl_sweep_missing_fused(
@@ -1249,25 +1394,39 @@ int atlasqtl_sweep_missing_fused(
     const float* zeta, const float* q_mask, const float* tauv,
     const float* scal, float* gam_out, float* mu_out, float* zrow_part,
     float* z_row, float* z_col, int n, int p, int q, int B, int R,
-    int cluster, int fm_on_chip, int m, int sub, void* stream) {
+    int cluster, int fm_on_chip, int m, int sub, int probe, int pwin,
+    void* stream) {
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
   const int smem = plan_smem(n, cluster, fm_on_chip, R, sub);
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
-      smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && B % sub != 0))
+      smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && B % sub != 0) ||
+      (probe >= 0 &&
+       (probe > 3 || pwin <= 0 || (W % pwin != 0 && pwin != 2 * W) ||
+        B % pwin != 0 ||
+        (sub != 0 && (sub != pwin || probe == 0)))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(grid, m, smem, cluster, attr, st);
+  auto run = [&](auto on, auto s, auto prb, auto... probe_args) {
+    return launch_instance<decltype(on)::value, decltype(s)::value,
+                           decltype(prb)::value>(
+        cfg, x, cp, gam_in, mu_in, xns, mask, l_aug, n_stack, fm, theta,
+        p_mask, zeta, q_mask, tauv, scal, gam_out, mu_out, zrow_part, z_col,
+        n, p, q, R, nloc, probe_args...);
+  };
   cudaError_t err =
-      with_instance(fm_on_chip != 0, sub, [&](auto on, auto s) {
-        return launch_instance<decltype(on)::value, decltype(s)::value>(
-            cfg, x, cp, gam_in, mu_in, xns, mask, l_aug, n_stack, fm, theta,
-            p_mask, zeta, q_mask, tauv, scal, gam_out, mu_out, zrow_part,
-            z_col, n, p, q, R, nloc);
-      });
+      probe >= 0 ? with_probe_instance(fm_on_chip != 0, sub,
+                                       [&](auto on, auto s) {
+                                         return run(on, s, std::true_type{},
+                                                    probe, pwin);
+                                       })
+                 : with_instance(fm_on_chip != 0, sub, [&](auto on, auto s) {
+                     return run(on, s, std::false_type{});
+                   });
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

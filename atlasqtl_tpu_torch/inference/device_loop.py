@@ -67,8 +67,9 @@ def eligible(cfg, verbose, data, checkpointer=None, tracer=None) -> bool:
 
 def launch_counters():
     """The kernel wrappers whose `launches` count their kernels' launches
-    (and the counts of B1's and B2's bf16 instances and of B1's lookahead
-    variant); a replayed graph adds the launches it captured to each."""
+    (and the counts of B1's and B2's bf16 instances, of B1's lookahead
+    variant and of both probe instances); a replayed graph adds the
+    launches it captured to each."""
     from ..ops import sweep_fused, sweep_missing_fused, sweep_pallas
     from ..ops import sweep_staggered
     return (sweep_fused.sweep_fused, sweep_missing_fused.sweep_missing_fused,
@@ -76,7 +77,9 @@ def launch_counters():
             sweep_staggered.sweep_fused_staggered,
             sweep_fused.sweep_fused.bf16,
             sweep_missing_fused.sweep_missing_fused.pair_bf16,
-            sweep_fused.sweep_fused.lookahead)
+            sweep_fused.sweep_fused.lookahead,
+            sweep_fused.sweep_fused.probe,
+            sweep_missing_fused.sweep_missing_fused.probe)
 
 
 def _count_replay():

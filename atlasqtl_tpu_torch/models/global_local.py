@@ -25,7 +25,8 @@ from ..ops.horseshoe import lam2_inv_annealed, lam2_inv_exact
 from ..ops.special import as_scalar, log_ndtr_both, q_approx
 from ..ops.sweep import (SweepConsts, mis_pair_gram, sweep_complete,
                          sweep_missing, sweep_missing_blocked)
-from ..ops.sweep_fused import (FUSED, fused_operands, lookahead_gram,
+from ..ops.sweep_fused import (FUSED, fused_operands, fused_window,
+                               lookahead_gram, probe_parts,
                                sweep_complete_fused, sweep_fused)
 from ..ops.sweep_pallas import sweep_complete_pallas
 from ..ops.sweep_staggered import sweep_complete_staggered
@@ -43,24 +44,21 @@ def _round_up(v, m):
 
 
 def check_config(cfg: Config):
-    """Reject the options whose paths the port does not have yet (each
-    names its ROADMAP.md item).  The TPU scheduling fields are ignored but
-    for sweep_lookahead, which B1 honours under mxu_bf16 (in float32 it is
-    the baseline's algebra); mxu_bf16 and mis_pair_bf16 reach B1 and B2
-    (types.py:Config).  Under mis_pair_bf16 at block_size 128, the one
-    block where the flag reaches B2, the JAX kernel's window mis_sub must
-    divide the block (ops/sweep_missing_fused.py:pair_window raises
+    """Reject the options the port cannot take.  The TPU scheduling fields
+    are ignored but for sweep_lookahead, which B1 honours under mxu_bf16
+    (in float32 it is the baseline's algebra), and sweep_sub, the window
+    of B1's perf probes; mxu_bf16 and mis_pair_bf16 reach B1 and B2
+    (types.py:Config).  sweep_probe is "none" or one of the JAX kernel's
+    eleven probes (ops/sweep_fused.py:PROBES), else ValueError; it reaches
+    B1 where `_b1_probe` says.  Under mis_pair_bf16 at block_size 128, the
+    one block where the flag reaches B2, the JAX kernel's window mis_sub
+    must divide the block (ops/sweep_missing_fused.py:pair_window raises
     ValueError, as the JAX kernel's assert does).  The mesh axes q_axis and
     p_axis come from atlasqtl(mesh=...) (parallel/mesh.py)."""
     if cfg.sweep not in ("auto", "fused", "pallas", "xla"):
         raise ValueError(f"unknown Config.sweep={cfg.sweep!r}")
     if cfg.sweep_probe != "none":
-        raise NotImplementedError(
-            "Config.sweep_probe (ROADMAP.md B5c) is not ported: its values "
-            "are wrong-math perf probes of the TPU kernel; on the card the "
-            "kernels' per-phase clocks take their place "
-            "(ops/sweep_fused.py:phase_clocks(), "
-            "ops/sweep_missing_fused.py:phase_clocks())")
+        probe_parts(cfg.sweep_probe)
     if cfg.mis_pair_bf16 and cfg.block_size == 128:
         pair_window(cfg.mis_sub, cfg.block_size)
 
@@ -411,12 +409,36 @@ def _complete_impl(cfg: Config, device) -> str:
 
 def _stagger(cfg: Config, n: int, q: int) -> bool:
     """Whether cfg.sweep_stagger turns the "fused" engine into B4: on one
-    device, and only where the JAX package's fused tile at (n, q) is at
-    least 256 (atlasqtl_tpu/models/global_local.py:555-557); elsewhere B1
-    runs, and honours mxu_bf16 as JAX's fused kernel does (:566-578)."""
+    device, without a perf probe, and only where the JAX package's fused
+    tile at (n, q) is at least 256 (atlasqtl_tpu/models/
+    global_local.py:555-557); elsewhere B1 runs, and honours mxu_bf16 (and
+    the probe) as JAX's fused kernel does (:566-578)."""
     tile = fused_q_tile(n, q)
     return (cfg.sweep_stagger and cfg.q_axis is None and tile is not None
-            and tile >= 256)
+            and tile >= 256 and cfg.sweep_probe == "none")
+
+
+def _b1_probe(cfg: Config, device, n: int, q: int) -> bool:
+    """Whether cfg.sweep_probe reaches B1 (its probe instance) at n padded
+    samples and the padded q: only where the JAX package passes it to its
+    fused kernel (atlasqtl_tpu/models/global_local.py:566-578): one
+    device (its sharded call, :700-715, and its 2-D pipeline do not take
+    it), the "fused" engine (B1: under a probe sweep_stagger does not take
+    B4, `_stagger`), complete data or impute, and a q where the JAX
+    kernel finds a tile (`fused_q_tile`).  Elsewhere (the B3 route, the
+    plain engine, the exact-missing path, a mesh, no tile) the probe is
+    ignored, as in the JAX package."""
+    return (cfg.sweep_probe != "none" and cfg.q_axis is None
+            and _complete_impl(cfg, device) == "fused"
+            and fused_q_tile(n, q) is not None)
+
+
+def _fused_sub(cfg: Config, n: int, block: int) -> int:
+    """The probes' chain window: cfg.sweep_sub, or 8 at n padded samples up
+    to 2048 and 32 above (atlasqtl_tpu/models/global_local.py:357-361
+    _fused_sub), clipped to the block; ValueError where it does not divide
+    it (ops/sweep_fused.py:fused_window)."""
+    return fused_window(cfg.sweep_sub or (8 if n <= 2048 else 32), block)
 
 
 def _b1_bf16(cfg: Config, device, n: int, q: int) -> bool:
@@ -441,9 +463,12 @@ def _b1_lookahead(cfg: Config, device, n: int, q: int) -> bool:
     JAX package passes the flag to its fused kernel alone
     (atlasqtl_tpu/models/global_local.py: 576, and on a 1-D mesh :712), as
     this one to B1 alone; its 2-D pipeline's tile processor does not take
-    it (atlasqtl_tpu/parallel/pipeline.py:110-140), nor does the port's."""
+    it (atlasqtl_tpu/parallel/pipeline.py:110-140), nor does the port's.
+    Where a perf probe reaches B1 (`_b1_probe`) the lookahead is off
+    (atlasqtl_tpu/ops/sweep_fused.py:669)."""
     return (cfg.sweep_lookahead and cfg.p_axis is None
-            and _b1_bf16(cfg, device, n, q))
+            and _b1_bf16(cfg, device, n, q)
+            and not _b1_probe(cfg, device, n, q))
 
 
 def _missing_uses_kernel(cfg: Config, device) -> bool:
@@ -755,7 +780,7 @@ def _sweep_local(data, state, pre, gram_blocks, cfg, annealed, lite, block,
             fused = functools.partial(
                 sweep_complete_fused, bf16=_b1_bf16(cfg, *_at(data)),
                 x_bf16=data.x_bf16, lookahead=_b1_lookahead(cfg, *_at(data)),
-                goff=data.goff)
+                goff=data.goff, **_probe_kw(cfg, data, gram_blocks.shape[1]))
         (beta_new, gam_new, mu_new, fitted, z_row, z_col,
          colstats) = fused(
             data.x, cp_x_y, gram_blocks, state.beta, state.fitted,
@@ -777,6 +802,14 @@ def _sweep_local(data, state, pre, gram_blocks, cfg, annealed, lite, block,
     return gam_new, mu_new, beta_new, fitted, z_row, z_col, colstats
 
 
+def _probe_kw(cfg: Config, data: Data, block: int) -> dict:
+    """B1's probe and window where the probe reaches it (`_b1_probe`)."""
+    if not _b1_probe(cfg, *_at(data)):
+        return {}
+    return dict(probe=cfg.sweep_probe,
+                sub=_fused_sub(cfg, data.x.shape[0], block))
+
+
 def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, cfg: Config,
                           lite, annealed):
     """One B1 sweep of every state (sweep_fused with a replica axis)."""
@@ -796,7 +829,7 @@ def _sweep_fused_replicas(data: Data, states, pres, gram_blocks, cfg: Config,
     beta, gam, mu, fitted, z_row, z_col, stats = sweep_fused(
         *FUSED.stack(parts, also), goff, block_size=block,
         emit_gam_mu=not lite, c_one=not annealed, bf16=bf16,
-        lookahead=lookahead)
+        lookahead=lookahead, **_probe_kw(cfg, data, block))
     return [(None if gam is None else gam[r], None if mu is None else mu[r],
              beta[r], fitted[r], z_row[r], z_col[r],
              tuple(s[r] for s in stats)) for r in range(len(states))]

@@ -50,6 +50,7 @@ import shutil
 import subprocess
 import types
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -137,7 +138,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 12 + [ptr] * 5
+        lib.atlasqtl_sweep_fused.argtypes = [ptr] * 23 + [i32] * 14 + [ptr] * 5
         lib.atlasqtl_sweep_staggered.argtypes = [ptr] * 23 + [i32] * 7 + [ptr]
         for fn in (lib.atlasqtl_sweep_fused, lib.atlasqtl_sweep_staggered):
             fn.restype = i32
@@ -157,7 +158,7 @@ def _load():
         lib.atlasqtl_sweep_staggered_clocks.restype = i32
         lib.atlasqtl_inner_gs_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_inner_gs_occupancy.restype = i32
-        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 9
+        lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 11
                                                      + [ptr])
         lib.atlasqtl_sweep_missing_fused.restype = i32
         lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 5
@@ -186,6 +187,7 @@ def _load():
 # the kernel's constants (csrc/sweep_fused.cu)
 FUSED_BMAX = 128          # the largest block a launch walks in one piece
 FUSED_WIDTHS = (32, 40)   # the slice widths built (response columns)
+FUSED_PROBE_WIDTHS = (32,)   # those of the probe instance
 FUSED_NCH = 32            # sample rows per pass chunk
 FUSED_NSTAGE = 3          # F and x_b chunk stages
 FUSED_NXA = 2             # x_{b-1} chunk stages
@@ -283,7 +285,8 @@ def sub_block_gram(gram_flat, block: int, sub: int):
 
 def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
                       sms: int = H100_SMS, m: int = 1,
-                      bf16: bool = False, lookahead: bool = False) -> dict:
+                      bf16: bool = False, lookahead: bool = False,
+                      probe: bool = False) -> dict:
     """The launch of B1 at (n, q, block, r + 2) for m replicas on a card of
     `sms` SMs: one CTA per slice and replica and one CTA per SM (a second
     needs at most 128 registers per thread and 113 KB of shared memory,
@@ -302,13 +305,16 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     lookahead variant, whose overlapped kernel takes a block up to
     FUSED_BMAX whole (224 KB at block 128, width 40, r + 2 = 48) and a
     larger block in pieces through the bf16 instance's serial schedule.
-    Raises ValueError on a shape the kernel does not take."""
+    probe: the plan of the probe instance, the float32 one's in slices of
+    FUSED_PROBE_WIDTHS (at 40 columns its code would spill).  Raises
+    ValueError on a shape the kernel does not take."""
     if (n <= 0 or block <= 0 or block % FUSED_W or q <= 0 or q % 4
             or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
                          f"q={q}, block={block}, r+2={r_aug}, m={m}")
     sub = sub_block(block)
-    width, waves = _widest_fill(q, FUSED_WIDTHS, sms, m)
+    width, waves = _widest_fill(
+        q, FUSED_PROBE_WIDTHS if probe else FUSED_WIDTHS, sms, m)
     return dict(slice_width=width, sub_block=sub, cluster=1,
                 grid=-(-q // width), waves=waves,
                 smem_bytes=_fused_smem_bytes(
@@ -441,6 +447,154 @@ def _outputs(out, fitted):
             out["z_col"], (out["gcol"], out["m2gcol"], out["b2col"]))
 
 
+class Probe(NamedTuple):
+    """What one perf probe of B1 keeps of the sweep (atlasqtl_tpu/ops/
+    sweep_fused.py:116-212, 265-361, 429-433, 509-519): the probit tiles
+    (else the logit tile is u = theta + zeta), the projection x_b^T F
+    (else r = X^T Y's rows), the within-window pushes, the cross-window
+    corrections (with neither, the Jacobi update), the sigmoid (else
+    clip(logit, 0, 1)), the advance F += x_b delta, the Z Mills tiles
+    (else z = gam), and dmalite's pin of x and X^T Y to block 0."""
+    tiles: bool = True
+    proj: bool = True
+    pushes: bool = True
+    corrections: bool = True
+    sigmoid: bool = True
+    advance: bool = True
+    mills: bool = True
+    pin: bool = False
+
+    @property
+    def jacobi(self) -> bool:
+        return not self.pushes and not self.corrections
+
+    @property
+    def diagonal(self) -> bool:
+        """Whether r loses beta diag(G): after the projection, and in the
+        Jacobi update (nomxu's r = X^T Y too: atlasqtl_tpu/ops/
+        sweep_fused.py:199-201)."""
+        return self.proj or self.jacobi
+
+    def code(self, bf16: bool) -> int:
+        """The probe instance's runtime code (csrc/sweep_fused.cu:PrBits):
+        one bit per part kept, the diagonal's, and bf16 x."""
+        return (sum(int(v) << i for i, v in enumerate(self))
+                | int(self.diagonal) << len(self) | int(bf16) << len(self) + 1)
+
+
+# the JAX kernel's eleven probes
+PROBES = {
+    "jacobi": Probe(pushes=False, corrections=False),
+    "jacobi_min": Probe(tiles=False, pushes=False, corrections=False,
+                        mills=False),
+    "nomxu": Probe(tiles=False, proj=False, pushes=False, corrections=False,
+                   advance=False, mills=False),
+    "nor0": Probe(proj=False),
+    "chain_only": Probe(tiles=False, proj=False, advance=False, mills=False),
+    "exact_noz": Probe(mills=False),
+    "noseq": Probe(pushes=False, mills=False),
+    "nosig": Probe(sigmoid=False, mills=False),
+    "norank": Probe(corrections=False, mills=False),
+    "noadv": Probe(advance=False),
+    "dmalite": Probe(pin=True),
+}
+
+
+def probe_parts(probe: str) -> Probe:
+    """The `Probe` of Config.sweep_probe's value `probe`; ValueError for a
+    value that is neither one of PROBES nor "none" (the JAX kernel runs no
+    chain and leaves delta unwritten there)."""
+    if probe not in PROBES:
+        raise ValueError(f"unknown sweep probe {probe!r}: one of "
+                         f"{', '.join(PROBES)} (or 'none')")
+    return PROBES[probe]
+
+
+def probe_window_ok(window: int) -> bool:
+    """Whether B1's probe instance takes the chain window `window`: a
+    divisor of FUSED_W or a multiple of it (a window of FUSED_W rows then
+    lies in one window or is a run of whole ones)."""
+    return FUSED_W % window == 0 or window % FUSED_W == 0
+
+
+def fused_window(sub: int, block: int, what: str = "sweep_fused probe",
+                 name: str = "sub") -> int:
+    """A JAX fused kernel's window at its `sub` and predictor block
+    `block`: min(sub, block) (atlasqtl_tpu/ops/sweep_fused.py:500,
+    sweep_missing_fused.py:272); ValueError, naming `what` and the field
+    `name`, where it does not divide the block (those kernels' asserts).
+    B1's probes' chain window: under noseq and norank it changes the
+    function, the other probes do not depend on it beyond rounding."""
+    s = min(int(sub), int(block))
+    if s < 1 or block % s:
+        raise ValueError(f"{what}: the window {name}={sub} (clipped to {s}) "
+                         f"must divide the predictor block {block}")
+    return s
+
+
+def _probe_chain(r, g, ad, cp_b, beta_b, ct, c_inv_2s2, sub, parts):
+    """The JAX kernel's windowed chain of one block under a probe
+    (atlasqtl_tpu/ops/sweep_fused.py:194-358): windows of `sub` rows; before
+    window s the corrections G[lo:lo+sub, :lo] delta[:lo] (if kept), inside
+    it each row's push to the window's later rows (if kept); with neither
+    it is the Jacobi update.  Returns (gam, mu, delta)."""
+    B = beta_b.shape[0]
+    gam_b = torch.empty_like(beta_b)
+    mu_b = torch.empty_like(beta_b)
+    delta = torch.zeros_like(beta_b)
+    for lo in range(0, B, sub):
+        if lo and parts.corrections:
+            r[lo:lo + sub] += g[lo:lo + sub, :lo] @ delta[:lo]
+        for i in range(lo, lo + sub):
+            mu_i = ct * (cp_b[i] - r[i])
+            logit = ad[i] + mu_i * mu_i * c_inv_2s2
+            gam_i = (torch.sigmoid(logit) if parts.sigmoid
+                     else torch.clamp(logit, 0.0, 1.0))
+            delta[i] = gam_i * mu_i - beta_b[i]
+            if parts.pushes:
+                r[i + 1:lo + sub] += g[i + 1:lo + sub, i, None] * delta[i]
+            gam_b[i], mu_b[i] = gam_i, mu_i
+    return gam_b, mu_b, delta
+
+
+def _sweep_fused_probe_one(x, cp_x_y, gram_flat, l_aug, n_stack, beta,
+                           fitted, theta, p_mask, zeta, q_mask, sig2_beta,
+                           tau, c, kz, goff, *, block_size, emit_gam_mu,
+                           c_one, bf16, probe, sub):
+    """B1 under the perf probe `probe` in windows of `sub`, as the JAX
+    kernel computes it (its whole block, whatever the block; `PROBES`
+    says what each probe keeps; goff, the lookahead's, is not read: no
+    probe takes the lookahead)."""
+    parts = probe_parts(probe)
+    B = block_size
+    ct = c * sig2_beta * tau
+    c_inv_2s2 = c * 0.5 / sig2_beta
+    out = _new_outputs(beta, theta, emit_gam_mu)
+    rnd = ((lambda t: _bf16_round(t, fitted.dtype)) if bf16
+           else (lambda t: t))
+    xp = rnd(x)
+    for b in range(x.shape[1] // B):
+        sl = slice(b * B, (b + 1) * B)
+        xs = slice(0, B) if parts.pin else sl   # dmalite: block 0's x, cp
+        xb, g = xp[:, xs], gram_flat[sl]
+        u = theta[sl, None] + zeta[None, :]
+        if parts.tiles:
+            ad, imrd, imr0u = _tiles(u, l_aug[sl], n_stack, c, kz, c_one)
+        else:
+            ad = u
+        diag = torch.diagonal(g)[:, None]
+        r = xb.T @ rnd(fitted) if parts.proj else cp_x_y[xs].clone()
+        if parts.diagonal:
+            r = r - beta[sl] * diag
+        gam_b, mu_b, delta = _probe_chain(r, g, ad, cp_x_y[xs], beta[sl], ct,
+                                          c_inv_2s2, sub, parts)
+        if parts.advance:
+            fitted = fitted + xb @ rnd(delta)
+        z_b = gam_b * imrd + imr0u if parts.mills else gam_b
+        _emit_block(out, sl, gam_b, mu_b, z_b, p_mask[sl], q_mask)
+    return _outputs(out, fitted)
+
+
 class Operands:
     """A sweep kernel's operands in call order, each with its dims without
     a replica axis, and which of them a batched launch of several replicas
@@ -517,17 +671,27 @@ def sweep_fused_plain(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                       theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
                       goff=None, *, block_size: int, emit_gam_mu: bool = True,
                       c_one: bool = False, bf16: bool = False,
-                      lookahead: bool = False):
+                      lookahead: bool = False, probe: str = "none",
+                      sub: int = 16):
     """The kernel's function in plain tensor ops, block by block and row by
-    row in flat sequential order.  Same arguments and outputs as
-    `sweep_fused`; with a replica axis, one replica after another."""
+    row in flat sequential order; under a perf probe the JAX kernel's
+    windowed chain in windows of `fused_window(sub, block_size)`, with what
+    the probe drops left out (`_sweep_fused_probe_one`).  Same arguments
+    and outputs as `sweep_fused`; with a replica axis, one replica after
+    another."""
     args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
             zeta, q_mask, sig2_beta, tau, c, kz, goff)
     kw = dict(block_size=block_size, emit_gam_mu=emit_gam_mu, c_one=c_one,
-              bf16=bf16, lookahead=lookahead)
+              bf16=bf16)
+    one = _sweep_fused_plain_one
+    if probe != "none":
+        one = _sweep_fused_probe_one
+        kw.update(probe=probe, sub=fused_window(sub, block_size))
+    else:
+        kw["lookahead"] = lookahead
     if beta.dim() == 3:
-        return FUSED.loop(_sweep_fused_plain_one, args, kw)
-    return _sweep_fused_plain_one(*args, **kw)
+        return FUSED.loop(one, args, kw)
+    return one(*args, **kw)
 
 
 def _bf16_round(t, dtype):
@@ -572,7 +736,8 @@ def _sweep_fused_plain_one(x, cp_x_y, gram_flat, l_aug, n_stack, beta,
 def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                  theta, p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
                  goff=None, *, block_size, emit_gam_mu, c_one,
-                 slice_width=None, plan=None, bf16=False, lookahead=False):
+                 slice_width=None, plan=None, bf16=False, lookahead=False,
+                 probe=None, window=8):
     """Check the operands of one fused-sweep launch and launch the C entry
     point `entry` of the kernel library (atlasqtl_sweep_fused, B1, or
     atlasqtl_sweep_staggered, B4: the same arguments and function) under
@@ -586,8 +751,16 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     width than one replica's, and z_row then sums in another order).
     bf16 launches B1's bf16 instance (mxu_bf16), whose x is the bfloat16
     copy (`bf16_operand`); B4 has none.  lookahead launches that instance's
-    lookahead variant, which also reads `goff` (`lookahead_gram`).  Raises
-    on what the kernels cannot take and on a failed launch."""
+    lookahead variant, which also reads `goff` (`lookahead_gram`).  probe
+    (a `Probe`) launches B1's probe instance, in windows of `window` (a
+    divisor of FUSED_W or a multiple of it, else NotImplementedError): the
+    float32 instance's schedule in slices of FUSED_PROBE_WIDTHS, reading
+    the bf16 copy of x under bf16; a
+    block in pieces is the whole block there (each piece projects the
+    block-start F, the block's advance deferred to its last piece, the
+    earlier pieces' deltas through the Gram where the probe keeps them),
+    its deltas in a workspace.  Raises on what the kernels cannot take and
+    on a failed launch."""
     n, p = x.shape[-2:]
     q = beta.shape[-1]
     r_aug = l_aug.shape[-1]
@@ -603,6 +776,15 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     if bf16 and entry != "atlasqtl_sweep_fused":
         raise ValueError(f"{what} kernel: no bf16 instance (mxu_bf16 "
                          "reaches B1 only)")
+    if probe is not None and (lookahead or entry != "atlasqtl_sweep_fused"):
+        raise ValueError(f"{what} kernel: a probe runs B1's probe instance, "
+                         "without the lookahead")
+    if probe is not None and not probe_window_ok(
+            fused_window(window, block_size)):
+        raise NotImplementedError(
+            f"{what} kernel: probe window {fused_window(window, block_size)}"
+            f"; the probe instance takes the divisors of {FUSED_W} and its "
+            "multiples")
     if lookahead and not bf16:
         raise ValueError(f"{what} kernel: lookahead is a variant of B1's "
                          "bf16 instance (in float32 it is the same algebra "
@@ -634,9 +816,12 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         raise ValueError(f"{what} kernel: unsupported shape n={n}, p={p},"
                          f" q={q}, block={block_size}, r+2={r_aug}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    # the probe instance is the float32 one's schedule (bf16 x or not)
+    inst_bf16 = bool(bf16) and probe is None
     launch = (plan(n, q, block_size, r_aug, sms) if plan is not None
-              else fused_launch_plan(n, q, block_size, r_aug, sms, m, bf16,
-                                     lookahead))
+              else fused_launch_plan(n, q, block_size, r_aug, sms, m,
+                                     inst_bf16, lookahead,
+                                     probe=probe is not None))
     slice_width = slice_width or launch["slice_width"]
     sub = launch["sub_block"]
     gram_full = gram_flat
@@ -644,9 +829,12 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     lib = _load()
     dev = x.device
     lead = (m,) if any(batched) else ()
+    # c and K/c; the probe instance's code and window after them
     scal = torch.stack([
-        as_scalar(c, torch.float32, dev).expand(lead),
-        as_scalar(kz, torch.float32, dev).expand(lead)], dim=-1).contiguous()
+        as_scalar(v, torch.float32, dev).expand(lead)
+        for v in (c, kz) + (() if probe is None else (
+            float(probe.code(bf16)), float(fused_window(window, block_size))))
+    ], dim=-1).contiguous()
     fitted = fitted.clone()
     beta_out = torch.empty_like(beta)
     gam_out = torch.empty_like(beta) if emit_gam_mu else None
@@ -662,7 +850,11 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     # under lookahead two of each, by the block's parity (a block projects
     # the previous block's start F and takes all of its deltas)
     fh_ws = dw_ws = None
-    if bf16 and block_size > sub:
+    if probe is not None and block_size > sub:
+        cols = -(-q // slice_width) * slice_width
+        dw_ws = torch.empty((*lead, block_size - sub, cols),
+                            dtype=torch.float32, device=dev)
+    elif bf16 and block_size > sub:
         cols = -(-q // slice_width) * slice_width
         fh_ws = torch.empty((*lead, 2 if lookahead else 1, n, cols),
                             dtype=torch.bfloat16, device=dev)
@@ -671,8 +863,11 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                             dtype=torch.float32, device=dev)
     # B1's replica count, whether X^T Y is per replica, its instance and
     # variant, the whole block and what its bf16 instance reads of it
-    extra = ((m, int(batched[1]), int(bool(bf16)), int(bool(lookahead)),
-              block_size, ptr(gram_full), ptr(goff), ptr(fh_ws), ptr(dw_ws))
+    # B1's probe instance: the probe's code (-1: none) and window
+    extra = ((m, int(batched[1]), int(inst_bf16), int(bool(lookahead)),
+              block_size, -1 if probe is None else probe.code(bf16),
+              fused_window(window, block_size) if probe is not None else 0,
+              ptr(gram_full), ptr(goff), ptr(fh_ws), ptr(dw_ws))
              if entry == "atlasqtl_sweep_fused" else ())
     err = getattr(lib, entry)(
         ptr(x), ptr(cp_x_y), ptr(gram_flat), ptr(l_aug), ptr(n_stack),
@@ -687,17 +882,22 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                            f"q={q}, block={block_size} (pieces of {sub}), "
                            f"{slice_width}-column slices, {m} replica(s)"
                            f"{', bf16' if bf16 else ''}"
-                           f"{', lookahead' if lookahead else ''}: "
+                           f"{', lookahead' if lookahead else ''}"
+                           f"{f', probe {probe}' if probe else ''}: "
                            + lib.atlasqtl_error_string(err).decode())
     return beta_out, gam_out, mu_out, fitted, z_row, z_col, (gcol, m2gcol,
                                                              b2col)
 
 
-def _sweep_fused_cuda(*args, bf16=False, lookahead=False, **kw):
+def _sweep_fused_cuda(*args, bf16=False, lookahead=False, probe="none",
+                      sub=16, **kw):
+    parts = None if probe == "none" else probe_parts(probe)
     out = fused_launch("atlasqtl_sweep_fused", *args, bf16=bf16,
-                       lookahead=lookahead, **kw)
+                       lookahead=lookahead, probe=parts, window=sub, **kw)
     sweep_fused.launches += 1
-    if bf16:
+    if parts is not None:
+        sweep_fused.probe.launches += 1
+    elif bf16:
         sweep_fused.bf16.launches += 1
     if lookahead:
         sweep_fused.lookahead.launches += 1
@@ -708,7 +908,7 @@ def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
                 p_mask, zeta, q_mask, sig2_beta, tau, c, kz, goff=None, *,
                 block_size: int, emit_gam_mu: bool = True,
                 c_one: bool = False, bf16: bool = False,
-                lookahead: bool = False):
+                lookahead: bool = False, probe: str = "none", sub: int = 16):
     """One full Gauss-Seidel sweep with fused Z and column reductions.
 
     x: (n, p); cp_x_y/beta: (p, q); fitted: (n, q); gram_flat: (p, B)
@@ -737,12 +937,21 @@ def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
     + goff[b-1] delta_{b-1} - beta_b diag(G_b).  Block 0 and the advance
     are unchanged.
 
+    probe (Config.sweep_probe): one of the TPU kernel's perf probes
+    (`PROBES`: each drops one phase of the sweep, wrong math by design),
+    in its windows of `sub` predictors (`fused_window(sub, block_size)`,
+    ValueError where it does not divide the block); under bf16 its two
+    products stay bf16; not with the lookahead.  sub is read only under a
+    probe.
+
     CPU tensors run `sweep_fused_plain`; CUDA tensors launch the kernel
     (csrc/sweep_fused.cu; its bf16 instance if bf16, that instance's
-    lookahead variant if lookahead) or raise.  `sweep_fused.launches`
-    counts kernel launches (one per call, whatever m, any instance),
-    `sweep_fused.bf16.launches` those of the bf16 instance (lookahead or
-    not), `sweep_fused.lookahead.launches` those of its lookahead variant.
+    lookahead variant if lookahead, its probe instance under a probe) or
+    raise.  `sweep_fused.launches` counts kernel launches (one per call,
+    whatever m, any instance), `sweep_fused.bf16.launches` those of the
+    bf16 instance (lookahead or not), `sweep_fused.lookahead.launches`
+    those of its lookahead variant, `sweep_fused.probe.launches` those of
+    the probe instance (bf16 or not).
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_fused: unsupported device {x.device}")
@@ -752,17 +961,24 @@ def sweep_fused(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
     if lookahead and (not bf16 or goff is None):
         raise ValueError("sweep_fused: lookahead is a schedule of the bf16 "
                          "mode (bf16=True) and takes goff (lookahead_gram)")
+    if probe != "none":
+        probe_parts(probe)
+        fused_window(sub, block_size)
+        if lookahead:
+            raise ValueError("sweep_fused: no probe takes the lookahead "
+                             "(atlasqtl_tpu/ops/sweep_fused.py:669)")
     fn = _sweep_fused_cuda if x.device.type == "cuda" else sweep_fused_plain
     return fn(x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta,
               p_mask, zeta, q_mask, sig2_beta, tau, c, kz,
               goff if lookahead else None, block_size=block_size,
               emit_gam_mu=emit_gam_mu, c_one=c_one, bf16=bf16,
-              lookahead=lookahead)
+              lookahead=lookahead, probe=probe, sub=sub)
 
 
 sweep_fused.launches = 0
 sweep_fused.bf16 = types.SimpleNamespace(launches=0)
 sweep_fused.lookahead = types.SimpleNamespace(launches=0)
+sweep_fused.probe = types.SimpleNamespace(launches=0)
 
 
 def fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts, block_size,
@@ -818,17 +1034,22 @@ def sweep_complete_fused(x, cp_x_y, gram_blocks, beta, fitted, consts,
                          block_size, p_mask=None, q_mask=None,
                          interp_r: int = 40, emit_gam_mu: bool = True,
                          annealed: bool = False, bf16: bool = False,
-                         x_bf16=None, lookahead: bool = False, goff=None):
+                         x_bf16=None, lookahead: bool = False, goff=None,
+                         probe: str = "none", sub: int = 16):
     """Driver-facing wrapper matching ops/sweep.py:sweep_complete, carrying
     beta = gam * mu_beta.  annealed=False asserts the converged phase
     (c == 1), which the kernel specializes on; annealed=True takes the
     tempered path for any consts.c.  bf16: the mxu_bf16 mode, x staged as
     `x_bf16` (made from x if None).  lookahead (under bf16 only): the
-    lookahead schedule, with `goff` (made from x if None)."""
+    lookahead schedule, with `goff` (made from x if None); under a probe
+    it is off, as in the JAX wrapper (atlasqtl_tpu/ops/sweep_fused.py:669).
+    probe, sub: `sweep_fused`'s."""
+    lookahead = lookahead and probe == "none"
     if lookahead and goff is None:
         goff = lookahead_gram(x, block_size)
     return sweep_fused(
         *fused_operands(x, cp_x_y, gram_blocks, beta, fitted, consts,
                         block_size, p_mask, q_mask, interp_r, bf16, x_bf16),
         goff, block_size=block_size, emit_gam_mu=emit_gam_mu,
-        c_one=not annealed, bf16=bf16, lookahead=lookahead)
+        c_one=not annealed, bf16=bf16, lookahead=lookahead, probe=probe,
+        sub=sub)

@@ -56,7 +56,7 @@ import torch
 from .interp import K_BASE, tail_interp_operands
 from .special import as_scalar
 from .sweep_fused import (H100_SMS, SMEM_MAX, SMEM_TWO_PER_SM, Operands,
-                          _load, sub_block)
+                          _load, fused_window, sub_block)
 
 # the kernel's constants (csrc/sweep_missing_fused.cu)
 MIS_QS = 32                          # response columns per slice
@@ -82,16 +82,37 @@ def pair_window(sub: int, block: int) -> int:
     NotImplementedError for a window that is not a power of two (B2's
     instances take PAIR_WINDOWS; the mode reaches B2 only at block 128,
     whose divisors all are)."""
-    s = min(int(sub), int(block))
-    if s < 1 or block % s:
-        raise ValueError(f"sweep_missing_fused pair_bf16: the window "
-                         f"mis_sub={sub} (clipped to {s}) must divide the "
-                         f"predictor block {block}")
+    s = fused_window(sub, block, "sweep_missing_fused pair_bf16", "mis_sub")
     if s not in PAIR_WINDOWS:
         raise NotImplementedError(
             f"sweep_missing_fused pair_bf16: window {s} (mis_sub={sub}) is "
             f"not a power of two; B2 takes {PAIR_WINDOWS}")
     return s
+
+
+# the JAX kernel's perf probes (atlasqtl_tpu/ops/sweep_missing_fused.py:155,
+# 197, 207-213): noseq and noh (one function) form no pair Gram and push
+# nothing inside a window, noadv never advances Fm, noadvmask advances it
+# without the mask; Z stays exact
+MIS_PROBES = ("noseq", "noh", "noadv", "noadvmask")
+# the probe instance's codes (csrc/sweep_missing_fused.cu); "exact" keeps
+# every part, the exact function in the probe instance's schedule, to time
+# the probes against (not a probe of the JAX kernel: the wrappers refuse it)
+MIS_PROBE_CODES = {"noseq": 0, "noh": 0, "noadv": 1, "noadvmask": 2,
+                   "exact": 3}
+# the windows B2's probe instances take (csrc/sweep_missing_fused.cu)
+PROBE_WINDOWS = (1, 2, 4, 8, 16)
+
+
+def probe_window(probe: str, sub: int, block: int) -> int:
+    """The window of B2's perf probe `probe` at the call's sub and
+    predictor block: min(sub, block), as the JAX kernel clips it; ValueError
+    for an unknown probe or a window that does not divide the block (that
+    kernel's assert)."""
+    if probe not in MIS_PROBE_CODES:
+        raise ValueError(f"unknown sweep_missing_fused probe {probe!r}: one "
+                         f"of {', '.join(MIS_PROBES)} (or 'none')")
+    return fused_window(sub, block, "sweep_missing_fused probe")
 
 
 def _delta_rows(window: int) -> int:
@@ -230,17 +251,27 @@ MISSING = Operands(
 def sweep_missing_fused_plain(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
                               tau, c, kz, sig2_inv, *, block_size: int,
-                              pair_bf16: bool = False, sub: int = 16):
+                              pair_bf16: bool = False, sub: int = 16,
+                              probe: str = "none"):
     """The kernel's function in plain tensor ops, block by block in flat
     sequential order: one coordinate at a time, or under pair_bf16 in the
     JAX kernel's windows of `pair_window(sub, block_size)` predictors with
-    bf16-rounded pair Grams.  Same arguments and outputs as
-    `sweep_missing_fused`; with a replica axis, one replica after
-    another."""
+    bf16-rounded pair Grams; under a perf probe in the JAX kernel's
+    windows of `probe_window(probe, sub, block_size)` with what the probe
+    drops left out (pair products rounded under pair_bf16).  Same
+    arguments and outputs as `sweep_missing_fused`; with a replica axis,
+    one replica after another."""
     args = (x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
             theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv)
     one, kw = _sweep_missing_plain_one, dict(block_size=block_size)
-    if pair_bf16:
+    if probe != "none":
+        one = _sweep_missing_plain_windows
+        kw.update(sub=probe_window(probe, sub, block_size),
+                  round_pairs=pair_bf16,
+                  pairs=probe not in ("noseq", "noh"),
+                  advance={"noadv": None, "noadvmask": "all"}.get(
+                      probe, "masked"))
+    elif pair_bf16:
         one = _sweep_missing_plain_windows
         kw["sub"] = pair_window(sub, block_size)
     if gam.dim() == 3:
@@ -328,7 +359,8 @@ def _pair_grams(xw, mis_pat, round_pairs, chunk=16):
 def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
                                  n_stack, gam, mu, fitted, theta, p_mask,
                                  zeta, q_mask, tau, c, kz, sig2_inv, *,
-                                 block_size, sub=MIS_W, round_pairs=True):
+                                 block_size, sub=MIS_W, round_pairs=True,
+                                 pairs=True, advance="masked"):
     """The sweep in windows of `sub` predictors (a divisor of the block),
     aligned at each block's start (atlasqtl_tpu/ops/sweep_missing_fused.py:
     157-215): each window's projections against Fm advanced through the
@@ -336,7 +368,10 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
     pair Grams h[a, b, k] = sum_n m_nk x_na x_nb (round_pairs: each f32
     product rounded to bfloat16, the mask exact, f32 sums); then
     Fm += M * (x_w delta_w).  In float32 (round_pairs False) it is the
-    per-coordinate sweep up to rounding."""
+    per-coordinate sweep up to rounding.  The perf probes: pairs=False
+    forms no pair Gram and pushes nothing inside a window (noseq, noh);
+    advance None leaves Fm as it is (noadv), "all" adds x_w delta_w
+    without the mask (noadvmask)."""
     p = x.shape[1]
     B = block_size
     W = sub
@@ -354,15 +389,19 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
             j0 = b * B + lo
             xw = x[:, j0:j0 + W]
             r = xw.T @ fm
-            h = _pair_grams(xw, mis_pat, round_pairs)
+            h = _pair_grams(xw, mis_pat, round_pairs) if pairs else None
             deltas = []
             for i in range(W):
                 gam_b[lo + i], mu_b[lo + i], delta = _missing_coordinate(
                     j0 + i, r[i], cp_x_y, gam, mu, x_norm_sq, ct[lo + i],
                     ad[lo + i], tau, c)
-                r[i + 1:] += h[i + 1:, i] * delta
+                if pairs:
+                    r[i + 1:] += h[i + 1:, i] * delta
                 deltas.append(delta)
-            fm += mis_pat * (xw @ torch.stack(deltas))
+            if advance == "masked":
+                fm += mis_pat * (xw @ torch.stack(deltas))
+            elif advance == "all":
+                fm += xw @ torch.stack(deltas)
         _missing_block_out(out, sl, gam_b, mu_b, imrd, imr0u, p_mask, q_mask)
     return out[0], out[1], fm, out[2], out[3]
 
@@ -370,12 +409,16 @@ def _sweep_missing_plain_windows(x, cp_x_y, x_norm_sq, mis_pat, l_aug,
 def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                               gam, mu, fitted, theta, p_mask, zeta, q_mask,
                               tau, c, kz, sig2_inv, *, block_size, plan=None,
-                              pair_bf16=False, sub=16):
+                              pair_bf16=False, sub=16, probe="none"):
     """Check the operands of one B2 launch, launch it and count it: the
     state's operands of `MISSING` with or without a replica axis, one
     launch of grid x m CTAs (the pair_bf16 instance at the window
     `pair_window(sub, block_size)` if pair_bf16; at window 1 the mode
-    rounds no pair, and the float32 instance runs).  `plan` (None:
+    rounds no pair, and the float32 instance runs).  Under a perf probe,
+    the probe instance at its window (`probe_window`, one of
+    PROBE_WINDOWS, else NotImplementedError): of the float32 instance, or
+    under pair_bf16 (noadv, noadvmask; noseq and noh form no pair) of the
+    pair_bf16 instance at that window.  `plan` (None:
     `missing_launch_plan` for the operands' replica count) is there only
     to compare a replica's single launch with a batched one under the
     batched launch's plan.  Raises on what the kernel cannot take and on a
@@ -408,7 +451,17 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         raise ValueError(f"sweep_missing_fused kernel: unsupported shape "
                          f"n={n}, p={p}, q={q}, block={block_size}, "
                          f"r+2={r_aug}")
-    window = pair_window(sub, block_size) if pair_bf16 else 1
+    pcode, pwin = -1, 0   # the probe instance's code (-1: none), window
+    if probe != "none":
+        pwin = probe_window(probe, sub, block_size)
+        if pwin not in PROBE_WINDOWS:
+            raise NotImplementedError(
+                f"sweep_missing_fused kernel: probe {probe} at window {pwin};"
+                f" the probe instances take windows {PROBE_WINDOWS}")
+        pcode = MIS_PROBE_CODES[probe]
+        pair_bf16 = pair_bf16 and pcode > 0
+    window = (pwin if pcode >= 0 else pair_window(sub, block_size)) \
+        if pair_bf16 else 1
     ksub = window if window > 1 else 0   # the instance: 0 is float32
     plan = plan or missing_launch_plan(n, q, block_size, r_aug, m, ksub)
     lib = _load()
@@ -429,15 +482,18 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
         plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
-        m, ksub, torch.cuda.current_stream(x.device).cuda_stream)
+        m, ksub, pcode, pwin, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "
             f"q={q}, block={block_size}, {m} replica(s), plan {plan}"
-            f"{f', pair_bf16 window {window}' if pair_bf16 else ''}: "
+            f"{f', pair_bf16 window {window}' if pair_bf16 else ''}"
+            f"{f', probe {probe} at window {pwin}' if pcode >= 0 else ''}: "
             + lib.atlasqtl_error_string(err).decode())
     sweep_missing_fused.launches += 1
-    if window > 1:
+    if pcode >= 0:
+        sweep_missing_fused.probe.launches += 1
+    elif window > 1:
         sweep_missing_fused.pair_bf16.launches += 1
     return gam_out, mu_out, fitted, z_row, z_col
 
@@ -445,7 +501,8 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
 def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
                         mu, fitted, theta, p_mask, zeta, q_mask, tau, c, kz,
                         sig2_inv, *, block_size: int,
-                        pair_bf16: bool = False, sub: int = 16):
+                        pair_bf16: bool = False, sub: int = 16,
+                        probe: str = "none"):
     """One exact-missing Gauss-Seidel sweep with fused Z reductions.
 
     x: (n, p); cp_x_y/x_norm_sq/gam/mu: (p, q); mis_pat/fitted: (n, q), the
@@ -463,28 +520,42 @@ def sweep_missing_fused(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam,
     pair_bf16 (Config.mis_pair_bf16): the JAX kernel's windows of sub
     predictors (Config.mis_sub, clipped to the block; `pair_window` raises
     on one that does not divide it or that B2 does not take), whose pair
-    products are rounded to bfloat16 before their float32 sums.  sub is
-    read only under pair_bf16.
+    products are rounded to bfloat16 before their float32 sums.
+
+    probe: one of the JAX kernel's perf probes (`MIS_PROBES`, wrong math
+    by design) in its windows of sub predictors (`probe_window`): noseq
+    and noh push nothing inside a window, noadv never advances Fm,
+    noadvmask advances it without the mask; pair_bf16 rounds the pairs
+    noadv and noadvmask form.  sub is read only under pair_bf16 or a
+    probe.
 
     CPU tensors run `sweep_missing_fused_plain`; CUDA tensors launch the
     kernel (csrc/sweep_missing_fused.cu; its pair_bf16 instance at the
-    window if pair_bf16, but at window 1, where the mode rounds nothing)
-    or raise.  `sweep_missing_fused.launches` counts kernel launches (one
-    per call, whatever m, any instance),
-    `sweep_missing_fused.pair_bf16.launches` those of the pair_bf16
-    instance.
+    window if pair_bf16, but at window 1, where the mode rounds nothing;
+    its probe instance under a probe) or raise.
+    `sweep_missing_fused.launches` counts kernel launches (one per call,
+    whatever m, any instance), `sweep_missing_fused.pair_bf16.launches`
+    those of the pair_bf16 instance, `sweep_missing_fused.probe.launches`
+    those of the probe instance.
     """
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sweep_missing_fused: unsupported device {x.device}")
+    if probe != "none" and probe not in MIS_PROBES:
+        raise ValueError(f"unknown sweep_missing_fused probe {probe!r}: one "
+                         f"of {', '.join(MIS_PROBES)} (or 'none')")
+    if probe != "none":
+        probe_window(probe, sub, block_size)
     fn = (_sweep_missing_fused_cuda if x.device.type == "cuda"
           else sweep_missing_fused_plain)
     return fn(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack, gam, mu, fitted,
               theta, p_mask, zeta, q_mask, tau, c, kz, sig2_inv,
-              block_size=block_size, pair_bf16=pair_bf16, sub=sub)
+              block_size=block_size, pair_bf16=pair_bf16, sub=sub,
+              probe=probe)
 
 
 sweep_missing_fused.launches = 0
 sweep_missing_fused.pair_bf16 = types.SimpleNamespace(launches=0)
+sweep_missing_fused.probe = types.SimpleNamespace(launches=0)
 
 
 def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
@@ -511,14 +582,15 @@ def missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu, fitted,
 def sweep_missing_fused_driver(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
                                fitted, consts, sig2_inv, block_size, p_mask,
                                q_mask, interp_r: int = 40,
-                               pair_bf16: bool = False, sub: int = 8):
+                               pair_bf16: bool = False, sub: int = 8,
+                               probe: str = "none"):
     """Driver-facing wrapper matching ops/sweep.py:sweep_missing_blocked
     (sub defaults to 8, as the JAX driver's does; the fit passes
-    Config.mis_sub).  sig2_inv is the scalar slab precision;
-    consts.sig2_beta is not read (the kernel derives the per-cell variance
-    from x_norm_sq)."""
+    Config.mis_sub; probe: `sweep_missing_fused`'s, which the fit never
+    sets).  sig2_inv is the scalar slab precision; consts.sig2_beta is not
+    read (the kernel derives the per-cell variance from x_norm_sq)."""
     return sweep_missing_fused(
         *missing_fused_operands(x, cp_x_y, x_norm_sq, mis_pat, gam, mu,
                                 fitted, consts, sig2_inv, p_mask, q_mask,
                                 interp_r),
-        block_size=block_size, pair_bf16=pair_bf16, sub=sub)
+        block_size=block_size, pair_bf16=pair_bf16, sub=sub, probe=probe)

@@ -1,0 +1,1 @@
+"""Maintenance scripts of the port (run with ``python -m``)."""

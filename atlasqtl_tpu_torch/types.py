@@ -123,8 +123,17 @@ class Config:
     """Static configuration of the CAVI engine — the reference's fields
     (atlasqtl_tpu/types.py:132-216).
 
-    Fields that select a TPU schedule (sweep_interleave, sweep_qchunk,
-    sweep_sub) are accepted and ignored: they never change the math.
+    Fields that select a TPU schedule (sweep_interleave, sweep_qchunk)
+    are accepted and ignored: they never change the math.  sweep_sub, the
+    JAX kernel's chain window, is read only under sweep_probe, where it
+    changes the math under noseq and norank (the window is sweep_sub, or 8
+    at a padded n up to 2048 and 32 above, clipped to the block; one that
+    does not divide the block raises ValueError).  sweep_probe selects one
+    of the JAX fused kernel's perf probes (wrong math by design; each
+    drops one phase of the sweep: ops/sweep_fused.py:PROBES), which B1
+    runs where the JAX package passes it to its fused kernel
+    (models/global_local.py:_b1_probe); an unknown value raises
+    ValueError.
     sweep_lookahead, the TPU kernel's one-block-lookahead schedule, is
     ignored in float32, where it is the baseline's algebra up to rounding
     (tests/test_pallas.py:test_fused_lookahead_matches_baseline), and

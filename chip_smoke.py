@@ -161,7 +161,19 @@ per source, started together) and prints ptxas's registers and spills
           mutation) and run_gibbs_sharded on a world-size-1 NCCL mesh equal
           to run_gibbs from the same seed; each sampler's theta-mean
           hotspot AUC (Gibbs >= 0.95) and mean |PIP - CAVI gam| against
-          the fit phase's fit.
+          the fit phase's fit;
+  probes  the perf probes of B1 (Config.sweep_probe, its eleven values)
+          and B2 (probe=, four), each kernel's probe instance against its
+          plain version (B1 at blocks 128 and 256, c = 1 and 0.5, under
+          mxu_bf16, windows 1 to 32, two replicas in one launch; B2 at
+          mis_sub 1 to 16, f32 and pair_bf16, Fm on chip and in device
+          memory); at the eQTL
+          cut (1000, 2048, 10000) each probe's ms beside the exact sweep in
+          rounds of turns and the phase costs they imply, each with its
+          range over the rounds (projection, advance, the
+          chain's order, sigmoid, pushes, corrections, Z Mills, the x/cp
+          stream, tiles); a cavi_iteration under a probe launches the
+          probe instance once (with sweep_stagger too: B1, not B4).
 Each phase prints one JSON line; then each phase's seconds, a `kernels`
 line, and last the contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
@@ -196,7 +208,7 @@ MIS_SHAPES = ((80, 250, 40, 0.2), (300, 75, 48, 0.15), (300, 2000, 500, 0.15),
 PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
           "eqtl_missing", "block_fits", "gs_kernel", "stag_kernel",
           "sweeps_fit", "device_loop", "eqtl_sweeps", "scaling",
-          "replica_kernel", "a8_fit", "bf16_modes", "mesh", "mcmc")
+          "replica_kernel", "a8_fit", "bf16_modes", "mesh", "mcmc", "probes")
 # the mcmc phase: the test shape of tests/test_torch_mcmc.py (n, p, q,
 # active SNPs, hit traits; block 16), run in float64 on the CPU and on the
 # card from the same draws, then the samplers' runs at FIT_SHAPE (float32,
@@ -268,16 +280,18 @@ def ptxas_summary(report):
     return out
 
 
-def held(label, got, ref, names, tol=1e-4):
+def held(label, got, ref, names, tol=1e-4, scales=None):
     """Max abs error of each output of `got` against `ref` by name; raises
     past the tolerance: gam `tol`, the others tol * max |ref| (also on
-    NaN).  The phases hold float32 kernels at 1e-4, float64 at 1e-10."""
+    NaN), or tol * the larger of that and scales[name] where given.  The
+    phases hold float32 kernels at 1e-4, float64 at 1e-10."""
     errs = {}
     for name, a, r in zip(names, got, ref):
         if r is None:
             continue
         errs[name] = float((a - r).abs().max())
-        limit = tol if name == "gam" else tol * float(r.abs().max())
+        scale = max(float(r.abs().max()), (scales or {}).get(name, 0.0))
+        limit = tol if name == "gam" else tol * scale
         if not (errs[name] <= limit):
             raise AssertionError(f"{label}: {name} max abs err "
                                  f"{errs[name]:.3g} > {limit:.3g}")
@@ -1825,8 +1839,9 @@ def phase_device_loop():
     set to 0 just before it and read just after; the "on" fit runs again
     under torch.profiler, recording steps 16-35 (global: 16-19), where
     every kind of step is a graph replay, for its device-to-host copies per
-    lite step, which must be 0; B1's fit cut to 60 iterations is profiled
-    whole under both loops for PERF.md's breakdown.  Fails unless both loops take the same
+    lite step, which must be 0 (that fit cut to 40 iterations, global's to
+    24); B1's fit cut to 30 iterations is profiled whole under both loops
+    for PERF.md's breakdown.  Fails unless both loops take the same
     iterations, evaluate the ELBO at the same ones and agree on it to 1e-6
     relative; prints seconds per fit, CUDA-graph replays and launches."""
     import torch
@@ -1893,14 +1908,16 @@ def phase_device_loop():
                               launches={k: fn.launches
                                         for k, fn in counters.items()},
                               replays=dl.replays)
-        if route == "b1":  # PERF.md's breakdown: 60 iterations, both loops
+        if route == "b1":  # PERF.md's breakdown: 30 iterations, both loops
             profiles = {loop: fit_profile(
-                lambda lp: run(lp, maxit=60), loop)[1]
+                lambda lp: run(lp, maxit=30), loop)[1]
                 for loop in ("off", "on")}
         # the copies per lite step, over steps 16-35 (global: 16-19), every
-        # kind of step a graph replay by then
-        _, prof = fit_profile(run, "on",
-                              window=(14, 4 if route == "global" else 20))
+        # kind of step a graph replay by then, in a fit cut to 40
+        # iterations (global: 24)
+        _, prof = fit_profile(
+            lambda lp: run(lp, maxit=24 if route == "global" else 40), "on",
+            window=(14, 4 if route == "global" else 20))
         off, on = fits["off"]["res"], fits["on"]["res"]
         h_off = np.array([lb for _, lb in off.elbo_history])
         h_on = np.array([lb for _, lb in on.elbo_history])
@@ -2389,13 +2406,15 @@ def mis_bf16_bound_ms(n, p, q, r_aug, sub):
     return 1e3 * t, "bytes" if t == t_bytes else "operations"
 
 
-def b2_instances(by_name):
+def b2_instances(by_name, probe=False):
     """{(fm_on_chip, sub): value} of B2's instances
-    sweep_missing_kernel<FM_ON_CHIP, SUB> from a dict keyed by their
-    mangled names (sass_hmma's counts, ptxas_summary's reports)."""
+    sweep_missing_kernel<FM_ON_CHIP, SUB> (probe: its probe instances
+    <FM_ON_CHIP, SUB, true>) from a dict keyed by their mangled names
+    (sass_hmma's counts, ptxas_summary's reports)."""
     out = {}
     for name, v in by_name.items():
-        m = re.search(r"sweep_missing_kernelILb([01])ELi(\d+)E", name)
+        m = re.search(r"sweep_missing_kernelILb([01])ELi(\d+)ELb"
+                      + ("1" if probe else "0") + "E", name)
         if m:
             out[(m.group(1) == "1", int(m.group(2)))] = v
     return out
@@ -2510,7 +2529,8 @@ def phase_bf16_modes():
     # (each with its copy of bf16_pass<QS>, which ptxas keeps out of line)
     # and the overlapped lookahead kernel <QS>
     bf_inst = {k: v for k, v in b1_sass.items()
-               if "Lb1E" in k or "sweep_lookahead_kernel" in k}
+               if re.search(r"sweep_fused_kernelILi\d+ELb1E", k)
+               or "sweep_lookahead_kernel" in k}
     if (len(bf_inst) != 6 or any(v[0] == 0 or v[1] for v in bf_inst.values())
             or any(v[0] for k, v in b1_sass.items() if k not in bf_inst)):
         raise AssertionError(f"B1's SASS: HMMA (all, not bf16) per instance "
@@ -2613,7 +2633,7 @@ def phase_bf16_modes():
                     pass_cycles_per_32_rows=clocks["pass"] / (
                         (dims[1] // block + 1) * dims[0] / 32),
                     registers={k: v for k, v in out["registers"].items()
-                               if k.endswith("Lb1ELb0EE")
+                               if k.endswith("Lb1ELb0ELb0EE")
                                or k.startswith("bf16_pass")},
                     ms=cuda_ms(lite, 9),
                     f32_ms=cuda_ms(lambda: sf.sweep_fused(*ops, **kwl), 9),
@@ -3322,6 +3342,390 @@ def phase_mcmc():
     return out
 
 
+# ---- the probes phase: B1's and B2's perf probes (B5c, B5e) ------------
+PROBE_SHAPE = (120, 256, 200)   # n, p, q of the B1 parity cases
+# B2's parity shapes: on chip (a cluster of 4) and Fm in device memory
+PROBE_MIS_SHAPES = ((80, 250, 40, 0.2), (8000, 256, 256, 0.15))
+PROBE_TIMED = (1000, 2048, 10000)   # the eQTL cut, block 128
+PROBE_REPS = 5                  # CUDA-event launches per turn (median)
+PROBE_ROUNDS = 3                # rounds of turns (each sweep once a round)
+PROBE_MAIN = "noadv"            # the probe the phase's main path runs
+# each phase's cost as the difference of two sweeps at the eQTL cut: the
+# sweep that keeps it less the probe that drops it ("none": the probe
+# instance with every part kept, the exact function in the probes' own
+# schedule; the production instance is timed beside it); tiles_and_z
+# (jacobi - jacobi_min) also holds the Z Mills tiles
+PROBE_COSTS = {"projection": ("none", "nor0"), "advance": ("none", "noadv"),
+               "chain_order": ("none", "jacobi"),
+               "z_mills": ("none", "exact_noz"),
+               "sigmoid": ("exact_noz", "nosig"),
+               "pushes": ("exact_noz", "noseq"),
+               "corrections": ("exact_noz", "norank"),
+               "x_cp_stream": ("none", "dmalite"),
+               "tiles_and_z": ("jacobi", "jacobi_min")}
+MIS_PROBE_COSTS = {"pairs_and_pushes": ("none", "noseq"),
+                   "advance": ("none", "noadv"),
+                   "advance_mask": ("none", "noadvmask")}
+
+
+def probe_bound_ms(n, p, q, block, r_aug, emit_gam_mu, parts, sub):
+    """Least time of one B1 sweep under the probe `parts`
+    (ops/sweep_fused.py:Probe): sweep_bound_ms's terms with what the probe
+    drops left out.  Operations per (j, k): 2 n for each product kept,
+    the in-block Gram corrections (sweep_bound_ms's `block`; of them a
+    probe keeping one kind keeps sub - 1 pushes or block - sub
+    corrections), 2 r + 2 for the logit tile's product if the tiles are
+    kept and 4 r + 4 for the Z tile's if the Mills are.  Bytes: x if a
+    product is kept (block 0's n x block under dmalite), X^T Y (block 0's
+    rows under dmalite), beta in and out, gam/mu when emitted, F in if a
+    product is kept and out if the advance is, the Gram blocks, L and the
+    nodes if a tile is kept."""
+    prod = 2 * n * (parts.proj + parts.advance)
+    gram = (block if parts.pushes and parts.corrections
+            else (sub - 1) if parts.pushes
+            else (block - sub) if parts.corrections else 0)
+    interp = 2 * r_aug * parts.tiles + 4 * r_aug * parts.mills
+    ops = p * q * (prod + gram + interp)
+    rows = block if parts.pin else p
+    uses_f = parts.proj or parts.advance
+    nbytes = 4 * (n * rows * uses_f + rows * q + p * q * (2 + 2 * emit_gam_mu)
+                  + n * q * (uses_f + parts.advance) + p * block
+                  + (p * r_aug + 3 * r_aug * q) * (parts.tiles or parts.mills))
+    return 1e3 * max(ops / FP32_PEAK, nbytes / HBM_RATE), \
+        ("operations" if ops / FP32_PEAK >= nbytes / HBM_RATE else "bytes")
+
+
+def mis_probe_bound_ms(n, p, q, r_aug, probe):
+    """mis_bound_ms's terms with what B2's probe drops left out: noadv the
+    masked advance (3 n per (j, k)) and Fm's write, noadvmask the mask's
+    multiply (n); noseq and noh the pair Grams, which the bound does not
+    count (B2's design, not the function)."""
+    adv = {"noadv": 0, "noadvmask": 2}.get(probe, 3)
+    ops = p * q * ((2 + adv) * n + 6 * r_aug)
+    nbytes = 4 * (n * p + 7 * p * q + (3 - (probe == "noadv")) * n * q
+                  + p * r_aug + 3 * r_aug * q)
+    return 1e3 * max(ops / FP32_PEAK, nbytes / HBM_RATE), \
+        ("operations" if ops / FP32_PEAK >= nbytes / HBM_RATE else "bytes")
+
+
+def probe_turns(fns, reps=PROBE_REPS, rounds=PROBE_ROUNDS):
+    """Each sweep of fns beside fns["none"] (the exact sweep), `rounds`
+    times over: in each round, for each other sweep, the turns (exact,
+    probe, probe, exact), each the median of `reps` CUDA-event launches.
+    Returns ({name: [ms of every turn]}, {name: [its two turns' mean less
+    the two exact turns' mean beside them, one per round]}), the exact
+    sweep's offsets all 0."""
+    turns = {name: [] for name in fns}
+    offsets = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            if name == "none":
+                continue
+            a = cuda_ms(fns["none"], reps)
+            b, c = cuda_ms(fn, reps), cuda_ms(fn, reps)
+            d = cuda_ms(fns["none"], reps)
+            turns["none"] += [a, d]
+            turns[name] += [b, c]
+            offsets[name].append((b + c) / 2 - (a + d) / 2)
+        offsets["none"].append(0.0)
+    return turns, offsets
+
+
+def implied_costs(offsets, costs):
+    """Each phase's ms, the sweep that keeps it less the probe that drops
+    it, from the two's offsets to the exact sweep round by round: the
+    median over the rounds, the least and the most, and `resolved` where
+    every round gives the same sign (else the difference is within the
+    turns' spread)."""
+    out = {}
+    for k, (a, b) in costs.items():
+        d = [x - y for x, y in zip(offsets[a], offsets[b])]
+        out[k] = dict(ms=statistics.median(d), min=min(d), max=max(d),
+                      resolved=min(d) > 0 or max(d) < 0)
+    return out
+
+
+def probe_routing():
+    """The main path of B1's probes: one cavi_iteration on the card with
+    Config(sweep_probe=PROBE_MAIN) at PROBE_SHAPE (q padded to 256, where
+    the JAX kernel finds a tile), the launch counters zeroed just before
+    and read just after: one probe-instance launch.  Then with
+    sweep_stagger=True, which takes B4 without a probe and B1's probe
+    instance with one."""
+    import torch
+    from atlasqtl_tpu_torch.types import Config
+    from atlasqtl_tpu_torch.models import global_local as gl
+    from atlasqtl_tpu_torch.inference import elicitation as elic
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_staggered as ss
+    from atlasqtl_tpu_torch.ops.sweep import block_gram
+
+    n, p, q = PROBE_SHAPE
+    x, y = simulate(n, p, q, 3, 10, 40)
+    x = (x - x.mean(0)) / x.std(0, ddof=1)
+    y = y - y.mean(0)
+    out = {}
+    for name, kw in (("probe", {}), ("stagger", dict(sweep_stagger=True)),
+                     ("stagger_probe", dict(sweep_stagger=True))):
+        cfg = Config(dtype=torch.float32, shr_fac_inv=float(q),
+                     sweep_probe="none" if name == "stagger" else PROBE_MAIN,
+                     **kw)
+        gl.check_config(cfg)
+        data = gl.build_data(x, y, cfg, DEVICE, q_pad_to=256)
+        hyper = gl.build_hyper(elic.auto_set_hyper(y, p, (4, 16)),
+                               data.y.shape[1], cfg, DEVICE)
+        state = gl.build_state(elic.auto_set_init(y, p, (4, 16), float(q), 3),
+                               data, cfg)
+        gram = block_gram(data.x, gl.data_block(cfg, data))
+        torch.cuda.synchronize()
+        for c in (sf.sweep_fused, sf.sweep_fused.probe,
+                  ss.sweep_fused_staggered):
+            c.launches = 0
+        st = gl.cavi_iteration(data, hyper, state, gram, 1.0, 1.0, cfg=cfg,
+                               annealed=False)
+        torch.cuda.synchronize()
+        got = dict(b1=sf.sweep_fused.launches,
+                   probe=sf.sweep_fused.probe.launches,
+                   b4=ss.sweep_fused_staggered.launches,
+                   finite=bool(torch.isfinite(st.mu_beta).all()
+                               and torch.isfinite(st.theta).all()))
+        want = (dict(b1=0, probe=0, b4=1) if name == "stagger"
+                else dict(b1=1, probe=1, b4=0))
+        if any(got[k] != v for k, v in want.items()) or not got["finite"]:
+            raise AssertionError(f"probe routing, {name}: launches {got}, "
+                                 f"expected {want} and finite outputs")
+        out[name] = got
+    return out
+
+
+def phase_probes():
+    """The perf probes of B1 (Config.sweep_probe, ops/sweep_fused.py:
+    PROBES, B5c) and B2 (probe=, ops/sweep_missing_fused.py:MIS_PROBES,
+    B5e), each an instance of its kernel (csrc/sweep_fused.cu:
+    sweep_fused_kernel<32, false, false, true>, csrc/sweep_missing_fused.cu:
+    sweep_missing_kernel<FM_ON_CHIP, SUB, true>).  Parity: every B1 probe
+    against its plain version at PROBE_SHAPE, blocks 128 (window 8) and
+    256 (pieces of 128, window 16), c = 1 and 0.5, at the kernel phase's
+    tolerance; under mxu_bf16 at block 128 by the bf16_modes phase's mean
+    criterion; noseq and norank at windows 1, 2, 4 and 32 (block 128) and
+    4 (block 256); one probe with m = 2
+    replicas (held against the plain version, each replica bit for bit
+    its own launch in slices of the same width).  Each B2 probe at
+    mis_sub 1, 2, 4, 8 and 16, f32 and pair_bf16, on chip and (mis_sub
+    16) with Fm
+    in device memory, at the mis_kernel phase's tolerance.  Times at the
+    eQTL cut (PROBE_TIMED, block 128, converged and lite): each B1 probe
+    beside the exact sweep in turns (exact, probe, probe, exact), median
+    of PROBE_REPS launches, PROBE_ROUNDS rounds (`probe_turns`), the
+    exact sweep that of the probe instance
+    with every part kept (and the production instance beside it, in the
+    probe instance's 32-column slices and in its plan's width); the
+    implied phase costs (PROBE_COSTS, `implied_costs`: median, range and
+    whether the rounds agree in sign); B2's four at mis_sub 16 likewise
+    (MIS_PROBE_COSTS), B2's float32 instance beside them.  Registers
+    and spills of the probe instances and of the production ones.  The
+    main path: `probe_routing` and one B2 probe call through
+    sweep_missing_fused_driver, each with the counters zeroed before."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+
+    out = {"b1": {}, "b2": {}}
+    flat = lambda o: list(o[:6]) + list(o[6])
+    max_abs = {"b1": 0.0, "b2": 0.0}
+    regs = ptxas_summary(sf.build.ptxas_report)
+    out["registers"] = {k: v for k, v in regs.items()
+                        if k.startswith(("sweep_fused_kernel",
+                                         "sweep_missing_kernel"))}
+
+    # ---- B1: each probe against its plain version ----
+    n, p, q = PROBE_SHAPE
+    cases = []
+    for block, sub in ((128, 8), (256, 16)):
+        for c in (1.0, 0.5):
+            ops, blk = kernel_inputs(n, p, q, c, block=block)
+            kw = dict(block_size=blk, c_one=c == 1.0, sub=sub)
+            f_scale = {"fitted": float(ops[6].abs().max())}
+            for probe in sf.PROBES:
+                got = sf.sweep_fused(*ops, **kw, probe=probe)
+                ref = sf.sweep_fused_plain(*ops, **kw, probe=probe)
+                torch.cuda.synchronize()
+                # F out = F in + X delta: where a probe makes the two
+                # cancel (nor0), F's rounding is that of F in's scale
+                errs = held(f"B1 probe {probe} vs plain at block {blk} "
+                            f"window {sub} c={c}", flat(got), flat(ref),
+                            B1_NAMES, scales=f_scale)
+                max_abs["b1"] = max(max_abs["b1"], *errs.values())
+                cases.append(dict(probe=probe, block=blk, window=sub, c=c,
+                                  max_abs_err=max(errs.values())))
+            # the windows where noseq and norank change: below 8 (a
+            # window of 8 rows holds several), 32; 4 in pieces too
+            for win in ((1, 2, 4, 32) if block == 128 else (4,)):
+                if c != 1.0:
+                    break
+                for probe in ("noseq", "norank"):
+                    kww = dict(kw, sub=win)
+                    errs = held(f"B1 probe {probe} block {blk} window {win}",
+                                flat(sf.sweep_fused(*ops, **kww,
+                                                    probe=probe)),
+                                flat(sf.sweep_fused_plain(*ops, **kww,
+                                                          probe=probe)),
+                                B1_NAMES, scales=f_scale)
+                    max_abs["b1"] = max(max_abs["b1"], *errs.values())
+                    cases.append(dict(probe=probe, block=blk, window=win,
+                                      c=c, max_abs_err=max(errs.values())))
+            if block == 128 and c == 1.0:
+                # under mxu_bf16: the kernel reads the bf16 copy of x
+                x16 = ops[0].to(torch.bfloat16)
+                for probe in sf.PROBES:
+                    got = sf.sweep_fused(x16, *ops[1:], **kw, probe=probe,
+                                         bf16=True)
+                    ref = sf.sweep_fused_plain(*ops, **kw, probe=probe,
+                                               bf16=True)
+                    f32 = sf.sweep_fused_plain(*ops, **kw, probe=probe)
+                    f32k = sf.sweep_fused(*ops, **kw, probe=probe)
+                    errs = mean_held(f"B1 probe {probe} under mxu_bf16",
+                                     flat(got), flat(ref), flat(f32),
+                                     flat(f32k), B1_NAMES)
+                    cases.append(dict(probe=probe, block=blk, window=sub,
+                                      c=c, bf16=True, mean_abs_err=max(
+                                          e["mean"] for e in errs.values())))
+            del ops
+    # m = 2 replicas in one launch
+    data, states, gram, blk = replica_problem("b1", n, p, q, 2)
+    parts, stacked = replica_operands("b1", data, states, gram, blk, 1.0)
+    kw = dict(block_size=blk, c_one=True, sub=8, probe=PROBE_MAIN)
+    got = flat(sf.sweep_fused(*stacked, **kw))
+    held(f"B1 probe {PROBE_MAIN}, 2 replicas, vs plain", got,
+         flat(sf.sweep_fused_plain(*stacked, **kw)), B1_NAMES,
+         scales={"fitted": float(stacked[6].abs().max())})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    width = sf.fused_launch_plan(parts[0][0].shape[0], parts[0][5].shape[1],
+                                 blk, parts[0][3].shape[1], sms, m=2,
+                                 probe=True)["slice_width"]
+    for r, ops in enumerate(parts):
+        one = flat(sf.fused_launch(
+            "atlasqtl_sweep_fused", *ops, block_size=blk, emit_gam_mu=True,
+            c_one=True, probe=sf.PROBES[PROBE_MAIN], window=8,
+            slice_width=width))
+        if not all(torch.equal(a[r], b) for a, b in zip(got, one)):
+            raise AssertionError(f"B1 probe replica {r} differs from its "
+                                 f"own launch")
+    cases.append(dict(probe=PROBE_MAIN, replicas=2, block=blk,
+                      replicas_bit_for_bit=True))
+    del data, states, gram, parts, stacked
+    out["b1"]["cases"] = cases
+
+    # ---- B2: each probe against its plain version ----
+    names = ("gam", "mu", "fitted", "z_row", "z_col")
+    cases = []
+    for i, (n2, p2, q2, frac) in enumerate(PROBE_MIS_SHAPES):
+        ops, blk = mis_kernel_inputs(n2, p2, q2, 1.0, frac)
+        plan = sm.missing_launch_plan(ops[0].shape[0], ops[6].shape[1], blk,
+                                      ops[4].shape[1])
+        for sub in ((1, 2, 4, 8, 16) if i == 0 else (16,)):
+            for pb in (False, True):
+                for probe in sm.MIS_PROBES:
+                    kw = dict(block_size=blk, sub=sub, pair_bf16=pb,
+                              probe=probe)
+                    errs = held(f"B2 probe {probe} at mis_sub {sub}"
+                                f"{', pair_bf16' if pb else ''} n={n2}",
+                                sm.sweep_missing_fused(*ops, **kw),
+                                sm.sweep_missing_fused_plain(*ops, **kw),
+                                names)
+                    max_abs["b2"] = max(max_abs["b2"], *errs.values())
+                    cases.append(dict(probe=probe, n=n2, mis_sub=sub,
+                                      pair_bf16=pb,
+                                      fm_on_chip=plan["fm_on_chip"],
+                                      max_abs_err=max(errs.values())))
+        del ops
+    out["b2"]["cases"] = cases
+
+    # ---- the main path: the counters zeroed just before each run ----
+    out["b1"]["routing"] = probe_routing()
+    out["b1"]["launches"] = out["b1"]["routing"]["probe"]["probe"]
+    ops, blk = mis_kernel_inputs(*PROBE_MIS_SHAPES[0][:3], 1.0,
+                                 PROBE_MIS_SHAPES[0][3])
+    torch.cuda.synchronize()
+    sm.sweep_missing_fused.launches = sm.sweep_missing_fused.probe.launches = 0
+    res = sm.sweep_missing_fused(*ops, block_size=blk, sub=16,
+                                 probe=PROBE_MAIN)
+    torch.cuda.synchronize()
+    out["b2"]["launches"] = sm.sweep_missing_fused.probe.launches
+    if (out["b2"]["launches"] != 1 or sm.sweep_missing_fused.launches != 1
+            or not all(bool(torch.isfinite(t).all()) for t in res)):
+        raise AssertionError("B2's probe: one probe-instance launch with "
+                             "finite outputs expected")
+    del ops
+
+    # ---- times at the eQTL cut ----
+    n, p, q = PROBE_TIMED
+    ops, blk = kernel_inputs(n, p, q, 1.0)
+    dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], blk,
+            ops[3].shape[1], False)
+    kw = dict(block_size=blk, emit_gam_mu=False, c_one=True)
+    sub = 8   # the JAX rule at n <= 2048
+    prod_width = sf.fused_launch_plan(n, q, blk, dims[4], sms)["slice_width"]
+    launch = lambda **k: sf.fused_launch("atlasqtl_sweep_fused", *ops, **kw,
+                                         **k)
+    fns = {"none": lambda: launch(probe=sf.Probe(), window=sub)}
+    fns.update({pr: (lambda pr=pr: sf.sweep_fused(*ops, **kw, probe=pr,
+                                                  sub=sub))
+                for pr in sf.PROBES})
+    fns["production"] = lambda: launch(slice_width=sf.FUSED_PROBE_WIDTHS[0])
+    turns, offsets = probe_turns(fns)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    by_probe = {}
+    for pr, parts in sf.PROBES.items():
+        b, by = probe_bound_ms(*dims, parts, sub)
+        by_probe[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
+                            bound_by=by, pct_of_bound=pct(b, med[pr]))
+    plain = lambda: sf.sweep_fused_plain(*ops, **kw, probe=PROBE_MAIN,
+                                         sub=sub)
+    out["b1"]["timing"] = dict(
+        n=n, p=p, q=q, block=blk, window=sub,
+        slice_width=sf.FUSED_PROBE_WIDTHS[0],
+        production_width=prod_width, exact_ms=med["none"],
+        exact_turns=turns["none"], production_ms=med["production"],
+        exact_bound_ms=sweep_bound_ms(*dims)[0], by_probe=by_probe,
+        implied_ms=implied_costs(offsets, PROBE_COSTS),
+        plain_ms=cuda_ms(plain, 2))
+    del ops, fns
+    torch.cuda.empty_cache()
+
+    ops, blk = mis_kernel_inputs(n, p, q, 1.0, 0.15)
+    mdims = (ops[0].shape[0], ops[0].shape[1], ops[6].shape[1],
+             ops[4].shape[1])
+    sub = 16   # mis_sub 16, the default
+    # the exact sweep in the probe instance (every part kept), B2's own
+    # float32 instance beside it
+    fns = {pr: (lambda pr=pr: sm._sweep_missing_fused_cuda(
+        *ops, block_size=blk, sub=sub, probe=pr))
+        for pr in ("exact", *sm.MIS_PROBES)}
+    fns["none"] = fns.pop("exact")
+    fns["production"] = lambda: sm.sweep_missing_fused(*ops, block_size=blk)
+    turns, offsets = probe_turns(fns)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    by_probe = {}
+    for pr in sm.MIS_PROBES:
+        b, by = mis_probe_bound_ms(*mdims, pr)
+        by_probe[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
+                            bound_by=by, pct_of_bound=pct(b, med[pr]))
+    out["b2"]["timing"] = dict(
+        n=n, p=p, q=q, block=blk, missing_frac=0.15, mis_sub=sub,
+        exact_ms=med["none"], exact_turns=turns["none"],
+        production_ms=med["production"],
+        exact_bound_ms=mis_bound_ms(*mdims)[0], by_probe=by_probe,
+        implied_ms=implied_costs(offsets, MIS_PROBE_COSTS),
+        plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
+            *ops, block_size=blk, sub=16, probe=PROBE_MAIN), 2))
+    del ops, fns
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = max_abs
+    emit({"phase": "probes", **out})
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3387,6 +3791,7 @@ def main():
     bf16 = run("bf16_modes", phase_bf16_modes)
     mesh = run("mesh", phase_mesh)
     run("mcmc", phase_mcmc)
+    probes = run("probes", phase_probes)
     emit({"phase_seconds": seconds})
     kernels = []
     if timing is not None:
@@ -3470,6 +3875,28 @@ def main():
             "pct_of_bound": pct(stag_timing["bound_ms"], stag_timing["ms"]),
             "ctas_per_sm": stag_timing["ctas_per_sm"],
             "plan": stag_timing["plan"], "clocks": stag_timing["clocks"]})
+    if probes is not None:
+        for kind, name, source, replaces in (
+                ("b1", "sweep_fused.probe", "sweep_fused.cu",
+                 "atlasqtl_tpu/ops/sweep_fused.py:68"),
+                ("b2", "sweep_missing_fused.probe", "sweep_missing_fused.cu",
+                 "atlasqtl_tpu/ops/sweep_missing_fused.py:51")):
+            t = probes[kind]["timing"]
+            main_probe = t["by_probe"][PROBE_MAIN]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"atlasqtl_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": probes[kind]["launches"],
+                "max_abs_err": probes["max_abs_err"][kind],
+                "probe": PROBE_MAIN,
+                "shape": {k: t[k] for k in ("n", "p", "q", "block")},
+                "ms": main_probe["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": main_probe["bound_ms"],
+                "bound_by": main_probe["bound_by"], "library_ms": None,
+                "pct_of_bound": main_probe["pct_of_bound"],
+                "exact_ms": t["exact_ms"], "production_ms": t["production_ms"],
+                "ms_by_probe": {k: v["ms"] for k, v in t["by_probe"].items()},
+                "implied_ms": t["implied_ms"]})
     if kernels:
         emit({"kernels": kernels})
     print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",

@@ -20,6 +20,9 @@ another order than B4 (one fused pass per block), so B4 is held against B1
 on the card at the same tolerances.  B1 and B2 are also run at shapes that
 reach each branch of their launch plans (ops/sweep_fused.py:
 fused_launch_plan, ops/sweep_missing_fused.py:missing_launch_plan).
+The perf probes' instances (B1's under Config.sweep_probe, B2's under
+probe=) are held the same way; B1's F is scaled by the larger of F out
+and F in, as a probe may make the two cancel.
 """
 import dataclasses
 import os
@@ -1725,3 +1728,220 @@ def test_samplers_run_on_the_card_with_its_generator(cuda):
         assert res[0].shape == (p_pad, q_pad) and res[2].shape == (p_pad,)
         assert all(np.isfinite(v).all() for v in res)
     assert np.isfinite(smc[4])
+
+
+# ---- the perf probes (B1: Config.sweep_probe, B2: probe=) ----------------
+
+def _probe_held(got, ref, fitted_in):
+    """The kernel tests' tolerance, F's scaled by the larger of F out and
+    F in: F out = F in + X delta, and where a probe makes the two cancel
+    (nor0: delta is near -beta, so F out is near 0) the rounding is that
+    of F in's scale."""
+    for name, a, r in zip(NAMES, _flat(got), _flat(ref)):
+        if r is None:
+            assert a is None, name
+            continue
+        assert a.device.type == "cuda" and a.shape == r.shape, name
+        err = float((a.cpu() - r).abs().max())
+        scale = float(r.abs().max())
+        if name == "fitted":
+            scale = max(scale, float(fitted_in.abs().max()))
+        limit = 1e-4 if name == "gam" else 1e-4 * scale
+        assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("p,blk,sub", [(256, 128, 8), (512, 256, 16)])
+@pytest.mark.parametrize("probe", list(sf.PROBES))
+def test_probe_kernel_matches_plain(cuda, probe, p, blk, sub, bf16):
+    """Each of B1's probes (its probe instance) against the plain version
+    at block 128 (window 8) and 256 (pieces of 128, the whole block's
+    function, window 16): float32 at the kernel tests' tolerance, under
+    mxu_bf16 (the bf16 copy of x) by the bf16 mean criterion."""
+    ops, block = _operands(120, p, 200, 1.0, block=blk)
+    kw = dict(block_size=block, c_one=True, probe=probe, sub=sub)
+    dev = [o.to(cuda) for o in ops]
+    launches = sf.sweep_fused.probe.launches
+    got32 = sf.sweep_fused(*dev, **kw)
+    ref32 = sf.sweep_fused(*ops, **kw)
+    assert sf.sweep_fused.probe.launches == launches + 1
+    if not bf16:
+        _probe_held(got32, ref32, ops[6])
+        return
+    got = sf.sweep_fused(dev[0].to(torch.bfloat16), *dev[1:], **kw,
+                         bf16=True)
+    ref = sf.sweep_fused(*ops, **kw, bf16=True)
+    _bf16_held(_flat(got), _flat(ref), _flat(ref32), _flat(got32), NAMES)
+
+
+@pytest.mark.parametrize("p,blk,sub", [(256, 128, 1), (256, 128, 2),
+                                       (256, 128, 4), (256, 128, 32),
+                                       (512, 256, 4)])
+@pytest.mark.parametrize("probe", ["noseq", "norank", "exact_noz"])
+def test_probe_kernel_windows(cuda, probe, p, blk, sub):
+    """B1's probe instance at the windows below 8 (a window of 8 rows then
+    holds several) and above 16, where noseq and norank change with the
+    window, against the plain version at the kernel tests' tolerance."""
+    ops, block = _operands(120, p, 200, 1.0, block=blk)
+    kw = dict(block_size=block, c_one=True, probe=probe, sub=sub)
+    got = sf.sweep_fused(*[o.to(cuda) for o in ops], **kw)
+    _probe_held(got, sf.sweep_fused(*ops, **kw), ops[6])
+
+
+@pytest.mark.parametrize("pair_bf16", [False, True])
+@pytest.mark.parametrize("n,p,q,sub", [(80, 250, 40, 1), (80, 250, 40, 2),
+                                       (80, 250, 40, 4), (80, 250, 40, 8),
+                                       (80, 250, 40, 16),
+                                       (8000, 128, 256, 16)])
+@pytest.mark.parametrize("probe", list(sm.MIS_PROBES))
+def test_missing_probe_kernel_matches_plain(cuda, probe, n, p, q, sub,
+                                            pair_bf16):
+    """Each of B2's probes at mis_sub 1 to 16 (Fm on chip) and 16 (Fm in
+    device memory, n = 8000), float32 and pair_bf16, against the plain
+    version at the B2 kernel tests' tolerance."""
+    ops, block = _mis_operands(n, p, q, 1.0, block=128)
+    kw = dict(block_size=block, sub=sub, pair_bf16=pair_bf16, probe=probe)
+    launches = sm.sweep_missing_fused.probe.launches
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], **kw)
+    assert sm.sweep_missing_fused.probe.launches == launches + 1
+    ref = sm.sweep_missing_fused(*ops, **kw)
+    for name, a, r in zip(MIS_NAMES, got, ref):
+        err = float((a.cpu() - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
+    if probe == "noadv":   # Fm out = Fm in
+        assert torch.equal(got[2].cpu(), ops[8])
+
+
+def test_probe_launches_under_a_cuda_graph(cuda):
+    """Both probe instances captured in a CUDA graph and replayed give the
+    eager launches' outputs bit for bit."""
+    ops, block = _operands(120, 256, 200, 1.0)
+    dev = [o.to(cuda) for o in ops]
+    mops, mblock = _mis_operands(80, 250, 40, 1.0)
+    mdev = [o.to(cuda) for o in mops]
+    run = lambda: (_flat(sf.sweep_fused(*dev, block_size=block, c_one=True,
+                                        probe="norank", sub=8))
+                   + list(sm.sweep_missing_fused(*mdev, block_size=mblock,
+                                                 sub=16, probe="noadvmask")))
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, captured):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_batched_probe_equals_single_launches(cuda, m):
+    """A probe applies to every replica of a batched launch, each bit for
+    bit its own launch in slices of the same width (its plain version
+    replica by replica within the kernel tests' tolerance)."""
+    parts = [_operands(120, 256, 200, 1.0, seed=3 + r)[0] for r in range(m)]
+    stacked = [o.to(cuda) for o in sf.FUSED.stack(parts)]
+    kw = dict(block_size=128, c_one=True, probe="jacobi", sub=8)
+    got = sf.sweep_fused(*stacked, **kw)
+    width = sf.fused_launch_plan(
+        120, 200, 128, parts[0][3].shape[1],
+        torch.cuda.get_device_properties(cuda).multi_processor_count, m=m,
+        probe=True)["slice_width"]
+    shared = set(sf.FUSED.names) - sf.FUSED.state
+    for r in range(m):
+        ops = [o if k in shared else o[r] for k, o in
+               zip(sf.FUSED.names, stacked)]
+        one = sf.fused_launch("atlasqtl_sweep_fused", *ops, block_size=128,
+                              emit_gam_mu=True, c_one=True,
+                              probe=sf.PROBES["jacobi"], window=8,
+                              slice_width=width)
+        for a, b in zip(_flat(got), _flat(one)):
+            assert torch.equal(a[r], b)
+        ref = sf.sweep_fused(*[o.cpu() for o in ops], **kw)
+        _probe_held(one, ref, ops[6])
+
+
+def test_probe_routes_on_the_card(cuda):
+    """One cavi_iteration under Config(sweep_probe="noadv") launches B1's
+    probe instance once; with sweep_stagger too it takes B1's probe
+    instance, not B4 (which the same configuration takes without it)."""
+    y, x, _ = simulate_fixture(n=120, p=256, p_act=8, q=200, seed=3)
+    dat = prepare_data(y, x, 0.1, 1000)
+    p_eff, q_eff = dat.x.shape[1], dat.y.shape[1]
+    for probe, stagger in (("noadv", False), ("noadv", True),
+                           ("none", True)):
+        cfg = Config(dtype=torch.float32, shr_fac_inv=float(q_eff),
+                     sweep_probe=probe, sweep_stagger=stagger)
+        data = gl.build_data(dat.x, dat.y, cfg, cuda, q_pad_to=256)
+        hyper = gl.build_hyper(elic.auto_set_hyper(dat.y, p_eff, (4, 16)),
+                               data.y.shape[1], cfg, cuda)
+        state = gl.build_state(elic.auto_set_init(dat.y, p_eff, (4, 16),
+                                                  float(q_eff), 3), data,
+                               cfg)
+        counts = (sf.sweep_fused.launches, sf.sweep_fused.probe.launches,
+                  ss.sweep_fused_staggered.launches)
+        gl.cavi_iteration(data, hyper, state,
+                          block_gram(data.x, gl.data_block(cfg, data)), 1.0,
+                          1.0, cfg=cfg, annealed=False)
+        moved = tuple(a - b for a, b in zip(
+            (sf.sweep_fused.launches, sf.sweep_fused.probe.launches,
+             ss.sweep_fused_staggered.launches), counts))
+        assert moved == ((0, 0, 1) if probe == "none" else (1, 1, 0)), moved
+
+
+def test_probe_kernels_refuse(cuda):
+    """B1's probe instance takes windows that divide 8 or are multiples of
+    it (not 6 at block 48) and no lookahead; B2's takes windows 1 to 16
+    (not 32)."""
+    ops, block = _operands(120, 96, 200, 1.0, block=48)
+    assert block == 48
+    dev = [o.to(cuda) for o in ops]
+    with pytest.raises(NotImplementedError, match="divisors of 8"):
+        sf.sweep_fused(*dev, block_size=block, probe="noseq", sub=6)
+    ops, block = _operands(120, 256, 200, 1.0)
+    dev = [o.to(cuda) for o in ops]
+    with pytest.raises(ValueError, match="lookahead"):
+        sf.sweep_fused(dev[0].to(torch.bfloat16), *dev[1:], block_size=block,
+                       bf16=True, lookahead=True,
+                       goff=sf.lookahead_gram(dev[0], block), probe="noseq")
+    mops, mblock = _mis_operands(80, 250, 40, 1.0)
+    with pytest.raises(NotImplementedError, match="windows"):
+        sm.sweep_missing_fused(*[o.to(cuda) for o in mops],
+                               block_size=mblock, sub=32, probe="noadv")
+
+
+@pytest.mark.parametrize("kind", ["b1", "b5a", "b5d", "b2", "b5b"])
+def test_production_instances_still_match_plain(cuda, kind):
+    """Beside the probe instances, the production instances of B1 (f32,
+    mxu_bf16, its lookahead) and B2 (f32, pair_bf16 at mis_sub 16) still
+    match their plain versions (float32 at the kernel tests' tolerance,
+    the bf16 modes by their mean criterion)."""
+    if kind in ("b2", "b5b"):
+        ops, block = _mis_operands(80, 250, 40, 1.0)
+        kw = dict(block_size=block, pair_bf16=kind == "b5b", sub=16)
+        got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], **kw)
+        ref = sm.sweep_missing_fused(*ops, **kw)
+        for name, a, r in zip(MIS_NAMES, got, ref):
+            err = float((a.cpu() - r).abs().max())
+            limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+            assert err <= limit, (name, err, limit)
+        return
+    ops, block = _operands(120, 256, 200, 1.0)
+    dev = [o.to(cuda) for o in ops]
+    kw = dict(block_size=block, c_one=True)
+    got32, ref32 = sf.sweep_fused(*dev, **kw), sf.sweep_fused(*ops, **kw)
+    if kind == "b1":
+        _probe_held(got32, ref32, ops[6])
+        return
+    la = kind == "b5d"
+    goff = sf.lookahead_gram(ops[0], block) if la else None
+    got = sf.sweep_fused(dev[0].to(torch.bfloat16), *dev[1:],
+                         None if goff is None else goff.to(cuda), **kw,
+                         bf16=True, lookahead=la)
+    ref = sf.sweep_fused(*ops, goff, **kw, bf16=True, lookahead=la)
+    _bf16_held(_flat(got), _flat(ref), _flat(ref32), _flat(got32), NAMES)

@@ -104,16 +104,22 @@ def test_missing_modes_run_and_unknown_mode_raises():
         at.atlasqtl(y, x, missing="bogus", **kw)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("sweep_probe", "nomxu", r"ROADMAP\.md B5c.*phase_clocks"),
-])
-def test_unported_config_raises(field, value, item):
+@pytest.mark.parametrize("probe", [
+    "jacobi", "jacobi_min", "nomxu", "nor0", "chain_only", "exact_noz",
+    "noseq", "nosig", "norank", "noadv", "dmalite", "bogus"])
+def test_sweep_probe_config(probe):
+    """check_config takes the JAX kernel's eleven perf probes (B1 runs
+    them, ops/sweep_fused.py:PROBES) beside the TPU scheduling fields, and
+    raises ValueError on an unknown value."""
     from atlasqtl_tpu_torch.models.global_local import check_config
     check_config(at.Config(sweep_lookahead=True, sweep_interleave=True,
                            sweep_qchunk=64, sweep_sub=16, mxu_bf16=True,
                            mis_pair_bf16=True))
-    with pytest.raises(NotImplementedError, match=item):
-        check_config(at.Config(**{field: value}))
+    if probe == "bogus":
+        with pytest.raises(ValueError, match="unknown sweep probe"):
+            check_config(at.Config(sweep_probe=probe))
+    else:
+        check_config(at.Config(sweep_probe=probe, sweep_sub=16))
 
 
 class _FakeData:

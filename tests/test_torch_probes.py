@@ -1,0 +1,277 @@
+"""The perf probes of the port's fused sweeps, held against the JAX package:
+B1's eleven Config.sweep_probe values (ops/sweep_fused.py:PROBES) and B2's
+probe= values (ops/sweep_missing_fused.py:MIS_PROBES).  On the CPU the
+wrappers run the kernels' plain versions, held here against the JAX
+kernels in interpret mode; the CUDA probe instances are held against the
+plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py's
+probes phase).  Also the probes' routing (models/global_local.py:
+_b1_probe) and one CAVI iteration under a probe in both packages.
+
+Tolerances: tests/test_torch_sweep_fused.py's for B1 (gam, mu, beta atol
+1e-5; the rest 1e-4 * max |reference|), tests/test_torch_missing.py's for
+B2 (gam atol 5e-5, the rest 5e-4), tests/test_torch_bf16.py's mean
+criterion for B1's probes under mxu_bf16, tests/test_torch_model.py's for
+the iteration.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from atlasqtl_tpu.models import global_local as jgl
+from atlasqtl_tpu.ops import sweep as jsw
+from atlasqtl_tpu.ops.sweep_fused import sweep_complete_fused as j_fused
+from atlasqtl_tpu.ops.sweep_missing_fused import sweep_missing_fused_driver
+from atlasqtl_tpu.ops.sweep import block_gram as j_block_gram
+
+import atlasqtl_tpu_torch as at
+from atlasqtl_tpu_torch.models import global_local as tgl
+from atlasqtl_tpu_torch.ops import sweep as tsw
+from atlasqtl_tpu_torch.ops import sweep_fused as tsf
+from atlasqtl_tpu_torch.ops import sweep_missing_fused as tsm
+from atlasqtl_tpu_torch.ops.sweep import block_gram as t_block_gram
+
+from test_torch_bf16 import _flat, _mean_criterion
+from test_torch_missing import _check_b2, _consts, _jax_problem as _mis_problem
+from test_torch_model import _jax_problem as _model_problem
+from test_torch_sweep_fused import NAMES, _check, _problem, _t
+
+_B1 = {}
+
+
+def _b1_problem(c):
+    """`_problem(120, 128, c, 32)`: q padded to 128, 8 blocks of 32."""
+    if c not in _B1:
+        _B1[c] = _problem(120, 128, c, 32)
+    return _B1[c]
+
+
+def _jax_b1(probe, c, sub, bf16=False):
+    data, state, gram, consts = _b1_problem(c)
+    return j_fused(data.x, data.cp_x_y, gram, state.gam * state.mu_beta,
+                   state.fitted, consts, 32, p_mask=data.p_mask,
+                   q_mask=data.q_mask, q_tile=128, sub=sub, qchunk=128,
+                   mxu_bf16=bf16, annealed=c != 1.0, probe=probe)
+
+
+def _port_b1(probe, c, sub, bf16=False):
+    data, state, gram, consts = _b1_problem(c)
+    tconsts = tsw.SweepConsts(*[_t(v) for v in consts])
+    return tsf.sweep_complete_fused(
+        _t(data.x), _t(data.cp_x_y), _t(gram), _t(state.gam * state.mu_beta),
+        _t(state.fitted), tconsts, 32, p_mask=_t(data.p_mask),
+        q_mask=_t(data.q_mask), annealed=c != 1.0, bf16=bf16, probe=probe,
+        sub=sub)
+
+
+@pytest.mark.parametrize("probe,c,sub", [
+    *((p, 1.0, 8) for p in tsf.PROBES),
+    ("noseq", 0.5, 8), ("norank", 0.5, 8), ("jacobi", 0.5, 8),
+    ("noseq", 1.0, 16), ("norank", 1.0, 16),
+    ("noseq", 1.0, 4), ("norank", 1.0, 4)])
+def test_b1_probe_plain_matches_jax_kernel(probe, c, sub):
+    """Each probe of the JAX fused kernel (interpret mode) at (n=120,
+    p=256, q=128, block 32) in windows of `sub`; under noseq and norank
+    the window changes the function (at 4 a window of the CUDA probe
+    instance's 8-row chain holds two)."""
+    got = _port_b1(probe, c, sub)
+    assert tsf.sweep_fused.launches == 0  # CPU: the plain version
+    _check(got, _jax_b1(probe, c, sub))
+
+
+@pytest.mark.parametrize("probe", ["jacobi", "exact_noz"])
+def test_b1_probe_plain_bf16_matches_jax_kernel(probe):
+    """Under mxu_bf16 a probe keeps its bf16 products: the port's plain
+    version against the JAX kernel under tests/test_torch_bf16.py's mean
+    criterion (the mode's distance: the same probe in float32)."""
+    got = _port_b1(probe, 1.0, 8, bf16=True)
+    _mean_criterion(_flat(got), _flat(_jax_b1(probe, 1.0, 8, bf16=True)),
+                    _flat(_jax_b1(probe, 1.0, 8)), NAMES)
+
+
+def test_b1_window_16_moves_noseq():
+    """The window is part of noseq's function: sub 8 and 16 differ (the
+    reason sweep_sub is read under a probe)."""
+    a, b = _port_b1("noseq", 1.0, 8), _port_b1("noseq", 1.0, 16)
+    assert float((a[2] - b[2]).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("window,ok", [(1, True), (2, True), (4, True),
+                                       (8, True), (16, True), (24, True),
+                                       (3, False), (6, False), (12, False)])
+def test_b1_probe_instance_windows(window, ok):
+    """The windows B1's CUDA probe instance takes: the divisors of its
+    8-row chain window and the multiples of it (a window of 8 rows lies in
+    one window or is a run of whole ones); B2's take 1 to 16."""
+    assert tsf.probe_window_ok(window) is ok
+    assert (window in tsm.PROBE_WINDOWS) is (window in (1, 2, 4, 8, 16))
+
+
+def test_b1_probe_rejections():
+    data, state, gram, consts = _b1_problem(1.0)
+    tconsts = tsw.SweepConsts(*[_t(v) for v in consts])
+    args = (_t(data.x), _t(data.cp_x_y), _t(gram),
+            _t(state.gam * state.mu_beta), _t(state.fitted), tconsts, 32)
+    with pytest.raises(ValueError, match="unknown sweep probe"):
+        tsf.sweep_complete_fused(*args, probe="bogus")
+    with pytest.raises(ValueError, match="must divide"):
+        tsf.sweep_complete_fused(*args, probe="noseq", sub=24)
+
+
+_B2 = {}
+
+
+def _b2_problem():
+    """test_b2_plain_matches_jax_kernel's problem: n=80, p=250, q=40
+    padded to 256, 20% missing, c = 1."""
+    if not _B2:
+        data, _, state, _, _ = _mis_problem(jnp.float32, n=80, p=250, q=40,
+                                            seed=7, mis_block=16,
+                                            q_pad_to=256)
+        consts, sig2_inv = _consts(data, state, 1.0, np.float32)
+        _B2["p"] = data, state, consts, sig2_inv
+    return _B2["p"]
+
+
+def _port_b2(probe, sub=8):
+    data, state, consts, sig2_inv = _b2_problem()
+    tc = tsw.SweepConsts(**{k: _t(v) for k, v in consts.items()})
+    return tsm.sweep_missing_fused_driver(
+        _t(data.x), _t(data.cp_x_y), _t(data.x_norm_sq), _t(data.mis_pat),
+        _t(state.gam), _t(state.mu_beta), _t(state.fitted), tc, _t(sig2_inv),
+        128, _t(data.p_mask), _t(data.q_mask), sub=sub, probe=probe)
+
+
+@pytest.mark.parametrize("probe", ["noseq", "noadv", "noadvmask"])
+def test_b2_probe_plain_matches_jax_kernel(probe):
+    """Each probe of the JAX exact-missing kernel (interpret mode, sub 8,
+    wgroup 4) against the port's plain version at its window."""
+    data, state, consts, sig2_inv = _b2_problem()
+    jc = jsw.SweepConsts(**{k: jnp.asarray(v) for k, v in consts.items()})
+    ref = sweep_missing_fused_driver(
+        data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+        state.mu_beta, state.fitted, jc, jnp.asarray(sig2_inv), 128,
+        p_mask=data.p_mask, q_mask=data.q_mask, q_tile=256, sub=8, wgroup=4,
+        qchunk=256, probe=probe)
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    _check_b2(_port_b2(probe), ref, msk)
+    if probe == "noadv":  # Fm out = Fm in
+        np.testing.assert_array_equal(np.asarray(ref[2]),
+                                      np.asarray(state.fitted))
+
+
+def test_b2_noh_is_noseq_and_rejections():
+    """noh and noseq are one function (atlasqtl_tpu/ops/
+    sweep_missing_fused.py:155, 197); an unknown probe and a window that
+    does not divide the block raise."""
+    for a, b in zip(_port_b2("noh", 16), _port_b2("noseq", 16)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown sweep_missing_fused"):
+        _port_b2("nosig")
+    with pytest.raises(ValueError, match="must divide"):
+        _port_b2("noadv", 48)
+
+
+class _FakeData:
+    """What `_engine` reads of complete data."""
+
+    def __init__(self, n, q):
+        self.x = torch.zeros((n, 1))
+        self.y = torch.zeros((1, q))
+        self.x_norm_sq = None
+
+
+@pytest.mark.parametrize("q,kw,reaches", [
+    (128, {}, True),                                  # a fused q tile
+    (120, {}, False),                                 # none: no tile
+    (128, dict(q_axis="q"), False),                   # a mesh
+    (256, dict(sweep_stagger=True), True),            # B1, never B4
+    (128, dict(sweep="xla"), False),                  # the plain engine
+    (128, dict(sweep="pallas"), False),               # the B3 route
+])
+def test_b1_probe_routing(q, kw, reaches):
+    """`_b1_probe` at n=120 on the CPU (sweep="fused"): the probe reaches
+    B1 only at a fused q tile, on one device, on the fused engine; under
+    it sweep_stagger takes B1, and the lookahead is off."""
+    cfg = at.Config(**{"sweep": "fused", "sweep_probe": "noadv",
+                       "mxu_bf16": True, "sweep_lookahead": True, **kw})
+    n = 120
+    assert tgl._b1_probe(cfg, "cpu", n, q) is reaches
+    if "sweep_stagger" in kw:
+        assert not tgl._stagger(cfg, n, q)
+        assert tgl._engine(cfg, _FakeData(n, q)) == "b1"
+        assert tgl._stagger(dataclasses.replace(cfg, sweep_probe="none"),
+                            n, q)
+    if reaches:
+        assert not tgl._b1_lookahead(cfg, "cpu", n, q)
+        assert tgl._b1_bf16(cfg, "cpu", n, q)
+    elif q == 128 and "q_axis" in kw:   # a mesh keeps its lookahead
+        assert tgl._b1_lookahead(cfg, "cpu", n, q)
+
+
+def test_b1_window_rule():
+    """`_fused_sub`: sweep_sub, or 8 up to n 2048 and 32 above, clipped to
+    the block; a window that does not divide the block raises."""
+    assert tgl._fused_sub(at.Config(), 2048, 128) == 8
+    assert tgl._fused_sub(at.Config(), 2056, 128) == 32
+    assert tgl._fused_sub(at.Config(), 2056, 16) == 16
+    assert tgl._fused_sub(at.Config(sweep_sub=64), 100, 128) == 64
+    with pytest.raises(ValueError, match="must divide"):
+        tgl._fused_sub(at.Config(sweep_sub=48), 100, 128)
+
+
+def test_cavi_iteration_under_a_probe_matches_jax():
+    """One float32 iteration with Config(sweep="fused",
+    sweep_probe="norank") in both packages (the JAX fused kernel in
+    interpret mode, the port's plain version), tests/test_torch_model.py's
+    tolerances."""
+    (data, hyper, state, jcfg), (tdata, thyper, tstate), cfg, tdt = \
+        _model_problem(jnp.float32, 32, 128, n=120, p=256, q=48, seed=3)
+    jcfg = dataclasses.replace(jcfg, sweep="fused", sweep_probe="norank")
+    tcfg = at.Config(dtype=tdt, sweep="fused", sweep_probe="norank", **cfg)
+    tgl.check_config(tcfg)
+    j1 = jgl.cavi_iteration(data, hyper, state, j_block_gram(data.x, 32),
+                            1.0, 1.0, cfg=jcfg, annealed=False)
+    t1 = tgl.cavi_iteration(tdata, thyper, tstate, t_block_gram(tdata.x, 32),
+                            1.0, 1.0, cfg=tcfg, annealed=False)
+    assert tsf.sweep_fused.launches == 0
+    for name, atol in (("gam", 5e-5), ("mu_beta", 5e-5), ("theta", 5e-5),
+                       ("fitted", 5e-3)):
+        np.testing.assert_allclose(getattr(t1, name).numpy(),
+                                   np.asarray(getattr(j1, name)),
+                                   atol=atol, err_msg=name)
+    # the probe moved the iteration: the exact one differs
+    t0 = tgl.cavi_iteration(tdata, thyper, tstate, t_block_gram(tdata.x, 32),
+                            1.0, 1.0, cfg=dataclasses.replace(
+                                tcfg, sweep_probe="none"), annealed=False)
+    assert float((t0.mu_beta - t1.mu_beta).abs().max()) > 1e-4
+
+
+def test_replicas_under_a_probe_match_single_iterations():
+    """cavi_iteration_replicas under a probe (one batched B1 sweep, on the
+    CPU its plain version replica by replica): each replica's state is
+    the one cavi_iteration gives it alone, bit for bit, as JAX's vmap of
+    cavi_iteration applies the probe to every replica."""
+    (_, _, _, _), (tdata, thyper, tstate), cfg, tdt = _model_problem(
+        jnp.float32, 32, 128, n=120, p=256, q=48, seed=3)
+    tcfg = at.Config(dtype=tdt, sweep="fused", sweep_probe="noseq", **cfg)
+    other = dataclasses.replace(tstate, theta=tstate.theta * 0.5,
+                                fitted=tstate.fitted * 0.9)
+    gram = t_block_gram(tdata.x, 32)
+    both = tgl.cavi_iteration_replicas(tdata, thyper, [tstate, other], gram,
+                                       0.5, 0.5, cfg=tcfg, annealed=True)
+    for st, got in zip((tstate, other), both):
+        one = tgl.cavi_iteration(tdata, thyper, st, gram, 0.5, 0.5,
+                                 cfg=tcfg, annealed=True)
+        for f in dataclasses.fields(one):
+            a, b = getattr(got, f.name), getattr(one, f.name)
+            assert (a is None) == (b is None), f.name
+            if b is not None:
+                assert torch.equal(a, b), f.name
+        exact = tgl.cavi_iteration(tdata, thyper, st, gram, 0.5, 0.5,
+                                   cfg=dataclasses.replace(
+                                       tcfg, sweep_probe="none"),
+                                   annealed=True)
+        assert float((exact.mu_beta - got.mu_beta).abs().max()) > 1e-4
