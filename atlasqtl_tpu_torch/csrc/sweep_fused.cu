@@ -843,6 +843,10 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   const int k0 = blockIdx.x * QS;
   const float c = scal[0], kz = scal[1];
   const int pcode = PR ? (int)scal[2] : 0, psub = PR ? (int)scal[3] : W;
+  // the probe's window on the 8-row grid (a divisor of W or a multiple of
+  // it: a window of W rows lies in one window of psub or is a run of whole
+  // ones), else its keep tests go per row (every other instance: on it)
+  const bool grid = !PR || W % psub == 0 || psub % W == 0;
   const int nb = p / B, nwin = B / W;
   const int npc = BF || PR ? Bfull / B : 1;  // pieces of a block
   // the probe thread adds its cycles straight into g_clocks, so that no
@@ -1282,15 +1286,43 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                 Bfull);
     // the block's earlier pieces' deltas through the f32 cross-Gram (the
     // probe instance: those it keeps, corrections from the rows before
-    // this 4-row tile's window of psub and pushes from the rest; a tile
-    // lies in one window, or psub < 4 and every earlier piece's row is in
-    // an earlier window)
+    // this 4-row tile's window of psub and pushes from the rest; on the
+    // grid a tile lies in one window, or psub < 4 and every earlier piece's
+    // row is in an earlier window; off it, per row)
     const bool c7 = (BF || PR) && npc > 1 && kp > 0;
     const int mp = PR ? min(kp * B, (kp * B + ty * 4) / psub * psub) : 0;
-    if (c7 && trow)
+    if (c7 && trow && grid)
       cross_add(gram_full + (size_t)(j0 + ty * 4) * Bfull,
                 dw_ws + (size_t)par * Bfull * qsw + k0 + tx * 4, qsw,
                 PR && !k_corr ? mp : 0, PR && !k_push ? mp : kp * B);
+    if constexpr (PR) {
+      if (c7 && trow && !grid) {
+        // row a of the tile (block row rb): corrections from the earlier
+        // pieces' rows before its window's start, pushes from the rest,
+        // the Gram row in f32, in row order as cross_add sums
+#pragma unroll 1
+        for (int a = 0; a < 4; ++a) {
+          const int rb = kp * B + ty * 4 + a;
+          const int ms = min(kp * B, rb / psub * psub);
+          const int m0 = k_corr ? 0 : ms, m1 = k_push ? kp * B : ms;
+          const float* gr = gram_full + (size_t)(j0 + ty * 4 + a) * Bfull;
+          const float* d0 = dw_ws + k0 + tx * 4;
+          float sa[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int m = m0; m < m1; ++m) {
+            float d[4];
+            unpack4(ld4(d0 + (size_t)m * qsw), d);
+            const float gv = gr[m];
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) sa[jj] = fmaf(gv, d[jj], sa[jj]);
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float* r = R_s + (ty * 4 + a) * QS + tx * 4 + jj;
+            *r = __fadd_rn(*r, sa[jj]);
+          }
+        }
+      }
+    }
     if (la_corr || c7) __syncthreads();
 
     tick(1);
@@ -1302,14 +1334,25 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     for (int w = 0; w < nwin; ++w) {
       const int lo = w * W, cur = w & 1, nxt = cur ^ 1, rw = w % NRW;
       // the probe instance takes only the pushes and corrections it keeps,
-      // by windows of psub rows of the whole block (a divisor of W or a
-      // multiple of it, so that a window of W rows lies in one window of
-      // psub or is a run of whole ones): the previous window's deltas are
-      // pushes where it lies in this one's window of psub, else
-      // corrections; rows a and i of this window share one where
-      // (a ^ i) < psub
+      // by windows of psub rows of the whole block.  On the grid the
+      // previous window's deltas are pushes where it lies in this one's
+      // window of psub, else corrections; rows a and i of this window share
+      // one where (a ^ i) < psub.  Off it, per pair of rows: row b's delta
+      // reaches row lb + i as a push where b >= wst[i], the first row of
+      // that row's window of psub, else as a correction
       const int lb = kp * B + lo;  // the window's first row in the block
       const bool kprev = !PR || (lb % psub ? k_push : k_corr);
+      int wst[W];
+      if constexpr (PR) {
+        if (!grid) {
+          int s0 = lb - lb % psub;
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            if (lb + i >= s0 + psub) s0 += psub;  // psub >= 1: one at most
+            wst[i] = s0;
+          }
+        }
+      }
       if (chain) {
         float rr[W], pm[W];
 #pragma unroll
@@ -1326,10 +1369,18 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                                             R_s[row * QS + tid]));
           if (w > 0) {
             r = __fadd_rn(r, C_s[cur * WQ + i * QS + tid]);
-            if (kprev) {
+            if (kprev && grid) {
 #pragma unroll
               for (int m = 0; m < W; ++m)
                 r = fmaf(gp(GP_s, row, lo - W + m), dprev[m], r);
+            }
+            if constexpr (PR) {
+              if (!grid) {
+#pragma unroll
+                for (int m = 0; m < W; ++m)
+                  if (lb - W + m >= wst[i] ? k_push : k_corr)
+                    r = fmaf(gp(GP_s, row, lo - W + m), dprev[m], r);
+              }
             }
           }
           rr[i] = r;
@@ -1347,8 +1398,14 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           GT_s[row * QS + tid] = st.gam;
           dprev[i] = st.delta;
           if constexpr (PR) {
-            // the window in one window of psub (uniform), or several
-            if (psub >= W ? k_push : false) {
+            // the window in one window of psub (uniform), or several (on
+            // the grid: aligned powers of two), or off the grid per pair
+            if (!grid) {
+#pragma unroll
+              for (int a = i + 1; a < W; ++a)
+                if (lb + i >= wst[a] ? k_push : k_corr)
+                  rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
+            } else if (psub >= W ? k_push : false) {
 #pragma unroll
               for (int a = i + 1; a < W; ++a)
                 rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
@@ -1381,13 +1438,35 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         // window's corrections by every delta two or more windows back (a
         // probe: rows before ms, ahead of the next window's window of psub,
         // where it keeps the corrections, the rest where it keeps the
-        // pushes; ms is a multiple of W or lo)
+        // pushes; on the grid ms is a multiple of W or lo, off it per row)
         if (w + 2 < nwin) stage_rows(j0 + lo + 2 * W, (w + 2) % NRW, H0);
         cp_async_commit();
         const int ms =
             PR ? max(0, min(lo, (lb + W) / psub * psub - kp * B)) : 0;
         const int mlo = PR && !k_corr ? ms : 0, mhi = PR && !k_push ? ms : lo;
-        for (int e = tid - H0; e < WQ; e += NT - H0) {
+        if constexpr (PR) {
+          if (!grid) {
+            for (int e = tid - H0; e < WQ; e += NT - H0) {
+              const int t = e / QS, col = e % QS;
+              const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
+              const int mt =
+                  max(0, min(lo, (lb + W + t) / psub * psub - kp * B));
+              const int m1 = k_push ? lo : mt;
+              int m = k_corr ? 0 : mt;
+              float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+              for (; m + 4 <= m1; m += 4) {
+                s0 = fmaf(gr[m], D_s[m * QS + col], s0);
+                s1 = fmaf(gr[m + 1], D_s[(m + 1) * QS + col], s1);
+                s2 = fmaf(gr[m + 2], D_s[(m + 2) * QS + col], s2);
+                s3 = fmaf(gr[m + 3], D_s[(m + 3) * QS + col], s3);
+              }
+              for (; m < m1; ++m) s0 = fmaf(gr[m], D_s[m * QS + col], s0);
+              C_s[nxt * WQ + e] =
+                  __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+            }
+          }
+        }
+        for (int e = tid - H0; e < WQ && grid; e += NT - H0) {
           const int t = e / QS, col = e % QS;
           const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
           float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
@@ -2379,7 +2458,7 @@ extern "C" {
 // threads leave ptxas 168 registers, the f32 schedule takes 167 and the
 // probe's code would spill) launches the probe instance with that
 // code (PrBits; bf16 x under its PR_XBF bit, bf16 then 0) in chain windows
-// of psub rows (a divisor of 8 or a multiple of it, dividing Bfull), both
+// of psub rows (any divisor of Bfull), both
 // also in scal (c, kz, probe, psub per replica); where Bfull > B it reads
 // gram_full and takes dw_ws as the bf16 instance does (fh_ws null).
 // Returns the CUDA error code of the launches (0 on success);
@@ -2405,8 +2484,7 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
        (gram_full == nullptr || fh_ws == nullptr || dw_ws == nullptr)) ||
       (lookahead && (!bf16 || goff == nullptr)) ||
       (probe >= 0 &&
-       (bf16 || lookahead || psub <= 0 || (W % psub != 0 && psub % W != 0) ||
-        Bfull % psub != 0 ||
+       (bf16 || lookahead || psub <= 0 || Bfull % psub != 0 ||
         (Bfull > B && (gram_full == nullptr || dw_ws == nullptr)))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -185,10 +185,25 @@ __device__ long long g_clocks[NCLK];
 // interpolation basis L
 __host__ __device__ constexpr int ws_floats(int R) { return 2 * W + W * R; }
 
+// a probe's window off the 8-row grid: neither a divisor of W nor a
+// multiple of it (3, 5, 6, 12, ...: a window starts inside a chain window)
+__host__ __device__ constexpr bool off_grid(int pwin) {
+  return pwin > 0 && W % pwin != 0 && pwin % W != 0;
+}
+
 // the deltas a CTA keeps: those of its window, or under a DEEP pair_bf16
 // window (SUB > 2 W) those of the whole SUB-window
 __host__ __device__ constexpr int delta_rows(int sub) {
   return sub > 2 * W ? sub : W;
+}
+
+// the float32 probe instance's deltas beside them, in a region of their own
+// at the end of shared memory (so that every other offset is the float32
+// instance's): under a probe's window pwin over 2 W those of the window
+// (probe_deep_rows), off the grid a ring of whole chain windows over the
+// latest pwin + 7 rows (probe_off_rows), else none
+__host__ __device__ constexpr int probe_rows(int pwin) {
+  return off_grid(pwin) ? (pwin + 2 * W - 2) / W * W : pwin > 2 * W ? pwin : 0;
 }
 
 // the rows of one x slot: the CTA's rows (none in device memory), under a
@@ -201,14 +216,18 @@ __host__ __device__ constexpr int x_rows(int rows, int sub) {
 // of masked gam, the deltas (delta_rows), two cluster-visible sum buffers,
 // the partial slots, the phase clocks, three sets of window scalars, the
 // slice's interpolation nodes; on chip also nloc rows of Fm and one mask
-// word per row; two x slots of W per row of x_rows
-size_t smem_bytes(bool on_chip, int nloc, int R, int sub) {
+// word per row; two x slots of W per row of x_rows; under a probe at
+// window pwin (else 0) its probe_rows, from a 16-byte boundary after the
+// mask words
+size_t smem_bytes(bool on_chip, int nloc, int R, int sub, int pwin = 0) {
   const size_t rows = on_chip ? nloc : 0;
+  const size_t prows = probe_rows(pwin);
   return sizeof(float) *
          ((size_t)2 * NWT * W * QS + 2 * W * QS + (size_t)delta_rows(sub) * QS +
           2 * NRH * QS +
           NSLOT * NRH * QS + CLKF + NWS * ws_floats(R) + 3 * R * QS +
-          rows * (QS + 1) + (size_t)2 * x_rows((int)rows, sub) * W);
+          rows * (QS + 1) + (size_t)2 * x_rows((int)rows, sub) * W +
+          (prows ? ((rows + 3) & ~(size_t)3) - rows + prows * QS : 0));
 }
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
@@ -347,15 +366,17 @@ __device__ __forceinline__ float row_update(float f, float m,
 // that starts at predictor jadv (f += m * sum_b x_b delta_b, x from device
 // memory); proj then adds this chain window's projections (x in xp, as
 // window_pass) of Fm as it stands, its SUB-window's start, into v.  Its
-// pair Grams are the tensor cores' (window_grams, cross_grams).
-template <bool ON_CHIP, int SUB>
+// pair Grams are the tensor cores' (window_grams, cross_grams).  PRB, the
+// probe instance: the advance by the rule arule (row_update's; noadv
+// passes jadv = -1).
+template <bool ON_CHIP, int SUB, bool PRB = false>
 __device__ __forceinline__ void deep_rows(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
     const float* __restrict__ x, const float* __restrict__ xp,
     const float* __restrict__ D_s, float* __restrict__ v, int row0, int nr,
     int p, int q, int k, bool cvalid, int warp, int lane, int jadv,
-    bool proj) {
+    bool proj, int arule = 1) {
   static_assert(SUB > 2 * W && SUB % W == 0, "a DEEP pair_bf16 window");
 #pragma unroll
   for (int e = 0; e < NRH; ++e) v[e] = 0.f;
@@ -376,7 +397,7 @@ __device__ __forceinline__ void deep_rows(
 #pragma unroll
         for (int i = 0; i < W; ++i) s = fmaf(xb[i], D_s[(c + i) * QS + lane], s);
       }
-      f = fmaf(m, s, f);
+      f = !PRB || arule == 1 ? fmaf(m, s, f) : __fadd_rn(f, s);
       fr = f;
     }
     if (!proj) continue;
@@ -384,6 +405,163 @@ __device__ __forceinline__ void deep_rows(
     load8(xp + t * xs, xv);
 #pragma unroll
     for (int a = 0; a < W; ++a) v[a] = fmaf(xv[a], f, v[a]);
+  }
+}
+
+// The float32 probe instance's pass under a probe's window S = pwin over
+// 2 W (the JAX kernel's windows of sub, atlasqtl_tpu/ops/
+// sweep_missing_fused.py:157-215): jadv >= 0 first advances Fm by the S
+// deltas in D_s of the S-window that starts at predictor jadv by the rule
+// arule (1 masked, 2 without the mask; noadv passes -1), x from device
+// memory; proj then adds this chain window's projections (x in xp, as
+// window_pass) of Fm as of its S-window's start plus, where `pairs`, the
+// masked increment of the nd rows of the S-window before it (m sum_b x_b
+// delta_b, b from predictor jd: the pushes of the masked pair Grams with
+// every earlier 8-window, recomputed per row from the deltas kept in D_s),
+// and where `pairs` its own f32 pair sums.
+template <bool ON_CHIP>
+__device__ __forceinline__ void probe_deep_rows(
+    float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
+    float* __restrict__ fm, const float* __restrict__ mask,
+    const float* __restrict__ x, const float* __restrict__ xp,
+    const float* __restrict__ D_s, float* __restrict__ v, int row0, int nr,
+    int p, int q, int k, bool cvalid, int warp, int lane, int S, int jadv,
+    int arule, bool proj, bool pairs, int jd, int nd) {
+#pragma unroll
+  for (int e = 0; e < NRH; ++e) v[e] = 0.f;
+  if (!ON_CHIP && !cvalid) return;
+  const size_t xs = ON_CHIP ? W : (size_t)p;  // row stride of the x window
+  for (int t = warp; t < nr; t += NW) {
+    float& fr = ON_CHIP ? fm_s[t * QS + lane] : fm[(size_t)t * q + k];
+    const float m = ON_CHIP ? ((mb_s[t] >> lane) & 1u ? 1.f : 0.f)
+                            : mask[(size_t)t * q + k];
+    const float* xrow = x + (size_t)(row0 + t) * p;
+    // sum_b x_b delta_b over nb deltas from D_s's first row, x from j
+    auto xdot = [&](int j, int nb) {
+      float s = 0.f;
+      for (int c = 0; c < nb; c += W) {
+        float xb[W];
+        load8(xrow + j + c, xb);
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          s = fmaf(xb[i], D_s[(c + i) * QS + lane], s);
+      }
+      return s;
+    };
+    float f = fr;
+    if (jadv >= 0) {
+      const float s = xdot(jadv, S);
+      f = arule == 1 ? fmaf(m, s, f) : __fadd_rn(f, s);
+      fr = f;
+    }
+    if (!proj) continue;
+    const float fp = pairs && nd > 0 ? fmaf(m, xdot(jd, nd), f) : f;
+    float xv[W];
+    load8(xp + t * xs, xv);
+#pragma unroll
+    for (int a = 0; a < W; ++a) v[a] = fmaf(xv[a], fp, v[a]);
+    if (pairs) pair_sums<0>(xv, m, v);
+  }
+}
+
+// Off the grid, for the chain window of predictors jw .. jw + W: bit e of
+// the pair (a, b) of pair_sums' order (e = a (a - 1) / 2 + b, b < a) where
+// rows jw + a and jw + b share a window of pwin.
+__device__ __forceinline__ unsigned off_same(int jw, int pwin) {
+  int wid[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) wid[i] = (jw + i) / pwin;
+  unsigned bits = 0u;
+  int e = 0;
+#pragma unroll
+  for (int a = 1; a < W; ++a)
+#pragma unroll
+    for (int b = 0; b < a; ++b, ++e)
+      if (wid[a] == wid[b]) bits |= 1u << e;
+  return bits;
+}
+
+// the pairs whose pair sums go without the mask: across two windows under
+// noadvmask (arule 2)
+__device__ __forceinline__ unsigned off_unmasked(int jw, int pwin,
+                                                 int arule) {
+  return arule == 2 ? ~off_same(jw, pwin) & ((1u << NP) - 1u) : 0u;
+}
+
+// the pairs the chain pushes: in one window where the probe keeps the
+// pushes (pcode != 0), across two where it keeps the advance (arule != 0)
+__device__ __forceinline__ unsigned off_pushed(int jw, int pwin, int pcode,
+                                               int arule) {
+  const unsigned same = off_same(jw, pwin);
+  return (pcode != 0 ? same : 0u) |
+         (arule != 0 ? ~same & ((1u << NP) - 1u) : 0u);
+}
+
+// The float32 probe instance's pass under a probe's window pwin off the
+// 8-row grid (off_grid), with Fm as of the start P of the window of pwin
+// that holds this chain window's first predictor jw (advanced, by the
+// probe's rule arule, through every earlier window): the deltas of rows r
+// in a ring of DR rows at D_s, at row r % DR.  ja0 < ja1 first advances Fm
+// by rows [ja0, ja1) by the rule (the windows completed since the last
+// pass; noadv passes none); proj then adds this chain window's projections
+// (x in xp, as window_pass): its first nhead rows, still in window P, of
+// Fm plus, where `inc`, the masked increment of rows [P, jw) (the pushes
+// of their masked pair Grams), the others, in windows that start inside
+// this chain window, of Fm advanced by rows [P, jw) by the rule (the rows
+// of the chain window before their start come in through the chain's
+// pushes); and the window's f32 pair sums, with the mask (a pair in one
+// window, or across two under the masked advance) or without it (across
+// two under noadvmask: bit e of `unmasked` for pair e of pair_sums).
+template <bool ON_CHIP>
+__device__ __forceinline__ void probe_off_rows(
+    float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
+    float* __restrict__ fm, const float* __restrict__ mask,
+    const float* __restrict__ x, const float* __restrict__ xp,
+    const float* __restrict__ D_s, float* __restrict__ v, int row0, int nr,
+    int p, int q, int k, bool cvalid, int warp, int lane, int DR, int ja0,
+    int ja1, int arule, bool proj, bool inc, int P, int jw, int nhead,
+    unsigned unmasked) {
+#pragma unroll
+  for (int e = 0; e < NRH; ++e) v[e] = 0.f;
+  if (!ON_CHIP && !cvalid) return;
+  const size_t xs = ON_CHIP ? W : (size_t)p;  // row stride of the x window
+  for (int t = warp; t < nr; t += NW) {
+    float& fr = ON_CHIP ? fm_s[t * QS + lane] : fm[(size_t)t * q + k];
+    const float m = ON_CHIP ? ((mb_s[t] >> lane) & 1u ? 1.f : 0.f)
+                            : mask[(size_t)t * q + k];
+    const float* xrow = x + (size_t)(row0 + t) * p;
+    // sum_r x_r delta_r over rows [j0, j1), deltas from the ring
+    auto xdot = [&](int j0, int j1) {
+      float s = 0.f;
+      for (int r = j0, slot = j0 % DR; r < j1; ++r) {
+        s = fmaf(xrow[r], D_s[slot * QS + lane], s);
+        slot = slot + 1 == DR ? 0 : slot + 1;
+      }
+      return s;
+    };
+    float f = fr;
+    if (ja0 < ja1) {
+      const float s = xdot(ja0, ja1);
+      f = arule == 1 ? fmaf(m, s, f) : __fadd_rn(f, s);
+      fr = f;
+    }
+    if (!proj) continue;
+    const float s = xdot(P, jw);
+    const float fh = inc ? fmaf(m, s, f) : f;
+    const float ft = arule == 1 ? fmaf(m, s, f)
+                     : arule == 2 ? __fadd_rn(f, s)
+                                  : f;
+    float xv[W];
+    load8(xp + t * xs, xv);
+#pragma unroll
+    for (int a = 0; a < W; ++a) v[a] = fmaf(xv[a], a < nhead ? fh : ft, v[a]);
+    int e = W;
+#pragma unroll
+    for (int a = 1; a < W; ++a)
+#pragma unroll
+      for (int b = 0; b < a; ++b, ++e)
+        v[e] = fmaf(__fmul_rn(xv[a], xv[b]),
+                    (unmasked >> (e - W)) & 1u ? 1.f : m, v[e]);
   }
 }
 
@@ -827,19 +1005,31 @@ __device__ __forceinline__ void z_rows_of_rank(
 // 128).  Two CTAs per SM (128 registers), but in device memory from SUB =
 // 16 on one (its cross pairs' 64-bit addresses do not fit 128 registers
 // without spilling; missing_launch_plan counts on one there).  PRB: the
-// probe instance of SUB = 0, 2, 4, 8 or 16 (the JAX kernel's probes,
+// probe instance of SUB (the JAX kernel's probes,
 // atlasqtl_tpu/ops/sweep_missing_fused.py:155, 197, 207-213), whose
 // runtime `pcode` is 0 (noseq, noh: no pairs and no pushes inside a
 // window), 1 (noadv: Fm never advances), 2 (noadvmask: Fm advances
 // without the mask) or 3 (every part kept: the exact function, to time the
-// others against), in windows of pwin = 1, 2, 4, 8 or 16 predictors (under
+// others against), in windows of pwin predictors, any that divides p (the
+// pair_bf16 probe instances: pwin = SUB) (under
 // 8, the pairs of an 8-window in one window of pwin are pushed where the
 // probe keeps the pushes, those across two where it keeps the advance,
 // without the mask under noadvmask); at 16 the
 // second 8-window of each 16-window projects Fm from before the first's
 // advance, and takes its pairs with the first (but under noseq) as the
 // first's masked increment in float32 (SUB = 0), through the rounded
-// cross pairs under pair_bf16 (SUB = 16).  The probe instance alone takes
+// cross pairs under pair_bf16 (SUB = 16); over 16 every 8-window of a
+// pwin-window projects Fm as of the window's start, the window's deltas
+// kept in D_s, and takes its pairs with the window's earlier 8-windows
+// (but under noseq) as their masked increment in float32
+// (probe_deep_rows, SUB = 0), through the rounded cross pairs under
+// pair_bf16 (the DEEP instances, SUB = pwin), Fm advancing by the probe's
+// rule at the window's end; off the 8-row grid (3, 6, 12, ...: a window
+// starts inside a chain window) the float32 one keeps Fm as of the start
+// of the window that holds each chain window's first row and the latest
+// deltas in a ring (probe_off_rows), and pushes per pair of rows.  The
+// float32 probe instance's deltas beyond W sit at the end of shared
+// memory (DP_s, probe_rows).  The probe instance alone takes
 // the code and the window, as two more arguments (PP: int, int), so that
 // the others keep their parameters.
 template <bool FM_ON_CHIP, int SUB, bool PRB = false, typename... PP>
@@ -870,9 +1060,6 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
                     SUB == 4 * W || SUB == 8 * W || SUB == 16 * W,
                 "the float32 instance or a pair_bf16 window");
   static_assert(PRB == (sizeof...(PP) == 2), "PRB: the code and the window");
-  static_assert(!PRB || SUB == 0 || SUB == 2 || SUB == 4 || SUB == W ||
-                    SUB == 2 * W,
-                "the probe instances: float32, pair_bf16 at 2 to 16");
   // pairs rounded within RW-aligned groups of an 8-window; TC: every pair
   // of an 8-window rounded, its pair Grams on the tensor cores; CROSS: odd
   // 8-windows project the 16-window's start and add its cross pairs; DEEP:
@@ -882,6 +1069,12 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   constexpr bool CROSS = SUB == 2 * W;
   constexpr bool DEEP = SUB > 2 * W;
   constexpr int J = DEEP ? SUB / W : 1;
+  int pcode = 0, pwin = W;
+  if constexpr (PRB) {
+    const int pa[] = {probe_args...};
+    pcode = pa[0];
+    pwin = SUB != 0 ? SUB : pa[1];  // a pair_bf16 probe: its own window
+  }
   extern __shared__ __align__(16) float smem[];
   float* WT_s = smem;                       // 2 x NWT x W x QS window tiles
   float* GW_s = WT_s + 2 * NWT * W * QS;    // 2 x W x QS masked new gam
@@ -897,6 +1090,13 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   const int xr = x_rows(FM_ON_CHIP ? nloc : 0, SUB);
   float* XS_s = FM_s + nloc * QS;
   unsigned* MB_s = reinterpret_cast<unsigned*>(XS_s + 2 * xr * W);
+  // PRB: probe_rows(pwin) x QS deltas of the float32 probe instance's
+  // windows over 2 W and off the grid (only they read and write them),
+  // after the mask words
+  auto DP_s = [&] {
+    return reinterpret_cast<float*>(MB_s) +
+           (((FM_ON_CHIP ? nloc : 0) + 3) & ~3);
+  };
 
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -927,12 +1127,6 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   const int row0 = FM_ON_CHIP ? rank * nloc : 0;
   const int nr = FM_ON_CHIP ? max(0, min(n, row0 + nloc) - row0) : n;
   const float c = scal[0], kz = scal[1], sig2_inv = scal[2];
-  int pcode = 0, pwin = W;
-  if constexpr (PRB) {
-    const int pa[] = {probe_args...};
-    pcode = pa[0];
-    pwin = pa[1];
-  }
   const float half_c = 0.5f * c;
   const float zeta_k = cvalid ? zeta[k] : 0.f;
   const float qm_k = cvalid ? q_mask[k] : 0.f;
@@ -946,6 +1140,8 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   // a window under 8 needs those across its windows)
   const int arule = pcode == 1 ? 0 : pcode == 2 ? 2 : 1;
   const bool pairs = SUB != 0 || pcode != 0 || pwin < W;
+  // a probe's window off the 8-row grid (probe_off_rows)
+  const bool off = PRB && off_grid(pwin);
 
   // the probe thread keeps its start and latest tick in CLK_s[NCLK ..],
   // not in registers
@@ -1011,28 +1207,51 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     const size_t xs = FM_ON_CHIP ? W : (size_t)p;
     // advance by the previous window (if any), project this one
     bool cross = false;  // TC: this pass contracts cross pairs
-    if constexpr (PRB) {
-      // the second 8-window of a 16-window projects its start (f32: plus
-      // the first's masked increment, but under noseq; pair_bf16: its
-      // rounded cross pairs)
-      const bool pre = SUB != W && pwin == 2 * W && (w & 1);
-      // noadv: a pass that only projects, but where the f32 cross pairs
-      // need the first 8-window's increment
-      if (w == 0 || (arule == 0 && !(pre && !CROSS && pairs)))
-        window_pass<FM_ON_CHIP, false, true, RW, false, true>(
-            FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
-            cvalid, warp, lane, arule, false, false, pairs, pwin);
-      else
-        window_pass<FM_ON_CHIP, true, true, RW, false, true>(
-            FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
-            cvalid, warp, lane, arule, pre, !CROSS && pairs, pairs, pwin);
-      cross = CROSS && pre;
-    } else if constexpr (DEEP) {
+    if constexpr (DEEP) {
       const int j = w % J;  // this chain window's place in its SUB-window
-      deep_rows<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, xp, D_s,
-                                 v, row0, nr, p, q, k, cvalid, warp, lane,
-                                 j == 0 && w > 0 ? jw - SUB : -1, true);
+      deep_rows<FM_ON_CHIP, SUB, PRB>(
+          FM_s, MB_s, fm_rows, mask_rows, x, xp, D_s, v, row0, nr, p, q, k,
+          cvalid, warp, lane, j == 0 && w > 0 && arule != 0 ? jw - SUB : -1,
+          true, arule);
       cross = j > 0;
+    } else if constexpr (PRB) {
+      if (off) {
+        // the window of jw, the previous chain window's, and the rows of
+        // this chain window still in the first
+        const int P = jw - jw % pwin;
+        const int Pp = w > 0 ? (jw - W) - (jw - W) % pwin : P;
+        probe_off_rows<FM_ON_CHIP>(
+            FM_s, MB_s, fm_rows, mask_rows, x, xp, DP_s(), v, row0, nr, p, q,
+            k, cvalid, warp, lane, probe_rows(pwin), Pp,
+            arule != 0 ? P : Pp, arule, true,
+            pcode != 0, P, jw, min(P + pwin, jw + W) - jw,
+            off_unmasked(jw, pwin, arule));
+      } else if (pwin > 2 * W) {
+        // a probe's window over 2 W in float32: this chain window's place j
+        // in it
+        const int j = w % (pwin / W);
+        probe_deep_rows<FM_ON_CHIP>(
+            FM_s, MB_s, fm_rows, mask_rows, x, xp, DP_s(), v, row0, nr, p, q,
+            k, cvalid, warp, lane, pwin,
+            j == 0 && w > 0 && arule != 0 ? jw - pwin : -1, arule, true,
+            pairs, jw - j * W, j * W);
+      } else {
+        // the second 8-window of a 16-window projects its start (f32: plus
+        // the first's masked increment, but under noseq; pair_bf16: its
+        // rounded cross pairs)
+        const bool pre = SUB != W && pwin == 2 * W && (w & 1);
+        // noadv: a pass that only projects, but where the f32 cross pairs
+        // need the first 8-window's increment
+        if (w == 0 || (arule == 0 && !(pre && !CROSS && pairs)))
+          window_pass<FM_ON_CHIP, false, true, RW, false, true>(
+              FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+              cvalid, warp, lane, arule, false, false, pairs, pwin);
+        else
+          window_pass<FM_ON_CHIP, true, true, RW, false, true>(
+              FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+              cvalid, warp, lane, arule, pre, !CROSS && pairs, pairs, pwin);
+        cross = CROSS && pre;
+      }
     } else if (w == 0) {
       window_pass<FM_ON_CHIP, false, true, RW>(FM_s, MB_s, fm_rows,
                                                mask_rows, xa, xp, D_s, v, nr,
@@ -1168,8 +1387,22 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
           hh[e - W] = sum;
       }
       float* gw = GW_s + (w & 1) * W * QS;
-      // DEEP: this window's rows of the SUB-window's deltas
-      float* dw = D_s + (DEEP ? (w % J) * W * QS : 0);
+      // DEEP (a probe's window over 2 W): this window's rows of the
+      // SUB-window's (pwin-window's) deltas
+      float* dw = DEEP ? D_s + (w % J) * W * QS
+                  : off || (PRB && pwin > 2 * W)
+                      ? DP_s() + (w % (probe_rows(pwin) / W)) * W * QS
+                      : D_s;
+      // off the grid: pair e of rows (a, i) is pushed where they share a
+      // window of pwin and the probe keeps the pushes, or lie in two and it
+      // keeps the advance (bit e of off_pushed); the others' sums are set
+      // to 0, so that the chain pushes every pair
+      if (off) {
+        const unsigned pushed = off_pushed(jw, pwin, pcode, arule);
+#pragma unroll
+        for (int e = 0; e < NP; ++e)
+          if (!((pushed >> e) & 1u)) hh[e] = 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < W; ++i) {
         const int e = i * QS + lane;
@@ -1183,7 +1416,7 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
         // a probe pushes inside a window of pwin but under noseq, across
         // two (pwin < 8) but under noadv
         if constexpr (PRB) {
-          if (pwin >= W ? pcode != 0 : false) {
+          if (off || (pwin >= W ? pcode != 0 : false)) {
 #pragma unroll
             for (int a = i + 1; a < W; ++a)
               rr[a] += hh[a * (a - 1) / 2 + i] * delta;
@@ -1231,17 +1464,32 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     z_rows_of_rank(warp, GW_s + ((nwin - 1) & 1) * W * QS, N_s,
                    WS_s + ((nwin - 1) % NWS) * WSF, zrow_part, p - W, cs,
                    rank, R, p, slice, lane, zeta_k, qm_k, kz, zc);
-  if constexpr (PRB) {
-    if (arule != 0)  // noadv: no last advance
+  if constexpr (DEEP) {
+    deep_rows<FM_ON_CHIP, SUB, PRB>(FM_s, MB_s, fm_rows, mask_rows, x,
+                                    nullptr, D_s, v, row0, nr, p, q, k, cvalid,
+                                    warp, lane, arule != 0 ? p - SUB : -1,
+                                    false, arule);
+  } else if constexpr (PRB) {
+    if (arule == 0) {
+      // noadv: no last advance
+    } else if (off) {  // the windows since the last chain window's start
+      const int jl = p - W;
+      probe_off_rows<FM_ON_CHIP>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
+                                 DP_s(), v, row0, nr, p, q, k, cvalid, warp,
+                                 lane, probe_rows(pwin), jl - jl % pwin, p,
+                                 arule, false, false, 0, 0, 0, 0u);
+    } else if (pwin > 2 * W) {
+      probe_deep_rows<FM_ON_CHIP>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
+                                  DP_s(), v, row0, nr, p, q, k, cvalid, warp,
+                                  lane, pwin, p - pwin, arule, false, false,
+                                  0, 0);
+    } else {
       window_pass<FM_ON_CHIP, true, false, RW, false, true>(
           FM_s, MB_s, fm_rows, mask_rows,
           FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * xr * W : x + (p - W),
           nullptr, D_s, v, nr, p, q, k, cvalid, warp, lane, arule);
-  } else if constexpr (DEEP)
-    deep_rows<FM_ON_CHIP, SUB>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
-                               D_s, v, row0, nr, p, q, k, cvalid, warp, lane,
-                               p - SUB, false);
-  else
+    }
+  } else
     window_pass<FM_ON_CHIP, true, false, RW>(
         FM_s, MB_s, fm_rows, mask_rows,
         FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * xr * W : x + (p - W),
@@ -1322,7 +1570,7 @@ cudaError_t with_instance(bool on_chip, int sub, F f) {
 }
 
 // f(on_chip, sub) for the probe instance of (fm_on_chip, sub): sub 0, 2,
-// 4, 8, 16
+// 4, ..., 128
 template <typename F>
 cudaError_t with_probe_instance(bool on_chip, int sub, F f) {
 #define ATLASQTL_MIS_SUB(S)                                     \
@@ -1335,6 +1583,9 @@ cudaError_t with_probe_instance(bool on_chip, int sub, F f) {
     ATLASQTL_MIS_SUB(4);
     ATLASQTL_MIS_SUB(W);
     ATLASQTL_MIS_SUB(2 * W);
+    ATLASQTL_MIS_SUB(4 * W);
+    ATLASQTL_MIS_SUB(8 * W);
+    ATLASQTL_MIS_SUB(16 * W);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1357,15 +1608,16 @@ cudaLaunchConfig_t launch_config(int grid, int m, int smem, int cluster,
   return cfg;
 }
 
-// the shared-memory bytes of a CTA of the instance `sub` under the plan
-// (cluster, fm_on_chip) at n samples and interpolation width R, or -1 where
-// the kernel cannot take it
-int plan_smem(int n, int cluster, int fm_on_chip, int R, int sub) {
+// the shared-memory bytes of a CTA of the instance `sub` (under a probe at
+// window pwin, else pwin 0) under the plan (cluster, fm_on_chip) at n
+// samples and interpolation width R, or -1 where the kernel cannot take it
+int plan_smem(int n, int cluster, int fm_on_chip, int R, int sub,
+              int pwin = 0) {
   if (n <= 0 || R <= 0 || R > RMAX || cluster < 1 || cluster > MAX_CLUSTER ||
       (!fm_on_chip && cluster != 1))
     return -1;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
-  const size_t smem = smem_bytes(fm_on_chip != 0, nloc, R, sub);
+  const size_t smem = smem_bytes(fm_on_chip != 0, nloc, R, sub, pwin);
   return smem <= SMEM_MAX ? (int)smem : -1;
 }
 
@@ -1383,8 +1635,10 @@ extern "C" {
 // 4, ..., 128 the pair_bf16 instance at that window (B, and so p, a
 // multiple of it).  probe >= 0 launches the probe instance of sub (0, or
 // the pair_bf16 window pwin but under noseq) with that probe (0 noseq, 1
-// noadv, 2 noadvmask, 3 every part kept) in windows of pwin = 1, 2, 4, 8
-// or 16 predictors.
+// noadv, 2 noadvmask, 3 every part kept) in windows of pwin predictors,
+// any that divides p (over 2 W and off the 8-row grid the float32 probe
+// instance keeps more deltas, its probe_rows: its shared memory counts
+// them; the pair_bf16 probe instances are those of pwin = sub).
 // Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape, plan or window it does not take.
 int atlasqtl_sweep_missing_fused(
@@ -1399,12 +1653,12 @@ int atlasqtl_sweep_missing_fused(
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
-  const int smem = plan_smem(n, cluster, fm_on_chip, R, sub);
+  const int smem =
+      plan_smem(n, cluster, fm_on_chip, R, sub, probe >= 0 ? pwin : 0);
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
       smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && B % sub != 0) ||
       (probe >= 0 &&
-       (probe > 3 || pwin <= 0 || (W % pwin != 0 && pwin != 2 * W) ||
-        B % pwin != 0 ||
+       (probe > 3 || pwin <= 0 || p % pwin != 0 ||
         (sub != 0 && (sub != pwin || probe == 0)))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1443,13 +1697,14 @@ int atlasqtl_sweep_missing_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * NCLK);
 }
 
-// The shared-memory bytes of one CTA of the instance `sub` under the plan
-// (cluster, fm_on_chip) at n samples and interpolation width R; -1 for a
-// plan the kernel does not take (the card checks
-// ops/sweep_missing_fused.py:_mis_smem_bytes against it).
+// The shared-memory bytes of one CTA of the instance `sub` (under a probe
+// at window pwin, else pwin 0) under the plan (cluster, fm_on_chip) at n
+// samples and interpolation width R; -1 for a plan the kernel does not
+// take (the card checks ops/sweep_missing_fused.py:_mis_smem_bytes against
+// it).
 int atlasqtl_sweep_missing_smem(int n, int cluster, int fm_on_chip, int R,
-                                int sub) {
-  return plan_smem(n, cluster, fm_on_chip, R, sub);
+                                int sub, int pwin) {
+  return plan_smem(n, cluster, fm_on_chip, R, sub, pwin);
 }
 
 // CTAs of the sweep kernel's instance `sub` resident on one SM and

@@ -161,7 +161,7 @@ def _load():
         lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 11
                                                      + [ptr])
         lib.atlasqtl_sweep_missing_fused.restype = i32
-        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 5
+        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 6
         lib.atlasqtl_sweep_missing_smem.restype = i32
         lib.atlasqtl_sweep_missing_occupancy.argtypes = [i32] * 5 + [ptr]
         lib.atlasqtl_sweep_missing_occupancy.restype = i32
@@ -511,10 +511,13 @@ def probe_parts(probe: str) -> Probe:
 
 
 def probe_window_ok(window: int) -> bool:
-    """Whether B1's probe instance takes the chain window `window`: a
-    divisor of FUSED_W or a multiple of it (a window of FUSED_W rows then
-    lies in one window or is a run of whole ones)."""
-    return FUSED_W % window == 0 or window % FUSED_W == 0
+    """Whether B1's probe instance takes the chain window `window`: every
+    positive window (`fused_window` holds it to a divisor of the block).
+    On the 8-row grid (a divisor of FUSED_W or a multiple of it) a window of
+    FUSED_W rows lies in one window or is a run of whole ones, and the
+    instance keeps or drops a push per window; off it (3, 6, 12, ...) per
+    pair of rows (csrc/sweep_fused.cu:wst)."""
+    return window >= 1
 
 
 def fused_window(sub: int, block: int, what: str = "sweep_fused probe",
@@ -752,8 +755,8 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     bf16 launches B1's bf16 instance (mxu_bf16), whose x is the bfloat16
     copy (`bf16_operand`); B4 has none.  lookahead launches that instance's
     lookahead variant, which also reads `goff` (`lookahead_gram`).  probe
-    (a `Probe`) launches B1's probe instance, in windows of `window` (a
-    divisor of FUSED_W or a multiple of it, else NotImplementedError): the
+    (a `Probe`) launches B1's probe instance, in windows of `window` (any
+    that divides the block, `fused_window`): the
     float32 instance's schedule in slices of FUSED_PROBE_WIDTHS, reading
     the bf16 copy of x under bf16; a
     block in pieces is the whole block there (each piece projects the
@@ -781,10 +784,8 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                          "without the lookahead")
     if probe is not None and not probe_window_ok(
             fused_window(window, block_size)):
-        raise NotImplementedError(
-            f"{what} kernel: probe window {fused_window(window, block_size)}"
-            f"; the probe instance takes the divisors of {FUSED_W} and its "
-            "multiples")
+        raise ValueError(f"{what} kernel: probe window "
+                         f"{fused_window(window, block_size)}")
     if lookahead and not bf16:
         raise ValueError(f"{what} kernel: lookahead is a variant of B1's "
                          "bf16 instance (in float32 it is the same algebra "

@@ -100,8 +100,10 @@ MIS_PROBES = ("noseq", "noh", "noadv", "noadvmask")
 # the probes against (not a probe of the JAX kernel: the wrappers refuse it)
 MIS_PROBE_CODES = {"noseq": 0, "noh": 0, "noadv": 1, "noadvmask": 2,
                    "exact": 3}
-# the windows B2's probe instances take (csrc/sweep_missing_fused.cu)
-PROBE_WINDOWS = (1, 2, 4, 8, 16)
+# the windows of B2's pair_bf16 probe instances, the mode's own
+# (PAIR_WINDOWS); the float32 probe instance takes every window that
+# divides the block (csrc/sweep_missing_fused.cu)
+PROBE_WINDOWS = PAIR_WINDOWS
 
 
 def probe_window(probe: str, sub: int, block: int) -> int:
@@ -121,6 +123,16 @@ def _delta_rows(window: int) -> int:
     return window if window > 2 * MIS_W else MIS_W
 
 
+def _probe_rows(probe_window: int) -> int:
+    """The float32 probe instance's deltas in a region of their own
+    (csrc:probe_rows): under a probe's window over 16 those of the window,
+    off the 8-row grid (neither dividing MIS_W nor a multiple of it) a ring
+    of whole chain windows over its latest window + 7 rows, else none."""
+    if probe_window and MIS_W % probe_window and probe_window % MIS_W:
+        return (probe_window + 2 * MIS_W - 2) // MIS_W * MIS_W
+    return probe_window if probe_window > 2 * MIS_W else 0
+
+
 def _x_rows(rows: int, window: int) -> int:
     """The rows of one x slot (csrc:x_rows): the CTA's rows, under a
     pair_bf16 window over 16 at least the warps' cp.async rings."""
@@ -128,31 +140,38 @@ def _x_rows(rows: int, window: int) -> int:
 
 
 def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int,
-                    window: int = 0) -> int:
+                    window: int = 0, probe_window: int = 0) -> int:
     """csrc/sweep_missing_fused.cu:smem_bytes: two sets of window operand
     tiles, two windows of gam, the deltas (`_delta_rows` of the pair_bf16
     window, 0 for float32), two sum buffers, the partial
     slots, the phase clocks, three sets of window scalars (p_mask, theta,
     rows of L), the slice's interpolation nodes; on chip also nloc rows of
     Fm (32 floats) and of mask bits; two x slots of W floats per row of
-    `_x_rows` (in device memory only under a window over 16, the rings).
-    The card holds it to the kernel's own (`kernel_smem_bytes`)."""
+    `_x_rows` (in device memory only under a window over 16, the rings);
+    under a probe at `probe_window` (0: none) the float32 probe instance's
+    `_probe_rows`, from a 16-byte boundary after the mask words.  The card
+    holds it to the kernel's own (`kernel_smem_bytes`)."""
     rows = nloc if on_chip else 0
     fixed = (2 * MIS_NWT * MIS_W * MIS_QS + 2 * MIS_W * MIS_QS
              + _delta_rows(window) * MIS_QS
              + 2 * MIS_NRH * MIS_QS + MIS_NSLOT * MIS_NRH * MIS_QS
              + MIS_CLKF + MIS_NWS * (2 * MIS_W + MIS_W * r_aug)
              + 3 * r_aug * MIS_QS)
+    prows = _probe_rows(probe_window)
     return 4 * (fixed + rows * (MIS_QS + 1)
-                + 2 * _x_rows(rows, window) * MIS_W)
+                + 2 * _x_rows(rows, window) * MIS_W
+                + (-(-rows // 4) * 4 - rows + prows * MIS_QS if prows else 0))
 
 
 def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
-                        m: int = 1, window: int = 0) -> dict:
+                        m: int = 1, window: int = 0,
+                        probe_window: int = 0) -> dict:
     """The launch of B2 at (n, q, block, r + 2) for m replicas (one launch
     of grid x m CTAs; `grid` counts one replica's) of the instance at the
     pair_bf16 window `window` (0: the float32 instance; a window over 16
-    keeps all its deltas on chip).  The rows of each
+    keeps all its deltas on chip), under a perf probe at its window
+    `probe_window` (0: none; over 16 the float32 probe instance keeps that
+    window's deltas too).  The rows of each
     32-column slice are split over the smallest cluster (1..MIS_MAX_CLUSTER
     CTAs) whose CTAs each hold their rows of Fm on chip in at most
     SMEM_TWO_PER_SM bytes, so that two CTAs share an SM and one's chain
@@ -167,8 +186,9 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
     sub_block); the kernel builds its pair Grams per window, so no piece
     needs anything precomputed.  Returns slice_width,
     sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta,
-    ctas_per_sm (the CTAs that share an SM) and window; the C entry point
-    takes the decisions (piece, cluster, fm_on_chip) and derives the rest.
+    ctas_per_sm (the CTAs that share an SM), window and probe_window; the
+    C entry point takes the decisions (piece, cluster, fm_on_chip) and
+    derives the rest.
     Raises ValueError on a shape the kernel does not take."""
     if (n <= 0 or block <= 0 or block % MIS_W or q % 4 or q <= 0
             or not 0 < r_aug <= 48 or m < 1):
@@ -176,7 +196,8 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
                          f"n={n}, q={q}, block={block}, r+2={r_aug}, m={m}")
     sub = sub_block(block)
     slices = -(-q // MIS_QS)
-    smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug, window)
+    smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug, window,
+                                      probe_window)
     for limit, ctas in ((SMEM_TWO_PER_SM, 2), (SMEM_MAX, 1)):
         fits = [cs for cs in range(1, MIS_MAX_CLUSTER + 1)
                 if smem(cs) <= limit]
@@ -188,11 +209,13 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
                         grid=slices * cs,
                         smem_bytes=smem(cs), fm_on_chip=True,
                         rows_per_cta=-(-n // cs), ctas_per_sm=ctas,
-                        window=window)
+                        window=window, probe_window=probe_window)
     return dict(slice_width=MIS_QS, sub_block=sub, cluster=1, grid=slices,
-                smem_bytes=_mis_smem_bytes(False, 0, r_aug, window),
+                smem_bytes=_mis_smem_bytes(False, 0, r_aug, window,
+                                           probe_window),
                 fm_on_chip=False, rows_per_cta=n,
-                ctas_per_sm=2 if window < 2 * MIS_W else 1, window=window)
+                ctas_per_sm=2 if window < 2 * MIS_W else 1, window=window,
+                probe_window=probe_window)
 
 
 def window() -> int:
@@ -216,7 +239,8 @@ def kernel_smem_bytes(plan: dict, n: int, r_aug: int) -> int:
     """The kernel's own shared-memory bytes under `plan` at n samples and
     r + 2, -1 where it refuses the plan."""
     return _load().atlasqtl_sweep_missing_smem(
-        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug, plan["window"])
+        n, plan["cluster"], int(plan["fm_on_chip"]), r_aug, plan["window"],
+        plan["probe_window"])
 
 
 PHASES = ("prologue", "pass", "reduce", "cluster_sync", "gather", "chain",
@@ -415,10 +439,10 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
     launch of grid x m CTAs (the pair_bf16 instance at the window
     `pair_window(sub, block_size)` if pair_bf16; at window 1 the mode
     rounds no pair, and the float32 instance runs).  Under a perf probe,
-    the probe instance at its window (`probe_window`, one of
-    PROBE_WINDOWS, else NotImplementedError): of the float32 instance, or
-    under pair_bf16 (noadv, noadvmask; noseq and noh form no pair) of the
-    pair_bf16 instance at that window.  `plan` (None:
+    the probe instance at its window (`probe_window`): of the float32
+    instance, any window that divides the block, or under pair_bf16
+    (noadv, noadvmask; noseq and noh form no pair) of the pair_bf16
+    instance at that window (`pair_window`'s rule).  `plan` (None:
     `missing_launch_plan` for the operands' replica count) is there only
     to compare a replica's single launch with a batched one under the
     batched launch's plan.  Raises on what the kernel cannot take and on a
@@ -453,17 +477,15 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
                          f"r+2={r_aug}")
     pcode, pwin = -1, 0   # the probe instance's code (-1: none), window
     if probe != "none":
-        pwin = probe_window(probe, sub, block_size)
-        if pwin not in PROBE_WINDOWS:
-            raise NotImplementedError(
-                f"sweep_missing_fused kernel: probe {probe} at window {pwin};"
-                f" the probe instances take windows {PROBE_WINDOWS}")
         pcode = MIS_PROBE_CODES[probe]
         pair_bf16 = pair_bf16 and pcode > 0
+        pwin = (pair_window(sub, block_size) if pair_bf16
+                else probe_window(probe, sub, block_size))
     window = (pwin if pcode >= 0 else pair_window(sub, block_size)) \
         if pair_bf16 else 1
     ksub = window if window > 1 else 0   # the instance: 0 is float32
-    plan = plan or missing_launch_plan(n, q, block_size, r_aug, m, ksub)
+    plan = plan or missing_launch_plan(n, q, block_size, r_aug, m, ksub,
+                                       pwin)
     lib = _load()
     lead = (m,) if any(batched) else ()
     f32 = lambda v: as_scalar(v, torch.float32, x.device).expand(lead)

@@ -87,7 +87,10 @@ def _functions(cubin, cuobjdump):
             cur = m.group(1)
             sass[cur] = []
         elif cur is not None:
-            sass[cur].append(line.strip())
+            # cuobjdump pads each instruction to a column that depends on
+            # the cubin's widest line, not on the function: compare the
+            # tokens
+            sass[cur].append(" ".join(line.split()))
     res = {}
     text = _plain(subprocess.run([cuobjdump, "-res-usage", str(cubin)],
                                  check=True, capture_output=True,

@@ -81,7 +81,7 @@ per source, started together) and prints ptxas's registers and spills
           float64 use_pallas fits on the card match it to 1e-6;
   device_loop  every route (B1, B2, impute, B3 f32 and f64, B4 at q
           padded to 512, block 256, model="global") at the sim_anneal
-          shape under
+          shape, cut to 80 iterations (global: 24), under
           device_loop="off" and "on" (CUDA graphs): equal iterations, the
           ELBO histories within 1e-6, launches per iteration under both
           loops, graph replays, seconds, and 0 device-to-host copies per
@@ -144,7 +144,8 @@ per source, started together) and prints ptxas's registers and spills
           (maxit 10, q padded to 10112) in both B1 instances from one
           device draw, ms per sweep and per iteration;
   mesh    the mesh (atlasqtl_tpu_torch.parallel) at world size 1 on NCCL:
-          atlasqtl(mesh=...) at the sim_anneal shape on the 1-D mesh and
+          atlasqtl(mesh=...) at the sim_anneal shape (cut to 80
+          iterations) on the 1-D mesh and
           the (1, 1) pipeline (2 q-tiles), complete (B1) and 15% exact
           missing (B2), each reaching the single-device fit from the same
           list_init (iterations, PIPs within 1e-4, AUC >= 0.95) with its
@@ -165,15 +166,20 @@ per source, started together) and prints ptxas's registers and spills
   probes  the perf probes of B1 (Config.sweep_probe, its eleven values)
           and B2 (probe=, four), each kernel's probe instance against its
           plain version (B1 at blocks 128 and 256, c = 1 and 0.5, under
-          mxu_bf16, windows 1 to 32, two replicas in one launch; B2 at
-          mis_sub 1 to 16, f32 and pair_bf16, Fm on chip and in device
-          memory); at the eQTL
+          mxu_bf16, windows 1 to 32, off the 8-row grid (3, 6, 12 at block
+          48, 5 at 40, 12 at 192, 25 at 200), two replicas in one launch;
+          B2 at mis_sub 1 to 128, f32 and pair_bf16, Fm on chip and in
+          device memory, and f32 at windows 3 to 200 that are not powers
+          of two); at the eQTL
           cut (1000, 2048, 10000) each probe's ms beside the exact sweep in
           rounds of turns and the phase costs they imply, each with its
           range over the rounds (projection, advance, the
           chain's order, sigmoid, pushes, corrections, Z Mills, the x/cp
-          stream, tiles); a cavi_iteration under a probe launches the
-          probe instance once (with sweep_stagger too: B1, not B4).
+          stream, tiles), and in one round of turns B1's noseq and norank
+          at block 48 window 6 and block 96 window 12 (p = 2016), B2's
+          four at mis_sub 32, 64 and 128; a cavi_iteration under a probe
+          launches the probe instance once (with sweep_stagger too: B1,
+          not B4).
 Each phase prints one JSON line; then each phase's seconds, a `kernels`
 line, and last the contract line {"ok": true, "device": {...}}.  Any failure exits non-zero
 before that line.  Imports torch, NumPy, SciPy and the port only.
@@ -217,7 +223,7 @@ PHASES = ("kernel", "fit", "eqtl", "dev_init", "mis_kernel", "missing_fit",
 # SNP whose local scale collapsed leaves the funnel slowly: 20 burn-in
 # sweeps left the theta-mean AUC at 0.957 on the card (PERF.md), hence 100
 MCMC_TEST_SHAPE = (60, 30, 12, 5, 12)
-MCMC_GIBBS = dict(n_burnin=100, n_samples=50, seed=1)
+MCMC_GIBBS = dict(n_burnin=60, n_samples=30, seed=1)
 MCMC_NUTS = dict(n_burnin=4, n_samples=4, seed=1)
 MCMC_SMC = dict(n_particles=8, anneal=(1, 2, 5), n_mutations=1, n_final=5,
                 seed=1)
@@ -238,6 +244,7 @@ BLOCK256_SHAPE = (300, 2048, 500)
 FP64_PEAK = 67e12     # H100 SXM float64 on the tensor cores, FLOP/s
 DEVICE = "cuda"
 FIT_SHAPE = (300, 2000, 500, 20, 100)     # n, p, q, active SNPs, hit traits
+DL_MAXIT = 80        # the device_loop phase's fits but global's, cut in depth
 EQTL_SHAPE = (1000, 50000, 10000, 500, 2000)
 
 
@@ -1834,16 +1841,19 @@ def phase_device_loop():
     """At the sim_anneal shape, every route under device_loop="off" and
     "on": B1 (complete data), B2 (exact missing), impute (B1), the B3 route
     in float32 and float64, B4, block 256 (B1 in pieces of 128) and
-    model="global" (the plain engines, ~50k launches per iteration: cut to
-    40 iterations, float64).  Each fit is driven with every kernel's count
+    model="global" (the plain engines, ~50k launches per iteration, float64);
+    every fit cut to DL_MAXIT iterations (global's to 24), past the
+    annealing ladder into the converged phase's lite and full steps.  Each
+    fit is driven with every kernel's count
     set to 0 just before it and read just after; the "on" fit runs again
-    under torch.profiler, recording steps 16-35 (global: 16-19), where
+    under torch.profiler, recording steps 16-25 (global: 16-19), where
     every kind of step is a graph replay, for its device-to-host copies per
-    lite step, which must be 0 (that fit cut to 40 iterations, global's to
-    24); B1's fit cut to 30 iterations is profiled whole under both loops
+    lite step, which must be 0 (that fit cut to 30 iterations, global's to
+    24); B1's fit cut to 15 iterations is profiled whole under both loops
     for PERF.md's breakdown.  Fails unless both loops take the same
-    iterations, evaluate the ELBO at the same ones and agree on it to 1e-6
-    relative; prints seconds per fit, CUDA-graph replays and launches."""
+    iterations (both to convergence, or both to the cut), evaluate the
+    ELBO at the same ones and agree on it to 1e-6 relative; prints seconds
+    per fit, CUDA-graph replays and launches."""
     import torch
     import atlasqtl_tpu_torch as at
     from atlasqtl_tpu_torch.types import Config
@@ -1887,14 +1897,16 @@ def phase_device_loop():
         ("b4", route_fit(Config(sweep_stagger=True), q_pad_to=256),
          "sweep_fused_staggered", 1),
         ("block256", api_fit(y, x, block_size=256), "sweep_fused", 1),
-        # the plain engines: ~50k launches per iteration, so cut to 40
-        # iterations; float64, as the reference's own tests fit this model
-        ("global", api_fit(y, x, model="global", dtype=torch.float64,
-                           maxit=40), None, 0),
+        # the plain engines: ~50k launches per iteration, so cut to 24
+        # iterations (the profiled fit's); float64, as the reference's own
+        # tests fit this model
+        ("global", api_fit(y, x, model="global", dtype=torch.float64),
+         None, 0),
     )
     profiles = {}
     for route, run, own, per_it in routes:
         t_route = time.perf_counter()
+        maxit = 24 if route == "global" else DL_MAXIT
         fits = {}
         for loop in ("off", "on"):
             torch.cuda.synchronize()
@@ -1902,22 +1914,22 @@ def phase_device_loop():
                 fn.launches = 0
             dl.replays = 0
             t0 = time.perf_counter()
-            res = run(loop)
+            res = run(loop, maxit=maxit)
             torch.cuda.synchronize()
             fits[loop] = dict(res=res, seconds=time.perf_counter() - t0,
                               launches={k: fn.launches
                                         for k, fn in counters.items()},
                               replays=dl.replays)
-        if route == "b1":  # PERF.md's breakdown: 30 iterations, both loops
+        if route == "b1":  # PERF.md's breakdown: 15 iterations, both loops
             profiles = {loop: fit_profile(
-                lambda lp: run(lp, maxit=30), loop)[1]
+                lambda lp: run(lp, maxit=15), loop)[1]
                 for loop in ("off", "on")}
-        # the copies per lite step, over steps 16-35 (global: 16-19), every
-        # kind of step a graph replay by then, in a fit cut to 40
+        # the copies per lite step, over steps 16-25 (global: 16-19), every
+        # kind of step a graph replay by then, in a fit cut to 30
         # iterations (global: 24)
         _, prof = fit_profile(
-            lambda lp: run(lp, maxit=24 if route == "global" else 40), "on",
-            window=(14, 4 if route == "global" else 20))
+            lambda lp: run(lp, maxit=24 if route == "global" else 30), "on",
+            window=(14, 4 if route == "global" else 10))
         off, on = fits["off"]["res"], fits["on"]["res"]
         h_off = np.array([lb for _, lb in off.elbo_history])
         h_on = np.array([lb for _, lb in on.elbo_history])
@@ -1942,7 +1954,7 @@ def phase_device_loop():
                    d2h_device_copies_on=prof["d2h_device_copies"],
                    phase_seconds=time.perf_counter() - t_route)
         emit(out)
-        if not ((off.converged and on.converged or route == "global")
+        if not ((off.converged and on.converged or off.it == maxit)
                 and off.it == on.it and same_evals and rel is not None
                 and rel <= 1e-6):
             raise AssertionError(f"device_loop {route}: the loops differ "
@@ -2366,6 +2378,7 @@ BF16_MIS_SHAPES = (MIS_SHAPES[2], MIS_SHAPES[3], MIS_SHAPES[9])
 BF16_MIS_SUBS = (16, 8, 4, 32, 64, 128)
 BF16_DEEP_SUBS = (32, 64, 128)
 MESH_PIP = 1e-4      # a mesh fit's PIPs against the single-device fit's
+MESH_MAXIT = 80      # the mesh phase's sim_anneal fits, cut in depth
 BF16_RATIO = 20       # kernel's mean error <= the mode's mean distance / 20
 BF16_FIT_PIP = 5e-2   # a bf16 fit's PIPs against the float32 fit's
 
@@ -3023,6 +3036,7 @@ def phase_mesh():
     """The mesh (atlasqtl_tpu_torch.parallel) on the card: NCCL at world size
     1; atlasqtl(mesh=...) on the 1-D mesh and on a (1, 1) 2-D mesh (the
     p x q pipeline, T >= 2 q-tiles per iteration) at the sim_anneal shape,
+    cut to MESH_MAXIT iterations (past the annealing ladder),
     on complete data (B1) and with 15% of Y missing (exact: B2), each
     beside the single-device fit from the same list_init (the same
     iterations, PIPs within MESH_PIP, AUC >= 0.95) with its kernel's
@@ -3059,7 +3073,8 @@ def phase_mesh():
         x, y = simulate(n, p, q, 0, p_act, q_hit, missing_frac=frac)
         kw = dict(p0=(5, 25), anneal=(1, 2, 10), dtype=torch.float32,
                   verbose=0, user_seed=0, device=DEVICE,
-                  list_init=host_init(y, x, 0), device_loop="off")
+                  list_init=host_init(y, x, 0), device_loop="off",
+                  maxit=MESH_MAXIT)
 
         def run(mesh, **more):
             for fn in dl.launch_counters():
@@ -3084,7 +3099,8 @@ def phase_mesh():
                 single_launches=single_l, launches_per_iteration=per_it,
                 pip_max_diff_vs_single=pip, hotspot_auc_theta=auc,
                 lb_opt=res.lb_opt, single_lb_opt=single.lb_opt)
-            if not (res.converged and res.it == single.it
+            if not ((res.converged or res.it == MESH_MAXIT)
+                    and res.it == single.it
                     and launches == per_it * res.it and single_l == single.it
                     and pip <= MESH_PIP and auc >= 0.95
                     and np.isfinite(res.gam_vb).all()):
@@ -3349,6 +3365,21 @@ PROBE_MIS_SHAPES = ((80, 250, 40, 0.2), (8000, 256, 256, 0.15))
 PROBE_TIMED = (1000, 2048, 10000)   # the eQTL cut, block 128
 PROBE_REPS = 5                  # CUDA-event launches per turn (median)
 PROBE_ROUNDS = 3                # rounds of turns (each sweep once a round)
+# B1's windows off the 8-row grid (neither dividing 8 nor a multiple of
+# it), held to the plain version at (120, p, 200): (p, block, windows);
+# block 192 goes in pieces of 96, block 200 in pieces of 40 (25 spans two)
+PROBE_OFF_GRID = ((240, 48, (3, 6, 12)), (240, 40, (5,)), (384, 192, (12,)),
+                  (400, 200, (25,)))
+# and timed at the eQTL cut's n and q with p = 2016 = 42 x 48 = 21 x 96:
+# (block, window), one round of turns against the same instance's exact
+# sweep; B2's windows over 16 likewise at PROBE_TIMED
+PROBE_OFF_GRID_TIMED = (1000, 2016, 10000)
+PROBE_OFF_GRID_WINDOWS = ((48, 6), (96, 12))
+PROBE_DEEP_WINDOWS = (32, 64, 128)
+# B2's float32 probe instance at windows that are not powers of two, held
+# to the plain version at (80, p, 40): (p, block, windows)
+PROBE_MIS_ANY = ((240, 48, (3, 6, 12, 24)), (240, 40, (5, 20)),
+                 (400, 200, (25, 200)))
 PROBE_MAIN = "noadv"            # the probe the phase's main path runs
 # each phase's cost as the difference of two sweeps at the eQTL cut: the
 # sweep that keeps it less the probe that drops it ("none": the probe
@@ -3395,13 +3426,23 @@ def probe_bound_ms(n, p, q, block, r_aug, emit_gam_mu, parts, sub):
         ("operations" if ops / FP32_PEAK >= nbytes / HBM_RATE else "bytes")
 
 
-def mis_probe_bound_ms(n, p, q, r_aug, probe):
-    """mis_bound_ms's terms with what B2's probe drops left out: noadv the
-    masked advance (3 n per (j, k)) and Fm's write, noadvmask the mask's
-    multiply (n); noseq and noh the pair Grams, which the bound does not
-    count (B2's design, not the function)."""
+def mis_probe_bound_ms(n, p, q, r_aug, probe, sub):
+    """mis_bound_ms's terms with what B2's probe drops left out at its
+    window `sub`: noadv the masked advance (3 n per (j, k)) and Fm's
+    write, noadvmask the mask's multiply (n); and what the probe's
+    function needs at that window beyond them: from 16 on, where an
+    8-window of a window projects Fm as of the window's start, noadv and
+    noadvmask (whose functions are not the flat sweep's) need the masked
+    pair sums with the window's earlier 8-windows, at their least as the
+    masked increment m sum_b x_b delta_b of the J - 1 earlier 8-windows (J
+    = sub / 8): (J - 1) (1 + 1 / (4 J)) n operations per (j, k); noseq and
+    noh push nothing, and the pair Grams inside an 8-window the bound does
+    not count (B2's design, not the function)."""
     adv = {"noadv": 0, "noadvmask": 2}.get(probe, 3)
-    ops = p * q * ((2 + adv) * n + 6 * r_aug)
+    j = sub // 8
+    pushes = ((j - 1) * (1 + 1 / (4 * j))
+              if j > 1 and probe in ("noadv", "noadvmask") else 0)
+    ops = p * q * ((2 + adv + pushes) * n + 6 * r_aug)
     nbytes = 4 * (n * p + 7 * p * q + (3 - (probe == "noadv")) * n * q
                   + p * r_aug + 3 * r_aug * q)
     return 1e3 * max(ops / FP32_PEAK, nbytes / HBM_RATE), \
@@ -3508,12 +3549,13 @@ def phase_probes():
     256 (pieces of 128, window 16), c = 1 and 0.5, at the kernel phase's
     tolerance; under mxu_bf16 at block 128 by the bf16_modes phase's mean
     criterion; noseq and norank at windows 1, 2, 4 and 32 (block 128) and
-    4 (block 256); one probe with m = 2
+    4 (block 256), and with exact_noz off the 8-row grid (PROBE_OFF_GRID);
+    one probe with m = 2
     replicas (held against the plain version, each replica bit for bit
     its own launch in slices of the same width).  Each B2 probe at
-    mis_sub 1, 2, 4, 8 and 16, f32 and pair_bf16, on chip and (mis_sub
-    16) with Fm
-    in device memory, at the mis_kernel phase's tolerance.  Times at the
+    mis_sub 1 to 128, f32 and pair_bf16, on chip and (mis_sub 16 to 128)
+    with Fm in device memory, and in f32 at the windows of PROBE_MIS_ANY,
+    at the mis_kernel phase's tolerance.  Times at the
     eQTL cut (PROBE_TIMED, block 128, converged and lite): each B1 probe
     beside the exact sweep in turns (exact, probe, probe, exact), median
     of PROBE_REPS launches, PROBE_ROUNDS rounds (`probe_turns`), the
@@ -3522,7 +3564,10 @@ def phase_probes():
     probe instance's 32-column slices and in its plan's width); the
     implied phase costs (PROBE_COSTS, `implied_costs`: median, range and
     whether the rounds agree in sign); B2's four at mis_sub 16 likewise
-    (MIS_PROBE_COSTS), B2's float32 instance beside them.  Registers
+    (MIS_PROBE_COSTS), B2's float32 instance beside them; in one round of
+    turns each, B1's noseq and norank at PROBE_OFF_GRID_WINDOWS
+    (PROBE_OFF_GRID_TIMED) and B2's four at PROBE_DEEP_WINDOWS, each
+    beside the same instance's exact sweep there.  Registers
     and spills of the probe instances and of the production ones.  The
     main path: `probe_routing` and one B2 probe call through
     sweep_missing_fused_driver, each with the counters zeroed before."""
@@ -3591,6 +3636,24 @@ def phase_probes():
                                       c=c, bf16=True, mean_abs_err=max(
                                           e["mean"] for e in errs.values())))
             del ops
+    # the windows off the 8-row grid (a window starts inside a chain
+    # window), at blocks 48, 40, 192 (pieces of 96) and 200 (pieces of 40)
+    for p_, blk_, wins in PROBE_OFF_GRID:
+        ops, blk = kernel_inputs(n, p_, q, 1.0, block=blk_)
+        kw = dict(block_size=blk, c_one=True)
+        f_scale = {"fitted": float(ops[6].abs().max())}
+        for win in wins:
+            for probe in ("noseq", "norank", "exact_noz"):
+                kww = dict(kw, sub=win, probe=probe)
+                errs = held(f"B1 probe {probe} block {blk} window {win}",
+                            flat(sf.sweep_fused(*ops, **kww)),
+                            flat(sf.sweep_fused_plain(*ops, **kww)),
+                            B1_NAMES, scales=f_scale)
+                max_abs["b1"] = max(max_abs["b1"], *errs.values())
+                cases.append(dict(probe=probe, block=blk, window=win, c=1.0,
+                                  p=ops[0].shape[1],
+                                  max_abs_err=max(errs.values())))
+        del ops
     # m = 2 replicas in one launch
     data, states, gram, blk = replica_problem("b1", n, p, q, 2)
     parts, stacked = replica_operands("b1", data, states, gram, blk, 1.0)
@@ -3623,7 +3686,8 @@ def phase_probes():
         ops, blk = mis_kernel_inputs(n2, p2, q2, 1.0, frac)
         plan = sm.missing_launch_plan(ops[0].shape[0], ops[6].shape[1], blk,
                                       ops[4].shape[1])
-        for sub in ((1, 2, 4, 8, 16) if i == 0 else (16,)):
+        for sub in ((1, 2, 4, 8, 16, 32, 64, 128) if i == 0
+                    else (16, *PROBE_DEEP_WINDOWS)):
             for pb in (False, True):
                 for probe in sm.MIS_PROBES:
                     kw = dict(block_size=blk, sub=sub, pair_bf16=pb,
@@ -3638,6 +3702,19 @@ def phase_probes():
                                       pair_bf16=pb,
                                       fm_on_chip=plan["fm_on_chip"],
                                       max_abs_err=max(errs.values())))
+        del ops
+    for p2, blk_, wins in PROBE_MIS_ANY:
+        ops, blk = mis_kernel_inputs(80, p2, 40, 1.0, 0.2, block=blk_)
+        for sub in wins:
+            for probe in sm.MIS_PROBES:
+                kw = dict(block_size=blk, sub=sub, probe=probe)
+                errs = held(f"B2 probe {probe} block {blk} window {sub}",
+                            sm.sweep_missing_fused(*ops, **kw),
+                            sm.sweep_missing_fused_plain(*ops, **kw), names)
+                max_abs["b2"] = max(max_abs["b2"], *errs.values())
+                cases.append(dict(probe=probe, n=80, p=p2, block=blk,
+                                  mis_sub=sub,
+                                  max_abs_err=max(errs.values())))
         del ops
     out["b2"]["cases"] = cases
 
@@ -3693,6 +3770,35 @@ def phase_probes():
     del ops, fns
     torch.cuda.empty_cache()
 
+    # windows off the 8-row grid, one round of turns each against the same
+    # instance's exact sweep at that block and window
+    by_window = {}
+    for blk_, win in PROBE_OFF_GRID_WINDOWS:
+        ops, blk = kernel_inputs(*PROBE_OFF_GRID_TIMED, 1.0, block=blk_)
+        dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], blk,
+                ops[3].shape[1], False)
+        kw = dict(block_size=blk, emit_gam_mu=False, c_one=True)
+        fns = {"none": lambda: sf.fused_launch(
+            "atlasqtl_sweep_fused", *ops, **kw, probe=sf.Probe(),
+            window=win)}
+        fns.update({pr: (lambda pr=pr: sf.sweep_fused(*ops, **kw, probe=pr,
+                                                      sub=win))
+                    for pr in ("noseq", "norank")})
+        turns, _ = probe_turns(fns, rounds=1)
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        entry = dict(n=dims[0], p=dims[1], q=dims[2], block=blk, window=win,
+                     exact_ms=med["none"], exact_turns=turns["none"],
+                     exact_bound_ms=probe_bound_ms(*dims, sf.Probe(),
+                                                   win)[0])
+        for pr in ("noseq", "norank"):
+            b, by = probe_bound_ms(*dims, sf.PROBES[pr], win)
+            entry[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
+                             bound_by=by, pct_of_bound=pct(b, med[pr]))
+        by_window[f"block {blk} window {win}"] = entry
+        del ops, fns
+        torch.cuda.empty_cache()
+    out["b1"]["timing"]["by_window"] = by_window
+
     ops, blk = mis_kernel_inputs(n, p, q, 1.0, 0.15)
     mdims = (ops[0].shape[0], ops[0].shape[1], ops[6].shape[1],
              ops[4].shape[1])
@@ -3708,7 +3814,7 @@ def phase_probes():
     med = {k: statistics.median(v) for k, v in turns.items()}
     by_probe = {}
     for pr in sm.MIS_PROBES:
-        b, by = mis_probe_bound_ms(*mdims, pr)
+        b, by = mis_probe_bound_ms(*mdims, pr, sub)
         by_probe[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
                             bound_by=by, pct_of_bound=pct(b, med[pr]))
     out["b2"]["timing"] = dict(
@@ -3719,6 +3825,24 @@ def phase_probes():
         implied_ms=implied_costs(offsets, MIS_PROBE_COSTS),
         plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
             *ops, block_size=blk, sub=16, probe=PROBE_MAIN), 2))
+    # the windows over 16 (the float32 probe instance keeps the window's
+    # deltas), one round of turns each against its exact sweep there
+    by_window = {}
+    for win in PROBE_DEEP_WINDOWS:
+        fns = {pr: (lambda pr=pr, win=win: sm._sweep_missing_fused_cuda(
+            *ops, block_size=blk, sub=win, probe=pr))
+            for pr in ("exact", *sm.MIS_PROBES)}
+        fns["none"] = fns.pop("exact")
+        turns, _ = probe_turns(fns, rounds=1)
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        entry = dict(exact_ms=med["none"], exact_turns=turns["none"],
+                     exact_bound_ms=mis_bound_ms(*mdims)[0])
+        for pr in sm.MIS_PROBES:
+            b, by = mis_probe_bound_ms(*mdims, pr, win)
+            entry[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
+                             bound_by=by, pct_of_bound=pct(b, med[pr]))
+        by_window[win] = entry
+    out["b2"]["timing"]["by_window"] = by_window
     del ops, fns
     torch.cuda.empty_cache()
     out["max_abs_err"] = max_abs
@@ -3896,6 +4020,11 @@ def main():
                 "pct_of_bound": main_probe["pct_of_bound"],
                 "exact_ms": t["exact_ms"], "production_ms": t["production_ms"],
                 "ms_by_probe": {k: v["ms"] for k, v in t["by_probe"].items()},
+                "ms_by_window": {
+                    str(w): {k: (v if k == "exact_ms" else v["ms"])
+                             for k, v in e.items()
+                             if k == "exact_ms" or isinstance(v, dict)}
+                    for w, e in t["by_window"].items()},
                 "implied_ms": t["implied_ms"]})
     if kernels:
         emit({"kernels": kernels})

@@ -189,9 +189,13 @@ def test_launch_plans_match_the_kernels(cuda):
                 assert ss.occupancy(width, block, r_aug) == 1
     for n in (1, 80, 1000, 4000, 7000, 8000, 50000):
         for r_aug in (1, 42, 48):
-            for window in (0, 16, 32, 128):
+            # the float32 probe instance at a window over 16 keeps its
+            # deltas: (0, 32), (0, 128)
+            for window, pwin in ((0, 0), (16, 0), (32, 0), (128, 0),
+                                 (0, 32), (0, 128)):
                 plan = sm.missing_launch_plan(n, 10000, 128, r_aug,
-                                              window=window)
+                                              window=window,
+                                              probe_window=pwin)
                 assert (sm.kernel_smem_bytes(plan, n, r_aug)
                         == plan["smem_bytes"])
                 ctas, clusters = sm.occupancy(plan, n, r_aug)
@@ -1776,11 +1780,17 @@ def test_probe_kernel_matches_plain(cuda, probe, p, blk, sub, bf16):
 
 @pytest.mark.parametrize("p,blk,sub", [(256, 128, 1), (256, 128, 2),
                                        (256, 128, 4), (256, 128, 32),
-                                       (512, 256, 4)])
+                                       (512, 256, 4), (240, 48, 3),
+                                       (240, 48, 6), (240, 48, 12),
+                                       (240, 40, 5), (384, 192, 12),
+                                       (400, 200, 25), (400, 200, 20)])
 @pytest.mark.parametrize("probe", ["noseq", "norank", "exact_noz"])
 def test_probe_kernel_windows(cuda, probe, p, blk, sub):
     """B1's probe instance at the windows below 8 (a window of 8 rows then
-    holds several) and above 16, where noseq and norank change with the
+    holds several), above 16, and off the 8-row grid (3, 6, 12 at block 48,
+    5 at block 40: a window starts inside a chain window; 12 at block 192,
+    in pieces of 96; 25 at block 200, in pieces of 40, a window across two
+    pieces, and 20 inside them), where noseq and norank change with the
     window, against the plain version at the kernel tests' tolerance."""
     ops, block = _operands(120, p, 200, 1.0, block=blk)
     kw = dict(block_size=block, c_one=True, probe=probe, sub=sub)
@@ -1792,13 +1802,21 @@ def test_probe_kernel_windows(cuda, probe, p, blk, sub):
 @pytest.mark.parametrize("n,p,q,sub", [(80, 250, 40, 1), (80, 250, 40, 2),
                                        (80, 250, 40, 4), (80, 250, 40, 8),
                                        (80, 250, 40, 16),
-                                       (8000, 128, 256, 16)])
+                                       (8000, 128, 256, 16),
+                                       (80, 250, 40, 32), (80, 250, 40, 64),
+                                       (80, 250, 40, 128),
+                                       (8000, 256, 256, 32),
+                                       (8000, 256, 256, 64),
+                                       (8000, 256, 256, 128)])
 @pytest.mark.parametrize("probe", list(sm.MIS_PROBES))
 def test_missing_probe_kernel_matches_plain(cuda, probe, n, p, q, sub,
                                             pair_bf16):
-    """Each of B2's probes at mis_sub 1 to 16 (Fm on chip) and 16 (Fm in
-    device memory, n = 8000), float32 and pair_bf16, against the plain
-    version at the B2 kernel tests' tolerance."""
+    """Each of B2's probes at mis_sub 1 to 128 (Fm on chip) and 16 to 128
+    (Fm in device memory, n = 8000), float32 and pair_bf16, against the
+    plain version at the B2 kernel tests' tolerance (over 16 each
+    8-window of a window projects Fm as of the window's start: in float32
+    with the masked increment of the window's earlier 8-windows, under
+    pair_bf16 through the rounded cross pairs)."""
     ops, block = _mis_operands(n, p, q, 1.0, block=128)
     kw = dict(block_size=block, sub=sub, pair_bf16=pair_bf16, probe=probe)
     launches = sm.sweep_missing_fused.probe.launches
@@ -1811,6 +1829,30 @@ def test_missing_probe_kernel_matches_plain(cuda, probe, n, p, q, sub,
         assert err <= limit, (name, err, limit)
     if probe == "noadv":   # Fm out = Fm in
         assert torch.equal(got[2].cpu(), ops[8])
+
+
+@pytest.mark.parametrize("n,q", [(80, 40), (8000, 256)])
+@pytest.mark.parametrize("p,blk,sub", [(240, 48, 3), (240, 48, 6),
+                                       (240, 48, 12), (240, 48, 24),
+                                       (240, 40, 5), (240, 40, 20),
+                                       (400, 200, 25), (400, 200, 200)])
+@pytest.mark.parametrize("probe", list(sm.MIS_PROBES))
+def test_missing_probe_kernel_any_window(cuda, probe, p, blk, sub, n, q):
+    """B2's float32 probe instance at windows that divide the block but are
+    not powers of two: off the 8-row grid (3, 5, 6, 12, 20, 25: a window
+    starts inside a chain window; the window's deltas in a ring) and
+    multiples of 8 (24; 200, a block over 128 whole), Fm on chip (n = 80)
+    and in device memory (n = 8000), against the plain version at the B2
+    kernel tests' tolerance."""
+    ops, block = _mis_operands(n, p, q, 1.0, block=blk)
+    assert block == blk
+    kw = dict(block_size=block, sub=sub, probe=probe)
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], **kw)
+    ref = sm.sweep_missing_fused(*ops, **kw)
+    for name, a, r in zip(MIS_NAMES, got, ref):
+        err = float((a.cpu() - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
 
 
 def test_probe_launches_under_a_cuda_graph(cuda):
@@ -1895,14 +1937,13 @@ def test_probe_routes_on_the_card(cuda):
 
 
 def test_probe_kernels_refuse(cuda):
-    """B1's probe instance takes windows that divide 8 or are multiples of
-    it (not 6 at block 48) and no lookahead; B2's takes windows 1 to 16
-    (not 32)."""
+    """B1's probe instance takes no lookahead, but every window (6 at
+    block 48 too); B2's takes window 32 (held to the plain version)."""
     ops, block = _operands(120, 96, 200, 1.0, block=48)
     assert block == 48
-    dev = [o.to(cuda) for o in ops]
-    with pytest.raises(NotImplementedError, match="divisors of 8"):
-        sf.sweep_fused(*dev, block_size=block, probe="noseq", sub=6)
+    kw = dict(block_size=block, probe="noseq", sub=6)
+    _probe_held(sf.sweep_fused(*[o.to(cuda) for o in ops], **kw),
+                sf.sweep_fused(*ops, **kw), ops[6])
     ops, block = _operands(120, 256, 200, 1.0)
     dev = [o.to(cuda) for o in ops]
     with pytest.raises(ValueError, match="lookahead"):
@@ -1910,9 +1951,12 @@ def test_probe_kernels_refuse(cuda):
                        bf16=True, lookahead=True,
                        goff=sf.lookahead_gram(dev[0], block), probe="noseq")
     mops, mblock = _mis_operands(80, 250, 40, 1.0)
-    with pytest.raises(NotImplementedError, match="windows"):
-        sm.sweep_missing_fused(*[o.to(cuda) for o in mops],
-                               block_size=mblock, sub=32, probe="noadv")
+    kw = dict(block_size=mblock, sub=32, probe="noadv")
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in mops], **kw)
+    for name, a, r in zip(MIS_NAMES, got, sm.sweep_missing_fused(*mops, **kw)):
+        err = float((a.cpu() - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
 
 
 @pytest.mark.parametrize("kind", ["b1", "b5a", "b5d", "b2", "b5b"])

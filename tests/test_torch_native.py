@@ -4,8 +4,20 @@ and against the JAX package's native module and prepare_data on the same
 NumPy inputs.  The library is built by g++ at first use: without g++ these
 tests skip.  Tolerances: the standardized X to 1e-12 relative between the
 paths (they sum in another order), bit for bit between the two packages'
-native passes (the same source), flags and names exactly."""
+native passes (the same source), flags and names exactly.
+
+The JAX package's library is built here, at import, to a file of this
+process and moved onto that package's library path (`_build_jax_native`):
+its own build writes one shared `<library>.tmp` from every process that
+finds no library, and a process whose `os.replace` loses that race keeps
+`get_lib()` None and its prepare_data on the NumPy path (C11).  So every
+xdist worker finds the library in place before any test runs, and a test
+that compares against the JAX package's native path fails, never skips,
+where that library does not load."""
+import hashlib
+import os
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -18,6 +30,35 @@ from atlasqtl_tpu_torch.io import prepare as prep
 from atlasqtl_tpu_torch.io.prepare import prepare_data, standardize_and_flag
 
 
+def _build_jax_native(force: bool = False) -> str:
+    """The JAX package's native library, compiled with its module's own
+    command and flags (atlasqtl_tpu/native/__init__.py:27-31) to a
+    temporary file of this process and moved onto that module's library
+    path (`_fastprep_<digest>.so`, git-ignored) where it is missing (force:
+    in any case).  Returns the path; raises where g++ fails."""
+    with open(jnative._SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    so = os.path.join(jnative._DIR, f"_fastprep_{digest}.so")
+    if force or not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        try:
+            subprocess.run(["g++", "-O3", "-march=native", "-std=c++17",
+                            "-shared", "-fPIC", "-pthread", jnative._SRC,
+                            "-o", tmp], check=True, capture_output=True)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return so
+
+
+if shutil.which("g++") is not None:
+    try:
+        _build_jax_native()
+    except (OSError, subprocess.CalledProcessError):
+        pass   # jax_lib fails the tests that need it, with the reason
+
+
 @pytest.fixture
 def lib():
     if shutil.which("g++") is None:
@@ -25,6 +66,28 @@ def lib():
     lib = native.get_lib()
     assert lib is not None, native.get_lib.error
     return lib
+
+
+@pytest.fixture
+def jax_lib(lib, monkeypatch):
+    """The JAX package's native library, loaded in this process from
+    `_build_jax_native`'s file whatever its module's earlier get_lib()
+    found (set for the test through monkeypatch), so that its
+    standardize_and_flag(use_native=True) takes the native path; fails
+    with the reason where it does not load."""
+    try:
+        so = _build_jax_native()
+        try:
+            jl = jnative._build_and_load()
+        except OSError:   # a partial file another process moved there
+            so = _build_jax_native(force=True)
+            jl = jnative._build_and_load()
+    except (OSError, subprocess.CalledProcessError) as e:
+        pytest.fail(f"the JAX package's native library did not build or "
+                    f"load: {e}")
+    monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(jnative, "_lib", jl)
+    return jl
 
 
 def _dup_matrix():
@@ -92,11 +155,9 @@ def test_prepare_data_native_equals_numpy_path(lib):
     np.testing.assert_array_equal(d_nat.bool_rmvd_x, d_np.bool_rmvd_x)
 
 
-def test_native_equals_the_jax_packages(lib):
+def test_native_equals_the_jax_packages(lib, jax_lib):
     """The same source on the same inputs: the port's three entry points
     give the JAX package's native module's outputs bit for bit."""
-    if jnative.get_lib() is None:
-        pytest.skip("the JAX package's native library did not build")
     x = _dup_matrix()
     a, b = x.copy(), x.copy()
     cst_t, h_t = native.standardize_and_hash(a)
@@ -114,7 +175,7 @@ def test_native_equals_the_jax_packages(lib):
 
 
 @pytest.mark.parametrize("path", ["numpy", "native"])
-def test_prepare_data_equals_the_jax_packages(lib, path):
+def test_prepare_data_equals_the_jax_packages(lib, jax_lib, path):
     """The port's prepare_data on either path against the JAX package's on
     the same path, NaN in Y included: equal outputs."""
     import atlasqtl_tpu.io.prepare as jprep

@@ -81,6 +81,38 @@ def test_b1_probe_plain_matches_jax_kernel(probe, c, sub):
     _check(got, _jax_b1(probe, c, sub))
 
 
+def _b1_cut(block, p=240):
+    """`_b1_problem(1.0)` with x and every (p,) and (p, q) operand cut to
+    its first p = 240 predictors (a multiple of 24, 40 and 48, whose
+    blocks have windows off the 8-row grid), the Gram in blocks of
+    `block`; F stays the full problem's (the sweep takes any F)."""
+    data, state, _, consts = _b1_problem(1.0)
+    x = data.x[:, :p]
+    consts = consts._replace(theta=consts.theta[:p])
+    return (x, data.cp_x_y[:p], j_block_gram(x, block),
+            (state.gam * state.mu_beta)[:p], state.fitted, consts,
+            data.p_mask[:p], data.q_mask)
+
+
+@pytest.mark.parametrize("probe,block,sub", [
+    ("noseq", 48, 6), ("norank", 48, 12), ("norank", 24, 3),
+    ("noseq", 40, 5)])
+def test_b1_probe_off_grid_plain_matches_jax_kernel(probe, block, sub):
+    """noseq and norank at windows off the CUDA probe instance's 8-row
+    grid (neither dividing 8 nor a multiple of it: a window starts inside
+    a chain window of 8), at (n=120, p=240, q=128): the port's plain
+    version against the JAX kernel in interpret mode."""
+    x, cp, gram, beta, fitted, consts, pm, qm = _b1_cut(block)
+    ref = j_fused(x, cp, gram, beta, fitted, consts, block, p_mask=pm,
+                  q_mask=qm, q_tile=128, sub=sub, qchunk=128, probe=probe)
+    got = tsf.sweep_complete_fused(
+        _t(x), _t(cp), _t(gram), _t(beta), _t(fitted),
+        tsw.SweepConsts(*[_t(v) for v in consts]), block, p_mask=_t(pm),
+        q_mask=_t(qm), probe=probe, sub=sub)
+    assert tsf.sweep_fused.launches == 0  # CPU: the plain version
+    _check(got, ref)
+
+
 @pytest.mark.parametrize("probe", ["jacobi", "exact_noz"])
 def test_b1_probe_plain_bf16_matches_jax_kernel(probe):
     """Under mxu_bf16 a probe keeps its bf16 products: the port's plain
@@ -100,13 +132,15 @@ def test_b1_window_16_moves_noseq():
 
 @pytest.mark.parametrize("window,ok", [(1, True), (2, True), (4, True),
                                        (8, True), (16, True), (24, True),
-                                       (3, False), (6, False), (12, False)])
+                                       (3, True), (6, True), (12, True)])
 def test_b1_probe_instance_windows(window, ok):
-    """The windows B1's CUDA probe instance takes: the divisors of its
-    8-row chain window and the multiples of it (a window of 8 rows lies in
-    one window or is a run of whole ones); B2's take 1 to 16."""
+    """The windows B1's CUDA probe instance takes: every one (off the 8-row
+    grid it keeps or drops a push per pair of rows); B2's pair_bf16 probe
+    instances take the mode's windows, the powers of two up to 128 (its
+    float32 one every window that divides the block)."""
     assert tsf.probe_window_ok(window) is ok
-    assert (window in tsm.PROBE_WINDOWS) is (window in (1, 2, 4, 8, 16))
+    assert (window in tsm.PROBE_WINDOWS) is (window in (1, 2, 4, 8, 16, 32,
+                                                        64, 128))
 
 
 def test_b1_probe_rejections():
@@ -160,6 +194,23 @@ def test_b2_probe_plain_matches_jax_kernel(probe):
     if probe == "noadv":  # Fm out = Fm in
         np.testing.assert_array_equal(np.asarray(ref[2]),
                                       np.asarray(state.fitted))
+
+
+@pytest.mark.parametrize("probe,sub", [("noadv", 32), ("noseq", 128)])
+def test_b2_deep_probe_plain_matches_jax_kernel(probe, sub):
+    """B2's probes at windows over 16 (wgroup 1, one window per pair
+    Gram): every 8-window of a window projects Fm as of its start, noadv
+    pushes the window's masked pairs, noseq none; the port's plain version
+    against the JAX kernel in interpret mode."""
+    data, state, consts, sig2_inv = _b2_problem()
+    jc = jsw.SweepConsts(**{k: jnp.asarray(v) for k, v in consts.items()})
+    ref = sweep_missing_fused_driver(
+        data.x, data.cp_x_y, data.x_norm_sq, data.mis_pat, state.gam,
+        state.mu_beta, state.fitted, jc, jnp.asarray(sig2_inv), 128,
+        p_mask=data.p_mask, q_mask=data.q_mask, q_tile=256, sub=sub,
+        wgroup=1, qchunk=256, probe=probe)
+    msk = np.asarray(data.p_mask)[:, None] * np.asarray(data.q_mask)[None, :]
+    _check_b2(_port_b2(probe, sub), ref, msk)
 
 
 def test_b2_noh_is_noseq_and_rejections():
