@@ -199,11 +199,13 @@ __host__ __device__ constexpr int delta_rows(int sub) {
 
 // the float32 probe instance's deltas beside them, in a region of their own
 // at the end of shared memory (so that every other offset is the float32
-// instance's): under a probe's window pwin over 2 W those of the window
-// (probe_deep_rows), off the grid a ring of whole chain windows over the
-// latest pwin + 7 rows (probe_off_rows), else none
-__host__ __device__ constexpr int probe_rows(int pwin) {
-  return off_grid(pwin) ? (pwin + 2 * W - 2) / W * W : pwin > 2 * W ? pwin : 0;
+// instance's), under the probe code pcode at its window pwin: off the grid a
+// ring of whole chain windows over the latest pwin + 7 rows
+// (probe_off_rows); else none (the exact sweep runs B2's own schedule; on
+// the grid a window's deltas for its end term go to a workspace in device
+// memory, MisProbe::dws)
+__host__ __device__ constexpr int probe_rows(int pcode, int pwin) {
+  return pcode != 3 && off_grid(pwin) ? (pwin + 2 * W - 2) / W * W : 0;
 }
 
 // the rows of one x slot: the CTA's rows (none in device memory), under a
@@ -216,18 +218,18 @@ __host__ __device__ constexpr int x_rows(int rows, int sub) {
 // of masked gam, the deltas (delta_rows), two cluster-visible sum buffers,
 // the partial slots, the phase clocks, three sets of window scalars, the
 // slice's interpolation nodes; on chip also nloc rows of Fm and one mask
-// word per row; two x slots of W per row of x_rows; under a probe at
-// window pwin (else 0) its probe_rows, from a 16-byte boundary after the
-// mask words
-size_t smem_bytes(bool on_chip, int nloc, int R, int sub, int pwin = 0) {
+// word per row; two x slots of W per row of x_rows; the float32 probe
+// instance's prows (probe_rows), from a 16-byte boundary after the mask
+// words
+size_t smem_bytes(bool on_chip, int nloc, int R, int sub, int prows = 0) {
   const size_t rows = on_chip ? nloc : 0;
-  const size_t prows = probe_rows(pwin);
   return sizeof(float) *
          ((size_t)2 * NWT * W * QS + 2 * W * QS + (size_t)delta_rows(sub) * QS +
           2 * NRH * QS +
           NSLOT * NRH * QS + CLKF + NWS * ws_floats(R) + 3 * R * QS +
           rows * (QS + 1) + (size_t)2 * x_rows((int)rows, sub) * W +
-          (prows ? ((rows + 3) & ~(size_t)3) - rows + prows * QS : 0));
+          (prows ? ((rows + 3) & ~(size_t)3) - rows + (size_t)prows * QS
+                 : 0));
 }
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
@@ -276,14 +278,14 @@ __device__ __forceinline__ void stage_tiles(
 // v[W ..]: the products of a and b in one RW-aligned group ((a ^ b) < RW)
 // rounded to bf16, the others in f32 (RW = 0: none rounded, the float32
 // instance; RW = W, every pair rounded: the tensor cores sum them,
-// window_grams, so none here).  PRB, the probe instance: the f32 pairs of
-// a and b with (a ^ b) >= mw (in two windows of mw predictors) without the
-// mask (noadvmask's advance between windows under 8).
-template <int RW, bool PRB = false>
+// window_grams, so none here).  MWX, a probe's: the f32 pairs of a and b
+// with (a ^ b) >= mw (in two windows of mw predictors) without the mask
+// (noadvmask's advance between windows under 8).
+template <int RW, bool MWX = false>
 __device__ __forceinline__ void pair_sums(const float* xv, float m,
                                           float* v, int mw = W) {
   if constexpr (RW < W) {
-    if constexpr (PRB) {
+    if constexpr (MWX) {
       if (mw < W) {  // a probe's pairs across two windows of mw
         int e = W;
 #pragma unroll
@@ -322,19 +324,24 @@ __device__ __forceinline__ void pair_sums(const float* xv, float m,
 // projections (x row xp) of the advanced f (PRE: of f from before the
 // advance) and masked pair sums (pair_sums<RW>) into v.  Returns the new f.
 // PRB, the probe instance (ops/sweep_missing_fused.py:MIS_PROBES): f
-// advances by the rule arule (0: not at all, noadv; 1: masked; 2: without
-// the mask, noadvmask); `pre` in place of PRE, where `cross` plus the
-// previous window's masked increment (the f32 pairs of the second 8-window
-// of a 16-window with the first, as one masked projection); the pair sums
-// only where `pairs` (none under noseq), in windows of pwin predictors (the
-// pairs across two windows under 8 by the advance's rule: pair_sums).
-template <bool ADV, bool PROJ, int RW, bool PRE = false, bool PRB = false>
+// advances by the rule `rule` (1: masked; 2: without the mask, noadvmask);
+// `pre` in place of PRE; the pair sums only under PAIRS (none under
+// noseq), under MWX those across two windows of mw < W without the mask
+// (pair_sums).  lcode >= 0: the pass of the last chain window of a probe's
+// window on the 8-row grid, whose f, f0, holds the window's start advanced
+// by the probe's rule through its chain windows before the previous one:
+// it projects f0 (noseq, lcode 0) or f0 + m s (noadv, noadvmask: the
+// running masked advance) and stores f0 + m s (noseq), f0 (noadv) or f0 +
+// s (noadvmask), to which window_edge then adds the window's end term.
+// The probe's choices are selects, so that the two rows of a step still
+// overlap.
+template <bool ADV, bool PROJ, int RW, bool PRE = false, bool PRB = false,
+          bool PAIRS = true, bool MWX = false>
 __device__ __forceinline__ float row_update(float f, float m,
                                             const float* xa, const float* xp,
                                             const float* dl, float* v,
-                                            int arule = 1, bool pre = false,
-                                            bool cross = false,
-                                            bool pairs = true, int pwin = W) {
+                                            int rule = 1, bool pre = false,
+                                            int mw = W, int lcode = -1) {
   const float f0 = f;
   float s = 0.f;
   if (ADV) {
@@ -343,20 +350,22 @@ __device__ __forceinline__ float row_update(float f, float m,
     s = xv[0] * dl[0];
 #pragma unroll
     for (int i = 1; i < W; ++i) s = fmaf(xv[i], dl[i], s);
-    if (!PRB || arule == 1)
+    if constexpr (PRB)
+      f = fmaf(rule == 1 ? m : 1.f, s, f);
+    else
       f = fmaf(m, s, f);
-    else if (arule == 2)
-      f = __fadd_rn(f, s);
+  }
+  float fp = !(PRB ? pre : PRE) ? f : f0;
+  if constexpr (PRB && ADV) {  // f: the running masked advance (rule 1)
+    fp = lcode == 0 ? f0 : fp;
+    f = lcode == 1 ? f0 : lcode == 2 ? __fadd_rn(f0, s) : f;
   }
   if (PROJ) {
     float xv[W];
     load8(xp, xv);
-    const float fp = !(PRB ? pre : PRE) ? f
-                     : PRB && cross     ? fmaf(m, s, f0)
-                                        : f0;
 #pragma unroll
     for (int i = 0; i < W; ++i) v[i] = fmaf(xv[i], fp, v[i]);
-    if (!PRB || pairs) pair_sums<RW, PRB>(xv, m, v, arule == 2 ? pwin : W);
+    if constexpr (PAIRS) pair_sums<RW, MWX>(xv, m, v, mw);
   }
   return f;
 }
@@ -408,62 +417,6 @@ __device__ __forceinline__ void deep_rows(
   }
 }
 
-// The float32 probe instance's pass under a probe's window S = pwin over
-// 2 W (the JAX kernel's windows of sub, atlasqtl_tpu/ops/
-// sweep_missing_fused.py:157-215): jadv >= 0 first advances Fm by the S
-// deltas in D_s of the S-window that starts at predictor jadv by the rule
-// arule (1 masked, 2 without the mask; noadv passes -1), x from device
-// memory; proj then adds this chain window's projections (x in xp, as
-// window_pass) of Fm as of its S-window's start plus, where `pairs`, the
-// masked increment of the nd rows of the S-window before it (m sum_b x_b
-// delta_b, b from predictor jd: the pushes of the masked pair Grams with
-// every earlier 8-window, recomputed per row from the deltas kept in D_s),
-// and where `pairs` its own f32 pair sums.
-template <bool ON_CHIP>
-__device__ __forceinline__ void probe_deep_rows(
-    float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
-    float* __restrict__ fm, const float* __restrict__ mask,
-    const float* __restrict__ x, const float* __restrict__ xp,
-    const float* __restrict__ D_s, float* __restrict__ v, int row0, int nr,
-    int p, int q, int k, bool cvalid, int warp, int lane, int S, int jadv,
-    int arule, bool proj, bool pairs, int jd, int nd) {
-#pragma unroll
-  for (int e = 0; e < NRH; ++e) v[e] = 0.f;
-  if (!ON_CHIP && !cvalid) return;
-  const size_t xs = ON_CHIP ? W : (size_t)p;  // row stride of the x window
-  for (int t = warp; t < nr; t += NW) {
-    float& fr = ON_CHIP ? fm_s[t * QS + lane] : fm[(size_t)t * q + k];
-    const float m = ON_CHIP ? ((mb_s[t] >> lane) & 1u ? 1.f : 0.f)
-                            : mask[(size_t)t * q + k];
-    const float* xrow = x + (size_t)(row0 + t) * p;
-    // sum_b x_b delta_b over nb deltas from D_s's first row, x from j
-    auto xdot = [&](int j, int nb) {
-      float s = 0.f;
-      for (int c = 0; c < nb; c += W) {
-        float xb[W];
-        load8(xrow + j + c, xb);
-#pragma unroll
-        for (int i = 0; i < W; ++i)
-          s = fmaf(xb[i], D_s[(c + i) * QS + lane], s);
-      }
-      return s;
-    };
-    float f = fr;
-    if (jadv >= 0) {
-      const float s = xdot(jadv, S);
-      f = arule == 1 ? fmaf(m, s, f) : __fadd_rn(f, s);
-      fr = f;
-    }
-    if (!proj) continue;
-    const float fp = pairs && nd > 0 ? fmaf(m, xdot(jd, nd), f) : f;
-    float xv[W];
-    load8(xp + t * xs, xv);
-#pragma unroll
-    for (int a = 0; a < W; ++a) v[a] = fmaf(xv[a], fp, v[a]);
-    if (pairs) pair_sums<0>(xv, m, v);
-  }
-}
-
 // Off the grid, for the chain window of predictors jw .. jw + W: bit e of
 // the pair (a, b) of pair_sums' order (e = a (a - 1) / 2 + b, b < a) where
 // rows jw + a and jw + b share a window of pwin.
@@ -495,6 +448,20 @@ __device__ __forceinline__ unsigned off_pushed(int jw, int pwin, int pcode,
   const unsigned same = off_same(jw, pwin);
   return (pcode != 0 ? same : 0u) |
          (arule != 0 ? ~same & ((1u << NP) - 1u) : 0u);
+}
+
+// the same on the 8-row grid, where rows a and b of a chain window share a
+// window of pwin if (a ^ b) < pwin
+__device__ __forceinline__ unsigned grid_pushed(int pwin, int pcode,
+                                                int arule) {
+  unsigned bits = 0u;
+  int e = 0;
+#pragma unroll
+  for (int a = 1; a < W; ++a)
+#pragma unroll
+    for (int b = 0; b < a; ++b, ++e)
+      if ((a ^ b) < pwin ? pcode != 0 : arule != 0) bits |= 1u << e;
+  return bits;
 }
 
 // The float32 probe instance's pass under a probe's window pwin off the
@@ -572,16 +539,16 @@ __device__ __forceinline__ void probe_off_rows(
 // otherwise they point into x at the windows' first columns and Fm is the
 // device slice at fm.  Each warp takes two rows per step, both read before
 // either is written back, so their loads and FMA chains overlap.  PRB: the
-// probe instance's rows (row_update's arule, pre, cross, pairs, pwin).
+// probe instance's rows (row_update's PAIRS, MWX, rule, pre, mw, lcode).
 template <bool ON_CHIP, bool ADV, bool PROJ, int RW, bool PRE = false,
-          bool PRB = false>
+          bool PRB = false, bool PAIRS = true, bool MWX = false>
 __device__ __forceinline__ void window_pass(
     float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
     float* __restrict__ fm, const float* __restrict__ mask,
     const float* __restrict__ xa, const float* __restrict__ xp,
     const float* __restrict__ D_s, float* __restrict__ v, int nr, int p,
-    int q, int k, bool cvalid, int warp, int lane, int arule = 1,
-    bool pre = false, bool cross = false, bool pairs = true, int pwin = W) {
+    int q, int k, bool cvalid, int warp, int lane, int rule = 1,
+    bool pre = false, int mw = W, int lcode = -1) {
   float dl[W];
 #pragma unroll
   for (int i = 0; i < W; ++i) dl[i] = ADV ? D_s[i * QS + lane] : 0.f;
@@ -601,22 +568,95 @@ __device__ __forceinline__ void window_pass(
     const int u = t + NW;
     float f0 = fm_at(t), f1 = fm_at(u);
     const float m0 = m_at(t), m1 = m_at(u);
-    f0 = row_update<ADV, PROJ, RW, PRE, PRB>(f0, m0, xa + t * xs, xp + t * xs,
-                                             dl, v, arule, pre, cross, pairs,
-                                             pwin);
-    f1 = row_update<ADV, PROJ, RW, PRE, PRB>(f1, m1, xa + u * xs, xp + u * xs,
-                                             dl, v, arule, pre, cross, pairs,
-                                             pwin);
+    f0 = row_update<ADV, PROJ, RW, PRE, PRB, PAIRS, MWX>(
+        f0, m0, xa + t * xs, xp + t * xs, dl, v, rule, pre, mw, lcode);
+    f1 = row_update<ADV, PROJ, RW, PRE, PRB, PAIRS, MWX>(
+        f1, m1, xa + u * xs, xp + u * xs, dl, v, rule, pre, mw, lcode);
     if (ADV) {
       fm_at(t) = f0;
       fm_at(u) = f1;
     }
   }
   if (t < nr) {
-    const float f = row_update<ADV, PROJ, RW, PRE, PRB>(
-        fm_at(t), m_at(t), xa + t * xs, xp + t * xs, dl, v, arule, pre,
-        cross, pairs, pwin);
+    const float f = row_update<ADV, PROJ, RW, PRE, PRB, PAIRS, MWX>(
+        fm_at(t), m_at(t), xa + t * xs, xp + t * xs, dl, v, rule, pre, mw,
+        lcode);
     if (ADV) fm_at(t) = f;
+  }
+}
+
+constexpr int ER = NSLOT * NRH * QS / NW / (2 * W);  // rows of a stage
+
+// The end of a probe's window on the 8-row grid, after the pass of its last
+// chain window (row_update's lcode), over the rows that this warp's passes
+// own (so no CTA barrier): noadv restores Fm as the launch received it (fo:
+// this thread's column of the CTA's rows); noseq and noadvmask add the end
+// term of the window's first nc chain windows, e = sum_b x_b delta_b,
+// masked (noseq) or where the mask is 0 (noadvmask), two chain windows at
+// a time (a last odd one with the next chain window's x and no delta), the
+// deltas from dw (W x QS each, device memory).  Their x (from xe, the
+// window's first predictor, row stride p) is staged by cp.async, ER rows
+// at a time, into this warp's part of the partial slots (xs; free until
+// the cluster's sums are gathered), so that a warp has ER rows' loads in
+// flight and reads each row back by broadcast (no x slot is free: the next
+// pass advances from this chain window's).
+template <bool ON_CHIP>
+__device__ __forceinline__ void window_edge(
+    float* __restrict__ fm_s, const unsigned* __restrict__ mb_s,
+    float* __restrict__ fm, const float* __restrict__ mask,
+    const float* __restrict__ xe, float* __restrict__ xs,
+    const float* __restrict__ dw, const float* __restrict__ fo, int nr,
+    int p, int q, int k, bool cvalid, int warp, int lane, int lcode,
+    int nc) {
+  auto fm_at = [&](int t) -> float& {
+    return ON_CHIP ? fm_s[t * QS + lane] : fm[(size_t)t * q + k];
+  };
+  // in device memory a column past q has no Fm; its lane still stages x
+  const bool mine = ON_CHIP || cvalid;
+  if (lcode == 1) {
+    if (!mine) return;
+#pragma unroll 4
+    for (int t = warp; t < nr; t += NW)
+      fm_at(t) = cvalid ? fo[(size_t)t * q] : 0.f;
+    return;
+  }
+  const int rows = (nr - warp + NW - 1) / NW;  // this warp's, t = warp + NW i
+  for (int c = 0; c < nc; c += 2) {
+    float dl[2 * W];
+#pragma unroll
+    for (int i = 0; i < 2 * W; ++i)
+      dl[i] = c + i / W < nc ? dw[(c * W + i) * QS + lane] : 0.f;
+    for (int g = 0; g < rows; g += ER) {
+      const int nrow = min(ER, rows - g);
+      for (int e = lane; e < 4 * nrow; e += 32) {
+        const int h = 4 * (e & 3);
+        cp_async16(xs + (e >> 2) * 2 * W + h,
+                   xe + (size_t)(warp + NW * (g + (e >> 2))) * p + c * W + h);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+#pragma unroll 2
+      for (int r = 0; r < nrow; ++r) {
+        float xv[W], xu[W];
+        load8(xs + r * 2 * W, xv);
+        load8(xs + r * 2 * W + W, xu);
+        float s = xv[0] * dl[0], su = xu[0] * dl[W];
+#pragma unroll
+        for (int i = 1; i < W; ++i) {
+          s = fmaf(xv[i], dl[i], s);
+          su = fmaf(xu[i], dl[W + i], su);
+        }
+        s += su;
+        const int t = warp + NW * (g + r);
+        if (mine) {
+          const float m = ON_CHIP ? ((mb_s[t] >> lane) & 1u ? 1.f : 0.f)
+                                  : mask[(size_t)t * q + k];
+          fm_at(t) = fmaf(lcode == 0 ? m : 1.f - m, s, fm_at(t));
+        }
+      }
+      __syncwarp();  // read before the next stage lands
+    }
   }
 }
 
@@ -1001,6 +1041,16 @@ __device__ __forceinline__ void z_rows_of_rank(
                zeta_k, qm_k, kz, zc);
 }
 
+// The probe instance's runtime arguments, one more kernel argument (PP).
+struct MisProbe {
+  int code;          // 0 noseq and noh, 1 noadv, 2 noadvmask, 3 exact
+  int win;           // its window (the float32 instance's; pair_bf16: SUB)
+  const float* fm0;  // noadv in device memory on the grid over 2 W (else
+                     // null): (n, q) Fm as the launch received it, stacked
+  float* dws;        // noseq, noadvmask on the grid over 2 W: per CTA the
+                     // deltas of a window's first win / W - 2 chain windows
+};
+
 // SUB: 0 for the float32 instance, else the pair_bf16 window (2, 4, ...,
 // 128).  Two CTAs per SM (128 registers), but in device memory from SUB =
 // 16 on one (its cross pairs' 64-bit addresses do not fit 128 registers
@@ -1011,27 +1061,50 @@ __device__ __forceinline__ void z_rows_of_rank(
 // window), 1 (noadv: Fm never advances), 2 (noadvmask: Fm advances
 // without the mask) or 3 (every part kept: the exact function, to time the
 // others against), in windows of pwin predictors, any that divides p (the
-// pair_bf16 probe instances: pwin = SUB) (under
-// 8, the pairs of an 8-window in one window of pwin are pushed where the
-// probe keeps the pushes, those across two where it keeps the advance,
-// without the mask under noadvmask); at 16 the
-// second 8-window of each 16-window projects Fm from before the first's
-// advance, and takes its pairs with the first (but under noseq) as the
-// first's masked increment in float32 (SUB = 0), through the rounded
-// cross pairs under pair_bf16 (SUB = 16); over 16 every 8-window of a
-// pwin-window projects Fm as of the window's start, the window's deltas
-// kept in D_s, and takes its pairs with the window's earlier 8-windows
-// (but under noseq) as their masked increment in float32
-// (probe_deep_rows, SUB = 0), through the rounded cross pairs under
-// pair_bf16 (the DEEP instances, SUB = pwin), Fm advancing by the probe's
-// rule at the window's end; off the 8-row grid (3, 6, 12, ...: a window
-// starts inside a chain window) the float32 one keeps Fm as of the start
-// of the window that holds each chain window's first row and the latest
-// deltas in a ring (probe_off_rows), and pushes per pair of rows.  The
-// float32 probe instance's deltas beyond W sit at the end of shared
-// memory (DP_s, probe_rows).  The probe instance alone takes
-// the code and the window, as two more arguments (PP: int, int), so that
-// the others keep their parameters.
+// pair_bf16 probe instances: pwin = SUB).
+//
+// The float32 probe instance (SUB = 0) runs B2's own schedule: the exact
+// sweep (pcode 3) takes the float32 instance's passes, chain and layout,
+// at every window (the window does not change the exact function).  A
+// probe's function in windows of S = pwin = J W predictors on the 8-row
+// grid projects chain window j of a window against Fm_start + m sum_{b<j}
+// x_b delta_b (but under noseq Fm_start): the running masked advance of
+// the float32 instance, which its passes keep.  So each probe departs from
+// that schedule only in how a pass advances Fm:
+//  - inside a window (chain windows 1 .. J - 2) masked, as B2 does (noseq:
+//    not at all);
+//  - the pass of its last chain window (lcode, row_update) and, for J > 2,
+//    a short pass after it (window_edge) store the window's end but for
+//    that chain window: noadv restores Fm as the launch received it (fm0;
+//    where J = 2 Fm never moved), noseq and noadvmask add the end term of
+//    the window's first J - 2 chain windows, sum_b x_b delta_b (their
+//    deltas kept in a workspace in device memory, dws; x staged in the
+//    free partial slots), masked (noseq) or where the mask is 0
+//    (noadvmask);
+//  - at the next window's start by the probe's rule (noseq masked, noadv
+//    not at all, noadvmask without the mask).
+// What bounds it is B2's pass: the end term adds S - 2 W FMAs per row and
+// window against about 7 S of B2's passes (none at 16); every probe on the
+// grid keeps B2's layout and plan (its deltas are not in shared memory,
+// which B2's plan fills at the eQTL cut) and B2's rows wherever a pass
+// advances masked or not at all (the probe's choices are compile-time
+// there, selects elsewhere).  No other recomputation remains.  Under 8
+// (1, 2, 4) the pairs of an 8-window in one window of pwin are pushed where
+// the probe keeps the pushes, those across two where it keeps the advance,
+// without the mask under noadvmask; off the 8-row grid (3, 6, 12, ...: a
+// window starts inside a chain window) the float32 one keeps Fm as of the
+// start of the window that holds each chain window's first row and the
+// latest deltas in a ring (probe_off_rows), and pushes per pair of rows.
+// Under pair_bf16 at 16 the second 8-window of each 16-window projects Fm
+// from before the first's advance and takes its pairs with the first
+// through the rounded cross pairs; over 16 (the DEEP instances, SUB =
+// pwin) every 8-window projects Fm as of its window's start and takes the
+// rounded cross pairs with the window's earlier 8-windows, Fm advancing
+// by the probe's rule at the window's end.  The float32 probe instance's
+// deltas beyond W sit at the end of shared memory (DP_s, probe_rows).  The
+// probe instance alone takes a MisProbe (its code, window, Fm as the
+// launch received it and the deltas' workspace) as one more argument (PP),
+// so that the others keep their parameters.
 template <bool FM_ON_CHIP, int SUB, bool PRB = false, typename... PP>
 __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     sweep_missing_kernel(
@@ -1055,11 +1128,11 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     float* __restrict__ zrow_part,      // (n_slices, p)
     float* __restrict__ z_col,          // (q,)
     int n, int p, int q, int R, int nloc,
-    PP... probe_args) {                 // PRB: the probe's code, its window
+    PP... probe_args) {                 // PRB: one MisProbe
   static_assert(SUB == 0 || SUB == 2 || SUB == 4 || SUB == W || SUB == 2 * W ||
                     SUB == 4 * W || SUB == 8 * W || SUB == 16 * W,
                 "the float32 instance or a pair_bf16 window");
-  static_assert(PRB == (sizeof...(PP) == 2), "PRB: the code and the window");
+  static_assert(PRB == (sizeof...(PP) == 1), "PRB: one MisProbe");
   // pairs rounded within RW-aligned groups of an 8-window; TC: every pair
   // of an 8-window rounded, its pair Grams on the tensor cores; CROSS: odd
   // 8-windows project the 16-window's start and add its cross pairs; DEEP:
@@ -1071,9 +1144,9 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   constexpr int J = DEEP ? SUB / W : 1;
   int pcode = 0, pwin = W;
   if constexpr (PRB) {
-    const int pa[] = {probe_args...};
-    pcode = pa[0];
-    pwin = SUB != 0 ? SUB : pa[1];  // a pair_bf16 probe: its own window
+    const MisProbe pa{probe_args...};
+    pcode = pa.code;
+    pwin = SUB != 0 ? SUB : pa.win;  // a pair_bf16 probe: its own window
   }
   extern __shared__ __align__(16) float smem[];
   float* WT_s = smem;                       // 2 x NWT x W x QS window tiles
@@ -1090,12 +1163,17 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   const int xr = x_rows(FM_ON_CHIP ? nloc : 0, SUB);
   float* XS_s = FM_s + nloc * QS;
   unsigned* MB_s = reinterpret_cast<unsigned*>(XS_s + 2 * xr * W);
-  // PRB: probe_rows(pwin) x QS deltas of the float32 probe instance's
-  // windows over 2 W and off the grid (only they read and write them),
-  // after the mask words
+  // PRB: probe_rows(pcode, pwin) x QS deltas of the float32 probe
+  // instance (only it reads and writes them), after the mask words
   auto DP_s = [&] {
     return reinterpret_cast<float*>(MB_s) +
            (((FM_ON_CHIP ? nloc : 0) + 3) & ~3);
+  };
+  // PRB: this CTA's kept deltas in device memory (MisProbe::dws)
+  auto dws_cta = [&] {
+    const MisProbe pa{probe_args...};
+    return pa.dws + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                        (pwin - 2 * W) * QS;
   };
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -1135,13 +1213,23 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
   const float* mask_rows = mask + (size_t)row0 * q;
   const int nwin = p / W;
   const int WSF = ws_floats(R);
-  // PRB: Fm's advance rule (row_update), whether a window forms its pairs
-  // (a pair_bf16 probe instance runs noadv and noadvmask only; under noseq
-  // a window under 8 needs those across its windows)
+  // PRB: Fm's advance rule at a probe's window's start (row_update's rule;
+  // 0: none), whether a window forms its pairs (a pair_bf16 probe instance
+  // runs noadv and noadvmask only; under noseq a window under 8 needs those
+  // across its windows)
   const int arule = pcode == 1 ? 0 : pcode == 2 ? 2 : 1;
   const bool pairs = SUB != 0 || pcode != 0 || pwin < W;
-  // a probe's window off the 8-row grid (probe_off_rows)
-  const bool off = PRB && off_grid(pwin);
+  // the float32 probe instance's exact sweep, which runs B2's schedule; a
+  // probe's window off the 8-row grid (probe_off_rows); on it, of PJ chain
+  // windows (the float32 instance: the running masked advance with its
+  // window's end in the last chain window's pass, row_update's lcode), and
+  // whether the chain keeps the deltas of its first PJ - 2 (noseq,
+  // noadvmask: the end term)
+  const bool exact = PRB && SUB == 0 && pcode == 3;
+  const bool off = PRB && !exact && off_grid(pwin);
+  const int PJ = pwin / W;
+  const bool grid = PRB && SUB == 0 && !exact && pwin % W == 0;
+  const bool keep = grid && PJ > 2 && pcode != 1;
 
   // the probe thread keeps its start and latest tick in CLK_s[NCLK ..],
   // not in registers
@@ -1207,6 +1295,7 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     const size_t xs = FM_ON_CHIP ? W : (size_t)p;
     // advance by the previous window (if any), project this one
     bool cross = false;  // TC: this pass contracts cross pairs
+    int edge = -1;       // PRB: the probe's window ends here (window_edge)
     if constexpr (DEEP) {
       const int j = w % J;  // this chain window's place in its SUB-window
       deep_rows<FM_ON_CHIP, SUB, PRB>(
@@ -1215,42 +1304,70 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
           true, arule);
       cross = j > 0;
     } else if constexpr (PRB) {
-      if (off) {
+      if (exact) {  // B2's own passes
+        if (w == 0)
+          window_pass<FM_ON_CHIP, false, true, RW>(
+              FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+              cvalid, warp, lane);
+        else
+          window_pass<FM_ON_CHIP, true, true, RW>(
+              FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
+              cvalid, warp, lane);
+      } else if (off) {
         // the window of jw, the previous chain window's, and the rows of
         // this chain window still in the first
         const int P = jw - jw % pwin;
         const int Pp = w > 0 ? (jw - W) - (jw - W) % pwin : P;
         probe_off_rows<FM_ON_CHIP>(
             FM_s, MB_s, fm_rows, mask_rows, x, xp, DP_s(), v, row0, nr, p, q,
-            k, cvalid, warp, lane, probe_rows(pwin), Pp,
+            k, cvalid, warp, lane, probe_rows(pcode, pwin), Pp,
             arule != 0 ? P : Pp, arule, true,
             pcode != 0, P, jw, min(P + pwin, jw + W) - jw,
             off_unmasked(jw, pwin, arule));
-      } else if (pwin > 2 * W) {
-        // a probe's window over 2 W in float32: this chain window's place j
-        // in it
-        const int j = w % (pwin / W);
-        probe_deep_rows<FM_ON_CHIP>(
-            FM_s, MB_s, fm_rows, mask_rows, x, xp, DP_s(), v, row0, nr, p, q,
-            k, cvalid, warp, lane, pwin,
-            j == 0 && w > 0 && arule != 0 ? jw - pwin : -1, arule, true,
-            pairs, jw - j * W, j * W);
       } else {
-        // the second 8-window of a 16-window projects its start (f32: plus
-        // the first's masked increment, but under noseq; pair_bf16: its
-        // rounded cross pairs)
-        const bool pre = SUB != W && pwin == 2 * W && (w & 1);
-        // noadv: a pass that only projects, but where the f32 cross pairs
-        // need the first 8-window's increment
-        if (w == 0 || (arule == 0 && !(pre && !CROSS && pairs)))
-          window_pass<FM_ON_CHIP, false, true, RW, false, true>(
+        // the advance of this pass (0: none): by the probe's rule at a
+        // window's start (under 8 and under pair_bf16 at every pass); on
+        // the grid inside a window masked (noseq: none), and in the pass of
+        // its last chain window (j = PJ - 1 > 0) the window's end but for
+        // that chain window (lcode, then window_edge)
+        int rule = w == 0 ? 0 : arule, lcode = -1;
+        const int j = grid ? w % PJ : 0;
+        if (grid && j > 0) {
+          rule = pcode != 0 || j == PJ - 1 ? 1 : 0;
+          if (j == PJ - 1) lcode = pcode;
+        }
+        // pair_bf16 at 16: the second 8-window of a 16-window projects its
+        // start and takes the rounded cross pairs
+        const bool pre = CROSS && (w & 1);
+        const int mw = arule == 2 ? pwin : W;
+        // the pass of (ADV, PRB, PAIRS, MWX), so that no probe test sits in
+        // its rows: one that advances masked or not at all takes B2's rows
+        // (PRB false), the others row_update's selects
+        auto pass = [&](auto adv, auto prb, auto prs, auto mwx) {
+          window_pass<FM_ON_CHIP, decltype(adv)::value, true, RW, false,
+                      decltype(prb)::value, decltype(prs)::value,
+                      decltype(mwx)::value>(
               FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
-              cvalid, warp, lane, arule, false, false, pairs, pwin);
+              cvalid, warp, lane, rule, pre, mw, lcode);
+        };
+        auto by_pairs = [&](auto adv, auto prb) {
+          if (!pairs)
+            pass(adv, prb, std::false_type{}, std::false_type{});
+          else if (mw < W)
+            pass(adv, std::true_type{}, std::true_type{}, std::true_type{});
+          else
+            pass(adv, prb, std::true_type{}, std::false_type{});
+        };
+        if (rule == 0)
+          by_pairs(std::false_type{}, std::false_type{});
+        else if (rule == 1 && !pre && lcode < 0)
+          by_pairs(std::true_type{}, std::false_type{});
         else
-          window_pass<FM_ON_CHIP, true, true, RW, false, true>(
-              FM_s, MB_s, fm_rows, mask_rows, xa, xp, D_s, v, nr, p, q, k,
-              cvalid, warp, lane, arule, pre, !CROSS && pairs, pairs, pwin);
-        cross = CROSS && pre;
+          by_pairs(std::true_type{}, std::true_type{});
+        // the window's end term follows the warps' partial sums (none in a
+        // window of two chain windows)
+        if (PJ > 2) edge = lcode;
+        cross = pre;
       }
     } else if (w == 0) {
       window_pass<FM_ON_CHIP, false, true, RW>(FM_s, MB_s, fm_rows,
@@ -1337,6 +1454,26 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
     }
     for (int e = tid; e < NRH * QS; e += NT)
       rh[e] = (PART_s[e] + PART_s[NRH * QS + e]) + rh[e];
+    if constexpr (PRB) {
+      // the end of a probe's window, once the pass's sums are out of
+      // registers and the partial slots are read; noadv's Fm as received:
+      // on chip the device slice, not written before the tail, else the
+      // launch's own (MisProbe::fm0)
+      if (edge >= 0) {
+        const MisProbe pa{probe_args...};
+        __syncthreads();
+        tick(2);
+        window_edge<FM_ON_CHIP>(
+            FM_s, MB_s, fm_rows, mask_rows,
+            x + (size_t)row0 * p + (jw + W - pwin),
+            PART_s + warp * ER * 2 * W,
+            dws_cta(),
+            (FM_ON_CHIP ? fm_rows : pa.fm0 + blockIdx.y * (size_t)n * q) +
+                k,
+            nr, p, q, k, cvalid, warp, lane, edge, pwin / W - 2);
+        tick(1);
+      }
+    }
     tick(2);
     // every CTA of the cluster has its sums; the other buffer is free
     // because every CTA read it before arriving here
@@ -1389,19 +1526,30 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
       float* gw = GW_s + (w & 1) * W * QS;
       // DEEP (a probe's window over 2 W): this window's rows of the
       // SUB-window's (pwin-window's) deltas
-      float* dw = DEEP ? D_s + (w % J) * W * QS
-                  : off || (PRB && pwin > 2 * W)
-                      ? DP_s() + (w % (probe_rows(pwin) / W)) * W * QS
-                      : D_s;
-      // off the grid: pair e of rows (a, i) is pushed where they share a
-      // window of pwin and the probe keeps the pushes, or lie in two and it
-      // keeps the advance (bit e of off_pushed); the others' sums are set
-      // to 0, so that the chain pushes every pair
-      if (off) {
-        const unsigned pushed = off_pushed(jw, pwin, pcode, arule);
+      float* dw = DEEP ? D_s + (w % J) * W * QS : D_s;
+      // PRB: off the grid the ring's rows; on it the deltas of a window's
+      // first PJ - 2 chain windows also kept for its end term (keep, in
+      // device memory; else stored twice)
+      float* dk = dw;
+      if constexpr (PRB && !DEEP) {
+        if (off)
+          dw = dk = DP_s() + (w % (probe_rows(pcode, pwin) / W)) * W * QS;
+        else if (keep && w % PJ < PJ - 2)
+          dk = dws_cta() + (w % PJ) * W * QS;
+      }
+      // a probe pushes pair e of rows (a, i) where they share a window of
+      // pwin and it keeps the pushes, or lie in two and it keeps the advance
+      // (bit e of off_pushed, grid_pushed); the others' sums are set to 0,
+      // so that the chain pushes every pair, as B2's does (the pair_bf16
+      // probes from 8 on, noadv and noadvmask, push every pair)
+      if constexpr (PRB && SUB < W) {
+        if (off || pwin < W || pcode == 0) {
+          const unsigned pushed = off ? off_pushed(jw, pwin, pcode, arule)
+                                      : grid_pushed(pwin, pcode, arule);
 #pragma unroll
-        for (int e = 0; e < NP; ++e)
-          if (!((pushed >> e) & 1u)) hh[e] = 0.f;
+          for (int e = 0; e < NP; ++e)
+            if (!((pushed >> e) & 1u)) hh[e] = 0.f;
+        }
       }
 #pragma unroll
       for (int i = 0; i < W; ++i) {
@@ -1413,20 +1561,10 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
         const float gam = __fdividef(1.f, 1.f + __expf(-logit));
         const float delta = gam * mu - bo;
         dw[e] = delta;
-        // a probe pushes inside a window of pwin but under noseq, across
-        // two (pwin < 8) but under noadv
-        if constexpr (PRB) {
-          if (off || (pwin >= W ? pcode != 0 : false)) {
-#pragma unroll
-            for (int a = i + 1; a < W; ++a)
-              rr[a] += hh[a * (a - 1) / 2 + i] * delta;
-          } else if (pwin < W) {
-#pragma unroll
-            for (int a = i + 1; a < W; ++a)
-              if ((i ^ a) < pwin ? pcode != 0 : arule != 0)
-                rr[a] += hh[a * (a - 1) / 2 + i] * delta;
-          }
-        } else {
+        if constexpr (PRB) dk[e] = delta;
+        // (a test that always holds: the pair_bf16 probes from 8 on are
+        // noadv and noadvmask; it keeps ptxas from spilling the DEEP ones)
+        if (!PRB || SUB < W || pcode != 0) {
 #pragma unroll
           for (int a = i + 1; a < W; ++a)
             rr[a] += hh[a * (a - 1) / 2 + i] * delta;
@@ -1470,24 +1608,24 @@ __global__ void __launch_bounds__(NT, FM_ON_CHIP || SUB < 2 * W ? 2 : 1)
                                     warp, lane, arule != 0 ? p - SUB : -1,
                                     false, arule);
   } else if constexpr (PRB) {
-    if (arule == 0) {
+    const float* xl =
+        FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * xr * W : x + (p - W);
+    if (exact) {
+      window_pass<FM_ON_CHIP, true, false, RW>(FM_s, MB_s, fm_rows, mask_rows,
+                                               xl, nullptr, D_s, v, nr, p, q,
+                                               k, cvalid, warp, lane);
+    } else if (arule == 0) {
       // noadv: no last advance
     } else if (off) {  // the windows since the last chain window's start
       const int jl = p - W;
       probe_off_rows<FM_ON_CHIP>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
                                  DP_s(), v, row0, nr, p, q, k, cvalid, warp,
-                                 lane, probe_rows(pwin), jl - jl % pwin, p,
-                                 arule, false, false, 0, 0, 0, 0u);
-    } else if (pwin > 2 * W) {
-      probe_deep_rows<FM_ON_CHIP>(FM_s, MB_s, fm_rows, mask_rows, x, nullptr,
-                                  DP_s(), v, row0, nr, p, q, k, cvalid, warp,
-                                  lane, pwin, p - pwin, arule, false, false,
-                                  0, 0);
-    } else {
+                                 lane, probe_rows(pcode, pwin), jl - jl % pwin,
+                                 p, arule, false, false, 0, 0, 0, 0u);
+    } else {  // the last chain window by the probe's rule
       window_pass<FM_ON_CHIP, true, false, RW, false, true>(
-          FM_s, MB_s, fm_rows, mask_rows,
-          FM_ON_CHIP ? XS_s + ((nwin - 1) & 1) * xr * W : x + (p - W),
-          nullptr, D_s, v, nr, p, q, k, cvalid, warp, lane, arule);
+          FM_s, MB_s, fm_rows, mask_rows, xl, nullptr, D_s, v, nr, p, q, k,
+          cvalid, warp, lane, arule);
     }
   } else
     window_pass<FM_ON_CHIP, true, false, RW>(
@@ -1532,7 +1670,7 @@ cudaError_t launch_instance(const cudaLaunchConfig_t& cfg, Args... args) {
   cudaError_t err;
   if constexpr (PRB)
     err = cudaFuncSetAttribute(
-        sweep_missing_kernel<FM_ON_CHIP, SUB, true, int, int>,
+        sweep_missing_kernel<FM_ON_CHIP, SUB, true, MisProbe>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)cfg.dynamicSmemBytes);
   else
@@ -1540,39 +1678,17 @@ cudaError_t launch_instance(const cudaLaunchConfig_t& cfg, Args... args) {
   if (err != cudaSuccess) return err;
   if constexpr (PRB)
     return cudaLaunchKernelEx(
-        &cfg, sweep_missing_kernel<FM_ON_CHIP, SUB, true, int, int>, args...);
+        &cfg, sweep_missing_kernel<FM_ON_CHIP, SUB, true, MisProbe>, args...);
   else
     return cudaLaunchKernelEx(&cfg, sweep_missing_kernel<FM_ON_CHIP, SUB>,
                               args...);
 }
 
-// f(on_chip, sub) for the instance of (fm_on_chip, sub), both passed as
-// compile-time constants (std::integral_constant)
+// f(on_chip, sub) for the instance (or the probe instance) of
+// (fm_on_chip, sub), both passed as compile-time constants
+// (std::integral_constant)
 template <typename F>
 cudaError_t with_instance(bool on_chip, int sub, F f) {
-#define ATLASQTL_MIS_SUB(S)                                     \
-  case S:                                                       \
-    return on_chip ? f(std::true_type{}, std::integral_constant<int, S>{}) \
-                   : f(std::false_type{}, std::integral_constant<int, S>{})
-  switch (sub) {
-    ATLASQTL_MIS_SUB(0);
-    ATLASQTL_MIS_SUB(2);
-    ATLASQTL_MIS_SUB(4);
-    ATLASQTL_MIS_SUB(W);
-    ATLASQTL_MIS_SUB(2 * W);
-    ATLASQTL_MIS_SUB(4 * W);
-    ATLASQTL_MIS_SUB(8 * W);
-    ATLASQTL_MIS_SUB(16 * W);
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef ATLASQTL_MIS_SUB
-}
-
-// f(on_chip, sub) for the probe instance of (fm_on_chip, sub): sub 0, 2,
-// 4, ..., 128
-template <typename F>
-cudaError_t with_probe_instance(bool on_chip, int sub, F f) {
 #define ATLASQTL_MIS_SUB(S)                                     \
   case S:                                                       \
     return on_chip ? f(std::true_type{}, std::integral_constant<int, S>{}) \
@@ -1608,16 +1724,19 @@ cudaLaunchConfig_t launch_config(int grid, int m, int smem, int cluster,
   return cfg;
 }
 
-// the shared-memory bytes of a CTA of the instance `sub` (under a probe at
-// window pwin, else pwin 0) under the plan (cluster, fm_on_chip) at n
-// samples and interpolation width R, or -1 where the kernel cannot take it
+// the shared-memory bytes of a CTA of the instance `sub` (under the probe
+// of code probe >= 0 at window pwin, else probe -1) under the plan
+// (cluster, fm_on_chip) at n samples and interpolation width R, or -1 where
+// the kernel cannot take it
 int plan_smem(int n, int cluster, int fm_on_chip, int R, int sub,
-              int pwin = 0) {
+              int probe = -1, int pwin = 0) {
   if (n <= 0 || R <= 0 || R > RMAX || cluster < 1 || cluster > MAX_CLUSTER ||
       (!fm_on_chip && cluster != 1))
     return -1;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
-  const size_t smem = smem_bytes(fm_on_chip != 0, nloc, R, sub, pwin);
+  const size_t smem =
+      smem_bytes(fm_on_chip != 0, nloc, R, sub,
+                 probe >= 0 && sub == 0 ? probe_rows(probe, pwin) : 0);
   return smem <= SMEM_MAX ? (int)smem : -1;
 }
 
@@ -1636,9 +1755,14 @@ extern "C" {
 // multiple of it).  probe >= 0 launches the probe instance of sub (0, or
 // the pair_bf16 window pwin but under noseq) with that probe (0 noseq, 1
 // noadv, 2 noadvmask, 3 every part kept) in windows of pwin predictors,
-// any that divides p (over 2 W and off the 8-row grid the float32 probe
-// instance keeps more deltas, its probe_rows: its shared memory counts
-// them; the pair_bf16 probe instances are those of pwin = sub).
+// any that divides p (the float32 probe instance keeps more deltas at
+// some, its probe_rows: its shared memory counts them; the pair_bf16 probe
+// instances are those of pwin = sub).  The float32 probe instance at a
+// window of 3 or more chain windows on the grid reads, under noadv with Fm
+// in device memory, fm0, Fm as the launch receives it (fm before the
+// launch, which noadv restores), and under noseq and noadvmask writes dws,
+// its deltas' workspace (m x grid x (pwin - 2 W) x 32 floats); elsewhere
+// they may be null.
 // Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape, plan or window it does not take.
 int atlasqtl_sweep_missing_fused(
@@ -1649,16 +1773,19 @@ int atlasqtl_sweep_missing_fused(
     const float* scal, float* gam_out, float* mu_out, float* zrow_part,
     float* z_row, float* z_col, int n, int p, int q, int B, int R,
     int cluster, int fm_on_chip, int m, int sub, int probe, int pwin,
-    void* stream) {
+    const float* fm0, float* dws, void* stream) {
   const int n_slices = (q + QS - 1) / QS;
   const int nloc = fm_on_chip ? (n + cluster - 1) / cluster : 0;
   const int grid = n_slices * cluster;
-  const int smem =
-      plan_smem(n, cluster, fm_on_chip, R, sub, probe >= 0 ? pwin : 0);
+  const int smem = plan_smem(n, cluster, fm_on_chip, R, sub, probe, pwin);
+  // the float32 probe instance's window ends in window_edge
+  const bool edge = sub == 0 && pwin % W == 0 && pwin > 2 * W;
   if (B <= 0 || B % W != 0 || B > BMAX || p % B != 0 || q % 4 != 0 ||
       smem < 0 || m < 1 || m > 65535 || sub < 0 || (sub && B % sub != 0) ||
       (probe >= 0 &&
        (probe > 3 || pwin <= 0 || p % pwin != 0 ||
+        (edge && probe == 1 && !fm_on_chip && !fm0) ||
+        (edge && (probe == 0 || probe == 2) && !dws) ||
         (sub != 0 && (sub != pwin || probe == 0)))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1672,15 +1799,11 @@ int atlasqtl_sweep_missing_fused(
         p_mask, zeta, q_mask, tauv, scal, gam_out, mu_out, zrow_part, z_col,
         n, p, q, R, nloc, probe_args...);
   };
-  cudaError_t err =
-      probe >= 0 ? with_probe_instance(fm_on_chip != 0, sub,
-                                       [&](auto on, auto s) {
-                                         return run(on, s, std::true_type{},
-                                                    probe, pwin);
-                                       })
-                 : with_instance(fm_on_chip != 0, sub, [&](auto on, auto s) {
-                     return run(on, s, std::false_type{});
-                   });
+  cudaError_t err = with_instance(fm_on_chip != 0, sub, [&](auto on, auto s) {
+    return probe >= 0 ? run(on, s, std::true_type{},
+                            MisProbe{probe, pwin, fm0, dws})
+                      : run(on, s, std::false_type{});
+  });
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1697,14 +1820,14 @@ int atlasqtl_sweep_missing_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * NCLK);
 }
 
-// The shared-memory bytes of one CTA of the instance `sub` (under a probe
-// at window pwin, else pwin 0) under the plan (cluster, fm_on_chip) at n
-// samples and interpolation width R; -1 for a plan the kernel does not
-// take (the card checks ops/sweep_missing_fused.py:_mis_smem_bytes against
-// it).
+// The shared-memory bytes of one CTA of the instance `sub` (under the
+// probe of code probe >= 0 at window pwin, else probe -1) under the plan
+// (cluster, fm_on_chip) at n samples and interpolation width R; -1 for a
+// plan the kernel does not take (the card checks
+// ops/sweep_missing_fused.py:_mis_smem_bytes against it).
 int atlasqtl_sweep_missing_smem(int n, int cluster, int fm_on_chip, int R,
-                                int sub, int pwin) {
-  return plan_smem(n, cluster, fm_on_chip, R, sub, pwin);
+                                int sub, int probe, int pwin) {
+  return plan_smem(n, cluster, fm_on_chip, R, sub, probe, pwin);
 }
 
 // CTAs of the sweep kernel's instance `sub` resident on one SM and

@@ -159,9 +159,9 @@ def _load():
         lib.atlasqtl_inner_gs_occupancy.argtypes = [i32] * 3
         lib.atlasqtl_inner_gs_occupancy.restype = i32
         lib.atlasqtl_sweep_missing_fused.argtypes = ([ptr] * 20 + [i32] * 11
-                                                     + [ptr])
+                                                     + [ptr] * 3)
         lib.atlasqtl_sweep_missing_fused.restype = i32
-        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 6
+        lib.atlasqtl_sweep_missing_smem.argtypes = [i32] * 7
         lib.atlasqtl_sweep_missing_smem.restype = i32
         lib.atlasqtl_sweep_missing_occupancy.argtypes = [i32] * 5 + [ptr]
         lib.atlasqtl_sweep_missing_occupancy.restype = i32

@@ -96,8 +96,8 @@ def pair_window(sub: int, block: int) -> int:
 # without the mask; Z stays exact
 MIS_PROBES = ("noseq", "noh", "noadv", "noadvmask")
 # the probe instance's codes (csrc/sweep_missing_fused.cu); "exact" keeps
-# every part, the exact function in the probe instance's schedule, to time
-# the probes against (not a probe of the JAX kernel: the wrappers refuse it)
+# every part, the exact function in B2's own schedule, to time the probes
+# against (not a probe of the JAX kernel: the wrappers refuse it)
 MIS_PROBE_CODES = {"noseq": 0, "noh": 0, "noadv": 1, "noadvmask": 2,
                    "exact": 3}
 # the windows of B2's pair_bf16 probe instances, the mode's own
@@ -123,14 +123,28 @@ def _delta_rows(window: int) -> int:
     return window if window > 2 * MIS_W else MIS_W
 
 
-def _probe_rows(probe_window: int) -> int:
+def _probe_rows(probe: str, probe_window: int) -> int:
     """The float32 probe instance's deltas in a region of their own
-    (csrc:probe_rows): under a probe's window over 16 those of the window,
-    off the 8-row grid (neither dividing MIS_W nor a multiple of it) a ring
-    of whole chain windows over its latest window + 7 rows, else none."""
-    if probe_window and MIS_W % probe_window and probe_window % MIS_W:
+    (csrc:probe_rows) under `probe` at its window: off the 8-row grid
+    (neither dividing MIS_W nor a multiple of it) a ring of whole chain
+    windows over its latest window + 7 rows, but for the exact sweep (B2's
+    own schedule); else none (on the grid a window's deltas for its end
+    term go to a workspace in device memory, `_delta_workspace`)."""
+    if (MIS_PROBE_CODES.get(probe, 3) != 3 and probe_window
+            and MIS_W % probe_window and probe_window % MIS_W):
         return (probe_window + 2 * MIS_W - 2) // MIS_W * MIS_W
-    return probe_window if probe_window > 2 * MIS_W else 0
+    return 0
+
+
+def _delta_workspace(probe: str, probe_window: int) -> int:
+    """Floats per CTA of the float32 probe instance's deltas in device memory
+    (csrc: MisProbe::dws): under noseq, noh and noadvmask at a window of J >
+    2 chain windows on the 8-row grid those of its first J - 2 (the
+    window's end term), else none."""
+    if (MIS_PROBE_CODES.get(probe, 3) in (0, 2)
+            and probe_window % MIS_W == 0 and probe_window > 2 * MIS_W):
+        return (probe_window - 2 * MIS_W) * MIS_QS
+    return 0
 
 
 def _x_rows(rows: int, window: int) -> int:
@@ -140,7 +154,8 @@ def _x_rows(rows: int, window: int) -> int:
 
 
 def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int,
-                    window: int = 0, probe_window: int = 0) -> int:
+                    window: int = 0, probe: str = "none",
+                    probe_window: int = 0) -> int:
     """csrc/sweep_missing_fused.cu:smem_bytes: two sets of window operand
     tiles, two windows of gam, the deltas (`_delta_rows` of the pair_bf16
     window, 0 for float32), two sum buffers, the partial
@@ -148,30 +163,31 @@ def _mis_smem_bytes(on_chip: bool, nloc: int, r_aug: int,
     rows of L), the slice's interpolation nodes; on chip also nloc rows of
     Fm (32 floats) and of mask bits; two x slots of W floats per row of
     `_x_rows` (in device memory only under a window over 16, the rings);
-    under a probe at `probe_window` (0: none) the float32 probe instance's
-    `_probe_rows`, from a 16-byte boundary after the mask words.  The card
-    holds it to the kernel's own (`kernel_smem_bytes`)."""
+    under `probe` at `probe_window` the float32 probe instance's (window
+    0) `_probe_rows`, from a 16-byte boundary after the mask words.  The
+    card holds it to the kernel's own (`kernel_smem_bytes`)."""
     rows = nloc if on_chip else 0
     fixed = (2 * MIS_NWT * MIS_W * MIS_QS + 2 * MIS_W * MIS_QS
              + _delta_rows(window) * MIS_QS
              + 2 * MIS_NRH * MIS_QS + MIS_NSLOT * MIS_NRH * MIS_QS
              + MIS_CLKF + MIS_NWS * (2 * MIS_W + MIS_W * r_aug)
              + 3 * r_aug * MIS_QS)
-    prows = _probe_rows(probe_window)
+    prows = 0 if window else _probe_rows(probe, probe_window)
     return 4 * (fixed + rows * (MIS_QS + 1)
                 + 2 * _x_rows(rows, window) * MIS_W
                 + (-(-rows // 4) * 4 - rows + prows * MIS_QS if prows else 0))
 
 
 def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
-                        m: int = 1, window: int = 0,
+                        m: int = 1, window: int = 0, probe: str = "none",
                         probe_window: int = 0) -> dict:
     """The launch of B2 at (n, q, block, r + 2) for m replicas (one launch
     of grid x m CTAs; `grid` counts one replica's) of the instance at the
     pair_bf16 window `window` (0: the float32 instance; a window over 16
-    keeps all its deltas on chip), under a perf probe at its window
-    `probe_window` (0: none; over 16 the float32 probe instance keeps that
-    window's deltas too).  The rows of each
+    keeps all its deltas on chip), under the perf probe `probe` ("none",
+    or a key of MIS_PROBE_CODES) at its window `probe_window` (the float32
+    probe instance keeps more deltas at some: `_probe_rows`).  The rows of
+    each
     32-column slice are split over the smallest cluster (1..MIS_MAX_CLUSTER
     CTAs) whose CTAs each hold their rows of Fm on chip in at most
     SMEM_TWO_PER_SM bytes, so that two CTAs share an SM and one's chain
@@ -186,9 +202,9 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
     sub_block); the kernel builds its pair Grams per window, so no piece
     needs anything precomputed.  Returns slice_width,
     sub_block, cluster, grid, smem_bytes, fm_on_chip, rows_per_cta,
-    ctas_per_sm (the CTAs that share an SM), window and probe_window; the
-    C entry point takes the decisions (piece, cluster, fm_on_chip) and
-    derives the rest.
+    ctas_per_sm (the CTAs that share an SM), window, probe and
+    probe_window; the C entry point takes the decisions (piece, cluster,
+    fm_on_chip) and derives the rest.
     Raises ValueError on a shape the kernel does not take."""
     if (n <= 0 or block <= 0 or block % MIS_W or q % 4 or q <= 0
             or not 0 < r_aug <= 48 or m < 1):
@@ -197,7 +213,7 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
     sub = sub_block(block)
     slices = -(-q // MIS_QS)
     smem = lambda cs: _mis_smem_bytes(True, -(-n // cs), r_aug, window,
-                                      probe_window)
+                                      probe, probe_window)
     for limit, ctas in ((SMEM_TWO_PER_SM, 2), (SMEM_MAX, 1)):
         fits = [cs for cs in range(1, MIS_MAX_CLUSTER + 1)
                 if smem(cs) <= limit]
@@ -209,13 +225,14 @@ def missing_launch_plan(n: int, q: int, block: int, r_aug: int,
                         grid=slices * cs,
                         smem_bytes=smem(cs), fm_on_chip=True,
                         rows_per_cta=-(-n // cs), ctas_per_sm=ctas,
-                        window=window, probe_window=probe_window)
+                        window=window, probe=probe,
+                        probe_window=probe_window)
     return dict(slice_width=MIS_QS, sub_block=sub, cluster=1, grid=slices,
-                smem_bytes=_mis_smem_bytes(False, 0, r_aug, window,
+                smem_bytes=_mis_smem_bytes(False, 0, r_aug, window, probe,
                                            probe_window),
                 fm_on_chip=False, rows_per_cta=n,
                 ctas_per_sm=2 if window < 2 * MIS_W else 1, window=window,
-                probe_window=probe_window)
+                probe=probe, probe_window=probe_window)
 
 
 def window() -> int:
@@ -240,7 +257,7 @@ def kernel_smem_bytes(plan: dict, n: int, r_aug: int) -> int:
     r + 2, -1 where it refuses the plan."""
     return _load().atlasqtl_sweep_missing_smem(
         n, plan["cluster"], int(plan["fm_on_chip"]), r_aug, plan["window"],
-        plan["probe_window"])
+        MIS_PROBE_CODES.get(plan["probe"], -1), plan["probe_window"])
 
 
 PHASES = ("prologue", "pass", "reduce", "cluster_sync", "gather", "chain",
@@ -485,12 +502,19 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         if pair_bf16 else 1
     ksub = window if window > 1 else 0   # the instance: 0 is float32
     plan = plan or missing_launch_plan(n, q, block_size, r_aug, m, ksub,
-                                       pwin)
+                                       probe, pwin)
     lib = _load()
     lead = (m,) if any(batched) else ()
     f32 = lambda v: as_scalar(v, torch.float32, x.device).expand(lead)
     scal = torch.stack([f32(c), f32(kz), f32(sig2_inv)], dim=-1).contiguous()
+    # noadv restores Fm from fm0 where Fm is in device memory and a window
+    # ends in its own pass (csrc: window_edge)
+    fm0 = (fitted if not ksub and probe == "noadv" and not plan["fm_on_chip"]
+           and pwin % MIS_W == 0 and pwin > 2 * MIS_W else None)
     fitted = fitted.clone()
+    nws = 0 if ksub else _delta_workspace(probe, pwin)
+    dws = (torch.empty(m * plan["grid"] * nws, dtype=torch.float32,
+                       device=x.device) if nws else None)
     gam_out = torch.empty_like(gam)
     mu_out = torch.empty_like(mu)
     zrow_part = torch.empty((*lead, plan["grid"] // plan["cluster"], p),
@@ -504,7 +528,9 @@ def _sweep_missing_fused_cuda(x, cp_x_y, x_norm_sq, mis_pat, l_aug, n_stack,
         ptr(zeta), ptr(q_mask), ptr(tau), ptr(scal), ptr(gam_out),
         ptr(mu_out), ptr(zrow_part), ptr(z_row), ptr(z_col), n, p, q,
         plan["sub_block"], r_aug, plan["cluster"], int(plan["fm_on_chip"]),
-        m, ksub, pcode, pwin, torch.cuda.current_stream(x.device).cuda_stream)
+        m, ksub, pcode, pwin, None if fm0 is None else ptr(fm0),
+        dws.data_ptr() if nws else None,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"sweep_missing_fused kernel launch failed at n={n}, p={p}, "

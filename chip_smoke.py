@@ -3376,6 +3376,15 @@ PROBE_OFF_GRID = ((240, 48, (3, 6, 12)), (240, 40, (5,)), (384, 192, (12,)),
 PROBE_OFF_GRID_TIMED = (1000, 2016, 10000)
 PROBE_OFF_GRID_WINDOWS = ((48, 6), (96, 12))
 PROBE_DEEP_WINDOWS = (32, 64, 128)
+# B2 off the 8-row grid, timed beside its float32 instance at that block:
+# (n, p, q, block, window)
+PROBE_MIS_OFF_TIMED = (1000, 2016, 10000, 48, 12)
+# B2's float32 probe instance where a window's end reads a rank's rows and
+# a replica's slices, held to the plain version at windows 32 and 128:
+# (n, p, q, replicas), Fm on chip in a cluster of 4 (n = 1000 and 80) and
+# in device memory (8000)
+PROBE_MIS_RANKS = ((1000, 256, 40, 1), (80, 250, 40, 2), (1000, 256, 40, 2),
+                   (8000, 256, 256, 2))
 # B2's float32 probe instance at windows that are not powers of two, held
 # to the plain version at (80, p, 40): (p, block, windows)
 PROBE_MIS_ANY = ((240, 48, (3, 6, 12, 24)), (240, 40, (5, 20)),
@@ -3383,8 +3392,9 @@ PROBE_MIS_ANY = ((240, 48, (3, 6, 12, 24)), (240, 40, (5, 20)),
 PROBE_MAIN = "noadv"            # the probe the phase's main path runs
 # each phase's cost as the difference of two sweeps at the eQTL cut: the
 # sweep that keeps it less the probe that drops it ("none": the probe
-# instance with every part kept, the exact function in the probes' own
-# schedule; the production instance is timed beside it); tiles_and_z
+# instance with every part kept, the exact function in the probe
+# instance's schedule, which for B2 is B2's own; the production instance is
+# timed beside it); tiles_and_z
 # (jacobi - jacobi_min) also holds the Z Mills tiles
 PROBE_COSTS = {"projection": ("none", "nor0"), "advance": ("none", "noadv"),
                "chain_order": ("none", "jacobi"),
@@ -3394,6 +3404,8 @@ PROBE_COSTS = {"projection": ("none", "nor0"), "advance": ("none", "noadv"),
                "corrections": ("exact_noz", "norank"),
                "x_cp_stream": ("none", "dmalite"),
                "tiles_and_z": ("jacobi", "jacobi_min")}
+# (B2's: "none" is its float32 instance, the probe instance's exact sweep
+# timed beside it)
 MIS_PROBE_COSTS = {"pairs_and_pushes": ("none", "noseq"),
                    "advance": ("none", "noadv"),
                    "advance_mask": ("none", "noadvmask")}
@@ -3427,22 +3439,22 @@ def probe_bound_ms(n, p, q, block, r_aug, emit_gam_mu, parts, sub):
 
 
 def mis_probe_bound_ms(n, p, q, r_aug, probe, sub):
-    """mis_bound_ms's terms with what B2's probe drops left out at its
-    window `sub`: noadv the masked advance (3 n per (j, k)) and Fm's
-    write, noadvmask the mask's multiply (n); and what the probe's
-    function needs at that window beyond them: from 16 on, where an
-    8-window of a window projects Fm as of the window's start, noadv and
-    noadvmask (whose functions are not the flat sweep's) need the masked
-    pair sums with the window's earlier 8-windows, at their least as the
-    masked increment m sum_b x_b delta_b of the J - 1 earlier 8-windows (J
-    = sub / 8): (J - 1) (1 + 1 / (4 J)) n operations per (j, k); noseq and
-    noh push nothing, and the pair Grams inside an 8-window the bound does
-    not count (B2's design, not the function)."""
-    adv = {"noadv": 0, "noadvmask": 2}.get(probe, 3)
-    j = sub // 8
-    pushes = ((j - 1) * (1 + 1 / (4 * j))
-              if j > 1 and probe in ("noadv", "noadvmask") else 0)
-    ops = p * q * ((2 + adv + pushes) * n + 6 * r_aug)
+    """mis_bound_ms's terms as B2's probe keeps them at its window of S =
+    sub predictors: the projection (2 n per (j, k)), the tiles (6 (r + 2))
+    and Fm's advance as the probe's function needs it from these inputs,
+    counted as mis_bound_ms counts a masked advance (3 n: the product, the
+    mask's, the sum), with f = (S - 1) / S the share of a window's
+    predictors that a later one in it must see: noseq and noh the masked
+    advance of every predictor at its window's end (3 n); noadv the running
+    masked advance inside a window (3 n f; Fm, restored at the window's end,
+    is a copy, no operation); noadvmask the same plus, at the window's end,
+    its unmasked remainder (1 - m) (n f) and the last predictor's advance
+    without the mask (2 n / S).  The pair Grams of a window are B2's
+    design, not the function, and not counted.  Bytes: mis_bound_ms's, Fm
+    not written under noadv."""
+    f = (sub - 1) / sub
+    adv = {"noadv": 3 * f, "noadvmask": 4 * f + 2 / sub}.get(probe, 3)
+    ops = p * q * ((2 + adv) * n + 6 * r_aug)
     nbytes = 4 * (n * p + 7 * p * q + (3 - (probe == "noadv")) * n * q
                   + p * r_aug + 3 * r_aug * q)
     return 1e3 * max(ops / FP32_PEAK, nbytes / HBM_RATE), \
@@ -3539,6 +3551,59 @@ def probe_routing():
     return out
 
 
+def b2_exact_case(ops, blk, sub, prod, names, max_abs, **where):
+    """The float32 probe instance's exact sweep at window `sub` (B2's own
+    schedule) held to B2's float32 instance's outputs `prod` at the
+    mis_kernel phase's tolerance; the case, with whether the two agree bit
+    for bit."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+    got = sm._sweep_missing_fused_cuda(*ops, block_size=blk, sub=sub,
+                                       probe="exact")
+    errs = held(f"B2's exact sweep in the probe instance at window {sub} "
+                f"({where}) vs B2's float32 instance", got, prod, names)
+    max_abs["b2"] = max(max_abs["b2"], *errs.values())
+    return dict(probe="exact", vs="production", block=blk, mis_sub=sub,
+                **where, max_abs_err=max(errs.values()),
+                bit_for_bit=all(torch.equal(a, b) for a, b in zip(got, prod)))
+
+
+def b2_probe_rounds(ops, blk, win, mdims, rounds=PROBE_ROUNDS):
+    """B2's four probes and the float32 probe instance's exact sweep at
+    window `win` in `rounds` rounds of turns (`probe_turns`) beside B2's
+    float32 instance ("production", the turns' baseline): each probe's ms,
+    its bound (`mis_probe_bound_ms`) and share of it, its time over
+    production's; the exact sweep's over production's; the implied phase
+    costs (MIS_PROBE_COSTS, `implied_costs`, read against production); and
+    CTA 0's phase clocks of one launch of each (sm.phase_clocks)."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_missing_fused as sm
+    fns = {"none": lambda: sm.sweep_missing_fused(*ops, block_size=blk)}
+    fns.update({pr: (lambda pr=pr: sm._sweep_missing_fused_cuda(
+        *ops, block_size=blk, sub=win, probe=pr))
+        for pr in ("exact", *sm.MIS_PROBES)})
+    turns, offsets = probe_turns(fns, rounds=rounds)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    clocks = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        clocks["production" if name == "none" else name] = sm.phase_clocks()
+    entry = dict(block=blk, window=win, rounds=rounds, exact_ms=med["exact"],
+                 exact_turns=turns["exact"], production_ms=med["none"],
+                 production_turns=turns["none"],
+                 exact_over_production=med["exact"] / med["none"],
+                 exact_bound_ms=mis_bound_ms(*mdims)[0],
+                 implied_ms=implied_costs(offsets, MIS_PROBE_COSTS),
+                 clocks=clocks)
+    for pr in sm.MIS_PROBES:
+        b, by = mis_probe_bound_ms(*mdims, pr, win)
+        entry[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
+                         bound_by=by, pct_of_bound=pct(b, med[pr]),
+                         over_production=med[pr] / med["none"])
+    return entry
+
+
 def phase_probes():
     """The perf probes of B1 (Config.sweep_probe, ops/sweep_fused.py:
     PROBES, B5c) and B2 (probe=, ops/sweep_missing_fused.py:MIS_PROBES,
@@ -3555,19 +3620,26 @@ def phase_probes():
     its own launch in slices of the same width).  Each B2 probe at
     mis_sub 1 to 128, f32 and pair_bf16, on chip and (mis_sub 16 to 128)
     with Fm in device memory, and in f32 at the windows of PROBE_MIS_ANY,
-    at the mis_kernel phase's tolerance.  Times at the
-    eQTL cut (PROBE_TIMED, block 128, converged and lite): each B1 probe
+    at the mis_kernel phase's tolerance; at each of those windows the
+    float32 probe instance's exact sweep (B2's own schedule) against B2's
+    float32 instance at that tolerance, and whether bit for bit; noseq,
+    noadv and noadvmask at windows 32 and 128 at PROBE_MIS_RANKS (a
+    cluster of 4 at n = 1000, two replicas in one launch, each held on its
+    own).  Times at the eQTL cut (PROBE_TIMED, block 128, converged and lite): each B1 probe
     beside the exact sweep in turns (exact, probe, probe, exact), median
     of PROBE_REPS launches, PROBE_ROUNDS rounds (`probe_turns`), the
     exact sweep that of the probe instance
     with every part kept (and the production instance beside it, in the
     probe instance's 32-column slices and in its plan's width); the
     implied phase costs (PROBE_COSTS, `implied_costs`: median, range and
-    whether the rounds agree in sign); B2's four at mis_sub 16 likewise
-    (MIS_PROBE_COSTS), B2's float32 instance beside them; in one round of
-    turns each, B1's noseq and norank at PROBE_OFF_GRID_WINDOWS
-    (PROBE_OFF_GRID_TIMED) and B2's four at PROBE_DEEP_WINDOWS, each
-    beside the same instance's exact sweep there.  Registers
+    whether the rounds agree in sign); B2's four at mis_sub 16 and
+    PROBE_DEEP_WINDOWS likewise, and at PROBE_MIS_OFF_TIMED off the 8-row
+    grid (`b2_probe_rounds`: against B2's float32 instance, the probe
+    instance's exact sweep beside it; each sweep's CTA 0 phase clocks); B2's pair_bf16 probe instances (noadv,
+    noadvmask) at mis_sub 16 beside B2's pair_bf16 instance; in one round
+    of turns each, B1's noseq and norank at PROBE_OFF_GRID_WINDOWS
+    (PROBE_OFF_GRID_TIMED), beside the same instance's exact sweep there.
+    Registers
     and spills of the probe instances and of the production ones.  The
     main path: `probe_routing` and one B2 probe call through
     sweep_missing_fused_driver, each with the counters zeroed before."""
@@ -3686,8 +3758,11 @@ def phase_probes():
         ops, blk = mis_kernel_inputs(n2, p2, q2, 1.0, frac)
         plan = sm.missing_launch_plan(ops[0].shape[0], ops[6].shape[1], blk,
                                       ops[4].shape[1])
+        prod = sm.sweep_missing_fused(*ops, block_size=blk)
         for sub in ((1, 2, 4, 8, 16, 32, 64, 128) if i == 0
                     else (16, *PROBE_DEEP_WINDOWS)):
+            cases.append(b2_exact_case(ops, blk, sub, prod, names, max_abs,
+                                       n=n2))
             for pb in (False, True):
                 for probe in sm.MIS_PROBES:
                     kw = dict(block_size=blk, sub=sub, pair_bf16=pb,
@@ -3705,7 +3780,10 @@ def phase_probes():
         del ops
     for p2, blk_, wins in PROBE_MIS_ANY:
         ops, blk = mis_kernel_inputs(80, p2, 40, 1.0, 0.2, block=blk_)
+        prod = sm.sweep_missing_fused(*ops, block_size=blk)
         for sub in wins:
+            cases.append(b2_exact_case(ops, blk, sub, prod, names, max_abs,
+                                       n=80, p=p2))
             for probe in sm.MIS_PROBES:
                 kw = dict(block_size=blk, sub=sub, probe=probe)
                 errs = held(f"B2 probe {probe} block {blk} window {sub}",
@@ -3716,6 +3794,35 @@ def phase_probes():
                                   mis_sub=sub,
                                   max_abs_err=max(errs.values())))
         del ops
+    # a rank's rows and a replica's slices at a window's end
+    for n2, p2, q2, m in PROBE_MIS_RANKS:
+        data, states, _, blk = replica_problem("b2", n2, p2, q2, m)
+        parts, stacked = replica_operands("b2", data, states, None, blk, 1.0)
+        ops = parts[0] if m == 1 else stacked
+        plan = sm.missing_launch_plan(n2, ops[6].shape[-1], blk,
+                                      ops[4].shape[-1], m, probe="noseq",
+                                      probe_window=32)
+        if n2 == 1000 and plan["cluster"] < 2:
+            raise AssertionError(f"B2 probe ranks: a cluster of 2 or more "
+                                 f"expected at n = 1000, plan {plan}")
+        for sub in (32, 128):
+            for probe in ("noseq", "noadv", "noadvmask"):
+                kw = dict(block_size=blk, sub=sub, probe=probe)
+                got = sm.sweep_missing_fused(*ops, **kw)
+                ref = sm.sweep_missing_fused_plain(*ops, **kw)
+                for r in range(m):
+                    one = (lambda t: t) if m == 1 else (lambda t: t[r])
+                    errs = held(f"B2 probe {probe} at mis_sub {sub} n={n2} "
+                                f"cluster {plan['cluster']} replica {r} of "
+                                f"{m}", [one(a) for a in got],
+                                [one(b) for b in ref], names)
+                    max_abs["b2"] = max(max_abs["b2"], *errs.values())
+                    cases.append(dict(probe=probe, n=n2, q=q2, mis_sub=sub,
+                                      cluster=plan["cluster"],
+                                      fm_on_chip=plan["fm_on_chip"],
+                                      replicas=m, replica=r,
+                                      max_abs_err=max(errs.values())))
+        del data, states, parts, stacked, ops
     out["b2"]["cases"] = cases
 
     # ---- the main path: the counters zeroed just before each run ----
@@ -3802,48 +3909,47 @@ def phase_probes():
     ops, blk = mis_kernel_inputs(n, p, q, 1.0, 0.15)
     mdims = (ops[0].shape[0], ops[0].shape[1], ops[6].shape[1],
              ops[4].shape[1])
-    sub = 16   # mis_sub 16, the default
-    # the exact sweep in the probe instance (every part kept), B2's own
-    # float32 instance beside it
-    fns = {pr: (lambda pr=pr: sm._sweep_missing_fused_cuda(
-        *ops, block_size=blk, sub=sub, probe=pr))
-        for pr in ("exact", *sm.MIS_PROBES)}
-    fns["none"] = fns.pop("exact")
-    fns["production"] = lambda: sm.sweep_missing_fused(*ops, block_size=blk)
-    turns, offsets = probe_turns(fns)
-    med = {k: statistics.median(v) for k, v in turns.items()}
-    by_probe = {}
-    for pr in sm.MIS_PROBES:
-        b, by = mis_probe_bound_ms(*mdims, pr, sub)
-        by_probe[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
-                            bound_by=by, pct_of_bound=pct(b, med[pr]))
+    # mis_sub 16 (the default) and the windows over 16, each in rounds of
+    # turns beside the exact sweep and B2's float32 instance
+    by_window = {win: b2_probe_rounds(ops, blk, win, mdims)
+                 for win in (16, *PROBE_DEEP_WINDOWS)}
+    e16 = by_window[16]
     out["b2"]["timing"] = dict(
-        n=n, p=p, q=q, block=blk, missing_frac=0.15, mis_sub=sub,
-        exact_ms=med["none"], exact_turns=turns["none"],
-        production_ms=med["production"],
-        exact_bound_ms=mis_bound_ms(*mdims)[0], by_probe=by_probe,
-        implied_ms=implied_costs(offsets, MIS_PROBE_COSTS),
+        n=n, p=p, q=q, block=blk, missing_frac=0.15, mis_sub=16,
+        exact_ms=e16["exact_ms"], exact_turns=e16["exact_turns"],
+        production_ms=e16["production_ms"],
+        exact_over_production=e16["exact_over_production"],
+        exact_bound_ms=e16["exact_bound_ms"],
+        by_probe={pr: e16[pr] for pr in sm.MIS_PROBES},
+        implied_ms=e16["implied_ms"], clocks=e16["clocks"],
         plain_ms=cuda_ms(lambda: sm.sweep_missing_fused_plain(
             *ops, block_size=blk, sub=16, probe=PROBE_MAIN), 2))
-    # the windows over 16 (the float32 probe instance keeps the window's
-    # deltas), one round of turns each against its exact sweep there
-    by_window = {}
-    for win in PROBE_DEEP_WINDOWS:
-        fns = {pr: (lambda pr=pr, win=win: sm._sweep_missing_fused_cuda(
-            *ops, block_size=blk, sub=win, probe=pr))
-            for pr in ("exact", *sm.MIS_PROBES)}
-        fns["none"] = fns.pop("exact")
-        turns, _ = probe_turns(fns, rounds=1)
-        med = {k: statistics.median(v) for k, v in turns.items()}
-        entry = dict(exact_ms=med["none"], exact_turns=turns["none"],
-                     exact_bound_ms=mis_bound_ms(*mdims)[0])
-        for pr in sm.MIS_PROBES:
-            b, by = mis_probe_bound_ms(*mdims, pr, win)
-            entry[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
-                             bound_by=by, pct_of_bound=pct(b, med[pr]))
-        by_window[win] = entry
-    out["b2"]["timing"]["by_window"] = by_window
+    # the pair_bf16 probe instances at mis_sub 16 (noadv, noadvmask) beside
+    # B2's pair_bf16 instance there
+    pb = dict(block_size=blk, pair_bf16=True, sub=16)
+    fns = {"none": lambda: sm.sweep_missing_fused(*ops, **pb)}
+    fns.update({pr: (lambda pr=pr: sm.sweep_missing_fused(*ops, **pb,
+                                                          probe=pr))
+                for pr in ("noadv", "noadvmask")})
+    turns, _ = probe_turns(fns)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    out["b2"]["timing"]["pair_bf16"] = dict(
+        mis_sub=16, production_ms=med["none"],
+        production_turns=turns["none"],
+        **{pr: dict(ms=med[pr], turns=turns[pr],
+                    over_production=med[pr] / med["none"])
+           for pr in ("noadv", "noadvmask")})
     del ops, fns
+    torch.cuda.empty_cache()
+    # a window off the 8-row grid, beside B2's float32 instance at its block
+    n_, p_, q_, blk_, win = PROBE_MIS_OFF_TIMED
+    ops, blk = mis_kernel_inputs(n_, p_, q_, 1.0, 0.15, block=blk_)
+    by_window[f"block {blk} window {win}"] = dict(
+        n=n_, p=p_, q=q_, **b2_probe_rounds(
+            ops, blk, win, (ops[0].shape[0], ops[0].shape[1],
+                            ops[6].shape[1], ops[4].shape[1])))
+    out["b2"]["timing"]["by_window"] = by_window
+    del ops
     torch.cuda.empty_cache()
     out["max_abs_err"] = max_abs
     emit({"phase": "probes", **out})
@@ -4021,9 +4127,10 @@ def main():
                 "exact_ms": t["exact_ms"], "production_ms": t["production_ms"],
                 "ms_by_probe": {k: v["ms"] for k, v in t["by_probe"].items()},
                 "ms_by_window": {
-                    str(w): {k: (v if k == "exact_ms" else v["ms"])
+                    str(w): {k: (v if k.endswith("_ms") else v["ms"])
                              for k, v in e.items()
-                             if k == "exact_ms" or isinstance(v, dict)}
+                             if k in ("exact_ms", "production_ms")
+                             or isinstance(v, dict) and "ms" in v}
                     for w, e in t["by_window"].items()},
                 "implied_ms": t["implied_ms"]})
     if kernels:

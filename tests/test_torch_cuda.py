@@ -189,12 +189,15 @@ def test_launch_plans_match_the_kernels(cuda):
                 assert ss.occupancy(width, block, r_aug) == 1
     for n in (1, 80, 1000, 4000, 7000, 8000, 50000):
         for r_aug in (1, 42, 48):
-            # the float32 probe instance at a window over 16 keeps its
-            # deltas: (0, 32), (0, 128)
-            for window, pwin in ((0, 0), (16, 0), (32, 0), (128, 0),
-                                 (0, 32), (0, 128)):
+            # the float32 probe instance keeps deltas at some windows
+            # (sm._probe_rows), the pair_bf16 ones none beside their own
+            for window, probe, pwin in (
+                    (0, "none", 0), (16, "none", 0), (32, "none", 0),
+                    (128, "none", 0), (0, "noseq", 32),
+                    (0, "noadvmask", 128), (0, "noadv", 12),
+                    (0, "exact", 128), (32, "noadv", 32)):
                 plan = sm.missing_launch_plan(n, 10000, 128, r_aug,
-                                              window=window,
+                                              window=window, probe=probe,
                                               probe_window=pwin)
                 assert (sm.kernel_smem_bytes(plan, n, r_aug)
                         == plan["smem_bytes"])
@@ -1813,10 +1816,10 @@ def test_missing_probe_kernel_matches_plain(cuda, probe, n, p, q, sub,
                                             pair_bf16):
     """Each of B2's probes at mis_sub 1 to 128 (Fm on chip) and 16 to 128
     (Fm in device memory, n = 8000), float32 and pair_bf16, against the
-    plain version at the B2 kernel tests' tolerance (over 16 each
-    8-window of a window projects Fm as of the window's start: in float32
-    with the masked increment of the window's earlier 8-windows, under
-    pair_bf16 through the rounded cross pairs)."""
+    plain version at the B2 kernel tests' tolerance (in float32 B2's
+    running masked advance with each probe's departure at its window's
+    edges; under pair_bf16 from 16 on each 8-window of a window projects
+    Fm as of the window's start and takes the rounded cross pairs)."""
     ops, block = _mis_operands(n, p, q, 1.0, block=128)
     kw = dict(block_size=block, sub=sub, pair_bf16=pair_bf16, probe=probe)
     launches = sm.sweep_missing_fused.probe.launches
@@ -1827,6 +1830,62 @@ def test_missing_probe_kernel_matches_plain(cuda, probe, n, p, q, sub,
         err = float((a.cpu() - r).abs().max())
         limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
         assert err <= limit, (name, err, limit)
+    if probe == "noadv":   # Fm out = Fm in
+        assert torch.equal(got[2].cpu(), ops[8])
+
+
+@pytest.mark.parametrize("n,p,q,blk,sub", [
+    *((80, 250, 40, 128, s) for s in (1, 2, 4, 8, 16, 32, 64, 128)),
+    *((8000, 256, 256, 128, s) for s in (16, 32, 64, 128)),
+    (80, 240, 40, 48, 12), (8000, 240, 256, 48, 12)])
+def test_missing_probe_exact_is_b2(cuda, n, p, q, blk, sub):
+    """The float32 probe instance's exact sweep runs B2's own schedule at
+    every window (the window does not change the exact function): its
+    outputs match B2's float32 instance's, Fm on chip (n = 80) and in
+    device memory (n = 8000), 12 off the 8-row grid, at the B2 kernel
+    tests' tolerance."""
+    ops, block = _mis_operands(n, p, q, 1.0, block=blk)
+    dev = [o.to(cuda) for o in ops]
+    got = sm._sweep_missing_fused_cuda(*dev, block_size=block, sub=sub,
+                                       probe="exact")
+    ref = sm.sweep_missing_fused(*dev, block_size=block)
+    for name, a, r in zip(MIS_NAMES, got, ref):
+        err = float((a - r).abs().max())
+        limit = 1e-4 if name == "gam" else 1e-4 * float(r.abs().max())
+        assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.parametrize("n,p,q,m", [(1000, 256, 40, 1), (80, 250, 40, 2),
+                                     (1000, 256, 40, 2),
+                                     (8000, 256, 256, 2)])
+@pytest.mark.parametrize("sub", [32, 128])
+@pytest.mark.parametrize("probe", ["noseq", "noadv", "noadvmask"])
+def test_missing_probe_kernel_ranks_and_replicas(cuda, probe, sub, n, p, q,
+                                                 m):
+    """B2's float32 probe instance where a window's end reads x and Fm at a
+    rank's rows and a replica's slices (window_edge, the deltas'
+    workspace per CTA, noadv's Fm as received): Fm on chip in a cluster of
+    2 or more (n = 1000), m = 2 stacked replicas on chip and in device
+    memory (n = 8000), against the plain version replica by replica at the
+    B2 kernel tests' tolerance."""
+    parts, stacked, block = _replica_operands("b2", n, p, q, 1.0, m,
+                                              block=128, frac=0.15)
+    ops = parts[0] if m == 1 else stacked
+    plan = sm.missing_launch_plan(ops[0].shape[0], ops[6].shape[-1], block,
+                                  ops[4].shape[-1], m, probe=probe,
+                                  probe_window=sub)
+    assert plan["fm_on_chip"] == (n < 8000)
+    if n == 1000:
+        assert plan["cluster"] > 1, plan
+    kw = dict(block_size=block, sub=sub, probe=probe)
+    got = sm.sweep_missing_fused(*[o.to(cuda) for o in ops], **kw)
+    ref = sm.sweep_missing_fused(*ops, **kw)
+    for name, a, r in zip(MIS_NAMES, got, ref):
+        for i in range(m):
+            a_i, r_i = (a, r) if m == 1 else (a[i], r[i])
+            err = float((a_i.cpu() - r_i).abs().max())
+            limit = 1e-4 if name == "gam" else 1e-4 * float(r_i.abs().max())
+            assert err <= limit, (name, i, err, limit)
     if probe == "noadv":   # Fm out = Fm in
         assert torch.equal(got[2].cpu(), ops[8])
 

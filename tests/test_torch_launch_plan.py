@@ -263,43 +263,55 @@ def test_mis_bf16_bound_arithmetic(n, p, q, sub, ms, by):
     assert got >= f32
 
 
-@pytest.mark.parametrize("on_chip,nloc,probe_window,rows", [
-    (True, 334, 32, 32), (True, 334, 128, 128), (True, 333, 12, 24),
-    (True, 250, 3, 16), (False, 0, 25, 32), (False, 0, 200, 200),
-    (True, 334, 16, 0), (True, 334, 4, 0)])
-def test_missing_probe_smem_arithmetic(on_chip, nloc, probe_window, rows):
-    """B2's float32 probe instance keeps its deltas beside the float32
-    instance's layout, from a 16-byte boundary after the mask words: a
-    window over 16 its own rows, a window off the 8-row grid a ring of
-    whole chain windows over its latest window + 7 rows (12: 24, 3: 16, 25:
-    32), a window on the grid up to 16 none."""
+@pytest.mark.parametrize("on_chip,nloc,probe,probe_window,rows,ws", [
+    (True, 334, "noseq", 32, 0, 16), (True, 334, "noadvmask", 128, 0, 112),
+    (True, 333, "noadv", 12, 24, 0), (True, 250, "noseq", 3, 16, 0),
+    (False, 0, "noadvmask", 25, 32, 0), (False, 0, "noh", 200, 0, 184),
+    (True, 334, "noseq", 16, 0, 0), (True, 334, "noadvmask", 4, 0, 0),
+    (True, 334, "noadv", 128, 0, 0), (True, 334, "exact", 12, 0, 0)])
+def test_missing_probe_smem_arithmetic(on_chip, nloc, probe, probe_window,
+                                       rows, ws):
+    """B2's float32 probe instance keeps B2's layout but off the 8-row grid,
+    where its deltas sit in a ring of whole chain windows over its latest
+    window + 7 rows (12: 24, 3: 16, 25: 32), from a 16-byte boundary after
+    the mask words; the exact sweep (B2's own schedule) keeps none.  On the
+    grid noseq (noh) and noadvmask at a window of J > 2 chain windows keep
+    those of its first J - 2 in device memory instead (32: 16, 128: 112,
+    200: 184 rows of 32 per CTA), so that B2's plan holds; noadv keeps none
+    (it restores Fm from the launch's input)."""
     base = sm._mis_smem_bytes(on_chip, nloc, 42)
-    got = sm._mis_smem_bytes(on_chip, nloc, 42, probe_window=probe_window)
+    got = sm._mis_smem_bytes(on_chip, nloc, 42, probe=probe,
+                             probe_window=probe_window)
     pad = (-(-nloc // 4) * 4 - nloc) if rows else 0
     assert got == base + 4 * (pad + rows * sm.MIS_QS)
-    plan = sm.missing_launch_plan(8000, 256, 128, 42,
+    assert sm._delta_workspace(probe, probe_window) == ws * sm.MIS_QS
+    plan = sm.missing_launch_plan(8000, 256, 128, 42, probe=probe,
                                   probe_window=probe_window)
-    assert plan["probe_window"] == probe_window
+    assert (plan["probe"], plan["probe_window"]) == (probe, probe_window)
     assert plan["smem_bytes"] == sm._mis_smem_bytes(
         plan["fm_on_chip"], plan["rows_per_cta"] if plan["fm_on_chip"] else 0,
-        42, probe_window=probe_window)
+        42, probe=probe, probe_window=probe_window)
+    # the pair_bf16 probe instances keep none beside their own
+    assert sm._mis_smem_bytes(on_chip, nloc, 42, 16, probe,
+                              probe_window) == sm._mis_smem_bytes(
+        on_chip, nloc, 42, 16)
 
 
-@pytest.mark.parametrize("probe,sub,pushes", [
-    ("noseq", 128, 0.0), ("noh", 32, 0.0), ("noadv", 8, 0.0),
-    ("noadv", 16, 1.125), ("noadvmask", 32, 3.1875),
-    ("noadv", 128, 15.234375)])
-def test_missing_probe_bound_counts_the_window(probe, sub, pushes):
+@pytest.mark.parametrize("probe,sub,adv", [
+    ("noseq", 128, 3.0), ("noh", 32, 3.0), ("noadv", 8, 2.625),
+    ("noadv", 16, 2.8125), ("noadvmask", 32, 3.9375),
+    ("noadv", 128, 2.9765625), ("noadvmask", 1, 2.0), ("noadv", 1, 0.0),
+    ("noadvmask", 12, 11 / 3 + 1 / 6)])
+def test_missing_probe_bound_counts_the_window(probe, sub, adv):
     """B2's probe bound (chip_smoke.mis_probe_bound_ms) at (1000, 2048,
-    10000, r + 2 = 42) adds, where the probe keeps the pushes (noadv,
-    noadvmask) and the window holds J = sub / 8 > 1 chain windows, the
-    masked increment of the window's earlier chain windows, (J - 1)
-    (1 + 1 / (4 J)) n operations per (j, k), to what the probe keeps of
-    the sweep: the projection (2 n), the advance (3 n masked, 2 n without
-    the mask, none under noadv) and the tiles (6 (r + 2))."""
+    10000, r + 2 = 42) counts the projection (2 n per (j, k)), the tiles
+    (6 (r + 2)) and Fm's advance as the probe's function needs it at its
+    window of S predictors, a masked advance at 3 n, f = (S - 1) / S: noseq
+    and noh 3 n, noadv the running masked advance inside a window, 3 n f,
+    noadvmask 3 n f plus its unmasked remainder n f and the last
+    predictor's unmasked advance 2 n / S."""
     n, p, q = 1000, 2048, 10000
-    adv = {"noadv": 0, "noadvmask": 2}.get(probe, 3)
-    ops = p * q * ((2 + adv + pushes) * n + 6 * R_AUG)
+    ops = p * q * ((2 + adv) * n + 6 * R_AUG)
     got, by = chip_smoke.mis_probe_bound_ms(n, p, q, R_AUG, probe, sub)
     if by == "operations":
         assert got == pytest.approx(1e3 * ops / chip_smoke.FP32_PEAK)

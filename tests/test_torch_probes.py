@@ -213,6 +213,102 @@ def test_b2_deep_probe_plain_matches_jax_kernel(probe, sub):
     _check_b2(_port_b2(probe, sub), ref, msk)
 
 
+def _b2_probe_schedule(ops, block, probe, sub):
+    """B2's float32 probe instance's schedule in plain tensor ops (csrc/
+    sweep_missing_fused.cu): chain windows of 8 in flat order, each
+    projected in one pass that first advances Fm by the previous chain
+    window, its pairs pushed through the masked pair Grams; a probe's
+    window of J = sub / 8 chain windows departs from B2's running masked
+    advance only at its edges: inside it Fm advances masked (noseq: not at
+    all); the pass of its last chain window (j = J - 1 > 0) projects Fm
+    (noseq) or Fm + m s (s: the previous chain window's x delta) and stores
+    the window's end but for that chain window, (Fm + m s) + m e (noseq; e
+    the first J - 2 chain windows' x delta), Fm as received (noadv) or (Fm
+    + s) + (1 - m) e (noadvmask); the next window's first pass advances by
+    the probe's rule (noseq masked, noadv not at all, noadvmask without
+    the mask), as does the sweep's tail."""
+    (x, cp, xns, mis, l_aug, n_stack, gam, mu, fitted, theta, p_mask, zeta,
+     q_mask, tau, c, kz, sig2_inv) = ops
+    W = tsm.MIS_W
+    J = sub // W
+    code = tsm.MIS_PROBE_CODES[probe]
+    start = {0: 1, 1: 0, 2: 2}[code]    # the advance at a window's start
+    fm = fitted.clone()
+    p = x.shape[1]
+    gam_out, mu_out = torch.empty_like(gam), torch.empty_like(mu)
+    z_row, z_col = torch.empty_like(theta), torch.zeros_like(zeta)
+    kept = {}                          # the window's deltas by chain window
+
+    def advance(rule, s):
+        return fm + mis * s if rule == 1 else fm + s if rule == 2 else fm
+
+    prev = None                        # the previous chain window's x, delta
+    for b in range(p // block):
+        sl = slice(b * block, (b + 1) * block)
+        ad, imrd, imr0u, ct = tsm._missing_tiles(
+            l_aug[sl], n_stack, theta[sl, None] + zeta[None, :], kz, c,
+            xns[sl] + sig2_inv)
+        gam_b, mu_b = torch.empty_like(ad), torch.empty_like(ad)
+        for lo in range(0, block, W):
+            j0 = b * block + lo
+            w, xw = j0 // W, x[:, j0:j0 + W]
+            j = w % J
+            fp = fm
+            if prev is not None:
+                s = prev[0] @ prev[1]
+                if j == 0:
+                    fm = fp = advance(start, s)
+                elif j < J - 1:
+                    fm = fp = advance(0 if code == 0 else 1, s)
+                else:
+                    e = sum((x[:, j0 - (j - i) * W:j0 - (j - i - 1) * W]
+                             @ kept[i] for i in range(j - 1)),
+                            torch.zeros_like(fm))
+                    fp = fm if code == 0 else fm + mis * s
+                    fm = ((fm + mis * s) + mis * e if code == 0 else
+                          fitted.clone() if code == 1 else
+                          (fm + s) + (1 - mis) * e)
+            r = xw.T @ fp
+            h = tsm._pair_grams(xw, mis, False) if code != 0 else None
+            deltas = []
+            for i in range(W):
+                gam_b[lo + i], mu_b[lo + i], delta = tsm._missing_coordinate(
+                    j0 + i, r[i], cp, gam, mu, xns, ct[lo + i], ad[lo + i],
+                    tau, c)
+                if h is not None:
+                    r[i + 1:] += h[i + 1:, i] * delta
+                deltas.append(delta)
+            kept[j] = torch.stack(deltas)
+            prev = (xw, kept[j])
+        tsm._missing_block_out((gam_out, mu_out, z_row, z_col), sl, gam_b,
+                               mu_b, imrd, imr0u, p_mask, q_mask)
+    fm = advance(start, prev[0] @ prev[1])
+    return gam_out, mu_out, fm, z_row, z_col
+
+
+@pytest.mark.parametrize("sub", [16, 32, 128])
+@pytest.mark.parametrize("probe", ["noseq", "noadv", "noadvmask"])
+def test_b2_probe_schedule_matches_plain(probe, sub):
+    """The schedule of B2's float32 probe instance (`_b2_probe_schedule`:
+    B2's running masked advance, each probe a departure at its window's
+    edges) computes the probe's function: against the port's plain
+    version (the JAX kernel's windows) at (n=80, p=250 -> 256, q=40), 20%
+    missing, block 128, gam, mu within 1e-5 and Fm, z_row, z_col within
+    1e-5 x their largest magnitude; noadv's Fm bit for bit."""
+    from test_torch_cuda import _mis_operands
+    ops, block = _mis_operands(80, 250, 40, 1.0, block=128)
+    got = _b2_probe_schedule(ops, block, probe, sub)
+    ref = tsm.sweep_missing_fused_plain(*ops, block_size=block, sub=sub,
+                                        probe=probe)
+    for name, a, r in zip(("gam", "mu", "fitted", "z_row", "z_col"), got,
+                          ref):
+        limit = 1e-5 * (1.0 if name in ("gam", "mu")
+                        else float(r.abs().max()))
+        assert float((a - r).abs().max()) <= limit, name
+    if probe == "noadv":
+        assert torch.equal(got[2], ops[8])
+
+
 def test_b2_noh_is_noseq_and_rejections():
     """noh and noseq are one function (atlasqtl_tpu/ops/
     sweep_missing_fused.py:155, 197); an unknown probe and a window that
