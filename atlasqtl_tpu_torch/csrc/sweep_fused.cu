@@ -155,6 +155,34 @@
 // deltas (Bfull rows per block); after the pass and before the chain all
 // threads add goff[b-1] x delta_{b-1} to the projections in f32 4 x 4
 // register tiles, as the pieces' cross-Gram.
+// The probe instances (PR != 0) are the TPU kernel's perf probes
+// (atlasqtl_tpu/ops/sweep_fused.py:116-433, 509-519, Config.sweep_probe):
+// the float32 instance with one part of the sweep dropped, in its plan
+// (32 or 40 columns).  Every part is decided once per block, around a
+// whole phase, never in the row loop: the pass drops its advance or its
+// projection or reads block 0's x (dmalite), the logit and Z tiles their
+// interpolation products, r takes X^T Y's rows without the projection.
+// The chain is B1's own code, pushes and helper warps included: the
+// pushes inside a window of the probe's window (any divisor of the block,
+// on the 8-row grid or off it) and the corrections across windows that a
+// probe drops, and the diagonal where it drops it, are zeros in the
+// block's Gram triangle, written in place of the cp.async as it lands.
+// Where a probe drops every term across chain windows of W rows (norank
+// at a window that divides W, the Jacobi probes at any), the chain's
+// shape skips them (PRI_NOCORR), and the pushes inside a chain window too
+// where it drops those (the Jacobi probes: PRI_NOPUSH), so that the probe
+// saves their time.  The clipped logit (nosig), bf16 x (under mxu_bf16: F
+// and delta rounded at the products), dmalite's pin and the chain's shape
+// are template bits (PrInst), so that no instance carries a runtime test
+// in its products or its chain: at 40
+// columns B1's f32 code takes 167 of ptxas's 168 registers, and a runtime
+// pin spilled it.  The probe with every part kept is B1 and launches B1's
+// float32 instance.  A block over BMAX (the 32-column instances only,
+// PRI_PIECES: the pieces' code spilled at 40) is the JAX kernel's whole
+// block: each piece projects the block-start F, the earlier pieces'
+// deltas come through the f32 Gram per row, and the block advances after
+// its last piece (the earlier pieces by scalar FMAs over device memory,
+// before the next pass).
 // Conversions use __float2bfloat16_rn (round to nearest even, as JAX's
 // astype and torch's .to(bfloat16)); no TF32 anywhere.
 #include <cuda.h>  // CUtensorMap (the TMA descriptors; no driver link)
@@ -403,12 +431,18 @@ __device__ __forceinline__ void unpack4(const float4 v, float* a) {
   a[3] = v.w;
 }
 
-// The probe instance (PR = true; ops/sweep_fused.py:Probe, PROBES): its
-// runtime code has one bit per part of the sweep it keeps, then the
-// diagonal's bit and bf16 x (Probe.code)
+// The probe instances (PR != 0; ops/sweep_fused.py:Probe, PROBES): the
+// runtime code has one bit per part of the sweep kept, then the diagonal's
+// bit and bf16 x (Probe.code).  The sigmoid's bit, bf16 x, dmalite's pin
+// and the chain's shape pick the instance (PrInst: PR's bits); the others
+// are read once per block.
 enum PrBits : int {
   PR_TILES = 1, PR_PROJ = 2, PR_PUSHES = 4, PR_CORR = 8, PR_SIGMOID = 16,
   PR_ADVANCE = 32, PR_MILLS = 64, PR_PIN = 128, PR_DIAG = 256, PR_XBF = 512
+};
+enum PrInst : int {
+  PRI_ON = 1, PRI_CLIP = 2, PRI_XBF = 4, PRI_PIECES = 8, PRI_PIN = 16,
+  PRI_NOPUSH = 32, PRI_NOCORR = 64
 };
 
 // f rounded to bf16 (nearest even) and back
@@ -416,25 +450,19 @@ __device__ __forceinline__ float bf16r(float f) {
   return __bfloat162float(__float2bfloat16_rn(f));
 }
 
-// the probe instance's four values of a staged x row from column k: f32,
-// or under bf16 x (xbf) the row's bf16 values (its row of XL floats holds
-// B bf16)
-__device__ __forceinline__ void ldx4(const float* row, int k, bool xbf,
-                                     float* v) {
-  if (xbf) {
-    const uint2 u = *reinterpret_cast<const uint2*>(
-        reinterpret_cast<const char*>(row) + 2 * k);
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = b.x;
-    v[3] = b.y;
-    return;
-  }
-  unpack4(ld4(row + k), v);
+// the four bf16 values of a staged x row (XL floats holding B bf16) from
+// column k, as floats: the probe instances under bf16 x
+__device__ __forceinline__ void ldh4(const float* row, int k, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(
+      reinterpret_cast<const char*>(row) + 2 * k);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
 }
 
 // the probe instance's update of one coordinate under nosig: chain_step
@@ -727,7 +755,24 @@ __device__ __noinline__ unsigned bf16_pass(const BfPass a,
   return mb_phase;
 }
 
-template <int QS, bool BF, bool LA, bool PR = false>
+// A probe instance's template flags (PrInst) but its clipped logit and
+// bf16 x: whether it takes a block over BMAX in pieces (its 32-column
+// instances), pins x and X^T Y to block 0 (dmalite), and its chain's
+// shape: without the terms across chain windows (the chain's own of the
+// previous window and the helper warps' of the earlier ones), and then
+// also without the pushes inside a chain window, where the probe drops
+// every such term at its window (the launch decides).  At 40 columns B1's
+// f32 code takes 167 of ptxas's 168 registers: the pieces' runtime count
+// and workspace, or the pin's offsets as runtime values, spill it.  They
+// live here, not among the kernel's locals: a local added to or dropped
+// from sweep_fused_kernel moves the machine code of its bf16 instances
+// (tools/sass_diff), though they never read it.
+template <int PR> struct PrShape {
+  static constexpr bool PIECES = PR & PRI_PIECES, PIN = PR & PRI_PIN,
+                        NOPUSH = PR & PRI_NOPUSH, NOCORR = PR & PRI_NOCORR;
+};
+
+template <int QS, bool BF, bool LA, int PR = 0>
 __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const void* __restrict__ x_any,     // (n, p), float (bf16 if BF)
     const float* __restrict__ cp,       // (p, q)
@@ -742,8 +787,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     const float* __restrict__ q_mask,   // (q,)
     const float* __restrict__ s2v,      // (q,) slab variance
     const float* __restrict__ tauv,     // (q,)
-    const float* __restrict__ scal,     // (2,) c, K/c; PR (4,): and the
-                                        // probe's code (PrBits), its window
+    const float* __restrict__ scal,     // (2,) c, K/c
     float* __restrict__ beta_out,       // (p, q)
     float* __restrict__ gam_out,        // (p, q) or null
     float* __restrict__ mu_out,         // (p, q) or null
@@ -752,7 +796,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     float* __restrict__ gcol,           // (q,)
     float* __restrict__ m2gcol,         // (q,)
     float* __restrict__ b2col,          // (q,)
-    const float* __restrict__ gram_full,  // bf16, Bfull > B: (p, Bfull)
+    const float* __restrict__ gram_full,  // bf16, PR, Bfull > B: (p, Bfull)
     const float* __restrict__ goff,       // LA: (p, Bfull)
     __nv_bfloat16* __restrict__ fh_ws,  // bf16, Bfull > B: ([2,] n, slices
                                         // x QS), two if LA
@@ -760,11 +804,15 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                                         // LA (2 Bfull, ..)
     int n, int p, int q, int B, int R, int c_one, int cp_batched, int Bfull,
     const __grid_constant__ CUtensorMap tm_x,   // bf16: x, boxes of xw(B)
-                                                // x NCHB
+                                                // x NCHB; PR: code, window
     const __grid_constant__ CUtensorMap tm_f) {  // bf16: fitted (m, n, q),
                                                  // boxes of QS x NCHB
   static_assert(BF || !LA, "lookahead: a variant of the bf16 instance");
   static_assert(!PR || (!BF && !LA), "the probe instance: the f32 schedule");
+  // the probe's clipped logit (nosig) and bf16 x (mxu_bf16); its other
+  // template flags are PS's
+  constexpr bool CLIP = PR & PRI_CLIP, XBF = PR & PRI_XBF;
+  using PS = PrShape<PR>;
   using S = Slice<QS>;
   // the bf16 instance's workspaces: row stride of all slices' columns
   const int qsw = gridDim.x * QS;
@@ -781,7 +829,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     zeta += r * q;
     s2v += r * q;
     tauv += r * q;
-    scal += r * (PR ? 4 : 2);
+    scal += r * 2;
     beta_out += r * pq;
     if (gam_out != nullptr) {
       gam_out += r * pq;
@@ -796,7 +844,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
       fh_ws += r * (LA ? 2 : 1) * (size_t)n * qsw;
       dw_ws += r * (size_t)(LA ? 2 * Bfull : Bfull - B) * qsw;
     }
-    if constexpr (PR)  // its deltas of a block's earlier pieces
+    if constexpr (PS::PIECES)  // its deltas of a block's earlier pieces
       if (dw_ws != nullptr) dw_ws += r * (size_t)(Bfull - B) * qsw;
   }
   constexpr int NT = S::NT, NW = S::NW, TC = S::TC, WQ = S::WQ;
@@ -842,13 +890,17 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   const int tid = threadIdx.x, warp = tid >> 5;
   const int k0 = blockIdx.x * QS;
   const float c = scal[0], kz = scal[1];
-  const int pcode = PR ? (int)scal[2] : 0, psub = PR ? (int)scal[3] : W;
-  // the probe's window on the 8-row grid (a divisor of W or a multiple of
-  // it: a window of W rows lies in one window of psub or is a run of whole
-  // ones), else its keep tests go per row (every other instance: on it)
-  const bool grid = !PR || W % psub == 0 || psub % W == 0;
+  // a probe instance's code (PrBits) and window ride in tm_x's first 8
+  // bytes, which only the bf16 instance reads: read as a kernel parameter
+  // they cost no register, and the production instances keep their
+  // signature
+  int pcode = 0, psub = W;
+  if constexpr (PR) {
+    pcode = (int)(tm_x.opaque[0] & 0xffffffffu);
+    psub = (int)(tm_x.opaque[0] >> 32);
+  }
   const int nb = p / B, nwin = B / W;
-  const int npc = BF || PR ? Bfull / B : 1;  // pieces of a block
+  const int npc = BF || PS::PIECES ? Bfull / B : 1;  // pieces of a block
   // the probe thread adds its cycles straight into g_clocks, so that no
   // other thread holds registers for them
   const bool probe = blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
@@ -866,22 +918,24 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     }
   };
   const int nch = BF ? (n + NCHB - 1) / NCHB : (n + NCH - 1) / NCH;
-  // the probe instance's parts (PrBits; every other instance keeps all):
-  // the tiles, the projection, the pushes inside a window of psub rows and
-  // the corrections across windows, the sigmoid, the advance, the Mills
-  // tiles, dmalite's pin of x and X^T Y to block 0, the diagonal taken off
-  // r, and x in bf16 (mxu_bf16: F and delta rounded at the products)
+  // the probe instance's parts (PrBits; every other instance keeps all),
+  // each decided once per block around a whole phase: the tiles, the
+  // projection, the pushes inside a window of psub rows and the
+  // corrections across windows, the advance, the Mills tiles, the diagonal
+  // taken off r.  The chain is B1's:
+  // a probe's dropped pushes, corrections and diagonal are zeros in the
+  // block's Gram triangle, which B1's chain, pushes and helper warps read;
+  // the pin is PS::PIN in the pass, k_pin in the pieces' advance
   const bool k_tiles = !PR || (pcode & PR_TILES),
              k_proj = !PR || (pcode & PR_PROJ),
              k_push = !PR || (pcode & PR_PUSHES),
              k_corr = !PR || (pcode & PR_CORR),
-             k_sig = !PR || (pcode & PR_SIGMOID),
              k_adv = !PR || (pcode & PR_ADVANCE),
              k_mills = !PR || (pcode & PR_MILLS),
              k_pin = PR && (pcode & PR_PIN),
-             k_diag = !PR || (pcode & PR_DIAG), xbf = PR && (pcode & PR_XBF);
+             k_diag = !PR || (pcode & PR_DIAG);
   const __nv_bfloat16* __restrict__ xh =
-      static_cast<const __nv_bfloat16*>(x_any);  // PR under bf16 x
+      static_cast<const __nv_bfloat16*>(x_any);  // XBF
   const float* const cp0 = cp;  // PR: X^T Y (dmalite reads block 0's rows)
 
   for (int e = tid; e < 3 * R * QS; e += NT) {
@@ -958,12 +1012,14 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     // after its last piece (a later piece projects the block-start F, the
     // earlier pieces come in through the Gram): this pass by the last
     // piece, the loop below by the others first
-    const int jxp = PR && k_pin ? kp * B : j0;
-    const int jxa = PR && k_pin ? ((b + npc - 1) % npc) * B : j0 - B;
+    const int jxp = PS::PIN ? kp * B : j0;
+    const int jxa = PS::PIN ? ((b + npc - 1) % npc) * B : j0 - B;
     const bool dadv = PR ? adv && k_adv && kp == 0 : adv;
     const bool dproj = PR ? proj && k_proj : proj;
     if constexpr (PR) {
-      if (k_pin) cp = cp0 + (ptrdiff_t)(jxp - j0) * q;
+      if constexpr (PS::PIN) cp = cp0 + (ptrdiff_t)(jxp - j0) * q;
+    }
+    if constexpr (PS::PIECES) {
       if (dadv && npc > 1) {
         // F += x_e delta_e for the previous block's pieces e < npc - 1
         // (deltas from the workspace into R_s, x rows into the x_{b-1}
@@ -973,14 +1029,14 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           for (int t = tid; t < BQ; t += NT) {
             const float d =
                 dw_ws[(size_t)(e * B + t / QS) * qsw + k0 + t % QS];
-            R_s[t] = xbf ? bf16r(d) : d;
+            R_s[t] = XBF ? bf16r(d) : d;
           }
           for (int n0 = 0; n0 < n; n0 += NCH) {
             for (int t = tid; t < NCH * B; t += NT) {
               const int r = t / B, k = t % B;
               const size_t o = (size_t)(n0 + r) * p + jcol + e * B + k;
               XA_s[r * XL + k] = n0 + r >= n ? 0.f
-                                 : xbf      ? __bfloat162float(xh[o])
+                                 : XBF      ? __bfloat162float(xh[o])
                                             : x[o];
             }
             __syncthreads();
@@ -1009,10 +1065,25 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
 #pragma unroll
       for (int jj = 0; jj < AN; ++jj) acc[a][jj] = 0.f;
     if (proj) {  // the block's lower Gram triangle, packed; p_mask, theta
-      for (int i = warp; i < B; i += NW)
-        for (int m = tid & 31; m <= i; m += 32)
-          cp_async4(GP_s + i * (i + 1) / 2 + m,
-                    gram + (size_t)(j0 + i) * B + m);
+      for (int i = warp; i < B; i += NW) {
+        if constexpr (PR) {
+          // the probe's Gram: row m's delta reaches row i (block rows kp B
+          // + m, kp B + i) as a push where both lie in one window of psub,
+          // else as a correction; the entries of what it drops are zeros
+          const int ws = (kp * B + i) / psub * psub - kp * B;
+          for (int m = tid & 31; m <= i; m += 32) {
+            if (m == i ? k_diag : m >= ws ? k_push : k_corr)
+              cp_async4(GP_s + i * (i + 1) / 2 + m,
+                        gram + (size_t)(j0 + i) * B + m);
+            else
+              GP_s[i * (i + 1) / 2 + m] = 0.f;
+          }
+        } else {
+          for (int m = tid & 31; m <= i; m += 32)
+            cp_async4(GP_s + i * (i + 1) / 2 + m,
+                      gram + (size_t)(j0 + i) * B + m);
+        }
+      }
       for (int e = tid; e < B / 2; e += NT)
         cp_async16(e < B / 4 ? PM_s + 4 * e : TH_s + 4 * (e - B / 4),
                    (e < B / 4 ? p_mask + 4 * e : theta + 4 * (e - B / 4)) + j0);
@@ -1038,7 +1109,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
               fst + r * QS + c4,
               ok ? fitted + (size_t)(n0 + r) * q + k0 + c4 : fitted, ok);
         }
-        if (PR && xbf) {  // the probe under bf16 x: B values of a row
+        if constexpr (XBF) {  // the probe under bf16 x: B values of a row
           for (int e = tid; e < NCH * B / 8; e += NT) {
             const int r = e / (B / 8), c8 = (e % (B / 8)) * 8;
             const bool ok = n0 + r < n;
@@ -1091,19 +1162,17 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
             float xr[4][4];
   #pragma unroll
             for (int r = 0; r < 4; ++r)
-              if constexpr (PR)
-                ldx4(xa + (ar * 4 + r) * XL, kk, xbf, xr[r]);
+              if constexpr (XBF)
+                ldh4(xa + (ar * 4 + r) * XL, kk, xr[r]);
               else
                 unpack4(ld4(xa + (ar * 4 + r) * XL + kk), xr[r]);
   #pragma unroll
             for (int s = 0; s < 4; ++s) {
               float d[4];
               unpack4(ld4(D_s + (kk + s) * QS + ac), d);
-              if constexpr (PR) {
-                if (xbf) {
+              if constexpr (XBF) {
   #pragma unroll
-                  for (int jj = 0; jj < 4; ++jj) d[jj] = bf16r(d[jj]);
-                }
+                for (int jj = 0; jj < 4; ++jj) d[jj] = bf16r(d[jj]);
               }
   #pragma unroll
               for (int r = 0; r < 4; ++r)
@@ -1124,20 +1193,18 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
   #pragma unroll(QS == 32 ? 2 : 1)
           for (int r = g * 8; r < g * 8 + 8; ++r) {
             float xv[8], fv[8];
-            if constexpr (PR) {
-              ldx4(xp + r * XL, pi * 8, xbf, xv);
-              ldx4(xp + r * XL, pi * 8 + 4, xbf, xv + 4);
+            if constexpr (XBF) {
+              ldh4(xp + r * XL, pi * 8, xv);
+              ldh4(xp + r * XL, pi * 8 + 4, xv + 4);
             } else {
               unpack4(ld4(xp + r * XL + pi * 8), xv);
               unpack4(ld4(xp + r * XL + pi * 8 + 4), xv + 4);
             }
             unpack4(ld4(fp + r * QS + pc), fv);
             unpack4(ld4(fp + r * QS + pc + 4), fv + 4);
-            if constexpr (PR) {
-              if (xbf) {
+            if constexpr (XBF) {
   #pragma unroll
-                for (int a = 0; a < 8; ++a) fv[a] = bf16r(fv[a]);
-              }
+              for (int a = 0; a < 8; ++a) fv[a] = bf16r(fv[a]);
             }
   #pragma unroll
             for (int a = 0; a < AM; ++a)
@@ -1285,18 +1352,14 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
                 dw_ws + (size_t)par_prev * Bfull * qsw + k0 + tx * 4, qsw, 0,
                 Bfull);
     // the block's earlier pieces' deltas through the f32 cross-Gram (the
-    // probe instance: those it keeps, corrections from the rows before
-    // this 4-row tile's window of psub and pushes from the rest; on the
-    // grid a tile lies in one window, or psub < 4 and every earlier piece's
-    // row is in an earlier window; off it, per row)
-    const bool c7 = (BF || PR) && npc > 1 && kp > 0;
-    const int mp = PR ? min(kp * B, (kp * B + ty * 4) / psub * psub) : 0;
-    if (c7 && trow && grid)
+    // probe instance: those it keeps, per row)
+    const bool c7 = (BF || PS::PIECES) && npc > 1 && kp > 0;
+    if (c7 && trow && !PR)
       cross_add(gram_full + (size_t)(j0 + ty * 4) * Bfull,
-                dw_ws + (size_t)par * Bfull * qsw + k0 + tx * 4, qsw,
-                PR && !k_corr ? mp : 0, PR && !k_push ? mp : kp * B);
-    if constexpr (PR) {
-      if (c7 && trow && !grid) {
+                dw_ws + (size_t)par * Bfull * qsw + k0 + tx * 4, qsw, 0,
+                kp * B);
+    if constexpr (PS::PIECES) {
+      if (c7 && trow) {
         // row a of the tile (block row rb): corrections from the earlier
         // pieces' rows before its window's start, pushes from the rest,
         // the Gram row in f32, in row order as cross_add sums
@@ -1323,7 +1386,20 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         }
       }
     }
-    if (la_corr || c7) __syncthreads();
+    if constexpr (PR) {
+      if (!k_proj && trow) {  // no projection: r = X^T Y (+ the pieces')
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int k = k0 + tx * 4 + jj;
+            float* r = R_s + (ty * 4 + a) * QS + tx * 4 + jj;
+            *r = __fadd_rn(
+                k < q ? cp[(size_t)(j0 + ty * 4 + a) * q + k] : 0.f, *r);
+          }
+      }
+    }
+    if (la_corr || c7 || (PR && !k_proj)) __syncthreads();
 
     tick(1);
 
@@ -1333,54 +1409,21 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
     for (int i = 0; i < W; ++i) dprev[i] = 0.f;
     for (int w = 0; w < nwin; ++w) {
       const int lo = w * W, cur = w & 1, nxt = cur ^ 1, rw = w % NRW;
-      // the probe instance takes only the pushes and corrections it keeps,
-      // by windows of psub rows of the whole block.  On the grid the
-      // previous window's deltas are pushes where it lies in this one's
-      // window of psub, else corrections; rows a and i of this window share
-      // one where (a ^ i) < psub.  Off it, per pair of rows: row b's delta
-      // reaches row lb + i as a push where b >= wst[i], the first row of
-      // that row's window of psub, else as a correction
-      const int lb = kp * B + lo;  // the window's first row in the block
-      const bool kprev = !PR || (lb % psub ? k_push : k_corr);
-      int wst[W];
-      if constexpr (PR) {
-        if (!grid) {
-          int s0 = lb - lb % psub;
-#pragma unroll
-          for (int i = 0; i < W; ++i) {
-            if (lb + i >= s0 + psub) s0 += psub;  // psub >= 1: one at most
-            wst[i] = s0;
-          }
-        }
-      }
       if (chain) {
         float rr[W], pm[W];
 #pragma unroll
         for (int i = 0; i < W; ++i) {
           const int row = lo + i;
           pm[i] = PM_s[row];
-          // remove the own contribution with the TRUE Gram diagonal (a
-          // probe: where it keeps it, after X^T Y where it drops the
-          // projection)
-          float r = fmaf(k_diag ? -BOW_s[rw * WQ + i * QS + tid] : 0.f,
-                         gp(GP_s, row, row),
-                         k_proj ? R_s[row * QS + tid]
-                                : __fadd_rn(CPW_s[rw * WQ + i * QS + tid],
-                                            R_s[row * QS + tid]));
-          if (w > 0) {
-            r = __fadd_rn(r, C_s[cur * WQ + i * QS + tid]);
-            if (kprev && grid) {
+          // remove the own contribution with the TRUE Gram diagonal
+          float r = fmaf(-BOW_s[rw * WQ + i * QS + tid], gp(GP_s, row, row),
+                         R_s[row * QS + tid]);
+          if constexpr (!PS::NOCORR) {
+            if (w > 0) {
+              r = __fadd_rn(r, C_s[cur * WQ + i * QS + tid]);
 #pragma unroll
               for (int m = 0; m < W; ++m)
                 r = fmaf(gp(GP_s, row, lo - W + m), dprev[m], r);
-            }
-            if constexpr (PR) {
-              if (!grid) {
-#pragma unroll
-                for (int m = 0; m < W; ++m)
-                  if (lb - W + m >= wst[i] ? k_push : k_corr)
-                    r = fmaf(gp(GP_s, row, lo - W + m), dprev[m], r);
-              }
             }
           }
           rr[i] = r;
@@ -1390,32 +1433,14 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
           const int row = lo + i, j = j0 + row;
           const int e = rw * WQ + i * QS + tid;
           const ChainStep st =
-              k_sig ? chain_step(ct, CPW_s[e], rr[i], AD_s[row * QS + tid],
-                                 cinv, BOW_s[e])
-                    : clip_step(ct, CPW_s[e], rr[i], AD_s[row * QS + tid],
+              CLIP ? clip_step(ct, CPW_s[e], rr[i], AD_s[row * QS + tid],
+                               cinv, BOW_s[e])
+                   : chain_step(ct, CPW_s[e], rr[i], AD_s[row * QS + tid],
                                 cinv, BOW_s[e]);
           D_s[row * QS + tid] = st.delta;
           GT_s[row * QS + tid] = st.gam;
           dprev[i] = st.delta;
-          if constexpr (PR) {
-            // the window in one window of psub (uniform), or several (on
-            // the grid: aligned powers of two), or off the grid per pair
-            if (!grid) {
-#pragma unroll
-              for (int a = i + 1; a < W; ++a)
-                if (lb + i >= wst[a] ? k_push : k_corr)
-                  rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
-            } else if (psub >= W ? k_push : false) {
-#pragma unroll
-              for (int a = i + 1; a < W; ++a)
-                rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
-            } else if (psub < W) {
-#pragma unroll
-              for (int a = i + 1; a < W; ++a)
-                if ((i ^ a) < psub ? k_push : k_corr)
-                  rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
-            }
-          } else {
+          if constexpr (!PS::NOPUSH) {
 #pragma unroll
             for (int a = i + 1; a < W; ++a)
               rr[a] = fmaf(gp(GP_s, lo + a, row), st.delta, rr[a]);
@@ -1435,48 +1460,23 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
         }
       } else if (warp >= S::NCW && w + 1 < nwin) {
         // meanwhile: the cp/beta rows two windows ahead, and the next
-        // window's corrections by every delta two or more windows back (a
-        // probe: rows before ms, ahead of the next window's window of psub,
-        // where it keeps the corrections, the rest where it keeps the
-        // pushes; on the grid ms is a multiple of W or lo, off it per row)
+        // window's corrections by every delta two or more windows back
         if (w + 2 < nwin) stage_rows(j0 + lo + 2 * W, (w + 2) % NRW, H0);
         cp_async_commit();
-        const int ms =
-            PR ? max(0, min(lo, (lb + W) / psub * psub - kp * B)) : 0;
-        const int mlo = PR && !k_corr ? ms : 0, mhi = PR && !k_push ? ms : lo;
-        if constexpr (PR) {
-          if (!grid) {
-            for (int e = tid - H0; e < WQ; e += NT - H0) {
-              const int t = e / QS, col = e % QS;
-              const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
-              const int mt =
-                  max(0, min(lo, (lb + W + t) / psub * psub - kp * B));
-              const int m1 = k_push ? lo : mt;
-              int m = k_corr ? 0 : mt;
-              float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-              for (; m + 4 <= m1; m += 4) {
-                s0 = fmaf(gr[m], D_s[m * QS + col], s0);
-                s1 = fmaf(gr[m + 1], D_s[(m + 1) * QS + col], s1);
-                s2 = fmaf(gr[m + 2], D_s[(m + 2) * QS + col], s2);
-                s3 = fmaf(gr[m + 3], D_s[(m + 3) * QS + col], s3);
-              }
-              for (; m < m1; ++m) s0 = fmaf(gr[m], D_s[m * QS + col], s0);
-              C_s[nxt * WQ + e] =
-                  __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
+        if constexpr (!PS::NOCORR) {
+          for (int e = tid - H0; e < WQ; e += NT - H0) {
+            const int t = e / QS, col = e % QS;
+            const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
+            float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+            for (int m = 0; m < lo; m += 4) {
+              s0 = fmaf(gr[m], D_s[m * QS + col], s0);
+              s1 = fmaf(gr[m + 1], D_s[(m + 1) * QS + col], s1);
+              s2 = fmaf(gr[m + 2], D_s[(m + 2) * QS + col], s2);
+              s3 = fmaf(gr[m + 3], D_s[(m + 3) * QS + col], s3);
             }
+            C_s[nxt * WQ + e] =
+                __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
           }
-        }
-        for (int e = tid - H0; e < WQ && grid; e += NT - H0) {
-          const int t = e / QS, col = e % QS;
-          const float* gr = GP_s + (lo + W + t) * (lo + W + t + 1) / 2;
-          float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-          for (int m = mlo; m < mhi; m += 4) {
-            s0 = fmaf(gr[m], D_s[m * QS + col], s0);
-            s1 = fmaf(gr[m + 1], D_s[(m + 1) * QS + col], s1);
-            s2 = fmaf(gr[m + 2], D_s[(m + 2) * QS + col], s2);
-            s3 = fmaf(gr[m + 3], D_s[(m + 3) * QS + col], s3);
-          }
-          C_s[nxt * WQ + e] = __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3));
         }
         cp_async_wait<1>();  // the next window's rows have landed
       }
@@ -1485,7 +1485,7 @@ __global__ void __launch_bounds__(Slice<QS>::NT, 1) sweep_fused_kernel(
 
     tick(2);
 
-    if constexpr (PR)  // the deltas of a block's earlier pieces
+    if constexpr (PS::PIECES)  // the deltas of a block's earlier pieces
       if (npc > 1 && kp < npc - 1)
         for (int e = tid; e < BQ; e += NT)
           dw_ws[(size_t)(kp * B + e / QS) * qsw + k0 + e % QS] = D_s[e];
@@ -2334,7 +2334,7 @@ bool tensor_maps(CUtensorMap* tx, CUtensorMap* tf, const void* x,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int QS, bool BF, bool LA, bool PR = false>
+template <int QS, bool BF, bool LA, int PR = 0>
 int launch(const void* x, const float* cp, const float* gram,
            const float* l_aug, const float* n_stack, const float* beta_in,
            float* fitted, const float* theta, const float* p_mask,
@@ -2344,12 +2344,14 @@ int launch(const void* x, const float* cp, const float* gram,
            float* z_col, float* gcol, float* m2gcol, float* b2col,
            const float* gram_full, const float* goff, void* fh_ws,
            float* dw_ws, int n, int p, int q, int B, int R, int c_one, int m,
-           int cp_batched, int Bfull, cudaStream_t st) {
+           int cp_batched, int Bfull, int probe, int psub, cudaStream_t st) {
   const size_t smem = checked_smem<QS, BF>(B, R);
   if (smem == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tx{}, tf{};  // (the f32 instance takes none)
   if (BF && !tensor_maps(&tx, &tf, x, fitted, n, p, q, m, B, QS))
     return (int)cudaErrorInvalidValue;
+  if (PR)  // the probe's code and window, in tm_x's first 8 bytes
+    tx.opaque[0] = (cuuint64_t)(unsigned)probe | (cuuint64_t)psub << 32;
   cudaError_t err =
       cudaFuncSetAttribute(sweep_fused_kernel<QS, BF, LA, PR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2454,13 +2456,12 @@ extern "C" {
 // lookahead variant, which reads the (p, Bfull) off-diagonal Gram blocks
 // `goff` and, where Bfull > B, takes workspaces twice as deep: fh_ws m x 2
 // x n x ceil(q / qs) qs bf16, dw_ws m x 2 Bfull x ceil(q / qs) qs floats.
-// probe >= 0 (not with lookahead; qs 32 only: at 40 columns, whose 320
-// threads leave ptxas 168 registers, the f32 schedule takes 167 and the
-// probe's code would spill) launches the probe instance with that
+// probe >= 0 (not with lookahead) launches a probe instance with that
 // code (PrBits; bf16 x under its PR_XBF bit, bf16 then 0) in chain windows
-// of psub rows (any divisor of Bfull), both
-// also in scal (c, kz, probe, psub per replica); where Bfull > B it reads
-// gram_full and takes dw_ws as the bf16 instance does (fh_ws null).
+// of psub rows (any divisor of Bfull): the one of its sigmoid bit and bf16
+// x (PrInst), at either width; where Bfull > B (qs 32 only) it reads
+// gram_full and takes dw_ws (m x (Bfull - B) x ceil(q / qs) qs floats;
+// fh_ws null).
 // Returns the CUDA error code of the launches (0 on success);
 // cudaErrorInvalidValue for a shape or width it does not take.
 int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
@@ -2485,6 +2486,7 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
       (lookahead && (!bf16 || goff == nullptr)) ||
       (probe >= 0 &&
        (bf16 || lookahead || psub <= 0 || Bfull % psub != 0 ||
+        (!(probe & PR_SIGMOID) && (probe & PR_PIN)) ||
         (Bfull > B && (gram_full == nullptr || dw_ws == nullptr)))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2493,7 +2495,8 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                          p_mask, zeta, q_mask, s2v, tauv, scal, beta_out,     \
                          gam_out, mu_out, zrow_part, z_row, z_col, gcol,      \
                          m2gcol, b2col, gram_full, goff, fh_ws, dw_ws, n, p,  \
-                         q, B, R, c_one, m, cp_batched, Bfull, st)
+                         q, B, R, c_one, m, cp_batched, Bfull, probe, psub,   \
+                         st)
   // the lookahead variant of whole blocks: the overlapped schedule
 #define ATLASQTL_LAUNCH_LA(QS)                                                \
   launch_la<QS>(static_cast<const __nv_bfloat16*>(x), cp, gram, l_aug,        \
@@ -2501,18 +2504,47 @@ int atlasqtl_sweep_fused(const void* x, const float* cp, const float* gram,
                 tauv, scal, beta_out, gam_out, mu_out, zrow_part, z_row,      \
                 z_col, gcol, m2gcol, b2col, goff, n, p, q, B, R, c_one, m,    \
                 cp_batched, st)
+  // a probe's instance (PrInst): its clipped logit, its pin, or its
+  // chain's shape (no probe takes two of them), bf16 x or not; the
+  // 32-column ones (P = PRI_PIECES) also take a block over BMAX.  The
+  // chain skips the terms across chain windows where the probe drops
+  // every one of them at its window (the corrections, and the pushes too
+  // unless the window divides W), and then the pushes inside a chain
+  // window too where it drops those (the Jacobi probes); elsewhere a
+  // dropped term is a zero of the Gram
+#define ATLASQTL_PROBE_X(QS, P)                                               \
+  (pinst & PRI_XBF ? ATLASQTL_LAUNCH(QS, false, false, PRI_ON | PRI_XBF | P)  \
+                   : ATLASQTL_LAUNCH(QS, false, false, PRI_ON | P))
+#define ATLASQTL_PROBE(QS, P)                                                 \
+  (pinst & PRI_CLIP  ? ATLASQTL_PROBE_X(QS, PRI_CLIP | P)                     \
+   : pinst & PRI_PIN ? ATLASQTL_PROBE_X(QS, PRI_PIN | P)                      \
+   : pinst & PRI_NOPUSH ? ATLASQTL_PROBE_X(QS, PRI_NOPUSH | PRI_NOCORR | P)    \
+   : pinst & PRI_NOCORR ? ATLASQTL_PROBE_X(QS, PRI_NOCORR | P)                \
+                        : ATLASQTL_PROBE_X(QS, P))
+  const bool kpush = probe & PR_PUSHES, kcorr = probe & PR_CORR;
+  const bool nocorr = !kcorr && (!kpush || W % psub == 0);
+  const int pinst =
+      probe < 0 ? 0
+                : PRI_ON | (probe & PR_SIGMOID ? 0 : PRI_CLIP) |
+                      (probe & PR_XBF ? PRI_XBF : 0) |
+                      (probe & PR_PIN ? PRI_PIN : 0) |
+                      (nocorr ? PRI_NOCORR : 0) |
+                      (nocorr && !kpush ? PRI_NOPUSH : 0);
   const bool overlap = lookahead && Bfull == B;
   if (qs == 32)
-    return overlap      ? ATLASQTL_LAUNCH_LA(32)
-           : lookahead  ? ATLASQTL_LAUNCH(32, true, true, false)
-           : bf16       ? ATLASQTL_LAUNCH(32, true, false, false)
-           : probe >= 0 ? ATLASQTL_LAUNCH(32, false, false, true)
-                        : ATLASQTL_LAUNCH(32, false, false, false);
-  if (qs == 40 && probe < 0)  // the probe instance: 32 columns only
+    return overlap     ? ATLASQTL_LAUNCH_LA(32)
+           : lookahead ? ATLASQTL_LAUNCH(32, true, true, 0)
+           : bf16      ? ATLASQTL_LAUNCH(32, true, false, 0)
+           : pinst     ? ATLASQTL_PROBE(32, PRI_PIECES)
+                       : ATLASQTL_LAUNCH(32, false, false, 0);
+  if (qs == 40 && !(pinst && Bfull > B))
     return overlap     ? ATLASQTL_LAUNCH_LA(40)
-           : lookahead ? ATLASQTL_LAUNCH(40, true, true, false)
-           : bf16      ? ATLASQTL_LAUNCH(40, true, false, false)
-                       : ATLASQTL_LAUNCH(40, false, false, false);
+           : lookahead ? ATLASQTL_LAUNCH(40, true, true, 0)
+           : bf16      ? ATLASQTL_LAUNCH(40, true, false, 0)
+           : pinst     ? ATLASQTL_PROBE(40, 0)
+                       : ATLASQTL_LAUNCH(40, false, false, 0);
+#undef ATLASQTL_PROBE
+#undef ATLASQTL_PROBE_X
 #undef ATLASQTL_LAUNCH
 #undef ATLASQTL_LAUNCH_LA
   return (int)cudaErrorInvalidValue;

@@ -48,7 +48,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -89,8 +91,9 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile the kernel sources of csrc/ for sm_90a into one shared library
     in _build/ (once per source hash) and return its path: one nvcc per
-    source, all started together, then one link.  verbose rebuilds and
-    prints ptxas's register and shared-memory report (kept in
+    source, all started together, then one link; each nvcc's wall seconds
+    go to `build.seconds` by source name.  verbose rebuilds and prints
+    ptxas's register and shared-memory report (kept in
     `build.ptxas_report`)."""
     h = hashlib.sha256()
     for src in (*_SOURCES, *_HEADERS):
@@ -103,14 +106,20 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o")
             for src in _SOURCES]
-    procs = [subprocess.Popen(
-        [nvcc, *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
-         "-o", str(obj), str(src)], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for src, obj in zip(_SOURCES, objs)]
-    errs = [proc.communicate()[1] for proc in procs]
+    def compile_one(src, obj):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", str(obj), str(src)], capture_output=True, text=True)
+        return proc, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(_SOURCES)) as pool:
+        runs = list(pool.map(compile_one, _SOURCES, objs))
+    build.seconds = {src.name: sec for src, (_, sec) in zip(_SOURCES, runs)}
+    errs = [proc.stderr for proc, _ in runs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        for src, proc, err in zip(_SOURCES, procs, errs):
+        for src, (proc, _), err in zip(_SOURCES, runs, errs):
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name} "
                                    f"({proc.returncode}):\n{err}")
@@ -129,6 +138,7 @@ def build(verbose: bool = False) -> Path:
 
 
 build.ptxas_report = ""
+build.seconds = {}
 
 
 def _load():
@@ -187,7 +197,10 @@ def _load():
 # the kernel's constants (csrc/sweep_fused.cu)
 FUSED_BMAX = 128          # the largest block a launch walks in one piece
 FUSED_WIDTHS = (32, 40)   # the slice widths built (response columns)
-FUSED_PROBE_WIDTHS = (32,)   # those of the probe instance
+# the slice widths of the probe instances that take a block over
+# FUSED_BMAX in pieces (at 40 columns the pieces' code would spill B1's
+# f32 schedule); the others are built at FUSED_WIDTHS
+FUSED_PROBE_PIECE_WIDTHS = (32,)
 FUSED_NCH = 32            # sample rows per pass chunk
 FUSED_NSTAGE = 3          # F and x_b chunk stages
 FUSED_NXA = 2             # x_{b-1} chunk stages
@@ -305,17 +318,21 @@ def fused_launch_plan(n: int, q: int, block: int, r_aug: int,
     lookahead variant, whose overlapped kernel takes a block up to
     FUSED_BMAX whole (224 KB at block 128, width 40, r + 2 = 48) and a
     larger block in pieces through the bf16 instance's serial schedule.
-    probe: the plan of the probe instance, the float32 one's in slices of
-    FUSED_PROBE_WIDTHS (at 40 columns its code would spill).  Raises
-    ValueError on a shape the kernel does not take."""
+    probe: the plan of the probe instances, the float32 one's (they run
+    its schedule in slices of FUSED_WIDTHS, B1's), but for a block
+    over FUSED_BMAX in FUSED_PROBE_PIECE_WIDTHS.  `widths` names the
+    widths the plan chose among.  Raises ValueError on a shape the kernel
+    does not take."""
     if (n <= 0 or block <= 0 or block % FUSED_W or q <= 0 or q % 4
             or not 0 < r_aug <= 48 or m < 1):
         raise ValueError(f"sweep_fused kernel: unsupported shape n={n}, "
                          f"q={q}, block={block}, r+2={r_aug}, m={m}")
     sub = sub_block(block)
-    width, waves = _widest_fill(
-        q, FUSED_PROBE_WIDTHS if probe else FUSED_WIDTHS, sms, m)
-    return dict(slice_width=width, sub_block=sub, cluster=1,
+    widths = (FUSED_WIDTHS if not probe
+              else FUSED_WIDTHS if sub == block
+              else FUSED_PROBE_PIECE_WIDTHS)
+    width, waves = _widest_fill(q, widths, sms, m)
+    return dict(slice_width=width, widths=widths, sub_block=sub, cluster=1,
                 grid=-(-q // width), waves=waves,
                 smem_bytes=_fused_smem_bytes(
                     width, sub, r_aug, bf16,
@@ -476,8 +493,10 @@ class Probe(NamedTuple):
         return self.proj or self.jacobi
 
     def code(self, bf16: bool) -> int:
-        """The probe instance's runtime code (csrc/sweep_fused.cu:PrBits):
-        one bit per part kept, the diagonal's, and bf16 x."""
+        """The probe instances' code (csrc/sweep_fused.cu:PrBits): one bit
+        per part kept, the diagonal's, and bf16 x; the sigmoid's bit, bf16
+        x, the pin and (with the window) the pushes' and corrections' bits
+        pick the instance (PrInst), the others are read once per block."""
         return (sum(int(v) << i for i, v in enumerate(self))
                 | int(self.diagonal) << len(self) | int(bf16) << len(self) + 1)
 
@@ -511,12 +530,11 @@ def probe_parts(probe: str) -> Probe:
 
 
 def probe_window_ok(window: int) -> bool:
-    """Whether B1's probe instance takes the chain window `window`: every
+    """Whether B1's probe instances take the chain window `window`: every
     positive window (`fused_window` holds it to a divisor of the block).
-    On the 8-row grid (a divisor of FUSED_W or a multiple of it) a window of
-    FUSED_W rows lies in one window or is a run of whole ones, and the
-    instance keeps or drops a push per window; off it (3, 6, 12, ...) per
-    pair of rows (csrc/sweep_fused.cu:wst)."""
+    They run B1's chain on the block's Gram triangle with the entries of
+    what the probe drops (pushes inside a window, corrections across
+    windows) zeroed as it lands, on the 8-row grid and off it alike."""
     return window >= 1
 
 
@@ -755,19 +773,21 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
     bf16 launches B1's bf16 instance (mxu_bf16), whose x is the bfloat16
     copy (`bf16_operand`); B4 has none.  lookahead launches that instance's
     lookahead variant, which also reads `goff` (`lookahead_gram`).  probe
-    (a `Probe`) launches B1's probe instance, in windows of `window` (any
-    that divides the block, `fused_window`): the
-    float32 instance's schedule in slices of FUSED_PROBE_WIDTHS, reading
-    the bf16 copy of x under bf16; a
-    block in pieces is the whole block there (each piece projects the
+    (a `Probe`) launches one of B1's probe instances, in windows of
+    `window` (any that divides the block, `fused_window`): the float32
+    instance's schedule in its plan, reading the bf16 copy of x under bf16;
+    a block in pieces is the whole block there (each piece projects the
     block-start F, the block's advance deferred to its last piece, the
     earlier pieces' deltas through the Gram where the probe keeps them),
-    its deltas in a workspace.  Raises on what the kernels cannot take and
-    on a failed launch."""
+    its deltas in a workspace.  `Probe()` (every part kept) in float32 is
+    B1 itself: it launches the float32 instance.  Raises on what the
+    kernels cannot take and on a failed launch."""
     n, p = x.shape[-2:]
     q = beta.shape[-1]
     r_aug = l_aug.shape[-1]
     what = entry.replace("atlasqtl_", "")
+    if probe == Probe() and not bf16:
+        probe = None   # every part kept: B1's float32 instance
     args = (x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted, theta, p_mask,
             zeta, q_mask, sig2_beta, tau, c, kz, goff)
     try:
@@ -817,7 +837,7 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
         raise ValueError(f"{what} kernel: unsupported shape n={n}, p={p},"
                          f" q={q}, block={block_size}, r+2={r_aug}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # the probe instance is the float32 one's schedule (bf16 x or not)
+    # the probe instances run the float32 one's schedule (bf16 x or not)
     inst_bf16 = bool(bf16) and probe is None
     launch = (plan(n, q, block_size, r_aug, sms) if plan is not None
               else fused_launch_plan(n, q, block_size, r_aug, sms, m,
@@ -825,17 +845,20 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                                      probe=probe is not None))
     slice_width = slice_width or launch["slice_width"]
     sub = launch["sub_block"]
+    if (probe is not None and sub < block_size
+            and slice_width not in FUSED_PROBE_PIECE_WIDTHS):
+        raise ValueError(f"{what} kernel: a probe takes a block over "
+                         f"{FUSED_BMAX} in slices of "
+                         f"{FUSED_PROBE_PIECE_WIDTHS} columns only, not "
+                         f"{slice_width}")
     gram_full = gram_flat
     gram_flat = sub_block_gram(gram_flat, block_size, sub)
     lib = _load()
     dev = x.device
     lead = (m,) if any(batched) else ()
-    # c and K/c; the probe instance's code and window after them
-    scal = torch.stack([
-        as_scalar(v, torch.float32, dev).expand(lead)
-        for v in (c, kz) + (() if probe is None else (
-            float(probe.code(bf16)), float(fused_window(window, block_size))))
-    ], dim=-1).contiguous()
+    # c and K/c
+    scal = torch.stack([as_scalar(v, torch.float32, dev).expand(lead)
+                        for v in (c, kz)], dim=-1).contiguous()
     fitted = fitted.clone()
     beta_out = torch.empty_like(beta)
     gam_out = torch.empty_like(beta) if emit_gam_mu else None
@@ -864,7 +887,7 @@ def fused_launch(entry, x, cp_x_y, gram_flat, l_aug, n_stack, beta, fitted,
                             dtype=torch.float32, device=dev)
     # B1's replica count, whether X^T Y is per replica, its instance and
     # variant, the whole block and what its bf16 instance reads of it
-    # B1's probe instance: the probe's code (-1: none) and window
+    # B1's probe instances: the probe's code (-1: none) and window
     extra = ((m, int(batched[1]), int(inst_bf16), int(bool(lookahead)),
               block_size, -1 if probe is None else probe.code(bf16),
               fused_window(window, block_size) if probe is not None else 0,

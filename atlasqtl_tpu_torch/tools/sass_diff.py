@@ -4,7 +4,9 @@ package builds with, in both trees at once, and every kernel function's
 SASS (``cuobjdump -sass``) and resources (``cuobjdump -res-usage``) are set
 side by side, by mangled name (the anonymous namespace's per-checkout tag
 left out; an instance whose template gained a last parameter that defaults
-to false is set beside the other checkout's instance without it).  A kernel whose SASS is identical computes what it computed
+to false is set beside the other checkout's instance without it, and one
+whose last template argument went from `false` to the int 0 beside the
+other's `false`).  A kernel whose SASS is identical computes what it computed
 before, bit for bit, on the same arguments.
 
     python -m atlasqtl_tpu_torch.tools.sass_diff OTHER_ROOT [--out FILE]
@@ -39,6 +41,8 @@ _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
 # parameter that defaults to false (or a pack), its instance is the
 # other's without it
 _LAST_FALSE = re.compile(r"Lb0E(?:JE)?(E+v)")
+# a last template argument that was `false` and is the int 0 here
+_LAST_INT0 = re.compile(r"Li0E(E+v)")
 _PACK = re.compile(r"DpT\d*_$")
 
 
@@ -48,11 +52,15 @@ def _plain(text):
 
 def _counterpart(name, there):
     """The other checkout's function for this one's `name`: the same
-    name, or the name without an added last template argument `false`."""
+    name, the name without an added last template argument `false`, or
+    the name with its last template argument 0 as `false`."""
     if name in there:
         return name
-    other = _PACK.sub("", _LAST_FALSE.sub(r"\1", name, count=1))
-    return other if other != name and other in there else None
+    for other in (_PACK.sub("", _LAST_FALSE.sub(r"\1", name, count=1)),
+                  _LAST_INT0.sub(r"Lb0E\1", name, count=1)):
+        if other != name and other in there:
+            return other
+    return None
 
 
 def _compile(srcs, work):

@@ -3363,6 +3363,9 @@ PROBE_SHAPE = (120, 256, 200)   # n, p, q of the B1 parity cases
 # B2's parity shapes: on chip (a cluster of 4) and Fm in device memory
 PROBE_MIS_SHAPES = ((80, 250, 40, 0.2), (8000, 256, 256, 0.15))
 PROBE_TIMED = (1000, 2048, 10000)   # the eQTL cut, block 128
+# a shape whose plan takes 32 columns (the probe instances that also take
+# a block over 128 in pieces), timed likewise beside B1
+PROBE_TIMED_32 = (1000, 2048, 2048)
 PROBE_REPS = 5                  # CUDA-event launches per turn (median)
 PROBE_ROUNDS = 3                # rounds of turns (each sweep once a round)
 # B1's windows off the 8-row grid (neither dividing 8 nor a multiple of
@@ -3371,8 +3374,8 @@ PROBE_ROUNDS = 3                # rounds of turns (each sweep once a round)
 PROBE_OFF_GRID = ((240, 48, (3, 6, 12)), (240, 40, (5,)), (384, 192, (12,)),
                   (400, 200, (25,)))
 # and timed at the eQTL cut's n and q with p = 2016 = 42 x 48 = 21 x 96:
-# (block, window), one round of turns against the same instance's exact
-# sweep; B2's windows over 16 likewise at PROBE_TIMED
+# (block, window), in rounds of turns against B1's float32 instance at
+# that block; B2's windows over 16 likewise at PROBE_TIMED
 PROBE_OFF_GRID_TIMED = (1000, 2016, 10000)
 PROBE_OFF_GRID_WINDOWS = ((48, 6), (96, 12))
 PROBE_DEEP_WINDOWS = (32, 64, 128)
@@ -3391,11 +3394,9 @@ PROBE_MIS_ANY = ((240, 48, (3, 6, 12, 24)), (240, 40, (5, 20)),
                  (400, 200, (25, 200)))
 PROBE_MAIN = "noadv"            # the probe the phase's main path runs
 # each phase's cost as the difference of two sweeps at the eQTL cut: the
-# sweep that keeps it less the probe that drops it ("none": the probe
-# instance with every part kept, the exact function in the probe
-# instance's schedule, which for B2 is B2's own; the production instance is
-# timed beside it); tiles_and_z
-# (jacobi - jacobi_min) also holds the Z Mills tiles
+# sweep that keeps it less the probe that drops it ("none": B1's float32
+# instance itself, in its plan, whose schedule every probe runs);
+# tiles_and_z (jacobi - jacobi_min) also holds the Z Mills tiles
 PROBE_COSTS = {"projection": ("none", "nor0"), "advance": ("none", "noadv"),
                "chain_order": ("none", "jacobi"),
                "z_mills": ("none", "exact_noz"),
@@ -3604,44 +3605,82 @@ def b2_probe_rounds(ops, blk, win, mdims, rounds=PROBE_ROUNDS):
     return entry
 
 
+def b1_probe_rounds(ops, kw, sub, probes, rounds=PROBE_ROUNDS):
+    """B1's probes `probes` at window `sub` in `rounds` rounds of turns
+    (`probe_turns`) beside B1's float32 instance (its own launch, in its
+    plan; the turns' baseline "none"): B1's ms and bound, each probe's ms,
+    bound (`probe_bound_ms`) and share of it and its time over B1's; the
+    implied phase costs (PROBE_COSTS, read against B1, where `probes`
+    holds them all); and CTA 0's phase clocks of one launch of each
+    (sf.phase_clocks)."""
+    import torch
+    from atlasqtl_tpu_torch.ops import sweep_fused as sf
+    fns = {"none": lambda: sf.sweep_fused(*ops, **kw)}
+    fns.update({pr: (lambda pr=pr: sf.sweep_fused(*ops, **kw, probe=pr,
+                                                  sub=sub))
+                for pr in probes})
+    turns, offsets = probe_turns(fns, rounds=rounds)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    clocks = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        clocks["b1" if name == "none" else name] = sf.phase_clocks()
+    dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1],
+            kw["block_size"], ops[3].shape[1], kw["emit_gam_mu"])
+    entry = dict(block=kw["block_size"], window=sub, rounds=rounds,
+                 b1_ms=med["none"], b1_turns=turns["none"],
+                 b1_bound_ms=sweep_bound_ms(*dims)[0], by_probe={},
+                 clocks=clocks)
+    for pr in probes:
+        b, by = probe_bound_ms(*dims, sf.PROBES[pr], sub)
+        entry["by_probe"][pr] = dict(
+            ms=med[pr], turns=turns[pr], bound_ms=b, bound_by=by,
+            pct_of_bound=pct(b, med[pr]), over_b1=med[pr] / med["none"])
+    if all(pr in probes for pair in PROBE_COSTS.values() for pr in pair
+           if pr != "none"):
+        entry["implied_ms"] = implied_costs(offsets, PROBE_COSTS)
+    return entry
+
+
 def phase_probes():
     """The perf probes of B1 (Config.sweep_probe, ops/sweep_fused.py:
     PROBES, B5c) and B2 (probe=, ops/sweep_missing_fused.py:MIS_PROBES,
     B5e), each an instance of its kernel (csrc/sweep_fused.cu:
-    sweep_fused_kernel<32, false, false, true>, csrc/sweep_missing_fused.cu:
-    sweep_missing_kernel<FM_ON_CHIP, SUB, true>).  Parity: every B1 probe
-    against its plain version at PROBE_SHAPE, blocks 128 (window 8) and
-    256 (pieces of 128, window 16), c = 1 and 0.5, at the kernel phase's
-    tolerance; under mxu_bf16 at block 128 by the bf16_modes phase's mean
-    criterion; noseq and norank at windows 1, 2, 4 and 32 (block 128) and
-    4 (block 256), and with exact_noz off the 8-row grid (PROBE_OFF_GRID);
-    one probe with m = 2
-    replicas (held against the plain version, each replica bit for bit
-    its own launch in slices of the same width).  Each B2 probe at
-    mis_sub 1 to 128, f32 and pair_bf16, on chip and (mis_sub 16 to 128)
-    with Fm in device memory, and in f32 at the windows of PROBE_MIS_ANY,
-    at the mis_kernel phase's tolerance; at each of those windows the
-    float32 probe instance's exact sweep (B2's own schedule) against B2's
-    float32 instance at that tolerance, and whether bit for bit; noseq,
-    noadv and noadvmask at windows 32 and 128 at PROBE_MIS_RANKS (a
-    cluster of 4 at n = 1000, two replicas in one launch, each held on its
-    own).  Times at the eQTL cut (PROBE_TIMED, block 128, converged and lite): each B1 probe
-    beside the exact sweep in turns (exact, probe, probe, exact), median
-    of PROBE_REPS launches, PROBE_ROUNDS rounds (`probe_turns`), the
-    exact sweep that of the probe instance
-    with every part kept (and the production instance beside it, in the
-    probe instance's 32-column slices and in its plan's width); the
-    implied phase costs (PROBE_COSTS, `implied_costs`: median, range and
-    whether the rounds agree in sign); B2's four at mis_sub 16 and
+    sweep_fused_kernel<QS, false, false, PR>, PR one of 12 PrInst codes
+    per width, csrc/sweep_missing_fused.cu: sweep_missing_kernel<
+    FM_ON_CHIP, SUB, true>).  Parity: every B1 probe against its plain
+    version at PROBE_SHAPE at each width its plan can take (32, and 40
+    forced; a block over 128 only 32), blocks 128
+    (window 8) and 256 (pieces of 128, window 16), c = 1 and 0.5, at the
+    kernel phase's tolerance; under mxu_bf16 at block 128 by the bf16_modes
+    phase's mean criterion; noseq and norank at windows 1, 2, 4 and 32
+    (block 128) and 4 (block 256), and with exact_noz off the 8-row grid
+    (PROBE_OFF_GRID); the probe with every part kept bit for bit B1's
+    float32 instance; one probe with m = 2 replicas (held against the plain
+    version, each replica bit for bit its own launch in slices of the same
+    width).  Each B2 probe at mis_sub 1 to 128, f32 and pair_bf16, on chip
+    and (mis_sub 16 to 128) with Fm in device memory, and in f32 at the
+    windows of PROBE_MIS_ANY, at the mis_kernel phase's tolerance; at each
+    of those windows the float32 probe instance's exact sweep (B2's own
+    schedule) against B2's float32 instance at that tolerance, and whether
+    bit for bit; noseq, noadv and noadvmask at windows 32 and 128 at
+    PROBE_MIS_RANKS (a cluster of 4 at n = 1000, two replicas in one
+    launch, each held on its own).  Times at the eQTL cut (PROBE_TIMED,
+    block 128, converged and lite): each B1 probe in its plan beside B1's
+    float32 instance in turns (B1, probe, probe, B1), median of PROBE_REPS
+    launches, PROBE_ROUNDS rounds (`b1_probe_rounds`): its time over B1's
+    and the implied phase costs (PROBE_COSTS, `implied_costs`: median,
+    range and whether the rounds agree in sign), CTA 0's phase clocks of
+    each; B1's eleven at PROBE_TIMED_32 (32 columns) and its noseq and
+    norank at PROBE_OFF_GRID_WINDOWS (PROBE_OFF_GRID_TIMED) likewise; B2's four at mis_sub 16 and
     PROBE_DEEP_WINDOWS likewise, and at PROBE_MIS_OFF_TIMED off the 8-row
     grid (`b2_probe_rounds`: against B2's float32 instance, the probe
-    instance's exact sweep beside it; each sweep's CTA 0 phase clocks); B2's pair_bf16 probe instances (noadv,
-    noadvmask) at mis_sub 16 beside B2's pair_bf16 instance; in one round
-    of turns each, B1's noseq and norank at PROBE_OFF_GRID_WINDOWS
-    (PROBE_OFF_GRID_TIMED), beside the same instance's exact sweep there.
-    Registers
-    and spills of the probe instances and of the production ones.  The
-    main path: `probe_routing` and one B2 probe call through
+    instance's exact sweep beside it; each sweep's CTA 0 phase clocks);
+    B2's pair_bf16 probe instances (noadv, noadvmask) at mis_sub 16 beside
+    B2's pair_bf16 instance.  Registers and spills of the probe instances
+    and of the production ones (any spill fails).  The main path:
+    `probe_routing` and one B2 probe call through
     sweep_missing_fused_driver, each with the counters zeroed before."""
     import torch
     from atlasqtl_tpu_torch.ops import sweep_fused as sf
@@ -3654,59 +3693,82 @@ def phase_probes():
     out["registers"] = {k: v for k, v in regs.items()
                         if k.startswith(("sweep_fused_kernel",
                                          "sweep_missing_kernel"))}
+    # B1's probe instances: ten PrInst codes at each width (B1's chain,
+    # the clipped logit, the pin, the chain without its corrections or
+    # without its pushes and corrections; bf16 x or not), none spilling
+    b1_inst = {k: v for k, v in regs.items() if re.fullmatch(
+        r"sweep_fused_kernelILi(32|40)ELb0ELb0ELi[1-9]\d*EE", k)}
+    out["b1"]["instances"] = b1_inst
+    if len(b1_inst) != 10 * len(sf.FUSED_WIDTHS) or any(
+            v.get("spill_stores") or v.get("spill_loads")
+            for v in b1_inst.values()):
+        raise AssertionError(f"B1's probe instances: {b1_inst}")
 
-    # ---- B1: each probe against its plain version ----
+    # ---- B1: each probe against its plain version, at both widths ----
     n, p, q = PROBE_SHAPE
     cases = []
+
+    def b1_launch(ops, kw, probe, width, x=None, bf16=False):
+        return flat(sf.fused_launch(
+            "atlasqtl_sweep_fused", ops[0] if x is None else x, *ops[1:],
+            block_size=kw["block_size"], emit_gam_mu=True,
+            c_one=kw["c_one"], bf16=bf16, probe=sf.PROBES[probe],
+            window=kw["sub"], slice_width=width))
+
+    def b1_held(label, ops, kw, probe, f_scale, **where):
+        """B1's probe `probe` at each width its plan could take
+        (PROBE_SHAPE's plan takes 32 columns; 40 forced; a block over 128
+        only 32) against its plain version."""
+        ref = flat(sf.sweep_fused_plain(*ops, **kw, probe=probe))
+        widths = sf.fused_launch_plan(
+            ops[0].shape[0], ops[5].shape[1], kw["block_size"],
+            ops[3].shape[1], probe=True)["widths"]
+        for w in widths:
+            errs = held(f"{label}, {w} columns",
+                        b1_launch(ops, kw, probe, w), ref, B1_NAMES,
+                        scales=f_scale)
+            max_abs["b1"] = max(max_abs["b1"], *errs.values())
+            cases.append(dict(probe=probe, slice_width=w, **where,
+                              max_abs_err=max(errs.values())))
+
     for block, sub in ((128, 8), (256, 16)):
         for c in (1.0, 0.5):
             ops, blk = kernel_inputs(n, p, q, c, block=block)
             kw = dict(block_size=blk, c_one=c == 1.0, sub=sub)
+            # F out = F in + X delta: where a probe makes the two
+            # cancel (nor0), F's rounding is that of F in's scale
             f_scale = {"fitted": float(ops[6].abs().max())}
             for probe in sf.PROBES:
-                got = sf.sweep_fused(*ops, **kw, probe=probe)
-                ref = sf.sweep_fused_plain(*ops, **kw, probe=probe)
-                torch.cuda.synchronize()
-                # F out = F in + X delta: where a probe makes the two
-                # cancel (nor0), F's rounding is that of F in's scale
-                errs = held(f"B1 probe {probe} vs plain at block {blk} "
-                            f"window {sub} c={c}", flat(got), flat(ref),
-                            B1_NAMES, scales=f_scale)
-                max_abs["b1"] = max(max_abs["b1"], *errs.values())
-                cases.append(dict(probe=probe, block=blk, window=sub, c=c,
-                                  max_abs_err=max(errs.values())))
+                b1_held(f"B1 probe {probe} vs plain at block {blk} window "
+                        f"{sub} c={c}", ops, kw, probe, f_scale, block=blk,
+                        window=sub, c=c)
             # the windows where noseq and norank change: below 8 (a
             # window of 8 rows holds several), 32; 4 in pieces too
             for win in ((1, 2, 4, 32) if block == 128 else (4,)):
                 if c != 1.0:
                     break
                 for probe in ("noseq", "norank"):
-                    kww = dict(kw, sub=win)
-                    errs = held(f"B1 probe {probe} block {blk} window {win}",
-                                flat(sf.sweep_fused(*ops, **kww,
-                                                    probe=probe)),
-                                flat(sf.sweep_fused_plain(*ops, **kww,
-                                                          probe=probe)),
-                                B1_NAMES, scales=f_scale)
-                    max_abs["b1"] = max(max_abs["b1"], *errs.values())
-                    cases.append(dict(probe=probe, block=blk, window=win,
-                                      c=c, max_abs_err=max(errs.values())))
+                    b1_held(f"B1 probe {probe} block {blk} window {win}",
+                            ops, dict(kw, sub=win), probe, f_scale,
+                            block=blk, window=win, c=c)
             if block == 128 and c == 1.0:
                 # under mxu_bf16: the kernel reads the bf16 copy of x
                 x16 = ops[0].to(torch.bfloat16)
                 for probe in sf.PROBES:
-                    got = sf.sweep_fused(x16, *ops[1:], **kw, probe=probe,
-                                         bf16=True)
                     ref = sf.sweep_fused_plain(*ops, **kw, probe=probe,
                                                bf16=True)
                     f32 = sf.sweep_fused_plain(*ops, **kw, probe=probe)
-                    f32k = sf.sweep_fused(*ops, **kw, probe=probe)
-                    errs = mean_held(f"B1 probe {probe} under mxu_bf16",
-                                     flat(got), flat(ref), flat(f32),
-                                     flat(f32k), B1_NAMES)
-                    cases.append(dict(probe=probe, block=blk, window=sub,
-                                      c=c, bf16=True, mean_abs_err=max(
-                                          e["mean"] for e in errs.values())))
+                    for w in sf.FUSED_WIDTHS:
+                        errs = mean_held(
+                            f"B1 probe {probe} under mxu_bf16, {w} columns",
+                            b1_launch(ops, kw, probe, w, x16, True),
+                            flat(ref), flat(f32), b1_launch(ops, kw, probe, w),
+                            B1_NAMES)
+                        cases.append(dict(probe=probe, block=blk, window=sub,
+                                          c=c, bf16=True, slice_width=w,
+                                          mean_abs_err=max(
+                                              e["mean"]
+                                              for e in errs.values())))
             del ops
     # the windows off the 8-row grid (a window starts inside a chain
     # window), at blocks 48, 40, 192 (pieces of 96) and 200 (pieces of 40)
@@ -3716,38 +3778,54 @@ def phase_probes():
         f_scale = {"fitted": float(ops[6].abs().max())}
         for win in wins:
             for probe in ("noseq", "norank", "exact_noz"):
-                kww = dict(kw, sub=win, probe=probe)
-                errs = held(f"B1 probe {probe} block {blk} window {win}",
-                            flat(sf.sweep_fused(*ops, **kww)),
-                            flat(sf.sweep_fused_plain(*ops, **kww)),
-                            B1_NAMES, scales=f_scale)
-                max_abs["b1"] = max(max_abs["b1"], *errs.values())
-                cases.append(dict(probe=probe, block=blk, window=win, c=1.0,
-                                  p=ops[0].shape[1],
-                                  max_abs_err=max(errs.values())))
+                b1_held(f"B1 probe {probe} block {blk} window {win}", ops,
+                        dict(kw, sub=win), probe, f_scale, block=blk,
+                        window=win, c=1.0, p=ops[0].shape[1])
         del ops
-    # m = 2 replicas in one launch
+    # routing: the probe with every part kept launches B1's float32
+    # instance; and a probe instance that drops nothing at its window (the
+    # corrections at a window of the whole block, the pushes at a window
+    # of one row: B1's chain on a Gram with no entry zeroed) is B1, bit
+    # for bit
+    ops, blk = kernel_inputs(n, p, q, 1.0)
+    for w in sf.FUSED_WIDTHS:
+        kw = dict(block_size=blk, emit_gam_mu=True, c_one=True,
+                  slice_width=w)
+        b1 = flat(sf.fused_launch("atlasqtl_sweep_fused", *ops, **kw))
+        for label, parts, win in (
+                ("every part kept", sf.Probe(), 8),
+                ("no corrections, window = block",
+                 sf.Probe(corrections=False), blk),
+                ("no pushes, window 1", sf.Probe(pushes=False), 1)):
+            got = flat(sf.fused_launch("atlasqtl_sweep_fused", *ops, **kw,
+                                       probe=parts, window=win))
+            if not all(torch.equal(a, b) for a, b in zip(got, b1)):
+                raise AssertionError(f"B1's probe ({label}) differs from "
+                                     f"B1 at {w} columns")
+            cases.append(dict(probe=label, vs="B1", slice_width=w,
+                              bit_for_bit=True))
+    del ops
+    # m = 2 replicas in one launch, at each width
     data, states, gram, blk = replica_problem("b1", n, p, q, 2)
     parts, stacked = replica_operands("b1", data, states, gram, blk, 1.0)
     kw = dict(block_size=blk, c_one=True, sub=8, probe=PROBE_MAIN)
-    got = flat(sf.sweep_fused(*stacked, **kw))
-    held(f"B1 probe {PROBE_MAIN}, 2 replicas, vs plain", got,
-         flat(sf.sweep_fused_plain(*stacked, **kw)), B1_NAMES,
-         scales={"fitted": float(stacked[6].abs().max())})
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    width = sf.fused_launch_plan(parts[0][0].shape[0], parts[0][5].shape[1],
-                                 blk, parts[0][3].shape[1], sms, m=2,
-                                 probe=True)["slice_width"]
-    for r, ops in enumerate(parts):
-        one = flat(sf.fused_launch(
-            "atlasqtl_sweep_fused", *ops, block_size=blk, emit_gam_mu=True,
-            c_one=True, probe=sf.PROBES[PROBE_MAIN], window=8,
-            slice_width=width))
-        if not all(torch.equal(a[r], b) for a, b in zip(got, one)):
-            raise AssertionError(f"B1 probe replica {r} differs from its "
-                                 f"own launch")
-    cases.append(dict(probe=PROBE_MAIN, replicas=2, block=blk,
-                      replicas_bit_for_bit=True))
+    ref = flat(sf.sweep_fused_plain(*stacked, **kw))
+    lk = dict(block_size=blk, emit_gam_mu=True, c_one=True,
+              probe=sf.PROBES[PROBE_MAIN], window=8)
+    for w in sf.FUSED_WIDTHS:
+        got = flat(sf.fused_launch("atlasqtl_sweep_fused", *stacked, **lk,
+                                   slice_width=w))
+        held(f"B1 probe {PROBE_MAIN}, 2 replicas, {w} columns, vs plain",
+             got, ref, B1_NAMES,
+             scales={"fitted": float(stacked[6].abs().max())})
+        for r, ops in enumerate(parts):
+            one = flat(sf.fused_launch("atlasqtl_sweep_fused", *ops, **lk,
+                                       slice_width=w))
+            if not all(torch.equal(a[r], b) for a, b in zip(got, one)):
+                raise AssertionError(f"B1 probe replica {r} differs from "
+                                     f"its own launch at {w} columns")
+        cases.append(dict(probe=PROBE_MAIN, replicas=2, block=blk,
+                          slice_width=w, replicas_bit_for_bit=True))
     del data, states, gram, parts, stacked
     out["b1"]["cases"] = cases
 
@@ -3842,67 +3920,42 @@ def phase_probes():
                              "finite outputs expected")
     del ops
 
-    # ---- times at the eQTL cut ----
+    # ---- times at the eQTL cut, against B1's float32 instance ----
     n, p, q = PROBE_TIMED
     ops, blk = kernel_inputs(n, p, q, 1.0)
-    dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], blk,
-            ops[3].shape[1], False)
     kw = dict(block_size=blk, emit_gam_mu=False, c_one=True)
     sub = 8   # the JAX rule at n <= 2048
-    prod_width = sf.fused_launch_plan(n, q, blk, dims[4], sms)["slice_width"]
-    launch = lambda **k: sf.fused_launch("atlasqtl_sweep_fused", *ops, **kw,
-                                         **k)
-    fns = {"none": lambda: launch(probe=sf.Probe(), window=sub)}
-    fns.update({pr: (lambda pr=pr: sf.sweep_fused(*ops, **kw, probe=pr,
-                                                  sub=sub))
-                for pr in sf.PROBES})
-    fns["production"] = lambda: launch(slice_width=sf.FUSED_PROBE_WIDTHS[0])
-    turns, offsets = probe_turns(fns)
-    med = {k: statistics.median(v) for k, v in turns.items()}
-    by_probe = {}
-    for pr, parts in sf.PROBES.items():
-        b, by = probe_bound_ms(*dims, parts, sub)
-        by_probe[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
-                            bound_by=by, pct_of_bound=pct(b, med[pr]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    width = sf.fused_launch_plan(n, q, blk, ops[3].shape[1],
+                                 sms)["slice_width"]
+    entry = b1_probe_rounds(ops, kw, sub, list(sf.PROBES))
     plain = lambda: sf.sweep_fused_plain(*ops, **kw, probe=PROBE_MAIN,
                                          sub=sub)
-    out["b1"]["timing"] = dict(
-        n=n, p=p, q=q, block=blk, window=sub,
-        slice_width=sf.FUSED_PROBE_WIDTHS[0],
-        production_width=prod_width, exact_ms=med["none"],
-        exact_turns=turns["none"], production_ms=med["production"],
-        exact_bound_ms=sweep_bound_ms(*dims)[0], by_probe=by_probe,
-        implied_ms=implied_costs(offsets, PROBE_COSTS),
-        plain_ms=cuda_ms(plain, 2))
-    del ops, fns
+    out["b1"]["timing"] = dict(n=n, p=p, q=q, slice_width=width, **entry,
+                               plain_ms=cuda_ms(plain, 2))
+    del ops
+    torch.cuda.empty_cache()
+    ops, blk = kernel_inputs(*PROBE_TIMED_32, 1.0)
+    kw = dict(block_size=blk, emit_gam_mu=False, c_one=True)
+    out["b1"]["timing"]["at_32"] = dict(
+        n=ops[0].shape[0], p=ops[0].shape[1], q=ops[5].shape[1],
+        slice_width=sf.fused_launch_plan(ops[0].shape[0], ops[5].shape[1],
+                                         blk, ops[3].shape[1], sms,
+                                         probe=True)["slice_width"],
+        **b1_probe_rounds(ops, kw, sub, list(sf.PROBES)))
+    del ops
     torch.cuda.empty_cache()
 
-    # windows off the 8-row grid, one round of turns each against the same
-    # instance's exact sweep at that block and window
+    # windows off the 8-row grid: noseq and norank in rounds of turns
+    # against B1's float32 instance at that block
     by_window = {}
     for blk_, win in PROBE_OFF_GRID_WINDOWS:
         ops, blk = kernel_inputs(*PROBE_OFF_GRID_TIMED, 1.0, block=blk_)
-        dims = (ops[0].shape[0], ops[0].shape[1], ops[5].shape[1], blk,
-                ops[3].shape[1], False)
         kw = dict(block_size=blk, emit_gam_mu=False, c_one=True)
-        fns = {"none": lambda: sf.fused_launch(
-            "atlasqtl_sweep_fused", *ops, **kw, probe=sf.Probe(),
-            window=win)}
-        fns.update({pr: (lambda pr=pr: sf.sweep_fused(*ops, **kw, probe=pr,
-                                                      sub=win))
-                    for pr in ("noseq", "norank")})
-        turns, _ = probe_turns(fns, rounds=1)
-        med = {k: statistics.median(v) for k, v in turns.items()}
-        entry = dict(n=dims[0], p=dims[1], q=dims[2], block=blk, window=win,
-                     exact_ms=med["none"], exact_turns=turns["none"],
-                     exact_bound_ms=probe_bound_ms(*dims, sf.Probe(),
-                                                   win)[0])
-        for pr in ("noseq", "norank"):
-            b, by = probe_bound_ms(*dims, sf.PROBES[pr], win)
-            entry[pr] = dict(ms=med[pr], turns=turns[pr], bound_ms=b,
-                             bound_by=by, pct_of_bound=pct(b, med[pr]))
-        by_window[f"block {blk} window {win}"] = entry
-        del ops, fns
+        by_window[f"block {blk} window {win}"] = dict(
+            n=ops[0].shape[0], p=ops[0].shape[1], q=ops[5].shape[1],
+            **b1_probe_rounds(ops, kw, win, ["noseq", "norank"]))
+        del ops
         torch.cuda.empty_cache()
     out["b1"]["timing"]["by_window"] = by_window
 
@@ -3981,6 +4034,7 @@ def main():
     t1 = time.perf_counter()
     native_lib = native.build()   # the host preparation pass, g++
     emit({"phase": "build", "seconds": t1 - t0, "library": lib.name,
+          "nvcc_seconds": sf.build.seconds,
           "native_seconds": time.perf_counter() - t1,
           "native_library": native_lib.name, "ptxas": regs})
     spills = {k: v for k, v in regs.items()
@@ -4106,33 +4160,57 @@ def main():
             "ctas_per_sm": stag_timing["ctas_per_sm"],
             "plan": stag_timing["plan"], "clocks": stag_timing["clocks"]})
     if probes is not None:
-        for kind, name, source, replaces in (
-                ("b1", "sweep_fused.probe", "sweep_fused.cu",
-                 "atlasqtl_tpu/ops/sweep_fused.py:68"),
-                ("b2", "sweep_missing_fused.probe", "sweep_missing_fused.cu",
-                 "atlasqtl_tpu/ops/sweep_missing_fused.py:51")):
-            t = probes[kind]["timing"]
-            main_probe = t["by_probe"][PROBE_MAIN]
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": f"atlasqtl_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": probes[kind]["launches"],
-                "max_abs_err": probes["max_abs_err"][kind],
-                "probe": PROBE_MAIN,
-                "shape": {k: t[k] for k in ("n", "p", "q", "block")},
-                "ms": main_probe["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": main_probe["bound_ms"],
-                "bound_by": main_probe["bound_by"], "library_ms": None,
-                "pct_of_bound": main_probe["pct_of_bound"],
-                "exact_ms": t["exact_ms"], "production_ms": t["production_ms"],
-                "ms_by_probe": {k: v["ms"] for k, v in t["by_probe"].items()},
-                "ms_by_window": {
-                    str(w): {k: (v if k.endswith("_ms") else v["ms"])
-                             for k, v in e.items()
-                             if k in ("exact_ms", "production_ms")
-                             or isinstance(v, dict) and "ms" in v}
-                    for w, e in t["by_window"].items()},
-                "implied_ms": t["implied_ms"]})
+        t = probes["b1"]["timing"]
+        main_probe = t["by_probe"][PROBE_MAIN]
+        kernels.append({
+            "name": "sweep_fused.probe", "route": "cuda",
+            "source": "atlasqtl_tpu_torch/csrc/sweep_fused.cu",
+            "replaces": "atlasqtl_tpu/ops/sweep_fused.py:68",
+            "launches": probes["b1"]["launches"],
+            "max_abs_err": probes["max_abs_err"]["b1"], "probe": PROBE_MAIN,
+            "shape": {k: t[k] for k in ("n", "p", "q", "block")},
+            "slice_width": t["slice_width"], "ms": main_probe["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": main_probe["bound_ms"],
+            "bound_by": main_probe["bound_by"], "library_ms": None,
+            "pct_of_bound": main_probe["pct_of_bound"], "b1_ms": t["b1_ms"],
+            "ms_by_probe": {k: v["ms"] for k, v in t["by_probe"].items()},
+            "over_b1": {k: v["over_b1"] for k, v in t["by_probe"].items()},
+            "ms_by_window": {w: dict(b1_ms=e["b1_ms"], **{
+                k: v["ms"] for k, v in e["by_probe"].items()})
+                for w, e in t["by_window"].items()},
+            "over_b1_by_window": {w: {k: v["over_b1"]
+                                      for k, v in e["by_probe"].items()}
+                                  for w, e in t["by_window"].items()},
+            "implied_ms": t["implied_ms"],
+            "at_32": {"shape": {k: t["at_32"][k] for k in ("n", "p", "q")},
+                      "slice_width": t["at_32"]["slice_width"],
+                      "b1_ms": t["at_32"]["b1_ms"],
+                      "over_b1": {k: v["over_b1"] for k, v in
+                                  t["at_32"]["by_probe"].items()}},
+            "build_seconds": sf.build.seconds.get("sweep_fused.cu"),
+            "registers": probes["b1"]["instances"]})
+        t = probes["b2"]["timing"]
+        main_probe = t["by_probe"][PROBE_MAIN]
+        kernels.append({
+            "name": "sweep_missing_fused.probe", "route": "cuda",
+            "source": "atlasqtl_tpu_torch/csrc/sweep_missing_fused.cu",
+            "replaces": "atlasqtl_tpu/ops/sweep_missing_fused.py:51",
+            "launches": probes["b2"]["launches"],
+            "max_abs_err": probes["max_abs_err"]["b2"], "probe": PROBE_MAIN,
+            "shape": {k: t[k] for k in ("n", "p", "q", "block")},
+            "ms": main_probe["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": main_probe["bound_ms"],
+            "bound_by": main_probe["bound_by"], "library_ms": None,
+            "pct_of_bound": main_probe["pct_of_bound"],
+            "exact_ms": t["exact_ms"], "production_ms": t["production_ms"],
+            "ms_by_probe": {k: v["ms"] for k, v in t["by_probe"].items()},
+            "ms_by_window": {
+                str(w): {k: (v if k.endswith("_ms") else v["ms"])
+                         for k, v in e.items()
+                         if k in ("exact_ms", "production_ms")
+                         or isinstance(v, dict) and "ms" in v}
+                for w, e in t["by_window"].items()},
+            "implied_ms": t["implied_ms"]})
     if kernels:
         emit({"kernels": kernels})
     print(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s",

@@ -1801,6 +1801,102 @@ def test_probe_kernel_windows(cuda, probe, p, blk, sub):
     _probe_held(got, sf.sweep_fused(*ops, **kw), ops[6])
 
 
+def _probe_at(ops, block, probe, sub, width, bf16=False):
+    """B1's probe `probe` (a PROBES name, or a Probe) launched in slices of
+    `width` columns, whatever the plan picks (at q = 200 it takes 32)."""
+    x = ops[0].to(torch.bfloat16) if bf16 else ops[0]
+    return sf.fused_launch(
+        "atlasqtl_sweep_fused", x, *ops[1:], block_size=block,
+        emit_gam_mu=True, c_one=True, bf16=bf16,
+        probe=sf.PROBES[probe] if isinstance(probe, str) else probe,
+        window=sub, slice_width=width)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("p,blk,sub", [(256, 128, 8), (256, 128, 16)])
+@pytest.mark.parametrize("probe", list(sf.PROBES))
+def test_probe_kernel_at_40_columns(cuda, probe, p, blk, sub, bf16):
+    """Each of B1's probes in 40-column slices (B1's plan at the eQTL q)
+    against the plain version at block 128, windows 8 and 16: float32 at
+    the kernel tests' tolerance, under mxu_bf16 by the bf16 mean
+    criterion.  (A block over 128 keeps 32 columns:
+    test_probe_pieces_keep_32_columns.)"""
+    ops, block = _operands(120, p, 200, 1.0, block=blk)
+    kw = dict(block_size=block, c_one=True, probe=probe, sub=sub)
+    dev = [o.to(cuda) for o in ops]
+    got32 = _probe_at(dev, block, probe, sub, 40)
+    ref32 = sf.sweep_fused(*ops, **kw)
+    if not bf16:
+        _probe_held(got32, ref32, ops[6])
+        return
+    got = _probe_at(dev, block, probe, sub, 40, bf16=True)
+    ref = sf.sweep_fused(*ops, **kw, bf16=True)
+    _bf16_held(_flat(got), _flat(ref), _flat(ref32), _flat(got32), NAMES)
+
+
+@pytest.mark.parametrize("p,blk,sub", [(256, 128, 1), (256, 128, 4),
+                                       (256, 128, 32), (240, 48, 3),
+                                       (240, 48, 6), (240, 48, 12),
+                                       (240, 40, 5), (240, 120, 24)])
+@pytest.mark.parametrize("probe", ["noseq", "norank", "exact_noz"])
+def test_probe_kernel_windows_at_40_columns(cuda, probe, p, blk, sub):
+    """B1's probe instances at windows off the 8-row grid (and 4) in
+    40-column slices, against the plain version at the kernel tests'
+    tolerance: the Gram's zeros follow each window wherever it starts."""
+    ops, block = _operands(120, p, 200, 1.0, block=blk)
+    kw = dict(block_size=block, c_one=True, probe=probe, sub=sub)
+    got = _probe_at([o.to(cuda) for o in ops], block, probe, sub, 40)
+    _probe_held(got, sf.sweep_fused(*ops, **kw), ops[6])
+
+
+@pytest.mark.parametrize("probe", ["noseq", "noadv", "dmalite"])
+def test_probe_pieces_keep_32_columns(cuda, probe):
+    """A probe at a block over 128 (in pieces of 128) runs a 32-column
+    instance: its plan says so (`widths`), 40 columns forced is refused
+    before any launch, and the plan's launch matches the plain version."""
+    ops, block = _operands(120, 512, 200, 1.0, block=256)
+    plan = sf.fused_launch_plan(120, 200, 256, ops[3].shape[1], probe=True)
+    assert plan["widths"] == sf.FUSED_PROBE_PIECE_WIDTHS == (32,)
+    dev = [o.to(cuda) for o in ops]
+    with pytest.raises(ValueError, match="32"):
+        _probe_at(dev, block, probe, 16, 40)
+    kw = dict(block_size=block, c_one=True, probe=probe, sub=16)
+    _probe_held(_probe_at(dev, block, probe, 16, 32),
+                sf.sweep_fused(*ops, **kw), ops[6])
+
+
+@pytest.mark.parametrize("blk", [128, 256])
+@pytest.mark.parametrize("width", [32, 40])
+def test_probe_every_part_kept_is_b1(cuda, width, blk):
+    """Routing: the probe that keeps every part launches B1's float32
+    instance (its outputs bit for bit B1's), at either width, whole block
+    or in pieces."""
+    ops, block = _operands(120, 2 * blk, 200, 1.0, block=blk)
+    dev = [o.to(cuda) for o in ops]
+    every = _probe_at(dev, block, sf.Probe(), 8, width)
+    b1 = sf.fused_launch("atlasqtl_sweep_fused", *dev, block_size=block,
+                         emit_gam_mu=True, c_one=True, slice_width=width)
+    for a, b in zip(_flat(every), _flat(b1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("parts,window", [
+    (sf.Probe(corrections=False), 128), (sf.Probe(pushes=False), 1)])
+@pytest.mark.parametrize("width", [32, 40])
+def test_probe_dropping_nothing_is_b1(cuda, width, parts, window):
+    """A probe instance whose probe drops nothing at its window (the
+    corrections at a window of the whole block, the pushes at a window of
+    one row) runs B1's chain on a Gram with no entry zeroed: its outputs
+    are B1's float32 instance's, bit for bit, at either width."""
+    ops, block = _operands(120, 256, 200, 1.0, block=128)
+    dev = [o.to(cuda) for o in ops]
+    got = _probe_at(dev, block, parts, window, width)
+    b1 = sf.fused_launch("atlasqtl_sweep_fused", *dev, block_size=block,
+                         emit_gam_mu=True, c_one=True, slice_width=width)
+    for a, b in zip(_flat(got), _flat(b1)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("pair_bf16", [False, True])
 @pytest.mark.parametrize("n,p,q,sub", [(80, 250, 40, 1), (80, 250, 40, 2),
                                        (80, 250, 40, 4), (80, 250, 40, 8),
@@ -1964,6 +2060,26 @@ def test_batched_probe_equals_single_launches(cuda, m):
         for a, b in zip(_flat(got), _flat(one)):
             assert torch.equal(a[r], b)
         ref = sf.sweep_fused(*[o.cpu() for o in ops], **kw)
+        _probe_held(one, ref, ops[6])
+
+
+@pytest.mark.parametrize("probe", ["jacobi", "noseq"])
+def test_batched_probe_at_40_columns(cuda, probe):
+    """Two replicas in one launch of a probe instance in 40-column slices,
+    each bit for bit its own launch at 40 (its plain version replica by
+    replica within the kernel tests' tolerance)."""
+    parts = [_operands(120, 256, 200, 1.0, seed=3 + r)[0] for r in range(2)]
+    stacked = [o.to(cuda) for o in sf.FUSED.stack(parts)]
+    got = _probe_at(stacked, 128, probe, 8, 40)
+    shared = set(sf.FUSED.names) - sf.FUSED.state
+    for r in range(2):
+        ops = [o if k in shared else o[r] for k, o in
+               zip(sf.FUSED.names, stacked)]
+        one = _probe_at(ops, 128, probe, 8, 40)
+        for a, b in zip(_flat(got), _flat(one)):
+            assert torch.equal(a[r], b)
+        ref = sf.sweep_fused(*[o.cpu() for o in ops], block_size=128,
+                             c_one=True, probe=probe, sub=8)
         _probe_held(one, ref, ops[6])
 
 

@@ -67,14 +67,37 @@ def test_fused_plan_fits_and_covers(n, q, block):
         assert waves * w >= plan["waves"] * plan["slice_width"]
 
 
-@pytest.mark.parametrize("n,q,width,waves", [
-    (1000, 10000, 40, 2), (1000, 2048, 32, 1), (300, 500, 32, 1),
-    (100, 4804, 40, 1), (5000, 1024, 32, 1), (1000, 20000, 32, 5)])
+# (n, q, slice width, waves) of B1's plans at block 128
+FUSED_WAVES = [(1000, 10000, 40, 2), (1000, 2048, 32, 1), (300, 500, 32, 1),
+               (100, 4804, 40, 1), (5000, 1024, 32, 1), (1000, 20000, 32, 5)]
+
+
+@pytest.mark.parametrize("n,q,width,waves", FUSED_WAVES)
 def test_fused_plan_fills_the_waves(n, q, width, waves):
     """At the eQTL q (10000) 32-column slices take 3 waves of 132 SMs, the
     last one 37% full, and 40-column ones 2; the narrower width wins a tie
     (q = 20000: 5 waves of 32 columns or 4 of 40)."""
     plan = sf.fused_launch_plan(n, q, 128, R_AUG)
+    assert (plan["slice_width"], plan["waves"]) == (width, waves)
+
+
+@pytest.mark.parametrize("n,q,width,waves", FUSED_WAVES)
+def test_fused_probe_plan_is_b1s(n, q, width, waves):
+    """The probe instances run B1's float32 schedule in B1's plan, 40
+    columns included: at the eQTL q (10000) 40 columns in 2 waves, not 32
+    in 3 (one replica or two).  A block over 128 (in pieces) keeps 32
+    columns, and the plan's `widths` says so."""
+    for m in (1, 2):
+        plan = sf.fused_launch_plan(n, q, 128, R_AUG, m=m, probe=True)
+        assert plan == sf.fused_launch_plan(n, q, 128, R_AUG, m=m)
+        assert plan["widths"] == sf.FUSED_WIDTHS
+        piece = sf.fused_launch_plan(n, q, 256, R_AUG, m=m, probe=True)
+        b1 = sf.fused_launch_plan(n, q, 256, R_AUG, m=m)
+        assert piece["widths"] == sf.FUSED_PROBE_PIECE_WIDTHS == (32,)
+        assert piece["slice_width"] == 32 and piece["grid"] == -(-q // 32)
+        assert piece["smem_bytes"] == sf._fused_smem_bytes(32, 128, R_AUG)
+        assert piece["sub_block"] == b1["sub_block"] == 128
+    plan = sf.fused_launch_plan(n, q, 128, R_AUG, probe=True)
     assert (plan["slice_width"], plan["waves"]) == (width, waves)
 
 

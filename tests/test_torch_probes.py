@@ -113,6 +113,57 @@ def test_b1_probe_off_grid_plain_matches_jax_kernel(probe, block, sub):
     _check(got, ref)
 
 
+def _b1_masked_chain(r, g, ad, cp_b, beta_b, ct, c_inv_2s2, sub, parts):
+    """The chain of B1's CUDA probe instances (csrc/sweep_fused.cu) in
+    plain tensor ops: B1's own, row by row in flat order with each delta
+    pushed to every later row of the block, on the block's Gram with the
+    entries of what the probe drops zeroed (a push where both rows lie in
+    one window of `sub`, a correction where they do not).  (The instances
+    also zero the diagonal where the probe keeps none, which the plain
+    version's caller takes off r before the chain.)"""
+    B = beta_b.shape[0]
+    win = torch.arange(B) // sub
+    keep = torch.where(win[:, None] == win[None, :],
+                       torch.tensor(parts.pushes),
+                       torch.tensor(parts.corrections))
+    gm = torch.where(keep, g, torch.zeros_like(g))
+    gam_b, mu_b, delta = (torch.empty_like(beta_b) for _ in range(3))
+    for i in range(B):
+        mu_i = ct * (cp_b[i] - r[i])
+        logit = ad[i] + mu_i * mu_i * c_inv_2s2
+        gam_i = (torch.sigmoid(logit) if parts.sigmoid
+                 else torch.clamp(logit, 0.0, 1.0))
+        delta[i] = gam_i * mu_i - beta_b[i]
+        r[i + 1:] += gm[i + 1:, i, None] * delta[i]
+        gam_b[i], mu_b[i] = gam_i, mu_i
+    return gam_b, mu_b, delta
+
+
+@pytest.mark.parametrize("block,sub", [(48, 3), (48, 6), (48, 8), (48, 12),
+                                       (40, 5), (240, 24)])
+@pytest.mark.parametrize("probe", ["noseq", "norank", "jacobi", "nosig",
+                                   "nor0"])
+def test_b1_probe_masked_gram_is_the_windowed_chain(probe, block, sub,
+                                                    monkeypatch):
+    """The design of B1's CUDA probe instances, held on the CPU: B1's chain
+    on a Gram whose dropped entries are zeros computes the JAX kernel's
+    windowed chain (the plain version's `_probe_chain`: corrections before
+    each window of `sub`, pushes inside it), on the 8-row grid and off it
+    (3, 5, 6, 12), a block over 128 whole (240); float64 at (n=120,
+    p=240, q=128), to 1e-10 of each output's scale."""
+    x, cp, gram, beta, fitted, consts, pm, qm = _b1_cut(block)
+    f64 = lambda a: torch.tensor(np.array(a), dtype=torch.float64)
+    args = (f64(x), f64(cp), f64(gram), f64(beta), f64(fitted),
+            tsw.SweepConsts(*[f64(v) for v in consts]), block)
+    kw = dict(p_mask=f64(pm), q_mask=f64(qm), probe=probe, sub=sub)
+    ref = _flat(tsf.sweep_complete_fused(*args, **kw))
+    monkeypatch.setattr(tsf, "_probe_chain", _b1_masked_chain)
+    got = _flat(tsf.sweep_complete_fused(*args, **kw))
+    for name, a, r in zip(NAMES, got, ref):
+        assert float((a - r).abs().max()) <= 1e-10 * max(
+            1.0, float(r.abs().max())), name
+
+
 @pytest.mark.parametrize("probe", ["jacobi", "exact_noz"])
 def test_b1_probe_plain_bf16_matches_jax_kernel(probe):
     """Under mxu_bf16 a probe keeps its bf16 products: the port's plain
